@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Three phases; any failure raises and the exit code is non-zero:
+Four phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -13,8 +13,17 @@ Three phases; any failure raises and the exit code is non-zero:
    dense, generated from --seed) written as real fragment snapshots:
    fresh Holder -> Executor -> API, in process and over REST, every
    answer checked against a numpy oracle, with the kernels' launch
-   counters reset before and read after.
-3. Print the ``kernels`` JSON line, the card's name and power limit, and
+   counters reset before and read after.  A ``Set`` then reads that must
+   show it: absorbed into the plane's delta overlay, no rebuild.
+3. Ingest while serving, on the same holder: twelve REST ``/import``
+   batches of 4096 (row, column) pairs (ten sets, two clears of bits the
+   sets wrote), each followed by a 32-Count, a 4-Count and a filtered
+   TopN checked against the oracle, over the unchanged resident plane
+   plus its overlay; the background compactor folds the overlay at half
+   fill.  Then one 100,000-pair batch, past what the overlay and a fold
+   cover: the next 32-Count rebuilds the plane.  Launch counters are
+   reset before and read after this phase too.
+4. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -40,6 +50,10 @@ INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
 ROWS = 32                      # the bench field's rows (bench.py N_ROWS)
 WORDS = 32768                  # words per shard
 SELECTED = (0, 5, 9, 17)       # the 4-Count request's rows
+BATCH = 4096                   # pairs per ingest batch
+SET_BATCHES, CLEAR_BATCHES = 10, 2
+OVER_CAP = 100_000             # pairs of the batch past the overlay's reach
+COMPACT_FRACTION = 0.25        # overlay fill that starts the compactor
 REPLACES = {
     "row_counts": "pilosa_tpu/engine/pallas_kernels.py:111",
     "selected_row_counts": "pilosa_tpu/engine/pallas_kernels.py:207",
@@ -245,14 +259,86 @@ def make_index(data_dir: str, shards: int, seed: int):
     # a column of row 3 that is still clear, for the write check
     zero = np.nonzero(np.unpackbits(f[0, 3].view(np.uint8),
                                     bitorder="little") == 0)[0]
-    log(f"numpy oracle in {time.perf_counter() - t0:.1f}s")
-    return {"counts": counts, "filtered": filtered, "inter": inter,
-            "union": union, "free_col": int(zero[0])}
+    free_col = int(zero[0])
+    oracle = {"counts": counts, "filtered": filtered, "inter": inter,
+              "union": union, "free_col": free_col}
+    # the write check sets that bit; the ingest batches follow it
+    state = {"counts": counts.copy(), "filtered": filtered.copy()}
+    _apply_pairs(f, g[:, 0], state, np.array([3]), np.array([free_col]),
+                 clear=False)
+    oracle["ingest"] = _ingest_batches(f, g[:, 0], state, shards, seed)
+    log(f"numpy oracle and {len(oracle['ingest']['batches']) + 1} import "
+        f"batches in {time.perf_counter() - t0:.1f}s")
+    return oracle
 
 
-def device_busy_share(run) -> tuple[float, float, str]:
-    """(device ms, wall ms, top device consumers) over one ``run()``,
-    from a torch.profiler trace of the card."""
+def _apply_pairs(f: np.ndarray, g0: np.ndarray, state: dict,
+                 rows: np.ndarray, cols: np.ndarray, clear: bool):
+    """Apply distinct (row, column) pairs to the oracle's copy of field
+    ``f`` and its per-row counts (plain and filtered by ``g`` row 0);
+    returns the mask of pairs whose bit changed."""
+    s, off = cols >> 20, cols & ((1 << 20) - 1)
+    w, b = off >> 5, (off & 31).astype(np.uint32)
+    bit = np.uint32(1) << b
+    flat = f.reshape(-1)
+    at = (s * ROWS + rows) * WORDS + w
+    was = (flat[at] & bit) != 0
+    changed = was if clear else ~was
+    if clear:
+        np.bitwise_and.at(flat, at, ~bit)
+    else:
+        np.bitwise_or.at(flat, at, bit)
+    sign = -1 if clear else 1
+    in_g = (g0[s, w] & bit) != 0
+    np.add.at(state["counts"], rows[changed], sign)
+    np.add.at(state["filtered"], rows[changed & in_g], sign)
+    return changed
+
+
+def _distinct_pairs(rng, n: int, shards: int):
+    """``n`` distinct (row, column) pairs, rows 0..31, columns uniform
+    over the index."""
+    keys = np.empty(0, np.int64)
+    while len(keys) < n:
+        more = (rng.integers(0, shards << 20, 2 * n) * ROWS
+                + rng.integers(0, ROWS, 2 * n))
+        keys = np.concatenate([keys, np.setdiff1d(more, keys)])
+        keys = np.unique(keys)
+    keys = rng.permutation(keys)[:n]
+    return keys % ROWS, keys // ROWS
+
+
+def _ingest_batches(f, g0, state, shards: int, seed: int) -> dict:
+    """The ingest phase's import batches and the answers expected after
+    each: SET_BATCHES set batches, CLEAR_BATCHES batches clearing bits
+    the sets wrote, and the over-cap batch."""
+    rng = np.random.default_rng(seed + 1)
+    batches, written = [], []
+    for _ in range(SET_BATCHES):
+        rows, cols = _distinct_pairs(rng, BATCH, shards)
+        hit = _apply_pairs(f, g0, state, rows, cols, clear=False)
+        written.append((rows[hit], cols[hit]))
+        batches.append((rows, cols, False, int(hit.sum()),
+                        state["counts"].copy(), state["filtered"].copy()))
+    per = SET_BATCHES // CLEAR_BATCHES
+    for k in range(CLEAR_BATCHES):
+        rows = np.concatenate([r for r, _ in written[k * per:(k + 1) * per]])
+        cols = np.concatenate([c for _, c in written[k * per:(k + 1) * per]])
+        pick = rng.choice(len(rows), BATCH, replace=False)
+        rows, cols = rows[pick], cols[pick]
+        hit = _apply_pairs(f, g0, state, rows, cols, clear=True)
+        batches.append((rows, cols, True, int(hit.sum()),
+                        state["counts"].copy(), state["filtered"].copy()))
+    rows, cols = _distinct_pairs(rng, OVER_CAP, shards)
+    hit = _apply_pairs(f, g0, state, rows, cols, clear=False)
+    over = (rows, cols, False, int(hit.sum()), state["counts"].copy(),
+            state["filtered"].copy())
+    return {"batches": batches, "over_cap": over}
+
+
+def device_times(run) -> tuple[list, float]:
+    """([(kernel or copy, device ms)], wall ms) over one ``run()``, from a
+    torch.profiler trace of the card, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -270,6 +356,12 @@ def device_busy_share(run) -> tuple[float, float, str]:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda kv: -kv[1])
+    return rows, wall
+
+
+def device_busy_share(run) -> tuple[float, float, str]:
+    """(device ms, wall ms, top device consumers) over one ``run()``."""
+    rows, wall = device_times(run)
     top = ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in rows[:5])
     return sum(v for _, v in rows), wall, top
 
@@ -280,7 +372,54 @@ def _topn(totals: np.ndarray, n: int) -> list:
             if totals[r] > 0]
 
 
+Q32 = "".join(f"Count(Row(f={r}))" for r in range(ROWS))
+Q4 = "".join(f"Count(Row(f={r}))" for r in SELECTED)
+TOPN_G = "TopN(f, Row(g=0), n=5)"
+
+
+def _median_ms(ts: list) -> float:
+    ms = sorted(t * 1e3 for t in ts)
+    return ms[len(ms) // 2]
+
+
+class _Client:
+    """The API in process (timed, answers checked) and over REST."""
+
+    def __init__(self, api, cuda: bool):
+        self.api = api
+        self.cuda = cuda
+        self.base = None
+        self.lat: dict[str, list] = {}
+
+    def sync(self):
+        if self.cuda:
+            import torch
+            torch.cuda.synchronize()
+
+    def ask(self, pql: str, want, reps: int = 1, tag: str | None = None):
+        for _ in range(reps):
+            t = time.perf_counter()
+            got = self.api.query("bench", pql)["results"]
+            self.sync()
+            self.lat.setdefault(tag or pql, []).append(
+                time.perf_counter() - t)
+            if got != want:
+                raise AssertionError(f"{pql[:60]}: got {str(got)[:300]}, "
+                                     f"want {str(want)[:300]}")
+
+    def post(self, path: str, body: bytes, tag: str):
+        t = time.perf_counter()
+        req = urllib.request.Request(self.base + path, data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            got = json.loads(resp.read())
+        self.lat.setdefault(tag, []).append(time.perf_counter() - t)
+        return got
+
+
 def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
+    """Phases 2 and 3 over one holder; returns the launch counts of each
+    path's run, keyed "serve" and "ingest"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -289,97 +428,98 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
 
     cuda = device is None
     counts = oracle["counts"]
-    q32 = "".join(f"Count(Row(f={r}))" for r in range(ROWS))
-    q4 = "".join(f"Count(Row(f={r}))" for r in SELECTED)
     qc = ("Count(Intersect(Row(f=1), Row(g=0)))"
           "Count(Union(Row(f=1), Row(g=0)))")
     expect = {
-        q32: [int(c) for c in counts],
-        q4: [int(counts[r]) for r in SELECTED],
+        Q32: [int(c) for c in counts],
+        Q4: [int(counts[r]) for r in SELECTED],
         qc: [oracle["inter"], oracle["union"]],
         "TopN(f, n=5)": [_topn(counts, 5)],
-        "TopN(f, Row(g=0), n=5)": [_topn(oracle["filtered"], 5)],
+        TOPN_G: [_topn(oracle["filtered"], 5)],
     }
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     holder = Holder(data_dir).open()
     log(f"holder opened in {time.perf_counter() - t0:.2f}s")
-    executor = Executor(holder, device=device, plane_budget=32 << 30)
+    # the overlay keeps the reference's 65536 cells, but folds at a
+    # quarter of them, not half: a cell is journaled only for a bit that
+    # changed, so at 25% density ten 4096-pair set batches write ~30700
+    # cells, under half of the cap, and the fold would never run here
+    executor = Executor(holder, device=device, plane_budget=32 << 30,
+                        delta_compact_fraction=COMPACT_FRACTION)
     api = API(holder, executor)
-    lat: dict[str, list] = {}
+    planes = executor.planes
+    client = _Client(api, cuda)
+    ask = client.ask
 
-    def ask(pql: str, want, reps: int = 1):
-        for _ in range(reps):
-            t = time.perf_counter()
-            got = api.query("bench", pql)["results"]
-            sync()
-            lat.setdefault(pql, []).append(time.perf_counter() - t)
-            if got != want:
-                raise AssertionError(f"{pql[:60]}: got {str(got)[:300]}, "
-                                     f"want {str(want)[:300]}")
-
+    # The holder is not closed: closing compacts every fragment the
+    # ingest phase wrote into a new snapshot (all 954 of field f), and
+    # the data directory is deleted right after.
     server = None
     try:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         cuda_kernels.reset_launches()
         per_request = {}
-        for pql, reps in ((q32, 5), (q4, 5), (qc, 5), ("TopN(f, n=5)", 3),
-                          ("TopN(f, Row(g=0), n=5)", 3)):
+        for pql, reps in ((Q32, 5), (Q4, 5), (qc, 5), ("TopN(f, n=5)", 3),
+                          (TOPN_G, 3)):
             before = dict(cuda_kernels.LAUNCHES)
             ask(pql, expect[pql], reps)
             per_request[pql[:40]] = {
                 k: (v - before[k]) // reps
                 for k, v in cuda_kernels.LAUNCHES.items() if v - before[k]}
-        build_s = executor.planes.stats()["lastBuildSeconds"]
+        build_s = planes.stats()["lastBuildSeconds"]
 
-        busy = device_busy_share(lambda: ask(q32, expect[q32], 10)) \
+        busy = device_busy_share(lambda: ask(Q32, expect[Q32], 10)) \
             if cuda else None
 
         server = Server(api, "127.0.0.1", 0).start()
-        host, port = server.address
-        for pql in (q32, "TopN(f, Row(g=0), n=5)"):
+        client.base = "http://%s:%d" % server.address
+        for pql in (Q32, TOPN_G):
             for _ in range(5):
-                t = time.perf_counter()
-                req = urllib.request.Request(
-                    f"http://{host}:{port}/index/bench/query",
-                    data=pql.encode(), method="POST")
-                with urllib.request.urlopen(req, timeout=300) as resp:
-                    got = json.loads(resp.read())["results"]
-                lat.setdefault("REST " + pql, []).append(
-                    time.perf_counter() - t)
+                got = client.post("/index/bench/query", pql.encode(),
+                                  "REST " + pql)["results"]
                 if got != expect[pql]:
                     raise AssertionError(f"REST {pql[:60]}: got {got}")
-        with urllib.request.urlopen(f"http://{host}:{port}/status",
+        with urllib.request.urlopen(client.base + "/status",
                                     timeout=60) as resp:
             log(f"REST /status: {resp.read().decode()[:200]}")
 
-        # a write, then reads that must show it: the single Count reads
-        # the row afresh, the batch rebuilds the stale plane
+        # a write, then reads that must show it: the resident row entry
+        # takes the journal, the plane absorbs the cell into its overlay
         col = oracle["free_col"]
-        ask(f"Set({col}, f=3)", [True])
         bumped = [int(c) for c in counts]
-        bumped[3] += 1
         ask("Count(Row(f=3))", [bumped[3]])
-        ask(q32, bumped)
-        rebuild_s = executor.planes.stats()["lastBuildSeconds"]
+        builds, absorbs = planes.builds, planes.delta_absorbs
+        refreshed = planes.incremental_applied
+        ask(f"Set({col}, f=3)", [True])
+        bumped[3] += 1
+        ask("Count(Row(f=3))", [bumped[3]], tag="Count(Row(f=3)) after Set")
+        ask(Q32, bumped, tag="32-Count after Set")
+        if planes.builds != builds or planes.delta_absorbs != absorbs + 1 \
+                or planes.incremental_applied != refreshed + 1:
+            raise AssertionError(
+                f"the Set was not absorbed: builds {builds} -> "
+                f"{planes.builds}, absorbs {absorbs} -> "
+                f"{planes.delta_absorbs}, row refreshes {refreshed} -> "
+                f"{planes.incremental_applied}")
         launches = dict(cuda_kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
+        serve_lat = {k: list(v) for k, v in client.lat.items()}
+
+        log("== phase 3: ingest while serving ==")
+        ingest = ingest_phase(client, planes, oracle["ingest"], cuda)
     finally:
         if server is not None:
             server.close()
-        holder.close()
+        planes.wait_compactions(300)
 
-    for pql, ts in lat.items():
-        ms = sorted(t * 1e3 for t in ts)
+    for pql, ts in serve_lat.items():
         log(f"latency {pql[:48]!r}: first {ts[0] * 1e3:.2f} ms, "
-            f"median {ms[len(ms) // 2]:.2f} ms over {len(ms)}")
-    log(f"plane build {build_s:.2f}s, rebuild after the write "
-        f"{rebuild_s:.2f}s, peak device memory {peak / 1e9:.2f} GB")
+            f"median {_median_ms(ts):.2f} ms over {len(ts)}")
+    log(f"plane build {build_s:.2f}s; the Set absorbed into the overlay "
+        f"(builds stayed {builds}, absorbs +1, row refreshes +1); peak "
+        f"device memory {peak / 1e9:.2f} GB")
     log(f"launches per request: {json.dumps(per_request)}")
     if busy is not None:
         log(f"32-Count x10 under the profiler: device busy {busy[0]:.3f} ms "
@@ -389,6 +529,102 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
     for k in ("row_counts", "selected_row_counts", "count"):
         if launches[k] < 1:
             raise AssertionError(f"serving never launched the {k} kernel")
+    return {"serve": launches, "ingest": ingest}
+
+
+def ingest_phase(client, planes, batches: dict, cuda: bool) -> dict:
+    """Phase 3; returns the kernel launches of its run."""
+    import torch
+    from pilosa_tpu_torch.engine import cuda_kernels
+
+    def expect(counts, filtered):
+        return {Q32: [int(c) for c in counts],
+                Q4: [int(counts[r]) for r in SELECTED],
+                TOPN_G: [_topn(filtered, 5)]}
+
+    def import_batch(rows, cols, clear, want_changed, tag):
+        body = json.dumps({"rowIDs": rows.tolist(),
+                           "columnIDs": cols.tolist(),
+                           "clear": clear}).encode()
+        got = client.post("/index/bench/field/f/import", body, tag)
+        if got != {"changed": want_changed}:
+            raise AssertionError(f"import: got {got}, want "
+                                 f"{{'changed': {want_changed}}}")
+
+    lat0 = set(client.lat)
+    builds0, absorbs0 = planes.builds, planes.delta_absorbs
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    adjust = None
+    for k, (rows, cols, clear, changed, counts, filtered) in \
+            enumerate(batches["batches"]):
+        import_batch(rows, cols, clear, changed, "REST import")
+        want = expect(counts, filtered)
+        for pql, name in ((Q32, "32-Count"), (Q4, "4-Count"),
+                          (TOPN_G, "filtered TopN")):
+            client.ask(pql, want[pql], tag=f"{name}, first after import")
+            client.ask(pql, want[pql], reps=3, tag=f"{name}, overlay")
+        if cuda and adjust is None and planes.delta_stats()["deltaCells"]:
+            # the merge's device time beside the base scan, over a live
+            # overlay
+            rows_ms, wall = device_times(
+                lambda: client.ask(Q32, want[Q32], reps=5,
+                                   tag="32-Count, profiled"))
+            cells = planes.delta_stats()["deltaCells"]
+            adjust = (rows_ms, wall, cells)
+    if planes.builds != builds0:
+        raise AssertionError(f"an import batch rebuilt the plane: builds "
+                             f"{builds0} -> {planes.builds}")
+    absorbs = planes.delta_absorbs - absorbs0
+    if absorbs < len(batches["batches"]):
+        raise AssertionError(f"{absorbs} absorbs for "
+                             f"{len(batches['batches'])} batches")
+    if not planes.wait_compactions(300):
+        raise AssertionError("the compactor did not finish")
+    stats = planes.delta_stats()
+    if stats["compactions"] < 1:
+        raise AssertionError(f"no compaction completed: {stats}")
+    fold_s = stats["lastCompactionSeconds"]
+    for pql, ans in want.items():
+        client.ask(pql, ans, tag="after the fold")
+    log(f"after {len(batches['batches'])} batches: builds stayed "
+        f"{planes.builds}, absorbs +{absorbs}, delta {json.dumps(stats)}")
+
+    rows, cols, clear, changed, counts, filtered = batches["over_cap"]
+    import_batch(rows, cols, clear, changed, "REST import, over cap")
+    want = expect(counts, filtered)
+    client.ask(Q32, want[Q32], tag="32-Count after the over-cap batch")
+    if planes.builds != builds0 + 1:
+        raise AssertionError(f"the over-cap batch did not rebuild once: "
+                             f"builds {builds0} -> {planes.builds}")
+    rebuild_s = planes.last_build_seconds
+    for pql, ans in want.items():
+        client.ask(pql, ans, tag="after the rebuild")
+    launches = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+    for tag in sorted(set(client.lat) - lat0):
+        ts = client.lat[tag]
+        log(f"latency {tag!r}: median {_median_ms(ts):.2f} ms over "
+            f"{len(ts)} (first {ts[0] * 1e3:.2f} ms)")
+    log(f"fold (compaction) {fold_s:.6f} s; rebuild after the over-cap "
+        f"batch {rebuild_s:.2f} s; peak device memory in the phase "
+        f"{peak / 1e9:.2f} GB")
+    if adjust is not None:
+        rows_ms, wall, cells = adjust
+        scan = sum(v for k, v in rows_ms
+                   if re.search(r"(^|::)row_counts_kernel", k))
+        copies = sum(v for k, v in rows_ms if k.startswith("Memcpy"))
+        other = sum(v for _, v in rows_ms) - scan - copies
+        log(f"32-Count x5 over a {cells}-cell overlay under the profiler: "
+            f"row_counts {scan:.3f} ms, merge adjustment {other:.3f} ms, "
+            f"copies {copies:.3f} ms of {wall:.3f} ms wall; by kernel: "
+            + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in rows_ms[:6]))
+    log(f"launches in the ingest phase: {json.dumps(launches)}")
+    for k in ("row_counts", "selected_row_counts"):
+        if launches[k] < 1:
+            raise AssertionError(f"ingest never launched the {k} kernel")
     return launches
 
 
@@ -414,7 +650,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}, {smi}")
     if args.shards != 954:
         log(f"CUT: {args.shards} shards instead of 954 "
             f"({args.shards * 2 ** 20:.3g} columns)")
@@ -432,10 +668,12 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 3: output ==")
+    log("== phase 4: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         "launches": sum(by[name] for by in launches.values()),
+         "launches_by_path": {p: by[name] for p, by in launches.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],

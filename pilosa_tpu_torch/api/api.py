@@ -1,17 +1,23 @@
-"""Programmatic API: index/field creation, schema, queries.
+"""Programmatic API: index/field creation, schema, queries, imports.
 
 The counterpart of ``pilosa_tpu.api.api.API`` for the calls this port
-serves; ``query`` answers the same ``{"results": [...]}`` JSON.
+serves; ``query`` answers the same ``{"results": [...]}`` JSON and the
+imports the same changed-bit counts.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.engine.words import SHARD_WIDTH
 from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.pql.parser import ParseError
-from pilosa_tpu_torch.store import FieldOptions, Holder
+from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
+from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 
 class ApiError(Exception):
@@ -37,6 +43,8 @@ class API:
     def __init__(self, holder: Holder, executor: Executor):
         self.holder = holder
         self.executor = executor
+        self._imported_bits = 0
+        self._stats_lock = threading.Lock()
 
     def create_index(self, name: str, options: dict | None = None):
         options = options or {}
@@ -68,16 +76,98 @@ class API:
             raise ApiError(str(e), 400)
         return {"results": [result_to_json(r) for r in results]}
 
+    # -- imports ------------------------------------------------------------
+
+    def import_bits(self, index: str, field: str, *, row_ids=None,
+                    col_ids=None, row_keys=None, col_keys=None,
+                    timestamps=None, clear: bool = False,
+                    op_id: str | None = None) -> int:
+        """Bulk (row, column) import in ID form, set or ``clear``;
+        returns the bits changed.  The next Count or TopN over a
+        resident plane absorbs the batch into its delta overlay."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        for what, arg in (("row keys", row_keys), ("column keys", col_keys),
+                          ("timestamps", timestamps), ("op ids", op_id)):
+            if arg is not None:
+                raise ApiError(f"import: {what} are not supported by this "
+                               "port")
+        if row_ids is None:
+            raise ApiError("missing rowIDs")
+        if col_ids is None:
+            raise ApiError("missing columnIDs")
+        if f.options.keys or idx.keys:
+            raise ApiError("import: keyed fields and indexes are not "
+                           "supported by this port")
+        try:
+            rows = np.asarray(row_ids, dtype=np.uint64)
+            cols = np.asarray(col_ids, dtype=np.uint64)
+        except (TypeError, ValueError, OverflowError) as e:
+            raise ApiError(f"import: bad IDs: {e}")
+        if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
+            raise ApiError("rows and columns length mismatch")
+        try:
+            if clear:
+                changed = f.clear_import(rows, cols)
+            else:
+                changed = f.import_bits(rows, cols)
+                idx.note_columns(cols)
+        except ValueError as e:
+            raise ApiError(str(e))
+        self._count_imported(changed)
+        return changed
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       blob: bytes, view: str = VIEW_STANDARD,
+                       clear: bool = False) -> int:
+        """Import a roaring-encoded bit set (positions ``row *
+        SHARD_WIDTH + column offset``) into one shard; returns the bits
+        changed."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        if view != VIEW_STANDARD:
+            raise ApiError(f"import-roaring: view {view!r} is not "
+                           "supported by this port")
+        if f.options.type != "set":
+            raise ApiError("import-roaring supports set fields, not "
+                           f"{f.options.type!r}")
+        frag = f.view(view, create=True).fragment(shard, create=True)
+        try:
+            changed = frag.import_roaring(blob, clear=clear)
+        except ValueError as e:
+            raise ApiError(f"bad roaring payload: {e}")
+        if changed and idx.track_existence and not clear:
+            positions = roaring.deserialize(blob)
+            idx.note_columns(np.unique(positions % np.uint64(SHARD_WIDTH))
+                             + np.uint64(shard * SHARD_WIDTH))
+        self._count_imported(changed)
+        return changed
+
+    def _count_imported(self, changed: int) -> None:
+        with self._stats_lock:
+            self._imported_bits += changed
+
     def status(self) -> dict:
         dev = self.executor.device
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
+        with self._stats_lock:
+            imported = self._imported_bits
         return {"state": "NORMAL", "version": __version__,
                 "device": str(dev), "deviceName": name,
-                "planes": self.executor.planes.stats()}
+                "planes": self.executor.planes.stats(),
+                "ingest": {**self.executor.planes.delta_stats(),
+                           "importedBits": imported}}
 
     def _index(self, name: str):
         idx = self.holder.index(name)
         if idx is None:
             raise ApiError(f"index {name!r} not found", 404)
         return idx
+
+    @staticmethod
+    def _field(idx, name: str):
+        f = idx.field(name)
+        if f is None:
+            raise ApiError(f"field {name!r} not found", 404)
+        return f

@@ -4,10 +4,17 @@ Routes (the JSON surface of ``pilosa_tpu.api.server`` for this port's
 calls)::
 
     POST /index/{i}/query        PQL body -> {"results": [...]}
+    POST /index/{i}/field/{f}/import
+                                 JSON {"rowIDs", "columnIDs", "clear"}
+                                 -> {"changed": n}
+    POST /index/{i}/field/{f}/import-roaring/{shard}[?clear]
+                                 roaring body -> {"changed": n}
     POST /index/{i}              create index
     POST /index/{i}/field/{f}    create field
     GET  /schema                 {"indexes": [...]}
-    GET  /status                 state and the torch device serving
+    GET  /status                 state, the torch device serving, and
+                                 the ``ingest`` block (overlay fill,
+                                 absorbs, compactions, imported bits)
 """
 
 from __future__ import annotations
@@ -28,6 +35,11 @@ class Handler(BaseHTTPRequestHandler):
 
     ROUTES = [
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "h_query"),
+        ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
+                            r"(?P<field>[^/]+)/import$"), "h_import"),
+        ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
+                            r"(?P<field>[^/]+)/import-roaring/"
+                            r"(?P<shard>[0-9]+)$"), "h_import_roaring"),
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
                             r"(?P<field>[^/]+)$"), "h_create_field"),
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)$"), "h_create_index"),
@@ -59,6 +71,11 @@ class Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    @property
+    def query(self) -> dict:
+        return urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query,
+                                     keep_blank_values=True)
+
     def _dispatch(self, method: str) -> None:
         path = urllib.parse.urlparse(self.path).path
         for m, rx, name in self.ROUTES:
@@ -88,6 +105,27 @@ class Handler(BaseHTTPRequestHandler):
 
     def h_query(self, index: str) -> None:
         self._reply(self.api.query(index, self._body().decode()))
+
+    def h_import(self, index: str, field: str) -> None:
+        if "protobuf" in (self.headers.get("Content-Type") or ""):
+            self._body()
+            raise ApiError("protobuf import bodies are not supported by "
+                           "this port", 415)
+        b = self._json_body()
+        changed = self.api.import_bits(
+            index, field, row_ids=b.get("rowIDs"),
+            col_ids=b.get("columnIDs"), row_keys=b.get("rowKeys"),
+            col_keys=b.get("columnKeys"), timestamps=b.get("timestamps"),
+            clear=bool(b.get("clear", False)) or "clear" in self.query,
+            op_id=self.headers.get("X-Pilosa-Op-Id") or None)
+        self._reply({"changed": changed})
+
+    def h_import_roaring(self, index: str, field: str, shard: str) -> None:
+        view = self.query.get("view", ["standard"])[0]
+        changed = self.api.import_roaring(index, field, int(shard),
+                                          self._body(), view=view,
+                                          clear="clear" in self.query)
+        self._reply({"changed": changed})
 
     def h_create_index(self, index: str) -> None:
         self.api.create_index(index, self._json_body().get("options"))

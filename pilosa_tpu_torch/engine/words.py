@@ -42,3 +42,12 @@ def unpack_columns(words: np.ndarray) -> np.ndarray:
     words = np.ascontiguousarray(words, dtype=np.uint32)
     bits = np.unpackbits(words.view(np.uint8), bitorder="little")
     return np.nonzero(bits)[0].astype(np.uint64)
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= max(n, 1): the padded width of slot lists
+    and overlays."""
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    return bucket

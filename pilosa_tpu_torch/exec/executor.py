@@ -4,7 +4,10 @@ The counterpart of ``pilosa_tpu.exec.executor.Executor`` in its
 ``count_batch_window="off", tree_fusion=False, plane_paging=False``
 configuration: every resident shard is one slice of a batched device
 tensor, a run of consecutive Counts executes as one batch with one host
-read, and cross-shard totals are a dense sum.
+read, and cross-shard totals are a dense sum.  Writes since a plane was
+built ride a device delta overlay (``delta_cells``, folded in the
+background past ``delta_compact_fraction``): whole-plane Counts and TopN
+answer base+delta over the unchanged resident plane.
 
 Served calls: ``Count``, ``Row`` (set fields, integer rows),
 ``Intersect``, ``Union``, ``Difference``, ``Xor``, ``Not``, ``All``,
@@ -76,10 +79,14 @@ class Executor:
     _SELECTED_ROWS_FRACTION = 4
 
     def __init__(self, holder: Holder, device=None,
-                 plane_budget: int = DEFAULT_BUDGET):
+                 plane_budget: int = DEFAULT_BUDGET,
+                 delta_cells: int = 65536,
+                 delta_compact_fraction: float = 0.5):
         self.holder = holder
         self.device = resolve_device(device)
-        self.planes = PlaneCache(self.device, budget_bytes=plane_budget)
+        self.planes = PlaneCache(
+            self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
+            delta_compact_fraction=delta_compact_fraction)
         self.fused = FusedCache()
 
     # ------------------------------------------------------------------ api
@@ -134,7 +141,8 @@ class Executor:
         """Same-field plain-row Count batches run over the resident
         whole-field plane.  None when the batch doesn't match, or when a
         plane that is not resident yet is over budget or would be scanned
-        for a small slice of its rows."""
+        for a small slice of its rows.  A resident plane behind the
+        fragments absorbs the write gap into its overlay."""
         hit = self._plain_row_parse(ctx, calls)
         if hit is None:
             return None
@@ -148,8 +156,8 @@ class Executor:
             if len(calls) * 4 < r_est:
                 return None
         row_ids = [self._row_id(field, v) for v in values]
-        ps = self.planes.field_plane(ctx.index.name, field, VIEW_STANDARD,
-                                     ctx.shards)
+        ps = self.planes.field_plane_delta(ctx.index.name, field,
+                                           VIEW_STANDARD, ctx.shards)
         return self._plane_count_rows(ps, row_ids)
 
     def _plain_row_parse(self, ctx: _Ctx, calls: list[Call]):
@@ -185,13 +193,15 @@ class Executor:
     def _plane_count_rows(self, ps, row_ids) -> list[int]:
         """Per-call totals for ``row_ids`` over a resident plane: the
         selected-row gather when the request touches a small fraction of
-        the rows, the whole-plane row counts otherwise."""
+        the rows, the whole-plane row counts otherwise; base+delta when
+        the plane carries an overlay."""
         slots = [ps.slot_of.get(int(r)) for r in row_ids]
         live = list(dict.fromkeys(s for s in slots if s is not None))
         r_pad = ps.plane.shape[-2]
         if (live and len(ps.shards) <= self._REDUCE_SHARD_MAX
                 and len(live) * self._SELECTED_ROWS_FRACTION <= r_pad):
-            vals = self.fused.run_selected_counts(ps.plane, tuple(live))
+            vals = self.fused.run_selected_counts(ps.plane, tuple(live),
+                                                  ps.delta)
             vals = vals.cpu().numpy().astype(np.int64)[:len(live)]
             by_slot = dict(zip(live, vals.tolist()))
             return [int(by_slot[s]) if s is not None else 0 for s in slots]
@@ -202,7 +212,14 @@ class Executor:
         """Whole-plane per-row totals int64[R_pad]: reduced over shards
         on the device while int32 stays exact, else per shard and
         finished in int64 on the host."""
-        if len(ps.shards) <= self._REDUCE_SHARD_MAX:
+        small = len(ps.shards) <= self._REDUCE_SHARD_MAX
+        if ps.delta is not None:
+            out = self.fused.run_rowcounts_delta(ps.plane, ps.delta,
+                                                 reduce=small)
+            if small:
+                return out.cpu().numpy().astype(np.int64)
+            return kernels.shard_totals(out)
+        if small:
             out = self.fused.run_rowcounts_batch((False,), (ps.plane,))[0]
             return out.cpu().numpy().astype(np.int64)
         return kernels.shard_totals(kernels.row_counts(ps.plane))
@@ -360,11 +377,15 @@ class Executor:
                 f"TopN: field {field.name!r} exceeds the plane budget "
                 f"({self.planes.budget} bytes); streaming TopN is not "
                 "supported by this port")
-        ps = self.planes.field_plane(ctx.index.name, field, VIEW_STANDARD,
-                                     ctx.shards)
+        ps = self.planes.field_plane_delta(ctx.index.name, field,
+                                           VIEW_STANDARD, ctx.shards)
         if ps.n_rows == 0:
             return PairsResult([])
-        if len(ctx.shards) <= self._REDUCE_SHARD_MAX:
+        if ps.delta is not None:
+            # per-shard base+delta counts, finished on the host
+            totals = kernels.shard_totals(self.fused.run_rowcounts_delta(
+                ps.plane, ps.delta, filter_words, reduce=False))[:ps.n_rows]
+        elif len(ctx.shards) <= self._REDUCE_SHARD_MAX:
             # shard axis reduced on the device, one int32[R_pad] read
             flags = (filter_words is not None,)
             leaves = (ps.plane,) + ((filter_words,) if flags[0] else ())

@@ -19,17 +19,12 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch.engine import kernels
+from pilosa_tpu_torch.engine.words import pow2_bucket
+from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
+                                           adjusted_selected_counts)
 
 _BINARY = {"and": kernels.intersect, "or": kernels.union,
            "andnot": kernels.difference, "xor": kernels.xor}
-
-
-def pow2_bucket(n: int) -> int:
-    """Smallest power of two >= max(n, 1)."""
-    bucket = 1
-    while bucket < n:
-        bucket *= 2
-    return bucket
 
 
 def _build(node, leaves):
@@ -91,15 +86,30 @@ class FusedCache:
                         .sum(0, dtype=torch.int32))
         return torch.stack(rows)
 
-    def run_selected_counts(self, plane: torch.Tensor,
-                            slots: tuple) -> torch.Tensor:
+    def run_selected_counts(self, plane: torch.Tensor, slots: tuple,
+                            delta=None) -> torch.Tensor:
         """N selected-row Counts over one plane -> int32[bucket]: the
         width pads to a pow2 bucket by repeating the LAST slot (a sorted
         slot list stays non-decreasing), the shard axis reduces in int32
         (callers gate on the int32-exact shard bound) and callers slice
-        the pad off."""
+        the pad off.  ``delta`` (an ``ingest.delta.DeltaOverlay``) merges
+        the plane's pending write cells: base+delta."""
         bucket = pow2_bucket(len(slots))
         padded = tuple(slots) + (slots[-1],) * (bucket - len(slots))
         idx = torch.tensor(padded, dtype=torch.int32)  # host slot list
+        if delta is not None:
+            return adjusted_selected_counts(plane, idx, delta.rows,
+                                            delta.words, delta.vals)
         return kernels.selected_row_counts(plane, idx).sum(
             0, dtype=torch.int32)
+
+    def run_rowcounts_delta(self, plane: torch.Tensor, delta,
+                            filter_words: torch.Tensor | None = None,
+                            reduce: bool = True) -> torch.Tensor:
+        """Whole-plane per-row counts of base+delta: the clean
+        ``row_counts`` scan of the unchanged base plus the overlay's
+        per-cell adjustment -> int32[R_pad] (``reduce``; callers gate on
+        the int32-exact shard bound) or int32[S, R_pad]."""
+        return adjusted_row_counts(plane, delta.rows, delta.words,
+                                   delta.vals, filter_words,
+                                   reduce_shards=reduce)

@@ -4,8 +4,18 @@ A (field, view) over a shard list is materialized as one
 ``int32[n_shards, R_pad, W]`` tensor (rows padded to a power of two, row
 ``row_ids[i]`` at slot ``i`` — the slot map of ``pilosa_tpu.exec.planes``),
 and single rows as ``int32[n_shards, W]``.  Entries remember their source
-fragments' generations; a stale entry is dropped and rebuilt on its next
-use.  Residency is byte-budgeted, least recently used first out.
+fragments' generations.  Residency is byte-budgeted, least recently used
+first out.
+
+Writes never rewrite a resident plane in place.  A stale whole-view plane
+absorbs its write gap (read from the fragments' mutation journals) into a
+bounded device overlay (:mod:`pilosa_tpu_torch.ingest.delta`) and the
+delta-aware families answer base+delta; past ``delta_compact_fraction``
+of ``delta_cells`` a background compactor folds the overlay into a NEW
+base tensor (clone, then scatter) and swaps the entry, so a reader still
+holding the old ``PlaneSet`` keeps a consistent base and overlay.  A stale
+single row is refreshed the same way.  A new row id, a journal gap or a
+gap wider than the caps rebuilds, as in the reference.
 
 The build expands fragments chunk by chunk on a thread pool into a pinned
 host staging buffer and copies each chunk into one preallocated device
@@ -15,6 +25,7 @@ chunk N-1's host-to-device copy.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import OrderedDict
@@ -25,8 +36,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import resolve_device
-from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD
-from pilosa_tpu_torch.exec.fused import pow2_bucket
+from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD, pow2_bucket
+from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.store.field import Field
 
 DEFAULT_BUDGET = 4 << 30
@@ -39,14 +50,55 @@ def plane_from_numpy(words: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(host).to(resolve_device(device), copy=True)
 
 
+def _apply_plane_cells(plane: torch.Tensor, cell_rows, cell_words,
+                       cell_vals, reset_rows, reset_vals) -> torch.Tensor:
+    """A copy of ``plane`` with whole rows replaced, then cells overwritten
+    (``pilosa_tpu.exec.planes._apply_plane_cells``).  Rows are flat indices
+    into ``plane.reshape(-1, W)``; values are uint32 numpy words.  Out of
+    place, like the reference's undonated scatter: a reader holding the
+    old tensor (and an overlay over it) must not see the cells twice.
+    Indices are checked on the host: an out-of-range index on the card
+    would be a device-side assert."""
+    w = plane.shape[-1]
+    total = plane.numel() // w if w else 0
+    cell_rows = np.asarray(cell_rows, np.int64)
+    cell_words = np.asarray(cell_words, np.int64)
+    reset_rows = np.asarray(reset_rows, np.int64)
+    for name, idx, bound in (("cell row", cell_rows, total),
+                             ("cell word", cell_words, w),
+                             ("reset row", reset_rows, total)):
+        if len(idx) and (int(idx.min()) < 0 or int(idx.max()) >= bound):
+            raise IndexError(f"_apply_plane_cells: {name} outside "
+                             f"[0, {bound})")
+    dev = plane.device
+    out = plane.clone()
+    flat = out.view(-1, w)
+    if len(reset_rows):
+        vals = np.ascontiguousarray(reset_vals, np.uint32).reshape(-1, w)
+        flat[torch.from_numpy(reset_rows).to(dev)] = \
+            torch.from_numpy(vals.view(np.int32)).to(dev)
+    if len(cell_rows):
+        vals = np.ascontiguousarray(cell_vals, np.uint32)
+        flat[torch.from_numpy(cell_rows).to(dev),
+             torch.from_numpy(cell_words).to(dev)] = \
+            torch.from_numpy(vals.view(np.int32)).to(dev)
+    return out
+
+
 @dataclass
 class PlaneSet:
-    """One materialized (field, view): device plane + row-slot mapping."""
+    """One materialized (field, view): device plane + row-slot mapping.
+
+    ``plane`` is the immutable base; ``delta``, when set, carries the
+    cells written since it was built, and the delta-aware families answer
+    base+delta.  Consumers that need a clean plane go through
+    :meth:`PlaneCache.field_plane`, which folds first."""
 
     plane: torch.Tensor       # int32[n_shards, R_pad, W]
     shards: tuple[int, ...]
     row_ids: np.ndarray       # uint64[R] real rows (slots beyond are pad)
     slot_of: dict[int, int]
+    delta: DeltaOverlay | None = None
 
     @property
     def n_rows(self) -> int:
@@ -56,8 +108,13 @@ class PlaneSet:
 class PlaneCache:
     BUILD_CHUNK_BYTES = 256 << 20
     BUILD_WORKERS = 8
+    # past this many changed cells beyond the overlay's cap a fold (or a
+    # row refresh) gives way to a rebuild
+    MAX_INCR_CELLS = 4096
 
-    def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET):
+    def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET,
+                 delta_cells: int = 65536,
+                 delta_compact_fraction: float = 0.5):
         self.device = resolve_device(device)
         self.budget = budget_bytes
         self._entries: OrderedDict = OrderedDict()  # key -> (gens, ps, n)
@@ -69,13 +126,44 @@ class PlaneCache:
         self.builds = 0
         self.last_build_seconds = 0.0
         self.last_build_bytes = 0
+        # delta overlays: key -> (base plane tensor, DeltaMirror); a
+        # rebuilt or folded base invalidates its mirror by identity
+        self.delta_cells = int(delta_cells)
+        self.delta_compact_fraction = float(delta_compact_fraction)
+        self._delta_mirrors: dict = {}
+        self._compacting: dict = {}  # key -> compactor thread
+        self.delta_absorbs = 0
+        self.delta_compactions = 0
+        self.last_compaction_seconds = 0.0
+        self.incremental_applied = 0  # folds and row refreshes
 
     # -- public -------------------------------------------------------------
 
     def field_plane(self, index: str, field: Field, view_name: str,
                     shards: tuple[int, ...]) -> PlaneSet:
-        """Whole-view plane, built synchronously when absent or stale."""
+        """Clean whole-view plane: a stale or overlay-carrying entry folds
+        first; built synchronously when absent or not foldable."""
         key = ("plane", index, field.name, view_name, shards)
+        return self._get(key, field, view_name, shards, self._build_plane)
+
+    def field_plane_delta(self, index: str, field: Field, view_name: str,
+                          shards: tuple[int, ...]) -> PlaneSet:
+        """Whole-view plane for the delta-aware families (the stale-entry
+        half of the reference's ``field_plane_nowait``): a fresh entry
+        serves as it is, overlay and all; a stale one absorbs its write
+        gap into the overlay, else folds it into the base; an absent one,
+        or a gap the journal cannot cover, builds synchronously."""
+        key = ("plane", index, field.name, view_name, shards)
+        gens = self._gens(field, view_name, shards)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and hit[0] == gens:
+                self._entries.move_to_end(key)
+                return hit[1]
+        if hit is not None:
+            ps = self._delta_update(key, field, view_name, shards, hit)
+            if ps is not None:
+                return ps
         return self._get(key, field, view_name, shards, self._build_plane)
 
     def row_words(self, index: str, field: Field, view_name: str,
@@ -88,11 +176,15 @@ class PlaneCache:
 
     def has_plane(self, index: str, field: Field, view_name: str,
                   shards: tuple[int, ...]) -> bool:
-        """A fresh whole-view plane is resident."""
+        """A whole-view plane entry can serve: fresh, or stale but
+        absorbable while overlays are on (the delta-aware fetch brings it
+        up to date without a rebuild, or rebuilds past the journal)."""
         hit = self._entries.get(("plane", index, field.name, view_name,
                                  shards))
-        return hit is not None and hit[0] == self._gens(field, view_name,
-                                                        shards)
+        if hit is None:
+            return False
+        return (hit[0] == self._gens(field, view_name, shards)
+                or self.delta_cells > 0)
 
     def has_entry(self, index: str, field: Field, view_name: str,
                   shards: tuple[int, ...]) -> bool:
@@ -136,6 +228,38 @@ class PlaneCache:
                     "lastBuildSeconds": self.last_build_seconds,
                     "lastBuildBytes": self.last_build_bytes}
 
+    def delta_stats(self) -> dict:
+        """The overlay half of the ``/status`` ingest block."""
+        with self._lock:
+            cells = sum(len(m) for _, m in self._delta_mirrors.values())
+            bits = sum(m.bits for _, m in self._delta_mirrors.values())
+            pending = len(self._compacting)
+            cap = max(1, self.delta_cells)
+            return {"deltaCells": cells, "deltaCap": self.delta_cells,
+                    "deltaOverlayBits": bits,
+                    "deltaFillRatio": (round(cells / cap, 4)
+                                       if self.delta_cells else 0.0),
+                    "absorbs": self.delta_absorbs,
+                    "compactions": self.delta_compactions,
+                    "pendingCompactions": pending,
+                    "lastCompactionSeconds": round(
+                        self.last_compaction_seconds, 6)}
+
+    def wait_compactions(self, timeout: float | None = None) -> bool:
+        """Join the background compactors; True when none is running."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._lock:
+                threads = list(self._compacting.values())
+            if not threads:
+                return True
+            for t in threads:
+                t.join(None if deadline is None
+                       else max(0.0, deadline - time.monotonic()))
+            if deadline is not None and time.monotonic() >= deadline:
+                with self._lock:
+                    return not self._compacting
+
     # -- internal -----------------------------------------------------------
 
     @staticmethod
@@ -145,34 +269,316 @@ class PlaneCache:
 
     def _get(self, key, field: Field, view_name: str,
              shards: tuple[int, ...], build) -> PlaneSet:
+        """A clean entry for ``key``: fresh ones serve as they are; a
+        stale or overlay-carrying plane folds, a stale row refreshes;
+        otherwise (or when the journal cannot cover the gap) it builds."""
         gens = self._gens(field, view_name, shards)
         with self._lock:
             hit = self._entries.get(key)
-            if hit is not None and hit[0] == gens:
+            if hit is not None and hit[0] == gens and hit[1].delta is None:
                 self._entries.move_to_end(key)
                 return hit[1]
+        if hit is not None:
+            refresh = self._fold if key[0] == "plane" else self._incremental
+            ps = refresh(key, field, view_name, shards, hit)
+            if ps is not None:
+                return ps
         with self._build_lock:
             with self._lock:
                 hit = self._entries.get(key)
-                if hit is not None and hit[0] == gens:
+                if (hit is not None and hit[0] == gens
+                        and hit[1].delta is None):
                     return hit[1]
                 if hit is not None:
                     # stale: release its device memory before rebuilding
-                    self._bytes -= self._entries.pop(key)[2]
+                    self._drop(key)
                     del hit
             ps = build(field, view_name, shards)
-            self._insert(key, gens, ps, ps.plane.numel() * 4)
+            self._insert_entry(key, gens, ps, ps.plane.numel() * 4)
         return ps
 
-    def _insert(self, key, gens, ps: PlaneSet, nbytes: int) -> None:
+    def _drop(self, key) -> None:
+        # caller holds self._lock
+        self._bytes -= self._entries.pop(key)[2]
+        self._delta_mirrors.pop(key, None)
+
+    def _insert_entry(self, key, gens, ps: PlaneSet, nbytes: int) -> None:
+        """Cache a built plane, LRU-evicting to the budget.  A rebuilt
+        base supersedes any pending overlay: the build re-read every
+        fragment, so the mirror's cells are already in it."""
         with self._lock:
+            if key in self._entries:
+                self._drop(key)
+            self._delta_mirrors.pop(key, None)
             if nbytes > self.budget:
                 return  # served this once, never resident
             while self._entries and self._bytes + nbytes > self.budget:
-                _, (_, _, old) = self._entries.popitem(last=False)
-                self._bytes -= old
+                self._drop(next(iter(self._entries)))
             self._entries[key] = (gens, ps, nbytes)
             self._bytes += nbytes
+
+    def _swap(self, key, ps: PlaneSet, gens, new_ps: PlaneSet) -> bool:
+        """Replace the entry serving ``ps`` by ``new_ps`` at ``gens``;
+        False when another absorb, fold or build replaced it first."""
+        with self._lock:
+            cur = self._entries.get(key)
+            if cur is None or cur[1] is not ps:
+                return False
+            self._entries[key] = (tuple(gens), new_ps, cur[2])
+            self._entries.move_to_end(key)
+            return True
+
+    # -- write gaps ---------------------------------------------------------
+
+    def _collect_changes(self, field: Field, view_name: str,
+                         shards: tuple[int, ...], hit, cap: int):
+        """The write gap between a "plane" entry's generations and the
+        fragments as overwrite cells: ``({(flat_row, word): current word},
+        [(flat_row, row words)] whole-row resets, covered generations)``,
+        or None when the journal cannot cover it (gap, new row, over
+        ``cap`` cells; a reset counts 64)."""
+        old_gens, ps, _ = hit
+        view = field.view(view_name)
+        if view is None or len(old_gens) != len(shards):
+            return None
+        r_pad = ps.plane.shape[1]
+        cells: dict = {}
+        resets: list = []
+        actual = list(old_gens)
+        for si, s in enumerate(shards):
+            frag = view.fragment(s)
+            if frag is None:
+                if old_gens[si] != -1:
+                    return None  # fragment vanished
+                continue
+            with frag.lock:
+                if old_gens[si] == -1:
+                    return None  # new fragment: row set unknown
+                if frag.generation == old_gens[si]:
+                    continue
+                changed = frag.changed_cells_since(old_gens[si])
+                if changed is None:
+                    return None
+                for r, words in changed.items():
+                    slot = ps.slot_of.get(int(r))
+                    if slot is None:
+                        return None  # new row: the slot map changes
+                    flat = si * r_pad + slot
+                    if words is None:
+                        resets.append((flat, frag.row_words(r)))
+                    else:
+                        w_arr = np.fromiter(words, np.int64, len(words))
+                        vals = frag.row_words(r, w_arr)
+                        cells.update(zip(((flat, w) for w in w_arr.tolist()),
+                                         vals.tolist()))
+                    if len(cells) + 64 * len(resets) > cap:
+                        return None
+                actual[si] = frag.generation
+        return cells, resets, tuple(actual)
+
+    def _delta_update(self, key, field: Field, view_name: str,
+                      shards: tuple[int, ...], hit):
+        """A stale "plane" entry brought to serving truth without a
+        rebuild: absorbed into the overlay, else folded.  None = rebuild."""
+        ps = self._delta_absorb(key, field, view_name, shards, hit)
+        if ps is not None:
+            return ps
+        with self._lock:
+            hit = self._entries.get(key)
+        if hit is None:
+            return None
+        return self._fold(key, field, view_name, shards, hit)
+
+    def _delta_absorb(self, key, field: Field, view_name: str,
+                      shards: tuple[int, ...], hit):
+        """Absorb journal cells into the entry's device overlay and move
+        its generations forward; the base plane is not touched.  None =
+        cannot (overlays off, whole-row ops, overlay full, journal gap).
+        Past the compaction fill the background compactor starts."""
+        if self.delta_cells <= 0:
+            return None
+        old_gens, ps, nbytes = hit
+        got = self._collect_changes(field, view_name, shards, hit,
+                                    self.delta_cells)
+        if got is None:
+            return None
+        cells, resets, actual = got
+        if resets:
+            return None  # whole-row replacements fold instead
+        with self._lock:
+            cur = self._entries.get(key)
+            if cur is None or cur[1] is not ps:
+                # raced another absorb, fold or build
+                if cur is not None and cur[0] == actual:
+                    return cur[1]
+                return None
+            if actual == tuple(old_gens):
+                return ps
+            mir = self._delta_mirrors.get(key)
+            if mir is None or mir[0] is not ps.plane:
+                mir = (ps.plane, DeltaMirror(self.delta_cells))
+                self._delta_mirrors[key] = mir
+            mirror = mir[1]
+            if not mirror.would_fit(cells):
+                return None  # overlay full: fold
+            mirror.absorb(cells)
+            overlay = mirror.build_overlay(
+                self.device, ps.plane.shape[0] * ps.plane.shape[1])
+            new_ps = PlaneSet(ps.plane, ps.shards, ps.row_ids, ps.slot_of,
+                              delta=overlay)
+            self._entries[key] = (actual, new_ps, nbytes)
+            self._entries.move_to_end(key)
+            self.delta_absorbs += 1
+            fill = len(mirror) / max(1, self.delta_cells)
+        if fill >= self.delta_compact_fraction:
+            self._compact_async(key, field, view_name, shards)
+        return new_ps
+
+    # a concurrent absorb or fold replaced the entry mid-fold: retry
+    # against the new entry (not a rebuild signal)
+    _RACED = object()
+
+    def _fold(self, key, field: Field, view_name: str,
+              shards: tuple[int, ...], hit):
+        """Fold the entry's overlay plus any remaining journal gap into a
+        new base plane in one scatter and swap the entry to it, clean, at
+        the new generations.  Retries when a concurrent absorb swaps the
+        entry mid-fold; None when the gap is not coverable (rebuild)."""
+        for _ in range(8):
+            out = self._fold_once(key, field, view_name, shards, hit)
+            if out is not self._RACED:
+                return out
+            with self._lock:
+                hit = self._entries.get(key)
+            if hit is None:
+                return None
+        return None
+
+    def _fold_once(self, key, field: Field, view_name: str,
+                   shards: tuple[int, ...], hit):
+        old_gens, ps, _ = hit
+        got = self._collect_changes(field, view_name, shards, hit,
+                                    self.delta_cells + self.MAX_INCR_CELLS)
+        if got is None:
+            return None
+        cells, resets, actual = got
+        t0 = time.perf_counter()
+        with self._lock:
+            cur = self._entries.get(key)
+            if cur is None or cur[1] is not ps:
+                if (cur is not None and cur[0] == actual
+                        and cur[1].delta is None):
+                    return cur[1]
+                return self._RACED if cur is not None else None
+            mir = self._delta_mirrors.get(key)
+            mirror_cells = (mir[1].snapshot()
+                            if mir is not None and mir[0] is ps.plane
+                            else {})
+        if ps.delta is not None and not mirror_cells:
+            # an overlay whose mirror is gone cannot be recovered on the
+            # host: rebuild rather than lose its cells
+            return None
+        if not cells and not resets and not mirror_cells:
+            if actual == tuple(old_gens):
+                return ps
+            new_ps = ps  # generations moved with nothing to scatter
+        else:
+            reset_set = {fr for fr, _ in resets}
+            # whole-row resets supersede mirror cells of their rows, and
+            # journal truth supersedes the mirror
+            merged = {k: v for k, v in mirror_cells.items()
+                      if k[0] not in reset_set}
+            merged.update(cells)
+            new_plane = _apply_plane_cells(
+                ps.plane,
+                np.fromiter((k[0] for k in merged), np.int64, len(merged)),
+                np.fromiter((k[1] for k in merged), np.int64, len(merged)),
+                np.fromiter(merged.values(), np.uint32, len(merged)),
+                [fr for fr, _ in resets],
+                (np.stack([rv for _, rv in resets]) if resets
+                 else np.zeros((0, ps.plane.shape[-1]), np.uint32)))
+            _sync(new_plane)  # the fold's time includes its device work
+            new_ps = PlaneSet(new_plane, ps.shards, ps.row_ids, ps.slot_of)
+        with self._lock:
+            if not self._swap(key, ps, actual, new_ps):
+                return (self._RACED if key in self._entries else None)
+            self._delta_mirrors.pop(key, None)
+            self.incremental_applied += 1
+            if mirror_cells or ps.delta is not None:
+                self.delta_compactions += 1
+                self.last_compaction_seconds = time.perf_counter() - t0
+        return new_ps
+
+    def _compact_async(self, key, field: Field, view_name: str,
+                       shards: tuple[int, ...]) -> None:
+        """Start the background compactor for one plane, single-flight
+        per key: it folds the overlay off the request path."""
+        with self._lock:
+            if key in self._compacting:
+                return
+            t = threading.Thread(target=self._compact_run,
+                                 args=(key, field, view_name, shards),
+                                 name="delta-compact", daemon=True)
+            self._compacting[key] = t
+        t.start()
+
+    def _compact_run(self, key, field: Field, view_name: str,
+                     shards: tuple[int, ...]) -> None:
+        try:
+            with self._lock:
+                hit = self._entries.get(key)
+            if hit is not None:
+                self._fold(key, field, view_name, shards, hit)
+        except Exception:  # noqa: BLE001 — requests keep base+delta
+            logging.getLogger("pilosa_tpu_torch.exec").exception(
+                "delta compaction failed for %s (requests keep answering "
+                "base+delta; the next absorb past the fill retries)", key)
+        finally:
+            with self._lock:
+                self._compacting.pop(key, None)
+
+    def _incremental(self, key, field: Field, view_name: str,
+                     shards: tuple[int, ...], hit):
+        """Refresh a stale single-row entry from the journals: the shards
+        whose copy of the row changed get the row's current words (into
+        a new tensor) instead of re-expanding every fragment.  None =
+        rebuild (journal gap, more than ``MAX_INCR_CELLS`` / 64 shards)."""
+        old_gens, ps, _ = hit
+        view = field.view(view_name)
+        if view is None or len(old_gens) != len(shards):
+            return None
+        the_row = key[4]
+        reset_rows, reset_vals = [], []
+        actual = list(old_gens)
+        for si, s in enumerate(shards):
+            frag = view.fragment(s)
+            if frag is None:
+                if old_gens[si] != -1:
+                    return None
+                continue
+            with frag.lock:
+                if old_gens[si] == -1:
+                    return None
+                if frag.generation == old_gens[si]:
+                    continue
+                cells = frag.changed_cells_since(old_gens[si])
+                if cells is None:
+                    return None
+                if the_row in cells:
+                    reset_rows.append(si)
+                    reset_vals.append(frag.row_words(the_row))
+                    if 64 * len(reset_rows) > self.MAX_INCR_CELLS:
+                        return None
+                actual[si] = frag.generation
+        new_plane = ps.plane
+        if reset_rows:
+            new_plane = _apply_plane_cells(ps.plane, [], [], [], reset_rows,
+                                           np.stack(reset_vals))
+        new_ps = PlaneSet(new_plane, ps.shards, ps.row_ids, ps.slot_of)
+        with self._lock:
+            self._swap(key, ps, actual, new_ps)
+            self.incremental_applied += 1
+        return new_ps
 
     def _build_plane(self, field: Field, view_name: str,
                      shards: tuple[int, ...]) -> PlaneSet:
@@ -230,6 +636,14 @@ class PlaneCache:
                     frag.expand_rows_into([row_id], host[si:si + 1])
         return PlaneSet(plane_from_numpy(host, self.device), shards,
                         np.array([row_id], np.uint64), {row_id: 0})
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the work that produces ``t`` (CUDA); a no-op on the CPU."""
+    if t.device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        ev.synchronize()
 
 
 def _union_row_ids(field: Field, view_name: str,

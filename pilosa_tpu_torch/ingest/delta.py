@@ -1,0 +1,197 @@
+"""Device delta overlays: bounded write overlays merged at dispatch.
+
+The counterpart of ``pilosa_tpu.ingest.delta`` for set-field planes:
+
+- the **mirror** (:class:`DeltaMirror`) is the host truth of one resident
+  plane's overlay: an insertion-ordered ``(flat_row, word) -> current
+  word value`` map absorbed from fragment journals
+  (``Fragment.changed_cells_since``).  A cell holds the word's CURRENT
+  contents, so sets and clears are both "overwrite this word";
+- the **overlay** (:class:`DeltaOverlay`) is the mirror's device form:
+  three pow2-padded int32 tensors (flat row, word, value bits).  Pad lanes
+  carry the out-of-range flat row ``S * R_pad``;
+- the **merge** (:func:`adjusted_row_counts`,
+  :func:`adjusted_selected_counts`) answers base+delta: the unchanged base
+  plane is scanned by the same hand kernels as the clean path
+  (``engine.kernels.row_counts`` / ``selected_row_counts``), then each
+  touched (shard, row) count moves by ``popcount(new) - popcount(old)``.
+
+The reference's adjustment is XLA-fused ``jnp`` (no Pallas), so it is
+plain PyTorch here.  JAX drops out-of-range scatter lanes and clamps
+gathers; torch indexing raises instead, so pad lanes are clamped for the
+gathers and their diffs zeroed before any scatter.  Values are int32
+carrying uint32 bits, so cell popcounts use the split-16 SWAR of
+:func:`pilosa_tpu_torch.engine.kernels.popcount` (``>>`` on int32 is
+arithmetic).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.engine import kernels
+from pilosa_tpu_torch.engine.words import pow2_bucket
+
+
+@dataclass
+class DeltaOverlay:
+    """Device form of one plane's pending write cells.
+
+    ``rows`` are FLAT row indices (``shard_axis * R_pad + row_slot``) into
+    ``plane.reshape(S * R_pad, W)``; pad lanes carry ``rows == S * R_pad``.
+    ``vals`` are the cells' current words (uint32 bits in int32)."""
+
+    rows: torch.Tensor   # int32[C_pad]
+    words: torch.Tensor  # int32[C_pad]
+    vals: torch.Tensor   # int32[C_pad]
+    n: int               # live cells (<= C_pad)
+    bits: int            # set bits carried by the live cells
+
+
+class DeltaMirror:
+    """Host mirror of one resident plane's overlay cells.
+
+    Mutated only under the owning ``PlaneCache``'s lock; the overlays it
+    builds are immutable, so a serving thread reads a whole one or none.
+    ``cap`` bounds cells: callers check :meth:`would_fit` and fold or
+    rebuild instead of absorbing past it.  Backed by three parallel numpy
+    arrays plus a cell -> slot index, so an absorb costs one write per
+    batch cell and :meth:`build_overlay` is one padded copy."""
+
+    _GROW = 1024
+
+    def __init__(self, cap: int):
+        self.cap = int(cap)
+        self._index: dict[tuple[int, int], int] = {}
+        size = min(self._GROW, max(1, self.cap))
+        self._rows = np.empty(size, np.int64)
+        self._words = np.empty(size, np.int64)
+        self._vals = np.empty(size, np.uint32)
+        self.bits = 0  # set bits over the live cell values
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def would_fit(self, new_cells) -> bool:
+        """Whether absorbing ``new_cells`` keeps the mirror at or under
+        cap (overwrites of cells it holds don't grow it)."""
+        grow = sum(1 for k in new_cells if k not in self._index)
+        return len(self._index) + grow <= self.cap
+
+    def absorb(self, new_cells: dict[tuple[int, int], int]) -> None:
+        """Overwrite-merge journal cells: a later absorb supersedes an
+        earlier one per word."""
+        for key, val in new_cells.items():
+            slot = self._index.get(key)
+            if slot is None:
+                slot = len(self._index)
+                if slot >= len(self._rows):
+                    grow = min(max(len(self._rows) * 2, self._GROW),
+                               max(self.cap, slot + 1))
+                    for name in ("_rows", "_words", "_vals"):
+                        arr = getattr(self, name)
+                        new = np.empty(grow, arr.dtype)
+                        new[:len(arr)] = arr
+                        setattr(self, name, new)
+                self._index[key] = slot
+                self._rows[slot], self._words[slot] = key
+            else:
+                self.bits -= int(self._vals[slot]).bit_count()
+            self._vals[slot] = val
+            self.bits += int(val).bit_count()
+
+    def snapshot(self) -> dict:
+        """``{(flat_row, word): value}`` copy (the fold's input)."""
+        n = len(self._index)
+        return dict(zip(zip(self._rows[:n].tolist(),
+                            self._words[:n].tolist()),
+                        self._vals[:n].tolist()))
+
+    def build_overlay(self, device, flat_total: int) -> DeltaOverlay:
+        """The device overlay on ``device``, padded to a power of two;
+        pad lanes carry flat row ``flat_total`` (= S * R_pad)."""
+        n = len(self._index)
+        c_pad = pow2_bucket(n)
+        rows = np.full(c_pad, flat_total, np.int32)
+        words = np.zeros(c_pad, np.int32)
+        vals = np.zeros(c_pad, np.uint32)
+        rows[:n] = self._rows[:n]
+        words[:n] = self._words[:n]
+        vals[:n] = self._vals[:n]
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a.view(np.int32)).to(device)
+
+        return DeltaOverlay(put(rows), put(words), put(vals), n=n,
+                            bits=self.bits)
+
+
+# ---------------------------------------------------------------------------
+# Merge (plain PyTorch: the reference's is XLA-fused jnp, not Pallas)
+# ---------------------------------------------------------------------------
+
+
+def _cell_diffs(plane: torch.Tensor, d_rows: torch.Tensor,
+                d_words: torch.Tensor, d_vals: torch.Tensor,
+                filter_words: torch.Tensor | None):
+    """Per-cell popcount deltas against the base plane, int32[C_pad] (0 on
+    pad lanes), and each cell's row slot (``R`` on pad lanes)."""
+    s, r, w = plane.shape
+    total = s * r
+    valid = (d_rows >= 0) & (d_rows < total)
+    rc = d_rows.clamp(0, max(total - 1, 0)).long()
+    wd = d_words.long()
+    base = plane.reshape(total, w)[rc, wd]
+    val = d_vals
+    if filter_words is not None:
+        fi = ((rc // r) * w + wd).clamp(0, s * w - 1)
+        f = filter_words.reshape(s * w)[fi]
+        base = base & f
+        val = val & f
+    diff = kernels.popcount(val) - kernels.popcount(base)
+    zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
+    diff = torch.where(valid, diff, zero)
+    slot = torch.where(valid, rc % r, torch.full_like(rc, r))
+    return diff, slot
+
+
+def adjusted_row_counts(plane: torch.Tensor, d_rows: torch.Tensor,
+                        d_words: torch.Tensor, d_vals: torch.Tensor,
+                        filter_words: torch.Tensor | None = None,
+                        reduce_shards: bool = True) -> torch.Tensor:
+    """Whole-plane per-row popcounts of base+delta: int32[S, R_pad, W]
+    plane (& int32[S, W] filter) and overlay tensors -> int32[R_pad]
+    (``reduce_shards``; callers gate on the int32-exact shard bound) or
+    int32[S, R_pad].  The base scan is the clean path's ``row_counts``;
+    cells only adjust the (shard, row) entries they touch."""
+    s, r, _ = plane.shape
+    counts = kernels.row_counts(plane, filter_words)  # int32[S, R]
+    diff, _slot = _cell_diffs(plane, d_rows, d_words, d_vals, filter_words)
+    # pad lanes carry diff 0: clamped to entry 0 they add nothing
+    idx = d_rows.long().clamp(0, max(s * r - 1, 0))
+    flat = counts.reshape(s * r)
+    flat.index_add_(0, idx, diff)
+    if reduce_shards:
+        return flat.reshape(s, r).sum(0, dtype=torch.int32)
+    return flat.reshape(s, r)
+
+
+def adjusted_selected_counts(plane: torch.Tensor, row_idx: torch.Tensor,
+                             d_rows: torch.Tensor, d_words: torch.Tensor,
+                             d_vals: torch.Tensor) -> torch.Tensor:
+    """Selected-row popcounts of base+delta, shard axis reduced in int32:
+    int32[N] for the plane row slots ``row_idx`` (a CPU int32[N] tensor,
+    as ``selected_row_counts`` takes it).  Each cell adds its diff to
+    EVERY output lane of its slot, so repeated slots answer alike."""
+    sel = kernels.selected_row_counts(plane, row_idx).sum(
+        0, dtype=torch.int32)                               # int32[N]
+    diff, slot = _cell_diffs(plane, d_rows, d_words, d_vals, None)
+    idx = row_idx.to(device=plane.device, dtype=slot.dtype,
+                     non_blocking=True)
+    match = slot[:, None] == idx[None, :]                   # [C_pad, N]
+    zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
+    add = torch.where(match, diff[:, None], zero).sum(0, dtype=torch.int32)
+    return sel + add

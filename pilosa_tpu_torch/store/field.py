@@ -122,17 +122,41 @@ class Field:
         """Bulk (row, col) writes into the standard view, one batch per
         shard; returns the number of newly set bits."""
         self._require_set("Set")
-        row_ids = np.asarray(row_ids, np.uint64)
-        cols = np.asarray(cols, np.uint64)
-        if len(row_ids) != len(cols):
-            raise ValueError(
-                f"import_bits: {len(row_ids)} rows vs {len(cols)} columns")
-        shards = cols // np.uint64(SHARD_WIDTH)
-        offs = cols % np.uint64(SHARD_WIDTH)
         view = self.standard_view(create=True)
         changed = 0
-        for shard in np.unique(shards).tolist():
-            m = shards == shard
-            frag = view.fragment(int(shard), create=True)
-            changed += frag.set_bits(row_ids[m], offs[m])
+        for shard, rows, offs in _by_shard(row_ids, cols, "import_bits"):
+            frag = view.fragment(shard, create=True)
+            changed += frag.set_bits(rows, offs)
         return changed
+
+    def clear_import(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
+        """Bulk clear of (row, col) pairs in the standard view, one batch
+        per shard (the ``clear`` half of the import endpoint); returns the
+        number of bits cleared."""
+        self._require_set("Clear")
+        view = self.standard_view()
+        changed = 0
+        for shard, rows, offs in _by_shard(row_ids, cols, "clear_import"):
+            frag = view.fragment(shard) if view is not None else None
+            if frag is not None:
+                changed += frag.clear_bits(rows, offs)
+        return changed
+
+
+def _by_shard(row_ids, cols, what: str):
+    """``(shard, row_ids, column offsets)`` per shard of a pair batch: one
+    sort and boundary slices, not a mask per shard."""
+    row_ids = np.asarray(row_ids, np.uint64)
+    cols = np.asarray(cols, np.uint64)
+    if len(row_ids) != len(cols):
+        raise ValueError(
+            f"{what}: {len(row_ids)} rows vs {len(cols)} columns")
+    shards = cols // np.uint64(SHARD_WIDTH)
+    order = np.argsort(shards, kind="stable")
+    shards, row_ids, cols = shards[order], row_ids[order], cols[order]
+    uniq = np.unique(shards)
+    bounds = np.append(np.searchsorted(shards, uniq), len(shards))
+    offs = cols % np.uint64(SHARD_WIDTH)
+    for i, shard in enumerate(uniq.tolist()):
+        lo, hi = bounds[i], bounds[i + 1]
+        yield int(shard), row_ids[lo:hi], offs[lo:hi]

@@ -8,9 +8,17 @@ wrote and writes fragments it opens.
 
 Host state is two tiers: rows still only in the mmap'd snapshot
 (``_snap_pending``, expanded on demand straight from the blob) and
-materialized rows (``rows``: sorted unique uint32 column offsets), which
-every write goes through.  ``generation`` moves on every mutation that
-changes a bit; the device plane cache keys on it.
+materialized rows, which every write goes through.  A materialized row is
+held as sorted unique uint32 column offsets (``rows``) while it has at
+most ``DENSE_MIN_BITS`` bits, else as its packed ``uint32[W]`` words
+(``dense``): a write to a dense row flips words in place instead of
+re-sorting a quarter-million offsets.  A row id is in at most one of the
+three.
+
+``generation`` moves on every mutation that changes a bit; the device
+plane cache keys on it.  ``_recent`` journals which (row, word) cells
+each generation touched, so a resident plane can absorb a write gap
+(:meth:`Fragment.changed_cells_since`) instead of rebuilding.
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ import os
 import struct
 import threading
 import zlib
+from collections import deque
 
 import numpy as np
 
-from pilosa_tpu_torch.engine.words import SHARD_WIDTH, pack_columns
+from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
+                                           pack_columns, unpack_columns)
 from pilosa_tpu_torch.store import roaring
 from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
                                           OP_SET_BITS, OP_SET_ROW, OpLog)
@@ -31,8 +41,13 @@ from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
 # compact the op-log into a snapshot after this many records
 MAX_OP_N = 2000
 
+# a materialized row with more set bits than this is held as packed
+# words (a uint32 offset per bit would outweigh the 128 KiB of words)
+DENSE_MIN_BITS = WORDS_PER_SHARD
+
 _SW = np.uint64(SHARD_WIDTH)
 _EMPTY = np.empty(0, np.uint32)
+_ONE = np.uint32(1)
 
 
 class Fragment:
@@ -40,12 +55,24 @@ class Fragment:
     SNAP_VERSION = 1
     _SNAP_HDR = struct.Struct("<4sHHQI")  # magic, ver, rsvd, len, crc
 
+    # journal bounds (``pilosa_tpu.store.fragment``'s): past RECENT_MAX
+    # entries the oldest fall off, and an op touching more cells than
+    # RECENT_CELL_CAP leaves a gap marker; either way a plane behind the
+    # gap rebuilds
+    RECENT_MAX = 128
+    RECENT_CELL_CAP = 65536
+    # set batches under this many positions journal only the words of
+    # the bits they newly set (the reference's pending-tier entries);
+    # larger batches and clears journal every word they name
+    PEND_FLUSH_N = 65536
+
     def __init__(self, path: str, shard: int, *, max_op_n: int = MAX_OP_N,
                  fsync: bool = False):
         self.path = path                      # snapshot file
         self.shard = shard
         self.max_op_n = max_op_n
         self.rows: dict[int, np.ndarray] = {}
+        self.dense: dict[int, np.ndarray] = {}
         self.op_n = 0
         self.generation = 0
         self.lock = threading.RLock()
@@ -54,6 +81,9 @@ class Fragment:
         self._snap_mm = None
         self._snap_dir: roaring.Directory | None = None
         self._snap_pending: set[int] = set()
+        # (generation, {row: word indices | None = whole row} | None =
+        # gap) per bit-changing op
+        self._recent: deque = deque(maxlen=self.RECENT_MAX)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -120,21 +150,25 @@ class Fragment:
     def _ensure_row(self, row_id: int) -> None:
         """Materialize one snapshot-resident row."""
         if row_id in self._snap_pending:
-            cols = self._snap_dir.expand_row(row_id)
-            if len(cols):
-                self.rows[row_id] = cols
             self._snap_pending.discard(row_id)
+            if self._snap_dir.row_cardinality(row_id) > DENSE_MIN_BITS:
+                words = np.zeros(WORDS_PER_SHARD, np.uint32)
+                self._snap_dir.row_words(row_id, words)
+                self.dense[row_id] = words
+            else:
+                cols = self._snap_dir.expand_row(row_id)
+                if len(cols):
+                    self.rows[row_id] = cols
 
     def row_ids_array(self) -> np.ndarray:
         """Live row ids as a uint64 array (unsorted)."""
         with self.lock:
-            return np.fromiter(list(self.rows) + list(self._snap_pending),
-                               np.uint64,
-                               len(self.rows) + len(self._snap_pending))
+            ids = list(self.rows) + list(self.dense) + list(self._snap_pending)
+            return np.fromiter(ids, np.uint64, len(ids))
 
     @property
     def present(self) -> bool:
-        return bool(self.rows) or bool(self._snap_pending)
+        return bool(self.rows) or bool(self.dense) or bool(self._snap_pending)
 
     def positions(self) -> np.ndarray:
         """All set bits as sorted uint64 ``row*SHARD_WIDTH + col``."""
@@ -143,9 +177,28 @@ class Fragment:
                      .astype(np.uint64) for r in self._snap_pending]
             parts += [np.uint64(r) * _SW + cols.astype(np.uint64)
                       for r, cols in self.rows.items()]
+            parts += [np.uint64(r) * _SW + unpack_columns(words)
+                      for r, words in self.dense.items()]
         if not parts:
             return np.empty(0, np.uint64)
         return np.sort(np.concatenate(parts))
+
+    def row_words(self, row_id: int, word_idx=None) -> np.ndarray:
+        """One row's current packed words, uint32[W] (a copy), or just the
+        words at ``word_idx``: the reference's ``frag.row(r).words()``."""
+        with self.lock:
+            words = self.dense.get(row_id)
+            if words is None:
+                if row_id in self._snap_pending:
+                    words = np.zeros(WORDS_PER_SHARD, np.uint32)
+                    self._snap_dir.row_words(row_id, words)
+                else:
+                    words = pack_columns(self.rows.get(row_id, _EMPTY))
+            elif word_idx is None:
+                words = words.copy()
+            if word_idx is None:
+                return words
+            return words[np.asarray(word_idx, np.intp)]
 
     def expand_rows_into(self, row_ids, out: np.ndarray, slots=None) -> None:
         """OR ``row_ids[i]``'s packed words into ``out[slots[i]]``
@@ -160,6 +213,8 @@ class Fragment:
                 r, s = int(r), int(s)
                 if r in self._snap_pending:
                     self._snap_dir.row_words(r, out[s])
+                elif r in self.dense:
+                    out[s] |= self.dense[r]
                 else:
                     cols = self.rows.get(r)
                     if cols is not None:
@@ -174,6 +229,17 @@ class Fragment:
     def clear_bits(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
         return self._mutate(OP_CLEAR_BITS, row_ids, cols)
 
+    def import_roaring(self, blob: bytes, clear: bool = False) -> int:
+        """Union (or clear) a roaring-encoded bit set (positions
+        ``row*SHARD_WIDTH + col``); returns the bits changed."""
+        positions = roaring.deserialize(blob)
+        op = OP_CLEAR_BITS if clear else OP_SET_BITS
+        with self.lock:
+            changed = self._apply(op, 0, positions)
+            if changed:
+                self._log(op, 0, positions)
+            return changed
+
     def _mutate(self, op: int, row_ids, cols) -> int:
         positions = (np.asarray(row_ids, np.uint64) * _SW
                      + np.asarray(cols, np.uint64))
@@ -184,24 +250,43 @@ class Fragment:
             return changed
 
     def _apply(self, op: int, aux: int, positions: np.ndarray | None) -> int:
-        """Apply one op to memory; returns bits changed.  Shared by the
-        mutation API and op-log replay."""
-        changed = 0
+        """Apply one op to memory and journal the cells it touched;
+        returns bits changed.  Shared by the mutation API and op-log
+        replay."""
+        delta: dict = {}
         if op in (OP_CLEAR_ROW, OP_SET_ROW):
             self._ensure_row(aux)
-            old = self.rows.pop(aux, None)
-            changed = 0 if old is None else len(old)
+            changed = self._drop_row(aux)
+            delta[aux] = None
             if op == OP_SET_ROW and positions is not None:
-                changed += self._apply_bits(OP_SET_BITS, positions)
+                changed += self._apply_bits(OP_SET_BITS, positions, delta)
+                for r in delta:
+                    delta[r] = None
         elif op in (OP_SET_BITS, OP_CLEAR_BITS):
-            changed = self._apply_bits(op, positions)
+            changed = self._apply_bits(
+                op, positions, delta,
+                new_only=op == OP_SET_BITS
+                and len(positions) < self.PEND_FLUSH_N)
         else:
             raise ValueError(f"fragment: unknown op {op}")
         if changed:
             self.generation += 1
+            self._note_delta(delta)
         return changed
 
-    def _apply_bits(self, op: int, positions: np.ndarray) -> int:
+    def _drop_row(self, row_id: int) -> int:
+        """Remove a materialized row; returns its bit count."""
+        cols = self.rows.pop(row_id, None)
+        words = self.dense.pop(row_id, None)
+        if words is not None:
+            return int(np.bitwise_count(words).sum())
+        return 0 if cols is None else len(cols)
+
+    def _apply_bits(self, op: int, positions: np.ndarray, delta: dict,
+                    new_only: bool = False) -> int:
+        """Set or clear bits; records ``{row: unique word indices}`` in
+        ``delta``: the words of the bits newly set when ``new_only``,
+        else every word the op names."""
         positions = np.unique(np.asarray(positions, np.uint64))
         if len(positions) and int(positions[-1] // _SW) >= (1 << 40):
             raise ValueError("row id out of range (>= 2^40)")
@@ -213,19 +298,82 @@ class Fragment:
             chunk = (positions[bounds[i]:bounds[i + 1]] % _SW).astype(
                 np.uint32)
             self._ensure_row(r)
-            old = self.rows.get(r, _EMPTY)
-            if op == OP_SET_BITS:
-                new = np.union1d(old, chunk).astype(np.uint32)
-                changed += len(new) - len(old)
-            else:
-                new = np.setdiff1d(old, chunk,
-                                   assume_unique=True).astype(np.uint32)
-                changed += len(old) - len(new)
-            if len(new):
-                self.rows[r] = new
-            else:
-                self.rows.pop(r, None)
+            hit = self._row_apply(op, r, chunk)
+            changed += len(hit)
+            touched = hit if new_only else chunk
+            if len(touched):
+                delta[r] = np.unique(touched >> np.uint32(5))
         return changed
+
+    def _row_apply(self, op: int, r: int, chunk: np.ndarray) -> np.ndarray:
+        """Set or clear sorted unique ``chunk`` columns of materialized row
+        ``r``; returns the columns whose bit changed."""
+        words = self.dense.get(r)
+        if words is not None:
+            idx = (chunk >> np.uint32(5)).astype(np.intp)
+            bit = _ONE << (chunk & np.uint32(31))
+            was = (words[idx] & bit) != 0
+            if op == OP_SET_BITS:
+                np.bitwise_or.at(words, idx, bit)
+                return chunk[~was]
+            np.bitwise_and.at(words, idx, ~bit)
+            if not words.any():
+                del self.dense[r]
+            return chunk[was]
+        old = self.rows.get(r, _EMPTY)
+        was = np.isin(chunk, old, assume_unique=True)
+        if op == OP_SET_BITS:
+            hit = chunk[~was]
+            new = np.union1d(old, hit).astype(np.uint32)
+        else:
+            hit = chunk[was]
+            new = np.setdiff1d(old, hit, assume_unique=True).astype(np.uint32)
+        if len(new) > DENSE_MIN_BITS:
+            self.rows.pop(r, None)
+            self.dense[r] = pack_columns(new)
+        elif len(new):
+            self.rows[r] = new
+        else:
+            self.rows.pop(r, None)
+        return hit
+
+    # -- mutation journal ---------------------------------------------------
+
+    def _note_delta(self, rows_words: dict) -> None:
+        """Journal one op's touched cells: {row: word indices | None}."""
+        cells = sum(64 if v is None else len(v)
+                    for v in rows_words.values())
+        if cells > self.RECENT_CELL_CAP:
+            self._recent.clear()
+            self._recent.append((self.generation, None))  # gap marker
+        else:
+            self._recent.append((self.generation, rows_words))
+
+    def changed_cells_since(self, gen: int):
+        """Merged ``{row: set of word indices | None = whole row}`` over
+        generations (gen, current]; ``{}`` when nothing changed, None when
+        the journal cannot cover the gap (the caller rebuilds)."""
+        with self.lock:
+            if gen == self.generation:
+                return {}
+            if gen > self.generation:
+                # a cache ahead of this fragment: it was replaced
+                return None
+            entries = [(g, rw) for g, rw in self._recent if g > gen]
+            if [g for g, _ in entries] != list(range(gen + 1,
+                                                     self.generation + 1)):
+                return None
+            merged: dict = {}
+            for _, rw in entries:
+                if rw is None:
+                    return None  # oversized op
+                for r, words in rw.items():
+                    if words is None or merged.get(r, 0) is None:
+                        merged[r] = None
+                    else:
+                        merged.setdefault(r, set()).update(
+                            int(w) for w in words)
+            return merged
 
     def _log(self, op: int, aux: int, positions: np.ndarray | None) -> None:
         self._oplog.append(op, aux, positions)
@@ -234,7 +382,7 @@ class Fragment:
             self.snapshot()
 
     def _load_positions(self, positions: np.ndarray) -> None:
-        self._apply_bits(OP_SET_BITS, positions)
+        self._apply_bits(OP_SET_BITS, positions, {})
 
     # -- durability ---------------------------------------------------------
 
@@ -255,6 +403,7 @@ class Fragment:
             os.replace(tmp, self.path)
             self._drop_snapshot()
             self.rows = {}
+            self.dense = {}
             self._open_snapshot()
             self._oplog.truncate()
             self.op_n = 0

@@ -352,6 +352,10 @@ class Directory:
         _check_runs(pairs[0::2], pairs[1::2])
         return _expand_runs(pairs[0::2], pairs[1::2])
 
+    def row_cardinality(self, row: int) -> int:
+        """One row's set-bit count, from the container headers alone."""
+        return int(self.cards[self._row_container_idx(row)].sum())
+
     def row_words(self, row: int, out: np.ndarray) -> None:
         """OR one row's bits into ``out`` (uint32[32768], the row's
         packed words) straight from the blob: bitmap containers are a

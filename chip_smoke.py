@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Four phases; any failure raises and the exit code is non-zero:
+Five phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -11,19 +11,36 @@ Four phases; any failure raises and the exit code is non-zero:
    shapes and at ragged ones, and time both with CUDA events.
 2. Serve a 1B-column index (954 shards x 32 rows x 32768 words, ~25%
    dense, generated from --seed) written as real fragment snapshots:
-   fresh Holder -> Executor -> API, in process and over REST, every
-   answer checked against a numpy oracle, with the kernels' launch
-   counters reset before and read after.  A ``Set`` then reads that must
-   show it: absorbed into the plane's delta overlay, no rebuild.
-3. Ingest while serving, on the same holder: twelve REST ``/import``
+   fresh Holder -> Executor (its defaults: the adaptive cross-request
+   batcher, whole-tree compilation, the plan cache) -> API, in process
+   and over REST, every answer checked against a numpy oracle, with the
+   kernels' launch counters reset before and read after; these
+   sequential requests must take the batcher's solo fast lane.  A
+   ``Set`` then reads that must show it: absorbed into the plane's delta
+   overlay, no rebuild.
+3. Concurrent serving on the same index, its overlay folded first (a
+   clean plane): 32 client threads, 6 passes
+   each over a mix of the 32-Count, the 4-Count, a filtered TopN and a
+   request of three compound Counts, every answer checked; first through
+   the default executor, then through
+   ``Executor(count_batch_window="off", tree_fusion=False)`` sharing its
+   plane cache.  Prints, per configuration, requests/s and Count
+   queries/s, p50/p90/p99 latency per request kind, the batcher's windows,
+   items per window and fast-lane hits, launches per request, the device
+   busy share of one burst under ``torch.profiler`` and peak device
+   memory; and the device time of the compound Counts' plain PyTorch
+   fold beside the ``count`` kernel's, solo and in one window.  The
+   three path kernels must launch and windows must coalesce.
+4. Ingest while serving, on the same holder: twelve REST ``/import``
    batches of 4096 (row, column) pairs (ten sets, two clears of bits the
    sets wrote), each followed by a 32-Count, a 4-Count and a filtered
    TopN checked against the oracle, over the unchanged resident plane
-   plus its overlay; the background compactor folds the overlay at half
-   fill.  Then one 100,000-pair batch, past what the overlay and a fold
-   cover: the next 32-Count rebuilds the plane.  Launch counters are
-   reset before and read after this phase too.
-4. Print the ``kernels`` JSON line, the card's name and power limit, and
+   plus its overlay; after the first batch one concurrent burst runs
+   over the live overlay.  The background compactor folds the overlay
+   at a quarter fill.  Then one 100,000-pair batch, past what the
+   overlay and a fold cover: the next 32-Count rebuilds the plane.
+   Launch counters are reset before and read after this phase too.
+5. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -39,6 +56,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -54,6 +72,7 @@ BATCH = 4096                   # pairs per ingest batch
 SET_BATCHES, CLEAR_BATCHES = 10, 2
 OVER_CAP = 100_000             # pairs of the batch past the overlay's reach
 COMPACT_FRACTION = 0.25        # overlay fill that starts the compactor
+CLIENTS, PASSES = 32, 6        # concurrent clients (bench.py) and passes
 REPLACES = {
     "row_counts": "pilosa_tpu/engine/pallas_kernels.py:111",
     "selected_row_counts": "pilosa_tpu/engine/pallas_kernels.py:207",
@@ -262,14 +281,30 @@ def make_index(data_dir: str, shards: int, seed: int):
     free_col = int(zero[0])
     oracle = {"counts": counts, "filtered": filtered, "inter": inter,
               "union": union, "free_col": free_col}
-    # the write check sets that bit; the ingest batches follow it
+    # the write check sets that bit; the concurrent phase serves that
+    # state, and the ingest batches follow it
     state = {"counts": counts.copy(), "filtered": filtered.copy()}
     _apply_pairs(f, g[:, 0], state, np.array([3]), np.array([free_col]),
                  clear=False)
+    oracle["served"] = {"counts": state["counts"].copy(),
+                        "filtered": state["filtered"].copy(),
+                        "trees": _tree_counts(f, g[:, 0])}
     oracle["ingest"] = _ingest_batches(f, g[:, 0], state, shards, seed)
     log(f"numpy oracle and {len(oracle['ingest']['batches']) + 1} import "
         f"batches in {time.perf_counter() - t0:.1f}s")
     return oracle
+
+
+def _tree_counts(f: np.ndarray, g0: np.ndarray) -> list[int]:
+    """The three compound Counts of ``QT`` over field ``f`` and ``g`` row
+    0 (numpy oracle)."""
+    out = [0, 0, 0]
+    for s0 in range(0, f.shape[0], 64):
+        fc, g = f[s0:s0 + 64], g0[s0:s0 + 64]
+        out[0] += int(_popcounts(fc[:, 1] & (fc[:, 2] | fc[:, 5]) & g).sum())
+        out[1] += int(_popcounts((fc[:, 1] | fc[:, 2]) & ~fc[:, 3]).sum())
+        out[2] += int(_popcounts(fc[:, 4] ^ fc[:, 7]).sum())
+    return out
 
 
 def _apply_pairs(f: np.ndarray, g0: np.ndarray, state: dict,
@@ -314,12 +349,15 @@ def _ingest_batches(f, g0, state, shards: int, seed: int) -> dict:
     the sets wrote, and the over-cap batch."""
     rng = np.random.default_rng(seed + 1)
     batches, written = [], []
+    first_trees = None
     for _ in range(SET_BATCHES):
         rows, cols = _distinct_pairs(rng, BATCH, shards)
         hit = _apply_pairs(f, g0, state, rows, cols, clear=False)
         written.append((rows[hit], cols[hit]))
         batches.append((rows, cols, False, int(hit.sum()),
                         state["counts"].copy(), state["filtered"].copy()))
+        if first_trees is None:  # the overlay burst's compound answers
+            first_trees = _tree_counts(f, g0)
     per = SET_BATCHES // CLEAR_BATCHES
     for k in range(CLEAR_BATCHES):
         rows = np.concatenate([r for r, _ in written[k * per:(k + 1) * per]])
@@ -333,7 +371,7 @@ def _ingest_batches(f, g0, state, shards: int, seed: int) -> dict:
     hit = _apply_pairs(f, g0, state, rows, cols, clear=False)
     over = (rows, cols, False, int(hit.sum()), state["counts"].copy(),
             state["filtered"].copy())
-    return {"batches": batches, "over_cap": over}
+    return {"batches": batches, "over_cap": over, "first_trees": first_trees}
 
 
 def device_times(run) -> tuple[list, float]:
@@ -359,10 +397,22 @@ def device_times(run) -> tuple[list, float]:
     return rows, wall
 
 
+def _short(name: str) -> str:
+    """A profiler kernel name cut to what tells kernels apart: the torch
+    functor or bitwise op of an elementwise kernel, else the bare
+    function name."""
+    hit = re.search(r"(\w+Functor|bitwise_\w+|\w+_kernel_cuda)", name)
+    if hit and "elementwise" in name:
+        return hit.group(1)
+    for junk in ("void ", "at::native::", "(anonymous namespace)::"):
+        name = name.replace(junk, "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name[:40]
+
+
 def device_busy_share(run) -> tuple[float, float, str]:
     """(device ms, wall ms, top device consumers) over one ``run()``."""
     rows, wall = device_times(run)
-    top = ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in rows[:5])
+    top = ", ".join(f"{_short(k)} {v:.3f} ms" for k, v in rows[:6])
     return sum(v for _, v in rows), wall, top
 
 
@@ -375,6 +425,20 @@ def _topn(totals: np.ndarray, n: int) -> list:
 Q32 = "".join(f"Count(Row(f={r}))" for r in range(ROWS))
 Q4 = "".join(f"Count(Row(f={r}))" for r in SELECTED)
 TOPN_G = "TopN(f, Row(g=0), n=5)"
+TREES = ("Count(Intersect(Row(f=1), Union(Row(f=2), Row(f=5)), Row(g=0)))",
+         "Count(Difference(Union(Row(f=1), Row(f=2)), Row(f=3)))",
+         "Count(Xor(Row(f=4), Row(f=7)))")
+QT = "".join(TREES)
+MIX = (Q32, Q4, TOPN_G, QT)    # the concurrent clients' request mix
+MIX_COUNTS = {Q32: ROWS, Q4: len(SELECTED), TOPN_G: 0, QT: len(TREES)}
+MIX_NAMES = {Q32: "32-Count", Q4: "4-Count", TOPN_G: "filtered TopN",
+             QT: "3-tree"}
+
+
+def _mix_expect(counts, filtered, trees) -> dict:
+    return {Q32: [int(c) for c in counts],
+            Q4: [int(counts[r]) for r in SELECTED],
+            TOPN_G: [_topn(filtered, 5)], QT: [int(t) for t in trees]}
 
 
 def _median_ms(ts: list) -> float:
@@ -417,9 +481,168 @@ class _Client:
         return got
 
 
-def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
-    """Phases 2 and 3 over one holder; returns the launch counts of each
-    path's run, keyed "serve" and "ingest"."""
+def _pct_ms(ts: list, q: float) -> float:
+    ms = sorted(t * 1e3 for t in ts)
+    return ms[min(len(ms) - 1, int(q * len(ms)))]
+
+
+def burst(api, expect: dict, clients: int = CLIENTS,
+          passes: int = PASSES) -> dict:
+    """``clients`` threads, each making ``passes`` passes over ``MIX``
+    (each client starts at another request, so kinds mix in a window);
+    every answer is checked.  Returns the wall seconds, the request
+    count and the latencies by request."""
+    lat: dict = {q: [] for q in MIX}
+    errors: list = []
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1, timeout=600)
+
+    def client(k: int) -> None:
+        mine: dict = {q: [] for q in MIX}
+        try:
+            start.wait()
+            for _ in range(passes):
+                for i in range(len(MIX)):
+                    q = MIX[(k + i) % len(MIX)]
+                    t = time.perf_counter()
+                    got = api.query("bench", q)["results"]
+                    mine[q].append(time.perf_counter() - t)
+                    if got != expect[q]:
+                        raise AssertionError(
+                            f"{MIX_NAMES[q]}: got {str(got)[:200]}, want "
+                            f"{str(expect[q])[:200]}")
+        except Exception as e:  # noqa: BLE001 — reported below
+            with lock:
+                errors.append(repr(e)[:400])
+        finally:
+            with lock:
+                for q, ts in mine.items():
+                    lat[q].extend(ts)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client of the concurrent burst hung")
+    if errors:
+        raise AssertionError(f"{len(errors)} client(s) failed: {errors[:3]}")
+    return {"wall": wall, "lat": lat,
+            "requests": clients * passes * len(MIX),
+            "counts": clients * passes * sum(MIX_COUNTS.values())}
+
+
+def concurrent_phase(apis: dict, expect: dict, cuda: bool,
+                     clients: int = CLIENTS, passes: int = PASSES,
+                     profile: bool = True) -> dict:
+    """Phase 3: one timed burst per configuration (``apis``: name ->
+    API), its launch counters reset just before and read just after;
+    with ``profile``, one more burst under the profiler each and the
+    fold-vs-count profile of the compound Counts on the first
+    configuration.  Returns the launch counts of each timed burst."""
+    import torch
+    from pilosa_tpu_torch.engine import cuda_kernels
+
+    launches = {}
+    for name, api in apis.items():
+        ex = api.executor
+        for q in MIX:  # plans built, every operand resident
+            got = api.query("bench", q)["results"]
+            if got != expect[q]:
+                raise AssertionError(f"{name} {MIX_NAMES[q]}: got {got}")
+        b0 = ex.serving_stats()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launches()
+        run = burst(api, expect, clients, passes)
+        launched = dict(cuda_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        b1 = ex.serving_stats()
+        launches[name] = launched
+        reqs = run["requests"]
+        log(f"[{name}] {clients} clients x {passes} passes: {reqs} "
+            f"requests in {run['wall']:.3f} s = {reqs / run['wall']:.1f} "
+            f"requests/s, {run['counts'] / run['wall']:.1f} Count "
+            f"queries/s; peak device memory {peak / 1e9:.2f} GB")
+        for q in MIX:
+            ts = run["lat"][q]
+            log(f"[{name}]   {MIX_NAMES[q]}: p50 {_pct_ms(ts, 0.5):.2f} ms, "
+                f"p90 {_pct_ms(ts, 0.9):.2f} ms, p99 "
+                f"{_pct_ms(ts, 0.99):.2f} ms, max {max(ts) * 1e3:.2f} ms, "
+                f"mean {sum(ts) / len(ts) * 1e3:.2f} ms over {len(ts)}")
+        windows = b1.get("windows", 0) - b0.get("windows", 0)
+        items = b1.get("items", 0) - b0.get("items", 0)
+        hits = b1.get("fastLaneHits", 0) - b0.get("fastLaneHits", 0)
+        log(f"[{name}]   batcher: {windows} windows, {items} items "
+            f"({items / max(1, windows):.2f} per window, largest "
+            f"{b1.get('maxWindowItems', 0)}), {hits} fast-lane hits; "
+            f"plan cache +{b1['planCacheHits'] - b0['planCacheHits']} hits"
+            f", +{b1['planCacheMisses'] - b0['planCacheMisses']} misses")
+        log(f"[{name}]   launches per request: " + json.dumps(
+            {k: round(v / reqs, 4) for k, v in launched.items() if v}))
+        if cuda and profile:
+            dev_ms, wall_ms, top = device_busy_share(
+                lambda: burst(api, expect, clients, max(1, passes // 3)))
+            log(f"[{name}]   one burst of {clients} x {max(1, passes // 3)}"
+                f" under the profiler: device busy {dev_ms:.3f} ms of "
+                f"{wall_ms:.3f} ms wall = {dev_ms / wall_ms:.1%}; by "
+                f"kernel: {top}")
+        if ex.batcher is not None:
+            for k in ("row_counts", "selected_row_counts", "count"):
+                if cuda and launched[k] < 1:
+                    raise AssertionError(f"[{name}] the concurrent burst "
+                                         f"never launched {k}")
+            if not 0 < windows < reqs:
+                raise AssertionError(f"[{name}] {windows} windows for "
+                                     f"{reqs} requests: no coalescing")
+            if b1["maxWindowItems"] < 2:
+                raise AssertionError(f"[{name}] no window held two items")
+    if cuda and profile:
+        fold_vs_count(next(iter(apis.values())), expect)
+    return launches
+
+
+def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
+    """Device time of the compound Counts' plain PyTorch fold (the torch
+    bitwise kernels) beside the ``count`` kernel's: solo (each tree of
+    ``QT`` as its own request: the fast lane's program reads its rows
+    off the plane) and windowed (the 3-tree request: one gather of the
+    rows, three folds)."""
+    def ask(q, want):
+        got = api.query("bench", q)["results"]
+        if got != want:
+            raise AssertionError(f"{q[:60]}: got {got}, want {want}")
+
+    for tag, run in (
+            ("solo", lambda: [ask(t, [w]) for _ in range(reps)
+                              for t, w in zip(TREES, expect[QT])]),
+            ("windowed", lambda: [ask(QT, expect[QT])
+                                  for _ in range(reps)])):
+        rows, wall = device_times(run)
+        fold = sum(v for k, v in rows if re.search(r"(?i)bitwise", k))
+        cnt = sum(v for k, v in rows
+                  if re.search(r"(^|::|\s)count_kernel\b", k))
+        gather = sum(v for k, v in rows if re.search(r"(?i)index", k))
+        other = sum(v for _, v in rows) - fold - cnt - gather
+        log(f"3-tree {tag}, {reps} x 3 trees under the profiler: fold "
+            f"(torch bitwise ops) {fold:.3f} ms, count kernel {cnt:.3f} ms "
+            f"(fold / count = {fold / max(cnt, 1e-9):.2f}), gather "
+            f"{gather:.3f} ms, other {other:.3f} ms, of {wall:.3f} ms wall;"
+            " by kernel: " + ", ".join(f"{_short(k)} {v:.3f} ms"
+                                       for k, v in rows[:8]))
+
+
+def serve_phase(data_dir: str, oracle: dict, device=None,
+                clients: int = CLIENTS, passes: int = PASSES) -> dict:
+    """Phases 2, 3 and 4 over one holder; returns the launch counts of
+    each path's run, keyed "serve", "concurrent", "concurrent_off",
+    "concurrent_overlay" and "ingest"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -485,8 +708,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
                                     timeout=60) as resp:
             log(f"REST /status: {resp.read().decode()[:200]}")
 
-        # a write, then reads that must show it: the resident row entry
-        # takes the journal, the plane absorbs the cell into its overlay
+        # a write, then reads that must show it: the plane absorbs the
+        # cell into its overlay (the plan cache serves the single-row
+        # Count from the plane)
         col = oracle["free_col"]
         bumped = [int(c) for c in counts]
         ask("Count(Row(f=3))", [bumped[3]])
@@ -496,19 +720,45 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
         bumped[3] += 1
         ask("Count(Row(f=3))", [bumped[3]], tag="Count(Row(f=3)) after Set")
         ask(Q32, bumped, tag="32-Count after Set")
-        if planes.builds != builds or planes.delta_absorbs != absorbs + 1 \
-                or planes.incremental_applied != refreshed + 1:
+        if planes.builds != builds or planes.delta_absorbs != absorbs + 1:
             raise AssertionError(
                 f"the Set was not absorbed: builds {builds} -> "
                 f"{planes.builds}, absorbs {absorbs} -> "
-                f"{planes.delta_absorbs}, row refreshes {refreshed} -> "
-                f"{planes.incremental_applied}")
+                f"{planes.delta_absorbs}")
+        refreshed = planes.incremental_applied - refreshed
         launches = dict(cuda_kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         serve_lat = {k: list(v) for k, v in client.lat.items()}
+        serving = executor.serving_stats()
+        log(f"batcher after phase 2: {json.dumps(serving)}")
+        if serving["fastLaneHits"] < 1:
+            raise AssertionError("phase 2's sequential requests never took "
+                                 "the solo fast lane")
 
-        log("== phase 3: ingest while serving ==")
-        ingest = ingest_phase(client, planes, oracle["ingest"], cuda)
+        log("== phase 3: concurrent serving ==")
+        # fold the Set's one-cell overlay first: this phase serves a
+        # clean plane (phase 4 serves over a live overlay)
+        index = holder.index("bench")
+        shards = tuple(index.available_shards())
+        planes.field_plane("bench", index.field("f"), "standard", shards)
+        if planes.field_plane_delta("bench", index.field("f"), "standard",
+                                    shards).delta is not None:
+            raise AssertionError("the plane still carries an overlay")
+        served = oracle["served"]
+        # the PR 2 configuration shares the default executor's plane
+        # cache: one plane build, one resident plane
+        off = Executor(holder, device=device, plane_budget=32 << 30,
+                       delta_compact_fraction=COMPACT_FRACTION,
+                       count_batch_window="off", tree_fusion=False)
+        off.planes = planes
+        conc = concurrent_phase(
+            {"default": api, "off": API(holder, off)},
+            _mix_expect(served["counts"], served["filtered"],
+                        served["trees"]), cuda, clients, passes)
+
+        log("== phase 4: ingest while serving ==")
+        ingest, overlay = ingest_phase(client, planes, oracle["ingest"],
+                                       cuda, api, clients, passes)
     finally:
         if server is not None:
             server.close()
@@ -518,8 +768,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
         log(f"latency {pql[:48]!r}: first {ts[0] * 1e3:.2f} ms, "
             f"median {_median_ms(ts):.2f} ms over {len(ts)}")
     log(f"plane build {build_s:.2f}s; the Set absorbed into the overlay "
-        f"(builds stayed {builds}, absorbs +1, row refreshes +1); peak "
-        f"device memory {peak / 1e9:.2f} GB")
+        f"(builds stayed {builds}, absorbs +1, row refreshes +{refreshed}); "
+        f"peak device memory {peak / 1e9:.2f} GB")
     log(f"launches per request: {json.dumps(per_request)}")
     if busy is not None:
         log(f"32-Count x10 under the profiler: device busy {busy[0]:.3f} ms "
@@ -529,11 +779,15 @@ def serve_phase(data_dir: str, oracle: dict, device=None) -> dict:
     for k in ("row_counts", "selected_row_counts", "count"):
         if launches[k] < 1:
             raise AssertionError(f"serving never launched the {k} kernel")
-    return {"serve": launches, "ingest": ingest}
+    return {"serve": launches, "concurrent": conc["default"],
+            "concurrent_off": conc["off"], "concurrent_overlay": overlay,
+            "ingest": ingest}
 
 
-def ingest_phase(client, planes, batches: dict, cuda: bool) -> dict:
-    """Phase 3; returns the kernel launches of its run."""
+def ingest_phase(client, planes, batches: dict, cuda: bool, api,
+                 clients: int = CLIENTS, passes: int = PASSES):
+    """Phase 4; returns the kernel launches of its run and of the
+    concurrent burst over the live overlay after the first batch."""
     import torch
     from pilosa_tpu_torch.engine import cuda_kernels
 
@@ -565,6 +819,15 @@ def ingest_phase(client, planes, batches: dict, cuda: bool) -> dict:
                           (TOPN_G, "filtered TopN")):
             client.ask(pql, want[pql], tag=f"{name}, first after import")
             client.ask(pql, want[pql], reps=3, tag=f"{name}, overlay")
+        if k == 0:
+            # one concurrent burst over the live overlay (base+delta in
+            # rowcounts-delta, selcounts and the tree gather)
+            part = dict(cuda_kernels.LAUNCHES)
+            overlay = concurrent_phase(
+                {"overlay": api},
+                _mix_expect(counts, filtered, batches["first_trees"]),
+                cuda, clients, passes, profile=False)["overlay"]
+            cuda_kernels.reset_launches()
         if cuda and adjust is None and planes.delta_stats()["deltaCells"]:
             # the merge's device time beside the base scan, over a live
             # overlay
@@ -601,7 +864,7 @@ def ingest_phase(client, planes, batches: dict, cuda: bool) -> dict:
     rebuild_s = planes.last_build_seconds
     for pql, ans in want.items():
         client.ask(pql, ans, tag="after the rebuild")
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = {k: v + part[k] for k, v in cuda_kernels.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
 
     for tag in sorted(set(client.lat) - lat0):
@@ -620,12 +883,12 @@ def ingest_phase(client, planes, batches: dict, cuda: bool) -> dict:
         log(f"32-Count x5 over a {cells}-cell overlay under the profiler: "
             f"row_counts {scan:.3f} ms, merge adjustment {other:.3f} ms, "
             f"copies {copies:.3f} ms of {wall:.3f} ms wall; by kernel: "
-            + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in rows_ms[:6]))
+            + ", ".join(f"{_short(k)} {v:.3f} ms" for k, v in rows_ms[:6]))
     log(f"launches in the ingest phase: {json.dumps(launches)}")
     for k in ("row_counts", "selected_row_counts"):
         if launches[k] < 1:
             raise AssertionError(f"ingest never launched the {k} kernel")
-    return launches
+    return launches, overlay
 
 
 # ---------------------------------------------------------------------------
@@ -668,7 +931,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 4: output ==")
+    log("== phase 5: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -15,6 +15,7 @@ import torch
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
 from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
+from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -72,6 +73,8 @@ class API:
         self._index(index)
         try:
             results = self.executor.execute(index, pql, shards=shards)
+        except ExecutorSaturatedError as e:
+            raise ApiError(str(e), 503)
         except (ParseError, ExecutionError) as e:
             raise ApiError(str(e), 400)
         return {"results": [result_to_json(r) for r in results]}
@@ -156,6 +159,7 @@ class API:
         return {"state": "NORMAL", "version": __version__,
                 "device": str(dev), "deviceName": name,
                 "planes": self.executor.planes.stats(),
+                "batcher": self.executor.serving_stats(),
                 "ingest": {**self.executor.planes.delta_stats(),
                            "importedBits": imported}}
 

@@ -12,8 +12,11 @@ calls)::
     POST /index/{i}              create index
     POST /index/{i}/field/{f}    create field
     GET  /schema                 {"indexes": [...]}
-    GET  /status                 state, the torch device serving, and
-                                 the ``ingest`` block (overlay fill,
+    GET  /status                 state, the torch device serving, the
+                                 ``batcher`` block (windows, items,
+                                 fast-lane hits, current window, plan
+                                 cache hits and misses) and the
+                                 ``ingest`` block (overlay fill,
                                  absorbs, compactions, imported bits)
 """
 

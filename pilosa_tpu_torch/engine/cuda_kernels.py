@@ -11,7 +11,8 @@ Each wrapper takes CUDA ``int32`` tensors (the slot list of
 ``selected_row_counts`` excepted: it is host data), checks device, dtype,
 shape and contiguity and raises on anything else, allocates its output
 with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises
-if the launch was refused, and adds one to ``LAUNCHES[name]``.  The
+if the launch was refused, and adds one to ``LAUNCHES[name]``
+(under a lock: several threads launch at once).  The
 routing in :mod:`pilosa_tpu_torch.engine.kernels` sends CPU tensors to the
 plain PyTorch versions; nothing here falls back.
 """
@@ -40,14 +41,24 @@ LAUNCHES = {"row_counts": 0, "selected_row_counts": 0, "count": 0,
 
 _MAX_BLOCKS = (1 << 31) - 1
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # ptxas resource report of the last build (registers, shared memory)
 BUILD_LOG = ""
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``: serving threads, the batcher's collector
+    and fast-lane callers launch at the same time, and ``+=`` on a shared
+    dict entry is a read-modify-write that can lose counts."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -144,7 +155,7 @@ def row_counts(plane: torch.Tensor,
         with torch.cuda.device(plane.device):
             _launch("row_counts", _load().pt_row_counts, s * r, out,
                     plane.data_ptr(), fptr, out.data_ptr(), s, r, w)
-        LAUNCHES["row_counts"] += 1
+        _count("row_counts")
     return out
 
 
@@ -175,7 +186,7 @@ def selected_row_counts(plane: torch.Tensor,
             _launch("selected_row_counts", _load().pt_selected_row_counts,
                     s * n, out, plane.data_ptr(), idx.data_ptr(),
                     out.data_ptr(), s, r, w, n)
-        LAUNCHES["selected_row_counts"] += 1
+        _count("selected_row_counts")
     return out
 
 
@@ -188,7 +199,7 @@ def count(words: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(words.device):
             _launch("count", _load().pt_count, s, out, words.data_ptr(),
                     out.data_ptr(), s, w)
-        LAUNCHES["count"] += 1
+        _count("count")
     return out
 
 
@@ -206,5 +217,5 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(a.device):
             _launch("intersect_count", _load().pt_intersect_count, s, out,
                     a.data_ptr(), b.data_ptr(), out.data_ptr(), s, w)
-        LAUNCHES["intersect_count"] += 1
+        _count("intersect_count")
     return out

@@ -1,10 +1,11 @@
 """Bitmap kernels over packed words: plain PyTorch versions and routing.
 
-The counterpart of ``pilosa_tpu.engine.kernels`` (boolean algebra and
-popcount reductions) plus the routing the JAX package's ``kernel_tier``
-knob did: every public count function sends a CUDA tensor to its
-hand-written kernel in :mod:`pilosa_tpu_torch.engine.cuda_kernels` and a
-CPU tensor to its plain version here.  There is no other choice and no
+The counterpart of ``pilosa_tpu.engine.kernels`` (boolean algebra, the
+whole-tree fold and popcount reductions) plus the routing the JAX
+package's ``kernel_tier`` knob did: every public count function sends a
+CUDA tensor to its hand-written kernel in
+:mod:`pilosa_tpu_torch.engine.cuda_kernels` and a CPU tensor to its
+plain version here.  There is no other choice and no
 fallback: a CUDA tensor that the kernel refuses raises.
 
 Words are ``int32`` tensors carrying the bits of the reference's
@@ -48,6 +49,75 @@ def xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def complement(a: torch.Tensor, exists: torch.Tensor) -> torch.Tensor:
     """``Not(a)`` against an existence bitmap."""
     return torch.bitwise_and(exists, torch.bitwise_not(a))
+
+
+# ---------------------------------------------------------------------------
+# Whole-tree programs (``pilosa_tpu.engine.kernels`` tree opcodes)
+# ---------------------------------------------------------------------------
+#
+# A compound boolean query lowers (``exec.tree``) to a POSTFIX program of
+# ``(opcode, arg)`` steps over operand bitmaps: rows gathered from one
+# resident plane plus extra bitmaps.  ``Not`` needs no opcode: it lowers
+# to ``ANDNOT(exists, x)``.  The reference folds the program inside one
+# XLA program; here the fold is eager PyTorch bitwise ops, one launch per
+# operator, and the popcount of the result is the hand ``count`` kernel.
+
+TREE_NOP = 0     # padding: no-op
+TREE_PUSH = 1    # push rows[arg] (gathered plane rows)
+TREE_PUSHX = 2   # push extras[arg] (exists / other-field rows)
+TREE_ZERO = 3    # push an all-zero bitmap (empty Union, absent rows)
+TREE_AND = 4
+TREE_OR = 5
+TREE_ANDNOT = 6  # a & ~b (Difference; Not via ANDNOT(exists, x))
+TREE_XOR = 7
+# unary ops whose argument is program structure; the reference's
+# TREE_SHIFT (8) and TREE_LIMIT (9) wait for the Shift/Limit slice, and
+# nothing here emits or folds them
+TREE_STATIC_OPS = (8, 9)
+
+# postfix evaluation of a depth-d tree needs ~d+1 live values; the
+# planner refuses deeper trees
+TREE_STACK_DEPTH = 8
+
+_TREE_BIN = {TREE_AND: intersect, TREE_OR: union,
+             TREE_ANDNOT: difference, TREE_XOR: xor}
+
+
+def tree_fold(rows, skeleton, row_args, extras=None, extra_args=None,
+              zero: torch.Tensor | None = None) -> torch.Tensor:
+    """Fold ONE postfix boolean program over operand bitmaps.
+
+    ``rows``: int32[G, ..., W] gathered plane rows, or a callable
+    ``rows(arg) -> int32[..., W]`` that reads one row per push (the solo
+    path reads straight off the plane); ``extras``: a sequence of
+    int32[..., W] bitmaps indexed by the ``TREE_PUSHX`` args;
+    ``skeleton``: the opcodes (binary ops pop two, push one);
+    ``row_args`` / ``extra_args``: the operand index of each ``TREE_PUSH``
+    / ``TREE_PUSHX``, in order; ``zero``: the ``TREE_ZERO`` bitmap
+    (defaults to zeros like ``rows[0]``).  Returns the final bitmap."""
+    fetch = rows if callable(rows) else (lambda a: rows[a])
+    stack: list = []
+    ri = xi = 0
+    for op in skeleton:
+        if op == TREE_PUSH:
+            stack.append(fetch(row_args[ri]))
+            ri += 1
+        elif op == TREE_PUSHX:
+            stack.append(extras[extra_args[xi]])
+            xi += 1
+        elif op == TREE_ZERO:
+            stack.append(torch.zeros_like(rows[0]) if zero is None
+                         else zero)
+        elif op == TREE_NOP:
+            continue
+        elif op in _TREE_BIN:
+            b = stack.pop()
+            a = stack.pop()
+            stack.append(_TREE_BIN[op](a, b))
+        else:
+            raise ValueError(f"tree opcode {op!r} is not supported by "
+                             "this port")
+    return stack[-1]
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,26 @@
 """Executor: PQL AST -> hand-written kernels over resident planes.
 
-The counterpart of ``pilosa_tpu.exec.executor.Executor`` in its
-``count_batch_window="off", tree_fusion=False, plane_paging=False``
-configuration: every resident shard is one slice of a batched device
-tensor, a run of consecutive Counts executes as one batch with one host
-read, and cross-shard totals are a dense sum.  Writes since a plane was
-built ride a device delta overlay (``delta_cells``, folded in the
-background past ``delta_compact_fraction``): whole-plane Counts and TopN
+The counterpart of ``pilosa_tpu.exec.executor.Executor`` with
+``plane_paging=False``, in its default serving configuration:
+
+- ``count_batch_window="adaptive"``: concurrent requests coalesce in the
+  :class:`~pilosa_tpu_torch.exec.batcher.CountBatcher` (one family call
+  per kind and plane, one packed read per window; a solo request takes
+  the fast lane).  A number of seconds fixes the window; ``"off"`` (or 0)
+  runs each request alone;
+- ``tree_fusion=True``: compound calls compile whole
+  (:mod:`pilosa_tpu_torch.exec.tree`): one gather of their rows from the
+  resident plane, one postfix fold;
+- ``max_concurrent=8`` admission slots;
+- a plan cache: a repeated all-Count query string over unkeyed set
+  fields skips parse and plan.
+
+``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
+as the port's first slices did.  Every resident shard is one slice of a
+batched device tensor, a run of consecutive Counts executes as one batch
+with one host read, and cross-shard totals are a dense sum.  Writes since
+a plane was built ride a device delta overlay (``delta_cells``, folded
+in the background past ``delta_compact_fraction``): Counts and TopN
 answer base+delta over the unchanged resident plane.
 
 Served calls: ``Count``, ``Row`` (set fields, integer rows),
@@ -17,16 +31,23 @@ Anything else raises :class:`ExecutionError`.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import kernels, resolve_device
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
-from pilosa_tpu_torch.exec.fused import FusedCache, shift_leaves
+from pilosa_tpu_torch.exec.batcher import CountBatcher
+from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable, shift_leaves
 from pilosa_tpu_torch.exec.planes import DEFAULT_BUDGET, PlaneCache
 from pilosa_tpu_torch.exec.result import Pair, PairsResult, RowResult
-from pilosa_tpu_torch.exec.tree import fold_bool_call, is_not_bool
+from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
+                                        fold_bool_call, is_not_bool,
+                                        lower_count_tree)
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import Call, Condition, Query
 from pilosa_tpu_torch.store.field import TYPE_SET, Field
@@ -57,6 +78,10 @@ class ExecutionError(Exception):
     pass
 
 
+class ExecutorSaturatedError(ExecutionError):
+    """Every admission slot stayed taken for ``SLOT_TIMEOUT_S``."""
+
+
 def _field_arg(call: Call):
     try:
         return call.field_arg(_CALL_RESERVED.get(call.name, RESERVED_KEYS))
@@ -70,7 +95,55 @@ class _Ctx:
         self.shards = shards
 
 
+def parse_window(window) -> float | str:
+    """``count_batch_window``: "adaptive", seconds, or off (0, "off",
+    "none", "false", "") -> "adaptive" or float seconds."""
+    if isinstance(window, str):
+        w = window.strip().lower()
+        if w == "adaptive":
+            return "adaptive"
+        if w in ("", "0", "off", "none", "false"):
+            return 0.0
+        try:
+            return float(w)
+        except ValueError:
+            raise ValueError(
+                f"count_batch_window: expected 'adaptive', a number of "
+                f"seconds, or 'off', got {window!r}")
+    return float(window)
+
+
+# negative plan-cache entry: this query string is outside the plan cache
+_UNPLANNABLE = object()
+_EXISTS_DEP = "\x00exists"
+
+
+@dataclass
+class _PlanEntry:
+    """One cached serving plan for an all-Count query over unkeyed set
+    fields.  ``kind`` "plane": a same-field plain-row Count batch, served
+    over the resident plane (``row_ids`` are the literal row ids; slots
+    come fresh from the PlaneSet on every hit).  ``kind`` "tree":
+    compound Counts compiled whole (``tree_specs``).  Nothing here is a
+    tensor and nothing bakes data a write can stale: literal row ids
+    re-resolve, the plane absorbs writes into its overlay and extras
+    re-fetch, so a hit checks only the shard set and that the
+    ``set_fields`` are still unkeyed set fields.  ``deps``/``gens`` are
+    the build-time snapshot the build-twice check compares."""
+
+    kind: str
+    shards: tuple
+    deps: tuple            # ((field_name | _EXISTS_DEP, view_name), ...)
+    gens: tuple            # per-dep generation tuples (None = no view)
+    field_name: str | None = None
+    row_ids: tuple = ()
+    tree_specs: tuple = ()
+    set_fields: tuple = ()
+
+
 class Executor:
+    MAX_PLANS = 512  # plan-cache entries (user-controlled keys: bounded)
+    SLOT_TIMEOUT_S = 180.0  # admission wait before refusing a query
     # cross-shard sums stay int32 on the device while
     # n_shards * 2^20 < 2^31
     _REDUCE_SHARD_MAX = (1 << 31) // SHARD_WIDTH - 1
@@ -81,13 +154,46 @@ class Executor:
     def __init__(self, holder: Holder, device=None,
                  plane_budget: int = DEFAULT_BUDGET,
                  delta_cells: int = 65536,
-                 delta_compact_fraction: float = 0.5):
+                 delta_compact_fraction: float = 0.5,
+                 count_batch_window: float | str = "adaptive",
+                 tree_fusion: bool = True,
+                 max_concurrent: int = 8):
         self.holder = holder
         self.device = resolve_device(device)
         self.planes = PlaneCache(
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
             delta_compact_fraction=delta_compact_fraction)
         self.fused = FusedCache()
+        self.tree_fusion = bool(tree_fusion)
+        window = parse_window(count_batch_window)
+        self.batcher = (CountBatcher(self.fused, window_s=window)
+                        if window == "adaptive" or window > 0 else None)
+        # query-plan cache: (index, stripped PQL, shards) -> _PlanEntry
+        self._plans: OrderedDict = OrderedDict()
+        self._plans_lock = threading.Lock()
+        self.plan_hits = 0
+        self.plan_misses = 0
+        # bounded concurrency: each executing query holds device scratch
+        self.max_concurrent = max_concurrent
+        self._exec_slots = (threading.BoundedSemaphore(max_concurrent)
+                            if max_concurrent else None)
+
+    def close(self) -> None:
+        """Stop the batcher's threads."""
+        if self.batcher is not None:
+            self.batcher.close()
+
+    def serving_stats(self) -> dict:
+        """The ``/status`` batcher block: the batcher's windows, items,
+        fast-lane hits and current window, and the plan cache's hits and
+        misses."""
+        out = (self.batcher.health_payload() if self.batcher is not None
+               else {"window": "off"})
+        with self._plans_lock:
+            out.update(planCacheHits=self.plan_hits,
+                       planCacheMisses=self.plan_misses,
+                       plans=len(self._plans))
+        return out
 
     # ------------------------------------------------------------------ api
 
@@ -97,8 +203,23 @@ class Executor:
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index {index_name!r} not found")
-        if isinstance(query, str):
-            query = parse_cached(query)
+        if self._exec_slots is not None and not self._exec_slots.acquire(
+                timeout=self.SLOT_TIMEOUT_S):
+            raise ExecutorSaturatedError(
+                f"executor at max concurrent queries ({self.max_concurrent})"
+                f" for {self.SLOT_TIMEOUT_S:.0f}s; retry later")
+        try:
+            if isinstance(query, str):
+                out = self._execute_planned(index, index_name, query, shards)
+                if out is not None:
+                    return out
+                query = parse_cached(query)
+            return self._execute_calls(index, query, shards)
+        finally:
+            if self._exec_slots is not None:
+                self._exec_slots.release()
+
+    def _execute_calls(self, index: Index, query: Query, shards) -> list:
         results = []
         calls = query.calls
         i = 0
@@ -125,16 +246,133 @@ class Executor:
         fast = self._count_batch_plane(ctx, calls)
         if fast is not None:
             return fast
+        fast = self._count_batch_tree(ctx, calls)
+        if fast is not None:
+            return fast
         nodes, all_leaves = [], []
         for call in calls:
             leaves: list = []
             node = self._plan(ctx, call.children[0], leaves)
             nodes.append(shift_leaves(node, len(all_leaves)))
             all_leaves.extend(leaves)
-        per_shard = self.fused.run_count_batch(tuple(nodes),
-                                               tuple(all_leaves))
+        return self._dispatch_count_run(tuple(nodes), tuple(all_leaves))
+
+    def _dispatch_count_run(self, nodes: tuple, leaves: tuple) -> list[int]:
+        """One request's planned Count run -> per-call totals: ONE batcher
+        item (concurrent requests share a launch and a read), or one
+        batch and one read of its own."""
+        if self.batcher is not None:
+            return self.batcher.submit_many(nodes, leaves)
+        per_shard = self.fused.run_count_batch(nodes, leaves)
         host = per_shard.cpu().numpy().astype(np.int64)  # one read
         return [int(row.sum()) for row in host]
+
+    # ---------------------------------------------------------- whole trees
+
+    def _count_batch_tree(self, ctx: _Ctx,
+                          calls: list[Call]) -> list[int] | None:
+        """Compound Count runs through the tree compiler: every child
+        lowers to a :class:`~pilosa_tpu_torch.exec.tree.TreeSpec` and the
+        request's trees go to the batcher as items of ONE window.  None =
+        not a tree shape, or the anchor plane is not admitted (the
+        generic planned path answers the same)."""
+        if not self.tree_fusion or not ctx.shards:
+            return None
+        if not any(c.children[0].name in TREE_CALLS for c in calls):
+            return None
+        try:
+            specs = [lower_count_tree(self, ctx, c.children[0])
+                     for c in calls]
+        except Unfusable:
+            return None
+        return self._run_tree_specs(ctx, specs)
+
+    def _run_tree_specs(self, ctx: _Ctx, specs) -> list[int] | None:
+        """Resolve lowered specs against the live planes (rows to slots
+        fresh on every call, extras re-fetched, the anchor plane's overlay
+        merged) and run them.  None = an anchor plane is not admitted."""
+        resolved = []
+        for spec in specs:
+            hit = self._tree_item(ctx, spec)
+            if hit is None:
+                return None
+            resolved.append(hit)
+        if self.batcher is not None:
+            if len(resolved) == 1:
+                # a single tree may take the solo fast lane
+                ps, item = resolved[0]
+                return [self.batcher.submit_tree(ps.plane, *item,
+                                                 delta=ps.delta)]
+            # enqueue ALL trees before waiting on any: one window
+            handles = [self.batcher.enqueue_tree(ps.plane, *item,
+                                                 delta=ps.delta)
+                       for ps, item in resolved]
+            return [self.batcher.wait(h) for h in handles]
+        # no batcher: one family call per (plane, overlay) pair
+        groups: dict[tuple, list[int]] = {}
+        for i, (ps, _item) in enumerate(resolved):
+            groups.setdefault((id(ps.plane), id(ps.delta)), []).append(i)
+        out = [0] * len(resolved)
+        for idxs in groups.values():
+            ps = resolved[idxs[0]][0]
+            slots, progs, extras = assemble_items(
+                [resolved[i][1] for i in idxs])
+            vals = self.fused.run_tree_counts(ps.plane, slots, progs, extras,
+                                              delta=ps.delta)
+            for j, v in zip(idxs, vals.cpu().numpy().tolist()):
+                out[j] = int(v)
+        return out
+
+    def _tree_item(self, ctx: _Ctx, spec):
+        """One spec's runtime form ``(PlaneSet, (slots, prog, extras))``:
+        PUSH args rewritten against the LIVE slot map (a row with no bits
+        anywhere becomes a zero push), extras materialized.  None = not
+        served by the tree path now (shard count past the int32 device
+        reduce, plane over budget, or a small slice of a wide plane that
+        is not resident)."""
+        field = ctx.index.field(spec.field)
+        if field is None or field.options.type != TYPE_SET:
+            return None
+        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+            return None
+        if not self._plane_admitted(ctx, field, max(1, len(spec.rows))):
+            return None
+        ps = self.planes.field_plane_delta(ctx.index.name, field,
+                                           VIEW_STANDARD, ctx.shards)
+        slots: list[int] = []
+        slot_arg: list[int | None] = []
+        for r in spec.rows:
+            s = ps.slot_of.get(int(r))
+            slot_arg.append(None if s is None else len(slots))
+            if s is not None:
+                slots.append(s)
+        extras = []
+        for espec in spec.extras:
+            arr = self._tree_extra(ctx, espec)
+            if arr is None:
+                return None
+            extras.append(arr)
+        prog = []
+        for op, arg in spec.prog:
+            if op == kernels.TREE_PUSH:
+                if slot_arg[arg] is None:  # no bits anywhere: empty
+                    prog.append((kernels.TREE_ZERO, 0))
+                    continue
+                arg = slot_arg[arg]
+            prog.append((op, arg))
+        return ps, (tuple(slots), tuple(prog), tuple(extras))
+
+    def _tree_extra(self, ctx: _Ctx, espec) -> torch.Tensor | None:
+        """One extra operand int32[S, W]: the existence row or another
+        set field's row, through the plane cache."""
+        if espec[0] == "exists":
+            return self._exists(ctx)
+        _, fname, vname, rid = espec
+        field = ctx.index.field(fname)
+        if field is None or field.options.type != TYPE_SET:
+            return None
+        return self.planes.row_words(ctx.index.name, field, vname, rid,
+                                     ctx.shards)
 
     def _count_batch_plane(self, ctx: _Ctx, calls: list[Call]) \
             -> list[int] | None:
@@ -147,18 +385,25 @@ class Executor:
         if hit is None:
             return None
         field, values = hit
-        if not self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
-                                     ctx.shards):
-            est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
-            if est > self.planes.budget:
-                return None
-            r_est = max(1, est // (len(ctx.shards) * WORDS_PER_SHARD * 4))
-            if len(calls) * 4 < r_est:
-                return None
+        if not self._plane_admitted(ctx, field, len(calls)):
+            return None
         row_ids = [self._row_id(field, v) for v in values]
         ps = self.planes.field_plane_delta(ctx.index.name, field,
                                            VIEW_STANDARD, ctx.shards)
         return self._plane_count_rows(ps, row_ids)
+
+    def _plane_admitted(self, ctx: _Ctx, field: Field, n_rows: int) -> bool:
+        """A request reading ``n_rows`` rows may use the whole-field
+        plane: it is resident, or building it stays within the budget and
+        does not scan the plane for a small slice of its rows."""
+        if self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
+                                 ctx.shards):
+            return True
+        est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
+        if est > self.planes.budget:
+            return False
+        r_est = max(1, est // (len(ctx.shards) * WORDS_PER_SHARD * 4))
+        return n_rows * 4 >= r_est
 
     def _plain_row_parse(self, ctx: _Ctx, calls: list[Call]):
         """``(field, values)`` when every call is ``Count(Row(f=v))`` over
@@ -200,19 +445,31 @@ class Executor:
         r_pad = ps.plane.shape[-2]
         if (live and len(ps.shards) <= self._REDUCE_SHARD_MAX
                 and len(live) * self._SELECTED_ROWS_FRACTION <= r_pad):
-            vals = self.fused.run_selected_counts(ps.plane, tuple(live),
-                                                  ps.delta)
-            vals = vals.cpu().numpy().astype(np.int64)[:len(live)]
-            by_slot = dict(zip(live, vals.tolist()))
+            by_slot = self._plane_selected_totals(ps, tuple(live))
             return [int(by_slot[s]) if s is not None else 0 for s in slots]
         totals = self._plane_totals(ps)
         return [int(totals[s]) if s is not None else 0 for s in slots]
 
+    def _plane_selected_totals(self, ps, slots: tuple) -> dict:
+        """slot -> int64 total of the selected plane rows: one gather and
+        popcount, the shard axis reduced on the device (callers gate on
+        ``_REDUCE_SHARD_MAX``), coalesced across concurrent requests by
+        the batcher."""
+        if self.batcher is not None:
+            vals = self.batcher.submit_selected(ps.plane, slots, ps.delta)
+        else:
+            vals = self.fused.run_selected_counts(ps.plane, slots, ps.delta)
+            vals = vals.cpu().numpy().astype(np.int64)[:len(slots)]
+        return dict(zip(slots, vals.tolist()))
+
     def _plane_totals(self, ps) -> np.ndarray:
         """Whole-plane per-row totals int64[R_pad]: reduced over shards
-        on the device while int32 stays exact, else per shard and
-        finished in int64 on the host."""
+        on the device while int32 stays exact (through the batcher, where
+        identical concurrent requests dedupe to one scan), else per shard
+        and finished in int64 on the host."""
         small = len(ps.shards) <= self._REDUCE_SHARD_MAX
+        if self.batcher is not None and small:
+            return self.batcher.submit_rowcounts(ps.plane, delta=ps.delta)
         if ps.delta is not None:
             out = self.fused.run_rowcounts_delta(ps.plane, ps.delta,
                                                  reduce=small)
@@ -223,6 +480,149 @@ class Executor:
             out = self.fused.run_rowcounts_batch((False,), (ps.plane,))[0]
             return out.cpu().numpy().astype(np.int64)
         return kernels.shard_totals(kernels.row_counts(ps.plane))
+
+    # ----------------------------------------------------------- plan cache
+
+    def invalidate_plans(self, index: str | None = None) -> None:
+        """Drop cached plans (all, or one index's)."""
+        with self._plans_lock:
+            if index is None:
+                self._plans.clear()
+                return
+            for key in [k for k in self._plans if k[0] == index]:
+                del self._plans[key]
+
+    def _execute_planned(self, index: Index, index_name: str, query: str,
+                         shards) -> list | None:
+        """Plan-cache path for all-Count queries: a repeated query string
+        skips parse and plan.  None = take the parse path (not plannable,
+        no longer valid, or its plane is not resident: admission stays on
+        the parse path)."""
+        # strip() only: whitespace inside the query may be inside a key
+        skey = (index_name, query.strip(),
+                tuple(shards) if shards is not None else None)
+        with self._plans_lock:
+            entry = self._plans.get(skey)
+            if entry is not None:
+                self._plans.move_to_end(skey)
+                if entry is not _UNPLANNABLE:
+                    self.plan_hits += 1
+            else:
+                self.plan_misses += 1
+        if entry is _UNPLANNABLE:
+            return None
+        if entry is None:
+            # build TWICE and keep the plan only when both walks saw the
+            # same generations: generations only grow, so equal snapshots
+            # bracket the second walk and a write racing the build cannot
+            # leave a plan that was planned against older state
+            first = self._build_plan(index, query, shards)
+            if first is not None:
+                entry = self._build_plan(index, query, shards)
+                if entry is None or entry.gens != first.gens:
+                    return None  # racing writes: plan on a later request
+            with self._plans_lock:
+                self._plans[skey] = (entry if entry is not None
+                                     else _UNPLANNABLE)
+                while len(self._plans) > self.MAX_PLANS:
+                    self._plans.popitem(last=False)
+            if entry is None:
+                return None
+        if (self._shards_for(index, shards) != entry.shards
+                or any((f := index.field(name)) is None or f.options.keys
+                       or f.options.type != TYPE_SET
+                       for name in entry.set_fields)):
+            with self._plans_lock:
+                if self._plans.get(skey) is entry:
+                    del self._plans[skey]
+            return None
+        return self._run_plan(index, entry)
+
+    def _build_plan(self, index: Index, query: str,
+                    shards) -> _PlanEntry | None:
+        try:
+            calls = parse_cached(query).calls
+        except Exception:  # noqa: BLE001 — errors surface on the parse path
+            return None
+        if not calls or any(c.name != "Count" or len(c.children) != 1
+                            for c in calls):
+            return None
+        ctx = _Ctx(index, self._shards_for(index, shards))
+        try:
+            return (self._plan_plane_entry(ctx, calls)
+                    or self._plan_tree_entry(ctx, calls))
+        except (Unfusable, ExecutionError):
+            # the parse path raises the same errors
+            return None
+
+    def _plan_plane_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
+        """The same-field plain-row batch :meth:`_count_batch_plane`
+        serves over the resident plane."""
+        hit = self._plain_row_parse(ctx, calls)
+        if hit is None:
+            return None
+        field, values = hit
+        if field.options.keys:
+            return None
+        deps = ((field.name, VIEW_STANDARD),)
+        return _PlanEntry("plane", ctx.shards, deps,
+                          self._dep_gens(ctx.index, deps, ctx.shards),
+                          field_name=field.name,
+                          row_ids=tuple(self._row_id(field, v)
+                                        for v in values),
+                          set_fields=(field.name,))
+
+    def _plan_tree_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
+        """Every Count child lowered to a TreeSpec."""
+        if not self.tree_fusion or not ctx.shards:
+            return None
+        if not any(c.children[0].name in TREE_CALLS for c in calls):
+            return None
+        specs = tuple(lower_count_tree(self, ctx, c.children[0])
+                      for c in calls)
+        deps: dict[tuple, None] = {}
+        set_fields: dict[str, None] = {}
+        for spec in specs:
+            set_fields[spec.field] = None
+            deps[(spec.field, VIEW_STANDARD)] = None
+            for espec in spec.extras:
+                if espec[0] == "exists":
+                    deps[(_EXISTS_DEP, VIEW_STANDARD)] = None
+                else:
+                    set_fields[espec[1]] = None
+                    deps[(espec[1], espec[2])] = None
+        deps = tuple(deps)
+        return _PlanEntry("tree", ctx.shards, deps,
+                          self._dep_gens(ctx.index, deps, ctx.shards),
+                          tree_specs=specs,
+                          set_fields=tuple(set_fields))
+
+    @staticmethod
+    def _dep_gens(index: Index, deps: tuple, shards: tuple) -> tuple:
+        out = []
+        for fname, vname in deps:
+            f = (index.existence_field if fname == _EXISTS_DEP
+                 else index.field(fname))
+            view = f.view(vname) if f is not None else None
+            out.append(view.generations(shards) if view is not None
+                       else None)
+        return tuple(out)
+
+    def _run_plan(self, index: Index, entry: _PlanEntry) -> list | None:
+        """Run a valid plan; None = its plane is not resident (the parse
+        path decides admission)."""
+        ctx = _Ctx(index, entry.shards)
+        if entry.kind == "tree":
+            if not self.tree_fusion:
+                return None
+            return self._run_tree_specs(ctx, list(entry.tree_specs))
+        field = index.field(entry.field_name)
+        if field is None or not self.planes.has_plane(
+                index.name, field, VIEW_STANDARD, ctx.shards):
+            return None
+        ps = self.planes.field_plane_delta(index.name, field, VIEW_STANDARD,
+                                           ctx.shards)
+        return self._plane_count_rows(ps, entry.row_ids)
 
     def _shards_for(self, index: Index, shards) -> tuple[int, ...]:
         if shards is not None:
@@ -244,6 +644,20 @@ class Executor:
         return handler(ctx, call)
 
     def _fused_bitmap(self, ctx: _Ctx, call: Call, want: str = "words"):
+        """A bitmap call's words int32[S, W] (``want="count"``: per-shard
+        counts int32[S]): compound calls through the tree compiler (one
+        fold over rows of the resident plane), else the planned leaves."""
+        if (self.tree_fusion and ctx.shards
+                and call.name in TREE_CALLS):
+            try:
+                hit = self._tree_item(ctx, lower_count_tree(self, ctx, call))
+            except Unfusable:
+                hit = None
+            if hit is not None:
+                ps, (slots, prog, extras) = hit
+                words = self.fused.run_tree_words(ps.plane, slots, prog,
+                                                  extras, delta=ps.delta)
+                return kernels.count(words) if want == "count" else words
         leaves: list = []
         node = self._plan(ctx, call, leaves)
         return self.fused.run(node, tuple(leaves), want)
@@ -278,6 +692,13 @@ class Executor:
         return out
 
     def _row_words(self, ctx: _Ctx, call: Call) -> torch.Tensor:
+        field, row_id = self._row_leaf(ctx, call)
+        return self.planes.row_words(ctx.index.name, field, VIEW_STANDARD,
+                                     row_id, ctx.shards)
+
+    def _row_leaf(self, ctx: _Ctx, call: Call) -> tuple[Field, int]:
+        """``(field, row id)`` of a plain set-field ``Row`` (the eager
+        planner and the tree compiler refuse the same leaves alike)."""
         hit = _field_arg(call)
         if hit is None:
             raise ExecutionError(f"{call.name}: missing field argument")
@@ -291,8 +712,7 @@ class Executor:
                 or "_timestamp" in call.args):
             raise ExecutionError("time-range rows are not supported by "
                                  "this port")
-        return self.planes.row_words(ctx.index.name, field, VIEW_STANDARD,
-                                     self._row_id(field, value), ctx.shards)
+        return field, self._row_id(field, value)
 
     # -- helpers ------------------------------------------------------------
 
@@ -317,14 +737,18 @@ class Executor:
                                  "are not supported by this port")
         return int(value)
 
-    def _exists(self, ctx: _Ctx) -> torch.Tensor:
+    def _existence_field(self, ctx: _Ctx) -> Field:
         ef = ctx.index.existence_field
         if ef is None:
             raise ExecutionError(
                 f"index {ctx.index.name!r} does not track existence "
                 "(required for Not/All)")
-        return self.planes.row_words(ctx.index.name, ef, VIEW_STANDARD, 0,
-                                     ctx.shards)
+        return ef
+
+    def _exists(self, ctx: _Ctx) -> torch.Tensor:
+        return self.planes.row_words(ctx.index.name,
+                                     self._existence_field(ctx),
+                                     VIEW_STANDARD, 0, ctx.shards)
 
     def _zeros(self, ctx: _Ctx) -> torch.Tensor:
         return self.planes.zeros(len(ctx.shards))
@@ -355,6 +779,14 @@ class Executor:
     def _execute_count(self, ctx: _Ctx, call: Call) -> int:
         if len(call.children) != 1:
             raise ExecutionError("Count: exactly one child required")
+        fused_tree = self._count_batch_tree(ctx, [call])
+        if fused_tree is not None:
+            return fused_tree[0]
+        if self.batcher is not None:
+            # one batcher item: concurrent Counts share a launch and a read
+            leaves: list = []
+            node = self._plan(ctx, call.children[0], leaves)
+            return self.batcher.submit(node, leaves)
         per_shard = self._fused_bitmap(ctx, call.children[0], want="count")
         return int(kernels.shard_totals(per_shard))
 
@@ -381,7 +813,12 @@ class Executor:
                                            VIEW_STANDARD, ctx.shards)
         if ps.n_rows == 0:
             return PairsResult([])
-        if ps.delta is not None:
+        if self.batcher is not None and \
+                len(ctx.shards) <= self._REDUCE_SHARD_MAX:
+            # concurrent TopNs over one plane and filter share one scan
+            totals = self.batcher.submit_rowcounts(
+                ps.plane, filter_words, delta=ps.delta)[:ps.n_rows]
+        elif ps.delta is not None:
             # per-shard base+delta counts, finished on the host
             totals = kernels.shard_totals(self.fused.run_rowcounts_delta(
                 ps.plane, ps.delta, filter_words, reduce=False))[:ps.n_rows]

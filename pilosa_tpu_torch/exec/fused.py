@@ -2,10 +2,16 @@
 
 The counterpart of ``pilosa_tpu.exec.fused``: the executor plans a
 bitmap call tree into a hashable node structure plus a list of leaf
-tensors, and one family call answers a whole batch.  PyTorch runs
-eagerly, so there is no program cache: each family folds the tree with
-torch bitwise ops and calls the popcount kernels of
-:mod:`pilosa_tpu_torch.engine.kernels` directly.
+tensors, and one family call answers a whole batch (one request, or a
+whole collection window of the batcher).  PyTorch runs eagerly, so there
+is no program cache: each family folds the tree with torch bitwise ops
+and calls the popcount kernels of :mod:`pilosa_tpu_torch.engine.kernels`
+directly.  The whole-tree families (:meth:`FusedCache.run_tree_counts`,
+:meth:`FusedCache.run_tree_words`) fold postfix programs
+(:mod:`pilosa_tpu_torch.exec.tree`) over rows of one resident plane.
+
+Every launch and copy here goes to the current stream; outputs stay on
+the device un-read (the batcher packs a window's outputs into one read).
 
 Node encodings (nested tuples):
 
@@ -21,7 +27,13 @@ import torch
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.engine.words import pow2_bucket
 from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
-                                           adjusted_selected_counts)
+                                           adjusted_selected_counts,
+                                           overlay_gathered_rows,
+                                           overlay_row)
+
+
+class Unfusable(Exception):
+    """Raised by planners for shapes the fused path doesn't cover."""
 
 _BINARY = {"and": kernels.intersect, "or": kernels.union,
            "andnot": kernels.difference, "xor": kernels.xor}
@@ -113,3 +125,121 @@ class FusedCache:
         return adjusted_row_counts(plane, delta.rows, delta.words,
                                    delta.vals, filter_words,
                                    reduce_shards=reduce)
+
+    # -- whole trees -------------------------------------------------------
+
+    @staticmethod
+    def _tree_gather(plane: torch.Tensor, slots: tuple,
+                     delta) -> torch.Tensor:
+        """The window's ONE pass over the plane: gather the union of the
+        items' row slots and write the overlay's cells over them
+        (base+delta) -> int32[G, S, W] (a view; row g is
+        ``out[g]``).  No pow2 padding: it only bounded the reference's
+        compiled shapes, and here a pad lane would copy a whole row."""
+        r_pad = plane.shape[1]
+        idx = _host_index(slots or (0,), r_pad, plane.device)
+        sel = plane.index_select(1, idx)             # [S, G, W]
+        if delta is not None:
+            overlay_gathered_rows(sel, idx, delta.rows, delta.words,
+                                  delta.vals, r_pad)
+        return sel.transpose(0, 1)
+
+    @staticmethod
+    def _tree_item(rows: torch.Tensor, extras: tuple, prog: tuple,
+                   want: str) -> torch.Tensor:
+        """One tree's postfix program over the window's gathered rows:
+        "count" -> int32[1] (per-shard popcounts by the ``count`` kernel,
+        the shard axis reduced in int32: callers gate on the int32-exact
+        shard bound); "words" -> int32[S, W]."""
+        words = kernels.tree_fold(
+            rows, tuple(op for op, _ in prog),
+            [arg for op, arg in prog if op == kernels.TREE_PUSH],
+            extras,
+            [arg for op, arg in prog if op == kernels.TREE_PUSHX])
+        if want == "words":
+            return words
+        return kernels.count(words).sum(dtype=torch.int32).reshape(1)
+
+    @staticmethod
+    def _tree_solo(plane: torch.Tensor, slots: tuple, prog: tuple,
+                   extras: tuple, delta, want: str) -> torch.Tensor:
+        """A SINGLE tree: each push reads its row straight off the plane
+        (a strided [S, W] view, no gathered copy), with the overlay's
+        cells of that row written over a copy of it."""
+        r_pad = plane.shape[1]
+        row_args = [slots[arg] for op, arg in prog
+                    if op == kernels.TREE_PUSH]
+        if row_args and (min(row_args) < 0 or max(row_args) >= r_pad):
+            raise IndexError(f"tree slots outside [0, {r_pad})")
+
+        def row(slot: int) -> torch.Tensor:
+            val = plane[:, slot, :]
+            if delta is not None:
+                val = overlay_row(val, slot, delta.rows, delta.words,
+                                  delta.vals, r_pad)
+            return val
+
+        skeleton = tuple(op for op, _ in prog)
+        zero = (torch.zeros((plane.shape[0], plane.shape[2]),
+                            dtype=plane.dtype, device=plane.device)
+                if kernels.TREE_ZERO in skeleton else None)
+        words = kernels.tree_fold(
+            row, skeleton, row_args, extras,
+            [arg for op, arg in prog if op == kernels.TREE_PUSHX],
+            zero=zero)
+        if want == "words":
+            # a bare push is a strided view of the plane: the count and
+            # row_counts kernels take contiguous operands
+            return words.contiguous()
+        return kernels.count(words).sum(dtype=torch.int32).reshape(1)
+
+    def _tree_program(self, plane, slots: tuple, progs: tuple,
+                      extras: tuple, delta, want: str) -> torch.Tensor:
+        """A single tree runs solo; a window of several gathers the slot
+        union once and folds each item's program over the gathered rows,
+        the item outputs packed into one tensor (one read).  ``progs``'
+        PUSH args address ``slots`` and PUSHX args ``extras``
+        (``exec.tree.assemble_items``)."""
+        if len(progs) == 1:
+            return self._tree_solo(plane, slots, progs[0], extras, delta,
+                                   want)
+        rows = self._tree_gather(plane, slots, delta)
+        return self.run_readback_pack(tuple(
+            self._tree_item(rows, extras, prog, want) for prog in progs))
+
+    def run_tree_counts(self, plane: torch.Tensor, slots: tuple,
+                        progs: tuple, extras: tuple = (),
+                        delta=None) -> torch.Tensor:
+        """K compound-tree Counts over ONE resident plane (base+delta
+        when ``delta`` is set) -> device int32[K] totals, un-read."""
+        return self._tree_program(plane, slots, progs, extras, delta,
+                                  "count")
+
+    def run_tree_words(self, plane: torch.Tensor, slots: tuple,
+                       prog: tuple, extras: tuple = (),
+                       delta=None) -> torch.Tensor:
+        """One compound tree's bitmap int32[S, W] (bitmap-valued calls,
+        TopN filters)."""
+        return self._tree_program(plane, slots, (prog,), extras, delta,
+                                  "words")
+
+    @staticmethod
+    def run_readback_pack(arrays: tuple) -> torch.Tensor:
+        """The flattened int32 outputs of a window's families as ONE
+        device tensor: the window then costs one device-to-host copy."""
+        return torch.cat([a.reshape(-1) for a in arrays])
+
+
+def _host_index(values, bound: int, device) -> torch.Tensor:
+    """int64 index tensor on ``device`` from host ints checked against
+    ``[0, bound)`` on the host (an out-of-range index on the card is a
+    device-side assert); reaches the card by an asynchronous copy from
+    pinned memory."""
+    values = tuple(int(v) for v in values)
+    if values and (min(values) < 0 or max(values) >= bound):
+        raise IndexError(f"slots [{min(values)}, {max(values)}] outside "
+                         f"[0, {bound})")
+    idx = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        return idx.pin_memory().to(device, non_blocking=True)
+    return idx

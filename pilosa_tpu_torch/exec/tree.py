@@ -1,10 +1,47 @@
-"""The boolean-algebra fold shared by the planner: structure and edge
-semantics of ``Intersect``/``Union``/``Difference``/``Xor``/``Not``, as
-``pilosa_tpu.exec.tree.fold_bool_call`` defines them."""
+"""Whole-tree compilation of compound boolean calls, and the boolean-algebra
+fold every planner shares (``pilosa_tpu.exec.tree``).
+
+:func:`lower_count_tree` lowers a compound call to a canonical, hashable
+:class:`TreeSpec`: every plain ``Row`` of the first (anchor) set field
+becomes a row of ONE gather from that field's resident plane, rows of
+other set fields and the existence row (``All``, ``Not``) enter as extra
+operands, and the operators become a postfix program of
+:mod:`pilosa_tpu_torch.engine.kernels` tree opcodes.  Duplicate leaves
+collapse to one operand (CSE within a request); across concurrent
+requests the batcher unions the gathered slots (:func:`assemble_items`),
+so N windowed trees over one plane cost one gather.
+
+Lowered here: ``Row`` on set fields, ``All``, ``Intersect`` / ``Union`` /
+``Difference`` / ``Xor`` / ``Not``.  :class:`~pilosa_tpu_torch.exec.fused.
+Unfusable` (the caller takes the generic planned path) for a tree with
+no anchor row, deeper than ``TREE_STACK_DEPTH`` or longer than
+``TREE_MAX_PROG``, and for the reference's other leaves (``UnionRows``,
+``Shift``, ``Limit``, ``ConstRow``, BSI conditions, time ranges), which
+the generic path refuses as not supported by this port.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+from pilosa_tpu_torch.engine.kernels import (TREE_AND, TREE_PUSH,
+                                             TREE_PUSHX, TREE_STACK_DEPTH,
+                                             TREE_ZERO)
+from pilosa_tpu_torch.exec.fused import Unfusable
 from pilosa_tpu_torch.pql.ast import BOOL_CALLS, Call
+from pilosa_tpu_torch.store.view import VIEW_STANDARD
+
+# the compound-call names the tree compiler owns (a bare Row/All Count
+# keeps the selected / whole-plane serving paths)
+TREE_CALLS = (frozenset(BOOL_CALLS)
+              | {"Not", "UnionRows", "Shift", "Limit", "ConstRow"})
+
+# program-length cap: past it the tree takes the generic path
+TREE_MAX_PROG = 96
+
+# op token -> tree opcode (pql.ast.BOOL_CALLS names the tokens)
+_OP_CODE = {"and": TREE_AND, "or": TREE_AND + 1,
+            "andnot": TREE_AND + 2, "xor": TREE_AND + 3}
 
 _NOT_BOOL = object()
 
@@ -15,7 +52,8 @@ def fold_bool_call(call: Call, recurse, zeros, exists, combine,
     - every other operator requires >= 1 child, and with exactly one
       child IS that child;
     - ``Not`` is unary and evaluates as ``andnot(exists, x)``;
-      ``complement(exists_thunk, child_thunk)`` controls evaluation order;
+      ``complement(exists_thunk, child_thunk)`` controls evaluation order
+      (the postfix lowering pushes ``exists`` first);
     - n-ary operators call ``combine(op, child_thunks)`` once with every
       child as a thunk.
 
@@ -41,3 +79,156 @@ def fold_bool_call(call: Call, recurse, zeros, exists, combine,
 
 def is_not_bool(value) -> bool:
     return value is _NOT_BOOL
+
+
+@dataclass(frozen=True)
+class TreeSpec:
+    """One compound tree as a canonical, hashable spec (the plan-cache
+    unit for tree shapes).  Nothing here is a tensor: ``rows`` re-resolve
+    to plane slots and ``extras`` re-materialize through the plane cache
+    on every use."""
+
+    field: str        # anchor set field whose plane rows are gathered
+    rows: tuple       # gathered row ids (first-use order, CSE-deduped)
+    extras: tuple     # ("exists",) | ("row", field, view, row_id)
+    prog: tuple       # ((opcode, arg), ...) postfix; PUSH args index
+    #                   rows, PUSHX args index extras
+    depth: int        # operator nesting depth
+    cse_hits: int     # duplicate leaves collapsed inside this request
+
+
+class _Lower:
+    """One lowering pass: call tree -> postfix program + operand pools.
+    A tree past ``TREE_STACK_DEPTH`` live values or ``TREE_MAX_PROG``
+    steps raises :class:`Unfusable`."""
+
+    def __init__(self, ex, ctx):
+        self.ex = ex
+        self.ctx = ctx
+        self.field = None                       # anchor Field
+        self.rows: dict[int, int] = {}          # row id -> arg pos
+        self.extras: dict[tuple, int] = {}      # extra spec -> pos
+        self.prog: list = []
+        self.sp = 0
+        self.max_sp = 0
+        self.depth = 0
+        self.cse_hits = 0
+
+    def _emit(self, op: int, arg=0) -> None:
+        self.sp += -1 if op >= TREE_AND else 1
+        self.max_sp = max(self.max_sp, self.sp)
+        if self.max_sp > TREE_STACK_DEPTH:
+            raise Unfusable("tree deeper than the fused operand stack")
+        if len(self.prog) >= TREE_MAX_PROG:
+            raise Unfusable("tree program longer than TREE_MAX_PROG")
+        self.prog.append((op, arg))
+
+    def _extra(self, spec: tuple):
+        pos = self.extras.get(spec)
+        if pos is None:
+            pos = self.extras[spec] = len(self.extras)
+        else:
+            self.cse_hits += 1
+        return ("e", pos)
+
+    def _push_exists(self) -> None:
+        self.ex._existence_field(self.ctx)  # raises without one
+        self._emit(TREE_PUSH, self._extra(("exists",)))
+
+    def _push_field_row(self, field, row_id: int) -> None:
+        if self.field is None:
+            self.field = field
+        if field.name == self.field.name:
+            pos = self.rows.get(row_id)
+            if pos is None:
+                pos = self.rows[row_id] = len(self.rows)
+            else:
+                self.cse_hits += 1
+            self._emit(TREE_PUSH, ("r", pos))
+            return
+        # rows of OTHER set fields enter as extra operands
+        self._emit(TREE_PUSH, self._extra(
+            ("row", field.name, VIEW_STANDARD, row_id)))
+
+    def lower(self, call: Call, depth: int) -> None:
+        name = call.name
+        if name == "Row":
+            self._push_field_row(*self.ex._row_leaf(self.ctx, call))
+            return
+        if name == "All":
+            self._push_exists()
+            return
+        self.depth = max(self.depth, depth)
+
+        def emit_fold(op, kids):
+            kids[0]()
+            for child in kids[1:]:
+                child()
+                self._emit(_OP_CODE[op])
+
+        out = fold_bool_call(
+            call,
+            recurse=lambda c: self.lower(c, depth + 1),
+            zeros=lambda: self._emit(TREE_ZERO),
+            exists=self._push_exists,
+            combine=emit_fold,
+            complement=lambda exists, child: (exists(), child(),
+                                              self._emit(
+                                                  _OP_CODE["andnot"])))
+        if is_not_bool(out):
+            raise Unfusable(f"{name} is not tree-compiled by this port")
+
+
+def lower_count_tree(ex, ctx, call: Call) -> TreeSpec:
+    """Lower one compound bitmap call (a ``Count`` child, or a bitmap
+    call) to a canonical :class:`TreeSpec`.  Raises :class:`Unfusable`
+    for shapes the tree path does not cover and ``ExecutionError`` for
+    query errors, with the eager planner's texts."""
+    low = _Lower(ex, ctx)
+    low.lower(call, 1)
+    if low.field is None:
+        raise Unfusable("no plain-row leaf to anchor the plane gather")
+    # rows stay TREE_PUSH (arg = row position), extras become TREE_PUSHX
+    # (arg = extra position)
+    prog = tuple(
+        ((TREE_PUSH, arg[1]) if arg[0] == "r" else (TREE_PUSHX, arg[1]))
+        if (op == TREE_PUSH and isinstance(arg, tuple)) else (op, arg)
+        for op, arg in low.prog)
+    return TreeSpec(field=low.field.name, rows=tuple(low.rows),
+                    extras=tuple(low.extras), prog=prog,
+                    depth=low.depth, cse_hits=low.cse_hits)
+
+
+def assemble_items(items) -> tuple:
+    """Union the items' gathered plane slots and extra tensors and remap
+    every postfix program into the shared operand space: N windowed trees
+    over overlapping rows of one plane pay ONE gather of the slot union,
+    and the same extra tensor (same exists row, same other-field row)
+    enters once.
+
+    ``items``: ``(slots, prog, extras)`` per tree, PUSH args addressing
+    that item's ``slots`` and PUSHX args its ``extras``.  Returns
+    ``(slot_union, progs, extra_list)`` in the operand order of
+    :meth:`FusedCache.run_tree_counts`."""
+    slot_pos: dict[int, int] = {}
+    extra_pos: dict[int, int] = {}
+    extra_arrays: list = []
+    for slots, _prog, extras in items:
+        for s in slots:
+            if s not in slot_pos:
+                slot_pos[s] = len(slot_pos)
+        for a in extras:
+            if id(a) not in extra_pos:
+                extra_pos[id(a)] = len(extra_arrays)
+                extra_arrays.append(a)
+    progs = []
+    for slots, prog, extras in items:
+        out = []
+        for op, arg in prog:
+            if op == TREE_PUSH:
+                arg = slot_pos[slots[arg]]
+            elif op == TREE_PUSHX:
+                arg = extra_pos[id(extras[arg])]
+            out.append((op, arg))
+        progs.append(tuple(out))
+    return tuple(slot_pos), tuple(progs), tuple(extra_arrays)

@@ -14,7 +14,10 @@ The counterpart of ``pilosa_tpu.ingest.delta`` for set-field planes:
   :func:`adjusted_selected_counts`) answers base+delta: the unchanged base
   plane is scanned by the same hand kernels as the clean path
   (``engine.kernels.row_counts`` / ``selected_row_counts``), then each
-  touched (shard, row) count moves by ``popcount(new) - popcount(old)``.
+  touched (shard, row) count moves by ``popcount(new) - popcount(old)``;
+- the **word overlays** (:func:`overlay_gathered_rows`,
+  :func:`overlay_row`) hand the tree fold base+delta WORDS: gathered
+  rows, or one row, with the overlay's cells written over them.
 
 The reference's adjustment is XLA-fused ``jnp`` (no Pallas), so it is
 plain PyTorch here.  JAX drops out-of-range scatter lanes and clamps
@@ -177,6 +180,67 @@ def adjusted_row_counts(plane: torch.Tensor, d_rows: torch.Tensor,
     if reduce_shards:
         return flat.reshape(s, r).sum(0, dtype=torch.int32)
     return flat.reshape(s, r)
+
+
+def _set_cells(target: torch.Tensor, index: tuple, match: torch.Tensor,
+               d_vals: torch.Tensor) -> torch.Tensor:
+    """``target[index][match] = d_vals[match]`` without a host sync and
+    without an out-of-range index: every lane writes, and each lane that
+    does not match writes the value the FIRST matching lane writes, to
+    that lane's place (or, when no lane matches, lane 0's current value
+    back to its clamped place), so the duplicate writes agree and the
+    result does not depend on their order.  ``index`` entries are
+    clamped int64 lane indices; live cells are unique, so matching lanes
+    never share a place."""
+    if not match.numel():
+        return target
+    first = torch.argmax(match.to(torch.int32))      # 0 when none match
+    anchor = tuple(i[first] for i in index)
+    keep = torch.where(match[first], d_vals[first], target[anchor])
+    idx = tuple(torch.where(match, i, a) for i, a in zip(index, anchor))
+    target.index_put_(idx, torch.where(match, d_vals, keep))
+    return target
+
+
+def overlay_gathered_rows(sel: torch.Tensor, row_idx: torch.Tensor,
+                          d_rows: torch.Tensor, d_words: torch.Tensor,
+                          d_vals: torch.Tensor, r_pad: int) -> torch.Tensor:
+    """Apply the overlay's word overwrites to a row GATHER, IN PLACE:
+    ``sel`` int32[S, G, W] is ``plane.index_select(1, row_idx)``, and each
+    cell whose (shard, row slot) lands in the gathered set overwrites its
+    word with the cell's current value — the base+delta words the tree
+    fold reads.  ``row_idx`` lanes may repeat a slot (padding); a cell
+    matches its FIRST lane only.  Pad cells (``d_rows >= S * r_pad``)
+    drop.  Writes into ``sel`` (a fresh gather: no copy of up to the
+    whole plane) and returns it."""
+    s, g, w = sel.shape
+    total = s * r_pad
+    d_rows = d_rows.long()
+    valid = (d_rows >= 0) & (d_rows < total)
+    idx = row_idx.to(device=sel.device, dtype=torch.int64)
+    match = ((d_rows % r_pad)[:, None] == idx[None, :]) & valid[:, None]
+    hit = match.any(dim=1)
+    lane = torch.argmax(match.to(torch.int32), dim=1)   # first matching
+    cell_s = (d_rows // r_pad).clamp(0, max(s - 1, 0))
+    word = d_words.long().clamp(0, max(w - 1, 0))
+    return _set_cells(sel, (cell_s, lane, word), hit, d_vals)
+
+
+def overlay_row(val: torch.Tensor, slot: int, d_rows: torch.Tensor,
+                d_words: torch.Tensor, d_vals: torch.Tensor,
+                r_pad: int) -> torch.Tensor:
+    """Apply the overlay's word overwrites to ONE plane row: ``val``
+    int32[S, W] is ``plane[:, slot, :]``; every cell whose row slot is
+    ``slot`` overwrites its word.  Returns a new tensor (``val`` is a
+    view of the resident plane)."""
+    s, w = val.shape
+    total = s * r_pad
+    d_rows = d_rows.long()
+    match = ((d_rows >= 0) & (d_rows < total)
+             & (d_rows % r_pad == int(slot)))
+    cell_s = (d_rows // r_pad).clamp(0, max(s - 1, 0))
+    word = d_words.long().clamp(0, max(w - 1, 0))
+    return _set_cells(val.clone(), (cell_s, word), match, d_vals)
 
 
 def adjusted_selected_counts(plane: torch.Tensor, row_idx: torch.Tensor,

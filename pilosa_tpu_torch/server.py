@@ -35,6 +35,7 @@ def main(argv=None) -> None:
         pass
     finally:
         server.close()
+        executor.close()
         holder.close()
 
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
-the delta-overlay merge and fold on the card against the same calls on
-the CPU.  Marked ``gpu``: without a CUDA device every test skips.  The
-file imports nothing of JAX, so on a machine without it run it as
+the delta-overlay merge and fold, the word overlays, the whole-tree
+programs and a small concurrent burst through the default executor on
+the card against the same calls on the CPU.  Marked ``gpu``: without a
+CUDA device every test skips.  The file imports nothing of JAX, so on
+a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -127,3 +129,107 @@ def test_apply_plane_cells_equal_cpu(dev):
     got = _apply_plane_cells(on, *args)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(on.cpu(), plane)    # out of place on the card too
+
+
+def test_overlay_helpers_equal_cpu(dev):
+    s, r, w = 13, 8, 1001
+    plane = _words(21, (s, r, w), "cpu")
+    cells = _overlay(22, s, r, w, 60, 64)
+    on = [t.to(dev) for t in (plane, *cells)]
+    idx = torch.tensor([5, 0, 7, 0], dtype=torch.int64)   # a repeated slot
+    want = delta.overlay_gathered_rows(plane.index_select(1, idx), idx,
+                                       *cells, r)
+    got = delta.overlay_gathered_rows(on[0].index_select(1, idx.to(dev)),
+                                      idx.to(dev), *on[1:], r)
+    assert torch.equal(got.cpu(), want)
+    for slot in (0, 3, r - 1):
+        want = delta.overlay_row(plane[:, slot], slot, *cells, r)
+        got = delta.overlay_row(on[0][:, slot], slot, *on[1:], r)
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(on[0].cpu(), plane)       # the plane is untouched
+
+
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_tree_counts_equal_cpu(dev, with_delta):
+    """Solo and windowed tree programs on the card against the CPU; the
+    popcount of every folded tree is one ``count`` launch."""
+    from pilosa_tpu_torch.exec.fused import FusedCache
+    from pilosa_tpu_torch.ingest.delta import DeltaOverlay
+    s, r, w = 40, 16, 32768
+    plane = _words(31, (s, r, w), "cpu")
+    extras = (_words(32, (s, w), "cpu"),)
+    d_cpu = d_dev = None
+    if with_delta:
+        cells = _overlay(33, s, r, w, 300, 512)
+        d_cpu = DeltaOverlay(*cells, n=300, bits=0)
+        d_dev = DeltaOverlay(*(c.to(dev) for c in cells), n=300, bits=0)
+    P, X, Z = tk.TREE_PUSH, tk.TREE_PUSHX, tk.TREE_ZERO
+    AND, OR, ANDNOT, XOR = (tk.TREE_AND, tk.TREE_OR, tk.TREE_ANDNOT,
+                            tk.TREE_XOR)
+    slots = (3, 9, 0)
+    progs = (((P, 0), (P, 1), (OR, 0), (X, 0), (AND, 0)),
+             ((P, 2), (P, 0), (ANDNOT, 0), (Z, 0), (XOR, 0)),
+             ((P, 1),))
+    fused = FusedCache()
+    plane_dev, extras_dev = plane.to(dev), tuple(e.to(dev) for e in extras)
+    for window in (progs[:1], progs[2:], progs):
+        want = fused.run_tree_counts(plane, slots, window, extras, d_cpu)
+        cuda_kernels.reset_launches()
+        got = fused.run_tree_counts(plane_dev, slots, window, extras_dev,
+                                    d_dev)
+        assert torch.equal(got.cpu(), want)
+        assert cuda_kernels.LAUNCHES["count"] == len(window)
+    want = fused.run_tree_words(plane, slots, progs[2], extras, d_cpu)
+    got = fused.run_tree_words(plane_dev, slots, progs[2], extras_dev, d_dev)
+    assert got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+def test_concurrent_burst_equal_cpu(dev, tmp_path):
+    """A small concurrent burst through the default executor on the card
+    gives the CPU executor's answers."""
+    import threading
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import Holder
+    rng = np.random.default_rng(5)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 8), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(6 << 20, 40000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+        idx.note_columns(cols)
+    mix = ["".join(f"Count(Row(f={r}))" for r in range(8)),
+           "Count(Row(f=1))Count(Row(f=6))", "TopN(f, Row(g=0), n=5)",
+           "Count(Intersect(Row(f=1), Union(Row(f=2), Row(f=5)), Row(g=0)))"
+           "Count(Difference(Union(Row(f=1), Row(f=2)), Row(f=3)))"
+           "Count(Xor(Row(f=4), Row(f=7)))Count(Not(Row(f=0)))"]
+    cpu = API(holder, Executor(holder, device="cpu",
+                               count_batch_window="off"))
+    want = {q: cpu.query("i", q) for q in mix}
+    api = API(holder, Executor(holder, device=dev))
+    errors = []
+
+    def client(k):
+        try:
+            for j in range(4):
+                q = mix[(k + j) % len(mix)]
+                if api.query("i", q) != want[q]:
+                    errors.append(q)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+    finally:
+        api.executor.close()
+        holder.close()

@@ -1,11 +1,13 @@
 """The port's main path, end to end, against the JAX package.
 
 One data directory, written as real fragment snapshots plus op-logs,
-answers a query list through the JAX ``API`` over
-``Executor(count_batch_window="off", tree_fusion=False,
+answers a query list through the JAX ``API`` over ``Executor(...,
 plane_paging=False, kernel_tier="pallas")`` (Pallas kernels in interpret
-mode) and through the port's ``API`` on the CPU; the JSON must be equal,
-in process and over REST.  Also here: the import hygiene of the port and
+mode) and through the port's ``API`` on the CPU, both in two
+configurations: "off" (``count_batch_window="off", tree_fusion=False``,
+each request alone) and "default" (the adaptive cross-request batcher,
+whole-tree compilation and the plan cache).  The JSON must be equal, in
+process and over REST.  Also here: the import hygiene of the port and
 its refusal to run without a card unless the CPU is asked for.
 """
 
@@ -108,18 +110,24 @@ def _write_index(root: str) -> None:
                 fh.write(blob)
 
 
-def _jax_api(root: str, monkeypatch):
+# executor keywords of each configuration (the same in both packages)
+CONFIGS = {"off": {"count_batch_window": "off", "tree_fusion": False},
+           "default": {}}
+
+
+def _jax_api(root: str, monkeypatch, config: str = "off"):
     monkeypatch.setenv("PILOSA_PALLAS_INTERPRET", "1")
     holder = JHolder(root).open()
-    ex = JExecutor(holder, count_batch_window="off", tree_fusion=False,
-                   plane_paging=False, kernel_tier="pallas")
+    ex = JExecutor(holder, plane_paging=False, kernel_tier="pallas",
+                   **CONFIGS[config])
     assert ex.fused.effective_tier == "pallas-interpret"
     return holder, JAPI(holder, ex)
 
 
-def _port_api(root: str):
+def _port_api(root: str, config: str = "default"):
     holder = THolder(root).open()
-    return holder, TAPI(holder, TExecutor(holder, device="cpu"))
+    return holder, TAPI(holder, TExecutor(holder, device="cpu",
+                                          **CONFIGS[config]))
 
 
 @pytest.fixture(scope="module")
@@ -129,12 +137,15 @@ def index_dir(tmp_path_factory):
     return root
 
 
-@pytest.fixture(scope="module")
-def apis(index_dir):
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def apis(index_dir, request):
+    """(JAX API, port API, configuration name), both packages in the
+    same configuration."""
     mp = pytest.MonkeyPatch()
-    jh, japi = _jax_api(index_dir, mp)
-    th, tapi = _port_api(index_dir)
-    yield japi, tapi
+    jh, japi = _jax_api(index_dir, mp, request.param)
+    th, tapi = _port_api(index_dir, request.param)
+    yield japi, tapi, request.param
+    tapi.executor.close()
     th.close()
     jh.close()
     mp.undo()
@@ -142,36 +153,39 @@ def apis(index_dir):
 
 @pytest.mark.parametrize("pql", READS)
 def test_same_json(apis, pql):
-    japi, tapi = apis
+    japi, tapi, _ = apis
     want = japi.query("i", pql)["results"]
     got = tapi.query("i", pql)
     assert json.dumps(got) == json.dumps({"results": want})
 
 
 def test_read_paths_reach_each_family(apis, monkeypatch):
-    """The query list drives the whole-plane, selected-row and generic
-    count families of the port (counted by wrapping the families)."""
-    _, tapi = apis
+    """The query list drives the whole-plane and selected-row families of
+    the port, and the generic count family ("off") or the whole-tree
+    family ("default") for compound Counts (counted by wrapping the
+    families)."""
+    _, tapi, config = apis
     fused = tapi.executor.fused
+    compound = "run_count_batch" if config == "off" else "run_tree_counts"
     seen = []
-    for name in ("run_rowcounts_batch", "run_selected_counts",
-                 "run_count_batch"):
+    for name in ("run_rowcounts_batch", "run_selected_counts", compound):
         fn = getattr(fused, name)
         monkeypatch.setattr(fused, name,
-                            lambda *a, _f=fn, _n=name: (seen.append(_n),
-                                                        _f(*a))[1])
+                            lambda *a, _f=fn, _n=name, **k:
+                            (seen.append(_n), _f(*a, **k))[1])
     for pql in READS[:5]:
         tapi.query("i", pql)
     assert {"run_rowcounts_batch", "run_selected_counts",
-            "run_count_batch"} <= set(seen)
+            compound} <= set(seen)
 
 
-def test_writes_same_json(index_dir, tmp_path, monkeypatch):
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_writes_same_json(index_dir, tmp_path, monkeypatch, config):
     jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
     shutil.copytree(index_dir, jdir)
     shutil.copytree(index_dir, tdir)
-    jh, japi = _jax_api(jdir, monkeypatch)
-    th, tapi = _port_api(tdir)
+    jh, japi = _jax_api(jdir, monkeypatch, config)
+    th, tapi = _port_api(tdir, config)
     try:
         for pql in WRITES:
             want = japi.query("i", pql)["results"]
@@ -180,8 +194,8 @@ def test_writes_same_json(index_dir, tmp_path, monkeypatch):
         th.close()
         jh.close()
     # each package reopens what the other wrote: same answers again
-    jh, japi = _jax_api(tdir, monkeypatch)
-    th, tapi = _port_api(jdir)
+    jh, japi = _jax_api(tdir, monkeypatch, config)
+    th, tapi = _port_api(jdir, config)
     try:
         for pql in (COUNTS, "Row(h=3)", "Count(All())", "TopN(h)"):
             assert tapi.query("i", pql) == \
@@ -193,7 +207,7 @@ def test_writes_same_json(index_dir, tmp_path, monkeypatch):
 
 def test_errors_are_400(apis):
     from pilosa_tpu_torch.api import ApiError
-    _, tapi = apis
+    _, tapi, _ = apis
     for pql in ("Count(Row(nope=1))", "Count(", "Row(f=1, g=2)",
                 "Sum(field=f)"):
         with pytest.raises(ApiError) as e:
@@ -216,7 +230,7 @@ def _get(base: str, path: str) -> dict:
 
 
 def test_rest_same_json(apis):
-    japi, tapi = apis
+    japi, tapi, _ = apis
     js = JServer(japi, "127.0.0.1", 0).start()
     ts = TServer(tapi, "127.0.0.1", 0).start()
     try:
@@ -314,7 +328,7 @@ def test_concurrent_queries_agree(apis, index_dir):
     import threading
     queries = [COUNTS, READS[1], READS[4], "TopN(f, Row(g=0), n=5)"]
     want = {q: apis[1].query("i", q) for q in queries}
-    holder, tapi = _port_api(index_dir)
+    holder, tapi = _port_api(index_dir, apis[2])
     errors = []
 
     def client(k):
@@ -338,5 +352,6 @@ def test_concurrent_queries_agree(apis, index_dir):
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(interval)
+        tapi.executor.close()
         holder.close()
     assert not errors

@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Five phases; any failure raises and the exit code is non-zero:
+Six phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
    its plain PyTorch version on the card, bit for bit, at the main-path
-   shapes and at ragged ones, and time both with CUDA events.
+   shapes and at ragged ones (``row_counts`` also at the BSI shapes: the
+   [954, 22, 32768] bit plane with a filter and a [2048, 22, 1] overlay
+   mini plane), and time both with CUDA events.
 2. Serve a 1B-column index (954 shards x 32 rows x 32768 words, ~25%
    dense, generated from --seed) written as real fragment snapshots:
    fresh Holder -> Executor (its defaults: the adaptive cross-request
@@ -40,8 +42,25 @@ Five phases; any failure raises and the exit code is non-zero:
    at a quarter fill.  Then one 100,000-pair batch, past what the
    overlay and a fold cover: the next 32-Count rebuilds the plane.
    Launch counters are reset before and read after this phase too.
-5. Print the ``kernels`` JSON line, the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {...}}``.
+5. BSI, on the same holder and index: an int field ``amount`` (min
+   -1,000,000, max 1,000,000: base 0, bit depth 20) with about half the
+   1.0e9 columns holding a value, written as 954 fragment snapshots (a
+   2.75 GB bit plane on the card).  Ten requests (Sum, filtered Sum, Min,
+   filtered Max, two range Counts, a compound Count with a BSI leaf, a
+   TopN with a BSI filter, Percentile, Distinct) through the default
+   executor, each on the fast lane, then through the "off" one, every
+   answer checked against the numpy oracle; each request's device ms
+   under the profiler beside its bound (one read of the plane, two for
+   Sum); a concurrent burst of 32 clients x 6 passes over Sum, filtered
+   Sum, Min, filtered Max and the two range Counts, whose ``sum``,
+   ``minmax`` and ``bsirange`` windows must coalesce; then six REST
+   ``importValue`` batches of 1024 values (half overwriting, half into
+   empty columns), each followed by Sum, Min, Max and a range Count,
+   absorbed into the BSI overlay with no rebuild and folded at a quarter
+   fill, and one 50,000-value batch whose next read rebuilds.
+6. Print the ``kernels`` JSON line, the card's name and power limit, and
+   as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
+   seconds are printed on a line of their own.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX or of ``pilosa_tpu``.
@@ -51,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -73,6 +93,15 @@ SET_BATCHES, CLEAR_BATCHES = 10, 2
 OVER_CAP = 100_000             # pairs of the batch past the overlay's reach
 COMPACT_FRACTION = 0.25        # overlay fill that starts the compactor
 CLIENTS, PASSES = 32, 6        # concurrent clients (bench.py) and passes
+# the BSI phase: int field ``amount`` over the same shards (amounts in
+# cents up to +-$10,000: base 0, bit depth 20), about half the columns
+# holding a value
+BSI_MIN, BSI_MAX, BSI_DEPTH = -1_000_000, 1_000_000, 20
+BSI_ROWS = BSI_DEPTH + 2       # exists, sign, 20 magnitude bits
+BSI_FILL = 0.5
+VALUE_BATCH, VALUE_BATCHES = 1024, 6   # importValue batches while serving
+VALUE_OVER_CAP = 50_000        # values of the batch past the BSI overlay
+MINI_COLUMNS = 2048            # mini-plane lanes timed in phase 1
 REPLACES = {
     "row_counts": "pilosa_tpu/engine/pallas_kernels.py:111",
     "selected_row_counts": "pilosa_tpu/engine/pallas_kernels.py:207",
@@ -218,6 +247,29 @@ def kernel_phase(shards: int, seed: int) -> dict:
     log(f"row_counts+filter: {ms:.4f} ms ({fb / ms / 1e6:.1f} GB/s), bound "
         f"{bound(fb, 3 * s * r * w)[0]:.4f} ms")
     del plane, filt, other
+    # the BSI path's shapes: Sum's filtered pass over the [S, 22, W] bit
+    # plane, and the overlay's [K, 22, 1] mini plane with its filter
+    shapes = {}
+    for tag, (ps, pw), iters in (("plane", (s, w), 20),
+                                 ("mini", (MINI_COLUMNS, 1), 200)):
+        bp = _rand_words(gen, (ps, BSI_ROWS, pw), dev)
+        bf = _rand_words(gen, (ps, pw), dev)
+        err = check(f"row_counts+filter BSI {tag} {ps}x{BSI_ROWS}x{pw}",
+                    cuda_kernels.row_counts(bp, bf),
+                    kernels.row_counts_plain(bp, bf))
+        nbytes = (ps * BSI_ROWS * pw + ps * pw + ps * BSI_ROWS) * 4
+        b_ms, b_by = bound(nbytes, 3 * ps * BSI_ROWS * pw)
+        k_ms = time_ms(lambda: cuda_kernels.row_counts(bp, bf), iters)
+        p_ms = time_ms(lambda: kernels.row_counts_plain(bp, bf), 3,
+                       warmup=1)
+        shapes[tag] = {"shape": [ps, BSI_ROWS, pw], "max_abs_err": err,
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+        log(f"row_counts+filter BSI {tag} {ps}x{BSI_ROWS}x{pw}: "
+            f"{k_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (at "
+            f"{b_ms / k_ms:.1%} of the bound rate), plain {p_ms:.3f} ms")
+        del bp, bf
+    out["row_counts"]["bsi_shapes"] = shapes
     torch.cuda.empty_cache()
     return out
 
@@ -236,7 +288,7 @@ def make_index(data_dir: str, shards: int, seed: int):
     """Generate the bench data and write it as real fragment snapshots
     (index ``bench``: field ``f`` 32 rows ~25% dense, field ``g`` 4
     filter rows ~50% dense).  Returns the numpy oracle's answers."""
-    from pilosa_tpu_torch.store import Holder, roaring
+    from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
@@ -251,6 +303,10 @@ def make_index(data_dir: str, shards: int, seed: int):
     idx = h.create_index("bench", track_existence=False)
     idx.create_field("f")
     idx.create_field("g")
+    idx.create_field("amount", FieldOptions(type="int", min=BSI_MIN,
+                                            max=BSI_MAX))
+    if idx.field("amount").options.bit_depth != BSI_DEPTH:
+        raise AssertionError("amount's bit depth is not 20")
     h.close()
     total = 0
     for name, arr in (("f", f), ("g", g)):
@@ -292,6 +348,9 @@ def make_index(data_dir: str, shards: int, seed: int):
     oracle["ingest"] = _ingest_batches(f, g[:, 0], state, shards, seed)
     log(f"numpy oracle and {len(oracle['ingest']['batches']) + 1} import "
         f"batches in {time.perf_counter() - t0:.1f}s")
+    # f now holds its state after the ingest phase, which the BSI phase
+    # serves
+    oracle["bsi"] = make_bsi(data_dir, f, g, shards, seed)
     return oracle
 
 
@@ -372,6 +431,207 @@ def _ingest_batches(f, g0, state, shards: int, seed: int) -> dict:
     over = (rows, cols, False, int(hit.sum()), state["counts"].copy(),
             state["filtered"].copy())
     return {"batches": batches, "over_cap": over, "first_trees": first_trees}
+
+
+# ---------------------------------------------------------------------------
+# the BSI field: data, oracle and the value batches
+# ---------------------------------------------------------------------------
+
+
+def _bits(words: np.ndarray) -> np.ndarray:
+    """uint32[W] -> bool[W * 32], column order LSB first."""
+    return np.unpackbits(words.view(np.uint8), bitorder="little").astype(
+        bool)
+
+
+def _pack(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def _bsi_shard(data_dir: str, s: int, seed: int, f: np.ndarray,
+               g: np.ndarray, picks: np.ndarray) -> dict:
+    """Generate shard ``s`` of ``amount`` from (seed, s), write its
+    fragment snapshot with the port's writer, and return its part of the
+    oracle (and the values at the candidate offsets ``picks``)."""
+    from pilosa_tpu_torch.store import roaring
+    rng = np.random.default_rng([seed, 7, s])
+    exists = rng.random(1 << 20, dtype=np.float32) < BSI_FILL
+    vals = np.where(exists, rng.integers(BSI_MIN, BSI_MAX + 1, 1 << 20,
+                                         dtype=np.int32), 0)
+    mag = np.abs(vals)
+    rows = np.empty((BSI_ROWS, WORDS), np.uint32)
+    rows[0] = _pack(exists)
+    rows[1] = _pack(vals < 0)
+    for b in range(BSI_DEPTH):
+        rows[2 + b] = _pack((mag & (1 << b)) != 0)
+    frag_dir = os.path.join(data_dir, "bench", "amount", "views",
+                            "bsi_amount", "fragments")
+    with open(os.path.join(frag_dir, str(s)), "wb") as fh:
+        fh.write(roaring.serialize_dense(rows))
+    g0, g1 = _bits(g[s, 0]) & exists, _bits(g[s, 1]) & exists
+    top = exists & (vals > 900_000)
+    return {
+        "hist": np.bincount(vals[exists] - BSI_MIN,
+                            minlength=BSI_MAX - BSI_MIN + 1),
+        "sum_g0": int(vals[g0].sum(dtype=np.int64)), "cnt_g0": int(g0.sum()),
+        "max_g1": int(vals[g1].max()) if g1.any() else None,
+        "cnt_max_g1": int((vals[g1] == vals[g1].max()).sum())
+        if g1.any() else 0,
+        "inter": int((_bits(f[s, 1]) & exists & (vals >= 0)).sum()),
+        "topn": _popcounts(f[s] & _pack(top)[None, :]),
+        "picks": (exists[picks], vals[picks])}
+
+
+class _Hist:
+    """The oracle's value histogram of ``amount`` and what it answers."""
+
+    def __init__(self, hist: np.ndarray):
+        self.h = hist.astype(np.int64)
+
+    def move(self, old: np.ndarray, new: np.ndarray) -> None:
+        """Columns whose value goes from ``old`` (None = empty) to
+        ``new``."""
+        np.add.at(self.h, old[old != _EMPTY] - BSI_MIN, -1)
+        np.add.at(self.h, new - BSI_MIN, 1)
+
+    def at(self, v: int) -> int:
+        return int(self.h[v - BSI_MIN])
+
+    def count_in(self, lo: int, hi: int) -> int:
+        """Columns with lo <= value <= hi."""
+        return int(self.h[lo - BSI_MIN:hi - BSI_MIN + 1].sum())
+
+    def sum_count(self) -> tuple[int, int]:
+        v = np.arange(BSI_MIN, BSI_MAX + 1, dtype=np.int64)
+        return int((self.h * v).sum()), int(self.h.sum())
+
+    def nonzero(self) -> np.ndarray:
+        return np.nonzero(self.h)[0] + BSI_MIN
+
+
+_EMPTY = np.iinfo(np.int64).min   # an empty column's "old value"
+
+
+def _vc(value: int, count: int) -> list:
+    return [{"value": int(value), "count": int(count)}]
+
+
+BSI_SEQ = ("Sum(field=amount)", "Sum(Row(g=0), field=amount)",
+           "Min(field=amount)", "Max(Row(g=1), field=amount)",
+           "Count(Row(amount > 250000))", "Count(Row(-1000 < amount < 1000))",
+           "Count(Intersect(Row(f=1), Row(amount >= 0)))",
+           "TopN(f, Row(amount > 900000), n=5)",
+           "Percentile(field=amount, nth=99)",
+           "Distinct(Row(amount > 999000), field=amount)")
+BSI_MIX = BSI_SEQ[:6]            # the concurrent burst's requests
+BSI_NAMES = dict(zip(BSI_SEQ, ("Sum", "filtered Sum", "Min",
+                               "filtered Max", "Count(amount > 250000)",
+                               "Count(-1000 < amount < 1000)",
+                               "Count(f1 & amount >= 0)", "filtered TopN",
+                               "Percentile 99", "filtered Distinct")))
+BSI_INGEST = ("Sum(field=amount)", "Min(field=amount)", "Max(field=amount)",
+              "Count(Row(amount > 250000))")
+
+
+def _bsi_ingest_expect(hist: _Hist) -> dict:
+    vals = hist.nonzero()
+    total, cnt = hist.sum_count()
+    lo, hi = int(vals[0]), int(vals[-1])
+    return {BSI_INGEST[0]: _vc(total, cnt),
+            BSI_INGEST[1]: _vc(lo, hist.at(lo)),
+            BSI_INGEST[2]: _vc(hi, hist.at(hi)),
+            BSI_INGEST[3]: [hist.count_in(250_001, BSI_MAX)]}
+
+
+def _changed_bits(old: np.ndarray, new: np.ndarray) -> int:
+    """Bits a value import changes: the symmetric difference of the old
+    and new encodings (exists, sign, magnitude bits)."""
+    was = old != _EMPTY
+    o = np.where(was, old, 0)
+    flips = np.bitwise_count(np.abs(o) ^ np.abs(new)).astype(np.int64)
+    return int(np.where(was, ((o < 0) != (new < 0)) + flips,
+                        1 + (new < 0) + flips).sum())
+
+
+def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
+             seed: int) -> dict:
+    """Write ``amount``'s fragment snapshots (view ``bsi_amount``, rows
+    0..21) and return the BSI oracle: the sequential requests' answers,
+    and the value batches with the answers expected after each.  ``f``
+    must hold field f's final state (after the ingest phase)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(data_dir, "bench", "amount", "views",
+                             "bsi_amount", "fragments"), exist_ok=True)
+    rng = np.random.default_rng(seed + 2)
+    n_cand = 3 * VALUE_BATCH * VALUE_BATCHES + VALUE_OVER_CAP
+    cand = np.sort(rng.choice(shards << 20, n_cand, replace=False))
+    bounds = np.searchsorted(cand, np.arange(shards + 1) << 20)
+    hist = np.zeros(BSI_MAX - BSI_MIN + 1, np.int64)
+    sum_g0 = cnt_g0 = inter = 0
+    max_g1: list = []
+    topn = np.zeros(ROWS, np.int64)
+    c_exists = np.zeros(n_cand, bool)
+    c_vals = np.zeros(n_cand, np.int64)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futs = [pool.submit(_bsi_shard, data_dir, s, seed, f, g,
+                            cand[bounds[s]:bounds[s + 1]] & ((1 << 20) - 1))
+                for s in range(shards)]
+        for s, fut in enumerate(futs):
+            r = fut.result()
+            hist += r["hist"]
+            sum_g0 += r["sum_g0"]
+            cnt_g0 += r["cnt_g0"]
+            inter += r["inter"]
+            topn += r["topn"]
+            if r["max_g1"] is not None:
+                max_g1.append((r["max_g1"], r["cnt_max_g1"]))
+            c_exists[bounds[s]:bounds[s + 1]] = r["picks"][0]
+            c_vals[bounds[s]:bounds[s + 1]] = r["picks"][1]
+    hist = _Hist(hist)
+    vals = hist.nonzero()
+    total, cnt = hist.sum_count()
+    best = max(v for v, _ in max_g1)
+    pct_target = min(cnt, max(1, math.ceil(99 / 100.0 * cnt)))
+    pct = int(np.searchsorted(np.cumsum(hist.h), pct_target)) + BSI_MIN
+    expect = {
+        BSI_SEQ[0]: _vc(total, cnt),
+        BSI_SEQ[1]: _vc(sum_g0, cnt_g0),
+        BSI_SEQ[2]: _vc(vals[0], hist.at(int(vals[0]))),
+        BSI_SEQ[3]: _vc(best, sum(c for v, c in max_g1 if v == best)),
+        BSI_SEQ[4]: [hist.count_in(250_001, BSI_MAX)],
+        BSI_SEQ[5]: [hist.count_in(-999, 999)],
+        BSI_SEQ[6]: [inter],
+        BSI_SEQ[7]: [_topn(topn, 5)],
+        BSI_SEQ[8]: _vc(pct, hist.at(pct)),
+        BSI_SEQ[9]: [{"values": [int(v) for v in vals[vals > 999_000]]}],
+    }
+    log(f"BSI data: amount over {shards} shards, {cnt} values "
+        f"({cnt / (shards << 20):.1%} of columns), {shards} fragment "
+        f"snapshots and the oracle in {time.perf_counter() - t0:.1f}s")
+
+    # the value batches: each half overwrites, half fills empty columns;
+    # every column is written once across the phase
+    old = np.where(c_exists, c_vals, _EMPTY)
+    full, empty = np.nonzero(c_exists)[0], np.nonzero(~c_exists)[0]
+    half = VALUE_BATCH // 2
+    batches = []
+    used = np.zeros(n_cand, bool)
+    for k in range(VALUE_BATCHES):
+        pick = np.concatenate([full[k * half:(k + 1) * half],
+                               empty[k * half:(k + 1) * half]])
+        used[pick] = True
+        batches.append(pick)
+    rest = np.nonzero(~used)[0]
+    batches.append(rng.permutation(rest)[:VALUE_OVER_CAP])
+    out = []
+    for pick in batches:
+        new = rng.integers(BSI_MIN, BSI_MAX + 1, len(pick))
+        changed = _changed_bits(old[pick], new)
+        hist.move(old[pick], new)
+        out.append((cand[pick], new, changed, _bsi_ingest_expect(hist)))
+    return {"expect": expect, "batches": out[:-1], "over_cap": out[-1]}
 
 
 def device_times(run) -> tuple[list, float]:
@@ -487,29 +747,30 @@ def _pct_ms(ts: list, q: float) -> float:
 
 
 def burst(api, expect: dict, clients: int = CLIENTS,
-          passes: int = PASSES) -> dict:
-    """``clients`` threads, each making ``passes`` passes over ``MIX``
+          passes: int = PASSES, mix: tuple = MIX,
+          names: dict = MIX_NAMES) -> dict:
+    """``clients`` threads, each making ``passes`` passes over ``mix``
     (each client starts at another request, so kinds mix in a window);
     every answer is checked.  Returns the wall seconds, the request
     count and the latencies by request."""
-    lat: dict = {q: [] for q in MIX}
+    lat: dict = {q: [] for q in mix}
     errors: list = []
     lock = threading.Lock()
     start = threading.Barrier(clients + 1, timeout=600)
 
     def client(k: int) -> None:
-        mine: dict = {q: [] for q in MIX}
+        mine: dict = {q: [] for q in mix}
         try:
             start.wait()
             for _ in range(passes):
-                for i in range(len(MIX)):
-                    q = MIX[(k + i) % len(MIX)]
+                for i in range(len(mix)):
+                    q = mix[(k + i) % len(mix)]
                     t = time.perf_counter()
                     got = api.query("bench", q)["results"]
                     mine[q].append(time.perf_counter() - t)
                     if got != expect[q]:
                         raise AssertionError(
-                            f"{MIX_NAMES[q]}: got {str(got)[:200]}, want "
+                            f"{names[q]}: got {str(got)[:200]}, want "
                             f"{str(expect[q])[:200]}")
         except Exception as e:  # noqa: BLE001 — reported below
             with lock:
@@ -533,8 +794,9 @@ def burst(api, expect: dict, clients: int = CLIENTS,
     if errors:
         raise AssertionError(f"{len(errors)} client(s) failed: {errors[:3]}")
     return {"wall": wall, "lat": lat,
-            "requests": clients * passes * len(MIX),
-            "counts": clients * passes * sum(MIX_COUNTS.values())}
+            "requests": clients * passes * len(mix),
+            "counts": clients * passes * sum(MIX_COUNTS.get(q, 0)
+                                             for q in mix)}
 
 
 def concurrent_phase(apis: dict, expect: dict, cuda: bool,
@@ -640,9 +902,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2, 3 and 4 over one holder; returns the launch counts of
-    each path's run, keyed "serve", "concurrent", "concurrent_off",
-    "concurrent_overlay" and "ingest"."""
+    """Phases 2 to 5 over one holder; returns the launch counts of each
+    path's run, keyed "serve", "concurrent", "concurrent_off",
+    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent" and
+    "bsi_ingest"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -661,7 +924,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         TOPN_G: [_topn(oracle["filtered"], 5)],
     }
 
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     holder = Holder(data_dir).open()
     log(f"holder opened in {time.perf_counter() - t0:.2f}s")
     # the overlay keeps the reference's 65536 cells, but folds at a
@@ -735,6 +998,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError("phase 2's sequential requests never took "
                                  "the solo fast lane")
 
+        log(f"phase 2 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
         log("== phase 3: concurrent serving ==")
         # fold the Set's one-cell overlay first: this phase serves a
         # clean plane (phase 4 serves over a live overlay)
@@ -756,9 +1021,17 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             _mix_expect(served["counts"], served["filtered"],
                         served["trees"]), cuda, clients, passes)
 
+        log(f"phase 3 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
         log("== phase 4: ingest while serving ==")
         ingest, overlay = ingest_phase(client, planes, oracle["ingest"],
                                        cuda, api, clients, passes)
+        log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        log("== phase 5: BSI ==")
+        bsi = bsi_phase(client, holder, planes, oracle["bsi"], cuda,
+                        device, clients, passes)
+        log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -777,11 +1050,11 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             f"kernel: {busy[2]}")
     log(f"launches in the serving phase: {json.dumps(launches)}")
     for k in ("row_counts", "selected_row_counts", "count"):
-        if launches[k] < 1:
+        if cuda and launches[k] < 1:
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest}
+            "ingest": ingest, **bsi}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -886,9 +1159,196 @@ def ingest_phase(client, planes, batches: dict, cuda: bool, api,
             + ", ".join(f"{_short(k)} {v:.3f} ms" for k, v in rows_ms[:6]))
     log(f"launches in the ingest phase: {json.dumps(launches)}")
     for k in ("row_counts", "selected_row_counts"):
-        if launches[k] < 1:
+        if cuda and launches[k] < 1:
             raise AssertionError(f"ingest never launched the {k} kernel")
     return launches, overlay
+
+
+# ---------------------------------------------------------------------------
+# phase 5: BSI
+# ---------------------------------------------------------------------------
+
+
+def _kind_stats(b0: dict, b1: dict, kind: str) -> tuple[int, int, int]:
+    """(family calls, items, largest group) of one batcher kind between
+    two ``serving_stats()`` snapshots."""
+    k0 = b0.get("kinds", {}).get(kind, {})
+    k1 = b1.get("kinds", {}).get(kind, {})
+    return (k1.get("groups", 0) - k0.get("groups", 0),
+            k1.get("items", 0) - k0.get("items", 0), k1.get("maxItems", 0))
+
+
+def bsi_phase(client, holder, planes, bsi: dict, cuda: bool, device,
+              clients: int = CLIENTS, passes: int = PASSES) -> dict:
+    """Phase 5 over ``amount``: the sequential requests through the
+    default executor (each on the fast lane) and the "off" one, the
+    device ms of each request beside its bound, a concurrent burst, and
+    value imports over REST absorbed into the BSI overlay.  Returns the
+    kernel launches of the sequential, concurrent and ingest runs."""
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    api = client.api
+    ex = api.executor
+    expect = bsi["expect"]
+    index = holder.index("bench")
+    field = index.field("amount")
+    shards = tuple(index.available_shards())
+    plane_bytes = len(shards) * BSI_ROWS * WORDS * 4
+    out = {}
+
+    t0 = time.perf_counter()
+    builds = planes.builds
+    client.ask(BSI_SEQ[0], expect[BSI_SEQ[0]], tag="BSI Sum, first")
+    if planes.builds != builds + 1:
+        raise AssertionError("the first Sum did not build the BSI plane")
+    shape = list(planes.bsi_plane("bench", field, shards).plane.shape)
+    log(f"BSI plane int32{shape} ({plane_bytes / 1e9:.2f} GB) built in "
+        f"{planes.last_build_seconds:.2f}s ({time.perf_counter() - t0:.2f}s "
+        "with the first Sum)")
+    b0 = ex.serving_stats()
+    cuda_kernels.reset_launches()
+    for q in BSI_SEQ:
+        client.ask(q, expect[q], reps=3, tag=f"BSI {BSI_NAMES[q]}")
+    b1 = ex.serving_stats()
+    hits = b1["fastLaneHits"] - b0["fastLaneHits"]
+    if hits < 3 * 8:   # every request but Percentile and Distinct
+        raise AssertionError(f"{hits} fast-lane hits for the 24 BSI "
+                             "requests that go through the batcher")
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   delta_compact_fraction=COMPACT_FRACTION,
+                   count_batch_window="off", tree_fusion=False)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    for q in BSI_SEQ:
+        offc.ask(q, expect[q], reps=2, tag=f"BSI off {BSI_NAMES[q]}")
+    out["bsi"] = dict(cuda_kernels.LAUNCHES)
+    log(f"BSI sequential: every answer equal to the oracle through both "
+        f"configurations; {hits} fast-lane hits; launches "
+        f"{json.dumps(out['bsi'])}")
+    for q in BSI_SEQ:
+        for c, cfg in ((client, "default"), (offc, "off")):
+            ts = c.lat[f"BSI {'off ' if cfg == 'off' else ''}{BSI_NAMES[q]}"]
+            log(f"latency BSI {BSI_NAMES[q]} [{cfg}]: median "
+                f"{_median_ms(ts):.2f} ms over {len(ts)}")
+    if cuda:
+        for q in BSI_SEQ:
+            reads = 2 if q.startswith("Sum") else 1
+            b_ms = bound(reads * plane_bytes, 0)[0]
+            dev_ms, wall_ms, top = device_busy_share(
+                lambda: client.ask(q, expect[q], reps=3, tag="profiled"))
+            log(f"BSI device ms {BSI_NAMES[q]}: {dev_ms / 3:.3f} ms per "
+                f"request (bound {b_ms:.3f} ms = {reads} read(s) of the "
+                f"plane; {dev_ms / 3 / b_ms:.1f}x), wall "
+                f"{wall_ms / 3:.3f} ms; by kernel: {top}")
+    log(f"phase 5 sequential wall: {time.perf_counter() - t0:.1f}s")
+
+    t1 = time.perf_counter()
+    b0 = ex.serving_stats()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    run = burst(api, expect, clients, passes, BSI_MIX, BSI_NAMES)
+    out["bsi_concurrent"] = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    b1 = ex.serving_stats()
+    reqs = run["requests"]
+    log(f"[BSI] {clients} clients x {passes} passes: {reqs} requests in "
+        f"{run['wall']:.3f} s = {reqs / run['wall']:.1f} requests/s; peak "
+        f"device memory {peak / 1e9:.2f} GB")
+    for q in BSI_MIX:
+        ts = run["lat"][q]
+        log(f"[BSI]   {BSI_NAMES[q]}: p50 {_pct_ms(ts, 0.5):.2f} ms, p90 "
+            f"{_pct_ms(ts, 0.9):.2f} ms, p99 {_pct_ms(ts, 0.99):.2f} ms, "
+            f"max {max(ts) * 1e3:.2f} ms over {len(ts)}")
+    for kind in ("sum", "minmax", "bsirange"):
+        groups, items, largest = _kind_stats(b0, b1, kind)
+        log(f"[BSI]   {kind}: {groups} windows, {items} items "
+            f"({items / max(1, groups):.2f} per window, largest {largest})")
+        if largest < 2:
+            raise AssertionError(f"the {kind} kind never coalesced")
+    log(f"[BSI]   launches per request: " + json.dumps(
+        {k: round(v / reqs, 4) for k, v in out["bsi_concurrent"].items()
+         if v}))
+    if cuda:
+        dev_ms, wall_ms, top = device_busy_share(
+            lambda: burst(api, expect, clients, max(1, passes // 3),
+                          BSI_MIX, BSI_NAMES))
+        log(f"[BSI]   one burst of {clients} x {max(1, passes // 3)} under "
+            f"the profiler: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms "
+            f"wall = {dev_ms / wall_ms:.1%}; by kernel: {top}")
+    log(f"phase 5 concurrent wall: {time.perf_counter() - t1:.1f}s")
+
+    t2 = time.perf_counter()
+    builds0, absorbs0 = planes.builds, planes.delta_absorbs
+    compactions0 = planes.delta_stats()["compactions"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+
+    def import_values(cols, vals, want_changed, tag):
+        body = json.dumps({"columnIDs": cols.tolist(),
+                           "values": vals.tolist()}).encode()
+        got = client.post("/index/bench/field/amount/importValue", body, tag)
+        if got != {"changed": want_changed}:
+            raise AssertionError(f"importValue: got {got}, want "
+                                 f"{{'changed': {want_changed}}}")
+
+    for cols, vals, changed, want in bsi["batches"]:
+        import_values(cols, vals, changed, "REST importValue")
+        for q in BSI_INGEST:
+            client.ask(q, want[q], tag=f"BSI {q}, after importValue")
+    if planes.builds != builds0:
+        raise AssertionError(f"a value batch rebuilt the BSI plane: builds "
+                             f"{builds0} -> {planes.builds}")
+    absorbs = planes.delta_absorbs - absorbs0
+    if absorbs < len(bsi["batches"]):
+        raise AssertionError(f"{absorbs} absorbs for "
+                             f"{len(bsi['batches'])} value batches")
+    if not planes.wait_compactions(300):
+        raise AssertionError("the compactor did not finish")
+    stats = planes.delta_stats()
+    if stats["compactions"] <= compactions0:
+        raise AssertionError(f"no BSI overlay fold completed: {stats}")
+    for q in BSI_INGEST:
+        client.ask(q, want[q], tag="BSI after the fold")
+    log(f"BSI ingest: {len(bsi['batches'])} batches of {VALUE_BATCH} "
+        f"values, builds stayed {planes.builds}, absorbs +{absorbs}, folds "
+        f"+{stats['compactions'] - compactions0}, last fold "
+        f"{stats['lastCompactionSeconds']:.6f} s; delta {json.dumps(stats)}")
+    cols, vals, changed, want = bsi["over_cap"]
+    import_values(cols, vals, changed, "REST importValue, over cap")
+    client.ask(BSI_INGEST[0], want[BSI_INGEST[0]],
+               tag="BSI Sum after the over-cap batch")
+    if planes.builds != builds0 + 1:
+        raise AssertionError(f"the over-cap batch did not rebuild once: "
+                             f"builds {builds0} -> {planes.builds}")
+    log(f"BSI rebuild after the {VALUE_OVER_CAP}-value batch: "
+        f"{planes.last_build_seconds:.2f} s")
+    for q in BSI_INGEST:
+        client.ask(q, want[q], tag="BSI after the rebuild")
+    out["bsi_ingest"] = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    for tag in ("REST importValue", "REST importValue, over cap"):
+        ts = client.lat[tag]
+        log(f"latency {tag!r}: median {_median_ms(ts):.2f} ms over {len(ts)}")
+    for q in BSI_INGEST:
+        ts = client.lat[f"BSI {q}, after importValue"]
+        log(f"latency BSI {q} after importValue (absorbs, overlay): median "
+            f"{_median_ms(ts):.2f} ms, first {ts[0] * 1e3:.2f} ms")
+    log(f"BSI ingest launches {json.dumps(out['bsi_ingest'])}; peak device "
+        f"memory in the phase {peak / 1e9:.2f} GB")
+    log(f"phase 5 ingest wall: {time.perf_counter() - t2:.1f}s")
+    if cuda:
+        for path in ("bsi", "bsi_concurrent", "bsi_ingest"):
+            for k in ("row_counts", "count"):
+                if out[path][k] < 1:
+                    raise AssertionError(f"the BSI path {path} never "
+                                         f"launched {k}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -921,17 +1381,20 @@ def main() -> int:
     t_all = time.perf_counter()
     log("== phase 1: build and kernels ==")
     kres = kernel_phase(args.shards, args.seed)
+    log(f"phase 1 wall: {time.perf_counter() - t_all:.1f}s")
 
-    log("== phase 2: serving ==")
     data_dir = os.path.join(REPO, "chip_smoke_data")
     shutil.rmtree(data_dir, ignore_errors=True)
     try:
+        t0 = time.perf_counter()
         oracle = make_index(data_dir, args.shards, args.seed)
+        log(f"data and oracle wall: {time.perf_counter() - t0:.1f}s")
+        log("== phase 2: serving ==")
         launches = serve_phase(data_dir, oracle)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 5: output ==")
+    log("== phase 6: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],
@@ -940,7 +1403,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "checked": "equal to plain at main-path and ragged shapes"}
+         "checked": "equal to plain at main-path and ragged shapes",
+         **({"bsi_shapes": r["bsi_shapes"]} if "bsi_shapes" in r else {})}
         for name, r in kres.items()]}
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels_line))

@@ -18,6 +18,7 @@ from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
+from pilosa_tpu_torch.store.field import BSI_TYPES
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 
@@ -117,6 +118,35 @@ class API:
                 idx.note_columns(cols)
         except ValueError as e:
             raise ApiError(str(e))
+        self._count_imported(changed)
+        return changed
+
+    def import_values(self, index: str, field: str, *, col_ids=None,
+                      col_keys=None, values=None) -> int:
+        """Bulk (column, value) import into a BSI field in ID form; returns
+        the bits changed.  The next Sum/Min/Max/range Count over a
+        resident bit plane absorbs the batch into its BSI overlay."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        if f.options.type not in BSI_TYPES:
+            raise ApiError(f"field {field!r} is not an int field")
+        if col_keys is not None or idx.keys:
+            raise ApiError("importValue: column keys are not supported by "
+                           "this port")
+        if col_ids is None:
+            raise ApiError("missing columnIDs")
+        try:
+            cols = np.asarray(col_ids, dtype=np.uint64)
+        except (TypeError, ValueError, OverflowError) as e:
+            raise ApiError(f"importValue: bad IDs: {e}")
+        if (not isinstance(values, (list, tuple)) or cols.ndim != 1
+                or len(values) != len(cols)):
+            raise ApiError("columns and values length mismatch")
+        try:
+            changed = f.import_values(cols, values)
+        except (TypeError, ValueError, OverflowError) as e:
+            raise ApiError(str(e))
+        idx.note_columns(cols)
         self._count_imported(changed)
         return changed
 

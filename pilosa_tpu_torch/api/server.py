@@ -7,6 +7,9 @@ calls)::
     POST /index/{i}/field/{f}/import
                                  JSON {"rowIDs", "columnIDs", "clear"}
                                  -> {"changed": n}
+    POST /index/{i}/field/{f}/importValue
+                                 JSON {"columnIDs", "values"} into a BSI
+                                 field -> {"changed": n}
     POST /index/{i}/field/{f}/import-roaring/{shard}[?clear]
                                  roaring body -> {"changed": n}
     POST /index/{i}              create index
@@ -40,6 +43,9 @@ class Handler(BaseHTTPRequestHandler):
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)/query$"), "h_query"),
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
                             r"(?P<field>[^/]+)/import$"), "h_import"),
+        ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
+                            r"(?P<field>[^/]+)/importValue$"),
+         "h_import_value"),
         ("POST", re.compile(r"^/index/(?P<index>[^/]+)/field/"
                             r"(?P<field>[^/]+)/import-roaring/"
                             r"(?P<shard>[0-9]+)$"), "h_import_roaring"),
@@ -109,11 +115,14 @@ class Handler(BaseHTTPRequestHandler):
     def h_query(self, index: str) -> None:
         self._reply(self.api.query(index, self._body().decode()))
 
-    def h_import(self, index: str, field: str) -> None:
+    def _refuse_protobuf(self) -> None:
         if "protobuf" in (self.headers.get("Content-Type") or ""):
             self._body()
             raise ApiError("protobuf import bodies are not supported by "
                            "this port", 415)
+
+    def h_import(self, index: str, field: str) -> None:
+        self._refuse_protobuf()
         b = self._json_body()
         changed = self.api.import_bits(
             index, field, row_ids=b.get("rowIDs"),
@@ -121,6 +130,14 @@ class Handler(BaseHTTPRequestHandler):
             col_keys=b.get("columnKeys"), timestamps=b.get("timestamps"),
             clear=bool(b.get("clear", False)) or "clear" in self.query,
             op_id=self.headers.get("X-Pilosa-Op-Id") or None)
+        self._reply({"changed": changed})
+
+    def h_import_value(self, index: str, field: str) -> None:
+        self._refuse_protobuf()
+        b = self._json_body()
+        changed = self.api.import_values(
+            index, field, col_ids=b.get("columnIDs"),
+            col_keys=b.get("columnKeys"), values=b.get("values"))
         self._reply({"changed": changed})
 
     def h_import_roaring(self, index: str, field: str, shard: str) -> None:

@@ -202,6 +202,13 @@ def count(words: torch.Tensor) -> torch.Tensor:
     return cuda_kernels.count(flat).reshape(lead)
 
 
+def any_bit(words: torch.Tensor) -> torch.Tensor:
+    """Whether any bit is set over the trailing word axis -> bool[...]:
+    the ``count`` kernel's popcount against zero (one launch and one read
+    of the words on the card)."""
+    return count(words) != 0
+
+
 def row_counts(plane: torch.Tensor,
                filter_words: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row popcounts, optionally ANDed with a per-shard filter:

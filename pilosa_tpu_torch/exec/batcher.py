@@ -16,7 +16,11 @@ window's int32 outputs into ONE device tensor, read back with one copy:
   overlay) pair gather the UNION of their slots once;
 - ``tree``: compound Counts compiled whole; the items over one (plane,
   overlay) pair gather the union of their rows once and fold one
-  postfix program each.
+  postfix program each;
+- ``sum`` / ``minmax`` / ``bsirange``: BSI Sum, Min/Max and range Counts;
+  the items over one (bit plane, overlay) pair run in one family call
+  that reads the plane once per item, and identical items (same filter,
+  same predicate) DEDUPE to one.
 
 The window is adaptive: it stays at 0 while traffic is solo and doubles
 (``ADAPT_MIN`` .. ``ADAPT_MAX``) while windows coalesce.  With no queue
@@ -43,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.exec.fused import shift_leaves
 from pilosa_tpu_torch.exec.tree import assemble_items
 
@@ -53,9 +58,11 @@ class _Pending:
 
     def __init__(self, kind, nodes, leaves, delta=None):
         self.kind = kind      # "count" | "rowcounts" | "selcounts" | "tree"
+        #                       | "sum" | "minmax" | "bsirange"
         self.nodes = nodes    # count: plan trees; selcounts: plane row
         #                       slots; tree: (slots, prog, extras);
-        #                       rowcounts: None
+        #                       bsirange: (spec, operands, sig);
+        #                       rowcounts, sum, minmax: None
         self.leaves = leaves  # count: plan leaves; others: plane[, filter]
         self.delta = delta    # the plane's DeltaOverlay (base+delta)
         self.event = threading.Event()
@@ -117,6 +124,8 @@ class CountBatcher:
         self.max_window_items = 0
         self.fastlane_hits = 0
         self._inflight = 0
+        # per kind: [family calls (groups), items, largest group]
+        self.kinds: dict[str, list[int]] = {}
 
     def health_payload(self) -> dict:
         """The ``/status`` batcher block."""
@@ -126,7 +135,9 @@ class CountBatcher:
                 "currentWindowSeconds": self._win,
                 "windows": self.windows, "items": self.items,
                 "maxWindowItems": self.max_window_items,
-                "fastLaneHits": hits, "inflightWindows": inflight}
+                "fastLaneHits": hits, "inflightWindows": inflight,
+                "kinds": {k: {"groups": g, "items": n, "maxItems": m}
+                          for k, (g, n, m) in list(self.kinds.items())}}
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the collector and the reader; queued items fail."""
@@ -241,6 +252,19 @@ class CountBatcher:
                                          tuple(extras), delta=delta)
         return int(out.cpu()[0])
 
+    def _fastlane_agg(self, kind: str, plane, filter_words, delta):
+        flags = (filter_words is not None,)
+        filters = (filter_words,) if filter_words is not None else ()
+        run, decode = self._AGG[kind]
+        out = getattr(self.fused, run)(plane, flags, filters, delta=delta)
+        return decode(out.cpu().numpy()[0])
+
+    def _fastlane_bsirange(self, plane, spec: tuple, operands: tuple,
+                           delta) -> int:
+        out = self.fused.run_range_batch(plane, (spec,), tuple(operands),
+                                         delta=delta)
+        return int(out.cpu()[0])
+
     # -- submits -----------------------------------------------------------
 
     def submit(self, node, leaves) -> int:
@@ -300,6 +324,42 @@ class CountBatcher:
             "tree", (tuple(slots), tuple(prog), tuple(extras)), (plane,),
             delta))
 
+    def submit_sum(self, plane, filter_words=None, delta=None):
+        """BSI Sum -> (sum of offsets, non-null count), host-finished.
+        ``delta`` (a ``BsiOverlay``) merges the plane's pending write
+        columns: base+delta."""
+        return self._submit_agg("sum", plane, filter_words, delta)
+
+    def submit_minmax(self, plane, filter_words=None, delta=None) -> list:
+        """BSI Min/Max -> (min, min_cnt, max, max_cnt) per shard, plus one
+        per overlay column (zero-count entries: the caller drops them)."""
+        return self._submit_agg("minmax", plane, filter_words, delta)
+
+    def _submit_agg(self, kind: str, plane, filter_words, delta):
+        out = self._fastlane(self._fastlane_agg, kind, plane, filter_words,
+                             delta)
+        if out is not _MISS:
+            return out
+        leaves = (plane,) if filter_words is None else (plane, filter_words)
+        return self.wait(self._enqueue(_Pending(kind, None, leaves, delta)))
+
+    def submit_bsirange(self, plane, spec: tuple, operands: tuple,
+                        sig: tuple, delta=None) -> int:
+        """One BSI range Count (``spec`` = (op_keys, has_filter), see
+        ``FusedCache.run_range_batch``); identical predicates (same
+        ``sig``) in a window dedupe to one comparison chain."""
+        out = self._fastlane(self._fastlane_bsirange, plane, spec, operands,
+                             delta)
+        if out is not _MISS:
+            return out
+        return self.wait(self.enqueue_bsirange(plane, spec, operands, sig,
+                                               delta))
+
+    def enqueue_bsirange(self, plane, spec: tuple, operands: tuple,
+                         sig: tuple, delta=None) -> _Pending:
+        return self._enqueue(_Pending(
+            "bsirange", (spec, tuple(operands), sig), (plane,), delta))
+
     # -- collector ---------------------------------------------------------
 
     def _run_collector(self) -> None:
@@ -352,19 +412,24 @@ class CountBatcher:
         groups: dict[tuple, list[_Pending]] = {}
         for p in batch:
             groups.setdefault(self._group_key(p), []).append(p)
+        for key, group in groups.items():
+            st = self.kinds.setdefault(key[0], [0, 0, 0])
+            st[0] += 1
+            st[1] += len(group)
+            st[2] = max(st[2], len(group))
         self._dispatch_window(groups)
 
     @staticmethod
     def _group_key(p: _Pending) -> tuple:
         """Kind plus what makes outputs shareable: counts stack by shard
-        count; selcounts and trees share a gather per (plane, overlay)
-        identity; rowcounts stack by plane shape (and dedupe by leaf
-        identity), or share one base+delta scan per (plane, overlay,
-        filter) identity."""
+        count; selcounts and trees share a gather, and BSI items a family
+        call, per (plane, overlay) identity; rowcounts stack by plane
+        shape (and dedupe by leaf identity), or share one base+delta scan
+        per (plane, overlay, filter) identity."""
         delta = id(p.delta) if p.delta is not None else 0
         if p.kind == "count":
             return ("count", p.leaves[0].shape[0])
-        if p.kind in ("selcounts", "tree"):
+        if p.kind in ("selcounts", "tree", "sum", "minmax", "bsirange"):
             return (p.kind, id(p.leaves[0]), delta)
         if p.delta is not None:
             return ("rowcounts-delta", id(p.leaves[0]), delta,
@@ -414,6 +479,10 @@ class CountBatcher:
             return self._dispatch_tree(group)
         if kind == "rowcounts-delta":
             return self._dispatch_rowcounts_delta(group)
+        if kind in self._AGG:
+            return self._dispatch_aggs(kind, group)
+        if kind == "bsirange":
+            return self._dispatch_bsirange(group)
         return self._dispatch_rowcounts(group)
 
     # -- readback ----------------------------------------------------------
@@ -542,6 +611,48 @@ class CountBatcher:
         def finish(host: np.ndarray) -> None:
             for p, k in zip(group, assign):
                 self._deliver(p, host[k].astype(np.int64))
+        return out, finish
+
+    # BSI aggregate kinds: (FusedCache family, host decode of one item)
+    _AGG = {"sum": ("run_sum_plane_batch", bsik.decode_sum_packed),
+            "minmax": ("run_minmax_plane_batch", bsik.decode_minmax_packed)}
+
+    def _dispatch_aggs(self, kind: str, group: list):
+        """The window's Sum (or Min/Max) items over one (plane, overlay)
+        pair: items with the same filter dedupe, the rest run in one
+        family call."""
+        items, assign = _dedupe(group)
+        flags = tuple(len(p.leaves) == 2 for p in items)
+        filters = tuple(p.leaves[1] for p in items if len(p.leaves) == 2)
+        run, decode = self._AGG[kind]
+        out = getattr(self.fused, run)(group[0].leaves[0], flags, filters,
+                                       delta=group[0].delta)
+
+        def finish(host: np.ndarray) -> None:
+            for p, k in zip(group, assign):
+                self._deliver(p, decode(host[k]))
+        return out, finish
+
+    def _dispatch_bsirange(self, group: list):
+        """The window's range Counts over one (plane, overlay) pair:
+        identical predicates (same sig) dedupe, the rest run in one
+        ``run_range_batch``."""
+        uniq: dict[tuple, int] = {}
+        items: list[_Pending] = []
+        assign: list[int] = []
+        for p in group:
+            slot = uniq.setdefault(p.nodes[2], len(items))
+            if slot == len(items):
+                items.append(p)
+            assign.append(slot)
+        out = self.fused.run_range_batch(
+            group[0].leaves[0], tuple(p.nodes[0] for p in items),
+            tuple(a for p in items for a in p.nodes[1]),
+            delta=group[0].delta)
+
+        def finish(host: np.ndarray) -> None:
+            for p, k in zip(group, assign):
+                self._deliver(p, int(host[k]))
         return out, finish
 
 

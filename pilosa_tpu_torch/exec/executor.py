@@ -13,7 +13,7 @@ The counterpart of ``pilosa_tpu.exec.executor.Executor`` with
   resident plane, one postfix fold;
 - ``max_concurrent=8`` admission slots;
 - a plan cache: a repeated all-Count query string over unkeyed set
-  fields skips parse and plan.
+  fields, or of simple BSI range Counts, skips parse and plan.
 
 ``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
 as the port's first slices did.  Every resident shard is one slice of a
@@ -23,10 +23,15 @@ a plane was built ride a device delta overlay (``delta_cells``, folded
 in the background past ``delta_compact_fraction``): Counts and TopN
 answer base+delta over the unchanged resident plane.
 
-Served calls: ``Count``, ``Row`` (set fields, integer rows),
-``Intersect``, ``Union``, ``Difference``, ``Xor``, ``Not``, ``All``,
-``TopN(field[, filter], n=)`` on the dense plane, ``Set`` and ``Clear``.
-Anything else raises :class:`ExecutionError`.
+Served calls: ``Count``, ``Row`` / ``Range`` (set fields with integer
+rows; BSI conditions such as ``Row(amount > 5)`` and ``Row(-1 < amount
+< 1)``), ``Intersect``, ``Union``, ``Difference``, ``Xor``, ``Not``,
+``All``, ``TopN(field[, filter], n=)`` on the dense plane, the BSI
+aggregates ``Sum``, ``Min``, ``Max``, ``Percentile`` and ``Distinct``,
+``Set`` and ``Clear`` (values on BSI fields).  Sum, Min, Max and simple
+range Counts read the bit plane delta-aware (base+delta over a
+``BsiOverlay``); Percentile, Distinct and BSI leaves inside bitmap calls
+read it clean.  Anything else raises :class:`ExecutionError`.
 """
 
 from __future__ import annotations
@@ -38,19 +43,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels, resolve_device
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
 from pilosa_tpu_torch.exec.batcher import CountBatcher
 from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable, shift_leaves
 from pilosa_tpu_torch.exec.planes import DEFAULT_BUDGET, PlaneCache
-from pilosa_tpu_torch.exec.result import Pair, PairsResult, RowResult
+from pilosa_tpu_torch.exec.result import (DistinctResult, Pair, PairsResult,
+                                          RowResult, ValCount)
 from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
                                         fold_bool_call, is_not_bool,
                                         lower_count_tree)
 from pilosa_tpu_torch.pql import parse_cached
-from pilosa_tpu_torch.pql.ast import Call, Condition, Query
-from pilosa_tpu_torch.store.field import TYPE_SET, Field
+from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
+                                      Condition, Query, between_cmp_ops)
+from pilosa_tpu_torch.store.field import BSI_TYPES, TYPE_SET, Field
 from pilosa_tpu_torch.store.holder import Holder
 from pilosa_tpu_torch.store.index import Index
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -70,8 +78,8 @@ _CALL_RESERVED = {
     "Clear": frozenset(),
 }
 
-_BITMAP_CALLS = frozenset({"Row", "Intersect", "Union", "Difference",
-                           "Xor", "Not", "All"})
+_BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
+                           "Difference", "Xor", "Not", "All"})
 
 
 class ExecutionError(Exception):
@@ -80,6 +88,37 @@ class ExecutionError(Exception):
 
 class ExecutorSaturatedError(ExecutionError):
     """Every admission slot stayed taken for ``SLOT_TIMEOUT_S``."""
+
+
+def bsi_offset(field: Field, op_key: str, value):
+    """``(offset, verdict)`` of one comparison against a BSI field: the
+    base-relative stored offset, and None when it fits the bit depth, else
+    the trivial answer: True for every non-null column, False for none
+    (a predicate past the depth needs no kernel)."""
+    opts = field.options
+    offset = int(field.to_stored(value) - opts.base)
+    bound = (1 << opts.bit_depth) - 1
+    if offset > bound:
+        return offset, op_key in ("lt", "le", "ne")
+    if offset < -bound:
+        return offset, op_key in ("gt", "ge", "ne")
+    return offset, None
+
+
+def bsi_cmp_pairs(cond: Condition) -> list:
+    """A BSI condition as the ``(op_key, value)`` comparisons it ANDs: one,
+    or a between's two."""
+    if cond.op in BETWEEN_OPS:
+        lo_op, hi_op = between_cmp_ops(cond.op)
+        return [(lo_op, cond.value[0]), (hi_op, cond.value[1])]
+    return [(SCALAR_CMP_KEYS[cond.op], cond.value)]
+
+
+def bsi_signature(options) -> tuple:
+    """Everything a baked BSI predicate depends on: a cached plan resolved
+    its offsets and saturation against these options."""
+    return (options.type, options.bit_depth, options.base, options.scale,
+            options.epoch, options.time_unit)
 
 
 def _field_arg(call: Call):
@@ -124,12 +163,16 @@ class _PlanEntry:
     fields.  ``kind`` "plane": a same-field plain-row Count batch, served
     over the resident plane (``row_ids`` are the literal row ids; slots
     come fresh from the PlaneSet on every hit).  ``kind`` "tree":
-    compound Counts compiled whole (``tree_specs``).  Nothing here is a
+    compound Counts compiled whole (``tree_specs``).  ``kind``
+    "bsirange": simple BSI range Counts (``range_items``: the field, op
+    keys, offsets and host predicate operands).  Nothing here is a
     tensor and nothing bakes data a write can stale: literal row ids
-    re-resolve, the plane absorbs writes into its overlay and extras
-    re-fetch, so a hit checks only the shard set and that the
-    ``set_fields`` are still unkeyed set fields.  ``deps``/``gens`` are
-    the build-time snapshot the build-twice check compares."""
+    re-resolve, the planes absorb writes into their overlays and extras
+    re-fetch, so a hit checks only the shard set, that the
+    ``set_fields`` are still unkeyed set fields, and that each BSI field
+    still has the depth and base its predicates were resolved against
+    (``bsi_sigs``).  ``deps``/``gens`` are the build-time snapshot the
+    build-twice check compares."""
 
     kind: str
     shards: tuple
@@ -139,6 +182,8 @@ class _PlanEntry:
     row_ids: tuple = ()
     tree_specs: tuple = ()
     set_fields: tuple = ()
+    range_items: tuple = ()  # ((field, op_keys, offsets, operands), ...)
+    bsi_sigs: tuple = ()     # ((field, bsi_signature), ...) pinned
 
 
 class Executor:
@@ -246,6 +291,9 @@ class Executor:
         fast = self._count_batch_plane(ctx, calls)
         if fast is not None:
             return fast
+        fast = self._count_batch_bsi(ctx, calls)
+        if fast is not None:
+            return fast
         fast = self._count_batch_tree(ctx, calls)
         if fast is not None:
             return fast
@@ -266,6 +314,92 @@ class Executor:
         per_shard = self.fused.run_count_batch(nodes, leaves)
         host = per_shard.cpu().numpy().astype(np.int64)  # one read
         return [int(row.sum()) for row in host]
+
+    # ------------------------------------------------------------ BSI range
+
+    def _bsirange_item(self, ctx: _Ctx, child: Call):
+        """``Count(Row(field op p))`` and the between forms as a batcher
+        ``bsirange`` item ``(field, op_keys, offsets)``.  None = not a
+        simple BSI range Count (compound children, time args, a non-BSI
+        field, or a predicate past the depth, whose trivial answer the
+        generic path gives without a kernel)."""
+        if child.name not in ("Row", "Range") or child.children:
+            return None
+        hit = _field_arg(child)
+        if hit is None:
+            return None
+        fname, value = hit
+        field = ctx.index.field(str(fname))
+        if field is None or field.options.type not in BSI_TYPES:
+            return None
+        if ("from" in child.args or "to" in child.args
+                or "_timestamp" in child.args):
+            return None
+        cond = (value if isinstance(value, Condition)
+                else Condition("==", value))
+        if isinstance(cond.value, Call):
+            return None
+        op_keys, offsets = [], []
+        for op_key, v in bsi_cmp_pairs(cond):
+            offset, verdict = bsi_offset(field, op_key, v)
+            if verdict is not None:
+                return None
+            op_keys.append(op_key)
+            offsets.append(offset)
+        return field, tuple(op_keys), tuple(offsets)
+
+    @staticmethod
+    def _bsirange_operands(field: Field, offsets: tuple) -> tuple:
+        """Host predicate operands: each offset's masks and sign."""
+        depth = field.options.bit_depth
+        ops = []
+        for offset in offsets:
+            ops.append(bsik.predicate_masks(abs(offset), depth))
+            ops.append(offset < 0)
+        return tuple(ops)
+
+    def _count_batch_bsi(self, ctx: _Ctx,
+                         calls: list[Call]) -> list[int] | None:
+        """A request of simple BSI range Counts through the batcher's
+        ``bsirange`` kind over the delta-aware bit plane.  None = some
+        call is not of this shape, or there is no batcher."""
+        if self.batcher is None or not ctx.shards:
+            return None
+        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+            return None  # the device int32 shard reduce must stay exact
+        items = []
+        for call in calls:
+            it = self._bsirange_item(ctx, call.children[0])
+            if it is None:
+                return None
+            field, op_keys, offsets = it
+            items.append((field, op_keys, offsets,
+                          self._bsirange_operands(field, offsets)))
+        return self._run_bsirange_items(ctx, items)
+
+    def _run_bsirange_items(self, ctx: _Ctx, items: list) -> list[int]:
+        """Resolved ``(field, op_keys, offsets, operands)`` items through
+        the batcher: one takes the fast lane, several enqueue ALL before
+        waiting on any (one window).  Planes resolve first, so a failing
+        resolution abandons no enqueued neighbour."""
+        planes: dict = {}
+        for field, *_ in items:
+            if field.name not in planes:
+                planes[field.name] = self.planes.bsi_plane_delta(
+                    ctx.index.name, field, ctx.shards)
+        if len(items) == 1:
+            field, op_keys, offsets, operands = items[0]
+            ps = planes[field.name]
+            return [self.batcher.submit_bsirange(
+                ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
+                delta=ps.delta)]
+        handles = []
+        for field, op_keys, offsets, operands in items:
+            ps = planes[field.name]
+            handles.append(self.batcher.enqueue_bsirange(
+                ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
+                delta=ps.delta))
+        return [self.batcher.wait(h) for h in handles]
 
     # ---------------------------------------------------------- whole trees
 
@@ -363,10 +497,20 @@ class Executor:
         return ps, (tuple(slots), tuple(prog), tuple(extras))
 
     def _tree_extra(self, ctx: _Ctx, espec) -> torch.Tensor | None:
-        """One extra operand int32[S, W]: the existence row or another
-        set field's row, through the plane cache."""
+        """One extra operand int32[S, W]: the existence row, another set
+        field's row, or a BSI comparison (masks re-derived from the
+        spec's offset and the field's current depth), through the plane
+        cache."""
         if espec[0] == "exists":
             return self._exists(ctx)
+        if espec[0] in ("bsi", "bsi-exists"):
+            field = ctx.index.field(espec[1])
+            if field is None or field.options.type not in BSI_TYPES:
+                return None
+            ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
+            if espec[0] == "bsi-exists":
+                return ps.plane[:, bsik.EXISTS_ROW, :]
+            return self._bsi_words(ps.plane, field, espec[2], espec[3])
         _, fname, vname, rid = espec
         field = ctx.index.field(fname)
         if field is None or field.options.type != TYPE_SET:
@@ -531,7 +675,10 @@ class Executor:
         if (self._shards_for(index, shards) != entry.shards
                 or any((f := index.field(name)) is None or f.options.keys
                        or f.options.type != TYPE_SET
-                       for name in entry.set_fields)):
+                       for name in entry.set_fields)
+                or any((f := index.field(name)) is None
+                       or bsi_signature(f.options) != sig
+                       for name, sig in entry.bsi_sigs)):
             with self._plans_lock:
                 if self._plans.get(skey) is entry:
                     del self._plans[skey]
@@ -550,6 +697,7 @@ class Executor:
         ctx = _Ctx(index, self._shards_for(index, shards))
         try:
             return (self._plan_plane_entry(ctx, calls)
+                    or self._plan_bsirange_entry(ctx, calls)
                     or self._plan_tree_entry(ctx, calls))
         except (Unfusable, ExecutionError):
             # the parse path raises the same errors
@@ -572,6 +720,32 @@ class Executor:
                                         for v in values),
                           set_fields=(field.name,))
 
+    def _plan_bsirange_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
+        """Every Count child a simple BSI range Count: the entry keeps the
+        fields, op keys, offsets and host operands; the plane comes
+        delta-aware on every hit."""
+        if self.batcher is None or not ctx.shards:
+            return None
+        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+            return None
+        items = []
+        sigs: dict = {}
+        deps: dict = {}
+        for call in calls:
+            it = self._bsirange_item(ctx, call.children[0])
+            if it is None:
+                return None
+            field, op_keys, offsets = it
+            items.append((field.name, op_keys, offsets,
+                          self._bsirange_operands(field, offsets)))
+            sigs[field.name] = bsi_signature(field.options)
+            deps[(field.name, field.bsi_view_name)] = None
+        deps = tuple(deps)
+        return _PlanEntry("bsirange", ctx.shards, deps,
+                          self._dep_gens(ctx.index, deps, ctx.shards),
+                          range_items=tuple(items),
+                          bsi_sigs=tuple(sigs.items()))
+
     def _plan_tree_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
         """Every Count child lowered to a TreeSpec."""
         if not self.tree_fusion or not ctx.shards:
@@ -582,20 +756,26 @@ class Executor:
                       for c in calls)
         deps: dict[tuple, None] = {}
         set_fields: dict[str, None] = {}
+        sigs: dict = {}
         for spec in specs:
             set_fields[spec.field] = None
             deps[(spec.field, VIEW_STANDARD)] = None
+            for fname in spec.bsi_fields:
+                f = ctx.index.field(fname)
+                sigs[fname] = bsi_signature(f.options)
+                deps[(fname, f.bsi_view_name)] = None
             for espec in spec.extras:
                 if espec[0] == "exists":
                     deps[(_EXISTS_DEP, VIEW_STANDARD)] = None
-                else:
+                elif espec[0] == "row":
                     set_fields[espec[1]] = None
                     deps[(espec[1], espec[2])] = None
         deps = tuple(deps)
         return _PlanEntry("tree", ctx.shards, deps,
                           self._dep_gens(ctx.index, deps, ctx.shards),
                           tree_specs=specs,
-                          set_fields=tuple(set_fields))
+                          set_fields=tuple(set_fields),
+                          bsi_sigs=tuple(sigs.items()))
 
     @staticmethod
     def _dep_gens(index: Index, deps: tuple, shards: tuple) -> tuple:
@@ -616,6 +796,12 @@ class Executor:
             if not self.tree_fusion:
                 return None
             return self._run_tree_specs(ctx, list(entry.tree_specs))
+        if entry.kind == "bsirange":
+            if self.batcher is None:
+                return None
+            return self._run_bsirange_items(ctx, [
+                (index.field(fname), op_keys, offsets, operands)
+                for fname, op_keys, offsets, operands in entry.range_items])
         field = index.field(entry.field_name)
         if field is None or not self.planes.has_plane(
                 index.name, field, VIEW_STANDARD, ctx.shards):
@@ -636,6 +822,10 @@ class Executor:
         if call.name in _BITMAP_CALLS:
             return self._to_row_result(ctx, self._fused_bitmap(ctx, call))
         handler = {"Count": self._execute_count, "TopN": self._execute_topn,
+                   "Sum": self._execute_sum, "Min": self._execute_min,
+                   "Max": self._execute_max,
+                   "Percentile": self._execute_percentile,
+                   "Distinct": self._execute_distinct,
                    "Set": self._execute_set,
                    "Clear": self._execute_clear}.get(call.name)
         if handler is None:
@@ -669,7 +859,10 @@ class Executor:
             leaves.append(arr)
             return ("leaf", len(leaves) - 1)
 
-        if call.name == "Row":
+        if call.name in ("Row", "Range"):
+            bsi = self._bsi_leaf(ctx, call)
+            if bsi is not None:
+                return leaf(self._bsi_condition(ctx, *bsi))
             return leaf(self._row_words(ctx, call))
         if call.name == "All":
             return leaf(self._exists(ctx))
@@ -695,6 +888,55 @@ class Executor:
         field, row_id = self._row_leaf(ctx, call)
         return self.planes.row_words(ctx.index.name, field, VIEW_STANDARD,
                                      row_id, ctx.shards)
+
+    def _bsi_leaf(self, ctx: _Ctx, call: Call):
+        """``(field, Condition)`` of a ``Row``/``Range`` on a BSI field
+        (``Row(amount=5)`` is ``amount == 5``); None for a set-field
+        row."""
+        hit = _field_arg(call)
+        if hit is None:
+            raise ExecutionError(f"{call.name}: missing field argument")
+        fname, value = hit
+        field = self._field(ctx, fname)
+        if not isinstance(value, Condition) \
+                and field.options.type not in BSI_TYPES:
+            return None
+        if field.options.type not in BSI_TYPES:
+            raise ExecutionError(
+                f"field {field.name!r}: condition on non-BSI field")
+        return field, (value if isinstance(value, Condition)
+                       else Condition("==", value))
+
+    def _bsi_condition(self, ctx: _Ctx, field: Field,
+                       cond: Condition) -> torch.Tensor:
+        """One BSI condition's columns int32[S, W] over the clean plane."""
+        if isinstance(cond.value, Call):
+            raise ExecutionError("BSI condition values must be literals")
+        ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
+        words = None
+        for op_key, v in bsi_cmp_pairs(cond):
+            cmp = self._bsi_cmp(field, ps, op_key, v)
+            words = cmp if words is None else kernels.intersect(words, cmp)
+        return words
+
+    def _bsi_cmp(self, field: Field, ps, op_key: str,
+                 value) -> torch.Tensor:
+        """One signed comparison, saturated past the bit depth (every
+        non-null column, or none, with no kernel)."""
+        offset, verdict = bsi_offset(field, op_key, value)
+        if verdict is None:
+            return self._bsi_words(ps.plane, field, op_key, offset)
+        exists = ps.plane[:, bsik.EXISTS_ROW, :]
+        return exists.contiguous() if verdict else torch.zeros_like(exists)
+
+    @staticmethod
+    def _bsi_words(plane: torch.Tensor, field: Field, op_key: str,
+                   offset: int) -> torch.Tensor:
+        """The columns of ``plane`` whose value compares ``op_key``
+        against an in-depth stored ``offset``."""
+        masks = bsik.predicate_masks(abs(offset), field.options.bit_depth)
+        return bsik.range_cmp(plane, masks, offset < 0,
+                              keys=(op_key,))[op_key]
 
     def _row_leaf(self, ctx: _Ctx, call: Call) -> tuple[Field, int]:
         """``(field, row id)`` of a plain set-field ``Row`` (the eager
@@ -779,6 +1021,9 @@ class Executor:
     def _execute_count(self, ctx: _Ctx, call: Call) -> int:
         if len(call.children) != 1:
             raise ExecutionError("Count: exactly one child required")
+        fast = self._count_batch_bsi(ctx, [call])
+        if fast is not None:
+            return fast[0]
         fused_tree = self._count_batch_tree(ctx, [call])
         if fused_tree is not None:
             return fused_tree[0]
@@ -846,6 +1091,104 @@ class Executor:
                             for r, c in zip(all_rows[slots[live]],
                                             vals[live])])
 
+    # -- BSI aggregates -----------------------------------------------------
+
+    def _agg_args(self, ctx: _Ctx, call: Call):
+        fname = call.args.get("field") or call.args.get("_field")
+        if fname is None:
+            raise ExecutionError(f"{call.name}: missing field argument")
+        field = self._field(ctx, str(fname))
+        if field.options.type not in BSI_TYPES:
+            raise ExecutionError(f"{call.name}: field {fname!r} is not BSI")
+        return field, self._filter_words(ctx, call)
+
+    @staticmethod
+    def _agg_filters(filter_words) -> tuple:
+        """The one-item family arguments (flags, filters)."""
+        if filter_words is None:
+            return (False,), ()
+        return (True,), (filter_words,)
+
+    def _execute_sum(self, ctx: _Ctx, call: Call) -> ValCount:
+        field, filter_words = self._agg_args(ctx, call)
+        ps = self.planes.bsi_plane_delta(ctx.index.name, field, ctx.shards)
+        if self.batcher is not None:
+            total, cnt = self.batcher.submit_sum(ps.plane, filter_words,
+                                                 delta=ps.delta)
+        else:
+            out = self.fused.run_sum_plane_batch(
+                ps.plane, *self._agg_filters(filter_words), delta=ps.delta)
+            total, cnt = bsik.decode_sum_packed(out.cpu().numpy()[0])
+        value = total + field.options.base * cnt
+        return ValCount(value=field.from_stored(value) if cnt else 0,
+                        count=cnt)
+
+    def _execute_min(self, ctx: _Ctx, call: Call) -> ValCount:
+        return self._min_max(ctx, call, want_min=True)
+
+    def _execute_max(self, ctx: _Ctx, call: Call) -> ValCount:
+        return self._min_max(ctx, call, want_min=False)
+
+    def _min_max(self, ctx: _Ctx, call: Call, want_min: bool) -> ValCount:
+        field, filter_words = self._agg_args(ctx, call)
+        ps = self.planes.bsi_plane_delta(ctx.index.name, field, ctx.shards)
+        if self.batcher is not None:
+            per_shard = self.batcher.submit_minmax(ps.plane, filter_words,
+                                                   delta=ps.delta)
+        else:
+            out = self.fused.run_minmax_plane_batch(
+                ps.plane, *self._agg_filters(filter_words), delta=ps.delta)
+            per_shard = bsik.decode_minmax_packed(out.cpu().numpy()[0])
+        # one tuple per shard, plus one per overlay column
+        live = [t for t in per_shard if (t[1] if want_min else t[3]) > 0]
+        if not live:
+            return ValCount(0, 0)
+        if want_min:
+            best = min(t[0] for t in live)
+            total = sum(t[1] for t in live if t[0] == best)
+        else:
+            best = max(t[2] for t in live)
+            total = sum(t[3] for t in live if t[2] == best)
+        return ValCount(value=field.from_stored(best + field.options.base),
+                        count=total)
+
+    def _execute_percentile(self, ctx: _Ctx, call: Call) -> ValCount:
+        """``Percentile(field=f, nth=99.9[, filter])``: the smallest stored
+        value v with count(values <= v) >= nth% of the non-null columns,
+        searched on the device (two reads in all)."""
+        field, filter_words = self._agg_args(ctx, call)
+        nth = call.args.get("nth")
+        if nth is None:
+            raise ExecutionError("Percentile: missing nth argument")
+        nth = float(nth)
+        if not 0 <= nth <= 100:
+            raise ExecutionError("Percentile: nth must be in [0, 100]")
+        ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
+        out, total = self.fused.run_percentile(ps.plane, filter_words, nth)
+        if total == 0:
+            return ValCount(0, 0)
+        offset, count = out.cpu().tolist()
+        return ValCount(value=field.from_stored(offset + field.options.base),
+                        count=count)
+
+    def _execute_distinct(self, ctx: _Ctx, call: Call) -> DistinctResult:
+        """``Distinct([filter,] field=f)``: the sorted distinct values
+        among the (filtered) columns, from device presence bitmaps."""
+        field, filter_words = self._agg_args(ctx, call)
+        if field.options.bit_depth > 24:
+            raise ExecutionError(
+                "Distinct: bit depth > 24 not supported (presence array "
+                "would exceed 16M entries)")
+        ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
+        pos, neg = bsik.distinct_presence(ps.plane, filter_words)
+        base = field.options.base
+        stored = sorted(
+            {int(v) + base for v in np.nonzero(pos.cpu().numpy())[0]}
+            | {base - int(v) for v in np.nonzero(neg.cpu().numpy())[0]})
+        return DistinctResult([field.from_stored(v) for v in stored])
+
+    # -- writes -------------------------------------------------------------
+
     def _execute_set(self, ctx: _Ctx, call: Call) -> bool:
         col = call.args.get("_col")
         if col is None:
@@ -856,6 +1199,13 @@ class Executor:
             raise ExecutionError("Set: missing field=value argument")
         fname, value = hit
         field = self._field(ctx, fname)
+        if field.options.type in BSI_TYPES:
+            try:
+                changed = field.set_value(col_id, value)
+            except ValueError as e:
+                raise ExecutionError(str(e))
+            ctx.index.note_columns(np.array([col_id], np.uint64))
+            return changed
         if field.options.type != TYPE_SET or "_timestamp" in call.args:
             raise ExecutionError(f"Set on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")
@@ -873,6 +1223,8 @@ class Executor:
             raise ExecutionError("Clear: missing field argument")
         fname, value = hit
         field = self._field(ctx, fname)
+        if field.options.type in BSI_TYPES:
+            return field.clear_value(col_id)
         if field.options.type != TYPE_SET:
             raise ExecutionError(f"Clear on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")

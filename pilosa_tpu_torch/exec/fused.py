@@ -8,7 +8,13 @@ is no program cache: each family folds the tree with torch bitwise ops
 and calls the popcount kernels of :mod:`pilosa_tpu_torch.engine.kernels`
 directly.  The whole-tree families (:meth:`FusedCache.run_tree_counts`,
 :meth:`FusedCache.run_tree_words`) fold postfix programs
-(:mod:`pilosa_tpu_torch.exec.tree`) over rows of one resident plane.
+(:mod:`pilosa_tpu_torch.exec.tree`) over rows of one resident plane.  The
+BSI families (:meth:`FusedCache.run_sum_plane_batch`,
+:meth:`FusedCache.run_minmax_plane_batch`,
+:meth:`FusedCache.run_range_batch`) answer K aggregates over ONE resident
+bit plane, base+delta through the split of
+:func:`pilosa_tpu_torch.ingest.delta.bsi_sides` when the plane carries a
+``BsiOverlay``.
 
 Every launch and copy here goes to the current stream; outputs stay on
 the device un-read (the batcher packs a window's outputs into one read).
@@ -22,13 +28,16 @@ Node encodings (nested tuples):
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.engine.words import pow2_bucket
 from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
                                            adjusted_selected_counts,
-                                           overlay_gathered_rows,
+                                           bsi_sides, overlay_gathered_rows,
                                            overlay_row)
 
 
@@ -222,6 +231,89 @@ class FusedCache:
         TopN filters)."""
         return self._tree_program(plane, slots, (prog,), extras, delta,
                                   "words")
+
+    # -- BSI plane batches ------------------------------------------------
+
+    @staticmethod
+    def _item_filters(flags: tuple, filters: tuple):
+        """Each item's filter (None when its flag is False)."""
+        it = iter(filters)
+        return [next(it) if has else None for has in flags]
+
+    def run_sum_plane_batch(self, plane: torch.Tensor, flags: tuple,
+                            filters: tuple, delta=None) -> torch.Tensor:
+        """K BSI Sum items over ONE plane -> int32[K, S, 2*depth+1]
+        (per-bit non-negative and negative counts, non-null count; decode
+        with ``bsi.decode_sum_packed``).  ``flags[k]``: item k has a
+        filter, taken in order from ``filters``.  With ``delta`` the mini
+        side's counts fold into shard 0's row (Sum is linear over
+        columns), so the layout is the same."""
+        rows = []
+        for flt in self._item_filters(flags, filters):
+            sides = bsi_sides(plane, flt, delta)
+            pos, neg, cnt = bsik.bit_counts(*sides[0])
+            row = torch.cat([pos, neg, cnt[:, None]], dim=-1)
+            if len(sides) > 1:
+                mp, mn, mc = bsik.bit_counts(*sides[1])
+                adj = torch.cat([mp.sum(0, dtype=torch.int32),
+                                 mn.sum(0, dtype=torch.int32),
+                                 mc.sum(dtype=torch.int32)[None]])
+                row = torch.cat([row[:1] + adj, row[1:]])
+            rows.append(row)
+        return torch.stack(rows)
+
+    def run_minmax_plane_batch(self, plane: torch.Tensor, flags: tuple,
+                               filters: tuple, delta=None) -> torch.Tensor:
+        """K BSI Min/Max items over ONE plane -> int32[K, S (+ K_pad),
+        2*depth+4] (decode with ``bsi.decode_minmax_packed``): with
+        ``delta`` the mini side's touched columns append as pseudo-shard
+        rows; pad columns carry count 0 and drop in the host combine."""
+        rows = []
+        for flt in self._item_filters(flags, filters):
+            rows.append(torch.cat([
+                bsik.pack_min_max(bsik.min_max_bits(pl, fw))
+                for pl, fw in bsi_sides(plane, flt, delta)]))
+        return torch.stack(rows)
+
+    def run_range_batch(self, plane: torch.Tensor, specs: tuple,
+                        operands: tuple, delta=None) -> torch.Tensor:
+        """K BSI range Counts over ONE plane -> int32[K] totals (the shard
+        axis reduced in int32: callers gate on the int32-exact shard
+        bound).  ``specs[k]`` is ``(op_keys, has_filter)``; ``operands``
+        holds per item each op's (masks, negative) and then the filter
+        when flagged.  A two-op item ANDs its comparisons (between)."""
+        totals = []
+        i = 0
+        for op_keys, has_filter in specs:
+            preds = []
+            for okey in op_keys:
+                preds.append((operands[i], operands[i + 1], okey))
+                i += 2
+            flt = operands[i] if has_filter else None
+            i += 1 if has_filter else 0
+            total = None
+            for pl, fw in bsi_sides(plane, flt, delta):
+                words = None
+                for masks, neg, okey in preds:
+                    cmp = bsik.range_cmp(pl, masks, neg, fw,
+                                         keys=(okey,))[okey]
+                    words = cmp if words is None else words & cmp
+                side = kernels.count(words).sum(dtype=torch.int32)
+                total = side if total is None else total + side
+            totals.append(total)
+        return torch.stack(totals)
+
+    @staticmethod
+    def run_percentile(plane: torch.Tensor, filter_words, nth: float):
+        """Percentile: the non-null total (one read), then the search on
+        the device with the exact host-computed integer rank (``ceil`` in
+        float64 on the host).  Returns (device int32[2] (offset, count) |
+        None, total)."""
+        total = int(bsik.percentile_total(plane, filter_words))
+        if total == 0:
+            return None, 0
+        target = min(total, max(1, math.ceil(nth / 100.0 * total)))
+        return bsik.percentile_search(plane, filter_words, target), total
 
     @staticmethod
     def run_readback_pack(arrays: tuple) -> torch.Tensor:

@@ -17,6 +17,12 @@ holding the old ``PlaneSet`` keeps a consistent base and overlay.  A stale
 single row is refreshed the same way.  A new row id, a journal gap or a
 gap wider than the caps rebuilds, as in the reference.
 
+A BSI field's plane (:meth:`PlaneCache.bsi_plane`) holds its fixed rows
+(exists, sign, ``bit_depth`` magnitude bits) unpadded, keyed by the bit
+depth, so a write that grows the depth builds a new plane.  Its overlay
+is a :class:`~pilosa_tpu_torch.ingest.delta.BsiOverlay`, grouped by word
+column.
+
 The build expands fragments chunk by chunk on a thread pool into a pinned
 host staging buffer and copies each chunk into one preallocated device
 tensor; two staging buffers alternate so chunk N's expansion overlaps
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import resolve_device
+from pilosa_tpu_torch.engine.bsi import OFFSET_ROW
 from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD, pow2_bucket
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.store.field import Field
@@ -153,18 +160,31 @@ class PlaneCache:
         serves as it is, overlay and all; a stale one absorbs its write
         gap into the overlay, else folds it into the base; an absent one,
         or a gap the journal cannot cover, builds synchronously."""
-        key = ("plane", index, field.name, view_name, shards)
-        gens = self._gens(field, view_name, shards)
-        with self._lock:
-            hit = self._entries.get(key)
-            if hit is not None and hit[0] == gens:
-                self._entries.move_to_end(key)
-                return hit[1]
-        if hit is not None:
-            ps = self._delta_update(key, field, view_name, shards, hit)
-            if ps is not None:
-                return ps
-        return self._get(key, field, view_name, shards, self._build_plane)
+        return self._delta_fetch(("plane", index, field.name, view_name,
+                                  shards), field, view_name, shards,
+                                 self._build_plane)
+
+    @staticmethod
+    def _bsi_key(index: str, field: Field, shards: tuple[int, ...]):
+        return ("bsi", index, field.name, field.bsi_view_name, shards,
+                field.options.bit_depth)
+
+    def bsi_plane(self, index: str, field: Field,
+                  shards: tuple[int, ...]) -> PlaneSet:
+        """A BSI field's clean bit plane int32[S, depth + 2, W]: a pending
+        overlay or a write gap folds first."""
+        return self._get(self._bsi_key(index, field, shards), field,
+                         field.bsi_view_name, shards, self._build_bsi)
+
+    def bsi_plane_delta(self, index: str, field: Field,
+                        shards: tuple[int, ...]) -> PlaneSet:
+        """A BSI field's bit plane for the delta-aware aggregates (Sum,
+        Min, Max, range Counts): a stale entry absorbs its write gap into
+        a :class:`BsiOverlay` carried as ``.delta``, else folds; an absent
+        one, or a gap the journal cannot cover, builds."""
+        return self._delta_fetch(self._bsi_key(index, field, shards), field,
+                                 field.bsi_view_name, shards,
+                                 self._build_bsi)
 
     def row_words(self, index: str, field: Field, view_name: str,
                   row_id: int, shards: tuple[int, ...]) -> torch.Tensor:
@@ -267,6 +287,22 @@ class PlaneCache:
         view = field.view(view_name)
         return () if view is None else view.generations(shards)
 
+    def _delta_fetch(self, key, field: Field, view_name: str,
+                     shards: tuple[int, ...], build) -> PlaneSet:
+        """A fresh entry as it is, overlay and all; a stale one brought up
+        to date by :meth:`_delta_update`; else :meth:`_get`."""
+        gens = self._gens(field, view_name, shards)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and hit[0] == gens:
+                self._entries.move_to_end(key)
+                return hit[1]
+        if hit is not None:
+            ps = self._delta_update(key, field, view_name, shards, hit)
+            if ps is not None:
+                return ps
+        return self._get(key, field, view_name, shards, build)
+
     def _get(self, key, field: Field, view_name: str,
              shards: tuple[int, ...], build) -> PlaneSet:
         """A clean entry for ``key``: fresh ones serve as they are; a
@@ -279,7 +315,7 @@ class PlaneCache:
                 self._entries.move_to_end(key)
                 return hit[1]
         if hit is not None:
-            refresh = self._fold if key[0] == "plane" else self._incremental
+            refresh = self._incremental if key[0] == "row" else self._fold
             ps = refresh(key, field, view_name, shards, hit)
             if ps is not None:
                 return ps
@@ -422,8 +458,12 @@ class PlaneCache:
             if not mirror.would_fit(cells):
                 return None  # overlay full: fold
             mirror.absorb(cells)
-            overlay = mirror.build_overlay(
-                self.device, ps.plane.shape[0] * ps.plane.shape[1])
+            if key[0] == "bsi":
+                overlay = mirror.build_bsi_overlay(
+                    self.device, ps.plane.shape[1], ps.plane.shape[0])
+            else:
+                overlay = mirror.build_overlay(
+                    self.device, ps.plane.shape[0] * ps.plane.shape[1])
             new_ps = PlaneSet(ps.plane, ps.shards, ps.row_ids, ps.slot_of,
                               delta=overlay)
             self._entries[key] = (actual, new_ps, nbytes)
@@ -580,11 +620,24 @@ class PlaneCache:
             self.incremental_applied += 1
         return new_ps
 
+    def _build_bsi(self, field: Field, view_name: str,
+                   shards: tuple[int, ...]) -> PlaneSet:
+        """The fixed BSI rows 0 .. depth + 1, unpadded."""
+        n_rows = OFFSET_ROW + field.options.bit_depth
+        return self._build_plane(field, view_name, shards,
+                                 np.arange(n_rows, dtype=np.uint64))
+
     def _build_plane(self, field: Field, view_name: str,
-                     shards: tuple[int, ...]) -> PlaneSet:
+                     shards: tuple[int, ...],
+                     fixed_rows: np.ndarray | None = None) -> PlaneSet:
+        """Rows ``fixed_rows`` unpadded, or every row id of the view padded
+        to a power of two."""
         t0 = time.perf_counter()
-        row_ids = _union_row_ids(field, view_name, shards)
-        r_pad = pow2_bucket(len(row_ids))
+        if fixed_rows is None:
+            row_ids = _union_row_ids(field, view_name, shards)
+            r_pad = pow2_bucket(len(row_ids))
+        else:
+            row_ids, r_pad = fixed_rows, len(fixed_rows)
         slot_of = {int(r): i for i, r in enumerate(row_ids)}
         full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
                            dtype=torch.int32, device=self.device)

@@ -38,6 +38,28 @@ class PairsResult:
         return [p.to_json() for p in self.pairs]
 
 
+@dataclass
+class ValCount:
+    """Sum/Min/Max/Percentile result: the value and the count of columns
+    behind it."""
+
+    value: int | float = 0
+    count: int = 0
+
+    def to_json(self):
+        return {"value": self.value, "count": self.count}
+
+
+@dataclass
+class DistinctResult:
+    """``Distinct()`` result: the sorted distinct values of a BSI field."""
+
+    values: list
+
+    def to_json(self):
+        return {"values": self.values}
+
+
 def result_to_json(r):
     """Any handler result -> JSON-able value (bool/int pass through)."""
     if hasattr(r, "to_json"):

@@ -12,12 +12,16 @@ requests the batcher unions the gathered slots (:func:`assemble_items`),
 so N windowed trees over one plane cost one gather.
 
 Lowered here: ``Row`` on set fields, ``All``, ``Intersect`` / ``Union`` /
-``Difference`` / ``Xor`` / ``Not``.  :class:`~pilosa_tpu_torch.exec.fused.
-Unfusable` (the caller takes the generic planned path) for a tree with
-no anchor row, deeper than ``TREE_STACK_DEPTH`` or longer than
-``TREE_MAX_PROG``, and for the reference's other leaves (``UnionRows``,
-``Shift``, ``Limit``, ``ConstRow``, BSI conditions, time ranges), which
-the generic path refuses as not supported by this port.
+``Difference`` / ``Xor`` / ``Not``, and BSI conditions in ``Row`` /
+``Range``: each comparison enters as an extra operand ``("bsi", field,
+op_key, offset)`` (a between is two of them ANDed), a predicate past the
+bit depth as ``("bsi-exists", field)`` or an empty push.
+:class:`~pilosa_tpu_torch.exec.fused.Unfusable` (the caller takes the
+generic planned path) for a tree with no anchor row, deeper than
+``TREE_STACK_DEPTH`` or longer than ``TREE_MAX_PROG``, and for the
+reference's other leaves (``UnionRows``, ``Shift``, ``Limit``,
+``ConstRow``, time ranges), which the generic path refuses as not
+supported by this port.
 """
 
 from __future__ import annotations
@@ -90,11 +94,14 @@ class TreeSpec:
 
     field: str        # anchor set field whose plane rows are gathered
     rows: tuple       # gathered row ids (first-use order, CSE-deduped)
-    extras: tuple     # ("exists",) | ("row", field, view, row_id)
+    extras: tuple     # ("exists",) | ("row", field, view, row_id) |
+    #                   ("bsi", field, op_key, offset) | ("bsi-exists", field)
     prog: tuple       # ((opcode, arg), ...) postfix; PUSH args index
     #                   rows, PUSHX args index extras
     depth: int        # operator nesting depth
     cse_hits: int     # duplicate leaves collapsed inside this request
+    bsi_fields: tuple = ()  # BSI fields whose predicates were resolved
+    #                         against their depth and base
 
 
 class _Lower:
@@ -113,6 +120,7 @@ class _Lower:
         self.max_sp = 0
         self.depth = 0
         self.cse_hits = 0
+        self.bsi_fields: dict[str, None] = {}
 
     def _emit(self, op: int, arg=0) -> None:
         self.sp += -1 if op >= TREE_AND else 1
@@ -150,9 +158,32 @@ class _Lower:
         self._emit(TREE_PUSH, self._extra(
             ("row", field.name, VIEW_STANDARD, row_id)))
 
+    def _bsi(self, field, cond) -> None:
+        """A BSI condition: each comparison an extra operand (a between's
+        two ANDed), a predicate past the depth the exists row or empty."""
+        from pilosa_tpu_torch.exec.executor import bsi_cmp_pairs, bsi_offset
+        self.bsi_fields[field.name] = None
+        pairs = bsi_cmp_pairs(cond)
+        for op_key, value in pairs:
+            offset, all_hit = bsi_offset(field, op_key, value)
+            if all_hit is None:
+                self._emit(TREE_PUSH, self._extra(
+                    ("bsi", field.name, op_key, offset)))
+            elif all_hit:
+                self._emit(TREE_PUSH, self._extra(
+                    ("bsi-exists", field.name)))
+            else:
+                self._emit(TREE_ZERO)
+        if len(pairs) == 2:
+            self._emit(_OP_CODE["and"])
+
     def lower(self, call: Call, depth: int) -> None:
         name = call.name
-        if name == "Row":
+        if name in ("Row", "Range"):
+            bsi = self.ex._bsi_leaf(self.ctx, call)
+            if bsi is not None:
+                self._bsi(*bsi)
+                return
             self._push_field_row(*self.ex._row_leaf(self.ctx, call))
             return
         if name == "All":
@@ -196,7 +227,8 @@ def lower_count_tree(ex, ctx, call: Call) -> TreeSpec:
         for op, arg in low.prog)
     return TreeSpec(field=low.field.name, rows=tuple(low.rows),
                     extras=tuple(low.extras), prog=prog,
-                    depth=low.depth, cse_hits=low.cse_hits)
+                    depth=low.depth, cse_hits=low.cse_hits,
+                    bsi_fields=tuple(low.bsi_fields))
 
 
 def assemble_items(items) -> tuple:

@@ -17,7 +17,13 @@ The counterpart of ``pilosa_tpu.ingest.delta`` for set-field planes:
   touched (shard, row) count moves by ``popcount(new) - popcount(old)``;
 - the **word overlays** (:func:`overlay_gathered_rows`,
   :func:`overlay_row`) hand the tree fold base+delta WORDS: gathered
-  rows, or one row, with the overlay's cells written over them.
+  rows, or one row, with the overlay's cells written over them;
+- the **BSI overlay** (:class:`BsiOverlay`) groups a bit-sliced plane's
+  cells by touched (shard, word) COLUMN, and the BSI aggregates split
+  base+delta into the base plane with those word columns masked out of
+  the filter (:func:`bsi_excl_filter`) and a tiny standalone plane of the
+  merged touched columns (:func:`bsi_mini_plane`), both through the same
+  functions and kernels.
 
 The reference's adjustment is XLA-fused ``jnp`` (no Pallas), so it is
 plain PyTorch here.  JAX drops out-of-range scatter lanes and clamps
@@ -52,6 +58,27 @@ class DeltaOverlay:
     vals: torch.Tensor   # int32[C_pad]
     n: int               # live cells (<= C_pad)
     bits: int            # set bits carried by the live cells
+
+
+@dataclass
+class BsiOverlay:
+    """Device form of a BIT-SLICED plane's pending write cells, one lane
+    per touched (shard, word) column.
+
+    A BSI write changes several rows of one 32-column word at once (the
+    exists row, maybe the sign row, the changed magnitude bits), and the
+    aggregates read whole columns, so the unit is the word column.  Every
+    column is counted on exactly one side: the base plane with the
+    touched columns excluded, or the mini plane of the merged touched
+    columns.  ``n`` live lanes come first; pad lanes carry
+    ``col_shard == S`` and an all-zero mini filter."""
+
+    col_shard: torch.Tensor  # int32[K_pad] (pad lanes = S)
+    col_word: torch.Tensor   # int32[K_pad]
+    col_vals: torch.Tensor   # int32[K_pad, rows] new word values
+    col_mask: torch.Tensor   # int32[K_pad, rows] -1 = row touched
+    n: int                   # live columns (<= K_pad)
+    bits: int                # set bits carried by the live cells
 
 
 class DeltaMirror:
@@ -130,6 +157,37 @@ class DeltaMirror:
 
         return DeltaOverlay(put(rows), put(words), put(vals), n=n,
                             bits=self.bits)
+
+    def build_bsi_overlay(self, device, n_rows: int,
+                          n_shards: int) -> BsiOverlay:
+        """The word-column-grouped device overlay of a BSI plane of
+        ``n_rows`` rows (depth + 2) over ``n_shards`` shards: live cells
+        regroup by (shard, word), each column carrying its new row words
+        and touched-row mask in one lane; lanes pad to a power of two with
+        ``col_shard == n_shards``.  One ``np.unique`` and two fancy
+        scatters: this runs under the cache lock on every absorb."""
+        n = len(self._index)
+        flat = self._rows[:n]
+        word = self._words[:n]
+        key = (flat // n_rows).astype(np.int64) * (1 << 32) + word
+        uniq, inv = np.unique(key, return_inverse=True)
+        k = len(uniq)
+        k_pad = pow2_bucket(k)
+        col_shard = np.full(k_pad, n_shards, np.int32)
+        col_word = np.zeros(k_pad, np.int32)
+        col_vals = np.zeros((k_pad, n_rows), np.uint32)
+        col_mask = np.zeros((k_pad, n_rows), np.uint32)
+        col_shard[:k] = (uniq >> 32).astype(np.int32)
+        col_word[:k] = (uniq & 0xFFFFFFFF).astype(np.int32)
+        rows_in_col = (flat % n_rows).astype(np.int64)
+        col_vals[inv, rows_in_col] = self._vals[:n]
+        col_mask[inv, rows_in_col] = 0xFFFFFFFF
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a.view(np.int32)).to(device)
+
+        return BsiOverlay(put(col_shard), put(col_word), put(col_vals),
+                          put(col_mask), n=k, bits=self.bits)
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +317,61 @@ def adjusted_selected_counts(plane: torch.Tensor, row_idx: torch.Tensor,
     zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
     add = torch.where(match, diff[:, None], zero).sum(0, dtype=torch.int32)
     return sel + add
+
+
+# ---------------------------------------------------------------------------
+# BSI split: base with the touched columns excluded + merged mini plane
+# ---------------------------------------------------------------------------
+
+
+def bsi_sides(plane: torch.Tensor, filter_words, overlay):
+    """base+delta as ``[(plane, filter), ...]`` sides: the clean plane
+    alone without an overlay, else the base with the touched word
+    columns excluded plus the merged mini plane."""
+    if overlay is None:
+        return [(plane, filter_words)]
+    return [
+        (plane, bsi_excl_filter(plane, overlay.col_shard, overlay.col_word,
+                                filter_words, overlay.n)),
+        (bsi_mini_plane(plane, overlay.col_shard, overlay.col_word,
+                        overlay.col_vals, overlay.col_mask),
+         bsi_mini_filter(plane, overlay.col_shard, overlay.col_word,
+                         filter_words))]
+
+
+def bsi_excl_filter(plane: torch.Tensor, col_shard: torch.Tensor,
+                    col_word: torch.Tensor, filter_words, n: int):
+    """The base side's filter int32[S, W]: ``filter_words`` (all-ones when
+    absent) with every touched word column zeroed; the mini plane answers
+    those.  Only the ``n`` live lanes scatter: a pad lane's shard index
+    ``S`` is out of range, a device-side assert on the card, where JAX
+    dropped it."""
+    s, _, w = plane.shape
+    out = (torch.full((s, w), -1, dtype=torch.int32, device=plane.device)
+           if filter_words is None else filter_words.clone())
+    out[col_shard[:n].long(), col_word[:n].long()] = 0
+    return out
+
+
+def bsi_mini_plane(plane: torch.Tensor, col_shard: torch.Tensor,
+                   col_word: torch.Tensor, col_vals: torch.Tensor,
+                   col_mask: torch.Tensor) -> torch.Tensor:
+    """The mini side: each touched word column as a one-word shard of a
+    standalone BSI plane int32[K, rows, 1], overlay words where touched
+    and base words elsewhere.  Pad lanes read shard 0 (clamped); the mini
+    filter zeroes them."""
+    cs = col_shard.long().clamp(0, plane.shape[0] - 1)
+    base_cols = plane[cs, :, col_word.long()]              # [K, rows]
+    return torch.where(col_mask != 0, col_vals, base_cols)[..., None]
+
+
+def bsi_mini_filter(plane: torch.Tensor, col_shard: torch.Tensor,
+                    col_word: torch.Tensor, filter_words) -> torch.Tensor:
+    """The mini side's filter int32[K, 1]: the caller's filter word at each
+    touched column (all-ones when absent), zero on pad lanes."""
+    s = plane.shape[0]
+    valid = torch.where(col_shard < s, -1, 0).to(torch.int32)
+    if filter_words is not None:
+        cs = col_shard.long().clamp(0, s - 1)
+        valid = valid & filter_words[cs, col_word.long()]
+    return valid[:, None]

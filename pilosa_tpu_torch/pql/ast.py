@@ -23,6 +23,19 @@ from typing import Any
 SCALAR_OPS = ("==", "!=", "<", "<=", ">", ">=")
 BETWEEN_OPS = ("<><", "<=><", "<><=", "<=><=")  # lo(op)x(op)hi: <>< means lo<x<hi
 
+
+# scalar condition op -> comparison key of ``engine.bsi.range_cmp``
+SCALAR_CMP_KEYS = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge",
+                   "==": "eq", "!=": "ne"}
+
+
+def between_cmp_ops(op: str) -> tuple[str, str]:
+    """One between op's (lo, hi) comparison keys against the stored
+    values: ``<><`` is (gt, lt), ``<=><=`` is (ge, le).  Every executor
+    lowering of a between condition maps through here."""
+    return ("gt" if op.startswith("<>") else "ge",
+            "lt" if op.endswith("><") else "le")
+
 # the n-ary boolean-algebra calls and their canonical word-wise op
 # tokens (reference: executeIntersect/executeUnion/... dispatch in
 # executor.go).  This mapping is THE source of truth for operator

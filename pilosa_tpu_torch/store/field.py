@@ -1,9 +1,17 @@
 """Field: a typed attribute group within an index.
 
-The port serves ``set`` fields.  ``FieldOptions`` carries every option of
-``pilosa_tpu.store.field.FieldOptions`` in the same order, so the
-``.meta`` JSON round-trips between the two packages byte for byte; a
-field of another type opens (its options load) but takes no writes here.
+The port serves ``set`` fields and the bit-sliced integer (BSI) types
+``int``, ``decimal`` and ``timestamp``.  ``FieldOptions`` carries every
+option of ``pilosa_tpu.store.field.FieldOptions`` in the same order, with
+the same derivation of ``base`` and ``bit_depth`` from ``min``/``max``,
+so the ``.meta`` JSON round-trips between the two packages byte for byte;
+a field of another type opens (its options load) but takes no writes
+here.
+
+A BSI field keeps one view, ``bsi_<name>``, whose rows are the layout of
+:mod:`pilosa_tpu_torch.engine.bsi`: the exists row, the sign row, then
+one row per magnitude bit of ``stored - base``.  ``bit_depth`` grows as
+larger values arrive and is persisted in the field meta.
 """
 
 from __future__ import annotations
@@ -12,16 +20,38 @@ import json
 import os
 import threading
 from dataclasses import asdict, dataclass
+from datetime import datetime, timezone
 
 import numpy as np
 
+from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
-from pilosa_tpu_torch.store.view import VIEW_STANDARD, View
+from pilosa_tpu_torch.store.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 
 TYPE_SET = "set"
+TYPE_INT = "int"
+TYPE_TIME = "time"
+TYPE_DECIMAL = "decimal"
+TYPE_TIMESTAMP = "timestamp"
 FIELD_TYPES = ("set", "int", "time", "mutex", "bool", "decimal",
                "timestamp")
-BSI_TYPES = ("int", "decimal", "timestamp")
+BSI_TYPES = (TYPE_INT, TYPE_DECIMAL, TYPE_TIMESTAMP)
+
+_TIME_UNITS = "YMDH"
+_QUANTUMS = ("YM", "MD", "DH", "YMD", "MDH", "YMDH")
+_UNIX_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
+_TS_UNITS = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+
+
+def parse_pql_time(s: str) -> datetime:
+    """A PQL timestamp literal: ``2017-01-02T03:04`` (seconds optional) or
+    ``2017-01-02``."""
+    for fmt in ("%Y-%m-%dT%H:%M:%S", "%Y-%m-%dT%H:%M", "%Y-%m-%d"):
+        try:
+            return datetime.strptime(s, fmt)
+        except ValueError:
+            continue
+    raise ValueError(f"cannot parse timestamp {s!r}")
 
 
 @dataclass
@@ -43,6 +73,29 @@ class FieldOptions:
     def __post_init__(self):
         if self.type not in FIELD_TYPES:
             raise ValueError(f"invalid field type {self.type!r}")
+        if self.type == TYPE_TIME and self.time_quantum:
+            q = self.time_quantum.upper()
+            if not (q and q in _TIME_UNITS or q in _QUANTUMS):
+                raise ValueError(f"invalid time quantum {q!r}")
+            self.time_quantum = q
+        if self.type == TYPE_TIMESTAMP and self.time_unit not in _TS_UNITS:
+            raise ValueError(f"invalid timestamp unit {self.time_unit!r}")
+        if (self.type in BSI_TYPES and self.min is not None
+                and self.max is not None):
+            if self.min > self.max:
+                raise ValueError("field min > max")
+            # base minimizes the stored magnitudes
+            if self.base == 0:
+                if self.min > 0:
+                    self.base = self.min
+                elif self.max < 0:
+                    self.base = self.max
+            if self.bit_depth == 0:
+                span = max(abs(self.min - self.base),
+                           abs(self.max - self.base))
+                self.bit_depth = max(1, int(span).bit_length())
+        if self.type in BSI_TYPES and self.bit_depth == 0:
+            self.bit_depth = 1
 
 
 class Field:
@@ -91,6 +144,13 @@ class Field:
 
     def standard_view(self, create: bool = False) -> View | None:
         return self.view(VIEW_STANDARD, create)
+
+    @property
+    def bsi_view_name(self) -> str:
+        return VIEW_BSI_PREFIX + self.name
+
+    def bsi_view(self, create: bool = False) -> View | None:
+        return self.view(self.bsi_view_name, create)
 
     def available_shards(self) -> list[int]:
         shards: set[int] = set()
@@ -141,6 +201,124 @@ class Field:
             if frag is not None:
                 changed += frag.clear_bits(rows, offs)
         return changed
+
+
+    # -- BSI value writes ---------------------------------------------------
+
+    def _require_bsi(self, what: str) -> None:
+        if self.options.type not in BSI_TYPES:
+            raise ValueError(f"field {self.name}: {what} on non-BSI field")
+
+    def to_stored(self, value) -> int:
+        """API value -> stored integer (decimal scaling, timestamp epoch)."""
+        opts = self.options
+        if opts.type == TYPE_DECIMAL:
+            return int(round(float(value) * 10**opts.scale))
+        if opts.type == TYPE_TIMESTAMP:
+            if isinstance(value, str):
+                value = parse_pql_time(value).replace(tzinfo=timezone.utc)
+            if isinstance(value, datetime):
+                epoch = (datetime.fromisoformat(opts.epoch)
+                         if opts.epoch else _UNIX_EPOCH)
+                if value.tzinfo is None:
+                    value = value.replace(tzinfo=timezone.utc)
+                return int((value - epoch).total_seconds()
+                           * _TS_UNITS[opts.time_unit])
+            return int(value)
+        return int(value)
+
+    def _to_stored_batch(self, values) -> np.ndarray:
+        """Vectorized :meth:`to_stored` for bulk imports."""
+        opts = self.options
+        if opts.type == TYPE_INT:
+            return np.asarray(values, dtype=np.int64)
+        if opts.type == TYPE_DECIMAL and not any(
+                isinstance(v, str) for v in values[:1]):
+            return np.round(np.asarray(values, dtype=np.float64)
+                            * 10**opts.scale).astype(np.int64)
+        return np.array([self.to_stored(v) for v in values], dtype=np.int64)
+
+    def from_stored(self, stored: int):
+        if self.options.type == TYPE_DECIMAL:
+            return stored / 10**self.options.scale
+        return stored
+
+    def set_value(self, col: int, value) -> bool:
+        return self.import_values(np.array([col], np.uint64), [value]) > 0
+
+    def import_values(self, cols: np.ndarray, values) -> int:
+        """Bulk BSI writes, one grouped set and one grouped clear per shard
+        (every bit row written, so an overwrite needs no read-back); a
+        value past the bit depth grows it and saves the meta.  Returns
+        the bits changed."""
+        self._require_bsi("value import")
+        opts = self.options
+        cols = np.asarray(cols, np.uint64)
+        stored = self._to_stored_batch(values)
+        if len(stored) != len(cols):
+            raise ValueError(f"import_values: {len(cols)} columns vs "
+                             f"{len(stored)} values")
+        if opts.min is not None and (stored < self.to_stored(opts.min)).any():
+            raise ValueError(f"value below field min {opts.min}")
+        if opts.max is not None and (stored > self.to_stored(opts.max)).any():
+            raise ValueError(f"value above field max {opts.max}")
+        offs = stored - np.int64(opts.base)
+        mag = np.abs(offs).astype(np.uint64)
+        need = max(1, int(mag.max()).bit_length()) if len(mag) else 1
+        if need > opts.bit_depth:
+            opts.bit_depth = need
+            self.save_meta()
+        depth = opts.bit_depth
+        changed = 0
+        for shard, idx, c in _by_shard(np.arange(len(cols), dtype=np.uint64),
+                                       cols, "import_values"):
+            o, g = offs[idx.astype(np.intp)], mag[idx.astype(np.intp)]
+            frag = self.bsi_view(create=True).fragment(shard, create=True)
+            # the last write of a column in the batch wins
+            _, last = np.unique(c[::-1], return_index=True)
+            keep = len(c) - 1 - last
+            c, o, g = c[keep], o[keep], g[keep]
+            neg = o < 0
+            set_groups = [(EXISTS_ROW, c), (SIGN_ROW, c[neg])]
+            clr_groups = [(SIGN_ROW, c[~neg])]
+            for b in range(depth):
+                hit = (g >> np.uint64(b)) & np.uint64(1) != 0
+                set_groups.append((OFFSET_ROW + b, c[hit]))
+                clr_groups.append((OFFSET_ROW + b, c[~hit]))
+            changed += frag.set_bits_grouped(set_groups)
+            changed += frag.clear_bits_grouped(clr_groups)
+        return changed
+
+    def value(self, col: int) -> tuple:
+        """One column's BSI value: ``(value, exists)``."""
+        view = self.bsi_view()
+        frag = view.fragment(col // SHARD_WIDTH) if view else None
+        if frag is None:
+            return 0, False
+        off = col % SHARD_WIDTH
+        word, bit = off >> 5, np.uint32(1) << np.uint32(off & 31)
+
+        def has(row: int) -> bool:
+            return bool(frag.row_words(row, [word])[0] & bit)
+
+        if not has(EXISTS_ROW):
+            return 0, False
+        mag = sum(1 << b for b in range(self.options.bit_depth)
+                  if has(OFFSET_ROW + b))
+        if has(SIGN_ROW):
+            mag = -mag
+        return self.from_stored(mag + self.options.base), True
+
+    def clear_value(self, col: int) -> bool:
+        """Remove a column's BSI value entirely."""
+        self._require_bsi("value clear")
+        view = self.bsi_view()
+        frag = view.fragment(col // SHARD_WIDTH) if view else None
+        if frag is None:
+            return False
+        rows = np.arange(OFFSET_ROW + self.options.bit_depth, dtype=np.uint64)
+        return frag.clear_bits(rows, np.full(len(rows), col % SHARD_WIDTH,
+                                             np.uint64)) > 0
 
 
 def _by_shard(row_ids, cols, what: str):

@@ -229,6 +229,37 @@ class Fragment:
     def clear_bits(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
         return self._mutate(OP_CLEAR_BITS, row_ids, cols)
 
+    def set_bits_grouped(self, groups) -> int:
+        """Bulk set from pre-grouped ``[(row_id, column offsets), ...]``
+        (the shape a BSI value import builds): one op, one op-log record
+        and one journal entry naming every word of every group."""
+        return self._apply_grouped(OP_SET_BITS, groups)
+
+    def clear_bits_grouped(self, groups) -> int:
+        return self._apply_grouped(OP_CLEAR_BITS, groups)
+
+    def _apply_grouped(self, op: int, groups) -> int:
+        with self.lock:
+            changed = 0
+            parts = []
+            delta: dict = {}
+            for row_id, cols in groups:
+                cols = np.asarray(cols, np.uint32)
+                if len(cols) == 0:
+                    continue
+                r = int(row_id)
+                self._ensure_row(r)
+                changed += len(self._row_apply(op, r, np.unique(cols)))
+                words = np.unique(cols >> np.uint32(5))
+                prev = delta.get(r)
+                delta[r] = words if prev is None else np.union1d(prev, words)
+                parts.append(np.uint64(r) * _SW + cols.astype(np.uint64))
+            if changed:
+                self.generation += 1
+                self._note_delta(delta)
+                self._log(op, 0, np.concatenate(parts))
+            return changed
+
     def import_roaring(self, blob: bytes, clear: bool = False) -> int:
         """Union (or clear) a roaring-encoded bit set (positions
         ``row*SHARD_WIDTH + col``); returns the bits changed."""

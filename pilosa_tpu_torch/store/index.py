@@ -11,7 +11,8 @@ import time
 
 import numpy as np
 
-from pilosa_tpu_torch.store.field import TYPE_SET, Field, FieldOptions
+from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_SET, Field,
+                                          FieldOptions)
 
 EXISTENCE_FIELD = "_exists"
 
@@ -67,7 +68,7 @@ class Index:
             if name in self.fields:
                 raise ValueError(f"field {name!r} already exists")
             options = options or FieldOptions()
-            if options.type != TYPE_SET:
+            if options.type != TYPE_SET and options.type not in BSI_TYPES:
                 raise ValueError(f"field type {options.type!r} is not "
                                  "supported by this port")
             if not options.created_at:
@@ -92,6 +93,15 @@ class Index:
         if ef is not None and len(cols):
             ef.import_bits(np.zeros(len(cols), np.uint64),
                            np.asarray(cols, np.uint64))
+
+    def set_value(self, field: str, col: int, value) -> bool:
+        """Write one BSI value and record the column's existence."""
+        f = self.fields.get(field)
+        if f is None:
+            raise KeyError(f"field {field!r} not found")
+        changed = f.set_value(col, value)
+        self.note_columns(np.array([col], np.uint64))
+        return changed
 
     def available_shards(self) -> list[int]:
         shards: set[int] = set()

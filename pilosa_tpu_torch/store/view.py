@@ -1,5 +1,6 @@
 """View: the fragments of one flavor of one field, created per shard on
-demand (the ``standard`` view for set fields)."""
+demand (the ``standard`` view for set fields, ``bsi_<field>`` for the
+bit-sliced rows of an integer field)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import threading
 from pilosa_tpu_torch.store.fragment import Fragment
 
 VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsi_"
 
 
 class View:

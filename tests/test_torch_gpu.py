@@ -233,3 +233,111 @@ def test_concurrent_burst_equal_cpu(dev, tmp_path):
     finally:
         api.executor.close()
         holder.close()
+
+
+@pytest.mark.parametrize("s,r,w", [(954, 22, 32768), (2048, 22, 1),
+                                   (5, 22, 1)])
+def test_row_counts_bsi_shapes_equal_plain(dev, s, r, w):
+    """``row_counts`` with a filter at the BSI path's shapes: the bit
+    plane of Sum's ``bit_counts`` and the overlay's mini plane."""
+    plane = _words(s + r + w, (s, r, w), dev)
+    filt = _words(w + 3, (s, w), dev)
+    assert torch.equal(cuda_kernels.row_counts(plane, filt),
+                       tk.row_counts_plain(plane, filt))
+
+
+def _bsi_plane(seed: int, s: int, depth: int, w: int) -> np.ndarray:
+    """uint32[s, depth + 2, w]: ~60% of columns hold a value."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-(1 << depth) + 1, 1 << depth, (s, w * 32))
+    exists = rng.random((s, w * 32)) < 0.6
+    vals = np.where(exists, vals, 0)
+
+    def pack(bits):
+        return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+
+    rows = [pack(exists), pack(vals < 0)]
+    rows += [pack((np.abs(vals) >> b) & 1 == 1) for b in range(depth)]
+    return np.stack(rows, axis=1)
+
+
+def test_bsi_functions_equal_cpu(dev):
+    """Every BSI function on the card equals the same call on the CPU,
+    the overlay's base+delta split included."""
+    from pilosa_tpu_torch.engine import bsi
+    from pilosa_tpu_torch.exec.fused import FusedCache
+    host = _bsi_plane(61, 40, 13, 1024)
+    plane = torch.from_numpy(host.view(np.int32))
+    filt = _words(62, (40, 1024), "cpu")
+    mirror = delta.DeltaMirror(1 << 16)
+    rng = np.random.default_rng(63)
+    cells = {(int(s) * 15 + int(r), int(w)): int(v) for s, r, w, v in zip(
+        rng.integers(0, 40, 300), rng.integers(0, 15, 300),
+        rng.integers(0, 1024, 300),
+        rng.integers(0, 1 << 32, 300, dtype=np.uint32))}
+    mirror.absorb(cells)
+    fused = FusedCache()
+    masks = bsi.predicate_masks(1234, 13)
+    for d in (None, "overlay"):
+        ov = {x: mirror.build_bsi_overlay(x, 15, 40) if d else None
+              for x in ("cpu", dev)}
+        on = {"cpu": (plane, filt), dev: (plane.to(dev), filt.to(dev))}
+        out = {}
+        for x, (p, f) in on.items():
+            out[x] = [
+                fused.run_sum_plane_batch(p, (False, True), (f,), ov[x]),
+                fused.run_minmax_plane_batch(p, (False, True), (f,), ov[x]),
+                fused.run_range_batch(
+                    p, ((("gt",), False), (("ge", "lt"), True)),
+                    (masks, False, masks, True, masks, False, f), ov[x])]
+            if d is None:
+                out[x] += [bsi.distinct_presence(p, f)[0],
+                           fused.run_percentile(p, f, 99.9)[0]]
+        for got, want in zip(out[dev], out["cpu"]):
+            assert torch.equal(got.cpu(), want)
+
+
+def test_bsi_requests_equal_cpu(dev, tmp_path):
+    """The BSI requests of chip_smoke's phase 5, through the default
+    executor on the card and the "off" one on the CPU, before and after
+    a value import absorbed into the overlay."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    rng = np.random.default_rng(64)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 8), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(6 << 20, 40000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+    idx.create_field("amount", FieldOptions(type="int", min=-1_000_000,
+                                            max=1_000_000))
+    cols = rng.choice(6 << 20, 200000, replace=False).astype(np.uint64)
+    idx.field("amount").import_values(
+        cols, rng.integers(-1_000_000, 1_000_001, len(cols)).tolist())
+    mix = ["Sum(field=amount)", "Sum(Row(g=0), field=amount)",
+           "Min(field=amount)", "Max(Row(g=1), field=amount)",
+           "Count(Row(amount > 250000))", "Count(Row(-1000 < amount < 1000))",
+           "Count(Intersect(Row(f=1), Row(amount >= 0)))",
+           "TopN(f, Row(amount > 900000), n=5)",
+           "Percentile(field=amount, nth=99)",
+           "Distinct(Row(amount > 999000), field=amount)"]
+    cpu = API(holder, Executor(holder, device="cpu",
+                               count_batch_window="off", tree_fusion=False))
+    api = API(holder, Executor(holder, device=dev))
+    try:
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
+        more = rng.choice(6 << 20, 1000, replace=False).tolist()
+        api.import_values("i", "amount", col_ids=more,
+                          values=rng.integers(-1_000_000, 1_000_001,
+                                              1000).tolist())
+        builds = api.executor.planes.builds
+        for q in mix[:6]:
+            assert api.query("i", q) == cpu.query("i", q), q
+        assert api.executor.planes.builds == builds
+    finally:
+        api.executor.close()
+        holder.close()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Six phases; any failure raises and the exit code is non-zero:
+Seven phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -58,7 +58,19 @@ Six phases; any failure raises and the exit code is non-zero:
    empty columns), each followed by Sum, Min, Max and a range Count,
    absorbed into the BSI overlay with no rebuild and folded at a quarter
    fill, and one 50,000-value batch whose next read rebuilds.
-6. Print the ``kernels`` JSON line, the card's name and power limit, and
+6. GroupBy, on the same holder after phase 5: five requests (the
+   reference benches' 4x4 of ``f`` rows, ``g`` x ``f``, Sum of ``amount``
+   by ``f`` row, Max of ``amount`` by ``g`` row filtered by ``f`` row 1,
+   and ``g`` x ``f`` with ``having=``, ``limit=`` and ``previous=``)
+   through the default executor (fast lane) and the "off" one, every
+   answer checked against a numpy oracle; each request's device ms beside
+   one read of the planes it needs; a burst of 32 clients x 4 passes over
+   the first four whose ``groupby`` windows must coalesce and dedupe; a
+   4096-pair REST ``/import`` into ``f`` (rows planes refresh from the
+   journals, no rebuild) and a 1024-value ``importValue`` (Sum over the
+   BSI overlay), each followed by requests checked against the updated
+   oracle.  Launch counters are reset at the start and read at the end.
+7. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -102,6 +114,8 @@ BSI_FILL = 0.5
 VALUE_BATCH, VALUE_BATCHES = 1024, 6   # importValue batches while serving
 VALUE_OVER_CAP = 50_000        # values of the batch past the BSI overlay
 MINI_COLUMNS = 2048            # mini-plane lanes timed in phase 1
+GB_VALUES = 1024               # phase 6's importValue batch
+GB_PASSES = 4                  # passes of phase 6's concurrent burst
 REPLACES = {
     "row_counts": "pilosa_tpu/engine/pallas_kernels.py:111",
     "selected_row_counts": "pilosa_tpu/engine/pallas_kernels.py:207",
@@ -351,6 +365,8 @@ def make_index(data_dir: str, shards: int, seed: int):
     # f now holds its state after the ingest phase, which the BSI phase
     # serves
     oracle["bsi"] = make_bsi(data_dir, f, g, shards, seed)
+    # and phase 6 serves f and amount as phases 4 and 5 left them
+    oracle["groupby"] = make_groupby(f, g, shards, seed, oracle["bsi"])
     return oracle
 
 
@@ -448,16 +464,23 @@ def _pack(bits: np.ndarray) -> np.ndarray:
     return np.packbits(bits, bitorder="little").view(np.uint32)
 
 
+def _bsi_values(seed: int, s: int) -> tuple[np.ndarray, np.ndarray]:
+    """Shard ``s`` of ``amount`` as generated from (seed, s): (exists
+    bool[2^20], values int32[2^20], 0 where empty)."""
+    rng = np.random.default_rng([seed, 7, s])
+    exists = rng.random(1 << 20, dtype=np.float32) < BSI_FILL
+    vals = np.where(exists, rng.integers(BSI_MIN, BSI_MAX + 1, 1 << 20,
+                                         dtype=np.int32), 0)
+    return exists, vals
+
+
 def _bsi_shard(data_dir: str, s: int, seed: int, f: np.ndarray,
                g: np.ndarray, picks: np.ndarray) -> dict:
     """Generate shard ``s`` of ``amount`` from (seed, s), write its
     fragment snapshot with the port's writer, and return its part of the
     oracle (and the values at the candidate offsets ``picks``)."""
     from pilosa_tpu_torch.store import roaring
-    rng = np.random.default_rng([seed, 7, s])
-    exists = rng.random(1 << 20, dtype=np.float32) < BSI_FILL
-    vals = np.where(exists, rng.integers(BSI_MIN, BSI_MAX + 1, 1 << 20,
-                                         dtype=np.int32), 0)
+    exists, vals = _bsi_values(seed, s)
     mag = np.abs(vals)
     rows = np.empty((BSI_ROWS, WORDS), np.uint32)
     rows[0] = _pack(exists)
@@ -623,15 +646,23 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
                                empty[k * half:(k + 1) * half]])
         used[pick] = True
         batches.append(pick)
-    rest = np.nonzero(~used)[0]
-    batches.append(rng.permutation(rest)[:VALUE_OVER_CAP])
+    perm = rng.permutation(np.nonzero(~used)[0])
+    batches.append(perm[:VALUE_OVER_CAP])
     out = []
+    final = old.copy()   # every candidate's value after phase 5
     for pick in batches:
         new = rng.integers(BSI_MIN, BSI_MAX + 1, len(pick))
         changed = _changed_bits(old[pick], new)
         hist.move(old[pick], new)
+        final[pick] = new
         out.append((cand[pick], new, changed, _bsi_ingest_expect(hist)))
-    return {"expect": expect, "batches": out[:-1], "over_cap": out[-1]}
+    # phase 6's value batch: candidates no phase-5 batch wrote
+    pick = np.sort(perm[VALUE_OVER_CAP:VALUE_OVER_CAP + GB_VALUES])
+    new = rng.integers(BSI_MIN, BSI_MAX + 1, len(pick))
+    return {"expect": expect, "batches": out[:-1], "over_cap": out[-1],
+            "final": (cand, final),
+            "gb_values": (cand[pick], new, final[pick],
+                          _changed_bits(final[pick], new))}
 
 
 def device_times(run) -> tuple[list, float]:
@@ -902,10 +933,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 5 over one holder; returns the launch counts of each
+    """Phases 2 to 6 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
-    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent" and
-    "bsi_ingest"."""
+    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest"
+    and "groupby"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1032,6 +1063,11 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         bsi = bsi_phase(client, holder, planes, oracle["bsi"], cuda,
                         device, clients, passes)
         log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        log("== phase 6: GroupBy ==")
+        gb = groupby_phase(client, holder, planes, oracle["groupby"], cuda,
+                           device, clients)
+        log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1054,7 +1090,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi}
+            "ingest": ingest, **bsi, **gb}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -1352,6 +1388,331 @@ def bsi_phase(client, holder, planes, bsi: dict, cuda: bool, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: GroupBy
+# ---------------------------------------------------------------------------
+
+# the reference benches' GroupBy shapes (config10/14, config7's tree at
+# two levels, config30/31, the Min/Max aggregate, the v2 paging surface)
+GB_SEQ = ("GroupBy(Rows(f, limit=4), Rows(f, previous=3, limit=4))",
+          "GroupBy(Rows(g), Rows(f))",
+          "GroupBy(Rows(f), aggregate=Sum(field=amount))",
+          "GroupBy(Rows(g), filter=Row(f=1), aggregate=Max(field=amount))")
+GB_PAGED = ("GroupBy(Rows(g), Rows(f), having=Condition(count > {n}), "
+            "limit=20, previous=[0, 3])")
+GB_NAMES = dict(zip(GB_SEQ, ("4x4", "g x f", "Sum by f", "filtered Max by g")))
+_MASK20 = (1 << 20) - 1
+
+
+def _groupby_shard(s: int, seed: int, f: np.ndarray, g: np.ndarray,
+                   c_off: np.ndarray, c_final: np.ndarray,
+                   p_off: np.ndarray) -> dict:
+    """Shard ``s``'s part of the GroupBy oracle over ``amount`` as phase 5
+    left it (``c_final``: the values of the candidate offsets ``c_off``,
+    ``_EMPTY`` = none), and the values at the offsets ``p_off``."""
+    exists, vals = _bsi_values(seed, s)
+    exists[c_off] = c_final != _EMPTY
+    vals = vals.astype(np.int64)
+    vals[c_off] = np.where(exists[c_off], c_final, 0)
+    mag = np.abs(vals)
+    mag_rows = np.stack([_pack((mag >> b) & 1 == 1)
+                         for b in range(BSI_DEPTH)])            # [20, W]
+    fs, gs = f[s], g[s]
+    # Sum by f row from packed bit counts, as the BSI plane holds them
+    weights = np.int64(1) << np.arange(BSI_DEPTH, dtype=np.int64)
+    sums = np.zeros(ROWS, np.int64)
+    for sign, cols in ((1, exists & (vals >= 0)), (-1, exists & (vals < 0))):
+        part = fs & _pack(cols)
+        sums += sign * (_popcounts(part[:, None, :] & mag_rows[None])
+                        * weights).sum(-1)
+    f1 = _bits(fs[1])
+    maxes = []
+    for k in range(4):
+        m = _bits(gs[k]) & f1 & exists
+        best = int(vals[m].max()) if m.any() else None
+        maxes.append(None if best is None
+                     else (best, int((vals[m] == best).sum())))
+    return {"rows": _popcounts(fs), "sums": sums, "maxes": maxes,
+            "f1_g": _popcounts(gs & fs[1]),
+            "g_f": _popcounts(gs[:, None, :] & fs[None]),
+            "f_f": _popcounts(fs[:4, None, :] & fs[None, 4:8]),
+            "at": np.where(exists[p_off], vals[p_off], 0)}
+
+
+def _gb_json(fields: tuple, combos, counts, aggs=None) -> list:
+    """The GroupBy JSON of the combinations with a non-zero count."""
+    out = []
+    for i, combo in enumerate(combos):
+        if counts[i] > 0:
+            grp = {"group": [{"field": fl, "rowID": int(r)}
+                             for fl, r in zip(fields, combo)],
+                   "count": int(counts[i])}
+            if aggs is not None and aggs[i] is not None:
+                grp["agg"] = int(aggs[i])
+            out.append(grp)
+    return out
+
+
+def _gb_expect(st: dict) -> dict:
+    """The five requests' answers from the oracle state ``st``."""
+    ff = [(a, b) for a in range(4) for b in range(4, 8)]
+    gf = [(k, r) for k in range(4) for r in range(ROWS)]
+    pairs = _gb_json(("g", "f"), gf, st["g_f"].reshape(-1))
+    out = {GB_SEQ[0]: [_gb_json(("f", "f"), ff, st["f_f"].reshape(-1))],
+           GB_SEQ[1]: [pairs],
+           GB_SEQ[2]: [_gb_json(("f",), [(r,) for r in range(ROWS)],
+                                st["rows"], st["sums"])],
+           GB_SEQ[3]: [_gb_json(("g",), [(k,) for k in range(4)],
+                                st["f1_g"], [m and m[0]
+                                             for m in st["maxes"]])]}
+    paged = [p for p in pairs if p["count"] > st["median"]
+             and (p["group"][0]["rowID"], p["group"][1]["rowID"]) > (0, 3)]
+    out[st["paged"]] = [paged[:20]]
+    return out
+
+
+def make_groupby(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
+                 bsi: dict) -> dict:
+    """Phase 6's oracle over ``f`` as phase 4 left it and ``amount`` as
+    phase 5 left it, its import batches and the answers after each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    cand, final = bsi["final"]
+    rng = np.random.default_rng(seed + 3)
+    rows, cols = _distinct_pairs(rng, BATCH, shards)
+    ucols = np.unique(cols)
+    cb = np.searchsorted(cand, np.arange(shards + 1) << 20)
+    pb = np.searchsorted(ucols, np.arange(shards + 1) << 20)
+    st = {"rows": np.zeros(ROWS, np.int64), "sums": np.zeros(ROWS, np.int64),
+          "f1_g": np.zeros(4, np.int64), "g_f": np.zeros((4, ROWS), np.int64),
+          "f_f": np.zeros((4, 4), np.int64)}
+    per_max: list = [[] for _ in range(4)]
+    at = np.zeros(len(ucols), np.int64)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futs = [pool.submit(_groupby_shard, s, seed, f, g,
+                            cand[cb[s]:cb[s + 1]] & _MASK20,
+                            final[cb[s]:cb[s + 1]],
+                            ucols[pb[s]:pb[s + 1]] & _MASK20)
+                for s in range(shards)]
+        for s, fut in enumerate(futs):
+            r = fut.result()
+            for key in ("rows", "sums", "f1_g", "g_f", "f_f"):
+                st[key] += r[key]
+            for k, m in enumerate(r["maxes"]):
+                if m is not None:
+                    per_max[k].append(m)
+            at[pb[s]:pb[s + 1]] = r["at"]
+    st["maxes"] = []
+    for ms in per_max:
+        best = max((v for v, _ in ms), default=None)
+        st["maxes"].append(None if best is None else
+                           (best, sum(c for v, c in ms if v == best)))
+    st["median"] = int(np.median(st["g_f"]))
+    st["paged"] = GB_PAGED.format(n=st["median"])
+    before = _gb_expect(st)
+
+    def f_bits(c: np.ndarray) -> np.ndarray:
+        """f's bits at columns ``c``: int64[len(c), ROWS]."""
+        sh, w = c >> 20, (c & _MASK20) >> 5
+        bit = np.uint32(1) << (c & 31).astype(np.uint32)
+        return ((f[sh, :, w] & bit[:, None]) != 0).astype(np.int64)
+
+    # the set batch: its touched columns before and after
+    fb = f_bits(ucols)
+    sh, off = cols >> 20, cols & _MASK20
+    np.bitwise_or.at(f, (sh, rows, off >> 5),
+                     np.uint32(1) << (off & 31).astype(np.uint32))
+    fa = f_bits(ucols)
+    d = fa - fb
+    gbit = np.uint32(1) << (ucols & 31).astype(np.uint32)
+    gu = ((g[ucols >> 20, :, (ucols & _MASK20) >> 5] & gbit[:, None])
+          != 0).astype(np.int64)
+    st["g_f"] = st["g_f"] + gu.T @ d
+    st["f_f"] = st["f_f"] + (fa[:, :4, None] * fa[:, None, 4:8]
+                             - fb[:, :4, None] * fb[:, None, 4:8]).sum(0)
+    st["rows"] = st["rows"] + d.sum(0)
+    st["sums"] = st["sums"] + (d * at[:, None]).sum(0)
+    after_set = _gb_expect(st)
+    # the value batch, into candidate columns phase 5 never wrote
+    vcols, new, old, vchanged = bsi["gb_values"]
+    st["sums"] = st["sums"] + (f_bits(vcols)
+                               * (new - np.where(old == _EMPTY, 0,
+                                                 old))[:, None]).sum(0)
+    after_values = _gb_expect(st)
+    log(f"GroupBy oracle over {shards} shards and its two import batches "
+        f"in {time.perf_counter() - t0:.1f}s")
+    return {"paged": st["paged"], "expect": before,
+            "set_batch": (rows, cols, int(d.sum()), after_set),
+            "value_batch": (vcols, new, vchanged, after_values)}
+
+
+def groupby_phase(client, holder, planes, gbo: dict, cuda: bool, device,
+                  clients: int = CLIENTS, passes: int = GB_PASSES) -> dict:
+    """Phase 6: the five GroupBy requests through the default executor
+    (fast lane) and the "off" one, their device ms beside the one-read
+    bound, a concurrent burst whose ``groupby`` windows must coalesce and
+    dedupe, then a set import (rows planes refresh, no rebuild) and a
+    value import (Sum over the BSI overlay).  The launch counters are
+    reset when the phase starts and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    api = client.api
+    ex = api.executor
+    expect = gbo["expect"]
+    reqs = GB_SEQ + (gbo["paged"],)
+    names = dict(GB_NAMES, **{gbo["paged"]: "paged g x f"})
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+
+    builds = planes.builds
+    for q in reqs:
+        t = time.perf_counter()
+        client.ask(q, expect[q], tag=f"GroupBy {names[q]}, first")
+        log(f"GroupBy {names[q]} first request (builds its planes): "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    log(f"rows planes built: {planes.builds - builds} "
+        f"(last {planes.last_build_seconds:.2f} s, "
+        f"{planes.last_build_bytes / 1e9:.2f} GB)")
+    # one read of each plane a request needs: rows planes of 4 and 32
+    # rows, the bit plane, f's row 1
+    row_b = len(shards) * WORDS * 4
+    nbytes = {GB_SEQ[0]: 8 * row_b, GB_SEQ[1]: (4 + ROWS) * row_b,
+              GB_SEQ[2]: (ROWS + BSI_ROWS) * row_b,
+              GB_SEQ[3]: (4 + BSI_ROWS + 1) * row_b,
+              gbo["paged"]: (4 + ROWS) * row_b}
+
+    b0 = ex.serving_stats()
+    for q in reqs:
+        client.ask(q, expect[q], reps=3, tag=f"GroupBy {names[q]}")
+    b1 = ex.serving_stats()
+    hits = b1["fastLaneHits"] - b0["fastLaneHits"]
+    if hits < 3 * len(reqs):
+        raise AssertionError(f"{hits} fast-lane hits for the "
+                             f"{3 * len(reqs)} sequential GroupBys")
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   delta_compact_fraction=COMPACT_FRACTION,
+                   count_batch_window="off", tree_fusion=False)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    for q in reqs:
+        offc.ask(q, expect[q], reps=2, tag=f"GroupBy off {names[q]}")
+    log("GroupBy sequential: every answer equal to the oracle through both "
+        f"configurations; {hits} fast-lane hits")
+    for q in reqs:
+        log(f"latency GroupBy {names[q]}: median "
+            f"{_median_ms(client.lat[f'GroupBy {names[q]}']):.2f} ms "
+            f"[default], "
+            f"{_median_ms(offc.lat[f'GroupBy off {names[q]}']):.2f} ms "
+            f"[off]")
+    if cuda:
+        for q in reqs:
+            b_ms = bound(nbytes[q], 0)[0]
+            dev_ms, wall_ms, top = device_busy_share(
+                lambda: client.ask(q, expect[q], reps=3, tag="profiled"))
+            log(f"GroupBy device ms {names[q]}: {dev_ms / 3:.3f} ms per "
+                f"request (bound {b_ms:.3f} ms = one read of "
+                f"{nbytes[q] / 1e9:.3f} GB; {dev_ms / 3 / b_ms:.1f}x), wall "
+                f"{wall_ms / 3:.3f} ms; by kernel: {top}")
+
+    t1 = time.perf_counter()
+    b0 = ex.serving_stats()
+    run = burst(api, expect, clients, passes, GB_SEQ, GB_NAMES)
+    b1 = ex.serving_stats()
+    reqs_n = run["requests"]
+    windows = b1["windows"] - b0["windows"]
+    items = b1["items"] - b0["items"]
+    groups, gitems, largest = _kind_stats(b0, b1, "groupby")
+    log(f"[GroupBy] {clients} clients x {passes} passes: {reqs_n} requests "
+        f"in {run['wall']:.3f} s = {reqs_n / run['wall']:.1f} requests/s; "
+        f"{windows} windows, {items} items ({items / max(1, windows):.2f} "
+        f"per window); groupby: {groups} calls for {gitems} items "
+        f"(dedupe hits {gitems - groups}, largest group {largest})")
+    for q in GB_SEQ:
+        ts = run["lat"][q]
+        log(f"[GroupBy]   {names[q]}: p50 {_pct_ms(ts, 0.5):.2f} ms, p90 "
+            f"{_pct_ms(ts, 0.9):.2f} ms, p99 {_pct_ms(ts, 0.99):.2f} ms, "
+            f"max {max(ts) * 1e3:.2f} ms over {len(ts)}")
+    if items <= windows or gitems <= groups:
+        raise AssertionError("the groupby windows never coalesced or "
+                             "deduped")
+    if cuda:
+        dev_ms, wall_ms, top = device_busy_share(
+            lambda: burst(api, expect, clients, 1, GB_SEQ, GB_NAMES))
+        log(f"[GroupBy]   one burst of {clients} x 1 under the profiler: "
+            f"device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall = "
+            f"{dev_ms / wall_ms:.1%}; by kernel: {top}")
+    log(f"phase 6 concurrent wall: {time.perf_counter() - t1:.1f}s")
+
+    builds, refreshed = planes.builds, planes.incremental_applied
+    absorbs = planes.delta_absorbs
+    rows_, cols, changed, want = gbo["set_batch"]
+    got = client.post("/index/bench/field/f/import", json.dumps(
+        {"rowIDs": rows_.tolist(), "columnIDs": cols.tolist()}).encode(),
+        "REST import, GroupBy")
+    if got != {"changed": changed}:
+        raise AssertionError(f"import: got {got}, want {changed}")
+    for q in GB_SEQ[:2]:
+        client.ask(q, want[q], tag=f"GroupBy {names[q]} after import")
+    if planes.builds != builds or planes.incremental_applied <= refreshed:
+        raise AssertionError(
+            f"the rows planes did not refresh without a rebuild: builds "
+            f"{builds} -> {planes.builds}, refreshes {refreshed} -> "
+            f"{planes.incremental_applied}")
+    vcols, new, vchanged, want = gbo["value_batch"]
+    got = client.post("/index/bench/field/amount/importValue", json.dumps(
+        {"columnIDs": vcols.tolist(), "values": new.tolist()}).encode(),
+        "REST importValue, GroupBy")
+    if got != {"changed": vchanged}:
+        raise AssertionError(f"importValue: got {got}, want {vchanged}")
+    client.ask(GB_SEQ[2], want[GB_SEQ[2]], tag="GroupBy Sum over overlay")
+    if planes.builds != builds or planes.delta_absorbs <= absorbs:
+        raise AssertionError(
+            f"the value batch was not absorbed: builds {builds} -> "
+            f"{planes.builds}, absorbs {absorbs} -> {planes.delta_absorbs}")
+    for tag in ("REST import, GroupBy", "GroupBy 4x4 after import",
+                "GroupBy g x f after import", "REST importValue, GroupBy",
+                "GroupBy Sum over overlay"):
+        log(f"latency {tag!r}: {client.lat[tag][0] * 1e3:.2f} ms")
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda:
+        # the innermost pass of "g x f" timed with CUDA events on the
+        # resident rows plane and a g row, beside phase 1's random plane
+        # (after the path's counts are read: these launches are not its)
+        fplane = planes.rows_plane("bench", index.field("f"), "standard",
+                                   np.arange(ROWS, dtype=np.uint64),
+                                   shards).plane
+        filt = planes.rows_plane("bench", index.field("g"), "standard",
+                                 np.arange(4, dtype=np.uint64),
+                                 shards).plane[:, 0].contiguous()
+        ms = time_ms(lambda: cuda_kernels.row_counts(fplane, filt), 20)
+        nb = (fplane.numel() + filt.numel()) * 4
+        log(f"row_counts+filter on the f rows plane int32"
+            f"{list(fplane.shape)} (CUDA events): {ms:.4f} ms "
+            f"({nb / ms / 1e6:.1f} GB/s)")
+        del fplane, filt
+    log(f"GroupBy ingest: the set batch refreshed the rows planes "
+        f"(refreshes +{planes.incremental_applied - refreshed}, builds "
+        f"stayed {planes.builds}), the value batch absorbed (absorbs "
+        f"+{planes.delta_absorbs - absorbs}); launches {json.dumps(launched)}"
+        f"; peak device memory in the phase {peak / 1e9:.2f} GB; phase 6 "
+        f"GroupBy wall {time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("row_counts", "count"):
+            if launched[k] < 1:
+                raise AssertionError(f"the GroupBy path never launched {k}")
+    return {"groupby": launched}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1394,7 +1755,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 6: output ==")
+    log("== phase 7: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -227,6 +227,14 @@ def min_max_bits(plane: torch.Tensor,
             "max_cnt": max_cnt}
 
 
+def min_max(plane: torch.Tensor,
+            filter_words: torch.Tensor | None = None) -> list:
+    """Per-shard ``(min, min_count, max, max_count)`` offsets as exact
+    Python ints: the device descent of :func:`min_max_bits`, reconstructed
+    on the host at any depth."""
+    return combine_min_max(min_max_bits(plane, filter_words))
+
+
 def pack_min_max(mm: dict) -> torch.Tensor:
     """:func:`min_max_bits` as one int32[S, 2*depth+4] tensor (the layout
     :func:`decode_minmax_packed` reads)."""

@@ -20,7 +20,11 @@ window's int32 outputs into ONE device tensor, read back with one copy:
 - ``sum`` / ``minmax`` / ``bsirange``: BSI Sum, Min/Max and range Counts;
   the items over one (bit plane, overlay) pair run in one family call
   that reads the plane once per item, and identical items (same filter,
-  same predicate) DEDUPE to one.
+  same predicate) DEDUPE to one;
+- ``groupby``: one GroupBy combination block; identical blocks (same
+  planes, filter, overlay, aggregate and combinations, by a digest of
+  the combination slots) DEDUPE to one, and every caller gets the same
+  host arrays.
 
 The window is adaptive: it stays at 0 while traffic is solo and doubles
 (``ADAPT_MIN`` .. ``ADAPT_MAX``) while windows coalesce.  With no queue
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import bsi as bsik
+from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.fused import shift_leaves
 from pilosa_tpu_torch.exec.tree import assemble_items
 
@@ -58,10 +63,11 @@ class _Pending:
 
     def __init__(self, kind, nodes, leaves, delta=None):
         self.kind = kind      # "count" | "rowcounts" | "selcounts" | "tree"
-        #                       | "sum" | "minmax" | "bsirange"
+        #                       | "sum" | "minmax" | "bsirange" | "groupby"
         self.nodes = nodes    # count: plan trees; selcounts: plane row
         #                       slots; tree: (slots, prog, extras);
-        #                       bsirange: (spec, operands, sig);
+        #                       bsirange: (spec, operands, sig); groupby:
+        #                       (args, (agg, meta), sig);
         #                       rowcounts, sum, minmax: None
         self.leaves = leaves  # count: plan leaves; others: plane[, filter]
         self.delta = delta    # the plane's DeltaOverlay (base+delta)
@@ -265,6 +271,11 @@ class CountBatcher:
                                          delta=delta)
         return int(out.cpu()[0])
 
+    def _fastlane_groupby(self, args: tuple, agg_kind, meta: tuple) -> dict:
+        out = self.fused.run_groupby_batch(*args[:5], agg_kind,
+                                           delta=args[5])
+        return gb.unflatten_block(out.cpu().numpy(), *meta, agg_kind)
+
     # -- submits -----------------------------------------------------------
 
     def submit(self, node, leaves) -> int:
@@ -360,6 +371,27 @@ class CountBatcher:
         return self._enqueue(_Pending(
             "bsirange", (spec, tuple(operands), sig), (plane,), delta))
 
+    def submit_groupby(self, planes: tuple, combo_idx, last_plane,
+                       filter_words, agg_plane, agg_kind, meta: tuple,
+                       digest: bytes, delta=None) -> dict:
+        """One GroupBy combination block (``exec.groupby.groupby_out``'s
+        arguments; ``combo_idx`` a host array) -> its parts as host arrays.
+        ``meta`` = (combinations, innermost rows, depth) for the unflatten;
+        ``digest`` hashes the combination slots, so identical concurrent
+        blocks (same planes, filter, overlay, aggregate and combinations)
+        dedupe to one call.  ``delta``: the bit plane's ``BsiOverlay``."""
+        args = (tuple(planes), combo_idx, last_plane, filter_words,
+                agg_plane, delta)
+        out = self._fastlane(self._fastlane_groupby, args, agg_kind, meta)
+        if out is not _MISS:
+            return out
+        sig = (tuple(id(p) for p in planes), id(last_plane),
+               id(filter_words) if filter_words is not None else 0,
+               id(agg_plane) if agg_plane is not None else 0,
+               id(delta) if delta is not None else 0, agg_kind, digest)
+        return self.wait(self._enqueue(_Pending(
+            "groupby", (args, (agg_kind, meta), sig), (last_plane,))))
+
     # -- collector ---------------------------------------------------------
 
     def _run_collector(self) -> None:
@@ -427,6 +459,8 @@ class CountBatcher:
         shape (and dedupe by leaf identity), or share one base+delta scan
         per (plane, overlay, filter) identity."""
         delta = id(p.delta) if p.delta is not None else 0
+        if p.kind == "groupby":
+            return ("groupby",) + p.nodes[2]
         if p.kind == "count":
             return ("count", p.leaves[0].shape[0])
         if p.kind in ("selcounts", "tree", "sum", "minmax", "bsirange"):
@@ -483,6 +517,8 @@ class CountBatcher:
             return self._dispatch_aggs(kind, group)
         if kind == "bsirange":
             return self._dispatch_bsirange(group)
+        if kind == "groupby":
+            return self._dispatch_groupby(group)
         return self._dispatch_rowcounts(group)
 
     # -- readback ----------------------------------------------------------
@@ -653,6 +689,20 @@ class CountBatcher:
         def finish(host: np.ndarray) -> None:
             for p, k in zip(group, assign):
                 self._deliver(p, int(host[k]))
+        return out, finish
+
+    def _dispatch_groupby(self, group: list):
+        """One GroupBy block per group (the key's signature dedupes
+        identical blocks); its flat output joins the window's packed read
+        and every item gets the same unflattened host arrays."""
+        args, (agg_kind, meta), _ = group[0].nodes
+        out = self.fused.run_groupby_batch(*args[:5], agg_kind,
+                                           delta=args[5])
+
+        def finish(host: np.ndarray) -> None:
+            parts = gb.unflatten_block(host, *meta, agg_kind)
+            for p in group:
+                self._deliver(p, parts)
         return out, finish
 
 

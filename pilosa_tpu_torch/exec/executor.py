@@ -28,14 +28,19 @@ rows; BSI conditions such as ``Row(amount > 5)`` and ``Row(-1 < amount
 < 1)``), ``Intersect``, ``Union``, ``Difference``, ``Xor``, ``Not``,
 ``All``, ``TopN(field[, filter], n=)`` on the dense plane, the BSI
 aggregates ``Sum``, ``Min``, ``Max``, ``Percentile`` and ``Distinct``,
-``Set`` and ``Clear`` (values on BSI fields).  Sum, Min, Max and simple
-range Counts read the bit plane delta-aware (base+delta over a
-``BsiOverlay``); Percentile, Distinct and BSI leaves inside bitmap calls
-read it clean.  Anything else raises :class:`ExecutionError`.
+``Rows`` and ``GroupBy`` (over rows planes of the selected rows, with
+``filter=``, a Count/Sum/Min/Max aggregate, ``having=``, ``limit=`` and
+``previous=``; blocks go through the batcher's ``groupby`` kind),
+``Set`` and ``Clear`` (values on BSI fields).  Sum, Min, Max, simple
+range Counts and GroupBy aggregates read the bit plane delta-aware
+(base+delta over a ``BsiOverlay``); Percentile, Distinct and BSI leaves
+inside bitmap calls read it clean.  Anything else raises
+:class:`ExecutionError`.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -47,10 +52,12 @@ from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels, resolve_device
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
+from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.batcher import CountBatcher
 from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable, shift_leaves
 from pilosa_tpu_torch.exec.planes import DEFAULT_BUDGET, PlaneCache
-from pilosa_tpu_torch.exec.result import (DistinctResult, Pair, PairsResult,
+from pilosa_tpu_torch.exec.result import (DistinctResult, GroupCountsResult,
+                                          Pair, PairsResult, RowIdsResult,
                                           RowResult, ValCount)
 from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
                                         fold_bool_call, is_not_bool,
@@ -84,6 +91,18 @@ _BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
 
 class ExecutionError(Exception):
     pass
+
+
+def _lex_gt(mat: np.ndarray, prev: tuple) -> np.ndarray:
+    """Rows of ``mat`` lexicographically greater than ``prev`` (GroupBy
+    ``previous=`` paging)."""
+    gt = np.zeros(len(mat), bool)
+    eq = np.ones(len(mat), bool)
+    for lvl, p in enumerate(prev):
+        col = mat[:, lvl]
+        gt |= eq & (col > p)
+        eq &= col == p
+    return gt
 
 
 class ExecutorSaturatedError(ExecutionError):
@@ -826,6 +845,8 @@ class Executor:
                    "Max": self._execute_max,
                    "Percentile": self._execute_percentile,
                    "Distinct": self._execute_distinct,
+                   "Rows": self._execute_rows,
+                   "GroupBy": self._execute_groupby,
                    "Set": self._execute_set,
                    "Clear": self._execute_clear}.get(call.name)
         if handler is None:
@@ -1090,6 +1111,273 @@ class Executor:
         return PairsResult([Pair(id=int(r), count=int(c))
                             for r, c in zip(all_rows[slots[live]],
                                             vals[live])])
+
+    # -- Rows ---------------------------------------------------------------
+
+    def _execute_rows(self, ctx: _Ctx, call: Call) -> RowIdsResult:
+        fname = call.args.get("_field") or call.args.get("field")
+        if fname is None:
+            raise ExecutionError("Rows: missing field argument")
+        return RowIdsResult(rows=self._rows_of(
+            ctx, self._field(ctx, str(fname)), call))
+
+    def _rows_of(self, ctx: _Ctx, field: Field, call: Call) -> np.ndarray:
+        """Sorted row ids with a bit in the standard view, honoring
+        ``column=``, ``previous=`` and ``limit=``."""
+        if field.options.keys:
+            raise ExecutionError(f"field {field.name!r}: keyed rows are "
+                                 "not supported by this port")
+        for opt in ("from", "to", "like"):
+            if call.args.get(opt) is not None:
+                raise ExecutionError(f"Rows: {opt}= is not supported by "
+                                     "this port")
+        view = field.standard_view()
+        column = call.args.get("column")
+        if column is not None:
+            # one column lies in one shard: a word probe per row there
+            col_id = self._col_id(ctx, column)
+            shard, off = col_id // SHARD_WIDTH, col_id % SHARD_WIDTH
+            frag = (view.fragment(shard)
+                    if view is not None and shard in ctx.shards else None)
+            rows = (frag.rows_containing(off) if frag is not None
+                    else np.empty(0, np.uint64))
+        else:
+            parts = [frag.row_ids_array() for s in ctx.shards
+                     if view is not None
+                     and (frag := view.fragment(s)) is not None]
+            rows = (np.unique(np.concatenate(parts)) if parts
+                    else np.empty(0, np.uint64))
+        prev = call.args.get("previous")
+        if prev is not None:
+            rows = rows[rows > self._row_id(field, prev)]
+        limit = call.args.get("limit")
+        if limit is not None:
+            rows = rows[:int(limit)]
+        return rows
+
+    # -- GroupBy ------------------------------------------------------------
+
+    _GROUPBY_AGGS = {"Sum": "sum", "Count": None, "Min": "minmax",
+                     "Max": "minmax"}
+
+    @staticmethod
+    def parse_having(having, agg_name: str | None):
+        """``having=Condition(count > 10)`` / ``Condition(sum < 0)``:
+        (metric, Condition)."""
+        if not isinstance(having, Call) or having.name != "Condition":
+            raise ExecutionError("GroupBy: having= must be Condition(...)")
+        conds = [(k, v) for k, v in having.args.items()
+                 if isinstance(v, Condition)]
+        if len(conds) != 1 or conds[0][0] not in ("count", "sum"):
+            raise ExecutionError("GroupBy: having supports exactly one "
+                                 "condition on count or sum")
+        metric, cond = conds[0]
+        if metric == "sum" and agg_name != "Sum":
+            raise ExecutionError(
+                "GroupBy: having on sum requires aggregate=Sum(...)")
+        return metric, cond
+
+    def _groupby_agg(self, ctx: _Ctx, agg):
+        """``(name, field)`` of ``aggregate=``: (None, None) without one;
+        the field is None for Count."""
+        if not isinstance(agg, Call):
+            return None, None
+        if agg.name not in self._GROUPBY_AGGS:
+            raise ExecutionError(
+                "GroupBy: aggregate must be Sum/Count/Min/Max")
+        if agg.name == "Count":
+            return agg.name, None
+        aname = agg.args.get("field") or agg.args.get("_field")
+        field = self._field(ctx, str(aname))
+        if field.options.type not in BSI_TYPES:
+            raise ExecutionError(
+                f"GroupBy: aggregate field {aname!r} is not BSI")
+        return agg.name, field
+
+    def _groupby_run(self):
+        """The block dispatcher of :func:`exec.groupby.iter_blocks`: each
+        block through the batcher's ``groupby`` kind (identical concurrent
+        blocks dedupe by the digest of their combination slots), or one
+        direct call without a batcher."""
+        if self.batcher is None:
+            return None
+
+        def run(pl, ci, lp, fw, ap, agg, ad):
+            meta = (int(ci.shape[0]) if pl else 1, int(lp.shape[1]),
+                    int(ap.shape[1]) - 2 if ap is not None else 0)
+            digest = hashlib.blake2b(ci.tobytes(), digest_size=8).digest()
+            return self.batcher.submit_groupby(pl, ci, lp, fw, ap, agg, meta,
+                                               digest, delta=ad)
+        return run
+
+    @staticmethod
+    def _group_sums(out: dict, slots: np.ndarray, base: int) -> np.ndarray:
+        """Exact group Sums [C, L] of one block: an int64 product while the
+        bound proves it exact, else Python ints."""
+        pos = out["pos"][:, slots].astype(np.int64)
+        neg = out["neg"][:, slots].astype(np.int64)
+        acnt = out["cnt"][:, slots].astype(np.int64)
+        depth = pos.shape[-1]
+        max_count = int(max(np.abs(pos).max(initial=0),
+                            np.abs(neg).max(initial=0)))
+        bound = (max_count << (depth + 1)) + \
+            abs(int(base)) * int(np.abs(acnt).max(initial=0))
+        if depth <= 62 and bound < (1 << 62):
+            weights = np.int64(1) << np.arange(depth, dtype=np.int64)
+            return (pos - neg) @ weights + base * acnt
+        aggs = np.empty(pos.shape[:2], dtype=object)
+        for c in range(pos.shape[0]):
+            for li in range(pos.shape[1]):
+                aggs[c, li] = sum(
+                    (int(pos[c, li, b]) - int(neg[c, li, b])) << b
+                    for b in range(depth)) + base * int(acnt[c, li])
+        return aggs
+
+    def _execute_groupby(self, ctx: _Ctx, call: Call) -> GroupCountsResult:
+        """Every combination of the ``Rows()`` levels' rows, counted over
+        rows planes of the selected rows (:mod:`exec.groupby`), with an
+        optional aggregate per group; groups come in lexicographic row-id
+        order."""
+        rows_calls = [c for c in call.children if c.name == "Rows"]
+        if not rows_calls:
+            raise ExecutionError("GroupBy: at least one Rows child required")
+        filter_words = None
+        flt = call.args.get("filter")
+        if isinstance(flt, Call):
+            filter_words = self._fused_bitmap(ctx, flt)
+        agg_name, agg_field = self._groupby_agg(ctx,
+                                                call.args.get("aggregate"))
+        # Min/Max reconstruct int32 values up to MINMAX_MAX_DEPTH bits;
+        # deeper fields finish each surviving group on the exact host path
+        minmax_host = (agg_name in ("Min", "Max")
+                       and agg_field.options.bit_depth > gb.MINMAX_MAX_DEPTH)
+        if len(ctx.shards) > gb.MAX_SHARDS:
+            raise ExecutionError(
+                f"GroupBy: more than {gb.MAX_SHARDS} shards per node "
+                "unsupported")
+        specs = []  # (field, row ids, PlaneSet)
+        for rc in rows_calls:
+            f = self._field(ctx, str(rc.args.get("_field")
+                                     or rc.args.get("field")))
+            rows = self._rows_of(ctx, f, rc)
+            if len(rows) == 0:
+                return GroupCountsResult([])  # no combination possible
+            specs.append((f, rows, self.planes.rows_plane(
+                ctx.index.name, f, VIEW_STANDARD, rows, ctx.shards)))
+        # the aggregates read base+delta; the host Min/Max path reads the
+        # plane directly, so it folds first
+        agg_plane = None
+        if agg_field is not None:
+            fetch = (self.planes.bsi_plane if minmax_host
+                     else self.planes.bsi_plane_delta)
+            agg_plane = fetch(ctx.index.name, agg_field, ctx.shards)
+        having = call.args.get("having")
+        having_metric = having_cond = None
+        if having is not None:
+            having_metric, having_cond = self.parse_having(having, agg_name)
+        limit = call.args.get("limit")
+        # previous=[rowID, ...] pages past one combination: groups come in
+        # lexicographic row-id order, so skip while combo <= previous
+        prev = call.args.get("previous")
+        prev_tuple = (tuple(int(r) for r in prev)
+                      if isinstance(prev, list) else None)
+        if prev_tuple is not None and len(prev_tuple) != len(specs):
+            raise ExecutionError(
+                "GroupBy: previous= must list one row per Rows call")
+
+        _, last_rows, last_ps = specs[-1]
+        slots = np.asarray([last_ps.slot_of[int(r)] for r in last_rows],
+                           np.int64)
+        last_rows_arr = np.asarray(last_rows, np.uint64)
+        base = agg_field.options.base if agg_field is not None else 0
+        agg_kind = None if minmax_host else self._GROUPBY_AGGS.get(agg_name)
+        acc_rows, acc_counts, acc_aggs, acc_mask = [], [], [], []
+        n_levels = len(specs)
+        total = 0
+        for combo_rows, out in gb.iter_blocks(
+                specs, filter_words, None if minmax_host else agg_plane,
+                agg_kind, limited=limit is not None, run=self._groupby_run(),
+                agg_delta=(None if minmax_host or agg_plane is None
+                           else agg_plane.delta)):
+            sub = out["counts"][:, slots].astype(np.int64)  # [C, L]
+            aggs = agg_ok = None
+            if agg_name == "Count":
+                aggs = sub
+            elif agg_name == "Sum":
+                aggs = self._group_sums(out, slots, base)
+            elif agg_name in ("Min", "Max") and not minmax_host:
+                key = "min" if agg_name == "Min" else "max"
+                aggs = out[key][:, slots].astype(np.int64) + base
+                agg_ok = out[key + "_cnt"][:, slots] > 0
+            keep = sub > 0
+            if having_cond is not None:
+                # a sum condition comes with aggregate=Sum (parse_having)
+                keep = keep & having_cond.matches_array(
+                    sub if having_metric == "count" else aggs)
+            c_idx, l_idx = np.nonzero(keep)
+            if c_idx.size == 0:
+                continue
+            rows_mat = np.empty((c_idx.size, n_levels), np.uint64)
+            if n_levels > 1:
+                rows_mat[:, :-1] = combo_rows[c_idx]
+            rows_mat[:, -1] = last_rows_arr[l_idx]
+            if prev_tuple is not None:
+                after = _lex_gt(rows_mat, prev_tuple)
+                if not after.all():
+                    rows_mat = rows_mat[after]
+                    c_idx, l_idx = c_idx[after], l_idx[after]
+                    if c_idx.size == 0:
+                        continue
+            acc_rows.append(rows_mat)
+            acc_counts.append(sub[c_idx, l_idx])
+            if minmax_host:
+                vals, ok = self._host_group_minmax(
+                    specs, filter_words, agg_plane, rows_mat,
+                    want_min=agg_name == "Min")
+                acc_aggs.append(vals + base)
+                acc_mask.append(ok)
+            elif aggs is not None:
+                acc_aggs.append(aggs[c_idx, l_idx])
+                acc_mask.append(agg_ok[c_idx, l_idx] if agg_ok is not None
+                                else np.ones(c_idx.size, bool))
+            total += c_idx.size
+            if limit is not None and total >= int(limit):
+                break
+        if not acc_rows:
+            return GroupCountsResult([])
+        n = None if limit is None else int(limit)
+        return GroupCountsResult(
+            fields=[f.name for f, _, _ in specs],
+            row_ids=np.concatenate(acc_rows)[:n],
+            counts=np.concatenate(acc_counts)[:n],
+            aggs=np.concatenate(acc_aggs)[:n] if acc_aggs else None,
+            agg_mask=np.concatenate(acc_mask)[:n] if acc_mask else None)
+
+    @staticmethod
+    def _host_group_minmax(specs, filter_words, agg_plane,
+                           rows_mat: np.ndarray, want_min: bool):
+        """Exact Min/Max per surviving group for BSI depths past
+        ``groupby.MINMAX_MAX_DEPTH``: the group's columns intersected on
+        the device, then the whole-depth descent of ``bsi.min_max`` with
+        Python-int reconstruction, one pass per group.  The correctness
+        path for such depths, not the serving path."""
+        vals: list = []
+        oks = np.zeros(len(rows_mat), bool)
+        for g in range(len(rows_mat)):
+            words = filter_words
+            for lvl, (_f, _rows, ps) in enumerate(specs):
+                row = ps.plane[:, ps.slot_of[int(rows_mat[g, lvl])], :]
+                words = row if words is None else kernels.intersect(words,
+                                                                    row)
+            live = [t for t in bsik.min_max(agg_plane.plane, words)
+                    if (t[1] if want_min else t[3]) > 0]
+            if not live:
+                vals.append(0)
+                continue
+            vals.append(min(t[0] for t in live) if want_min
+                        else max(t[2] for t in live))
+            oks[g] = True
+        return np.array(vals), oks
 
     # -- BSI aggregates -----------------------------------------------------
 

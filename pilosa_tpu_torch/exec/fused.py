@@ -14,7 +14,8 @@ BSI families (:meth:`FusedCache.run_sum_plane_batch`,
 :meth:`FusedCache.run_range_batch`) answer K aggregates over ONE resident
 bit plane, base+delta through the split of
 :func:`pilosa_tpu_torch.ingest.delta.bsi_sides` when the plane carries a
-``BsiOverlay``.
+``BsiOverlay``.  :meth:`FusedCache.run_groupby_batch` runs one GroupBy
+combination block (:mod:`pilosa_tpu_torch.exec.groupby`).
 
 Every launch and copy here goes to the current stream; outputs stay on
 the device un-read (the batcher packs a window's outputs into one read).
@@ -35,6 +36,7 @@ import torch
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.engine.words import pow2_bucket
+from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
                                            adjusted_selected_counts,
                                            bsi_sides, overlay_gathered_rows,
@@ -314,6 +316,22 @@ class FusedCache:
             return None, 0
         target = min(total, max(1, math.ceil(nth / 100.0 * total)))
         return bsik.percentile_search(plane, filter_words, target), total
+
+    @staticmethod
+    def run_groupby_batch(planes: tuple, combo_idx, last_plane: torch.Tensor,
+                          filter_words, agg_plane, agg: str | None,
+                          delta=None) -> torch.Tensor:
+        """One GroupBy combination block (:func:`exec.groupby.groupby_out`)
+        flattened into one int32 tensor in ``block_part_names`` order, so
+        the block joins a window's packed read; ``delta`` (the bit plane's
+        ``BsiOverlay``) answers aggregates base+delta.  Unflatten with
+        ``exec.groupby.unflatten_block``."""
+        out = gb.groupby_out(planes, combo_idx, last_plane, filter_words,
+                             agg_plane, agg,
+                             agg_delta=delta if agg_plane is not None
+                             else None)
+        return torch.cat([out[name].reshape(-1)
+                          for name in gb.block_part_names(agg)])
 
     @staticmethod
     def run_readback_pack(arrays: tuple) -> torch.Tensor:

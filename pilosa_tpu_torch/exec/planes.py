@@ -23,6 +23,10 @@ depth, so a write that grows the depth builds a new plane.  Its overlay
 is a :class:`~pilosa_tpu_torch.ingest.delta.BsiOverlay`, grouped by word
 column.
 
+A rows plane (:meth:`PlaneCache.rows_plane`, GroupBy's levels) holds just
+the selected rows, padded to a power of two; a stale one takes the
+journal cells of its own rows and skips the others.
+
 The build expands fragments chunk by chunk on a thread pool into a pinned
 host staging buffer and copies each chunk into one preallocated device
 tensor; two staging buffers alternate so chunk N's expansion overlaps
@@ -186,6 +190,20 @@ class PlaneCache:
                                  field.bsi_view_name, shards,
                                  self._build_bsi)
 
+    def rows_plane(self, index: str, field: Field, view_name: str,
+                   row_ids: np.ndarray,
+                   shards: tuple[int, ...]) -> PlaneSet:
+        """A plane over exactly ``row_ids`` (GroupBy: memory bounded by the
+        selection, not by the field's rows), padded to a power of two; a
+        stale one takes its own rows' journal cells
+        (:meth:`_incremental`)."""
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        key = ("rows", index, field.name, view_name,
+               tuple(int(r) for r in row_ids), shards)
+        return self._get(key, field, view_name, shards,
+                         lambda f, v, s: self._build_plane(
+                             f, v, s, row_ids, pow2_bucket(len(row_ids))))
+
     def row_words(self, index: str, field: Field, view_name: str,
                   row_id: int, shards: tuple[int, ...]) -> torch.Tensor:
         """One row across shards: int32[n_shards, W]."""
@@ -315,7 +333,8 @@ class PlaneCache:
                 self._entries.move_to_end(key)
                 return hit[1]
         if hit is not None:
-            refresh = self._incremental if key[0] == "row" else self._fold
+            refresh = (self._incremental if key[0] in ("row", "rows")
+                       else self._fold)
             ps = refresh(key, field, view_name, shards, hit)
             if ps is not None:
                 return ps
@@ -579,15 +598,22 @@ class PlaneCache:
 
     def _incremental(self, key, field: Field, view_name: str,
                      shards: tuple[int, ...], hit):
-        """Refresh a stale single-row entry from the journals: the shards
-        whose copy of the row changed get the row's current words (into
-        a new tensor) instead of re-expanding every fragment.  None =
-        rebuild (journal gap, more than ``MAX_INCR_CELLS`` / 64 shards)."""
+        """Refresh a stale single-row or selected-rows entry from the
+        journals into a new tensor instead of re-expanding every fragment:
+        a single row takes its current words on the shards where it
+        changed; a rows plane takes the changed words of its own rows
+        (whole rows after whole-row ops) and skips the rows outside its
+        selection.  It never folds: the set plane's fold maps every row
+        through the slot map and would refuse or misplace a selection's
+        cells.  None = rebuild (journal gap, more than
+        ``MAX_INCR_CELLS`` cells; a whole row counts 64)."""
         old_gens, ps, _ = hit
         view = field.view(view_name)
         if view is None or len(old_gens) != len(shards):
             return None
-        the_row = key[4]
+        single = key[0] == "row"
+        r_pad = 1 if single else ps.plane.shape[1]
+        cell_rows, cell_words, cell_vals = [], [], []
         reset_rows, reset_vals = [], []
         actual = list(old_gens)
         for si, s in enumerate(shards):
@@ -601,19 +627,33 @@ class PlaneCache:
                     return None
                 if frag.generation == old_gens[si]:
                     continue
-                cells = frag.changed_cells_since(old_gens[si])
-                if cells is None:
+                changed = frag.changed_cells_since(old_gens[si])
+                if changed is None:
                     return None
-                if the_row in cells:
-                    reset_rows.append(si)
-                    reset_vals.append(frag.row_words(the_row))
-                    if 64 * len(reset_rows) > self.MAX_INCR_CELLS:
+                for r, words in changed.items():
+                    slot = ps.slot_of.get(int(r))
+                    if slot is None:
+                        continue  # outside the selection
+                    flat = si * r_pad + slot
+                    if words is None or single:
+                        reset_rows.append(flat)
+                        reset_vals.append(frag.row_words(r))
+                    else:
+                        w_arr = np.fromiter(words, np.int64, len(words))
+                        cell_rows.extend([flat] * len(w_arr))
+                        cell_words.extend(w_arr.tolist())
+                        cell_vals.extend(frag.row_words(r, w_arr).tolist())
+                    if (len(cell_rows) + 64 * len(reset_rows)
+                            > self.MAX_INCR_CELLS):
                         return None
                 actual[si] = frag.generation
         new_plane = ps.plane
-        if reset_rows:
-            new_plane = _apply_plane_cells(ps.plane, [], [], [], reset_rows,
-                                           np.stack(reset_vals))
+        if cell_rows or reset_rows:
+            new_plane = _apply_plane_cells(
+                ps.plane, cell_rows, cell_words,
+                np.asarray(cell_vals, np.uint32), reset_rows,
+                (np.stack(reset_vals) if reset_vals
+                 else np.zeros((0, ps.plane.shape[-1]), np.uint32)))
         new_ps = PlaneSet(new_plane, ps.shards, ps.row_ids, ps.slot_of)
         with self._lock:
             self._swap(key, ps, actual, new_ps)
@@ -625,19 +665,18 @@ class PlaneCache:
         """The fixed BSI rows 0 .. depth + 1, unpadded."""
         n_rows = OFFSET_ROW + field.options.bit_depth
         return self._build_plane(field, view_name, shards,
-                                 np.arange(n_rows, dtype=np.uint64))
+                                 np.arange(n_rows, dtype=np.uint64), n_rows)
 
     def _build_plane(self, field: Field, view_name: str,
                      shards: tuple[int, ...],
-                     fixed_rows: np.ndarray | None = None) -> PlaneSet:
-        """Rows ``fixed_rows`` unpadded, or every row id of the view padded
-        to a power of two."""
+                     row_ids: np.ndarray | None = None,
+                     r_pad: int | None = None) -> PlaneSet:
+        """``row_ids`` at slots 0.. of an ``r_pad``-row plane, or every
+        row id of the view padded to a power of two."""
         t0 = time.perf_counter()
-        if fixed_rows is None:
+        if row_ids is None:
             row_ids = _union_row_ids(field, view_name, shards)
             r_pad = pow2_bucket(len(row_ids))
-        else:
-            row_ids, r_pad = fixed_rows, len(fixed_rows)
         slot_of = {int(r): i for i, r in enumerate(row_ids)}
         full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
                            dtype=torch.int32, device=self.device)

@@ -60,6 +60,98 @@ class DistinctResult:
         return {"values": self.values}
 
 
+@dataclass
+class RowIdsResult:
+    """``Rows()`` result: the sorted row ids of a field."""
+
+    rows: np.ndarray = dc_field(
+        default_factory=lambda: np.empty(0, np.uint64))
+
+    def to_json(self):
+        return {"rows": [int(r) for r in self.rows]}
+
+
+@dataclass
+class FieldRow:
+    field: str
+    row_id: int = 0
+
+    def to_json(self):
+        return {"field": self.field, "rowID": self.row_id}
+
+
+@dataclass
+class GroupCount:
+    group: list[FieldRow]
+    count: int
+    agg: int | None = None  # the aggregate's value when GroupBy has one
+
+    def to_json(self):
+        out = {"group": [g.to_json() for g in self.group],
+               "count": self.count}
+        if self.agg is not None:
+            out["agg"] = self.agg
+        return out
+
+
+class GroupCountsResult:
+    """GroupBy result held columnar, with :class:`GroupCount` objects
+    made only when ``groups`` is read.
+
+    ``fields`` names one field per Rows level; ``row_ids`` uint64[G, L];
+    ``counts`` int64[G]; optional ``aggs`` [G] (int64, or object for
+    big ints) and ``agg_mask`` bool[G], which groups carry an aggregate
+    value."""
+
+    __slots__ = ("_groups", "fields", "row_ids", "counts", "aggs",
+                 "agg_mask")
+
+    def __init__(self, groups: list[GroupCount] | None = None, *,
+                 fields: list[str] | None = None, row_ids=None,
+                 counts=None, aggs=None, agg_mask=None):
+        self._groups = groups
+        self.fields = fields or []
+        self.row_ids = row_ids
+        self.counts = counts
+        self.aggs = aggs
+        self.agg_mask = agg_mask
+
+    @property
+    def groups(self) -> list[GroupCount]:
+        if self._groups is None:
+            self._groups = [
+                GroupCount([FieldRow(f, row_id=r)
+                            for f, r in zip(self.fields, rows)], count, agg)
+                for rows, count, agg in self._iter_columns()]
+        return self._groups
+
+    def _iter_columns(self):
+        """(row ids, count, agg | None) per group, as Python ints."""
+        ids = self.row_ids.tolist()
+        counts = self.counts.tolist()
+        aggs = mask = None
+        if self.aggs is not None:
+            aggs = self.aggs.tolist()
+            mask = (self.agg_mask.tolist() if self.agg_mask is not None
+                    else [True] * len(aggs))
+        for i, (rows, count) in enumerate(zip(ids, counts)):
+            yield rows, count, (aggs[i] if aggs is not None and mask[i]
+                                else None)
+
+    def to_json(self):
+        if self._groups is not None:
+            return [g.to_json() for g in self._groups]
+        out = []
+        for rows, count, agg in self._iter_columns():
+            g = {"group": [{"field": f, "rowID": r}
+                           for f, r in zip(self.fields, rows)],
+                 "count": count}
+            if agg is not None:
+                g["agg"] = agg
+            out.append(g)
+        return out
+
+
 def result_to_json(r):
     """Any handler result -> JSON-able value (bool/int pass through)."""
     if hasattr(r, "to_json"):

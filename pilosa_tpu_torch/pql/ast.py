@@ -64,6 +64,24 @@ class Condition:
             return f"{self.value[0]} {lo_op} x {hi_op} {self.value[1]}"
         return f"x {self.op} {self.value}"
 
+    def matches(self, val) -> bool:
+        """Host-side scalar evaluation (GroupBy ``having=`` filtering)."""
+        return bool(self.matches_array(val))
+
+    def matches_array(self, vals):
+        """:meth:`matches` over a numpy array -> bool mask (the GroupBy
+        having filter runs once per result block, not once per group)."""
+        import numpy as np
+        v = np.asarray(vals)
+        if self.op in BETWEEN_OPS:
+            lo, hi = self.value
+            lo_ok = v > lo if self.op.startswith("<>") else v >= lo
+            hi_ok = v < hi if self.op.endswith("><") else v <= hi
+            return lo_ok & hi_ok
+        c = self.value
+        return {"==": v == c, "!=": v != c, "<": v < c,
+                "<=": v <= c, ">": v > c, ">=": v >= c}[self.op]
+
 
 @dataclass
 class Call:

@@ -166,6 +166,19 @@ class Fragment:
             ids = list(self.rows) + list(self.dense) + list(self._snap_pending)
             return np.fromiter(ids, np.uint64, len(ids))
 
+    def row_ids(self) -> list[int]:
+        """Live row ids, sorted."""
+        return sorted(int(r) for r in self.row_ids_array())
+
+    def rows_containing(self, col: int) -> np.ndarray:
+        """Sorted row ids whose bit ``col`` (a shard offset) is set: the
+        ``Rows(column=)`` membership check, one word probe per row."""
+        word, bit = col >> 5, np.uint32(1) << np.uint32(col & 31)
+        with self.lock:
+            hits = [r for r in self.row_ids()
+                    if self.row_words(r, [word])[0] & bit]
+        return np.array(hits, np.uint64)
+
     @property
     def present(self) -> bool:
         return bool(self.rows) or bool(self.dense) or bool(self._snap_pending)

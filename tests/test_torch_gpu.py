@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the delta-overlay merge and fold, the word overlays, the whole-tree
-programs and a small concurrent burst through the default executor on
-the card against the same calls on the CPU.  Marked ``gpu``: without a
-CUDA device every test skips.  The file imports nothing of JAX, so on
-a machine without it run it as
+programs, the BSI and GroupBy paths and a small concurrent burst through
+the default executor on the card against the same calls on the CPU.
+Marked ``gpu``: without a CUDA device every test skips.  The file
+imports nothing of JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
@@ -336,6 +336,92 @@ def test_bsi_requests_equal_cpu(dev, tmp_path):
                                               1000).tolist())
         builds = api.executor.planes.builds
         for q in mix[:6]:
+            assert api.query("i", q) == cpu.query("i", q), q
+        assert api.executor.planes.builds == builds
+    finally:
+        api.executor.close()
+        holder.close()
+
+
+@pytest.mark.parametrize("agg", [None, "sum", "minmax"])
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_groupby_out_equal_cpu(dev, agg, with_delta):
+    """One GroupBy block on the card equals the same block on the CPU,
+    through the row_counts kernel (and count for Min/Max)."""
+    from pilosa_tpu_torch.exec import groupby as gb
+    s, w = 7, 2048
+    prefix = _words(71, (s, 4, w), "cpu")
+    last = _words(72, (s, 8, w), "cpu")
+    filt = _words(73, (s, w), "cpu")
+    plane = torch.from_numpy(_bsi_plane(74, s, 13, w).view(np.int32))
+    combos = np.array([[0], [2], [3], [3]], np.int32)
+    mirror = delta.DeltaMirror(1 << 16)
+    rng = np.random.default_rng(75)
+    mirror.absorb({(int(a) * 15 + int(r), int(c)): int(v)
+                   for a, r, c, v in zip(
+                       rng.integers(0, s, 50), rng.integers(0, 15, 50),
+                       rng.integers(0, w, 50),
+                       rng.integers(0, 1 << 32, 50, dtype=np.uint32))})
+    out = {}
+    cuda_kernels.reset_launches()
+    for x in ("cpu", dev):
+        ov = mirror.build_bsi_overlay(x, 15, s) if with_delta else None
+        out[x] = gb.groupby_out(
+            (prefix.to(x),), combos, last.to(x), filt.to(x),
+            plane.to(x) if agg else None, agg, agg_delta=ov)
+    assert cuda_kernels.LAUNCHES["row_counts"] > 0
+    if agg == "minmax":
+        assert cuda_kernels.LAUNCHES["count"] > 0
+    for key, want in out["cpu"].items():
+        assert torch.equal(out[dev][key].cpu(), want), key
+
+
+def test_groupby_requests_equal_cpu(dev, tmp_path):
+    """The GroupBy requests of chip_smoke's phase 6 through the default
+    executor on the card and the "off" one on the CPU, before and after a
+    set import (rows planes refresh) and a value import (the BSI
+    overlay); the card's path launches row_counts and count."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    rng = np.random.default_rng(76)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 32), ("g", 4)):
+        idx.create_field(name)
+        cols = rng.choice(6 << 20, 80000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+    idx.create_field("amount", FieldOptions(type="int", min=-1_000_000,
+                                            max=1_000_000))
+    cols = rng.choice(6 << 20, 200000, replace=False).astype(np.uint64)
+    idx.field("amount").import_values(
+        cols, rng.integers(-1_000_000, 1_000_001, len(cols)).tolist())
+    mix = ["GroupBy(Rows(f, limit=4), Rows(f, previous=3, limit=4))",
+           "GroupBy(Rows(g), Rows(f))",
+           "GroupBy(Rows(f), aggregate=Sum(field=amount))",
+           "GroupBy(Rows(g), filter=Row(f=1), aggregate=Max(field=amount))",
+           "GroupBy(Rows(g), Rows(f), having=Condition(count > 600), "
+           "limit=20, previous=[0, 3])"]
+    cpu = API(holder, Executor(holder, device="cpu",
+                               count_batch_window="off", tree_fusion=False))
+    api = API(holder, Executor(holder, device=dev))
+    try:
+        cuda_kernels.reset_launches()
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
+        assert cuda_kernels.LAUNCHES["row_counts"] > 0
+        assert cuda_kernels.LAUNCHES["count"] > 0
+        builds = api.executor.planes.builds
+        api.import_bits("i", "f", row_ids=rng.integers(0, 32, 500).tolist(),
+                        col_ids=rng.choice(6 << 20, 500,
+                                           replace=False).tolist())
+        api.import_values("i", "amount",
+                          col_ids=rng.choice(6 << 20, 300,
+                                             replace=False).tolist(),
+                          values=rng.integers(-1_000_000, 1_000_001,
+                                              300).tolist())
+        for q in mix:
             assert api.query("i", q) == cpu.query("i", q), q
         assert api.executor.planes.builds == builds
     finally:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Seven phases; any failure raises and the exit code is non-zero:
+Eight phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -70,7 +70,23 @@ Seven phases; any failure raises and the exit code is non-zero:
    journals, no rebuild) and a 1024-value ``importValue`` (Sum over the
    BSI overlay), each followed by requests checked against the updated
    oracle.  Launch counters are reset at the start and read at the end.
-7. Print the ``kernels`` JSON line, the card's name and power limit, and
+7. Time views, on the same holder: index ``events``, a time field ``ev``
+   (quantum YMD, rows 0-3, a day bucket for each of the 28 days of
+   February 2021, each (row, column, day) bit set with probability 1/64),
+   written as 31 views x 954 fragment snapshots with a numpy oracle; its
+   time plane is int32[954, 128, 32768] (16.0 GB).  Ten requests
+   (recency, a retention intersection, four sliding windows, the whole
+   month, time-filtered ``Rows`` and GroupBy, ``Shift``, ``Limit``,
+   ``ConstRow``, a TopN filtered by a time range) through the default
+   executor and the "off" one, requests 1-4 again through an executor
+   whose 8 GiB budget the plane exceeds (the span path: each executor's
+   counters must show the path it should have taken), each request's
+   device ms beside one read of its lanes, a burst of 32 clients x 4
+   passes, a 4096-pair timestamped ``/import`` into existing buckets
+   (absorbed, no build) and one stamped 2021-03-01 (a new bucket: the
+   plane rebuilds), each followed by requests checked against the
+   oracle.  Launch counters are reset at the start and read at the end.
+8. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -81,6 +97,7 @@ nothing of JAX or of ``pilosa_tpu``.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import os
@@ -242,12 +259,27 @@ def kernel_phase(shards: int, seed: int) -> dict:
     out = {}
     for name, (kern, plain, nbytes, ops, iters) in cases.items():
         err = check(f"{name} main path", kern(), plain())
-        ms = time_ms(kern, iters)
+        blocks = None
+        if name == "count":
+            # this shape's time has varied between runs (52% to 85% of
+            # its bound): the median of three blocks of 200 after 20
+            # warm-ups, with their spread
+            blocks = [time_ms(kern, 200, warmup=20 if i == 0 else 0)
+                      for i in range(3)]
+            ms = sorted(blocks)[1]
+            log(f"count blocks of 200: {', '.join(f'{b:.4f}' for b in blocks)}"
+                f" ms; median {ms:.4f} ms, spread (max - min) "
+                f"{max(blocks) - min(blocks):.4f} ms = "
+                f"{(max(blocks) - min(blocks)) / ms:.1%} of the median")
+        else:
+            ms = time_ms(kern, iters)
         plain_ms = time_ms(plain, 3, warmup=1)
         b_ms, b_by = bound(nbytes, ops)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None, "bytes": nbytes}
+        if blocks is not None:
+            out[name]["blocks_ms"] = blocks
         log(f"{name}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), bound "
             f"{b_ms:.4f} ms by {b_by} (at {b_ms / ms:.1%} of the bound rate), "
             f"plain "
@@ -367,6 +399,8 @@ def make_index(data_dir: str, shards: int, seed: int):
     oracle["bsi"] = make_bsi(data_dir, f, g, shards, seed)
     # and phase 6 serves f and amount as phases 4 and 5 left them
     oracle["groupby"] = make_groupby(f, g, shards, seed, oracle["bsi"])
+    # phase 7's index of timestamped events
+    oracle["events"] = make_events(data_dir, shards, seed)
     return oracle
 
 
@@ -751,10 +785,11 @@ class _Client:
             import torch
             torch.cuda.synchronize()
 
-    def ask(self, pql: str, want, reps: int = 1, tag: str | None = None):
+    def ask(self, pql: str, want, reps: int = 1, tag: str | None = None,
+            index: str = "bench"):
         for _ in range(reps):
             t = time.perf_counter()
-            got = self.api.query("bench", pql)["results"]
+            got = self.api.query(index, pql)["results"]
             self.sync()
             self.lat.setdefault(tag or pql, []).append(
                 time.perf_counter() - t)
@@ -779,7 +814,7 @@ def _pct_ms(ts: list, q: float) -> float:
 
 def burst(api, expect: dict, clients: int = CLIENTS,
           passes: int = PASSES, mix: tuple = MIX,
-          names: dict = MIX_NAMES) -> dict:
+          names: dict = MIX_NAMES, index: str = "bench") -> dict:
     """``clients`` threads, each making ``passes`` passes over ``mix``
     (each client starts at another request, so kinds mix in a window);
     every answer is checked.  Returns the wall seconds, the request
@@ -797,7 +832,7 @@ def burst(api, expect: dict, clients: int = CLIENTS,
                 for i in range(len(mix)):
                     q = mix[(k + i) % len(mix)]
                     t = time.perf_counter()
-                    got = api.query("bench", q)["results"]
+                    got = api.query(index, q)["results"]
                     mine[q].append(time.perf_counter() - t)
                     if got != expect[q]:
                         raise AssertionError(
@@ -933,10 +968,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 6 over one holder; returns the launch counts of each
+    """Phases 2 to 7 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
-    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest"
-    and "groupby"."""
+    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
+    "groupby" and "events"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1068,6 +1103,11 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         gb = groupby_phase(client, holder, planes, oracle["groupby"], cuda,
                            device, clients)
         log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        log("== phase 7: time views ==")
+        ev = events_phase(client, holder, planes, oracle["events"], cuda,
+                          device, clients)
+        log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1090,7 +1130,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb}
+            "ingest": ingest, **bsi, **gb, **ev}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -1713,6 +1753,365 @@ def groupby_phase(client, holder, planes, gbo: dict, cuda: bool, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: time views
+# ---------------------------------------------------------------------------
+
+# index ``events``, one time field ``ev`` (quantum YMD): event rows 0-3,
+# daily buckets over the 28 days of February 2021, each (row, column,
+# day) bit set with probability 1/64 (the AND of six random words)
+EV_ROWS, EV_DAYS, EV_AND = 4, 28, 6
+EV_BATCH = 4096                # pairs of each timestamped import
+EV_PASSES = 4                  # passes of phase 7's concurrent burst
+EV_SPAN_BUDGET = 8 << 30       # below the 16.0 GB time plane: span path
+#                                (half the plane at a cut shard count)
+
+
+def _ev_day(day: int, hour: int = 0) -> str:
+    """PQL timestamp of 2021-02-01 plus ``day`` days (day 28 is March 1)."""
+    t = datetime.datetime(2021, 2, 1) + datetime.timedelta(days=day,
+                                                           hours=hour)
+    return t.strftime("%Y-%m-%dT%H:%M")
+
+
+def _ev_range(row: int, d0: int, d1: int) -> str:
+    return f"Row(ev={row}, from={_ev_day(d0)}, to={_ev_day(d1)})"
+
+
+# the requests of bench/config33_event_analytics.py, dated into February
+EV_SEQ = (
+    f"Count({_ev_range(1, 21, 28)})",                         # 1 recency
+    f"Count(Intersect({_ev_range(1, 0, 7)}, {_ev_range(1, 21, 28)}))",
+    "".join(f"Count({_ev_range(2, d, d + 7)})" for d in (0, 7, 14, 21)),
+    f"Count({_ev_range(1, 0, 28)})",                          # 4 month
+    f"Rows(ev, from={_ev_day(0)}, to={_ev_day(14)})",
+    f"GroupBy(Rows(ev, from={_ev_day(0)}, to={_ev_day(14)}))",
+    f"Count(Shift({_ev_range(1, 0, 28)}, n=1))",              # 7
+    "Count(Limit(Row(ev=0), limit=8, offset=2))",
+    "Count(Intersect(Row(ev=0), ConstRow(columns=[0, 1, 2])))",
+    f"TopN(ev, {_ev_range(1, 21, 28)}, n=3)",                 # 10
+)
+EV_NAMES = dict(zip(EV_SEQ, (
+    "1 recency", "2 retention", "3 sliding x4", "4 whole month",
+    "5 Rows in range", "6 GroupBy Rows in range", "7 Shift", "8 Limit",
+    "9 ConstRow", "10 filtered TopN")))
+EV_MIX = (EV_SEQ[0], EV_SEQ[1], EV_SEQ[2], EV_SEQ[6])
+EV_LANES = {EV_SEQ[0]: 7, EV_SEQ[1]: 14, EV_SEQ[3]: 28, EV_SEQ[6]: 28,
+            EV_SEQ[9]: 7}
+EV_MARCH = f"Count({_ev_range(1, 21, 35)})"   # Feb 22 .. Mar 8
+
+
+def _events_shard(data_dir: str, s: int, seed: int, rec1: np.ndarray,
+                  early1: np.ndarray) -> dict:
+    """Shard ``s`` of ``ev``: its 28 day views, the month, year and
+    standard views (the OR of the days) as fragment snapshots, and its
+    part of the numpy oracle.  Row 1's Feb 22-28 and Feb 1-7 unions go
+    into ``rec1`` / ``early1`` (the ingest checks update them)."""
+    from pilosa_tpu_torch.store import roaring
+
+    rng = np.random.default_rng((seed, s))
+    bits = rng.integers(0, 1 << 32, (EV_ROWS, EV_DAYS, WORDS),
+                        dtype=np.uint32)
+    for _ in range(EV_AND - 1):
+        bits &= rng.integers(0, 1 << 32, bits.shape, dtype=np.uint32)
+    root = os.path.join(data_dir, "events", "ev", "views")
+    for d in range(EV_DAYS):
+        with open(os.path.join(root, f"standard_202102{d + 1:02d}",
+                               "fragments", str(s)), "wb") as fh:
+            fh.write(roaring.serialize_dense(bits[:, d]))
+    month = np.bitwise_or.reduce(bits, axis=1)                  # [4, W]
+    blob = roaring.serialize_dense(month)
+    for v in ("standard", "standard_2021", "standard_202102"):
+        with open(os.path.join(root, v, "fragments", str(s)), "wb") as fh:
+            fh.write(blob)
+    rec1[s] = np.bitwise_or.reduce(bits[1, 21:28], axis=0)
+    early1[s] = np.bitwise_or.reduce(bits[1, 0:7], axis=0)
+    return {
+        "std": _popcounts(month),
+        "slide": [int(_popcounts(np.bitwise_or.reduce(
+            bits[2, d:d + 7], axis=0))) for d in (0, 7, 14, 21)],
+        # Shift drops the bit at the shard's last column
+        "shift": int(_popcounts(month[1])) - int(month[1, -1] >> 31),
+        "topn": _popcounts(month & rec1[s][None, :]),
+        "seen": bits[:, :14].any(axis=(1, 2)),
+        "const": (sum(int(month[0, 0] >> c) & 1 for c in range(3))
+                  if s == 0 else 0),
+    }
+
+
+def _ev_pairs(rng, shards: int, day0: int, days: int):
+    """EV_BATCH distinct (row, column) pairs over the index with a day in
+    ``[day0, day0 + days)`` and an hour each."""
+    keys = rng.choice(shards * (1 << 20) * EV_ROWS, EV_BATCH, replace=False)
+    rows, cols = keys % EV_ROWS, keys // EV_ROWS
+    return (rows, cols, rng.integers(day0, day0 + days, EV_BATCH),
+            rng.integers(0, 24, EV_BATCH))
+
+
+def _ev_counts(rec1: np.ndarray, early1: np.ndarray) -> tuple[int, int]:
+    rec = ret = 0
+    for s0 in range(0, rec1.shape[0], 64):
+        r = rec1[s0:s0 + 64]
+        rec += int(_popcounts(r).sum())
+        ret += int(_popcounts(r & early1[s0:s0 + 64]).sum())
+    return rec, ret
+
+
+def _set_pair_bits(words: np.ndarray, cols: np.ndarray) -> None:
+    off = cols & ((1 << 20) - 1)
+    np.bitwise_or.at(words, (cols >> 20, off >> 5),
+                     np.uint32(1) << (off & 31).astype(np.uint32))
+
+
+def make_events(data_dir: str, shards: int, seed: int) -> dict:
+    """Write ``events``/``ev`` (31 views x ``shards`` snapshots, one shard
+    per task on a thread pool) and the numpy oracle of phase 7's
+    requests and imports."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+
+    t0 = time.perf_counter()
+    h = Holder(data_dir).open()
+    h.create_index("events", track_existence=False).create_field(
+        "ev", FieldOptions(type="time", time_quantum="YMD"))
+    h.close()
+    views = ["standard", "standard_2021", "standard_202102"] + \
+        [f"standard_202102{d + 1:02d}" for d in range(EV_DAYS)]
+    for v in views:
+        os.makedirs(os.path.join(data_dir, "events", "ev", "views", v,
+                                 "fragments"), exist_ok=True)
+    rec1 = np.zeros((shards, WORDS), np.uint32)
+    early1 = np.zeros((shards, WORDS), np.uint32)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        parts = list(pool.map(
+            lambda s: _events_shard(data_dir, s, seed, rec1, early1),
+            range(shards)))
+    std = sum(p["std"] for p in parts)
+    topn = sum(p["topn"] for p in parts)
+    rec, ret = _ev_counts(rec1, early1)
+    seen = np.any([p["seen"] for p in parts], axis=0)
+    expect = {
+        EV_SEQ[0]: [rec], EV_SEQ[1]: [ret],
+        EV_SEQ[2]: [int(sum(p["slide"][k] for p in parts))
+                    for k in range(4)],
+        EV_SEQ[3]: [int(std[1])],
+        EV_SEQ[4]: [{"rows": [int(r) for r in np.flatnonzero(seen)]}],
+        EV_SEQ[5]: [[{"group": [{"field": "ev", "rowID": int(r)}],
+                      "count": int(std[r])}
+                     for r in np.flatnonzero(seen) if std[r] > 0]],
+        EV_SEQ[6]: [int(sum(p["shift"] for p in parts))],
+        EV_SEQ[7]: [min(8, max(0, int(std[0]) - 2))],
+        EV_SEQ[8]: [int(sum(p["const"] for p in parts))],
+        EV_SEQ[9]: [_topn(topn, 3)],
+    }
+    log(f"events: {shards} shards x {len(views)} views written (4 rows x "
+        f"{EV_DAYS} days, p = 1/64) with the numpy oracle in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # the imports: one into existing February buckets of existing rows
+    # (absorbed), one stamped 2021-03-01 (a new bucket: rebuilds)
+    rng = np.random.default_rng(seed + 7)
+    feb = _ev_pairs(rng, shards, 0, EV_DAYS)
+    one = feb[0] == 1
+    for lo, hi, words in ((21, 28, rec1), (0, 7, early1)):
+        hit = one & (feb[2] >= lo) & (feb[2] < hi)
+        _set_pair_bits(words, feb[1][hit])
+    rec, ret = _ev_counts(rec1, early1)
+    march = _ev_pairs(rng, shards, EV_DAYS, 1)
+    _set_pair_bits(rec1, march[1][march[0] == 1])
+    return {"expect": expect, "feb": feb, "march": march,
+            "after_feb": {EV_SEQ[0]: [rec], EV_SEQ[1]: [ret]},
+            "after_march": {EV_MARCH: [_ev_counts(rec1, early1)[0]]},
+            "month_row1": int(std[1])}
+
+
+def _ev_import_body(pairs) -> bytes:
+    rows, cols, days, hours = pairs
+    return json.dumps({
+        "rowIDs": rows.tolist(), "columnIDs": cols.tolist(),
+        "timestamps": [_ev_day(int(d), int(h))
+                       for d, h in zip(days, hours)]}).encode()
+
+
+def events_phase(client, holder, planes, evo: dict, cuda: bool, device,
+                 clients: int = CLIENTS, passes: int = EV_PASSES) -> dict:
+    """Phase 7: the ten time-view requests through the default executor
+    (over the 16.0 GB time plane) and the "off" one sharing its plane
+    cache, and requests 1-4 through an executor whose budget the plane
+    exceeds (the span path); their device ms beside the one-read bound; a
+    concurrent burst; a timestamped import into existing buckets
+    (absorbed) and one into a new day (rebuilds).  The launch counters
+    are reset when the phase starts and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    api = client.api
+    ex = api.executor
+    expect = evo["expect"]
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+
+    builds = planes.builds
+    t = time.perf_counter()
+    client.ask(EV_SEQ[0], expect[EV_SEQ[0]], tag="events first",
+               index="events")
+    status = ex.time_status()
+    if planes.builds != builds + 1 or len(status["planes"]) != 1:
+        raise AssertionError(f"the time plane did not build: {status}")
+    tp = status["planes"][0]
+    rb_pad = tp["bytes"] // (tp["shards"] * WORDS * 4)
+    log(f"time plane built in the first request: {tp['buckets']} buckets x "
+        f"{tp['rows']} rows in {planes.last_build_seconds:.2f} s, "
+        f"{tp['bytes'] / 1e9:.2f} GB (int32[{tp['shards']}, {rb_pad}, "
+        f"{WORDS}]); first request {(time.perf_counter() - t) * 1e3:.1f} ms")
+    if (tp["buckets"], tp["rows"]) != (EV_DAYS, EV_ROWS):
+        raise AssertionError(f"time plane geometry {tp}")
+
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   delta_compact_fraction=COMPACT_FRACTION,
+                   count_batch_window="off", tree_fusion=False)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    for q in EV_SEQ:
+        t = time.perf_counter()
+        client.ask(q, expect[q], tag=f"events {EV_NAMES[q]}, first",
+                   index="events")
+        log(f"events {EV_NAMES[q]} first request: "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    for q in EV_SEQ:
+        client.ask(q, expect[q], reps=3, tag=f"events {EV_NAMES[q]}",
+                   index="events")
+        offc.ask(q, expect[q], reps=2, tag=f"events off {EV_NAMES[q]}",
+                 index="events")
+    client.ask("Count(Row(ev=1))", [evo["month_row1"]], index="events")
+    for q in EV_SEQ:
+        log(f"latency events {EV_NAMES[q]}: median "
+            f"{_median_ms(client.lat[f'events {EV_NAMES[q]}']):.2f} ms "
+            f"[default], "
+            f"{_median_ms(offc.lat[f'events off {EV_NAMES[q]}']):.2f} ms "
+            f"[off]")
+
+    # both time paths at scale: an executor whose budget the plane
+    # exceeds unions the cover views' rows (request 4: the month view)
+    span = Executor(holder, device=device,
+                    plane_budget=min(EV_SPAN_BUDGET, tp["bytes"] // 2))
+    spanc = _Client(API(holder, span), cuda)
+    try:
+        for q in EV_SEQ[:4]:
+            spanc.ask(q, expect[q], tag=f"events span {EV_NAMES[q]}",
+                      index="events")
+        served = {name: e.time_status()["rangesServed"]
+                  for name, e in (("default", ex), ("off", off),
+                                  ("span", span))}
+    finally:
+        span.close()
+    log(f"time ranges served: {json.dumps(served)}")
+    if (served["default"]["span"] or served["off"]["span"]
+            or served["span"]["plane"] or not served["span"]["span"]
+            or not served["default"]["plane"] or not served["off"]["plane"]):
+        raise AssertionError(f"a time path served where it should not: "
+                             f"{served}")
+    for q in EV_SEQ[:4]:
+        log(f"latency events span {EV_NAMES[q]}: "
+            f"{spanc.lat[f'events span {EV_NAMES[q]}'][0] * 1e3:.2f} ms "
+            "(first, builds its cover rows)")
+    del span, spanc
+
+    if cuda:
+        lane = tp["shards"] * WORDS * 4
+        std_plane = EV_ROWS * lane
+        for q, lanes in EV_LANES.items():
+            nbytes = lanes * lane + (std_plane if q == EV_SEQ[9] else 0)
+            b_ms = bound(nbytes, 0)[0]
+            dev_ms, wall_ms, top = device_busy_share(
+                lambda: client.ask(q, expect[q], reps=3, tag="profiled",
+                                   index="events"))
+            log(f"events device ms {EV_NAMES[q]}: {dev_ms / 3:.3f} ms per "
+                f"request (bound {b_ms:.3f} ms = one read of "
+                f"{nbytes / 1e9:.3f} GB; {dev_ms / 3 / b_ms:.1f}x), wall "
+                f"{wall_ms / 3:.3f} ms; by kernel: {top}")
+
+    t1 = time.perf_counter()
+    names = {q: EV_NAMES[q] for q in EV_MIX}
+    b0 = ex.serving_stats()
+    run = burst(api, expect, clients, passes, EV_MIX, names, "events")
+    b1 = ex.serving_stats()
+    reqs_n = run["requests"]
+    windows = b1["windows"] - b0["windows"]
+    items = b1["items"] - b0["items"]
+    log(f"[events] {clients} clients x {passes} passes: {reqs_n} requests "
+        f"in {run['wall']:.3f} s = {reqs_n / run['wall']:.1f} requests/s; "
+        f"{windows} windows, {items} items ({items / max(1, windows):.2f} "
+        f"per window)")
+    for kind in sorted(b1.get("kinds", {})):
+        groups, kitems, largest = _kind_stats(b0, b1, kind)
+        if kitems:
+            log(f"[events]   kind {kind}: {groups} calls for {kitems} items "
+                f"({kitems / max(1, groups):.2f} per call, largest "
+                f"{largest})")
+    for q in EV_MIX:
+        ts = run["lat"][q]
+        log(f"[events]   {names[q]}: p50 {_pct_ms(ts, 0.5):.2f} ms, p90 "
+            f"{_pct_ms(ts, 0.9):.2f} ms, p99 {_pct_ms(ts, 0.99):.2f} ms, "
+            f"max {max(ts) * 1e3:.2f} ms over {len(ts)}")
+    if cuda:
+        dev_ms, wall_ms, top = device_busy_share(
+            lambda: burst(api, expect, clients, 1, EV_MIX, names, "events"))
+        log(f"[events]   one burst of {clients} x 1 under the profiler: "
+            f"device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall = "
+            f"{dev_ms / wall_ms:.1%}; by kernel: {top}")
+    log(f"phase 7 concurrent wall: {time.perf_counter() - t1:.1f}s")
+
+    # a timestamped import into existing buckets of existing rows is
+    # absorbed into the time plane's overlay
+    builds, absorbs = planes.builds, planes.delta_absorbs
+    got = client.post("/index/events/field/ev/import",
+                      _ev_import_body(evo["feb"]), "REST import, February")
+    if not got.get("changed"):
+        raise AssertionError(f"the February import changed nothing: {got}")
+    for q in EV_SEQ[:2]:
+        client.ask(q, evo["after_feb"][q], index="events",
+                   tag=f"events {EV_NAMES[q]} after import")
+    if planes.builds != builds or planes.delta_absorbs != absorbs + 1:
+        raise AssertionError(
+            f"the February import was not absorbed: builds {builds} -> "
+            f"{planes.builds}, absorbs {absorbs} -> {planes.delta_absorbs}")
+    # one stamped March 1 makes a new bucket: the plane rebuilds
+    got = client.post("/index/events/field/ev/import",
+                      _ev_import_body(evo["march"]), "REST import, March")
+    client.ask(EV_MARCH, evo["after_march"][EV_MARCH], index="events",
+               tag="events Feb 22 - Mar 8 after the March import")
+    tp = ex.time_status()["planes"][0]
+    if planes.builds != builds + 1 or tp["buckets"] != EV_DAYS + 1:
+        raise AssertionError(f"the March import did not rebuild the time "
+                             f"plane: builds {builds} -> {planes.builds}, "
+                             f"{tp}")
+    log(f"time plane rebuilt after the March import: {tp['buckets']} "
+        f"buckets, {tp['bytes'] / 1e9:.2f} GB in "
+        f"{planes.last_build_seconds:.2f} s")
+    for tag in ("REST import, February", "events 1 recency after import",
+                "events 2 retention after import", "REST import, March",
+                "events Feb 22 - Mar 8 after the March import"):
+        log(f"latency {tag!r}: {client.lat[tag][0] * 1e3:.2f} ms")
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"events ingest: the February import absorbed (absorbs "
+        f"+{planes.delta_absorbs - absorbs}, no build), the March import "
+        f"rebuilt; launches {json.dumps(launched)}; peak device memory in "
+        f"the phase {peak / 1e9:.2f} GB; phase 7 events wall "
+        f"{time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("row_counts", "count"):
+            if launched[k] < 1:
+                raise AssertionError(f"the events path never launched {k}")
+    return {"events": launched}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1755,7 +2154,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 7: output ==")
+    log("== phase 8: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],
@@ -1765,7 +2164,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "checked": "equal to plain at main-path and ragged shapes",
-         **({"bsi_shapes": r["bsi_shapes"]} if "bsi_shapes" in r else {})}
+         **({"bsi_shapes": r["bsi_shapes"]} if "bsi_shapes" in r else {}),
+         **({"blocks_ms": r["blocks_ms"]} if "blocks_ms" in r else {})}
         for name, r in kres.items()]}
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels_line))

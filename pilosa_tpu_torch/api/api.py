@@ -8,6 +8,7 @@ imports the same changed-bit counts.
 from __future__ import annotations
 
 import threading
+from datetime import datetime, timezone
 
 import numpy as np
 import torch
@@ -18,7 +19,8 @@ from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
-from pilosa_tpu_torch.store.field import BSI_TYPES
+from pilosa_tpu_torch.store.field import BSI_TYPES, ROW_TYPES
+from pilosa_tpu_torch.store.timeq import parse_pql_time, parse_view_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 
@@ -87,12 +89,14 @@ class API:
                     timestamps=None, clear: bool = False,
                     op_id: str | None = None) -> int:
         """Bulk (row, column) import in ID form, set or ``clear``;
-        returns the bits changed.  The next Count or TopN over a
-        resident plane absorbs the batch into its delta overlay."""
+        ``timestamps`` (one per pair: an ISO string, epoch seconds, or
+        None / 0 / "" for none) also write a time field's quantum views.
+        Returns the bits changed.  The next Count or TopN over a resident
+        plane absorbs the batch into its delta overlay."""
         idx = self._index(index)
         f = self._field(idx, field)
         for what, arg in (("row keys", row_keys), ("column keys", col_keys),
-                          ("timestamps", timestamps), ("op ids", op_id)):
+                          ("op ids", op_id)):
             if arg is not None:
                 raise ApiError(f"import: {what} are not supported by this "
                                "port")
@@ -110,16 +114,38 @@ class API:
             raise ApiError(f"import: bad IDs: {e}")
         if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
             raise ApiError("rows and columns length mismatch")
+        ts = self._parse_timestamps(timestamps)
         try:
             if clear:
                 changed = f.clear_import(rows, cols)
             else:
-                changed = f.import_bits(rows, cols)
+                changed = f.import_bits(rows, cols, ts)
                 idx.note_columns(cols)
         except ValueError as e:
             raise ApiError(str(e))
         self._count_imported(changed)
         return changed
+
+    @staticmethod
+    def _parse_timestamps(timestamps) -> list | None:
+        """Import timestamps as naive UTC datetimes (None for none)."""
+        if timestamps is None:
+            return None
+        if not isinstance(timestamps, (list, tuple)):
+            raise ApiError("import: timestamps must be a list")
+        out = []
+        try:
+            for t in timestamps:
+                if t in (None, 0, ""):
+                    out.append(None)
+                elif isinstance(t, str):
+                    out.append(parse_pql_time(t))
+                else:
+                    out.append(datetime.fromtimestamp(
+                        int(t), timezone.utc).replace(tzinfo=None))
+        except (TypeError, ValueError, OverflowError, OSError) as e:
+            raise ApiError(f"import: bad timestamp: {e}")
+        return out
 
     def import_values(self, index: str, field: str, *, col_ids=None,
                       col_keys=None, values=None) -> int:
@@ -154,16 +180,25 @@ class API:
                        blob: bytes, view: str = VIEW_STANDARD,
                        clear: bool = False) -> int:
         """Import a roaring-encoded bit set (positions ``row *
-        SHARD_WIDTH + column offset``) into one shard; returns the bits
-        changed."""
+        SHARD_WIDTH + column offset``) into one shard of a set or time
+        field's view (``standard``, or a time view ``standard_<YYYY[MM[DD
+        [HH]]]>``); returns the bits changed."""
         idx = self._index(index)
         f = self._field(idx, field)
-        if view != VIEW_STANDARD:
-            raise ApiError(f"import-roaring: view {view!r} is not "
-                           "supported by this port")
-        if f.options.type != "set":
-            raise ApiError("import-roaring supports set fields, not "
+        if f.options.type not in ROW_TYPES:
+            raise ApiError("import-roaring supports set/time fields, not "
                            f"{f.options.type!r}")
+        if f.options.keys or idx.keys:
+            raise ApiError("import-roaring: keyed fields and indexes are "
+                           "not supported by this port")
+        if view != VIEW_STANDARD:
+            try:
+                if not view.startswith(VIEW_STANDARD + "_"):
+                    raise ValueError(view)
+                parse_view_time(view[len(VIEW_STANDARD) + 1:])
+            except ValueError:
+                raise ApiError(f"import-roaring: view {view!r} is not "
+                               "supported by this port")
         frag = f.view(view, create=True).fragment(shard, create=True)
         try:
             changed = frag.import_roaring(blob, clear=clear)
@@ -191,7 +226,8 @@ class API:
                 "planes": self.executor.planes.stats(),
                 "batcher": self.executor.serving_stats(),
                 "ingest": {**self.executor.planes.delta_stats(),
-                           "importedBits": imported}}
+                           "importedBits": imported},
+                "timeViews": self.executor.time_status()}
 
     def _index(self, name: str):
         idx = self.holder.index(name)

@@ -70,10 +70,11 @@ TREE_AND = 4
 TREE_OR = 5
 TREE_ANDNOT = 6  # a & ~b (Difference; Not via ANDNOT(exists, x))
 TREE_XOR = 7
-# unary ops whose argument is program structure; the reference's
-# TREE_SHIFT (8) and TREE_LIMIT (9) wait for the Shift/Limit slice, and
-# nothing here emits or folds them
-TREE_STATIC_OPS = (8, 9)
+TREE_SHIFT = 8   # unary: shift the top of the stack by n columns
+TREE_LIMIT = 9   # unary: keep the bits ranked [offset, offset + limit)
+# the unary ops whose argument is program structure (the shift distance,
+# the limit bounds), not an operand index
+TREE_STATIC_OPS = (TREE_SHIFT, TREE_LIMIT)
 
 # postfix evaluation of a depth-d tree needs ~d+1 live values; the
 # planner refuses deeper trees
@@ -91,14 +92,16 @@ def tree_fold(rows, skeleton, row_args, extras=None, extra_args=None,
     ``rows(arg) -> int32[..., W]`` that reads one row per push (the solo
     path reads straight off the plane); ``extras``: a sequence of
     int32[..., W] bitmaps indexed by the ``TREE_PUSHX`` args;
-    ``skeleton``: the opcodes (binary ops pop two, push one);
+    ``skeleton``: the opcodes (binary ops pop two, push one), a static op
+    as ``(opcode, arg)``;
     ``row_args`` / ``extra_args``: the operand index of each ``TREE_PUSH``
     / ``TREE_PUSHX``, in order; ``zero``: the ``TREE_ZERO`` bitmap
     (defaults to zeros like ``rows[0]``).  Returns the final bitmap."""
     fetch = rows if callable(rows) else (lambda a: rows[a])
     stack: list = []
     ri = xi = 0
-    for op in skeleton:
+    for entry in skeleton:
+        op, sarg = entry if isinstance(entry, tuple) else (entry, None)
         if op == TREE_PUSH:
             stack.append(fetch(row_args[ri]))
             ri += 1
@@ -110,6 +113,10 @@ def tree_fold(rows, skeleton, row_args, extras=None, extra_args=None,
                          else zero)
         elif op == TREE_NOP:
             continue
+        elif op == TREE_SHIFT:
+            stack.append(shift(stack.pop(), sarg))
+        elif op == TREE_LIMIT:
+            stack.append(rank_limit(stack.pop(), sarg[0], sarg[1]))
         elif op in _TREE_BIN:
             b = stack.pop()
             a = stack.pop()
@@ -118,6 +125,85 @@ def tree_fold(rows, skeleton, row_args, extras=None, extra_args=None,
             raise ValueError(f"tree opcode {op!r} is not supported by "
                              "this port")
     return stack[-1]
+
+
+# ---------------------------------------------------------------------------
+# Shift, Limit and row unions (XLA in the reference, plain PyTorch here)
+# ---------------------------------------------------------------------------
+
+
+def union_rows(plane: torch.Tensor, row_mask) -> torch.Tensor:
+    """OR of the rows of ``plane`` int32[S, R, W] that the host boolean
+    ``row_mask`` [R] selects -> int32[S, W] (``UnionRows``): one in-place
+    OR per selected row."""
+    rows = np.flatnonzero(np.asarray(row_mask, bool))
+    if not len(rows):
+        return plane.new_zeros(plane.shape[0], plane.shape[2])
+    acc = plane[:, int(rows[0])].clone()
+    for r in rows[1:]:
+        acc.bitwise_or_(plane[:, int(r)])
+    return acc
+
+
+def shift(words: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """Every bit's column moved up by ``n`` within its shard; bits that
+    cross the shard's end drop (``Shift(row, n)``).  Bits are LSB first in
+    a word, so this is a left shift with a carry between words; the carry
+    is a right shift, masked after it (``>>`` on int32 is arithmetic)."""
+    if n < 0:
+        raise ValueError("shift n must be non-negative")
+    word_n, bit_n = divmod(n, 32)
+    w = words.shape[-1]
+    if word_n:
+        words = torch.cat([words.new_zeros(words.shape[:-1] + (word_n,)),
+                           words[..., :w - word_n]], dim=-1)
+    if bit_n:
+        carry = torch.cat([words.new_zeros(words.shape[:-1] + (1,)),
+                           words[..., :-1]], dim=-1)
+        words = (words << bit_n) | ((carry >> (32 - bit_n))
+                                    & ((1 << bit_n) - 1))
+    return words
+
+
+_INT32_MAX = (1 << 31) - 1
+
+
+def rank_limit(words: torch.Tensor, offset: int, limit: int) -> torch.Tensor:
+    """Keep only the bits whose global rank falls in ``[offset, offset +
+    limit)`` (``limit < 0``: unbounded): ``Limit(x, limit=, offset=)``.
+    ``words`` int32[S, W] in global column order (shard axis in serving
+    order, words ascending, bits LSB first).  Ranks are int32: exact
+    while the shard axis stays under the executor's ``_REDUCE_SHARD_MAX``.
+
+    The reference expands every word to 32 ranked lanes; here a word
+    wholly inside the window keeps all its bits and one wholly outside
+    keeps none, and only the two words holding the ranks ``offset`` and
+    ``offset + limit - 1`` are expanded, found by a search over the
+    inclusive prefix sum (no host sync, no [N, 32] temporary)."""
+    shape = words.shape
+    flat = words.reshape(-1)
+    if not flat.numel():
+        return words.clone()
+    end = _INT32_MAX if limit < 0 else min(offset + limit, _INT32_MAX)
+    cum = torch.cumsum(popcount(flat), 0, dtype=torch.int32)  # inclusive
+    start = cum - popcount(flat)
+    out = torch.where((start >= offset) & (cum <= end), flat,
+                      torch.zeros_like(flat))
+    probe = torch.tensor([max(offset, 0), max(end - 1, 0)],
+                         dtype=torch.int32).to(flat.device)
+    idx = torch.searchsorted(cum, probe, right=True).clamp(
+        max=flat.numel() - 1)
+    lanes = torch.arange(32, device=flat.device, dtype=torch.int32)
+    bits = (flat[idx][:, None] >> lanes) & 1                      # [2, 32]
+    rank = start[idx][:, None] + torch.cumsum(bits, 1,
+                                              dtype=torch.int32) - bits
+    keep = (bits != 0) & (rank >= offset) & (rank < end)
+    packed = torch.where(keep, torch.ones_like(bits) << lanes,
+                         torch.zeros_like(bits)).sum(1, dtype=torch.int64)
+    # both probes may name one word: each computes its exact value, so the
+    # writes agree
+    out[idx] = packed.to(torch.int32)
+    return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -23,18 +23,26 @@ a plane was built ride a device delta overlay (``delta_cells``, folded
 in the background past ``delta_compact_fraction``): Counts and TopN
 answer base+delta over the unchanged resident plane.
 
-Served calls: ``Count``, ``Row`` / ``Range`` (set fields with integer
-rows; BSI conditions such as ``Row(amount > 5)`` and ``Row(-1 < amount
-< 1)``), ``Intersect``, ``Union``, ``Difference``, ``Xor``, ``Not``,
-``All``, ``TopN(field[, filter], n=)`` on the dense plane, the BSI
-aggregates ``Sum``, ``Min``, ``Max``, ``Percentile`` and ``Distinct``,
-``Rows`` and ``GroupBy`` (over rows planes of the selected rows, with
-``filter=``, a Count/Sum/Min/Max aggregate, ``having=``, ``limit=`` and
-``previous=``; blocks go through the batcher's ``groupby`` kind),
-``Set`` and ``Clear`` (values on BSI fields).  Sum, Min, Max, simple
-range Counts and GroupBy aggregates read the bit plane delta-aware
-(base+delta over a ``BsiOverlay``); Percentile, Distinct and BSI leaves
-inside bitmap calls read it clean.  Anything else raises
+Served calls: ``Count``, ``Row`` / ``Range`` (set and time fields with
+integer rows; time ranges ``Row(t=1, from=, to=)`` and the legacy
+positional ``Range(t=1, <from>, <to>)``; BSI conditions such as
+``Row(amount > 5)`` and ``Row(-1 < amount < 1)``), ``Intersect``,
+``Union``, ``Difference``, ``Xor``, ``Not``, ``All`` (with ``limit=`` /
+``offset=`` paging), ``Shift``, ``Limit``, ``ConstRow``, ``UnionRows``,
+``TopN(field[, filter], n=)`` on the dense plane, the BSI aggregates
+``Sum``, ``Min``, ``Max``, ``Percentile`` and ``Distinct``, ``Rows`` and
+``GroupBy`` (over rows planes of the selected rows, with ``filter=``, a
+Count/Sum/Min/Max aggregate, ``having=``, ``limit=`` and ``previous=``;
+``Rows(from=, to=)`` selects the rows seen in the range; blocks go
+through the batcher's ``groupby`` kind), ``Set`` (with a timestamp on a
+time field) and ``Clear`` (values on BSI fields).  A time range is one
+OR over the field's bucketed time plane (:mod:`pilosa_tpu_torch.timeviews`),
+or, when the plane would exceed the budget, the union of the range's
+cover views' rows.  Sum, Min, Max, simple range Counts and GroupBy
+aggregates read the bit plane delta-aware (base+delta over a
+``BsiOverlay``); Percentile, Distinct and BSI leaves inside bitmap calls
+read it clean.  Keys are not ported: a keyed field or index is refused
+wherever an answer would carry ids.  Anything else raises
 :class:`ExecutionError`.
 """
 
@@ -65,9 +73,11 @@ from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
-from pilosa_tpu_torch.store.field import BSI_TYPES, TYPE_SET, Field
+from pilosa_tpu_torch.store.field import BSI_TYPES, ROW_TYPES, Field
 from pilosa_tpu_torch.store.holder import Holder
 from pilosa_tpu_torch.store.index import Index
+from pilosa_tpu_torch.store.timeq import (parse_pql_time, view_span,
+                                          views_by_time_range)
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 # option keys that are never field names in call args (reservation is per
@@ -86,7 +96,8 @@ _CALL_RESERVED = {
 }
 
 _BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
-                           "Difference", "Xor", "Not", "All"})
+                           "Difference", "Xor", "Not", "All", "Shift",
+                           "UnionRows", "ConstRow", "Limit"})
 
 
 class ExecutionError(Exception):
@@ -140,6 +151,11 @@ def bsi_signature(options) -> tuple:
             options.epoch, options.time_unit)
 
 
+def _has_time_args(call: Call) -> bool:
+    return ("from" in call.args or "to" in call.args
+            or "_timestamp" in call.args)
+
+
 def _field_arg(call: Call):
     try:
         return call.field_arg(_CALL_RESERVED.get(call.name, RESERVED_KEYS))
@@ -151,6 +167,13 @@ class _Ctx:
     def __init__(self, index: Index, shards: tuple[int, ...]):
         self.index = index
         self.shards = shards
+
+
+def _parse_time(t: str):
+    try:
+        return parse_pql_time(t)
+    except ValueError as e:
+        raise ExecutionError(str(e))
 
 
 def parse_window(window) -> float | str:
@@ -188,9 +211,12 @@ class _PlanEntry:
     tensor and nothing bakes data a write can stale: literal row ids
     re-resolve, the planes absorb writes into their overlays and extras
     re-fetch, so a hit checks only the shard set, that the
-    ``set_fields`` are still unkeyed set fields, and that each BSI field
-    still has the depth and base its predicates were resolved against
-    (``bsi_sigs``).  ``deps``/``gens`` are the build-time snapshot the
+    ``set_fields`` are still unkeyed set or time fields, and that each BSI
+    field still has the depth and base its predicates were resolved
+    against (``bsi_sigs``).  A ``checked`` entry (a time range, whose
+    cover may gain views a write creates, or a volatile UnionRows row set)
+    also requires ``deps``' generations unchanged, else it is dropped and
+    planned again.  ``deps``/``gens`` are the build-time snapshot the
     build-twice check compares."""
 
     kind: str
@@ -203,6 +229,7 @@ class _PlanEntry:
     set_fields: tuple = ()
     range_items: tuple = ()  # ((field, op_keys, offsets, operands), ...)
     bsi_sigs: tuple = ()     # ((field, bsi_signature), ...) pinned
+    checked: bool = False    # a hit compares ``deps``' generations
 
 
 class Executor:
@@ -241,6 +268,10 @@ class Executor:
         self.max_concurrent = max_concurrent
         self._exec_slots = (threading.BoundedSemaphore(max_concurrent)
                             if max_concurrent else None)
+        # time ranges served off the time plane / by the cover views' rows
+        self._time_lock = threading.Lock()
+        self.time_ranges_plane = 0
+        self.time_ranges_span = 0
 
     def close(self) -> None:
         """Stop the batcher's threads."""
@@ -258,6 +289,18 @@ class Executor:
                        planCacheMisses=self.plan_misses,
                        plans=len(self._plans))
         return out
+
+    def time_status(self) -> dict:
+        """The ``/status`` ``timeViews`` block: the resident time planes,
+        and how many time ranges each path served."""
+        planes = self.planes.time_plane_status()
+        with self._time_lock:
+            served = {"plane": self.time_ranges_plane,
+                      "span": self.time_ranges_span}
+        return {"planes": planes,
+                "residentBytes": sum(p["bytes"] for p in planes),
+                "buckets": sum(p["buckets"] for p in planes),
+                "rangesServed": served}
 
     # ------------------------------------------------------------------ api
 
@@ -351,8 +394,7 @@ class Executor:
         field = ctx.index.field(str(fname))
         if field is None or field.options.type not in BSI_TYPES:
             return None
-        if ("from" in child.args or "to" in child.args
-                or "_timestamp" in child.args):
+        if _has_time_args(child):
             return None
         cond = (value if isinstance(value, Condition)
                 else Condition("==", value))
@@ -484,7 +526,7 @@ class Executor:
         reduce, plane over budget, or a small slice of a wide plane that
         is not resident)."""
         field = ctx.index.field(spec.field)
-        if field is None or field.options.type != TYPE_SET:
+        if field is None or field.options.type not in ROW_TYPES:
             return None
         if len(ctx.shards) > self._REDUCE_SHARD_MAX:
             return None
@@ -517,11 +559,20 @@ class Executor:
 
     def _tree_extra(self, ctx: _Ctx, espec) -> torch.Tensor | None:
         """One extra operand int32[S, W]: the existence row, another set
-        field's row, or a BSI comparison (masks re-derived from the
-        spec's offset and the field's current depth), through the plane
-        cache."""
+        field's row, a BSI comparison (masks re-derived from the spec's
+        offset and the field's current depth), a time range (off the time
+        plane, or the union of its cover views) or a ``ConstRow``,
+        through the plane cache."""
         if espec[0] == "exists":
             return self._exists(ctx)
+        if espec[0] == "trange":
+            _, fname, rid, frm, to = espec
+            field = ctx.index.field(fname)
+            if field is None or not field.options.time_quantum:
+                return None
+            return self._time_row(ctx, field, rid, frm, to)
+        if espec[0] == "constrow":
+            return self._const_row_cols(ctx, espec[1])
         if espec[0] in ("bsi", "bsi-exists"):
             field = ctx.index.field(espec[1])
             if field is None or field.options.type not in BSI_TYPES:
@@ -532,7 +583,7 @@ class Executor:
             return self._bsi_words(ps.plane, field, espec[2], espec[3])
         _, fname, vname, rid = espec
         field = ctx.index.field(fname)
-        if field is None or field.options.type != TYPE_SET:
+        if field is None or field.options.type not in ROW_TYPES:
             return None
         return self.planes.row_words(ctx.index.name, field, vname, rid,
                                      ctx.shards)
@@ -583,8 +634,7 @@ class Executor:
             f, v = hit
             if isinstance(v, (Condition, Call)):
                 return None
-            if ("from" in child.args or "to" in child.args
-                    or "_timestamp" in child.args):
+            if _has_time_args(child):
                 return None
             if fname is None:
                 fname = f
@@ -594,7 +644,7 @@ class Executor:
         if fname is None:
             return None
         field = self._field(ctx, fname)
-        if field.options.type != TYPE_SET or not ctx.shards:
+        if field.options.type not in ROW_TYPES or not ctx.shards:
             return None
         return field, values
 
@@ -692,8 +742,11 @@ class Executor:
             if entry is None:
                 return None
         if (self._shards_for(index, shards) != entry.shards
+                or (entry.checked
+                    and self._dep_gens(index, entry.deps, entry.shards)
+                    != entry.gens)
                 or any((f := index.field(name)) is None or f.options.keys
-                       or f.options.type != TYPE_SET
+                       or f.options.type not in ROW_TYPES
                        for name in entry.set_fields)
                 or any((f := index.field(name)) is None
                        or bsi_signature(f.options) != sig
@@ -776,9 +829,11 @@ class Executor:
         deps: dict[tuple, None] = {}
         set_fields: dict[str, None] = {}
         sigs: dict = {}
+        checked = False
         for spec in specs:
             set_fields[spec.field] = None
             deps[(spec.field, VIEW_STANDARD)] = None
+            checked |= spec.volatile
             for fname in spec.bsi_fields:
                 f = ctx.index.field(fname)
                 sigs[fname] = bsi_signature(f.options)
@@ -789,12 +844,19 @@ class Executor:
                 elif espec[0] == "row":
                     set_fields[espec[1]] = None
                     deps[(espec[1], espec[2])] = None
+                elif espec[0] == "trange":
+                    # every timestamped write lands in the standard view
+                    # too, so its generations stand for the bucket views';
+                    # a new view (a first write in a fresh period) bumps
+                    # them without showing in a cached cover
+                    deps[(espec[1], VIEW_STANDARD)] = None
+                    checked = True
         deps = tuple(deps)
         return _PlanEntry("tree", ctx.shards, deps,
                           self._dep_gens(ctx.index, deps, ctx.shards),
                           tree_specs=specs,
                           set_fields=tuple(set_fields),
-                          bsi_sigs=tuple(sigs.items()))
+                          bsi_sigs=tuple(sigs.items()), checked=checked)
 
     @staticmethod
     def _dep_gens(index: Index, deps: tuple, shards: tuple) -> tuple:
@@ -839,7 +901,19 @@ class Executor:
 
     def _call(self, ctx: _Ctx, call: Call):
         if call.name in _BITMAP_CALLS:
-            return self._to_row_result(ctx, self._fused_bitmap(ctx, call))
+            if ctx.index.keys:
+                raise ExecutionError(
+                    f"index {ctx.index.name!r}: bitmap results on a keyed "
+                    "index are not supported by this port")
+            result = self._to_row_result(ctx, self._fused_bitmap(ctx, call))
+            if call.name == "All":
+                # All(limit=, offset=) pages the column list
+                offset = int(call.args.get("offset", 0))
+                limit = call.args.get("limit")
+                if offset or limit is not None:
+                    end = None if limit is None else offset + int(limit)
+                    result.columns = result.columns[offset:end]
+            return result
         handler = {"Count": self._execute_count, "TopN": self._execute_topn,
                    "Sum": self._execute_sum, "Min": self._execute_min,
                    "Max": self._execute_max,
@@ -887,6 +961,19 @@ class Executor:
             return leaf(self._row_words(ctx, call))
         if call.name == "All":
             return leaf(self._exists(ctx))
+        if call.name == "Shift":
+            if len(call.children) != 1:
+                raise ExecutionError("Shift: exactly one child required")
+            n = self._shift_n(call)
+            return ("shift", self._plan(ctx, call.children[0], leaves), n)
+        if call.name == "UnionRows":
+            return leaf(self._union_rows(ctx, call))
+        if call.name == "ConstRow":
+            return leaf(self._const_row_cols(ctx,
+                                             self._const_row_arg(call)))
+        if call.name == "Limit":
+            # ordered by global column rank: the child's words, ranked
+            return leaf(self._limit_bitmap(ctx, call))
 
         def exists_leaf() -> int:
             leaves.append(self._exists(ctx))
@@ -907,6 +994,9 @@ class Executor:
 
     def _row_words(self, ctx: _Ctx, call: Call) -> torch.Tensor:
         field, row_id = self._row_leaf(ctx, call)
+        rng = self._time_args(field, call)
+        if rng is not None:
+            return self._time_row(ctx, field, row_id, *rng)
         return self.planes.row_words(ctx.index.name, field, VIEW_STANDARD,
                                      row_id, ctx.shards)
 
@@ -960,22 +1050,197 @@ class Executor:
                               keys=(op_key,))[op_key]
 
     def _row_leaf(self, ctx: _Ctx, call: Call) -> tuple[Field, int]:
-        """``(field, row id)`` of a plain set-field ``Row`` (the eager
-        planner and the tree compiler refuse the same leaves alike)."""
+        """``(field, row id)`` of a ``Row`` on a set or time field (the
+        eager planner and the tree compiler refuse the same leaves
+        alike); its time arguments are :meth:`_time_args`' to read."""
         hit = _field_arg(call)
         if hit is None:
             raise ExecutionError(f"{call.name}: missing field argument")
         fname, value = hit
         field = self._field(ctx, fname)
-        if isinstance(value, Condition) or field.options.type != TYPE_SET:
+        if isinstance(value, Condition) or field.options.type not in ROW_TYPES:
             raise ExecutionError(
                 f"Row on {field.options.type!r} field {fname!r} is not "
                 "supported by this port")
-        if ("from" in call.args or "to" in call.args
-                or "_timestamp" in call.args):
-            raise ExecutionError("time-range rows are not supported by "
-                                 "this port")
         return field, self._row_id(field, value)
+
+    # -- time ranges --------------------------------------------------------
+
+    @staticmethod
+    def _time_args(field: Field, call: Call):
+        """``(from, to)`` timestamp strings of a time-range ``Row`` /
+        ``Range`` (the legacy positional form puts them in ``_timestamp``
+        / ``_timestamp2``; either may be None), or None for a plain row.
+        Raises for a field without a time quantum or a bad timestamp."""
+        if not _has_time_args(call):
+            return None
+        if not field.options.time_quantum:
+            raise ExecutionError(f"field {field.name!r} is not a time field")
+        frm = call.args.get("from", call.args.get("_timestamp"))
+        to = call.args.get("to", call.args.get("_timestamp2"))
+        out = tuple(None if t is None else str(t) for t in (frm, to))
+        for t in out:
+            if t is not None:
+                _parse_time(t)
+        return out
+
+    def _time_row(self, ctx: _Ctx, field: Field, row_id: int, frm,
+                  to) -> torch.Tensor:
+        """The columns of ``row_id`` seen in ``[from, to)``: off the time
+        plane, else the union of the cover views' rows."""
+        start = _parse_time(frm) if frm is not None else None
+        end = _parse_time(to) if to is not None else None
+        words = self._time_range_words(ctx, field, row_id, start, end)
+        if words is not None:
+            return words
+        return self._time_row_span(ctx, field, row_id, start, end)
+
+    def _time_range_words(self, ctx: _Ctx, field: Field, row_id: int,
+                          start, end) -> torch.Tensor | None:
+        """One OR over the contiguous bucket lanes of ``row_id`` in the
+        field's time plane, equal bit for bit to the union of the minimal
+        cover (the finest views carry every bit).  None = not served by
+        the plane: the shard axis past the int32 bound, or no plane
+        within the budget."""
+        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+            return None
+        tps = self.planes.time_plane_nowait(ctx.index.name, field,
+                                            ctx.shards)
+        if tps is None:
+            return None
+        with self._time_lock:
+            self.time_ranges_plane += 1
+        idx = tps.slot_of.get(int(row_id))
+        b0, b1 = tps.bucket_range(start, end)
+        if idx is None or b1 <= b0:
+            return self._zeros(ctx)
+        return self.fused.run_time_range(tps.plane, idx * tps.n_buckets + b0,
+                                         b1 - b0, delta=tps.delta)
+
+    def _time_row_span(self, ctx: _Ctx, field: Field, row_id: int, start,
+                       end) -> torch.Tensor:
+        """The union of ``row_id``'s row in each view of the minimal cover
+        of ``[start, end)``, clamped to the span the field's views cover
+        (an omitted bound would otherwise walk the calendar unit by unit):
+        the path for a time plane over the budget, and the oracle the
+        plane is held to."""
+        with self._time_lock:
+            self.time_ranges_span += 1
+        acc = self._zeros(ctx)
+        for vname in self._time_cover_views(field, start, end):
+            acc = kernels.union(acc, self.planes.row_words(
+                ctx.index.name, field, vname, row_id, ctx.shards))
+        return acc
+
+    @staticmethod
+    def _time_cover_views(field: Field, start, end) -> list[str]:
+        """The existing views minimally covering ``[start, end)``
+        (datetimes or None), clamped to the span the views cover."""
+        q = field.options.time_quantum
+        if not q:
+            raise ExecutionError(f"field {field.name!r} is not a time field")
+        prefix = VIEW_STANDARD + "_"
+        spans = []
+        for vname in list(field.views):
+            if vname.startswith(prefix):
+                try:
+                    spans.append(view_span(vname[len(prefix):]))
+                except ValueError:
+                    continue
+        if not spans:
+            return []
+        vmin = min(s for s, _ in spans)
+        vmax = max(e for _, e in spans)
+        start = vmin if start is None else max(start, vmin)
+        end = vmax if end is None else min(end, vmax)
+        return [v for v in views_by_time_range(VIEW_STANDARD, start, end, q)
+                if field.view(v) is not None]
+
+    # -- Shift, Limit, ConstRow, UnionRows ----------------------------------
+
+    @staticmethod
+    def _shift_n(call: Call) -> int:
+        try:
+            n = int(call.args.get("n", 1))
+        except (TypeError, ValueError):
+            raise ExecutionError(f"Shift: bad n {call.args.get('n')!r}")
+        if not 0 <= n < SHARD_WIDTH:
+            raise ExecutionError(f"Shift: n must be in [0, 2^20), got {n}")
+        return n
+
+    @staticmethod
+    def _limit_args(call: Call) -> tuple[int, int | None]:
+        """``Limit(x, limit=, offset=)``'s ``(offset, limit)``."""
+        if len(call.children) != 1:
+            raise ExecutionError("Limit: exactly one bitmap child required")
+        offset = int(call.args.get("offset", 0))
+        limit = call.args.get("limit")
+        if offset < 0 or (limit is not None and int(limit) < 0):
+            raise ExecutionError("Limit: limit/offset must be >= 0")
+        return offset, None if limit is None else int(limit)
+
+    def _limit_bitmap(self, ctx: _Ctx, call: Call) -> torch.Tensor:
+        """The child's bits ranked ``[offset, offset + limit)`` in global
+        column order (``engine.kernels.rank_limit``: int32 ranks, exact
+        under ``_REDUCE_SHARD_MAX`` shards)."""
+        offset, limit = self._limit_args(call)
+        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+            raise ExecutionError(
+                f"Limit over more than {self._REDUCE_SHARD_MAX} shards is "
+                "not supported by this port")
+        words = self._fused_bitmap(ctx, call.children[0])
+        return kernels.rank_limit(words, offset,
+                                  -1 if limit is None else limit)
+
+    @staticmethod
+    def _const_row_arg(call: Call) -> list:
+        cols = call.args.get("columns")
+        if cols is None:
+            raise ExecutionError("ConstRow: missing columns argument")
+        return list(cols)
+
+    def _const_row_cols(self, ctx: _Ctx, cols) -> torch.Tensor:
+        """A literal bitmap of ``cols``; a column whose shard is outside
+        the queried shards drops."""
+        host = np.zeros((len(ctx.shards), WORDS_PER_SHARD), np.uint32)
+        shard_slot = {s: si for si, s in enumerate(ctx.shards)}
+        for c in cols:
+            cid = self._col_id(ctx, c)
+            si = shard_slot.get(cid // SHARD_WIDTH)
+            if si is None:
+                continue
+            off = cid % SHARD_WIDTH
+            host[si, off >> 5] |= np.uint32(1) << np.uint32(off & 31)
+        return torch.from_numpy(host.view(np.int32)).to(self.device)
+
+    def _union_rows_sel(self, ctx: _Ctx, call: Call) -> list:
+        """``UnionRows(Rows(f), ...)``'s ``[(field, row ids), ...]``."""
+        bad = [c.name for c in call.children if c.name != "Rows"]
+        if bad:
+            raise ExecutionError(
+                f"UnionRows: children must be Rows calls, got {bad}")
+        if not call.children:
+            raise ExecutionError("UnionRows: Rows children required")
+        out = []
+        for rc in call.children:
+            fname = rc.args.get("_field") or rc.args.get("field")
+            field = self._field(ctx, str(fname))
+            out.append((field, self._rows_of(ctx, field, rc)))
+        return out
+
+    def _union_rows(self, ctx: _Ctx, call: Call) -> torch.Tensor:
+        """The OR of every selected row, over a rows plane of just those
+        rows per field."""
+        acc = self._zeros(ctx)
+        for field, rows in self._union_rows_sel(ctx, call):
+            if len(rows) == 0:
+                continue
+            ps = self.planes.rows_plane(ctx.index.name, field, VIEW_STANDARD,
+                                        rows, ctx.shards)
+            mask = np.zeros(ps.plane.shape[-2], dtype=bool)
+            mask[:len(rows)] = True
+            acc = kernels.union(acc, kernels.union_rows(ps.plane, mask))
+        return acc
 
     # -- helpers ------------------------------------------------------------
 
@@ -1061,6 +1326,9 @@ class Executor:
         if fname is None:
             raise ExecutionError("TopN: missing field argument")
         field = self._field(ctx, str(fname))
+        if field.options.keys:
+            raise ExecutionError(f"TopN: keyed field {field.name!r} is not "
+                                 "supported by this port")
         for opt in ("tanimoto", "attrName", "_rowCounts"):
             if call.args.get(opt) is not None:
                 raise ExecutionError(f"TopN: {opt}= is not supported by "
@@ -1122,31 +1390,35 @@ class Executor:
             ctx, self._field(ctx, str(fname)), call))
 
     def _rows_of(self, ctx: _Ctx, field: Field, call: Call) -> np.ndarray:
-        """Sorted row ids with a bit in the standard view, honoring
-        ``column=``, ``previous=`` and ``limit=``."""
+        """Sorted row ids with a bit in the standard view, or with
+        ``from=`` / ``to=`` in a view of the range's minimal cover,
+        honoring ``column=``, ``previous=`` and ``limit=``."""
         if field.options.keys:
             raise ExecutionError(f"field {field.name!r}: keyed rows are "
                                  "not supported by this port")
-        for opt in ("from", "to", "like"):
-            if call.args.get(opt) is not None:
-                raise ExecutionError(f"Rows: {opt}= is not supported by "
-                                     "this port")
-        view = field.standard_view()
+        if call.args.get("like") is not None:
+            raise ExecutionError("Rows: like= is not supported by this port")
+        frm, to = call.args.get("from"), call.args.get("to")
+        if frm is not None or to is not None:
+            views = [field.view(v) for v in self._time_cover_views(
+                field, None if frm is None else _parse_time(str(frm)),
+                None if to is None else _parse_time(str(to)))]
+        else:
+            views = [field.standard_view()]
+        views = [v for v in views if v is not None]
         column = call.args.get("column")
         if column is not None:
             # one column lies in one shard: a word probe per row there
             col_id = self._col_id(ctx, column)
             shard, off = col_id // SHARD_WIDTH, col_id % SHARD_WIDTH
-            frag = (view.fragment(shard)
-                    if view is not None and shard in ctx.shards else None)
-            rows = (frag.rows_containing(off) if frag is not None
-                    else np.empty(0, np.uint64))
+            parts = [frag.rows_containing(off) for v in views
+                     if shard in ctx.shards
+                     and (frag := v.fragment(shard)) is not None]
         else:
-            parts = [frag.row_ids_array() for s in ctx.shards
-                     if view is not None
-                     and (frag := view.fragment(s)) is not None]
-            rows = (np.unique(np.concatenate(parts)) if parts
-                    else np.empty(0, np.uint64))
+            parts = [frag.row_ids_array() for v in views for s in ctx.shards
+                     if (frag := v.fragment(s)) is not None]
+        rows = (np.unique(np.concatenate(parts)) if parts
+                else np.empty(0, np.uint64))
         prev = call.args.get("previous")
         if prev is not None:
             rows = rows[rows > self._row_id(field, prev)]
@@ -1494,10 +1766,14 @@ class Executor:
                 raise ExecutionError(str(e))
             ctx.index.note_columns(np.array([col_id], np.uint64))
             return changed
-        if field.options.type != TYPE_SET or "_timestamp" in call.args:
+        if field.options.type not in ROW_TYPES:
             raise ExecutionError(f"Set on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")
-        changed = field.set_bit(self._row_id(field, value), col_id)
+        ts = call.args.get("_timestamp")
+        # the store writes the quantum views of a time field only, as in
+        # the reference
+        changed = field.set_bit(self._row_id(field, value), col_id,
+                                _parse_time(ts) if ts is not None else None)
         ctx.index.note_columns(np.array([col_id], np.uint64))
         return changed
 
@@ -1513,7 +1789,7 @@ class Executor:
         field = self._field(ctx, fname)
         if field.options.type in BSI_TYPES:
             return field.clear_value(col_id)
-        if field.options.type != TYPE_SET:
+        if field.options.type not in ROW_TYPES:
             raise ExecutionError(f"Clear on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")
         return field.clear_bit(self._row_id(field, value), col_id)

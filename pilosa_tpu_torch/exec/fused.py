@@ -25,6 +25,7 @@ Node encodings (nested tuples):
     ("leaf", i)                                   leaf i: int32[S, W] words
     ("and"|"or"|"andnot"|"xor", (child, ...))     fold left
     ("not", child, i_exists)                      exists & ~child
+    ("shift", child, n)                           child's columns + n
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
                                            adjusted_selected_counts,
                                            bsi_sides, overlay_gathered_rows,
-                                           overlay_row)
+                                           overlay_row, overlay_time_range)
 
 
 class Unfusable(Exception):
@@ -62,6 +63,8 @@ def _build(node, leaves):
         return acc
     if kind == "not":
         return kernels.complement(_build(node[1], leaves), leaves[node[2]])
+    if kind == "shift":
+        return kernels.shift(_build(node[1], leaves), node[2])
     raise AssertionError(f"bad node {node!r}")
 
 
@@ -75,6 +78,8 @@ def shift_leaves(node, offset: int):
         return (kind, tuple(shift_leaves(c, offset) for c in node[1]))
     if kind == "not":
         return ("not", shift_leaves(node[1], offset), node[2] + offset)
+    if kind == "shift":
+        return ("shift", shift_leaves(node[1], offset), node[2])
     raise AssertionError(f"bad node {node!r}")
 
 
@@ -163,7 +168,7 @@ class FusedCache:
         the shard axis reduced in int32: callers gate on the int32-exact
         shard bound); "words" -> int32[S, W]."""
         words = kernels.tree_fold(
-            rows, tuple(op for op, _ in prog),
+            rows, _skeleton(prog),
             [arg for op, arg in prog if op == kernels.TREE_PUSH],
             extras,
             [arg for op, arg in prog if op == kernels.TREE_PUSHX])
@@ -190,10 +195,10 @@ class FusedCache:
                                   delta.vals, r_pad)
             return val
 
-        skeleton = tuple(op for op, _ in prog)
+        skeleton = _skeleton(prog)
         zero = (torch.zeros((plane.shape[0], plane.shape[2]),
                             dtype=plane.dtype, device=plane.device)
-                if kernels.TREE_ZERO in skeleton else None)
+                if any(op == kernels.TREE_ZERO for op, _ in prog) else None)
         words = kernels.tree_fold(
             row, skeleton, row_args, extras,
             [arg for op, arg in prog if op == kernels.TREE_PUSHX],
@@ -233,6 +238,31 @@ class FusedCache:
         TopN filters)."""
         return self._tree_program(plane, slots, (prog,), extras, delta,
                                   "words")
+
+    @staticmethod
+    def run_time_range(plane: torch.Tensor, start: int, length: int,
+                       delta=None) -> torch.Tensor:
+        """One time field's ``[t0, t1)`` bitmap int32[S, W] off its bucketed
+        plane (:mod:`pilosa_tpu_torch.timeviews`): the OR of the
+        CONTIGUOUS lanes ``[start, start + length)``, lane by lane into one
+        accumulator (a view of each lane, never a gathered [S, L, W]
+        copy), then the overlay's (row, bucket) cells over the columns
+        they touch.  The reference gathers pow2-padded lanes for its
+        compiled shapes and masks the pad after the overlay; with no pad
+        lanes the answer is the same."""
+        if start < 0 or start + length > plane.shape[1]:
+            raise IndexError(f"time lanes [{start}, {start + length}) "
+                             f"outside [0, {plane.shape[1]})")
+        if length <= 0:
+            return plane.new_zeros(plane.shape[0], plane.shape[2])
+        acc = (plane[:, start].clone() if length == 1
+               else torch.bitwise_or(plane[:, start], plane[:, start + 1]))
+        for lane in range(start + 2, start + length):
+            acc.bitwise_or_(plane[:, lane])
+        if delta is not None:
+            overlay_time_range(acc, plane, start, length, delta.rows,
+                               delta.words, delta.vals)
+        return acc
 
     # -- BSI plane batches ------------------------------------------------
 
@@ -338,6 +368,13 @@ class FusedCache:
         """The flattened int32 outputs of a window's families as ONE
         device tensor: the window then costs one device-to-host copy."""
         return torch.cat([a.reshape(-1) for a in arrays])
+
+
+def _skeleton(prog: tuple) -> tuple:
+    """A postfix program's opcodes for ``kernels.tree_fold``: a static op
+    keeps its argument as ``(opcode, arg)``."""
+    return tuple((op, arg) if op in kernels.TREE_STATIC_OPS else op
+                 for op, arg in prog)
 
 
 def _host_index(values, bound: int, device) -> torch.Tensor:

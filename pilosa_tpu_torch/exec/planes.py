@@ -27,10 +27,19 @@ A rows plane (:meth:`PlaneCache.rows_plane`, GroupBy's levels) holds just
 the selected rows, padded to a power of two; a stale one takes the
 journal cells of its own rows and skips the others.
 
-The build expands fragments chunk by chunk on a thread pool into a pinned
-host staging buffer and copies each chunk into one preallocated device
-tensor; two staging buffers alternate so chunk N's expansion overlaps
-chunk N-1's host-to-device copy.
+A time field's plane (:meth:`PlaneCache.time_plane_nowait`) holds its
+finest-unit views as one (row, bucket) axis
+(:mod:`pilosa_tpu_torch.timeviews`).  A write into existing buckets of
+existing rows absorbs into an overlay keyed by flat (row, bucket) slot; a
+new bucket, a new row, a whole-row op, a journal gap or a full overlay
+rebuilds it.  Time planes never fold.
+
+The build expands fragments chunk by chunk into a pinned host staging
+buffer and copies each chunk into one preallocated device tensor; two
+staging buffers alternate so chunk N's expansion overlaps chunk N-1's
+host-to-device copy.  The expansion runs on the calling thread: it is
+many small numpy steps under the interpreter lock, where a thread pool
+only contends for the lock and runs slower.
 """
 
 from __future__ import annotations
@@ -39,17 +48,18 @@ import logging
 import threading
 import time
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import timeviews
 from pilosa_tpu_torch.engine import resolve_device
 from pilosa_tpu_torch.engine.bsi import OFFSET_ROW
 from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD, pow2_bucket
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.store.field import Field
+from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 DEFAULT_BUDGET = 4 << 30
 
@@ -118,7 +128,6 @@ class PlaneSet:
 
 class PlaneCache:
     BUILD_CHUNK_BYTES = 256 << 20
-    BUILD_WORKERS = 8
     # past this many changed cells beyond the overlay's cap a fold (or a
     # row refresh) gives way to a rebuild
     MAX_INCR_CELLS = 4096
@@ -282,6 +291,163 @@ class PlaneCache:
                     "pendingCompactions": pending,
                     "lastCompactionSeconds": round(
                         self.last_compaction_seconds, 6)}
+
+    # -- time planes --------------------------------------------------------
+
+    def time_plane_nowait(self, index: str, field: Field,
+                          shards: tuple[int, ...]):
+        """One time field's bucketed plane
+        (:class:`~pilosa_tpu_torch.timeviews.TimePlaneSet`), overlay and
+        all, or None when the field has no time views or the plane would
+        exceed the budget (the caller then unions the cover views' rows).
+        Valid while its suffix-tagged bucket generations
+        (``timeviews.time_gens``) match: a stale entry absorbs its write
+        gap into its overlay, else it rebuilds, synchronously and one
+        build at a time (the reference's entry point of this name builds
+        synchronously too)."""
+        key = ("tplane", index, field.name, shards)
+        hit = self._entries.get(key)
+        if hit is not None and hit[0] == timeviews.time_gens(
+                field, shards, fast=True):
+            with self._lock:
+                if key in self._entries:
+                    self._entries.move_to_end(key)
+            return hit[1]
+        gens = timeviews.time_gens(field, shards)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and hit[0] == gens:
+                self._entries.move_to_end(key)
+                return hit[1]
+        if hit is not None:
+            tps = self._time_absorb(key, field, shards, hit)
+            if tps is not None:
+                return tps
+            del hit
+        with self._build_lock:
+            gens = timeviews.time_gens(field, shards)
+            with self._lock:
+                hit = self._entries.get(key)
+                if hit is not None and hit[0] == gens:
+                    return hit[1]
+                if hit is not None:
+                    # stale: release its device memory before rebuilding
+                    self._drop(key)
+                    del hit
+            plan = timeviews.plan_time_plane(field, shards)
+            if plan is None or plan[-1] > self.budget:
+                return None
+            tps = timeviews.build_time_plane(field, shards, self.assemble,
+                                             plan=plan)
+            self._insert_entry(key, gens, tps, plan[-1])
+        return tps
+
+    def _time_absorb(self, key, field: Field, shards: tuple[int, ...], hit,
+                     attempts: int = 3):
+        """Absorb a stale time plane's write gap into its overlay (cells
+        keyed by flat (row, bucket) slot) and move its generations
+        forward.  None = rebuild (overlays off, a new bucket or row, a
+        whole-row op, a journal gap, a full overlay).  A race lost to a
+        concurrent absorb retries against the new entry."""
+        if self.delta_cells <= 0:
+            return None
+        while True:
+            old_gens, tps, nbytes = hit
+            got = self._time_collect_changes(field, shards, hit,
+                                             self.delta_cells)
+            if got is None:
+                return None
+            cells, actual = got
+            with self._lock:
+                cur = self._entries.get(key)
+                if cur is None or cur[1] is not tps:
+                    if cur is not None and cur[0] == actual:
+                        return cur[1]  # a raced absorb got there first
+                    if cur is None or attempts <= 0:
+                        return None
+                    attempts -= 1
+                    hit = cur
+                    continue
+                if actual == tuple(old_gens):
+                    return tps
+                mir = self._delta_mirrors.get(key)
+                if mir is None or mir[0] is not tps.plane:
+                    mir = (tps.plane, DeltaMirror(self.delta_cells))
+                    self._delta_mirrors[key] = mir
+                mirror = mir[1]
+                if not mirror.would_fit(cells):
+                    return None  # overlay full: the rebuild supersedes it
+                mirror.absorb(cells)
+                overlay = mirror.build_overlay(
+                    self.device, tps.plane.shape[0] * tps.plane.shape[1])
+                new_tps = timeviews.TimePlaneSet(
+                    tps.plane, tps.shards, tps.row_ids, tps.slot_of,
+                    tps.buckets, tps.bucket_starts, tps.unit, delta=overlay)
+                self._entries[key] = (actual, new_tps, nbytes)
+                self._entries.move_to_end(key)
+                self.delta_absorbs += 1
+            return new_tps
+
+    @staticmethod
+    def _time_collect_changes(field: Field, shards: tuple[int, ...], hit,
+                              cap: int):
+        """A time plane's write gap across its bucket views as overwrite
+        cells ``({(flat_row, word): current word}, covered suffix-tagged
+        generations)``; None = rebuild (the bucket directory changed, a
+        new fragment or row, a whole-row op, a journal gap, over ``cap``
+        cells)."""
+        old_gens, tps, _ = hit
+        if (tuple(timeviews.bucket_suffixes(field)) != tps.buckets
+                or tuple(s for s, _ in old_gens) != tps.buckets):
+            return None  # a bucket appeared or vanished
+        rb_pad = tps.plane.shape[1]
+        nb = tps.n_buckets
+        cells: dict = {}
+        actual = []
+        for bi, (suf, gens) in enumerate(old_gens):
+            view = field.views.get(VIEW_STANDARD + "_" + suf)
+            if view is None or len(gens) != len(shards):
+                return None
+            new_gens = list(gens)
+            for si, s in enumerate(shards):
+                frag = view.fragment(s)
+                if frag is None:
+                    if gens[si] != -1:
+                        return None  # fragment vanished
+                    continue
+                with frag.lock:
+                    if gens[si] == -1:
+                        return None  # new fragment: its rows are unknown
+                    if frag.generation == gens[si]:
+                        continue
+                    changed = frag.changed_cells_since(gens[si])
+                    if changed is None:
+                        return None
+                    for r, words in changed.items():
+                        slot = tps.slot_of.get(int(r))
+                        if slot is None or words is None:
+                            return None  # a new row, or a whole-row op
+                        flat = si * rb_pad + slot * nb + bi
+                        w_arr = np.fromiter(words, np.int64, len(words))
+                        vals = frag.row_words(int(r), w_arr)
+                        cells.update(zip(((flat, w) for w in w_arr.tolist()),
+                                         vals.tolist()))
+                        if len(cells) > cap:
+                            return None
+                    new_gens[si] = frag.generation
+            actual.append((suf, tuple(new_gens)))
+        return cells, tuple(actual)
+
+    def time_plane_status(self) -> list[dict]:
+        """Resident time planes for the ``/status`` ``timeViews`` block:
+        bucket, row and byte geometry and overlay state per field."""
+        with self._lock:
+            entries = list(self._entries.items())
+        return [{"index": key[1], "field": key[2], "shards": len(key[3]),
+                 "buckets": int(tps.n_buckets), "unit": tps.unit,
+                 "rows": int(len(tps.row_ids)), "bytes": int(nbytes),
+                 "delta": tps.delta is not None}
+                for key, (_, tps, nbytes) in entries if key[0] == "tplane"]
 
     def wait_compactions(self, timeout: float | None = None) -> bool:
         """Join the background compactors; True when none is running."""
@@ -673,11 +839,23 @@ class PlaneCache:
                      r_pad: int | None = None) -> PlaneSet:
         """``row_ids`` at slots 0.. of an ``r_pad``-row plane, or every
         row id of the view padded to a power of two."""
-        t0 = time.perf_counter()
         if row_ids is None:
             row_ids = _union_row_ids(field, view_name, shards)
             r_pad = pow2_bucket(len(row_ids))
         slot_of = {int(r): i for i, r in enumerate(row_ids)}
+        full = self.assemble(shards, r_pad, [(field.view(view_name), row_ids,
+                                              np.arange(len(row_ids)))])
+        return PlaneSet(full, shards, row_ids, slot_of)
+
+    def assemble(self, shards: tuple[int, ...], r_pad: int,
+                 sources) -> torch.Tensor:
+        """A new ``int32[len(shards), r_pad, W]`` device tensor holding, for
+        each ``(view, row_ids, slots)`` of ``sources``, row ``row_ids[i]``
+        of the view's fragment of every shard at slot ``slots[i]`` (absent
+        fragments and rows leave zeros).  Fragments expand chunk by chunk
+        into a pinned host staging buffer, and each chunk is copied into
+        the device tensor while the next one expands."""
+        t0 = time.perf_counter()
         full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
                            dtype=torch.int32, device=self.device)
         slab = r_pad * WORDS_PER_SHARD * 4
@@ -687,35 +865,31 @@ class PlaneCache:
                             dtype=torch.int32, pin_memory=cuda)
                 for _ in range(2 if len(shards) > spc else 1)]
         copied: list = [None] * len(bufs)
-        view = field.view(view_name)
-        slots = np.arange(len(row_ids))
-        with ThreadPoolExecutor(max_workers=self.BUILD_WORKERS) as pool:
-            for ci, s0 in enumerate(range(0, len(shards), spc)):
-                glen = min(spc, len(shards) - s0)
-                par = ci % len(bufs)
-                if copied[par] is not None:
-                    copied[par].synchronize()  # its last copy has landed
-                host = bufs[par].numpy().view(np.uint32)[:glen]
-                host.fill(0)
-                frags = [view.fragment(s) if view is not None else None
-                         for s in shards[s0:s0 + glen]]
-                futs = [pool.submit(frag.expand_rows_into, row_ids,
-                                    host[li], slots)
-                        for li, frag in enumerate(frags)
-                        if frag is not None and len(row_ids)]
-                for f in futs:
-                    f.result()
-                full[s0:s0 + glen].copy_(bufs[par][:glen], non_blocking=cuda)
-                if cuda:
-                    copied[par] = torch.cuda.Event()
-                    copied[par].record()
+        sources = [(view, row_ids, slots) for view, row_ids, slots in sources
+                   if view is not None and len(row_ids)]
+        for ci, s0 in enumerate(range(0, len(shards), spc)):
+            glen = min(spc, len(shards) - s0)
+            par = ci % len(bufs)
+            if copied[par] is not None:
+                copied[par].synchronize()  # its last copy has landed
+            host = bufs[par].numpy().view(np.uint32)[:glen]
+            host.fill(0)
+            for view, row_ids, slots in sources:
+                for li, s in enumerate(shards[s0:s0 + glen]):
+                    frag = view.fragment(s)
+                    if frag is not None:
+                        frag.expand_rows_into(row_ids, host[li], slots)
+            full[s0:s0 + glen].copy_(bufs[par][:glen], non_blocking=cuda)
+            if cuda:
+                copied[par] = torch.cuda.Event()
+                copied[par].record()
         for ev in copied:
             if ev is not None:
                 ev.synchronize()
         self.builds += 1
         self.last_build_seconds = time.perf_counter() - t0
         self.last_build_bytes = full.numel() * 4
-        return PlaneSet(full, shards, row_ids, slot_of)
+        return full
 
     def _build_row(self, field: Field, view_name: str,
                    shards: tuple[int, ...], row_id: int) -> PlaneSet:

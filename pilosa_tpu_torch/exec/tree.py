@@ -11,26 +11,30 @@ collapse to one operand (CSE within a request); across concurrent
 requests the batcher unions the gathered slots (:func:`assemble_items`),
 so N windowed trees over one plane cost one gather.
 
-Lowered here: ``Row`` on set fields, ``All``, ``Intersect`` / ``Union`` /
-``Difference`` / ``Xor`` / ``Not``, and BSI conditions in ``Row`` /
-``Range``: each comparison enters as an extra operand ``("bsi", field,
-op_key, offset)`` (a between is two of them ANDed), a predicate past the
-bit depth as ``("bsi-exists", field)`` or an empty push.
+Lowered here: ``Row`` on set and time fields, ``All``, ``Intersect`` /
+``Union`` / ``Difference`` / ``Xor`` / ``Not``, ``UnionRows`` (its rows
+pushed and ORed: the row set comes from data, so the spec is volatile),
+and these extra operands: BSI conditions in ``Row`` / ``Range`` (each
+comparison ``("bsi", field, op_key, offset)``, a between two of them
+ANDed, a predicate past the bit depth ``("bsi-exists", field)`` or an
+empty push), time-range rows ``("trange", field, row, from, to)`` (one OR
+over the field's time plane, or the union of its cover views) and
+``ConstRow`` ``("constrow", columns)``.  ``Shift`` and ``Limit`` are static
+unary ops whose arguments are program structure.
 :class:`~pilosa_tpu_torch.exec.fused.Unfusable` (the caller takes the
-generic planned path) for a tree with no anchor row, deeper than
-``TREE_STACK_DEPTH`` or longer than ``TREE_MAX_PROG``, and for the
-reference's other leaves (``UnionRows``, ``Shift``, ``Limit``,
-``ConstRow``, time ranges), which the generic path refuses as not
-supported by this port.
+generic planned path, with the same answers) for a tree with no plain row
+to anchor the gather, deeper than ``TREE_STACK_DEPTH`` or longer than
+``TREE_MAX_PROG``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from pilosa_tpu_torch.engine.kernels import (TREE_AND, TREE_PUSH,
-                                             TREE_PUSHX, TREE_STACK_DEPTH,
-                                             TREE_ZERO)
+from pilosa_tpu_torch.engine.kernels import (TREE_AND, TREE_LIMIT,
+                                             TREE_PUSH, TREE_PUSHX,
+                                             TREE_SHIFT, TREE_STACK_DEPTH,
+                                             TREE_STATIC_OPS, TREE_ZERO)
 from pilosa_tpu_torch.exec.fused import Unfusable
 from pilosa_tpu_torch.pql.ast import BOOL_CALLS, Call
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -96,12 +100,16 @@ class TreeSpec:
     rows: tuple       # gathered row ids (first-use order, CSE-deduped)
     extras: tuple     # ("exists",) | ("row", field, view, row_id) |
     #                   ("bsi", field, op_key, offset) | ("bsi-exists", field)
+    #                   | ("trange", field, row_id, from, to) |
+    #                   ("constrow", columns)
     prog: tuple       # ((opcode, arg), ...) postfix; PUSH args index
-    #                   rows, PUSHX args index extras
+    #                   rows, PUSHX args index extras, static ops carry
+    #                   their shift distance or (offset, limit)
     depth: int        # operator nesting depth
     cse_hits: int     # duplicate leaves collapsed inside this request
     bsi_fields: tuple = ()  # BSI fields whose predicates were resolved
     #                         against their depth and base
+    volatile: bool = False  # the row set depends on data (UnionRows)
 
 
 class _Lower:
@@ -121,9 +129,11 @@ class _Lower:
         self.depth = 0
         self.cse_hits = 0
         self.bsi_fields: dict[str, None] = {}
+        self.volatile = False
 
     def _emit(self, op: int, arg=0) -> None:
-        self.sp += -1 if op >= TREE_AND else 1
+        if op not in TREE_STATIC_OPS:  # a static op pops one, pushes one
+            self.sp += -1 if op >= TREE_AND else 1
         self.max_sp = max(self.max_sp, self.sp)
         if self.max_sp > TREE_STACK_DEPTH:
             raise Unfusable("tree deeper than the fused operand stack")
@@ -180,16 +190,32 @@ class _Lower:
     def lower(self, call: Call, depth: int) -> None:
         name = call.name
         if name in ("Row", "Range"):
-            bsi = self.ex._bsi_leaf(self.ctx, call)
-            if bsi is not None:
-                self._bsi(*bsi)
-                return
-            self._push_field_row(*self.ex._row_leaf(self.ctx, call))
+            self._leaf(call)
             return
         if name == "All":
             self._push_exists()
             return
         self.depth = max(self.depth, depth)
+        if name == "UnionRows":
+            self._union_rows(call)
+            return
+        if name == "Shift":
+            from pilosa_tpu_torch.exec.executor import ExecutionError
+            if len(call.children) != 1:
+                raise ExecutionError("Shift: exactly one child required")
+            n = self.ex._shift_n(call)  # the eager path's checks and texts
+            self.lower(call.children[0], depth + 1)
+            self._emit(TREE_SHIFT, n)
+            return
+        if name == "Limit":
+            offset, limit = self.ex._limit_args(call)
+            self.lower(call.children[0], depth + 1)
+            self._emit(TREE_LIMIT, (offset, -1 if limit is None else limit))
+            return
+        if name == "ConstRow":
+            self._emit(TREE_PUSH, self._extra(
+                ("constrow", tuple(self.ex._const_row_arg(call)))))
+            return
 
         def emit_fold(op, kids):
             kids[0]()
@@ -208,6 +234,37 @@ class _Lower:
                                                   _OP_CODE["andnot"])))
         if is_not_bool(out):
             raise Unfusable(f"{name} is not tree-compiled by this port")
+
+    def _leaf(self, call: Call) -> None:
+        bsi = self.ex._bsi_leaf(self.ctx, call)
+        if bsi is not None:
+            self._bsi(*bsi)
+            return
+        field, row_id = self.ex._row_leaf(self.ctx, call)
+        rng = self.ex._time_args(field, call)
+        if rng is not None:
+            # one extra operand: the OR over the field's time plane (or the
+            # union of its cover views); the row resolves first, as in the
+            # eager path
+            self._emit(TREE_PUSH, self._extra(("trange", field.name,
+                                               row_id) + rng))
+            return
+        self._push_field_row(field, row_id)
+
+    def _union_rows(self, call: Call) -> None:
+        """``UnionRows(Rows(f), ...)``: every selected row pushed and ORed.
+        The row set comes from data, not from the query text, so the spec
+        is volatile: a plan of it must not outlive a write."""
+        self.volatile = True
+        n = 0
+        for field, rows in self.ex._union_rows_sel(self.ctx, call):
+            for r in rows:
+                self._push_field_row(field, int(r))
+                n += 1
+                if n > 1:
+                    self._emit(_OP_CODE["or"])
+        if n == 0:
+            self._emit(TREE_ZERO)
 
 
 def lower_count_tree(ex, ctx, call: Call) -> TreeSpec:
@@ -228,7 +285,8 @@ def lower_count_tree(ex, ctx, call: Call) -> TreeSpec:
     return TreeSpec(field=low.field.name, rows=tuple(low.rows),
                     extras=tuple(low.extras), prog=prog,
                     depth=low.depth, cse_hits=low.cse_hits,
-                    bsi_fields=tuple(low.bsi_fields))
+                    bsi_fields=tuple(low.bsi_fields),
+                    volatile=low.volatile)
 
 
 def assemble_items(items) -> tuple:

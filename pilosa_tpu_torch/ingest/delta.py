@@ -18,6 +18,8 @@ The counterpart of ``pilosa_tpu.ingest.delta`` for set-field planes:
 - the **word overlays** (:func:`overlay_gathered_rows`,
   :func:`overlay_row`) hand the tree fold base+delta WORDS: gathered
   rows, or one row, with the overlay's cells written over them;
+  :func:`overlay_time_range` does the same for the OR of a run of a time
+  plane's bucket lanes;
 - the **BSI overlay** (:class:`BsiOverlay`) groups a bit-sliced plane's
   cells by touched (shard, word) COLUMN, and the BSI aggregates split
   base+delta into the base plane with those word columns masked out of
@@ -299,6 +301,72 @@ def overlay_row(val: torch.Tensor, slot: int, d_rows: torch.Tensor,
     cell_s = (d_rows // r_pad).clamp(0, max(s - 1, 0))
     word = d_words.long().clamp(0, max(w - 1, 0))
     return _set_cells(val.clone(), (cell_s, word), match, d_vals)
+
+
+# lanes of a time range gathered at once per touched column: bounds the
+# [cells, lanes] temporary of a long range of fine buckets
+TIME_LANE_BLOCK = 32
+
+
+def _or_lanes(g: torch.Tensor) -> torch.Tensor:
+    """OR over the last axis of int32[C, L] by halving (log2 L ops)."""
+    width = pow2_bucket(g.shape[1])
+    if width != g.shape[1]:
+        g = torch.cat([g, g.new_zeros(g.shape[0], width - g.shape[1])], 1)
+    while g.shape[1] > 1:
+        h = g.shape[1] // 2
+        g = g[:, :h] | g[:, h:]
+    return g[:, 0]
+
+
+def overlay_time_range(acc: torch.Tensor, plane: torch.Tensor, start: int,
+                       length: int, d_rows: torch.Tensor,
+                       d_words: torch.Tensor,
+                       d_vals: torch.Tensor) -> torch.Tensor:
+    """Make ``acc`` int32[S, W], the OR of the base plane's lanes ``[start,
+    start + length)``, the OR of base+delta, IN PLACE.  A cell REPLACES
+    its base word, so a cleared bit must drop out unless another lane in
+    range holds it: only the (shard, word) columns that an in-range cell
+    touches are recomputed, from their words over the range's lanes with
+    the cells written over them.  No host sync: the columns group by a
+    device sort of their keys, and every scatter has unique live targets
+    (the rest write to a dummy row, or agree, as in :func:`_set_cells`)."""
+    s, rb, w = plane.shape
+    c = d_rows.numel()
+    if not c or not length:
+        return acc
+    dev = plane.device
+    rows = d_rows.long()
+    slot = rows % rb
+    live = ((rows >= 0) & (rows < s * rb)
+            & (slot >= start) & (slot < start + length))
+    cell_s = (rows // rb).clamp(0, s - 1)
+    key = torch.where(live, cell_s * w + d_words.long().clamp(0, w - 1),
+                      torch.full_like(rows, s * w))
+    skey, order = torch.sort(key)
+    lead = torch.ones_like(skey, dtype=torch.bool)
+    lead[1:] = skey[1:] != skey[:-1]
+    lead &= skey < s * w
+    gid = torch.empty_like(skey)
+    gid[order] = torch.cumsum(lead.long(), 0) - 1    # column group per cell
+    dummy = torch.full_like(gid, c)
+    gkey = torch.zeros(c + 1, dtype=torch.long, device=dev)
+    gkey.index_put_((torch.where(live, gid, dummy),), key)
+    real = torch.arange(c, device=dev) < lead.sum()
+    gkey = torch.where(real, gkey[:c], 0)
+    gs, gw = gkey // w, gkey % w
+    res = torch.zeros(c, dtype=acc.dtype, device=dev)
+    for b0 in range(0, length, TIME_LANE_BLOCK):
+        bl = min(TIME_LANE_BLOCK, length - b0)
+        lanes = start + b0 + torch.arange(bl, device=dev)
+        g = torch.cat([plane[gs[:, None], lanes[None, :], gw[:, None]],
+                       plane.new_zeros(1, bl)])           # [C + 1, bl]
+        lo = start + b0
+        blk = live & (slot >= lo) & (slot < lo + bl)
+        g.index_put_((torch.where(blk, gid, dummy),
+                      (slot - lo).clamp(0, bl - 1)), d_vals)
+        res |= _or_lanes(g[:c])
+    return _set_cells(acc, (gs, gw), real, res)
 
 
 def adjusted_selected_counts(plane: torch.Tensor, row_idx: torch.Tensor,

@@ -1,17 +1,22 @@
 """Field: a typed attribute group within an index.
 
-The port serves ``set`` fields and the bit-sliced integer (BSI) types
-``int``, ``decimal`` and ``timestamp``.  ``FieldOptions`` carries every
-option of ``pilosa_tpu.store.field.FieldOptions`` in the same order, with
-the same derivation of ``base`` and ``bit_depth`` from ``min``/``max``,
-so the ``.meta`` JSON round-trips between the two packages byte for byte;
-a field of another type opens (its options load) but takes no writes
-here.
+The port serves ``set`` and ``time`` fields and the bit-sliced integer
+(BSI) types ``int``, ``decimal`` and ``timestamp``.  ``FieldOptions``
+carries every option of ``pilosa_tpu.store.field.FieldOptions`` in the
+same order, with the same derivation of ``base`` and ``bit_depth`` from
+``min``/``max``, so the ``.meta`` JSON round-trips between the two
+packages byte for byte; a field of another type opens (its options load)
+but takes no writes here.
 
 A BSI field keeps one view, ``bsi_<name>``, whose rows are the layout of
 :mod:`pilosa_tpu_torch.engine.bsi`: the exists row, the sign row, then
 one row per magnitude bit of ``stored - base``.  ``bit_depth`` grows as
 larger values arrive and is persisted in the field meta.
+
+A time field keeps its bits in the standard view, and a timestamped write
+also lands in one view per unit of its quantum (``standard_2021``,
+``standard_202102``, ``standard_20210203``: :mod:`.timeq`).  Clears
+reach every view.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import numpy as np
 
 from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
+from pilosa_tpu_torch.store import timeq
+from pilosa_tpu_torch.store.timeq import parse_pql_time
 from pilosa_tpu_torch.store.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 
 TYPE_SET = "set"
@@ -36,22 +43,11 @@ TYPE_TIMESTAMP = "timestamp"
 FIELD_TYPES = ("set", "int", "time", "mutex", "bool", "decimal",
                "timestamp")
 BSI_TYPES = (TYPE_INT, TYPE_DECIMAL, TYPE_TIMESTAMP)
+# the types whose rows are plain bit rows of the standard view
+ROW_TYPES = (TYPE_SET, TYPE_TIME)
 
-_TIME_UNITS = "YMDH"
-_QUANTUMS = ("YM", "MD", "DH", "YMD", "MDH", "YMDH")
 _UNIX_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
 _TS_UNITS = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
-
-
-def parse_pql_time(s: str) -> datetime:
-    """A PQL timestamp literal: ``2017-01-02T03:04`` (seconds optional) or
-    ``2017-01-02``."""
-    for fmt in ("%Y-%m-%dT%H:%M:%S", "%Y-%m-%dT%H:%M", "%Y-%m-%d"):
-        try:
-            return datetime.strptime(s, fmt)
-        except ValueError:
-            continue
-    raise ValueError(f"cannot parse timestamp {s!r}")
 
 
 @dataclass
@@ -74,10 +70,7 @@ class FieldOptions:
         if self.type not in FIELD_TYPES:
             raise ValueError(f"invalid field type {self.type!r}")
         if self.type == TYPE_TIME and self.time_quantum:
-            q = self.time_quantum.upper()
-            if not (q and q in _TIME_UNITS or q in _QUANTUMS):
-                raise ValueError(f"invalid time quantum {q!r}")
-            self.time_quantum = q
+            self.time_quantum = timeq.validate_quantum(self.time_quantum)
         if self.type == TYPE_TIMESTAMP and self.time_unit not in _TS_UNITS:
             raise ValueError(f"invalid timestamp unit {self.time_unit!r}")
         if (self.type in BSI_TYPES and self.min is not None
@@ -159,49 +152,81 @@ class Field:
                 shards.update(v.available_shards())
         return sorted(shards)
 
-    def _require_set(self, what: str) -> None:
-        if self.options.type != TYPE_SET:
+    def _require_rows(self, what: str) -> None:
+        if self.options.type not in ROW_TYPES:
             raise ValueError(f"field {self.name}: {what} on a "
                              f"{self.options.type!r} field is not "
                              "supported by this port")
 
-    def set_bit(self, row_id: int, col: int) -> bool:
+    def set_bit(self, row_id: int, col: int,
+                timestamp: datetime | None = None) -> bool:
         return self.import_bits(np.array([row_id], np.uint64),
-                                np.array([col], np.uint64)) > 0
+                                np.array([col], np.uint64),
+                                [timestamp] if timestamp else None) > 0
 
     def clear_bit(self, row_id: int, col: int) -> bool:
-        self._require_set("Clear")
-        view = self.standard_view()
-        frag = view.fragment(col // SHARD_WIDTH) if view else None
-        if frag is None:
-            return False
-        return frag.clear_bits(np.array([row_id], np.uint64),
-                               np.array([col % SHARD_WIDTH], np.uint64)) > 0
+        """Clear one bit in every view (a time view's copy left set would
+        come back in range queries)."""
+        self._require_rows("Clear")
+        shard, off = col // SHARD_WIDTH, col % SHARD_WIDTH
+        changed = 0
+        with self._lock:
+            views = list(self.views.values())
+        for v in views:
+            frag = v.fragment(shard)
+            if frag is not None:
+                changed += frag.clear_bits(np.array([row_id], np.uint64),
+                                           np.array([off], np.uint64))
+        return changed > 0
 
-    def import_bits(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
-        """Bulk (row, col) writes into the standard view, one batch per
-        shard; returns the number of newly set bits."""
-        self._require_set("Set")
+    def import_bits(self, row_ids: np.ndarray, cols: np.ndarray,
+                    timestamps: list | None = None) -> int:
+        """Bulk (row, col[, timestamp]) writes: one batch per shard into
+        the standard view; on a time field each timestamped pair also
+        lands in every view of the quantum, one write per pair and view
+        as in the reference, so fragments and their journals match it.
+        Returns the number of newly set bits in the standard view."""
+        self._require_rows("Set")
+        opts = self.options
+        stamped = (opts.type == TYPE_TIME and timestamps is not None
+                   and bool(opts.time_quantum))
         view = self.standard_view(create=True)
         changed = 0
-        for shard, rows, offs in _by_shard(row_ids, cols, "import_bits"):
+        for shard, rows, offs, idx in _by_shard(row_ids, cols,
+                                                "import_bits"):
             frag = view.fragment(shard, create=True)
             changed += frag.set_bits(rows, offs)
+            if not stamped:
+                continue
+            for r, c, i in zip(rows.tolist(), offs.tolist(), idx.tolist()):
+                ts = timestamps[i] if i < len(timestamps) else None
+                if ts is None:
+                    continue
+                for vname in timeq.views_by_time(VIEW_STANDARD, ts,
+                                                 opts.time_quantum):
+                    self.view(vname, create=True).fragment(
+                        shard, create=True).set_bits(
+                            np.array([r], np.uint64),
+                            np.array([c], np.uint64))
         return changed
 
     def clear_import(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
-        """Bulk clear of (row, col) pairs in the standard view, one batch
-        per shard (the ``clear`` half of the import endpoint); returns the
-        number of bits cleared."""
-        self._require_set("Clear")
-        view = self.standard_view()
+        """Bulk clear of (row, col) pairs in every view, one batch per
+        shard and view (the ``clear`` half of the import endpoint);
+        returns the number of bits cleared in the standard view."""
+        self._require_rows("Clear")
+        with self._lock:
+            views = list(self.views.values())
         changed = 0
-        for shard, rows, offs in _by_shard(row_ids, cols, "clear_import"):
-            frag = view.fragment(shard) if view is not None else None
-            if frag is not None:
-                changed += frag.clear_bits(rows, offs)
+        for shard, rows, offs, _ in _by_shard(row_ids, cols,
+                                              "clear_import"):
+            for v in views:
+                frag = v.fragment(shard)
+                if frag is not None:
+                    n = frag.clear_bits(rows, offs)
+                    if v.name == VIEW_STANDARD:
+                        changed += n
         return changed
-
 
     # -- BSI value writes ---------------------------------------------------
 
@@ -270,8 +295,9 @@ class Field:
             self.save_meta()
         depth = opts.bit_depth
         changed = 0
-        for shard, idx, c in _by_shard(np.arange(len(cols), dtype=np.uint64),
-                                       cols, "import_values"):
+        for shard, idx, c, _ in _by_shard(
+                np.arange(len(cols), dtype=np.uint64), cols,
+                "import_values"):
             o, g = offs[idx.astype(np.intp)], mag[idx.astype(np.intp)]
             frag = self.bsi_view(create=True).fragment(shard, create=True)
             # the last write of a column in the batch wins
@@ -322,8 +348,8 @@ class Field:
 
 
 def _by_shard(row_ids, cols, what: str):
-    """``(shard, row_ids, column offsets)`` per shard of a pair batch: one
-    sort and boundary slices, not a mask per shard."""
+    """``(shard, row_ids, column offsets, batch positions)`` per shard of
+    a pair batch: one sort and boundary slices, not a mask per shard."""
     row_ids = np.asarray(row_ids, np.uint64)
     cols = np.asarray(cols, np.uint64)
     if len(row_ids) != len(cols):
@@ -337,4 +363,4 @@ def _by_shard(row_ids, cols, what: str):
     offs = cols % np.uint64(SHARD_WIDTH)
     for i, shard in enumerate(uniq.tolist()):
         lo, hi = bounds[i], bounds[i + 1]
-        yield int(shard), row_ids[lo:hi], offs[lo:hi]
+        yield int(shard), row_ids[lo:hi], offs[lo:hi], order[lo:hi]

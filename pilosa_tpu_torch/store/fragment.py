@@ -7,12 +7,16 @@ blob) beside a CRC-framed op-log, positions encoded
 wrote and writes fragments it opens.
 
 Host state is two tiers: rows still only in the mmap'd snapshot
-(``_snap_pending``, expanded on demand straight from the blob) and
+(``_snap_pending``, expanded on demand straight from the blob; past
+:data:`syswrap.GLOBAL`'s cap of live maps the oldest snapshots are read
+from heap copies instead) and
 materialized rows, which every write goes through.  A materialized row is
 held as sorted unique uint32 column offsets (``rows``) while it has at
 most ``DENSE_MIN_BITS`` bits, else as its packed ``uint32[W]`` words
 (``dense``): a write to a dense row flips words in place instead of
-re-sorting a quarter-million offsets.  A row id is in at most one of the
+re-sorting a quarter-million offsets.  A snapshot row stored in a bitmap
+container is materialized as words too: copying the container is far
+cheaper than listing its bits.  A row id is in at most one of the
 three.
 
 ``generation`` moves on every mutation that changes a bit; the device
@@ -34,7 +38,7 @@ import numpy as np
 
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            pack_columns, unpack_columns)
-from pilosa_tpu_torch.store import roaring
+from pilosa_tpu_torch.store import roaring, syswrap
 from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
                                           OP_SET_BITS, OP_SET_ROW, OpLog)
 
@@ -126,8 +130,25 @@ class Fragment:
         self._snap_mm = mm
         self._snap_dir = roaring.Directory(blob)
         self._snap_pending = set(int(r) for r in self._snap_dir.row_ids())
+        syswrap.GLOBAL.register(self)
+
+    def _demote_map(self) -> bool:
+        """Read the snapshot from a heap copy and release the map (and its
+        file descriptor) when the last view of it dies.  False when the
+        fragment's lock stays taken: the caller keeps tracking it."""
+        if not self.lock.acquire(timeout=1.0):
+            return False
+        try:
+            if self._snap_mm is not None and self._snap_dir is not None:
+                self._snap_dir = roaring.Directory(
+                    memoryview(bytes(self._snap_dir.buf)))
+                self._snap_mm = None
+            return True
+        finally:
+            self.lock.release()
 
     def _drop_snapshot(self) -> None:
+        syswrap.GLOBAL.release(self)
         self._snap_dir = None
         self._snap_pending = set()
         if self._snap_mm is not None:
@@ -142,7 +163,6 @@ class Fragment:
             if self.op_n > 0:
                 self.snapshot()
             self._drop_snapshot()
-            self._oplog.close()
             self._open = False
 
     # -- reads --------------------------------------------------------------
@@ -151,7 +171,8 @@ class Fragment:
         """Materialize one snapshot-resident row."""
         if row_id in self._snap_pending:
             self._snap_pending.discard(row_id)
-            if self._snap_dir.row_cardinality(row_id) > DENSE_MIN_BITS:
+            if (self._snap_dir.row_cardinality(row_id) > DENSE_MIN_BITS
+                    or self._snap_dir.row_has_bitmap(row_id)):
                 words = np.zeros(WORDS_PER_SHARD, np.uint32)
                 self._snap_dir.row_words(row_id, words)
                 self.dense[row_id] = words

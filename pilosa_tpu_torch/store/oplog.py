@@ -49,12 +49,13 @@ def _clean_prefix_end(buf: bytes) -> int:
 
 
 class OpLog:
-    """One fragment's op log.  Not thread-safe; the fragment serializes."""
+    """One fragment's op log.  Not thread-safe; the fragment serializes.
+    The file is opened for each append, not held: a holder has one log
+    per fragment, tens of thousands with time views."""
 
     def __init__(self, path: str, fsync: bool = False):
         self.path = path
         self.fsync = fsync
-        self._f = None
 
     def append(self, op: int, aux: int = 0,
                positions: np.ndarray | None = None) -> None:
@@ -67,17 +68,15 @@ class OpLog:
             payload = roaring.serialize(positions)
         body = struct.pack("<BQI", op, aux, len(payload)) + payload
         record = struct.pack("<I", zlib.crc32(body)) + body
-        if self._f is None:
-            self._f = open(self.path, "ab")
         try:
-            self._f.write(record)
-            self._f.flush()
-            if self.fsync:
-                os.fsync(self._f.fileno())
+            with open(self.path, "ab") as f:
+                f.write(record)
+                f.flush()
+                if self.fsync:
+                    os.fsync(f.fileno())
         except OSError:
             # a short write leaves partial bytes: cut back to the last
             # whole record so the next append lands on a boundary
-            self.close()
             with open(self.path, "rb") as f:
                 end = _clean_prefix_end(f.read())
             with open(self.path, "r+b") as f:
@@ -108,11 +107,8 @@ class OpLog:
 
     def truncate(self) -> None:
         """Discard the log (after a snapshot compaction)."""
-        self.close()
         with open(self.path, "wb"):
             pass
 
     def close(self) -> None:
-        if self._f is not None:
-            self._f.close()
-            self._f = None
+        """Nothing to release: each append opens and closes the file."""

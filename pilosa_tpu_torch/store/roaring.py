@@ -352,6 +352,11 @@ class Directory:
         _check_runs(pairs[0::2], pairs[1::2])
         return _expand_runs(pairs[0::2], pairs[1::2])
 
+    def row_has_bitmap(self, row: int) -> bool:
+        """Whether any of one row's containers is a bitmap container."""
+        return bool((self.types[self._row_container_idx(row)]
+                     == TYPE_BITMAP).any())
+
     def row_cardinality(self, row: int) -> int:
         """One row's set-bit count, from the container headers alone."""
         return int(self.cards[self._row_container_idx(row)].sum())

@@ -1,6 +1,7 @@
 """View: the fragments of one flavor of one field, created per shard on
-demand (the ``standard`` view for set fields, ``bsi_<field>`` for the
-bit-sliced rows of an integer field)."""
+demand (the ``standard`` view for set and time fields, ``standard_<time>``
+for a time field's quantum views, ``bsi_<field>`` for the bit-sliced rows
+of an integer field)."""
 
 from __future__ import annotations
 
@@ -57,6 +58,19 @@ class View:
             frags = self.fragments
             return tuple(frags[s].generation if s in frags else -1
                          for s in shards)
+
+    def generations_fast(self, shards) -> tuple:
+        """:meth:`generations` without the view lock: dict lookups and int
+        reads are atomic under the interpreter lock, and fragments bump
+        their generation under their own lock anyway.  A read torn by a
+        concurrent fragment creation only gives a conservative mismatch
+        (the caller revalidates under the locks), never a stale hit."""
+        frags = self.fragments
+        out = []
+        for s in shards:
+            f = frags.get(s)
+            out.append(f.generation if f is not None else -1)
+        return tuple(out)
 
     def close(self) -> None:
         with self._lock:

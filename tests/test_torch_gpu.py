@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the delta-overlay merge and fold, the word overlays, the whole-tree
-programs, the BSI and GroupBy paths and a small concurrent burst through
+programs (Shift and Limit among them), the time-range scan over an
+overlay, the BSI and GroupBy paths and a small concurrent burst through
 the default executor on the card against the same calls on the CPU.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
@@ -182,6 +183,54 @@ def test_tree_counts_equal_cpu(dev, with_delta):
     want = fused.run_tree_words(plane, slots, progs[2], extras, d_cpu)
     got = fused.run_tree_words(plane_dev, slots, progs[2], extras_dev, d_dev)
     assert got.is_contiguous() and torch.equal(got.cpu(), want)
+
+
+def test_time_range_scan_over_overlay_equal_cpu(dev):
+    """The time plane's lane OR with its (row, bucket) overlay, cells that
+    set and cells that clear, on the card against the CPU."""
+    from pilosa_tpu_torch.exec.fused import FusedCache
+    from pilosa_tpu_torch.ingest.delta import DeltaOverlay
+    s, rb, w = 40, 128, 4096
+    plane = _words(41, (s, rb, w), "cpu")
+    rows, words, vals = _overlay(42, s, rb, w, 700, 1024)
+    vals[::3] = 0                       # clears: the cell replaces its word
+    d_cpu = DeltaOverlay(rows, words, vals, n=700, bits=0)
+    d_dev = DeltaOverlay(rows.to(dev), words.to(dev), vals.to(dev), n=700,
+                         bits=0)
+    on = plane.to(dev)
+    for start, length in ((0, 1), (7, 28), (100, 28), (0, rb), (37, 2)):
+        for d_c, d_d in ((None, None), (d_cpu, d_dev)):
+            want = FusedCache.run_time_range(plane, start, length, d_c)
+            got = FusedCache.run_time_range(on, start, length, d_d)
+            assert torch.equal(got.cpu(), want), (start, length)
+    assert torch.equal(on.cpu(), plane)        # the plane is untouched
+
+
+def test_shift_limit_counts_through_count_kernel(dev):
+    """Shift and Limit trees on the card: their words equal the CPU's and
+    each tree's popcount is one ``count`` launch."""
+    from pilosa_tpu_torch.exec.fused import FusedCache
+    s, r, w = 40, 8, 32768
+    plane = _words(51, (s, r, w), "cpu")
+    P, SH, LIM = tk.TREE_PUSH, tk.TREE_SHIFT, tk.TREE_LIMIT
+    progs = (((P, 0), (SH, 1)), ((P, 1), (SH, 33)),
+             ((P, 2), (LIM, (5, 1000))), ((P, 0), (LIM, (0, -1))),
+             ((P, 1), (LIM, (10 ** 6, 3 * 10 ** 6))),
+             ((P, 2), (SH, 7), (LIM, (3, 17))))
+    slots = (2, 5, 7)
+    fused = FusedCache()
+    on = plane.to(dev)
+    for prog in progs:
+        want = fused.run_tree_counts(plane, slots, (prog,))
+        cuda_kernels.reset_launches()
+        got = fused.run_tree_counts(on, slots, (prog,))
+        assert torch.equal(got.cpu(), want), prog
+        assert cuda_kernels.LAUNCHES["count"] == 1
+        assert torch.equal(
+            fused.run_tree_words(on, slots, prog).cpu(),
+            fused.run_tree_words(plane, slots, prog)), prog
+    got = fused.run_tree_counts(on, slots, progs)       # one window
+    assert torch.equal(got.cpu(), fused.run_tree_counts(plane, slots, progs))
 
 
 def test_concurrent_burst_equal_cpu(dev, tmp_path):

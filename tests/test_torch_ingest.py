@@ -405,7 +405,7 @@ def test_recreated_field_rebuilds(port):
 def test_import_errors_and_roaring(port):
     holder, api = port
     for kw in ({"row_keys": ["a"], "col_ids": [1]},
-               {"row_ids": [1], "col_ids": [1], "timestamps": [0]},
+               {"row_ids": [1], "col_ids": [1], "timestamps": ["x"]},
                {"row_ids": [1], "col_ids": [1], "op_id": "x"},
                {"row_ids": [1, 2], "col_ids": [1]},
                {"col_ids": [1]}):

@@ -8,7 +8,8 @@ configurations: "off" (``count_batch_window="off", tree_fusion=False``,
 each request alone) and "default" (the adaptive cross-request batcher,
 whole-tree compilation and the plan cache).  The JSON must be equal, in
 process and over REST.  Also here: the import hygiene of the port and
-its refusal to run without a card unless the CPU is asked for.
+its refusal to run without a card unless the CPU is asked for, and its
+refusal of keyed data (keys are not ported yet).
 """
 
 import ast
@@ -30,6 +31,7 @@ from pilosa_tpu.exec import Executor as JExecutor
 from pilosa_tpu.store import Holder as JHolder
 from pilosa_tpu.store import roaring as jroaring
 from pilosa_tpu_torch.api import API as TAPI
+from pilosa_tpu_torch.api import ApiError
 from pilosa_tpu_torch.api import Server as TServer
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import Holder as THolder
@@ -66,6 +68,9 @@ READS = [
     "TopN(h, n=2)",
     "TopN(h, Row(g=1))",
     "Count(Row(f=4))Row(h=1)Count(Row(f=0))",
+    "All(limit=2)",                           # All pages its columns
+    "All(offset=1)",
+    "All(limit=1, offset=1)",
 ]
 WRITES = [
     "Set(5, h=3)",
@@ -205,8 +210,36 @@ def test_writes_same_json(index_dir, tmp_path, monkeypatch, config):
         jh.close()
 
 
+def test_keyed_calls_refused(tmp_path):
+    """Keys are not ported: TopN on a keyed field, a bitmap result on a
+    keyed index and import-roaring into either raise; a Count is
+    served."""
+    holder = THolder(str(tmp_path)).open()
+    api = TAPI(holder, TExecutor(holder, device="cpu"))
+    try:
+        api.create_index("k", {"keys": True})
+        api.create_field("k", "f")
+        api.create_index("u")
+        api.create_field("u", "kf", {"keys": True})
+        api.create_field("u", "f")
+        blob = jroaring.serialize(np.array([1, 5], np.uint64))
+        for index, field in (("k", "f"), ("u", "kf")):
+            with pytest.raises(ApiError, match="not supported by this port"):
+                api.import_roaring(index, field, 0, blob)
+        assert api.import_roaring("u", "f", 0, blob) == 2
+        with pytest.raises(ApiError, match="not supported by this port"):
+            api.query("u", "TopN(kf)")
+        for pql in ("Row(f=1)", "All()", "Union(Row(f=1), Row(f=2))",
+                    "ConstRow(columns=[1])"):
+            with pytest.raises(ApiError, match="not supported by this port"):
+                api.query("k", pql)
+        assert api.query("k", "Count(Row(f=1))") == {"results": [0]}
+    finally:
+        api.executor.close()
+        holder.close()
+
+
 def test_errors_are_400(apis):
-    from pilosa_tpu_torch.api import ApiError
     _, tapi, _ = apis
     for pql in ("Count(Row(nope=1))", "Count(", "Row(f=1, g=2)",
                 "Sum(field=f)"):

@@ -184,3 +184,34 @@ def test_plane_from_numpy_bit_exact(rng):
     t = plane_from_numpy(plane, "cpu")
     assert t.dtype == torch.int32 and tuple(t.shape) == plane.shape
     np.testing.assert_array_equal(t.numpy().view(np.uint32), plane)
+
+
+def test_map_pool_demotes_to_heap(tmp_path, rng, monkeypatch):
+    """Past the pool's cap of live snapshot maps the oldest fragments read
+    from heap copies (their descriptors released): the same bits, the
+    same answers as the JAX package, and no more live maps than the cap."""
+    from pilosa_tpu_torch.store import syswrap
+    root = str(tmp_path)
+    jh = JHolder(root).open()
+    idx = jh.create_index("i")
+    idx.create_field("f")
+    cols = rng.choice(6 * SW, 5000, replace=False).astype(np.uint64)
+    idx.field("f").import_bits(rng.integers(0, 5, 5000).astype(np.uint64),
+                               cols)
+    jh.close()                      # six snapshots
+    pool = syswrap.MapPool(max_maps=2)
+    monkeypatch.setattr(syswrap, "GLOBAL", pool)
+    th, jh = THolder(root).open(), JHolder(root).open()
+    try:
+        assert pool.live == 2
+        frags = th.index("i").field("f").standard_view().fragments
+        heap = [f for f in frags.values() if f._snap_mm is None]
+        assert len(heap) == 4 and all(f._snap_dir is not None for f in heap)
+        jfrags = jh.index("i").field("f").standard_view().fragments
+        for s, frag in frags.items():
+            np.testing.assert_array_equal(frag.positions(),
+                                          jfrags[s].positions())
+    finally:
+        th.close()
+        jh.close()
+    assert pool.live == 0

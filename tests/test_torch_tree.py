@@ -80,11 +80,12 @@ UNFUSABLE = [
     "Union(All(), Not(All()))",
     "Union()",
 ]
-# leaves the reference lowers and this port does not yet
-NOT_PORTED = ["Intersect(Row(f=1), Shift(Row(f=2), n=1))",
-              "Union(Row(f=1), Limit(Row(f=2), limit=3))",
-              "Intersect(Row(f=1), ConstRow(columns=[1, 2]))",
-              "Intersect(Row(f=1), UnionRows(Rows(f)))"]
+# the static ops (Shift, Limit), literal rows (ConstRow) and data-chosen
+# row sets (UnionRows)
+STATIC_LEAVES = ["Intersect(Row(f=1), Shift(Row(f=2), n=1))",
+                 "Union(Row(f=1), Limit(Row(f=2), limit=3))",
+                 "Intersect(Row(f=1), ConstRow(columns=[1, 2]))",
+                 "Intersect(Row(f=1), UnionRows(Rows(f)))"]
 
 
 @pytest.fixture(scope="module")
@@ -124,15 +125,19 @@ def test_unfusable_alike(executors, pql):
         _lower(tex, TCtx, tparse, tex.holder.index("i"), pql)
 
 
-@pytest.mark.parametrize("pql", NOT_PORTED)
+@pytest.mark.parametrize("pql", STATIC_LEAVES)
 def test_leaves_not_ported_refused(executors, pql):
-    """The tree compiler leaves them to the generic path, which refuses
-    them as not supported by this port."""
-    _, tex = executors
-    with pytest.raises(TUnfusable):
-        _lower(tex, TCtx, tparse, tex.holder.index("i"), pql)
-    with pytest.raises(TExecutionError, match="not supported by this port"):
-        tex.execute("i", f"Count({pql})")
+    """Shift, Limit, ConstRow and UnionRows lower as the reference lowers
+    them (static ops carry their arguments in the program; a UnionRows
+    spec is volatile), and their Counts answer alike."""
+    jex, tex = executors
+    want = _lower(jex, JCtx, jparse, jex.holder.index("i"), pql)
+    got = _lower(tex, TCtx, tparse, tex.holder.index("i"), pql)
+    for name in ("field", "rows", "extras", "prog", "depth", "cse_hits",
+                 "volatile"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert tex.execute("i", f"Count({pql})") == \
+        jex.execute("i", f"Count({pql})")
 
 
 def test_not_without_existence_alike(tmp_path):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Eight phases; any failure raises and the exit code is non-zero:
+Nine phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -86,7 +86,24 @@ Eight phases; any failure raises and the exit code is non-zero:
    (absorbed, no build) and one stamped 2021-03-01 (a new bucket: the
    plane rebuilds), each followed by requests checked against the
    oracle.  Launch counters are reset at the start and read at the end.
-8. Print the ``kernels`` JSON line, the card's name and power limit, and
+8. Mutex and bool fields and the rest of the unkeyed PQL surface, on the
+   ``bench`` index: a mutex field ``m`` (16 rows, each column in one row
+   with probability 15/16: an int32[954, 16, 32768] plane, 2.00 GB) and a
+   bool field ``b`` (true for about half the columns, false for a
+   quarter), written as 2 x 954 fragment snapshots with a numpy oracle.
+   Eight requests (a Count per mutex row, two selected rows, m x b x f,
+   a TopN filtered by ``b``, GroupBy m x b, ``Extract`` of f, m, b and
+   ``amount`` over the first 1000 columns of f row 0, ``IncludesColumn``
+   and ``Options(shards=)`` / ``Options(excludeColumns=)``) through the
+   default executor (fast lane) and the "off" one, every answer checked;
+   the device ms of requests 1, 5 and 6 beside one read of the planes
+   each needs; a REST ``/import`` that moves 4096 columns to other
+   mutex rows (absorbed into the overlay, no build), a bool ``Set``, a
+   ``Store`` into a new row of f (the plane rebuilds) and its
+   ``ClearRow`` (a fold), each followed by checked reads, with their
+   latencies beside phase 4's import.  Launch counters are reset at the
+   start and read at the end.
+9. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -144,6 +161,14 @@ SOURCE = "pilosa_tpu_torch/engine/csrc/popcount.cu"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -399,6 +424,9 @@ def make_index(data_dir: str, shards: int, seed: int):
     oracle["bsi"] = make_bsi(data_dir, f, g, shards, seed)
     # and phase 6 serves f and amount as phases 4 and 5 left them
     oracle["groupby"] = make_groupby(f, g, shards, seed, oracle["bsi"])
+    # phase 8's mutex and bool fields, over f and amount as phases 4-6
+    # left them
+    oracle["mutex"] = make_mutex(data_dir, f, shards, seed, oracle["bsi"])
     # phase 7's index of timestamped events
     oracle["events"] = make_events(data_dir, shards, seed)
     return oracle
@@ -968,10 +996,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 7 over one holder; returns the launch counts of each
+    """Phases 2 to 8 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
     "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
-    "groupby" and "events"."""
+    "groupby", "events" and "mutex"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1108,6 +1136,12 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         ev = events_phase(client, holder, planes, oracle["events"], cuda,
                           device, clients)
         log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        log("== phase 8: mutex and bool fields, Extract, Store ==")
+        mx = mutex_phase(client, holder, planes, oracle["mutex"], cuda,
+                         device, (_median_ms(client.lat["REST import"])
+                                  if "REST import" in client.lat else None))
+        log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1130,7 +1164,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb, **ev}
+            "ingest": ingest, **bsi, **gb, **ev, **mx}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -2112,6 +2146,343 @@ def events_phase(client, holder, planes, evo: dict, cuda: bool, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: mutex and bool fields, Extract, IncludesColumn, Options, Store
+# and ClearRow
+# ---------------------------------------------------------------------------
+
+MX_ROWS = 16                   # the mutex field's rows
+MX_MOVES = 4096                # columns the REST import moves to a new row
+MX_SUBSET = 100                # shards of the Options(shards=) request
+MX_STORE_ROW = 40              # the Store's target row of f
+MX_EXTRACT = 1000              # the Extract's Limit
+MQ16 = "".join(f"Count(Row(m={r}))" for r in range(MX_ROWS))
+MQ2 = "Count(Row(m=1))Count(Row(m=6))"
+MQ3 = "Count(Intersect(Row(m=3), Row(b=true), Row(f=1)))"
+MQ_TOPN = "TopN(m, Row(b=true), n=5)"
+MQ_GB = "GroupBy(Rows(m), Rows(b))"
+MQ_EXTRACT = (f"Extract(Limit(Row(f=0), limit={MX_EXTRACT}), Rows(f), "
+              "Rows(m), Rows(b), Rows(amount))")
+MQ_STORE = f"Store(Intersect(Row(f=1), Row(f=2), Row(f=3)), f={MX_STORE_ROW})"
+
+
+def _mutex_shard(data_dir: str, s: int, seed: int, f: np.ndarray,
+                 n_moves: int) -> dict:
+    """Shard ``s`` of ``m`` (each column in one of 16 rows with
+    probability 15/16) and ``b`` (true 1/2, false 1/4, unset 1/4) from
+    (seed, s), written as fragment snapshots, its part of the numpy
+    oracle, and ``n_moves`` of the import's pairs: columns that hold a
+    row, each moved to another row."""
+    from pilosa_tpu_torch.store import roaring
+    rng = np.random.default_rng([seed, 8, s])
+    mrow = rng.integers(0, MX_ROWS, 1 << 20, dtype=np.int8)
+    has = rng.integers(0, 16, 1 << 20, dtype=np.int8) != 0
+    bval = rng.integers(0, 4, 1 << 20, dtype=np.int8)
+    m = np.stack([_pack(has & (mrow == r)) for r in range(MX_ROWS)])
+    b = np.stack([_pack(bval == 2), _pack(bval < 2)])   # false, true
+    for name, words in (("m", m), ("b", b)):
+        with open(os.path.join(data_dir, "bench", name, "views", "standard",
+                               "fragments", str(s)), "wb") as fh:
+            fh.write(roaring.serialize_dense(words))
+    fs = f[s]
+    tri = m[3] & b[1] & fs[1]
+    offs = rng.choice(np.flatnonzero(has), n_moves, replace=False)
+    old = mrow[offs].astype(np.int64)
+    new = (old + rng.integers(1, MX_ROWS, n_moves)) % MX_ROWS
+    in_tri = _bits(b[1] & fs[1])[offs]
+    out = {"m": _popcounts(m), "b": _popcounts(b),
+           "tri": int(_popcounts(tri)),
+           "topn": _popcounts(m & b[1][None, :]),
+           "gb": _popcounts(m[:, None, :] & b[None, :, :]),
+           "f": _popcounts(fs),
+           "store": int(_popcounts(fs[1] & fs[2] & fs[3])),
+           "moves": (offs + (s << 20), new),
+           "move_m": (np.bincount(new, minlength=MX_ROWS)
+                      - np.bincount(old, minlength=MX_ROWS)),
+           "move_tri": int(in_tri[new == 3].sum() - in_tri[old == 3].sum())}
+    if s == 0:
+        true = np.flatnonzero(bval < 2)
+        out["b_true_col"] = int(true[0])
+        out["cells"] = (mrow, has, bval)
+    if s == min(5, f.shape[0] - 1):
+        three = np.flatnonzero(has & (mrow == 3))
+        other = np.flatnonzero(has & (mrow != 3))
+        out["incl"] = (int(three[0]) + (s << 20), int(other[0]) + (s << 20))
+    return out
+
+
+def _extract_expect(f: np.ndarray, cells, amount) -> list:
+    """The Extract request's table: the first ``MX_EXTRACT`` columns of
+    f row 0 (all in shard 0), each with its f rows, m row, b flag and
+    amount (None where it holds none)."""
+    mrow, has, bval = cells
+    exists, vals = amount
+    cols = np.flatnonzero(_bits(f[0, 0]))[:MX_EXTRACT]
+    fbits = (f[0][:, cols >> 5] >> (cols & 31).astype(np.uint32)) & 1
+    rows = []
+    for j, c in enumerate(cols.tolist()):
+        rows.append({"column": c, "rows": [
+            [int(r) for r in np.flatnonzero(fbits[:, j])],
+            int(mrow[c]) if has[c] else None,
+            None if bval[c] == 3 else bool(bval[c] < 2),
+            int(vals[c]) if exists[c] else None]})
+    return [{"fields": [{"name": "f", "type": "set"},
+                        {"name": "m", "type": "mutex"},
+                        {"name": "b", "type": "bool"},
+                        {"name": "amount", "type": "int"}],
+             "columns": rows}]
+
+
+def make_mutex(data_dir: str, f: np.ndarray, shards: int, seed: int,
+               bsi: dict) -> dict:
+    """Write the mutex field ``m`` and the bool field ``b`` of ``bench``
+    (2 x ``shards`` fragment snapshots) and return phase 8's oracle over
+    them, ``f`` as phases 4 and 6 left it and ``amount`` as phases 5 and
+    6 left it: the requests' answers, the mutex import and the answers
+    after each write."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+
+    t0 = time.perf_counter()
+    h = Holder(data_dir).open()
+    idx = h.index("bench")
+    idx.create_field("m", FieldOptions(type="mutex"))
+    idx.create_field("b", FieldOptions(type="bool"))
+    h.close()
+    for name in ("m", "b"):
+        os.makedirs(os.path.join(data_dir, "bench", name, "views",
+                                 "standard", "fragments"), exist_ok=True)
+    rng = np.random.default_rng(seed + 8)
+    n_moves = np.bincount(rng.integers(0, shards, MX_MOVES),
+                          minlength=shards)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        parts = list(pool.map(
+            lambda s: _mutex_shard(data_dir, s, seed, f, int(n_moves[s])),
+            range(shards)))
+    total = {k: sum(p[k] for p in parts)
+             for k in ("m", "b", "tri", "topn", "gb", "f", "store",
+                       "move_m", "move_tri")}
+    subset = min(MX_SUBSET, shards)
+    q_opts = ("Options(Count(Row(f=1)), shards=[" + ", ".join(
+        str(s) for s in range(subset)) + "])"
+        "Options(Row(m=3), excludeColumns=true)")
+    c_in, c_out = next(p["incl"] for p in parts if "incl" in p)
+    q_incl = (f"IncludesColumn(Row(m=3), column={c_in})"
+              f"IncludesColumn(Row(m=3), column={c_out})")
+    # amount in shard 0 as phases 5 and 6 left it
+    exists, vals = _bsi_values(seed, 0)
+    vals = vals.astype(np.int64)
+    cand, final = bsi["final"]
+    c0 = cand < (1 << 20)
+    exists[cand[c0]] = final[c0] != _EMPTY
+    vals[cand[c0]] = np.where(final[c0] != _EMPTY, final[c0], 0)
+    vcols, new = bsi["gb_values"][:2]
+    v0 = vcols < (1 << 20)
+    exists[vcols[v0]] = True
+    vals[vcols[v0]] = new[v0]
+    gb = total["gb"]
+    expect = {
+        MQ16: [int(c) for c in total["m"]],
+        MQ2: [int(total["m"][1]), int(total["m"][6])],
+        MQ3: [total["tri"]],
+        MQ_TOPN: [_topn(total["topn"], 5)],
+        MQ_GB: [[{"group": [{"field": "m", "rowID": r},
+                            {"field": "b", "rowID": v}],
+                  "count": int(gb[r, v])}
+                 for r in range(MX_ROWS) for v in (0, 1) if gb[r, v]]],
+        MQ_EXTRACT: _extract_expect(f, parts[0]["cells"], (exists, vals)),
+        q_incl: [True, False],
+        q_opts: [int(sum(p["f"][1] for p in parts[:subset])),
+                 {"columns": []}],
+    }
+    moves = np.concatenate([p["moves"][0] for p in parts])
+    new_rows = np.concatenate([p["moves"][1] for p in parts])
+    after = total["m"] + total["move_m"]
+    bt = parts[0]["b_true_col"]
+    log(f"mutex data: m (16 rows) and b over {shards} shards, "
+        f"{2 * shards} fragment snapshots and the oracle in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {
+        "seq": (MQ16, MQ2, MQ3, MQ_TOPN, MQ_GB, MQ_EXTRACT, q_incl, q_opts),
+        "expect": expect,
+        "import": (moves, new_rows),
+        "after_import": {MQ16: [int(c) for c in after],
+                         MQ3: [total["tri"] + total["move_tri"]]},
+        "b_col": bt,
+        "b_counts": [int(total["b"][1]), int(total["b"][0])],
+        "store": total["store"],
+        "f_counts": [int(c) for c in total["f"]],
+    }
+
+
+def mutex_phase(client, holder, planes, mxo: dict, cuda: bool, device,
+                ingest_ms: float | None) -> dict:
+    """Phase 8: the eight requests over the mutex and bool fields through
+    the default executor (fast lane) and the "off" one, every answer
+    against the oracle; the device ms of requests 1, 5 and 6 beside one
+    read of the planes each needs; a REST import that moves 4096 columns
+    to other mutex rows (absorbed into the overlay: the old rows'
+    Counts drop), a ``Set`` of a bool column, a ``Store`` into a new row
+    of f and its ``ClearRow``, each followed by checked reads.  The
+    launch counters are reset when the phase starts and read when it
+    ends."""
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    t0 = time.perf_counter()
+    if cuda:
+        log(f"phase 8 on {card_line()}")
+    expect = mxo["expect"]
+    seq = mxo["seq"]
+    names = dict(zip(seq, ("1 16-Count", "2 two Counts", "3 m x b x f",
+                           "4 filtered TopN", "5 GroupBy m x b",
+                           "6 Extract", "7 IncludesColumn",
+                           "8 Options")))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    built = {}
+    for name in ("m", "b"):
+        b0 = planes.builds
+        planes.field_plane("bench", index.field(name), "standard", shards)
+        if planes.builds != b0 + 1:
+            raise AssertionError(f"the {name} plane did not build")
+        built[name] = (planes.last_build_seconds, planes.last_build_bytes)
+    log("mutex planes: " + ", ".join(
+        f"{n} {b / 1e9:.3f} GB built in {s:.2f} s"
+        for n, (s, b) in built.items()))
+
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   delta_compact_fraction=COMPACT_FRACTION,
+                   count_batch_window="off", tree_fusion=False)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    for q in seq:
+        t = time.perf_counter()
+        client.ask(q, expect[q], tag=f"mutex {names[q]}, first")
+        log(f"mutex {names[q]} first request: "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    hits0 = client.api.executor.serving_stats()["fastLaneHits"]
+    for q in seq:
+        client.ask(q, expect[q], reps=3, tag=f"mutex {names[q]}")
+        offc.ask(q, expect[q], reps=2, tag=f"mutex off {names[q]}")
+    if client.api.executor.serving_stats()["fastLaneHits"] <= hits0:
+        raise AssertionError("phase 8's requests never took the fast lane")
+    for q in seq:
+        log(f"latency mutex {names[q]}: median "
+            f"{_median_ms(client.lat[f'mutex {names[q]}']):.2f} ms "
+            f"[default], "
+            f"{_median_ms(offc.lat[f'mutex off {names[q]}']):.2f} ms [off]")
+    off.close()
+
+    if cuda:
+        lane = len(shards) * WORDS * 4
+        for q, nbytes, what in (
+                (seq[0], MX_ROWS * lane, "the m plane"),
+                (seq[4], (MX_ROWS + 2) * lane,
+                 "the m and b rows planes"),
+                (seq[5], 2 * lane, "f row 0 and the Limit's bitmap")):
+            b_ms = bound(nbytes, 0)[0]
+            for attempt in range(2):
+                dev_ms, wall_ms, top = device_busy_share(
+                    lambda: client.ask(q, expect[q], reps=3,
+                                       tag="profiled"))
+                if dev_ms > 0:
+                    break
+                if attempt:
+                    raise AssertionError(
+                        f"mutex {names[q]}: two traces held no device "
+                        "entries; its device time was not measured")
+                # a trace that came back without device entries (seen
+                # once, on the phase's first profile): trace again
+                log(f"mutex {names[q]}: the trace held no device "
+                    "entries; tracing again")
+            log(f"mutex device ms {names[q]}: {dev_ms / 3:.3f} ms per "
+                f"request (bound {b_ms:.3f} ms = one read of {what}, "
+                f"{nbytes / 1e9:.3f} GB; {dev_ms / 3 / b_ms:.1f}x), wall "
+                f"{wall_ms / 3:.3f} ms; by kernel: {top}")
+
+    def moved(write, reads):
+        """(builds, absorbs, folds and row refreshes) a write and the
+        reads after it took."""
+        b0, a0, r0 = (planes.builds, planes.delta_absorbs,
+                      planes.incremental_applied)
+        write()
+        for q, want, tag in reads:
+            client.ask(q, want, tag=tag)
+        return (planes.builds - b0, planes.delta_absorbs - a0,
+                planes.incremental_applied - r0)
+
+    # the mutex import: every column leaves its old row
+    cols, rows = mxo["import"]
+    body = json.dumps({"rowIDs": rows.tolist(),
+                       "columnIDs": cols.tolist()}).encode()
+    after = mxo["after_import"]
+    def import_m():
+        got = client.post("/index/bench/field/m/import", body,
+                          "REST import m")
+        if got != {"changed": 2 * len(cols)}:
+            raise AssertionError(f"the mutex import: got {got}, want "
+                                 f"{{'changed': {2 * len(cols)}}}")
+
+    took = moved(import_m, [(q, after[q], f"mutex {q[:20]} after the import")
+                            for q in (MQ16, MQ3)])
+    log(f"mutex import of {MX_MOVES} moves: builds +{took[0]}, absorbs "
+        f"+{took[1]}, folds +{took[2]}: "
+        + ("absorbed into the overlay" if took[:2] == (0, 1)
+           else "NOT absorbed"))
+    if took[:2] != (0, 1):
+        raise AssertionError(f"the mutex import was not absorbed: {took}")
+    # a bool column set false
+    col = mxo["b_col"]
+    bt, bf = mxo["b_counts"]
+    took_b = moved(lambda: client.ask(f"Set({col}, b=false)", [True],
+                                      tag="Set b=false"),
+                   [("Count(Row(b=true))Count(Row(b=false))",
+                     [bt - 1, bf + 1], "b counts after the Set"),
+                    (f"IncludesColumn(Row(b=false), column={col})", [True],
+                     "IncludesColumn after the Set")])
+    # Store into a row f lacks (the plane rebuilds), then ClearRow (a fold)
+    took_s = moved(lambda: client.ask(MQ_STORE, [True], tag="Store"),
+                   [(f"Count(Row(f={MX_STORE_ROW}))", [mxo["store"]],
+                     "Count after the Store")])
+    store_build = planes.last_build_seconds
+    q32 = "".join(f"Count(Row(f={r}))" for r in range(ROWS))
+    took_c = moved(lambda: client.ask(f"ClearRow(f={MX_STORE_ROW})", [True],
+                                      tag="ClearRow"),
+                   [(f"Count(Row(f={MX_STORE_ROW}))", [0],
+                     "Count after the ClearRow"),
+                    (q32, mxo["f_counts"], "32-Count after the ClearRow")])
+    log(f"writes (builds, absorbs, folds and row refreshes): Set b "
+        f"{took_b}, Store {took_s} (rebuild {store_build:.2f} s), ClearRow "
+        f"{took_c}")
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    m_ms = client.lat["REST import m"][0] * 1e3
+    log(f"latency REST import m ({MX_MOVES} moves): {m_ms:.2f} ms; phase "
+        "4's 4096-pair set import: "
+        + (f"median {ingest_ms:.2f} ms" if ingest_ms is not None
+           else "not run"))
+    for tag in ("Set b=false", "Store", "Count after the Store",
+                "ClearRow", "Count after the ClearRow",
+                "32-Count after the ClearRow"):
+        log(f"latency {tag!r}: {client.lat[tag][0] * 1e3:.2f} ms")
+    log(f"launches in phase 8: {json.dumps(launched)}; peak device memory "
+        f"in the phase {peak / 1e9:.2f} GB; phase 8 wall "
+        f"{time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("count", "row_counts", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 8 never launched {k}")
+    return {"mutex": launched}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2128,10 +2499,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import pilosa_tpu_torch  # noqa: F401 — fails outside the repo
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {smi}")
     if args.shards != 954:
@@ -2154,7 +2522,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 8: output ==")
+    log("== phase 9: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

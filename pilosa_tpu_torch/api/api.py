@@ -19,7 +19,8 @@ from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
-from pilosa_tpu_torch.store.field import BSI_TYPES, ROW_TYPES
+from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_SET, TYPE_TIME,
+                                          BoolRowError)
 from pilosa_tpu_torch.store.timeq import parse_pql_time, parse_view_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
@@ -121,6 +122,8 @@ class API:
             else:
                 changed = f.import_bits(rows, cols, ts)
                 idx.note_columns(cols)
+        except BoolRowError:
+            raise  # the reference's 500
         except ValueError as e:
             raise ApiError(str(e))
         self._count_imported(changed)
@@ -182,12 +185,15 @@ class API:
         """Import a roaring-encoded bit set (positions ``row *
         SHARD_WIDTH + column offset``) into one shard of a set or time
         field's view (``standard``, or a time view ``standard_<YYYY[MM[DD
-        [HH]]]>``); returns the bits changed."""
+        [HH]]]>``); returns the bits changed.  A mutex or bool field
+        takes pair imports only."""
         idx = self._index(index)
         f = self._field(idx, field)
-        if f.options.type not in ROW_TYPES:
+        if f.options.type not in (TYPE_SET, TYPE_TIME):
+            # a raw union would skip a mutex's clears and a bool's row
+            # check
             raise ApiError("import-roaring supports set/time fields, not "
-                           f"{f.options.type!r}")
+                           f"{f.options.type!r}; use the pair import")
         if f.options.keys or idx.keys:
             raise ApiError("import-roaring: keyed fields and indexes are "
                            "not supported by this port")

@@ -165,6 +165,31 @@ def shift(words: torch.Tensor, n: int = 1) -> torch.Tensor:
     return words
 
 
+def column_bits(plane: torch.Tensor, word_idx: torch.Tensor,
+                bit_idx: torch.Tensor) -> torch.Tensor:
+    """Membership of k columns in every row (``Extract`` of a set-like
+    field): ``plane`` int32[S, R, W], ``word_idx`` [k] (each column's
+    word within its shard), ``bit_idx`` [k] -> int32[S, R, k] of 0/1.  One
+    gather per column word; the mask follows the shift because ``>>`` on
+    int32 is arithmetic."""
+    g = plane[:, :, word_idx.long()]
+    return (g >> bit_idx.to(plane.dtype)[None, None, :]) & 1
+
+
+def column_bits_grouped(plane: torch.Tensor, word_idx: torch.Tensor,
+                        bit_idx: torch.Tensor,
+                        shard_idx: torch.Tensor) -> torch.Tensor:
+    """Per-shard column probes (``Extract`` of a BSI field: every selected
+    column's exists, sign and magnitude bits in one gather): row ``i`` of
+    ``word_idx`` / ``bit_idx`` [n, k] names columns of shard
+    ``shard_idx[i]`` of ``plane`` int32[S, R, W] -> int32[n, R, k] of 0/1.
+    Only the shards named are read."""
+    rows = torch.arange(plane.shape[1], device=plane.device)
+    g = plane[shard_idx.long()[:, None, None], rows[None, :, None],
+              word_idx.long()[:, None, :]]
+    return (g >> bit_idx.to(plane.dtype)[:, None, :]) & 1
+
+
 _INT32_MAX = (1 << 31) - 1
 
 
@@ -185,8 +210,9 @@ def rank_limit(words: torch.Tensor, offset: int, limit: int) -> torch.Tensor:
     if not flat.numel():
         return words.clone()
     end = _INT32_MAX if limit < 0 else min(offset + limit, _INT32_MAX)
-    cum = torch.cumsum(popcount(flat), 0, dtype=torch.int32)  # inclusive
-    start = cum - popcount(flat)
+    pc = popcount(flat)
+    cum = torch.cumsum(pc, 0, dtype=torch.int32)  # inclusive
+    start = cum - pc
     out = torch.where((start >= offset) & (cum <= end), flat,
                       torch.zeros_like(flat))
     probe = torch.tensor([max(offset, 0), max(end - 1, 0)],

@@ -12,8 +12,10 @@ The counterpart of ``pilosa_tpu.exec.executor.Executor`` with
   (:mod:`pilosa_tpu_torch.exec.tree`): one gather of their rows from the
   resident plane, one postfix fold;
 - ``max_concurrent=8`` admission slots;
-- a plan cache: a repeated all-Count query string over unkeyed set
-  fields, or of simple BSI range Counts, skips parse and plan.
+- a plan cache: a repeated all-Count query string skips parse and plan
+  (same-field row Counts over the resident plane, simple BSI range
+  Counts, compiled trees, and any other Count tree as a "generic" entry
+  of leaf specs).
 
 ``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
 as the port's first slices did.  Every resident shard is one slice of a
@@ -23,8 +25,8 @@ a plane was built ride a device delta overlay (``delta_cells``, folded
 in the background past ``delta_compact_fraction``): Counts and TopN
 answer base+delta over the unchanged resident plane.
 
-Served calls: ``Count``, ``Row`` / ``Range`` (set and time fields with
-integer rows; time ranges ``Row(t=1, from=, to=)`` and the legacy
+Served calls: ``Count``, ``Row`` / ``Range`` (set, time, mutex and bool
+fields with integer rows; time ranges ``Row(t=1, from=, to=)`` and the legacy
 positional ``Range(t=1, <from>, <to>)``; BSI conditions such as
 ``Row(amount > 5)`` and ``Row(-1 < amount < 1)``), ``Intersect``,
 ``Union``, ``Difference``, ``Xor``, ``Not``, ``All`` (with ``limit=`` /
@@ -34,15 +36,19 @@ positional ``Range(t=1, <from>, <to>)``; BSI conditions such as
 ``GroupBy`` (over rows planes of the selected rows, with ``filter=``, a
 Count/Sum/Min/Max aggregate, ``having=``, ``limit=`` and ``previous=``;
 ``Rows(from=, to=)`` selects the rows seen in the range; blocks go
-through the batcher's ``groupby`` kind), ``Set`` (with a timestamp on a
-time field) and ``Clear`` (values on BSI fields).  A time range is one
+through the batcher's ``groupby`` kind), ``Extract`` (each selected
+column's value in each field, gathered from the resident planes),
+``IncludesColumn``, ``Options`` (``shards=`` and ``excludeColumns=``),
+``Set`` (with a timestamp on a time field), ``Clear`` (values on BSI
+fields), ``Store`` and ``ClearRow``.  A time range is one
 OR over the field's bucketed time plane (:mod:`pilosa_tpu_torch.timeviews`),
 or, when the plane would exceed the budget, the union of the range's
 cover views' rows.  Sum, Min, Max, simple range Counts and GroupBy
 aggregates read the bit plane delta-aware (base+delta over a
 ``BsiOverlay``); Percentile, Distinct and BSI leaves inside bitmap calls
-read it clean.  Keys are not ported: a keyed field or index is refused
-wherever an answer would carry ids.  Anything else raises
+read it clean.  Keys and attributes are not ported: a keyed field or
+index is refused wherever an answer would carry ids, and
+``Options(columnAttrs=)`` is refused.  Anything else raises
 :class:`ExecutionError`.
 """
 
@@ -62,10 +68,11 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.batcher import CountBatcher
-from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable, shift_leaves
+from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable
 from pilosa_tpu_torch.exec.planes import DEFAULT_BUDGET, PlaneCache
-from pilosa_tpu_torch.exec.result import (DistinctResult, GroupCountsResult,
-                                          Pair, PairsResult, RowIdsResult,
+from pilosa_tpu_torch.exec.result import (DistinctResult, ExtractResult,
+                                          GroupCountsResult, Pair,
+                                          PairsResult, RowIdsResult,
                                           RowResult, ValCount)
 from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
                                         fold_bool_call, is_not_bool,
@@ -73,7 +80,8 @@ from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
-from pilosa_tpu_torch.store.field import BSI_TYPES, ROW_TYPES, Field
+from pilosa_tpu_torch.store.field import (BSI_TYPES, ROW_TYPES, TYPE_BOOL,
+                                          TYPE_MUTEX, Field)
 from pilosa_tpu_torch.store.holder import Holder
 from pilosa_tpu_torch.store.index import Index
 from pilosa_tpu_torch.store.timeq import (parse_pql_time, view_span,
@@ -91,8 +99,11 @@ RESERVED_KEYS = frozenset({
 
 _CALL_RESERVED = {
     "Row": frozenset({"from", "to", "excludeRowAttrs"}),
+    "Range": frozenset({"from", "to"}),
     "Set": frozenset(),
     "Clear": frozenset(),
+    "ClearRow": frozenset(),
+    "Store": frozenset(),
 }
 
 _BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
@@ -207,7 +218,11 @@ class _PlanEntry:
     come fresh from the PlaneSet on every hit).  ``kind`` "tree":
     compound Counts compiled whole (``tree_specs``).  ``kind``
     "bsirange": simple BSI range Counts (``range_items``: the field, op
-    keys, offsets and host predicate operands).  Nothing here is a
+    keys, offsets and host predicate operands).  ``kind`` "generic":
+    any other Count tree the planner serves (``nodes`` over
+    ``leaf_specs``: rows, the existence row, empty bitmaps and BSI
+    conditions, each fetched through the plane cache on every hit),
+    always ``checked``.  Nothing here is a
     tensor and nothing bakes data a write can stale: literal row ids
     re-resolve, the planes absorb writes into their overlays and extras
     re-fetch, so a hit checks only the shard set, that the
@@ -228,8 +243,40 @@ class _PlanEntry:
     tree_specs: tuple = ()
     set_fields: tuple = ()
     range_items: tuple = ()  # ((field, op_keys, offsets, operands), ...)
+    nodes: tuple = ()        # "generic": per-call node trees over
+    leaf_specs: tuple = ()   # these leaf specs, re-materialized per hit
     bsi_sigs: tuple = ()     # ((field, bsi_signature), ...) pinned
     checked: bool = False    # a hit compares ``deps``' generations
+
+
+class _Walk:
+    """What :meth:`Executor._plan` records while it walks a bitmap call:
+    the hashable leaf specs in walk order, the ``(field, view)`` each
+    depends on, the BSI signatures its predicates were resolved against,
+    and whether every leaf may be plan-cached.  The specs become tensors
+    in :meth:`Executor._leaves_from_specs`, on a planned request and on
+    every plan-cache hit alike."""
+
+    __slots__ = ("specs", "deps", "sigs", "cacheable")
+
+    def __init__(self) -> None:
+        self.specs: list = []
+        self.deps: dict = {}
+        self.sigs: dict = {}
+        self.cacheable = True
+
+    def leaf(self, spec: tuple, *deps) -> tuple:
+        for dep in deps:
+            self.deps[dep] = None
+        self.specs.append(spec)
+        return ("leaf", len(self.specs) - 1)
+
+    def volatile(self, spec: tuple) -> tuple:
+        """A leaf that reads data at materialization (a time range, whose
+        cover may gain views, UnionRows' row set, a literal ConstRow,
+        Limit's ranking): never plan-cached."""
+        self.cacheable = False
+        return self.leaf(spec)
 
 
 class Executor:
@@ -338,7 +385,7 @@ class Executor:
             while (run_end < len(calls) and calls[run_end].name == "Count"
                    and len(calls[run_end].children) == 1):
                 run_end += 1
-            ctx = _Ctx(index, self._shards_for(index, shards))
+            ctx = _Ctx(index, self._shards_for(index, shards, calls[i]))
             if run_end - i > 1:
                 results.extend(self._count_batch(ctx, calls[i:run_end]))
                 i = run_end
@@ -359,13 +406,9 @@ class Executor:
         fast = self._count_batch_tree(ctx, calls)
         if fast is not None:
             return fast
-        nodes, all_leaves = [], []
-        for call in calls:
-            leaves: list = []
-            node = self._plan(ctx, call.children[0], leaves)
-            nodes.append(shift_leaves(node, len(all_leaves)))
-            all_leaves.extend(leaves)
-        return self._dispatch_count_run(tuple(nodes), tuple(all_leaves))
+        walk = _Walk()
+        nodes = tuple(self._plan(ctx, c.children[0], walk) for c in calls)
+        return self._dispatch_count_run(nodes, self._leaves(ctx, walk))
 
     def _dispatch_count_run(self, nodes: tuple, leaves: tuple) -> list[int]:
         """One request's planned Count run -> per-call totals: ONE batcher
@@ -770,7 +813,8 @@ class Executor:
         try:
             return (self._plan_plane_entry(ctx, calls)
                     or self._plan_bsirange_entry(ctx, calls)
-                    or self._plan_tree_entry(ctx, calls))
+                    or self._plan_tree_entry(ctx, calls)
+                    or self._plan_generic_entry(ctx, calls))
         except (Unfusable, ExecutionError):
             # the parse path raises the same errors
             return None
@@ -824,8 +868,11 @@ class Executor:
             return None
         if not any(c.children[0].name in TREE_CALLS for c in calls):
             return None
-        specs = tuple(lower_count_tree(self, ctx, c.children[0])
-                      for c in calls)
+        try:
+            specs = tuple(lower_count_tree(self, ctx, c.children[0])
+                          for c in calls)
+        except Unfusable:
+            return None  # the generic entry may take it
         deps: dict[tuple, None] = {}
         set_fields: dict[str, None] = {}
         sigs: dict = {}
@@ -858,6 +905,67 @@ class Executor:
                           set_fields=tuple(set_fields),
                           bsi_sigs=tuple(sigs.items()), checked=checked)
 
+    def _plan_generic_entry(self, ctx: _Ctx,
+                            calls) -> _PlanEntry | None:
+        """Every Count child walked into leaf specs (:meth:`_plan`): the
+        shapes the plane, bsirange and tree entries decline, which is
+        every compound Count without the tree compiler.  None when a leaf
+        is volatile.  The entry is generation-checked: a write to any
+        dependency drops it."""
+        walk = _Walk()
+        nodes = tuple(self._plan(ctx, c.children[0], walk) for c in calls)
+        if not walk.cacheable:
+            return None
+        deps = tuple(walk.deps)
+        return _PlanEntry("generic", ctx.shards, deps,
+                          self._dep_gens(ctx.index, deps, ctx.shards),
+                          nodes=nodes, leaf_specs=tuple(walk.specs),
+                          set_fields=tuple(dict.fromkeys(
+                              sp[1] for sp in walk.specs
+                              if sp[0] == "row")),
+                          bsi_sigs=tuple(walk.sigs.items()), checked=True)
+
+    def _leaves_from_specs(self, ctx: _Ctx, specs) -> list | None:
+        """Leaf tensors of walked specs, each through the plane cache
+        (which revalidates its own generations).  None = a spec no longer
+        resolves (its field is gone or changed type)."""
+        out: list = []
+        for spec in specs:
+            kind = spec[0]
+            if kind == "zeros":
+                out.append(self._zeros(ctx))
+            elif kind == "exists":
+                out.append(self._exists(ctx))
+            elif kind == "union":
+                out.append(self._union_rows(ctx, spec[1]))
+            elif kind == "const":
+                out.append(self._const_row_cols(ctx, spec[1]))
+            elif kind == "limit":
+                out.append(self._limit_bitmap(ctx, spec[1]))
+            elif kind == "bsi":
+                field = ctx.index.field(spec[1])
+                if field is None or field.options.type not in BSI_TYPES:
+                    return None
+                out.append(self._bsi_condition(ctx, field, spec[2]))
+            else:  # "row", "trange"
+                field = ctx.index.field(spec[1])
+                if field is None or field.options.type not in ROW_TYPES:
+                    return None
+                out.append(
+                    self.planes.row_words(ctx.index.name, field, spec[2],
+                                          spec[3], ctx.shards)
+                    if kind == "row"
+                    else self._time_row(ctx, field, *spec[2:]))
+        return out
+
+    def _leaves(self, ctx: _Ctx, walk: _Walk) -> tuple:
+        """A walk's leaf tensors, for the request that walked it."""
+        leaves = self._leaves_from_specs(ctx, walk.specs)
+        if leaves is None:
+            raise ExecutionError("a field was deleted or changed type while "
+                                 "the query ran")
+        return tuple(leaves)
+
     @staticmethod
     def _dep_gens(index: Index, deps: tuple, shards: tuple) -> tuple:
         out = []
@@ -883,6 +991,11 @@ class Executor:
             return self._run_bsirange_items(ctx, [
                 (index.field(fname), op_keys, offsets, operands)
                 for fname, op_keys, offsets, operands in entry.range_items])
+        if entry.kind == "generic":
+            leaves = self._leaves_from_specs(ctx, entry.leaf_specs)
+            if leaves is None:
+                return None
+            return self._dispatch_count_run(entry.nodes, tuple(leaves))
         field = index.field(entry.field_name)
         if field is None or not self.planes.has_plane(
                 index.name, field, VIEW_STANDARD, ctx.shards):
@@ -891,7 +1004,14 @@ class Executor:
                                            ctx.shards)
         return self._plane_count_rows(ps, entry.row_ids)
 
-    def _shards_for(self, index: Index, shards) -> tuple[int, ...]:
+    def _shards_for(self, index: Index, shards,
+                    call: Call | None = None) -> tuple[int, ...]:
+        """The shards a call runs over: ``Options(shards=)``, else the
+        request's ``shards``, else every shard the index holds."""
+        opts = (call.args.get("shards")
+                if call is not None and call.name == "Options" else None)
+        if opts is not None:
+            return tuple(int(s) for s in opts)
         if shards is not None:
             return tuple(shards)
         avail = index.available_shards()
@@ -900,12 +1020,10 @@ class Executor:
     # ------------------------------------------------------------- dispatch
 
     def _call(self, ctx: _Ctx, call: Call):
+        if call.name == "Options":
+            return self._execute_options(ctx, call)
         if call.name in _BITMAP_CALLS:
-            if ctx.index.keys:
-                raise ExecutionError(
-                    f"index {ctx.index.name!r}: bitmap results on a keyed "
-                    "index are not supported by this port")
-            result = self._to_row_result(ctx, self._fused_bitmap(ctx, call))
+            result = self._to_row_result(ctx, self._bitmap_words(ctx, call))
             if call.name == "All":
                 # All(limit=, offset=) pages the column list
                 offset = int(call.args.get("offset", 0))
@@ -921,12 +1039,25 @@ class Executor:
                    "Distinct": self._execute_distinct,
                    "Rows": self._execute_rows,
                    "GroupBy": self._execute_groupby,
+                   "Extract": self._execute_extract,
+                   "IncludesColumn": self._execute_includescolumn,
                    "Set": self._execute_set,
-                   "Clear": self._execute_clear}.get(call.name)
+                   "Clear": self._execute_clear,
+                   "ClearRow": self._execute_clearrow,
+                   "Store": self._execute_store}.get(call.name)
         if handler is None:
             raise ExecutionError(
                 f"call {call.name!r} is not supported by this port")
         return handler(ctx, call)
+
+    def _bitmap_words(self, ctx: _Ctx, call: Call) -> torch.Tensor:
+        """A top-level bitmap call's words; refused on a keyed index, where
+        its columns would be keys."""
+        if ctx.index.keys:
+            raise ExecutionError(
+                f"index {ctx.index.name!r}: bitmap results on a keyed "
+                "index are not supported by this port")
+        return self._fused_bitmap(ctx, call)
 
     def _fused_bitmap(self, ctx: _Ctx, call: Call, want: str = "words"):
         """A bitmap call's words int32[S, W] (``want="count"``: per-shard
@@ -943,46 +1074,58 @@ class Executor:
                 words = self.fused.run_tree_words(ps.plane, slots, prog,
                                                   extras, delta=ps.delta)
                 return kernels.count(words) if want == "count" else words
-        leaves: list = []
-        node = self._plan(ctx, call, leaves)
-        return self.fused.run(node, tuple(leaves), want)
+        walk = _Walk()
+        node = self._plan(ctx, call, walk)
+        return self.fused.run(node, self._leaves(ctx, walk), want)
 
-    def _plan(self, ctx: _Ctx, call: Call, leaves: list):
-        """Collect leaf tensors and return the hashable node tree."""
-
-        def leaf(arr) -> tuple:
-            leaves.append(arr)
-            return ("leaf", len(leaves) - 1)
-
+    def _plan(self, ctx: _Ctx, call: Call, walk: _Walk):
+        """Walk a bitmap call: validate it, record its leaves as specs in
+        ``walk`` (``("row", field, view, row)``, ``("exists",)``,
+        ``("zeros",)``, ``("bsi", field, Condition)`` and the volatile
+        ``("trange", field, row, from, to)``, ``("union", call)``,
+        ``("const", columns)``, ``("limit", call)``) and return the
+        hashable node tree over them."""
         if call.name in ("Row", "Range"):
             bsi = self._bsi_leaf(ctx, call)
             if bsi is not None:
-                return leaf(self._bsi_condition(ctx, *bsi))
-            return leaf(self._row_words(ctx, call))
+                field, cond = bsi
+                if isinstance(cond.value, Call):
+                    raise ExecutionError(
+                        "BSI condition values must be literals")
+                walk.sigs[field.name] = bsi_signature(field.options)
+                return walk.leaf(("bsi", field.name, cond),
+                                 (field.name, field.bsi_view_name))
+            field, row_id = self._row_leaf(ctx, call)
+            rng = self._time_args(field, call)
+            if rng is not None:
+                return walk.volatile(("trange", field.name, row_id) + rng)
+            return walk.leaf(("row", field.name, VIEW_STANDARD, row_id),
+                             (field.name, VIEW_STANDARD))
         if call.name == "All":
-            return leaf(self._exists(ctx))
+            self._existence_field(ctx)
+            return walk.leaf(("exists",), (_EXISTS_DEP, VIEW_STANDARD))
         if call.name == "Shift":
             if len(call.children) != 1:
                 raise ExecutionError("Shift: exactly one child required")
             n = self._shift_n(call)
-            return ("shift", self._plan(ctx, call.children[0], leaves), n)
+            return ("shift", self._plan(ctx, call.children[0], walk), n)
         if call.name == "UnionRows":
-            return leaf(self._union_rows(ctx, call))
+            return walk.volatile(("union", call))
         if call.name == "ConstRow":
-            return leaf(self._const_row_cols(ctx,
-                                             self._const_row_arg(call)))
+            return walk.volatile(("const", self._const_row_arg(call)))
         if call.name == "Limit":
             # ordered by global column rank: the child's words, ranked
-            return leaf(self._limit_bitmap(ctx, call))
+            self._limit_args(call)
+            return walk.volatile(("limit", call))
 
         def exists_leaf() -> int:
-            leaves.append(self._exists(ctx))
-            return len(leaves) - 1
+            self._existence_field(ctx)
+            return walk.leaf(("exists",), (_EXISTS_DEP, VIEW_STANDARD))[1]
 
         out = fold_bool_call(
             call,
-            recurse=lambda c: self._plan(ctx, c, leaves),
-            zeros=lambda: leaf(self._zeros(ctx)),
+            recurse=lambda c: self._plan(ctx, c, walk),
+            zeros=lambda: walk.leaf(("zeros",)),
             exists=exists_leaf,
             combine=lambda op, kids: (op, tuple(k() for k in kids)),
             complement=lambda exists, child:
@@ -991,14 +1134,6 @@ class Executor:
             raise ExecutionError(
                 f"bitmap call {call.name!r} is not supported by this port")
         return out
-
-    def _row_words(self, ctx: _Ctx, call: Call) -> torch.Tensor:
-        field, row_id = self._row_leaf(ctx, call)
-        rng = self._time_args(field, call)
-        if rng is not None:
-            return self._time_row(ctx, field, row_id, *rng)
-        return self.planes.row_words(ctx.index.name, field, VIEW_STANDARD,
-                                     row_id, ctx.shards)
 
     def _bsi_leaf(self, ctx: _Ctx, call: Call):
         """``(field, Condition)`` of a ``Row``/``Range`` on a BSI field
@@ -1315,9 +1450,9 @@ class Executor:
             return fused_tree[0]
         if self.batcher is not None:
             # one batcher item: concurrent Counts share a launch and a read
-            leaves: list = []
-            node = self._plan(ctx, call.children[0], leaves)
-            return self.batcher.submit(node, leaves)
+            walk = _Walk()
+            node = self._plan(ctx, call.children[0], walk)
+            return self.batcher.submit(node, self._leaves(ctx, walk))
         per_shard = self._fused_bitmap(ctx, call.children[0], want="count")
         return int(kernels.shard_totals(per_shard))
 
@@ -1408,12 +1543,15 @@ class Executor:
         views = [v for v in views if v is not None]
         column = call.args.get("column")
         if column is not None:
-            # one column lies in one shard: a word probe per row there
+            # one column lies in one shard: one probe of its rows there
             col_id = self._col_id(ctx, column)
             shard, off = col_id // SHARD_WIDTH, col_id % SHARD_WIDTH
-            parts = [frag.rows_containing(off) for v in views
-                     if shard in ctx.shards
-                     and (frag := v.fragment(shard)) is not None]
+            parts = []
+            for v in views:
+                frag = v.fragment(shard) if shard in ctx.shards else None
+                if frag is not None:
+                    ids = np.asarray(frag.row_ids(), np.uint64)
+                    parts.append(ids[frag.rows_contain(ids, [off])[:, 0]])
         else:
             parts = [frag.row_ids_array() for v in views for s in ctx.shards
                      if (frag := v.fragment(s)) is not None]
@@ -1747,6 +1885,175 @@ class Executor:
             | {base - int(v) for v in np.nonzero(neg.cpu().numpy())[0]})
         return DistinctResult([field.from_stored(v) for v in stored])
 
+    # -- Options, IncludesColumn --------------------------------------------
+
+    def _execute_options(self, ctx: _Ctx, call: Call):
+        """``Options(call, shards=, excludeColumns=)``: the child over the
+        shards ``_execute_calls`` chose (:meth:`_shards_for`); with
+        ``excludeColumns=true`` a bitmap child runs but its columns are
+        never read to the host."""
+        if len(call.children) != 1:
+            raise ExecutionError("Options: exactly one child required")
+        if call.args.get("columnAttrs"):
+            raise ExecutionError("Options: columnAttrs= is not supported "
+                                 "by this port")
+        child = call.children[0]
+        if call.args.get("excludeColumns") and child.name in _BITMAP_CALLS:
+            self._bitmap_words(ctx, child)
+            return RowResult()
+        return self._call(ctx, child)
+
+    def _execute_includescolumn(self, ctx: _Ctx, call: Call) -> bool:
+        """``IncludesColumn(bitmap, column=c)``: the child evaluated over
+        the shard that owns ``c`` alone, one word read; False for a
+        column outside the queried shards."""
+        if len(call.children) != 1:
+            raise ExecutionError(
+                "IncludesColumn: exactly one bitmap child required")
+        column = call.args.get("column")
+        if column is None:
+            raise ExecutionError("IncludesColumn: missing column argument")
+        col_id = self._col_id(ctx, column)
+        shard, off = divmod(col_id, SHARD_WIDTH)
+        if shard not in ctx.shards:
+            return False
+        words = self._fused_bitmap(_Ctx(ctx.index, (shard,)),
+                                   call.children[0])
+        return bool((int(words[0, off >> 5]) >> (off & 31)) & 1)
+
+    # -- Extract ------------------------------------------------------------
+
+    # Extract materializes a value per selected column and field: a wide
+    # selection is narrowed with Limit(...)
+    MAX_EXTRACT_COLUMNS = 100_000
+
+    def _execute_extract(self, ctx: _Ctx, call: Call) -> ExtractResult:
+        """``Extract(bitmap, Rows(f), ...)``: per selected column, each
+        field's value.  The per-shard counts come first (one read of an
+        int32 per shard) so the cap holds before anything is
+        materialized, then only the non-empty shard rows are read."""
+        if ctx.index.keys:
+            raise ExecutionError(
+                f"index {ctx.index.name!r}: Extract on a keyed index is "
+                "not supported by this port")
+        if not call.children:
+            raise ExecutionError("Extract: bitmap filter child required")
+        flt, *field_calls = call.children
+        bad = [c.name for c in field_calls if c.name != "Rows"]
+        if bad:
+            raise ExecutionError(
+                f"Extract: field children must be Rows calls, got {bad}")
+        fields = []
+        for fc in field_calls:
+            fname = fc.args.get("_field") or fc.args.get("field")
+            if fname is None:
+                raise ExecutionError("Extract: Rows child missing field")
+            field = self._field(ctx, str(fname))
+            if field.options.keys:
+                raise ExecutionError(f"field {field.name!r}: keyed rows are "
+                                     "not supported by this port")
+            fields.append(field)
+        words = self._fused_bitmap(ctx, flt)
+        counts = kernels.count(words).cpu().numpy()
+        total = int(counts.sum(dtype=np.int64))
+        if total > self.MAX_EXTRACT_COLUMNS:
+            raise ExecutionError(
+                f"Extract: {total} columns selected; cap is "
+                f"{self.MAX_EXTRACT_COLUMNS} — narrow the filter or wrap "
+                "it in Limit(...)")
+        nz = np.flatnonzero(counts)
+        col_parts = [(si, ctx.shards[si], unpack_columns(row))
+                     for si, row in zip(nz.tolist(),
+                                        self._shard_rows(words, nz))]
+        columns = [int(s) * SHARD_WIDTH + int(o)
+                   for _, s, offs in col_parts for o in offs.tolist()]
+        per_field = [self._extract_field(ctx, f, col_parts) for f in fields]
+        return ExtractResult(
+            field_specs=[(f.name, f.options.type) for f in fields],
+            columns=[(c, [vals[i] for vals in per_field])
+                     for i, c in enumerate(columns)])
+
+    @staticmethod
+    def _shard_rows(words: torch.Tensor, slots: np.ndarray) -> np.ndarray:
+        """The words of shard slots ``slots`` of ``words`` as
+        uint32[len(slots), W]: one gather and one read, however many
+        shards ``words`` spans."""
+        if not len(slots):
+            return np.empty((0, words.shape[-1]), np.uint32)
+        return words.index_select(0, torch.from_numpy(slots).to(
+            words.device)).cpu().numpy().view(np.uint32)
+
+    def _extract_field(self, ctx: _Ctx, field: Field, col_parts) -> list:
+        """One field's cell for each selected column: BSI values off the
+        bit plane, set-like rows off the field's clean plane, or, when
+        that plane exceeds the budget, by one probe of the selected
+        columns in every row of each shard's fragment."""
+        if not col_parts:
+            return []
+        if field.options.type in BSI_TYPES:
+            return self._extract_bsi(ctx, field, col_parts)
+        opts = field.options
+        if self.planes.plane_bytes(field, VIEW_STANDARD,
+                                   ctx.shards) > self.planes.budget:
+            view = field.standard_view()
+            out: list = []
+            for _, s, offs in col_parts:
+                frag = view.fragment(s) if view is not None else None
+                ids = np.asarray(frag.row_ids() if frag is not None else (),
+                                 np.uint64)
+                held = (frag.rows_contain(ids, offs) if frag is not None
+                        else np.zeros((0, len(offs)), bool))
+                out.extend(self._extract_cell(opts, ids[held[:, j]])
+                           for j in range(len(offs)))
+            return out
+        ps = self.planes.field_plane(ctx.index.name, field, VIEW_STANDARD,
+                                     ctx.shards)
+        if ps.n_rows == 0:
+            return [self._extract_cell(opts, ps.row_ids)
+                    for _, _, offs in col_parts for _ in range(len(offs))]
+        bits = self._column_probe(ps.plane, col_parts)[:, :ps.n_rows]
+        return [self._extract_cell(opts, ps.row_ids[np.flatnonzero(b)])
+                for b in bits]
+
+    def _extract_bsi(self, ctx: _Ctx, field: Field, col_parts) -> list:
+        """BSI values of the selected columns off the clean bit plane,
+        decoded on the host."""
+        opts = field.options
+        depth = opts.bit_depth
+        ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
+        bits = self._column_probe(ps.plane, col_parts).astype(np.int64)
+        weights = np.int64(1) << np.arange(depth, dtype=np.int64)
+        mags = bits[:, bsik.OFFSET_ROW:bsik.OFFSET_ROW + depth] @ weights
+        np.negative(mags, out=mags, where=bits[:, bsik.SIGN_ROW] != 0)
+        return [field.from_stored(int(m) + opts.base) if e else None
+                for m, e in zip(mags.tolist(),
+                                bits[:, bsik.EXISTS_ROW].tolist())]
+
+    @staticmethod
+    def _column_probe(plane: torch.Tensor, col_parts) -> np.ndarray:
+        """Every selected column's bit in every row of ``plane``
+        int32[S, R, W] as int32[n_cols, R], in ``col_parts`` order: one
+        :func:`kernels.column_bits_grouped` over just the shards that
+        hold selected columns (one column per group, so nothing is
+        padded) and one read."""
+        offs = np.concatenate([o for _, _, o in col_parts]).astype(np.int64)
+        slots = np.repeat([si for si, _, _ in col_parts],
+                          [len(o) for _, _, o in col_parts])
+        dev = plane.device
+        return kernels.column_bits_grouped(
+            plane, torch.from_numpy(offs[:, None] >> 5).to(dev),
+            torch.from_numpy(offs[:, None] & 31).to(dev),
+            torch.from_numpy(slots).to(dev))[:, :, 0].cpu().numpy()
+
+    @staticmethod
+    def _extract_cell(opts, rows):
+        """One (column, field) cell from the column's sorted row ids."""
+        if opts.type == TYPE_BOOL:
+            return bool(rows[-1]) if len(rows) else None
+        if opts.type == TYPE_MUTEX:
+            return int(rows[0]) if len(rows) else None
+        return [int(r) for r in rows]
+
     # -- writes -------------------------------------------------------------
 
     def _execute_set(self, ctx: _Ctx, call: Call) -> bool:
@@ -1793,3 +2100,47 @@ class Executor:
             raise ExecutionError(f"Clear on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")
         return field.clear_bit(self._row_id(field, value), col_id)
+
+    def _execute_clearrow(self, ctx: _Ctx, call: Call) -> bool:
+        """``ClearRow(f=row)``: one whole-row clear per fragment of the
+        standard view, shard by shard (time views keep their copy, as in
+        the reference)."""
+        hit = _field_arg(call)
+        if hit is None:
+            raise ExecutionError("ClearRow: missing field=row argument")
+        fname, value = hit
+        field = self._field(ctx, fname)
+        row_id = self._row_id(field, value)
+        view = field.standard_view()
+        changed = 0
+        if view is not None:
+            for s in ctx.shards:
+                frag = view.fragment(s)
+                if frag is not None:
+                    changed += frag.clear_row(row_id)
+        return changed > 0
+
+    def _execute_store(self, ctx: _Ctx, call: Call) -> bool:
+        """``Store(bitmap, f=row)``: the row replaced wholesale by the
+        child's columns in every queried shard, one ``set_row`` each (no
+        mutex clears on a mutex field, as in the reference).  Only the
+        non-empty shard rows are read to the host; the others empty the
+        row."""
+        if len(call.children) != 1:
+            raise ExecutionError("Store: exactly one bitmap child required")
+        hit = _field_arg(call)
+        if hit is None:
+            raise ExecutionError("Store: missing field=row argument")
+        fname, value = hit
+        field = self._field(ctx, fname)
+        row_id = self._row_id(field, value)
+        words = self._fused_bitmap(ctx, call.children[0])
+        nz = np.flatnonzero(kernels.count(words).cpu().numpy())
+        host = dict(zip(nz.tolist(), self._shard_rows(words, nz)))
+        view = field.standard_view(create=True)
+        changed = False
+        for si, s in enumerate(ctx.shards):
+            cols = (unpack_columns(host[si]).astype(np.uint32) if si in host
+                    else np.empty(0, np.uint32))
+            changed |= view.fragment(s, create=True).set_row(row_id, cols)
+        return changed

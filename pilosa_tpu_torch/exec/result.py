@@ -152,6 +152,23 @@ class GroupCountsResult:
         return out
 
 
+@dataclass
+class ExtractResult:
+    """``Extract()`` result: per selected column, each requested field's
+    value (a set field's row list, a mutex field's row, a bool field's
+    flag, a BSI field's value; None where the column holds none)."""
+
+    field_specs: list[tuple[str, str]]  # (name, type)
+    columns: list  # (column id, [per-field value])
+
+    def to_json(self):
+        return {
+            "fields": [{"name": n, "type": t} for n, t in self.field_specs],
+            "columns": [{"column": int(c), "rows": vals}
+                        for c, vals in self.columns],
+        }
+
+
 def result_to_json(r):
     """Any handler result -> JSON-able value (bool/int pass through)."""
     if hasattr(r, "to_json"):

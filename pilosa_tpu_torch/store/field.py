@@ -1,12 +1,16 @@
 """Field: a typed attribute group within an index.
 
-The port serves ``set`` and ``time`` fields and the bit-sliced integer
-(BSI) types ``int``, ``decimal`` and ``timestamp``.  ``FieldOptions``
-carries every option of ``pilosa_tpu.store.field.FieldOptions`` in the
-same order, with the same derivation of ``base`` and ``bit_depth`` from
-``min``/``max``, so the ``.meta`` JSON round-trips between the two
-packages byte for byte; a field of another type opens (its options load)
-but takes no writes here.
+The port serves every field type of ``pilosa_tpu.store.field``: ``set``,
+``time``, ``mutex`` and ``bool`` (plain bit rows of the standard view)
+and the bit-sliced integer (BSI) types ``int``, ``decimal`` and
+``timestamp``.  ``FieldOptions`` carries every option of
+``pilosa_tpu.store.field.FieldOptions`` in the same order, with the same
+derivation of ``base`` and ``bit_depth`` from ``min``/``max``, so the
+``.meta`` JSON round-trips between the two packages byte for byte.
+
+A mutex field holds at most one row per column and a bool field is a
+mutex of rows 0 (false) and 1 (true): a write of (row, column) clears the
+column in every other row first (:meth:`Field._set_mutex`).
 
 A BSI field keeps one view, ``bsi_<name>``, whose rows are the layout of
 :mod:`pilosa_tpu_torch.engine.bsi`: the exists row, the sign row, then
@@ -38,16 +42,23 @@ from pilosa_tpu_torch.store.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 TYPE_SET = "set"
 TYPE_INT = "int"
 TYPE_TIME = "time"
+TYPE_MUTEX = "mutex"
+TYPE_BOOL = "bool"
 TYPE_DECIMAL = "decimal"
 TYPE_TIMESTAMP = "timestamp"
 FIELD_TYPES = ("set", "int", "time", "mutex", "bool", "decimal",
                "timestamp")
 BSI_TYPES = (TYPE_INT, TYPE_DECIMAL, TYPE_TIMESTAMP)
 # the types whose rows are plain bit rows of the standard view
-ROW_TYPES = (TYPE_SET, TYPE_TIME)
+ROW_TYPES = (TYPE_SET, TYPE_TIME, TYPE_MUTEX, TYPE_BOOL)
 
 _UNIX_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
 _TS_UNITS = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+
+
+class BoolRowError(ValueError):
+    """A bool field written a row other than 0 or 1 (the REST import
+    answers it with a 500, as the reference does)."""
 
 
 @dataclass
@@ -182,12 +193,18 @@ class Field:
     def import_bits(self, row_ids: np.ndarray, cols: np.ndarray,
                     timestamps: list | None = None) -> int:
         """Bulk (row, col[, timestamp]) writes: one batch per shard into
-        the standard view; on a time field each timestamped pair also
-        lands in every view of the quantum, one write per pair and view
-        as in the reference, so fragments and their journals match it.
-        Returns the number of newly set bits in the standard view."""
+        the standard view (through :meth:`_set_mutex` on a mutex or bool
+        field); on a time field each timestamped pair also lands in every
+        view of the quantum, one write per pair and view as in the
+        reference, so fragments and their journals match it.  Returns
+        the number of bits changed in the standard view."""
         self._require_rows("Set")
         opts = self.options
+        row_ids = np.asarray(row_ids, np.uint64)
+        if (opts.type == TYPE_BOOL and len(row_ids)
+                and int(row_ids.max()) > 1):
+            raise BoolRowError("bool field rows must be 0 or 1")
+        mutex = opts.type in (TYPE_MUTEX, TYPE_BOOL)
         stamped = (opts.type == TYPE_TIME and timestamps is not None
                    and bool(opts.time_quantum))
         view = self.standard_view(create=True)
@@ -195,6 +212,9 @@ class Field:
         for shard, rows, offs, idx in _by_shard(row_ids, cols,
                                                 "import_bits"):
             frag = view.fragment(shard, create=True)
+            if mutex:
+                changed += self._set_mutex(frag, rows, offs)
+                continue
             changed += frag.set_bits(rows, offs)
             if not stamped:
                 continue
@@ -226,6 +246,33 @@ class Field:
                     n = frag.clear_bits(rows, offs)
                     if v.name == VIEW_STANDARD:
                         changed += n
+        return changed
+
+    @staticmethod
+    def _set_mutex(frag, row_ids: np.ndarray, cols: np.ndarray) -> int:
+        """One shard's mutex batch, record for record the reference's
+        ``_set_mutex``: the last write of a column in the batch wins;
+        then, for each existing row in id order, one clear of the batch
+        columns it holds but is not being set in; then one set of the
+        batch.  Which columns the rows hold comes from one probe of just
+        those columns in every row (:meth:`Fragment.rows_contain`), not
+        each row's column list; a row's clears touch no other row, so the
+        probe taken before the first clear holds for every row.  Returns
+        the bits changed."""
+        _, last = np.unique(cols[::-1], return_index=True)
+        keep = len(cols) - 1 - last
+        row_ids = row_ids[keep].astype(np.uint64)
+        cols = cols[keep].astype(np.uint32)
+        changed = 0
+        with frag.lock:
+            existing = frag.row_ids()
+            held = frag.rows_contain(existing, cols)
+            for r, has in zip(existing, held):
+                to_clear = cols[has & (row_ids != r)]
+                if len(to_clear):
+                    changed += frag.clear_bits(
+                        np.full(len(to_clear), r, np.uint64), to_clear)
+            changed += frag.set_bits(row_ids, cols)
         return changed
 
     # -- BSI value writes ---------------------------------------------------

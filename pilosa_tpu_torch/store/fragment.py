@@ -191,15 +191,6 @@ class Fragment:
         """Live row ids, sorted."""
         return sorted(int(r) for r in self.row_ids_array())
 
-    def rows_containing(self, col: int) -> np.ndarray:
-        """Sorted row ids whose bit ``col`` (a shard offset) is set: the
-        ``Rows(column=)`` membership check, one word probe per row."""
-        word, bit = col >> 5, np.uint32(1) << np.uint32(col & 31)
-        with self.lock:
-            hits = [r for r in self.row_ids()
-                    if self.row_words(r, [word])[0] & bit]
-        return np.array(hits, np.uint64)
-
     @property
     def present(self) -> bool:
         return bool(self.rows) or bool(self.dense) or bool(self._snap_pending)
@@ -233,6 +224,35 @@ class Fragment:
             if word_idx is None:
                 return words
             return words[np.asarray(word_idx, np.intp)]
+
+    def rows_contain(self, row_ids, cols: np.ndarray) -> np.ndarray:
+        """bool[len(row_ids), len(cols)]: whether each row holds each
+        column offset, probed where the row lives (its packed words, a
+        search of its sorted offsets, or the snapshot's containers, all
+        snapshot rows in one probe), with nothing materialized."""
+        cols = np.asarray(cols, np.uint32)
+        out = np.zeros((len(row_ids), len(cols)), bool)
+        word = (cols >> np.uint32(5)).astype(np.intp)
+        bit = cols & np.uint32(31)
+        with self.lock:
+            snap = []
+            for i, r in enumerate(row_ids):
+                r = int(r)
+                words = self.dense.get(r)
+                if words is not None:
+                    out[i] = (words[word] >> bit) & _ONE != 0
+                elif r in self._snap_pending:
+                    snap.append(i)
+                else:
+                    offs = self.rows.get(r, _EMPTY)
+                    if len(offs):
+                        at = np.minimum(np.searchsorted(offs, cols),
+                                        len(offs) - 1)
+                        out[i] = offs[at] == cols
+            if snap:
+                out[snap] = self._snap_dir.contains(
+                    np.asarray(row_ids, np.uint64)[snap], cols)
+        return out
 
     def expand_rows_into(self, row_ids, out: np.ndarray, slots=None) -> None:
         """OR ``row_ids[i]``'s packed words into ``out[slots[i]]``
@@ -293,6 +313,36 @@ class Fragment:
                 self._note_delta(delta)
                 self._log(op, 0, np.concatenate(parts))
             return changed
+
+    def clear_row(self, row_id: int) -> int:
+        """Clear every bit of a row: one ``OP_CLEAR_ROW`` record (none when
+        the row is empty).  Returns the bits cleared."""
+        with self.lock:
+            changed = self._apply(OP_CLEAR_ROW, row_id, None)
+            if changed:
+                self._log(OP_CLEAR_ROW, row_id, None)
+            return changed
+
+    def set_row(self, row_id: int, cols: np.ndarray) -> bool:
+        """Replace a row's bits wholesale (``Store``): one ``OP_SET_ROW``
+        record carrying the row's whole new content, so a replay never
+        sees the row cleared without its new bits; nothing when the row
+        already holds exactly ``cols``.  Returns whether it changed."""
+        new = np.unique(np.asarray(cols, np.uint32))
+        if len(new) and int(new[-1]) >= SHARD_WIDTH:
+            raise ValueError(f"column {new[-1]} out of shard range")
+        with self.lock:
+            self._ensure_row(row_id)
+            words = self.dense.get(row_id)
+            before = (unpack_columns(words).astype(np.uint32)
+                      if words is not None
+                      else self.rows.get(row_id, _EMPTY))
+            if np.array_equal(before, new):
+                return False
+            positions = np.uint64(row_id) * _SW + new.astype(np.uint64)
+            self._apply(OP_SET_ROW, row_id, positions)
+            self._log(OP_SET_ROW, row_id, positions)
+            return True
 
     def import_roaring(self, blob: bytes, clear: bool = False) -> int:
         """Union (or clear) a roaring-encoded bit set (positions

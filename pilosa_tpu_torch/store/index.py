@@ -11,8 +11,7 @@ import time
 
 import numpy as np
 
-from pilosa_tpu_torch.store.field import (BSI_TYPES, ROW_TYPES, TYPE_SET,
-                                          Field, FieldOptions)
+from pilosa_tpu_torch.store.field import TYPE_SET, Field, FieldOptions
 
 EXISTENCE_FIELD = "_exists"
 
@@ -68,10 +67,6 @@ class Index:
             if name in self.fields:
                 raise ValueError(f"field {name!r} already exists")
             options = options or FieldOptions()
-            if (options.type not in ROW_TYPES
-                    and options.type not in BSI_TYPES):
-                raise ValueError(f"field type {options.type!r} is not "
-                                 "supported by this port")
             if not options.created_at:
                 options.created_at = time.time()
             f = Field(os.path.join(self.path, name), self.name, name,

@@ -327,6 +327,8 @@ class Directory:
         # per-row container lookup into searchsorted
         self._rows_sorted = bool(np.all(self._rows[1:] >= self._rows[:-1])) \
             if n > 1 else True
+        self._keys_sorted = bool(np.all(self.keys[1:] > self.keys[:-1])) \
+            if n > 1 else True
 
     def row_ids(self) -> np.ndarray:
         return np.unique(self._rows)
@@ -380,6 +382,49 @@ class Directory:
                 np.bitwise_or.at(
                     out, base_word + (lows >> 5),
                     (np.uint32(1) << (lows & 31).astype(np.uint32)))
+
+    def contains(self, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+        """bool[len(rows), len(cols)]: whether each row holds each column
+        offset (uint32), probed in the containers those columns fall in
+        with nothing expanded: one search of the container keys for every
+        (row, column), a bit test in a bitmap container's bytes, a search
+        in an array or run container."""
+        rows = np.asarray(rows, np.uint64)
+        cols = np.asarray(cols, np.uint32)
+        keys = ((rows[:, None] << np.uint64(self.ROW_SHIFT))
+                | (cols >> np.uint32(16)).astype(np.uint64)[None, :])
+        lows = np.broadcast_to((cols & np.uint32(0xFFFF)).astype(np.int64),
+                               keys.shape).ravel()
+        keys = keys.ravel()
+        out = np.zeros(len(keys), bool)
+        if not len(self.keys) or not len(keys):
+            return out.reshape(len(rows), len(cols))
+        order = (None if self._keys_sorted
+                 else np.argsort(self.keys, kind="stable"))
+        skeys = self.keys if order is None else self.keys[order]
+        at = np.minimum(np.searchsorted(skeys, keys), len(skeys) - 1)
+        found = skeys[at] == keys
+        ci = at if order is None else order[at]
+        types = self.types[ci]
+        bitmap = found & (types == TYPE_BITMAP)
+        u8 = np.frombuffer(self.buf, dtype=np.uint8)
+        byte = u8[np.where(bitmap, self.offsets[ci] + (lows >> 3), 0)]
+        out[bitmap] = ((byte >> (lows & 7)) & 1)[bitmap] != 0
+        for p in np.flatnonzero(found & ~bitmap).tolist():
+            i, low = int(ci[p]), int(lows[p])
+            off = int(self.offsets[i])
+            if int(types[p]) == TYPE_ARRAY:
+                vals = np.frombuffer(self.buf, dtype="<u2",
+                                     count=int(self.cards[i]), offset=off)
+                k = int(np.searchsorted(vals, low))
+                out[p] = k < len(vals) and int(vals[k]) == low
+                continue
+            nr, = struct.unpack_from("<H", self.buf, off)
+            pairs = np.frombuffer(self.buf, dtype="<u2", count=2 * nr,
+                                  offset=off + 2)
+            k = int(np.searchsorted(pairs[0::2], low, "right")) - 1
+            out[p] = k >= 0 and low <= int(pairs[2 * k + 1])
+        return out.reshape(len(rows), len(cols))
 
     def expand_row(self, row: int) -> np.ndarray:
         """One row's column offsets (sorted uint32) — touches only that

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
 the delta-overlay merge and fold, the word overlays, the whole-tree
 programs (Shift and Limit among them), the time-range scan over an
-overlay, the BSI and GroupBy paths and a small concurrent burst through
-the default executor on the card against the same calls on the CPU.
+overlay, the BSI and GroupBy paths, the Extract gathers, a mutex import
+over a resident plane and a small concurrent burst through the default
+executor on the card against the same calls on the CPU.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -473,6 +474,74 @@ def test_groupby_requests_equal_cpu(dev, tmp_path):
         for q in mix:
             assert api.query("i", q) == cpu.query("i", q), q
         assert api.executor.planes.builds == builds
+    finally:
+        api.executor.close()
+        holder.close()
+
+
+def test_column_bits_equal_cpu(dev):
+    """The Extract gathers on the card equal their CPU results, with the
+    sign bit set in the probed words."""
+    plane = _words(91, (7, 22, 1000), dev)
+    rng = np.random.default_rng(91)
+    word_idx = torch.from_numpy(rng.integers(0, 1000, 50))
+    bit_idx = torch.from_numpy(rng.integers(0, 32, 50))
+    word_idx[:2] = torch.tensor([0, 999])
+    bit_idx[:2] = 31
+    want = tk.column_bits(plane.cpu(), word_idx, bit_idx)
+    got = tk.column_bits(plane, word_idx.to(dev), bit_idx.to(dev))
+    assert torch.equal(got.cpu(), want)
+    gw = torch.from_numpy(rng.integers(0, 1000, (7, 40)))
+    gb = torch.from_numpy(rng.integers(0, 32, (7, 40)))
+    want = tk.column_bits_grouped(plane.cpu(), gw, gb, torch.arange(7))
+    got = tk.column_bits_grouped(plane, gw.to(dev), gb.to(dev),
+                                 torch.arange(7, device=dev))
+    assert torch.equal(got.cpu(), want)
+    shards = torch.tensor([6, 0, 3])
+    want = tk.column_bits_grouped(plane.cpu(), gw[:3], gb[:3], shards)
+    got = tk.column_bits_grouped(plane, gw[:3].to(dev), gb[:3].to(dev),
+                                 shards.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_mutex_import_over_resident_plane_equal_cpu(dev, tmp_path):
+    """A mutex import over a resident plane on the card: absorbed into
+    the overlay (no build), the old rows' Counts drop, and every answer
+    equals the "off" executor's on the CPU."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    rng = np.random.default_rng(77)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    idx.create_field("m", FieldOptions(type="mutex"))
+    idx.create_field("b", FieldOptions(type="bool"))
+    cols = rng.choice(6 << 20, 200000, replace=False).astype(np.uint64)
+    idx.field("m").import_bits(rng.integers(0, 16, len(cols)).astype(
+        np.uint64), cols)
+    idx.field("b").import_bits(rng.integers(0, 2, len(cols)).astype(
+        np.uint64), cols)
+    counts = "".join(f"Count(Row(m={r}))" for r in range(16))
+    mix = [counts, "Count(Row(m=1))Count(Row(m=6))",
+           "TopN(m, Row(b=true), n=5)", "GroupBy(Rows(m), Rows(b))",
+           "Extract(Limit(Row(m=3), limit=50), Rows(m), Rows(b))"]
+    cpu = API(holder, Executor(holder, device="cpu",
+                               count_batch_window="off", tree_fusion=False))
+    api = API(holder, Executor(holder, device=dev))
+    try:
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
+        planes = api.executor.planes
+        builds, absorbs = planes.builds, planes.delta_absorbs
+        before = api.query("i", counts)["results"]
+        api.import_bits("i", "m", row_ids=rng.integers(0, 16, 4096).tolist(),
+                        col_ids=cols[:4096].tolist())
+        after = api.query("i", counts)
+        assert (planes.builds, planes.delta_absorbs) == (builds,
+                                                         absorbs + 1)
+        assert after["results"] != before
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
     finally:
         api.executor.close()
         holder.close()

@@ -210,6 +210,33 @@ def test_writes_same_json(index_dir, tmp_path, monkeypatch, config):
         jh.close()
 
 
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_range_on_fields_named_like_options(tmp_path, monkeypatch, config):
+    """``Range(n=1)`` and ``Range(limit=1)`` name the fields ``n`` and
+    ``limit`` (only ``from`` and ``to`` are ``Range`` options), as in the
+    JAX package."""
+    root = str(tmp_path / "data")
+    h = JHolder(root).open()
+    idx = h.create_index("i")
+    for name in ("n", "limit"):
+        idx.create_field(name).import_bits(
+            np.array([1, 1, 2], np.uint64),
+            np.array([3, SW + 4, 5], np.uint64))
+    h.close()
+    jh, japi = _jax_api(root, monkeypatch, config)
+    th, tapi = _port_api(root, config)
+    try:
+        for pql in ("Count(Range(n=1))", "Count(Range(limit=1))",
+                    "Range(limit=2)", "Count(Range(n=1))Count(Range(n=2))"):
+            want = japi.query("i", pql)["results"]
+            assert tapi.query("i", pql) == {"results": want}, pql
+        assert want == [2, 1]
+    finally:
+        tapi.executor.close()
+        th.close()
+        jh.close()
+
+
 def test_keyed_calls_refused(tmp_path):
     """Keys are not ported: TopN on a keyed field, a bitmap result on a
     keyed index and import-roaring into either raise; a Count is

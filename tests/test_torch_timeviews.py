@@ -196,8 +196,13 @@ def test_time_field_options_and_refusals(tmp_path):
         idx.create_field("bad", TFO(type="time", time_quantum="YD"))
     f = idx.create_field("t", TFO(type="time", time_quantum="ymd"))
     assert f.options.time_quantum == "YMD"
-    with pytest.raises(ValueError, match="not supported by this port"):
-        idx.create_field("m", TFO(type="mutex"))
+    with pytest.raises(ValueError, match="invalid field type"):
+        idx.create_field("x", TFO(type="ranked"))
+    # a mutex field takes no time views
+    m = idx.create_field("m", TFO(type="mutex", time_quantum="YMD"))
+    m.import_bits(np.array([1], np.uint64), np.array([5], np.uint64),
+                  [datetime(2021, 2, 3)])
+    assert sorted(m.views) == ["standard"]
     h.close()
 
 
@@ -448,9 +453,10 @@ def test_rebuilds(fresh, write):
     _both(japi, tapi, WINDOW)
     builds = planes.builds
     if write == "whole-row clear":
-        # the journal entry a replayed op-log ClearRow leaves (the port
-        # has no ClearRow call yet): both packages clear row 1's words of
-        # one day's fragment, the port as a whole-row op
+        # the journal entry a replayed op-log ClearRow leaves in a time
+        # view (the ClearRow call clears the standard view only): both
+        # packages clear row 1's words of one day's fragment, the port as
+        # a whole-row op
         from pilosa_tpu_torch.store.oplog import OP_CLEAR_ROW
         frag = tapi.holder.index("i").field("t").view(
             "standard_20210128").fragment(0)

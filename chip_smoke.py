@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Nine phases; any failure raises and the exit code is non-zero:
+Ten phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -103,7 +103,28 @@ Nine phases; any failure raises and the exit code is non-zero:
    ``ClearRow`` (a fold), each followed by checked reads, with their
    latencies beside phase 4's import.  Launch counters are reset at the
    start and read at the end.
-9. Print the ``kernels`` JSON line, the card's name and power limit, and
+9. Keys and attributes: (a) a keyed set field ``seg`` on ``bench`` whose
+   31 row keys ``seg-01`` .. ``seg-31`` (ids 1-31) hold f's rows 1-31,
+   written as 954 fragment snapshots and a key store (an
+   int32[954, 32, 32768] plane, 4.0 GB): keyed Counts, a keyed Count x g,
+   a filtered keyed TopN, ``Rows(like=)``, a keyed GroupBy and an unknown
+   key through the default executor (fast lane) and the "off" one, then
+   ``SetRowAttrs``, a row result's ``rowAttrs`` (and
+   ``excludeRowAttrs=``) and TopN ``attrName=``; each device request's
+   device ms beside one read of what it needs; a burst of 32 clients x 4
+   passes before the phase's profiles and one after them.
+   (b) ``bench/config15_keyed.py``'s end-to-end shape, not cut: keyed
+   index ``k`` with 1,000,000 column keys and 10,000 row keys imported
+   over REST ``/import`` in 10 batches of 100,000 pairs (an
+   int32[1, 16384, 32768] plane), a keyed Count, TopN (10,000 tied rows),
+   ``Rows(like=)``, Extract and IncludesColumn through both
+   configurations with their device ms, a keyed ``Set`` creating a
+   column key and a row key, ``SetColumnAttrs`` and
+   ``Options(columnAttrs=)``, and a 100,000-value keyed ``importValue``
+   followed by a Sum.  The phase must launch ``count``, ``row_counts``
+   and ``selected_row_counts``.  Launch counters are reset at the start
+   and read at the end.
+10. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -391,6 +412,9 @@ def make_index(data_dir: str, shards: int, seed: int):
                 fh.write(blob)
     log(f"index written: {2 * shards} fragment snapshots, "
         f"{total / 1e9:.2f} GB in {time.perf_counter() - t0:.1f}s")
+    # phase 9's keyed field holds f's rows as written here (phase 4 and
+    # 6's imports reach f only); written while the page cache is clean
+    seg_oracle = make_keys(data_dir, f, g, shards)
 
     t0 = time.perf_counter()
     counts = np.zeros(ROWS, np.int64)
@@ -429,6 +453,7 @@ def make_index(data_dir: str, shards: int, seed: int):
     oracle["mutex"] = make_mutex(data_dir, f, shards, seed, oracle["bsi"])
     # phase 7's index of timestamped events
     oracle["events"] = make_events(data_dir, shards, seed)
+    oracle["keys"] = seg_oracle
     return oracle
 
 
@@ -727,25 +752,39 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
                           _changed_bits(final[pick], new))}
 
 
-def device_times(run) -> tuple[list, float]:
+def device_times(run, warmup: int = 0) -> tuple[list, float]:
     """([(kernel or copy, device ms)], wall ms) over one ``run()``, from a
-    torch.profiler trace of the card, largest first."""
+    torch.profiler trace of the card, largest first.  With ``warmup``,
+    ``run()`` first runs that many times as the profiler's warm-up steps,
+    whose events are discarded, and only the last run is read: the device
+    activity of a session's first moments can go missing (phases 8 and 9
+    at 954 shards)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    steps = (schedule(wait=0, warmup=warmup, active=1, repeat=1)
+             if warmup else None)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=steps) as prof:
+        for _ in range(warmup):
+            run()
+            prof.step()
+        torch.cuda.synchronize()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+        if warmup:
+            prof.step()
     # device-side entries only (kernels, copies): the CPU ops that
-    # launched them report the same time again
+    # launched them report the same time again, and so do the schedule's
+    # ProfilerStep ranges
     rows = [(e.key, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda kv: -kv[1])
     return rows, wall
 
@@ -762,11 +801,30 @@ def _short(name: str) -> str:
     return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name[:40]
 
 
-def device_busy_share(run) -> tuple[float, float, str]:
+def device_busy_share(run, warmup: int = 0) -> tuple[float, float, str]:
     """(device ms, wall ms, top device consumers) over one ``run()``."""
-    rows, wall = device_times(run)
+    rows, wall = device_times(run, warmup)
     top = ", ".join(f"{_short(k)} {v:.3f} ms" for k, v in rows[:6])
     return sum(v for _, v in rows), wall, top
+
+
+TRACE_WARMUP = 2    # profiler warm-up runs before the one that is read
+
+
+def traced(run, what: str) -> tuple[float, float, str]:
+    """:func:`device_busy_share` of ``run()`` after ``TRACE_WARMUP``
+    warm-up runs in the same profiler session.  At 954 shards a plain
+    trace of a few ~3 ms requests in phases 8 and 9 came back without
+    device entries in most runs, or with only part of them; the warm-up
+    steps are the profiler's own remedy.  A trace that still holds no
+    device entries is taken again, and a second empty one fails."""
+    for attempt in range(2):
+        dev_ms, wall_ms, top = device_busy_share(run, TRACE_WARMUP)
+        if dev_ms > 0:
+            return dev_ms, wall_ms, top
+        log(f"{what}: the trace held no device entries; tracing again")
+    raise AssertionError(f"{what}: two traces held no device entries; its "
+                         "device time was not measured")
 
 
 def _topn(totals: np.ndarray, n: int) -> list:
@@ -996,10 +1054,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 8 over one holder; returns the launch counts of each
+    """Phases 2 to 9 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
     "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
-    "groupby", "events" and "mutex"."""
+    "groupby", "events", "mutex" and "keys"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1142,6 +1200,11 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
                          device, (_median_ms(client.lat["REST import"])
                                   if "REST import" in client.lat else None))
         log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        log("== phase 9: keys and attributes ==")
+        kp = keys_phase(client, holder, planes, oracle["keys"], cuda, device,
+                        clients)
+        log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1164,7 +1227,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb, **ev, **mx}
+            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -2388,20 +2451,9 @@ def mutex_phase(client, holder, planes, mxo: dict, cuda: bool, device,
                  "the m and b rows planes"),
                 (seq[5], 2 * lane, "f row 0 and the Limit's bitmap")):
             b_ms = bound(nbytes, 0)[0]
-            for attempt in range(2):
-                dev_ms, wall_ms, top = device_busy_share(
-                    lambda: client.ask(q, expect[q], reps=3,
-                                       tag="profiled"))
-                if dev_ms > 0:
-                    break
-                if attempt:
-                    raise AssertionError(
-                        f"mutex {names[q]}: two traces held no device "
-                        "entries; its device time was not measured")
-                # a trace that came back without device entries (seen
-                # once, on the phase's first profile): trace again
-                log(f"mutex {names[q]}: the trace held no device "
-                    "entries; tracing again")
+            dev_ms, wall_ms, top = traced(
+                lambda: client.ask(q, expect[q], reps=3, tag="profiled"),
+                f"mutex {names[q]}")
             log(f"mutex device ms {names[q]}: {dev_ms / 3:.3f} ms per "
                 f"request (bound {b_ms:.3f} ms = one read of {what}, "
                 f"{nbytes / 1e9:.3f} GB; {dev_ms / 3 / b_ms:.1f}x), wall "
@@ -2485,6 +2537,366 @@ def mutex_phase(client, holder, planes, mxo: dict, cuda: bool, device,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9: keys and attributes
+# ---------------------------------------------------------------------------
+
+# (a) keyed row field ``seg`` on ``bench``: named segments over integer
+# entity ids.  Keys are created in order, so seg-01 .. seg-31 are ids 1-31
+# (id 0 never maps to a key) and id j holds f's row j.
+SEG_KEYS = [f"seg-{r:02d}" for r in range(1, ROWS)]
+KQ_COUNT = 'Count(Row(seg="seg-05"))'
+KQ_INTER = 'Count(Intersect(Row(seg="seg-05"), Row(g=1)))'
+KQ_TOPN = "TopN(seg, Row(g=0), n=5)"
+KQ_LIKE = 'Rows(seg, like="seg-0%")'
+KQ_GB = "GroupBy(Rows(seg, limit=4), Rows(g))"
+KQ_MISS = 'Count(Row(seg="seg-99"))'
+KQ_SETATTR = 'SetRowAttrs(seg, "seg-07", tier="gold")'
+KQ_ROW = 'Options(Row(seg="seg-07"), excludeColumns=true)'
+KQ_ROW_X = ('Options(Row(seg="seg-07", excludeRowAttrs=true), '
+            "excludeColumns=true)")
+KQ_ATTR_TOPN = 'TopN(seg, n=5, attrName="tier", attrValue="gold")'
+KQ_SEQ = (KQ_COUNT, KQ_INTER, KQ_TOPN, KQ_LIKE, KQ_GB, KQ_MISS)
+KQ_MIX = (KQ_COUNT, KQ_INTER, KQ_TOPN, KQ_GB)   # the burst's requests
+KQ_NAMES = dict(zip(KQ_SEQ, ("keyed Count", "keyed Count x g",
+                             "keyed filtered TopN", "Rows like",
+                             "keyed GroupBy", "unknown key")))
+KEYS_PASSES = 4
+# (b) bench/config15_keyed.py's end-to-end shape, not cut: keyed index
+# ``k``, keyed field ``f``, column i has key user-%09d and row key
+# seg-%05d of i % 10,000, imported over REST in 10 batches of 100,000
+K_COLS, K_ROWS, K_BATCH = 1_000_000, 10_000, 100_000
+K_VALUES = 100_000             # the keyed importValue into ``spend``
+K_ROW = 42                     # the row the requests read
+KC_COUNT = f'Count(Row(f="seg-{K_ROW:05d}"))'
+KC_TOPN = "TopN(f, n=5)"
+KC_LIKE = 'Rows(f, like="seg-0000%")'
+KC_EXTRACT = f'Extract(Limit(Row(f="seg-{K_ROW:05d}"), limit=100), Rows(f))'
+KC_INCL = (f'IncludesColumn(Row(f="seg-{K_ROW:05d}"), '
+           f'column="user-{K_ROW:09d}")')
+KC_SEQ = (KC_COUNT, KC_TOPN, KC_LIKE, KC_EXTRACT, KC_INCL)
+KC_NAMES = dict(zip(KC_SEQ, ("k Count", "k TopN", "k Rows like",
+                             "k Extract", "k IncludesColumn")))
+
+
+def _seg_shard(data_dir: str, s: int, f: np.ndarray, g: np.ndarray) -> dict:
+    """Shard ``s`` of ``seg`` (f's rows 1-31 under ids 1-31) written as a
+    fragment snapshot, and its part of the oracle."""
+    from pilosa_tpu_torch.store import roaring
+    fs, gs = f[s], g[s]
+    with open(os.path.join(data_dir, "bench", "seg", "views", "standard",
+                           "fragments", str(s)), "wb") as fh:
+        fh.write(roaring.serialize_dense(
+            fs[1:], np.arange(1, ROWS, dtype=np.uint64)))
+    return {"counts": _popcounts(fs[1:]),
+            "inter": int(_popcounts(fs[5] & gs[1])),
+            "topn": _popcounts(fs[1:] & gs[0][None, :]),
+            "gb": _popcounts(fs[1:5, None, :] & gs[None, :, :])}
+
+
+def make_keys(data_dir: str, f: np.ndarray, g: np.ndarray,
+              shards: int) -> dict:
+    """Write the keyed field ``seg`` of ``bench`` (``shards`` fragment
+    snapshots and its key store) from ``f`` as written, and return phase
+    9's oracle."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.store.translate import TranslateStore
+
+    t0 = time.perf_counter()
+    h = Holder(data_dir).open()
+    h.index("bench").create_field("seg", FieldOptions(keys=True))
+    h.close()
+    ts = TranslateStore(data_dir)
+    ids = ts.rows("bench", "seg").translate(SEG_KEYS, create=True)
+    ts.close()
+    if ids != list(range(1, ROWS)):
+        raise AssertionError(f"seg's keys got ids {ids}")
+    os.makedirs(os.path.join(data_dir, "bench", "seg", "views", "standard",
+                             "fragments"), exist_ok=True)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        parts = list(pool.map(lambda s: _seg_shard(data_dir, s, f, g),
+                              range(shards)))
+    total = {k: sum(p[k] for p in parts)
+             for k in ("counts", "inter", "topn", "gb")}
+    counts, top, gbc = total["counts"], total["topn"], total["gb"]
+    order = np.argsort(-top, kind="stable")[:5]
+    expect = {
+        KQ_COUNT: [int(counts[4])],
+        KQ_INTER: [total["inter"]],
+        KQ_TOPN: [[{"key": SEG_KEYS[i], "count": int(top[i])}
+                   for i in order if top[i] > 0]],
+        KQ_LIKE: [{"keys": SEG_KEYS[:9]}],
+        KQ_GB: [[{"group": [{"field": "seg", "rowKey": SEG_KEYS[i]},
+                            {"field": "g", "rowID": r}],
+                  "count": int(gbc[i, r])}
+                 for i in range(4) for r in range(4) if gbc[i, r]]],
+        KQ_MISS: [0],
+        KQ_SETATTR: [None],
+        KQ_ROW: [{"columns": [], "rowAttrs": {"tier": "gold"}}],
+        KQ_ROW_X: [{"columns": []}],
+        KQ_ATTR_TOPN: [[{"key": "seg-07", "count": int(counts[6])}]],
+    }
+    log(f"keyed field seg: 31 keys, {shards} fragment snapshots and the "
+        f"oracle in {time.perf_counter() - t0:.1f}s")
+    return {"expect": expect}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, files in os.walk(path) for n in files)
+
+
+def _keyed_device_ms(client, reqs, expect: dict, names: dict, nbytes: dict,
+                     index: str) -> None:
+    """Each request's device ms under the profiler (three requests per
+    trace) beside one read of what it needs at the HBM rate."""
+    for q in reqs:
+        b_ms = bound(nbytes[q], 0)[0]
+        dev_ms, wall_ms, top = traced(
+            lambda: client.ask(q, expect[q], reps=3, tag="profiled",
+                               index=index), names[q])
+        log(f"keys device ms {names[q]}: {dev_ms / 3:.4f} ms per request "
+            f"(bound {b_ms:.4f} ms = one read of {nbytes[q] / 1e9:.4f} GB; "
+            f"{dev_ms / 3 / b_ms:.1f}x), wall {wall_ms / 3:.3f} ms; by "
+            f"kernel: {top}")
+
+
+def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
+               clients: int = CLIENTS, passes: int = KEYS_PASSES,
+               k_cols: int = K_COLS, k_rows: int = K_ROWS,
+               k_batch: int = K_BATCH, k_values: int = K_VALUES) -> dict:
+    """Phase 9: (a) the keyed field ``seg`` over the 1B-column index
+    through the default executor (fast lane) and the "off" one, every
+    answer against the oracle, with row attributes and an unknown key; the
+    device ms of the device requests beside one read of what each needs;
+    a burst of ``clients`` x ``passes`` before the profiles and (on the
+    card) one after them.  (b) config15's keyed index
+    ``k``: ``k_cols`` column keys and ``k_rows`` row keys imported over
+    REST in batches of ``k_batch``, its requests through both
+    configurations, a keyed ``Set``, column attributes and a keyed
+    ``importValue``.  The launch counters are reset when the phase starts
+    and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    t0 = time.perf_counter()
+    if cuda:
+        log(f"phase 9 on {card_line()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    api = client.api
+    ex = api.executor
+    expect = dict(keyo["expect"])
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    seg = index.field("seg")
+    keys = ex.translate.rows("bench", "seg")
+    b0 = planes.builds
+    ps = planes.field_plane("bench", seg, "standard", shards)
+    if planes.builds != b0 + 1:
+        raise AssertionError("the seg plane did not build")
+    log(f"seg plane int32{list(ps.plane.shape)} "
+        f"({planes.last_build_bytes / 1e9:.3f} GB) built in "
+        f"{planes.last_build_seconds:.2f} s")
+
+    # the "off" configuration shares the plane cache and the key stores
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   delta_compact_fraction=COMPACT_FRACTION,
+                   count_batch_window="off", tree_fusion=False,
+                   translate=ex.translate)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    # each configuration's first request is timed apart from its median:
+    # it may build what the request needs (the plane, the "off" path's
+    # rows from every fragment)
+    for q in KQ_SEQ:
+        client.ask(q, expect[q], tag=f"keys {KQ_NAMES[q]}, first")
+        offc.ask(q, expect[q], tag=f"keys off {KQ_NAMES[q]}, first")
+        log(f"keys {KQ_NAMES[q]} first request: "
+            f"{client.lat[f'keys {KQ_NAMES[q]}, first'][0] * 1e3:.1f} ms "
+            f"[default], "
+            f"{offc.lat[f'keys off {KQ_NAMES[q]}, first'][0] * 1e3:.1f} ms "
+            f"[off]")
+    hits0 = ex.serving_stats()["fastLaneHits"]
+    for q in KQ_SEQ:
+        client.ask(q, expect[q], reps=3, tag=f"keys {KQ_NAMES[q]}")
+        offc.ask(q, expect[q], reps=2, tag=f"keys off {KQ_NAMES[q]}")
+    if ex.serving_stats()["fastLaneHits"] <= hits0:
+        raise AssertionError("phase 9's requests never took the fast lane")
+    if len(keys) != len(SEG_KEYS):
+        raise AssertionError(f"a read created a key: seg holds {len(keys)}")
+    for q in (KQ_SETATTR, KQ_ROW, KQ_ROW_X, KQ_ATTR_TOPN):
+        client.ask(q, expect[q], tag=f"keys {q[:30]}")
+    for q in (KQ_ROW, KQ_ROW_X, KQ_ATTR_TOPN):
+        offc.ask(q, expect[q], tag=f"keys off {q[:30]}")
+    for q in KQ_SEQ:
+        log(f"latency keys {KQ_NAMES[q]}: median "
+            f"{_median_ms(client.lat[f'keys {KQ_NAMES[q]}']):.2f} ms "
+            f"[default], "
+            f"{_median_ms(offc.lat[f'keys off {KQ_NAMES[q]}']):.2f} ms "
+            f"[off]")
+
+    def keyed_burst(when: str) -> None:
+        b0 = ex.serving_stats()
+        run = burst(api, expect, clients, passes, KQ_MIX, KQ_NAMES)
+        b1 = ex.serving_stats()
+        n = run["requests"]
+        windows = b1["windows"] - b0["windows"]
+        items = b1["items"] - b0["items"]
+        log(f"[keys] {clients} clients x {passes} passes {when}: {n} "
+            f"requests in {run['wall']:.3f} s = {n / run['wall']:.1f} "
+            f"requests/s; {windows} windows, {items} items "
+            f"({items / max(1, windows):.2f} per window)")
+        for q in KQ_MIX:
+            ts = run["lat"][q]
+            log(f"[keys]   {KQ_NAMES[q]}: p50 {_pct_ms(ts, 0.5):.2f} ms, "
+                f"p90 {_pct_ms(ts, 0.9):.2f} ms, p99 "
+                f"{_pct_ms(ts, 0.99):.2f} ms, max {max(ts) * 1e3:.2f} ms "
+                f"over {len(ts)}")
+
+    # the burst runs before phase 9's profiles and again after them, so
+    # that the profiler's sessions and the batcher's window are told apart
+    t1 = time.perf_counter()
+    keyed_burst("before the phase's profiles")
+    t_burst = time.perf_counter() - t1
+    if cuda:
+        lane = len(shards) * WORDS * 4
+        _keyed_device_ms(client, (KQ_COUNT, KQ_INTER, KQ_TOPN, KQ_GB),
+                         expect, KQ_NAMES,
+                         {KQ_COUNT: lane, KQ_INTER: 2 * lane,
+                          KQ_TOPN: ROWS * lane + lane, KQ_GB: 8 * lane},
+                         "bench")
+        keyed_burst("after them")
+        dev_ms, wall_ms, top = traced(
+            lambda: burst(api, expect, clients, 1, KQ_MIX, KQ_NAMES),
+            "the keyed burst")
+        log(f"[keys]   one burst of {clients} x 1 under the profiler: "
+            f"device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall = "
+            f"{dev_ms / wall_ms:.1%}; by kernel: {top}")
+    log(f"phase 9 (a) wall {time.perf_counter() - t0:.1f}s (the first "
+        f"burst {t_burst:.1f}s)")
+
+    # (b) config15's keyed index over REST
+    t2 = time.perf_counter()
+    client.post("/index/k", json.dumps({"options": {"keys": True}}).encode(),
+                "create k")
+    client.post("/index/k/field/f",
+                json.dumps({"options": {"keys": True}}).encode(), "create f")
+    client.post("/index/k/field/spend", json.dumps({"options": {
+        "type": "int", "min": 0, "max": 1000}}).encode(), "create spend")
+    batch_s = []
+    for lo in range(0, k_cols, k_batch):
+        hi = min(k_cols, lo + k_batch)
+        body = json.dumps({
+            "rowKeys": [f"seg-{i % k_rows:05d}" for i in range(lo, hi)],
+            "columnKeys": [f"user-{i:09d}" for i in range(lo, hi)]}).encode()
+        t = time.perf_counter()
+        got = client.post("/index/k/field/f/import", body, "REST keyed import")
+        batch_s.append(time.perf_counter() - t)
+        if got != {"changed": hi - lo}:
+            raise AssertionError(f"keyed import: got {got}, want "
+                                 f"{hi - lo} changed")
+    cols_store = ex.translate.columns("k")
+    rows_store = ex.translate.rows("k", "f")
+    kdir = os.path.join(holder.path, "k", "_keys")
+    log(f"keyed import: {k_cols} pairs in {len(batch_s)} REST batches of "
+        f"{k_batch}: per batch first {batch_s[0] * 1e3:.1f} ms, median "
+        f"{_median_ms(batch_s):.1f} ms, max {max(batch_s) * 1e3:.1f} ms, "
+        f"total {sum(batch_s):.2f} s = {k_cols / sum(batch_s):.0f} pairs/s; "
+        f"key stores: {len(cols_store)} column keys, {len(rows_store)} row "
+        f"keys, {_dir_bytes(kdir) / 1e6:.1f} MB in k/_keys")
+    if (len(cols_store), len(rows_store)) != (k_cols, k_rows):
+        raise AssertionError("the key stores hold "
+                             f"{len(cols_store)} / {len(rows_store)} keys")
+    per_row = k_cols // k_rows
+    sel = [f"user-{i:09d}" for i in range(K_ROW, k_cols, k_rows)][:100]
+    kexp = {
+        KC_COUNT: [per_row],
+        KC_TOPN: [[{"key": f"seg-{i:05d}", "count": per_row}
+                   for i in range(5)]],
+        KC_LIKE: [{"keys": [f"seg-{i:05d}" for i in range(min(10, k_rows))]}],
+        KC_EXTRACT: [{"fields": [{"name": "f", "type": "set"}],
+                      "columns": [{"key": c, "rows": [[f"seg-{K_ROW:05d}"]]}
+                                  for c in sel]}],
+        KC_INCL: [True],
+    }
+    for q in KC_SEQ:
+        client.ask(q, kexp[q], tag=f"{KC_NAMES[q]}, first", index="k")
+        offc.ask(q, kexp[q], tag=f"off {KC_NAMES[q]}, first", index="k")
+        log(f"{KC_NAMES[q]} first request: "
+            f"{client.lat[f'{KC_NAMES[q]}, first'][0] * 1e3:.1f} ms "
+            f"[default], "
+            f"{offc.lat[f'off {KC_NAMES[q]}, first'][0] * 1e3:.1f} ms [off]")
+    kps = planes.field_plane_delta("k", holder.index("k").field("f"),
+                                   "standard", (0,))
+    log(f"k plane int32{list(kps.plane.shape)} "
+        f"({kps.plane.numel() * 4 / 1e9:.3f} GB, {kps.n_rows} live rows)")
+    for q in KC_SEQ:
+        client.ask(q, kexp[q], reps=3, tag=KC_NAMES[q], index="k")
+        offc.ask(q, kexp[q], reps=2, tag=f"off {KC_NAMES[q]}", index="k")
+    for q in KC_SEQ:
+        log(f"latency {KC_NAMES[q]}: median "
+            f"{_median_ms(client.lat[KC_NAMES[q]]):.2f} ms [default], "
+            f"{_median_ms(offc.lat[f'off {KC_NAMES[q]}']):.2f} ms [off]")
+    if cuda:
+        klane = WORDS * 4
+        _keyed_device_ms(client, (KC_COUNT, KC_TOPN, KC_EXTRACT), kexp,
+                         KC_NAMES,
+                         {KC_COUNT: klane, KC_TOPN: k_rows * klane,
+                          KC_EXTRACT: klane + k_rows * 100 * 4}, "k")
+    # a keyed Set that creates a column key and a row key, column
+    # attributes, and a keyed importValue
+    writes = [
+        ('Set("user-new", f="seg-new")', [True]),
+        ('Count(Row(f="seg-new"))', [1]),
+        (KC_COUNT, [per_row]),
+        (f'SetColumnAttrs("user-{K_ROW:09d}", vip=true)', [None]),
+        # the reference attaches column attributes by column id, and a
+        # keyed index's row result holds keys: the map is empty
+        (f'Options(Row(f="seg-{K_ROW:05d}"), columnAttrs=true)',
+         [{"keys": sel, "attrs": {}}]),
+    ]
+    for i, (q, want) in enumerate(writes):
+        client.ask(q, want, tag=f"k write {i + 1}", index="k")
+    if (len(cols_store), len(rows_store)) != (k_cols + 1, k_rows + 1):
+        raise AssertionError("the keyed Set did not create its two keys")
+    vals = np.arange(k_values) % 1001
+    changed = int(k_values + np.bitwise_count(vals).sum())
+    got = client.post("/index/k/field/spend/importValue", json.dumps({
+        "columnKeys": [f"user-{i:09d}" for i in range(k_values)],
+        "values": vals.tolist()}).encode(), "REST keyed importValue")
+    if got != {"changed": changed}:
+        raise AssertionError(f"keyed importValue: got {got}, want "
+                             f"{changed}")
+    client.ask("Sum(field=spend)", [{"value": int(vals.sum()),
+                                     "count": k_values}],
+               tag="k Sum", index="k")
+    offc.ask("Sum(field=spend)", [{"value": int(vals.sum()),
+                                   "count": k_values}],
+             tag="off k Sum", index="k")
+    if (len(cols_store), len(rows_store)) != (k_cols + 1, k_rows + 1):
+        raise AssertionError("the keyed importValue created keys")
+    for tag in ("k write 1", "k write 2", "REST keyed importValue",
+                "k Sum"):
+        log(f"latency {tag!r}: {client.lat[tag][0] * 1e3:.2f} ms")
+    off.close()   # the key stores stay open: the default executor owns them
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"phase 9 (b) wall {time.perf_counter() - t2:.1f}s; launches in "
+        f"phase 9: {json.dumps(launched)}; peak device memory in the phase "
+        f"{peak / 1e9:.2f} GB; phase 9 wall {time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("count", "row_counts", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 9 never launched {k}")
+    return {"keys": launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -2522,7 +2934,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 9: output ==")
+    log("== phase 10: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -85,34 +85,27 @@ class API:
 
     # -- imports ------------------------------------------------------------
 
+    def close(self) -> None:
+        """Close the executor's key stores (they reopen on next use)."""
+        self.executor.translate.close()
+
     def import_bits(self, index: str, field: str, *, row_ids=None,
                     col_ids=None, row_keys=None, col_keys=None,
                     timestamps=None, clear: bool = False,
                     op_id: str | None = None) -> int:
-        """Bulk (row, column) import in ID form, set or ``clear``;
-        ``timestamps`` (one per pair: an ISO string, epoch seconds, or
-        None / 0 / "" for none) also write a time field's quantum views.
-        Returns the bits changed.  The next Count or TopN over a resident
-        plane absorbs the batch into its delta overlay."""
+        """Bulk (row, column) import, set or ``clear``: ids, or keys of a
+        keyed field (``row_keys``) and index (``col_keys``), created as
+        they arrive, rows first; ``timestamps`` (one per pair: an ISO
+        string, epoch seconds, or None / 0 / "" for none) also write a
+        time field's quantum views.  Returns the bits changed.  The next
+        Count or TopN over a resident plane absorbs the batch into its
+        delta overlay."""
         idx = self._index(index)
         f = self._field(idx, field)
-        for what, arg in (("row keys", row_keys), ("column keys", col_keys),
-                          ("op ids", op_id)):
-            if arg is not None:
-                raise ApiError(f"import: {what} are not supported by this "
-                               "port")
-        if row_ids is None:
-            raise ApiError("missing rowIDs")
-        if col_ids is None:
-            raise ApiError("missing columnIDs")
-        if f.options.keys or idx.keys:
-            raise ApiError("import: keyed fields and indexes are not "
-                           "supported by this port")
-        try:
-            rows = np.asarray(row_ids, dtype=np.uint64)
-            cols = np.asarray(col_ids, dtype=np.uint64)
-        except (TypeError, ValueError, OverflowError) as e:
-            raise ApiError(f"import: bad IDs: {e}")
+        if op_id is not None:
+            raise ApiError("import: op ids are not supported by this port")
+        rows = self._translate_rows(idx, f, row_ids, row_keys)
+        cols = self._translate_cols(idx, col_ids, col_keys)
         if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
             raise ApiError("rows and columns length mismatch")
         ts = self._parse_timestamps(timestamps)
@@ -152,22 +145,15 @@ class API:
 
     def import_values(self, index: str, field: str, *, col_ids=None,
                       col_keys=None, values=None) -> int:
-        """Bulk (column, value) import into a BSI field in ID form; returns
-        the bits changed.  The next Sum/Min/Max/range Count over a
-        resident bit plane absorbs the batch into its BSI overlay."""
+        """Bulk (column, value) import into a BSI field: column ids, or
+        keys of a keyed index (``col_keys``, created as they arrive);
+        returns the bits changed.  The next Sum/Min/Max/range Count over
+        a resident bit plane absorbs the batch into its BSI overlay."""
         idx = self._index(index)
         f = self._field(idx, field)
         if f.options.type not in BSI_TYPES:
             raise ApiError(f"field {field!r} is not an int field")
-        if col_keys is not None or idx.keys:
-            raise ApiError("importValue: column keys are not supported by "
-                           "this port")
-        if col_ids is None:
-            raise ApiError("missing columnIDs")
-        try:
-            cols = np.asarray(col_ids, dtype=np.uint64)
-        except (TypeError, ValueError, OverflowError) as e:
-            raise ApiError(f"importValue: bad IDs: {e}")
+        cols = self._translate_cols(idx, col_ids, col_keys)
         if (not isinstance(values, (list, tuple)) or cols.ndim != 1
                 or len(values) != len(cols)):
             raise ApiError("columns and values length mismatch")
@@ -186,7 +172,8 @@ class API:
         SHARD_WIDTH + column offset``) into one shard of a set or time
         field's view (``standard``, or a time view ``standard_<YYYY[MM[DD
         [HH]]]>``); returns the bits changed.  A mutex or bool field
-        takes pair imports only."""
+        takes pair imports only.  The positions are ids on a keyed field
+        or index too, as in the reference."""
         idx = self._index(index)
         f = self._field(idx, field)
         if f.options.type not in (TYPE_SET, TYPE_TIME):
@@ -194,9 +181,6 @@ class API:
             # check
             raise ApiError("import-roaring supports set/time fields, not "
                            f"{f.options.type!r}; use the pair import")
-        if f.options.keys or idx.keys:
-            raise ApiError("import-roaring: keyed fields and indexes are "
-                           "not supported by this port")
         if view != VIEW_STANDARD:
             try:
                 if not view.startswith(VIEW_STANDARD + "_"):
@@ -247,3 +231,41 @@ class API:
         if f is None:
             raise ApiError(f"field {name!r} not found", 404)
         return f
+
+    @staticmethod
+    def _ids(ids) -> np.ndarray:
+        try:
+            return np.asarray(ids, dtype=np.uint64)
+        except (TypeError, ValueError, OverflowError) as e:
+            raise ApiError(f"import: bad IDs: {e}")
+
+    def _translate_rows(self, idx, f, row_ids, row_keys) -> np.ndarray:
+        """An import's row ids: ``row_keys`` of a keyed field translated
+        (created as they arrive), else ``row_ids`` of an unkeyed one."""
+        if row_keys is not None:
+            if not f.options.keys:
+                raise ApiError(f"field {f.name!r} is not keyed")
+            log = self.executor.translate.rows(idx.name, f.name)
+            return np.array(log.translate(list(row_keys), create=True),
+                            dtype=np.uint64)
+        if row_ids is None:
+            raise ApiError("missing rowIDs/rowKeys")
+        if f.options.keys:
+            raise ApiError(f"field {f.name!r} is keyed; use rowKeys")
+        return self._ids(row_ids)
+
+    def _translate_cols(self, idx, col_ids, col_keys) -> np.ndarray:
+        """An import's column ids: ``col_keys`` of a keyed index
+        translated (created as they arrive), else ``col_ids`` of an
+        unkeyed one."""
+        if col_keys is not None:
+            if not idx.keys:
+                raise ApiError(f"index {idx.name!r} is not keyed")
+            log = self.executor.translate.columns(idx.name)
+            return np.array(log.translate(list(col_keys), create=True),
+                            dtype=np.uint64)
+        if col_ids is None:
+            raise ApiError("missing columnIDs/columnKeys")
+        if idx.keys:
+            raise ApiError(f"index {idx.name!r} is keyed; use columnKeys")
+        return self._ids(col_ids)

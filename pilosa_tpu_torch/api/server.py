@@ -5,11 +5,13 @@ calls)::
 
     POST /index/{i}/query        PQL body -> {"results": [...]}
     POST /index/{i}/field/{f}/import
-                                 JSON {"rowIDs", "columnIDs", "clear"}
-                                 -> {"changed": n}
+                                 JSON {"rowIDs" | "rowKeys",
+                                 "columnIDs" | "columnKeys",
+                                 "timestamps", "clear"} -> {"changed": n}
     POST /index/{i}/field/{f}/importValue
-                                 JSON {"columnIDs", "values"} into a BSI
-                                 field -> {"changed": n}
+                                 JSON {"columnIDs" | "columnKeys",
+                                 "values"} into a BSI field
+                                 -> {"changed": n}
     POST /index/{i}/field/{f}/import-roaring/{shard}[?clear]
                                  roaring body -> {"changed": n}
     POST /index/{i}              create index

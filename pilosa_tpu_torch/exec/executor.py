@@ -40,21 +40,32 @@ through the batcher's ``groupby`` kind), ``Extract`` (each selected
 column's value in each field, gathered from the resident planes),
 ``IncludesColumn``, ``Options`` (``shards=`` and ``excludeColumns=``),
 ``Set`` (with a timestamp on a time field), ``Clear`` (values on BSI
-fields), ``Store`` and ``ClearRow``.  A time range is one
+fields), ``Store``, ``ClearRow``, ``SetRowAttrs`` and ``SetColumnAttrs``.
+A time range is one
 OR over the field's bucketed time plane (:mod:`pilosa_tpu_torch.timeviews`),
 or, when the plane would exceed the budget, the union of the range's
 cover views' rows.  Sum, Min, Max, simple range Counts and GroupBy
 aggregates read the bit plane delta-aware (base+delta over a
 ``BsiOverlay``); Percentile, Distinct and BSI leaves inside bitmap calls
-read it clean.  Keys and attributes are not ported: a keyed field or
-index is refused wherever an answer would carry ids, and
-``Options(columnAttrs=)`` is refused.  Anything else raises
-:class:`ExecutionError`.
+read it clean.
+
+Keys: the executor owns a :class:`~pilosa_tpu_torch.store.translate.
+TranslateStore`.  A string row on a keyed field and a string column on a
+keyed index translate to ids (a read never creates a key: an unknown key
+is an empty row; ``Set``, ``Store`` and the attribute writes create
+them), and every answer of a keyed field or index carries keys where the
+reference's does: bitmap columns, TopN pairs, ``Rows`` (with ``like=``),
+GroupBy ``rowKey``s and Extract.  A plain ``Row`` result carries the
+row's attributes (``excludeRowAttrs=true`` drops them), TopN filters by
+``attrName=`` / ``attrValue=`` and ``Options(columnAttrs=true)`` attaches
+column attributes.  Anything else raises :class:`ExecutionError`.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import hashlib
+import re
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -86,6 +97,7 @@ from pilosa_tpu_torch.store.holder import Holder
 from pilosa_tpu_torch.store.index import Index
 from pilosa_tpu_torch.store.timeq import (parse_pql_time, view_span,
                                           views_by_time_range)
+from pilosa_tpu_torch.store.translate import TranslateStore
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 # option keys that are never field names in call args (reservation is per
@@ -226,10 +238,11 @@ class _PlanEntry:
     tensor and nothing bakes data a write can stale: literal row ids
     re-resolve, the planes absorb writes into their overlays and extras
     re-fetch, so a hit checks only the shard set, that the
-    ``set_fields`` are still unkeyed set or time fields, and that each BSI
-    field still has the depth and base its predicates were resolved
-    against (``bsi_sigs``).  A ``checked`` entry (a time range, whose
-    cover may gain views a write creates, or a volatile UnionRows row set)
+    ``set_fields`` are still row fields keyed as ``keyed_fields`` says,
+    and that each BSI field still has the depth and base its predicates
+    were resolved against (``bsi_sigs``).  A ``checked`` entry (a time
+    range, whose cover may gain views a write creates, a volatile
+    UnionRows row set, or a keyed row, whose key may be created later)
     also requires ``deps``' generations unchanged, else it is dropped and
     planned again.  ``deps``/``gens`` are the build-time snapshot the
     build-twice check compares."""
@@ -242,6 +255,7 @@ class _PlanEntry:
     row_ids: tuple = ()
     tree_specs: tuple = ()
     set_fields: tuple = ()
+    keyed_fields: tuple = ()  # the set fields that were keyed
     range_items: tuple = ()  # ((field, op_keys, offsets, operands), ...)
     nodes: tuple = ()        # "generic": per-call node trees over
     leaf_specs: tuple = ()   # these leaf specs, re-materialized per hit
@@ -295,8 +309,12 @@ class Executor:
                  delta_compact_fraction: float = 0.5,
                  count_batch_window: float | str = "adaptive",
                  tree_fusion: bool = True,
-                 max_concurrent: int = 8):
+                 max_concurrent: int = 8,
+                 translate: TranslateStore | None = None):
         self.holder = holder
+        # the key stores: this executor's own unless the caller shares its
+        self._owns_translate = translate is None
+        self.translate = translate or TranslateStore(holder.path)
         self.device = resolve_device(device)
         self.planes = PlaneCache(
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
@@ -321,9 +339,12 @@ class Executor:
         self.time_ranges_span = 0
 
     def close(self) -> None:
-        """Stop the batcher's threads."""
+        """Stop the batcher's threads and close the key stores this
+        executor opened (a shared ``translate`` stays open)."""
         if self.batcher is not None:
             self.batcher.close()
+        if self._owns_translate:
+            self.translate.close()
 
     def serving_stats(self) -> dict:
         """The ``/status`` batcher block: the batcher's windows, items,
@@ -644,7 +665,8 @@ class Executor:
         field, values = hit
         if not self._plane_admitted(ctx, field, len(calls)):
             return None
-        row_ids = [self._row_id(field, v) for v in values]
+        row_ids = [self._row_id(field, v, create=False)
+                   for v in values]
         ps = self.planes.field_plane_delta(ctx.index.name, field,
                                            VIEW_STANDARD, ctx.shards)
         return self._plane_count_rows(ps, row_ids)
@@ -695,11 +717,15 @@ class Executor:
         """Per-call totals for ``row_ids`` over a resident plane: the
         selected-row gather when the request touches a small fraction of
         the rows, the whole-plane row counts otherwise; base+delta when
-        the plane carries an overlay."""
-        slots = [ps.slot_of.get(int(r)) for r in row_ids]
+        the plane carries an overlay.  A None row (an unknown key) counts
+        0."""
+        slots = [None if r is None else ps.slot_of.get(int(r))
+                 for r in row_ids]
         live = list(dict.fromkeys(s for s in slots if s is not None))
+        if not live:  # unknown keys and rows with no bits: nothing to read
+            return [0] * len(slots)
         r_pad = ps.plane.shape[-2]
-        if (live and len(ps.shards) <= self._REDUCE_SHARD_MAX
+        if (len(ps.shards) <= self._REDUCE_SHARD_MAX
                 and len(live) * self._SELECTED_ROWS_FRACTION <= r_pad):
             by_slot = self._plane_selected_totals(ps, tuple(live))
             return [int(by_slot[s]) if s is not None else 0 for s in slots]
@@ -788,8 +814,9 @@ class Executor:
                 or (entry.checked
                     and self._dep_gens(index, entry.deps, entry.shards)
                     != entry.gens)
-                or any((f := index.field(name)) is None or f.options.keys
+                or any((f := index.field(name)) is None
                        or f.options.type not in ROW_TYPES
+                       or f.options.keys != (name in entry.keyed_fields)
                        for name in entry.set_fields)
                 or any((f := index.field(name)) is None
                        or bsi_signature(f.options) != sig
@@ -821,20 +848,23 @@ class Executor:
 
     def _plan_plane_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
         """The same-field plain-row batch :meth:`_count_batch_plane`
-        serves over the resident plane."""
+        serves over the resident plane.  Keyed rows resolve once, so the
+        entry is generation-checked: the write that creates a missing key
+        writes its bits, and the next hit plans again."""
         hit = self._plain_row_parse(ctx, calls)
         if hit is None:
             return None
         field, values = hit
-        if field.options.keys:
-            return None
+        keyed = bool(field.options.keys)
         deps = ((field.name, VIEW_STANDARD),)
         return _PlanEntry("plane", ctx.shards, deps,
                           self._dep_gens(ctx.index, deps, ctx.shards),
                           field_name=field.name,
-                          row_ids=tuple(self._row_id(field, v)
+                          row_ids=tuple(self._row_id(field, v, create=False)
                                         for v in values),
-                          set_fields=(field.name,))
+                          set_fields=(field.name,),
+                          keyed_fields=(field.name,) if keyed else (),
+                          checked=keyed)
 
     def _plan_bsirange_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
         """Every Count child a simple BSI range Count: the entry keeps the
@@ -881,6 +911,11 @@ class Executor:
             set_fields[spec.field] = None
             deps[(spec.field, VIEW_STANDARD)] = None
             checked |= spec.volatile
+            for fname in spec.keyed:
+                # a key read as missing resolved to an empty push: a write
+                # that creates it bumps this field's generations
+                deps[(fname, VIEW_STANDARD)] = None
+                checked = True
             for fname in spec.bsi_fields:
                 f = ctx.index.field(fname)
                 sigs[fname] = bsi_signature(f.options)
@@ -903,6 +938,7 @@ class Executor:
                           self._dep_gens(ctx.index, deps, ctx.shards),
                           tree_specs=specs,
                           set_fields=tuple(set_fields),
+                          keyed_fields=self._keyed(ctx, set_fields),
                           bsi_sigs=tuple(sigs.items()), checked=checked)
 
     def _plan_generic_entry(self, ctx: _Ctx,
@@ -917,13 +953,21 @@ class Executor:
         if not walk.cacheable:
             return None
         deps = tuple(walk.deps)
+        set_fields = tuple(dict.fromkeys(sp[1] for sp in walk.specs
+                                         if sp[0] == "row"))
         return _PlanEntry("generic", ctx.shards, deps,
                           self._dep_gens(ctx.index, deps, ctx.shards),
                           nodes=nodes, leaf_specs=tuple(walk.specs),
-                          set_fields=tuple(dict.fromkeys(
-                              sp[1] for sp in walk.specs
-                              if sp[0] == "row")),
+                          set_fields=set_fields,
+                          keyed_fields=self._keyed(ctx, set_fields),
                           bsi_sigs=tuple(walk.sigs.items()), checked=True)
+
+    @staticmethod
+    def _keyed(ctx: _Ctx, names) -> tuple:
+        """The keyed fields among ``names``."""
+        return tuple(n for n in names
+                     if (f := ctx.index.field(n)) is not None
+                     and f.options.keys)
 
     def _leaves_from_specs(self, ctx: _Ctx, specs) -> list | None:
         """Leaf tensors of walked specs, each through the plane cache
@@ -1023,7 +1067,9 @@ class Executor:
         if call.name == "Options":
             return self._execute_options(ctx, call)
         if call.name in _BITMAP_CALLS:
-            result = self._to_row_result(ctx, self._bitmap_words(ctx, call))
+            result = self._to_row_result(ctx, self._fused_bitmap(ctx, call))
+            if call.name == "Row":
+                self._attach_row_attrs(ctx, call, result)
             if call.name == "All":
                 # All(limit=, offset=) pages the column list
                 offset = int(call.args.get("offset", 0))
@@ -1031,6 +1077,8 @@ class Executor:
                 if offset or limit is not None:
                     end = None if limit is None else offset + int(limit)
                     result.columns = result.columns[offset:end]
+                    if result.keys is not None:
+                        result.keys = result.keys[offset:end]
             return result
         handler = {"Count": self._execute_count, "TopN": self._execute_topn,
                    "Sum": self._execute_sum, "Min": self._execute_min,
@@ -1044,20 +1092,38 @@ class Executor:
                    "Set": self._execute_set,
                    "Clear": self._execute_clear,
                    "ClearRow": self._execute_clearrow,
-                   "Store": self._execute_store}.get(call.name)
+                   "Store": self._execute_store,
+                   "SetRowAttrs": self._execute_setrowattrs,
+                   "SetColumnAttrs": self._execute_setcolumnattrs,
+                   }.get(call.name)
         if handler is None:
             raise ExecutionError(
                 f"call {call.name!r} is not supported by this port")
         return handler(ctx, call)
 
-    def _bitmap_words(self, ctx: _Ctx, call: Call) -> torch.Tensor:
-        """A top-level bitmap call's words; refused on a keyed index, where
-        its columns would be keys."""
-        if ctx.index.keys:
-            raise ExecutionError(
-                f"index {ctx.index.name!r}: bitmap results on a keyed "
-                "index are not supported by this port")
-        return self._fused_bitmap(ctx, call)
+    def _attach_row_attrs(self, ctx: _Ctx, call: Call,
+                          result: RowResult) -> None:
+        """A plain ``Row(field=row)`` result carries the row's attributes
+        unless ``excludeRowAttrs=true``; a read never creates a store."""
+        if call.args.get("excludeRowAttrs"):
+            return
+        hit = _field_arg(call)
+        if hit is None:
+            return
+        fname, value = hit
+        if isinstance(value, (Condition, Call)):
+            return
+        field = ctx.index.field(str(fname))
+        if field is None or field.options.type in BSI_TYPES:
+            return
+        if not field.has_row_attrs:
+            return
+        row_id = self._row_id(field, value, create=False)
+        if row_id is None:
+            return
+        attrs = field.row_attrs.attrs(int(row_id))
+        if attrs:
+            result.row_attrs = {str(k): v for k, v in attrs.items()}
 
     def _fused_bitmap(self, ctx: _Ctx, call: Call, want: str = "words"):
         """A bitmap call's words int32[S, W] (``want="count"``: per-shard
@@ -1096,6 +1162,8 @@ class Executor:
                 return walk.leaf(("bsi", field.name, cond),
                                  (field.name, field.bsi_view_name))
             field, row_id = self._row_leaf(ctx, call)
+            if row_id is None:  # an unknown key: empty until a write
+                return walk.leaf(("zeros",), (field.name, VIEW_STANDARD))
             rng = self._time_args(field, call)
             if rng is not None:
                 return walk.volatile(("trange", field.name, row_id) + rng)
@@ -1184,10 +1252,12 @@ class Executor:
         return bsik.range_cmp(plane, masks, offset < 0,
                               keys=(op_key,))[op_key]
 
-    def _row_leaf(self, ctx: _Ctx, call: Call) -> tuple[Field, int]:
-        """``(field, row id)`` of a ``Row`` on a set or time field (the
-        eager planner and the tree compiler refuse the same leaves
-        alike); its time arguments are :meth:`_time_args`' to read."""
+    def _row_leaf(self, ctx: _Ctx, call: Call) -> tuple[Field, int | None]:
+        """``(field, row id)`` of a ``Row`` on a row field (the eager
+        planner and the tree compiler refuse the same leaves alike); the
+        id is None for an unknown key, which is an empty row whatever the
+        time arguments say.  Time arguments are :meth:`_time_args`' to
+        read."""
         hit = _field_arg(call)
         if hit is None:
             raise ExecutionError(f"{call.name}: missing field argument")
@@ -1197,7 +1267,7 @@ class Executor:
             raise ExecutionError(
                 f"Row on {field.options.type!r} field {fname!r} is not "
                 "supported by this port")
-        return field, self._row_id(field, value)
+        return field, self._row_id(field, value, create=False)
 
     # -- time ranges --------------------------------------------------------
 
@@ -1335,12 +1405,14 @@ class Executor:
         return list(cols)
 
     def _const_row_cols(self, ctx: _Ctx, cols) -> torch.Tensor:
-        """A literal bitmap of ``cols``; a column whose shard is outside
-        the queried shards drops."""
+        """A literal bitmap of ``cols``; an unknown key, and a column whose
+        shard is outside the queried shards, drop."""
         host = np.zeros((len(ctx.shards), WORDS_PER_SHARD), np.uint32)
         shard_slot = {s: si for si, s in enumerate(ctx.shards)}
         for c in cols:
-            cid = self._col_id(ctx, c)
+            cid = self._col_id(ctx, c, create=False)
+            if cid is None:
+                continue
             si = shard_slot.get(cid // SHARD_WIDTH)
             if si is None:
                 continue
@@ -1386,18 +1458,36 @@ class Executor:
                 f"field {name!r} not found in index {ctx.index.name!r}")
         return field
 
-    def _row_id(self, field: Field, value) -> int:
+    def _row_id(self, field: Field, value, create: bool) -> int | None:
+        """A row value's id: a bool is 0 or 1, a string is a key of a keyed
+        field (None when unknown and not ``create``), an integer is an id
+        of an unkeyed field."""
         if isinstance(value, bool):
             return int(value)
-        if isinstance(value, str) or field.options.keys:
-            raise ExecutionError(f"field {field.name!r}: keyed rows are "
-                                 "not supported by this port")
+        if isinstance(value, str):
+            if not field.options.keys:
+                raise ExecutionError(
+                    f"field {field.name!r}: string row on unkeyed field")
+            log = self.translate.rows(field.index_name, field.name)
+            return log.translate([value], create=create)[0]
+        if field.options.keys:
+            raise ExecutionError(
+                f"field {field.name!r}: integer row on keyed field")
         return int(value)
 
-    def _col_id(self, ctx: _Ctx, value) -> int:
-        if isinstance(value, str) or ctx.index.keys:
-            raise ExecutionError(f"index {ctx.index.name!r}: keyed columns "
-                                 "are not supported by this port")
+    def _col_id(self, ctx: _Ctx, value, create: bool) -> int | None:
+        """A column value's id: a key of a keyed index (None when unknown
+        and not ``create``), or an id of an unkeyed one."""
+        if isinstance(value, str):
+            if not ctx.index.keys:
+                raise ExecutionError(
+                    f"index {ctx.index.name!r}: string column on unkeyed "
+                    "index")
+            log = self.translate.columns(ctx.index.name)
+            return log.translate([value], create=create)[0]
+        if ctx.index.keys:
+            raise ExecutionError(
+                f"index {ctx.index.name!r}: integer column on keyed index")
         return int(value)
 
     def _existence_field(self, ctx: _Ctx) -> Field:
@@ -1423,8 +1513,13 @@ class Executor:
             offs = unpack_columns(host[si])
             if len(offs):
                 parts.append(offs + np.uint64(s * SHARD_WIDTH))
-        return RowResult(np.concatenate(parts) if parts
-                         else np.empty(0, np.uint64))
+        columns = (np.concatenate(parts) if parts
+                   else np.empty(0, np.uint64))
+        if ctx.index.keys:
+            # strict: a column with no key raises, as in the reference
+            log = self.translate.columns(ctx.index.name)
+            return RowResult(keys=log.keys_of(columns))
+        return RowResult(columns)
 
     def _filter_words(self, ctx: _Ctx, call: Call) -> torch.Tensor | None:
         """Optional bitmap-call filter child (TopN)."""
@@ -1461,10 +1556,7 @@ class Executor:
         if fname is None:
             raise ExecutionError("TopN: missing field argument")
         field = self._field(ctx, str(fname))
-        if field.options.keys:
-            raise ExecutionError(f"TopN: keyed field {field.name!r} is not "
-                                 "supported by this port")
-        for opt in ("tanimoto", "attrName", "_rowCounts"):
+        for opt in ("tanimoto", "_rowCounts"):
             if call.args.get(opt) is not None:
                 raise ExecutionError(f"TopN: {opt}= is not supported by "
                                      "this port")
@@ -1502,6 +1594,13 @@ class Executor:
                 kernels.row_counts(ps.plane, filter_words))[:ps.n_rows]
         all_rows = ps.row_ids
         ids_arg = call.args.get("ids")
+        attr_name = call.args.get("attrName")
+        if attr_name is not None:
+            # only the rows whose attribute matches
+            ids_arg = list(ids_arg or []) + field.row_attrs.find_ids(
+                str(attr_name), call.args.get("attrValue"))
+            if not ids_arg:
+                return PairsResult([])
         if ids_arg is not None:
             wanted = {int(r) for r in ids_arg}
             keep = np.array([int(r) in wanted for r in all_rows])
@@ -1511,9 +1610,13 @@ class Executor:
         slots = np.argsort(-totals, kind="stable")[:k]
         vals = totals[slots]
         live = vals > 0
+        row_ids, vals = all_rows[slots[live]], vals[live]
+        if field.options.keys:
+            log = self.translate.rows(ctx.index.name, field.name)
+            return PairsResult([Pair(key=log.key_of(int(r)), count=int(c))
+                                for r, c in zip(row_ids, vals)])
         return PairsResult([Pair(id=int(r), count=int(c))
-                            for r, c in zip(all_rows[slots[live]],
-                                            vals[live])])
+                            for r, c in zip(row_ids, vals)])
 
     # -- Rows ---------------------------------------------------------------
 
@@ -1521,18 +1624,18 @@ class Executor:
         fname = call.args.get("_field") or call.args.get("field")
         if fname is None:
             raise ExecutionError("Rows: missing field argument")
-        return RowIdsResult(rows=self._rows_of(
-            ctx, self._field(ctx, str(fname)), call))
+        field = self._field(ctx, str(fname))
+        rows = self._rows_of(ctx, field, call)
+        if field.options.keys:
+            log = self.translate.rows(ctx.index.name, field.name)
+            return RowIdsResult(keys=log.keys_of(rows, strict=False))
+        return RowIdsResult(rows=rows)
 
     def _rows_of(self, ctx: _Ctx, field: Field, call: Call) -> np.ndarray:
         """Sorted row ids with a bit in the standard view, or with
         ``from=`` / ``to=`` in a view of the range's minimal cover,
-        honoring ``column=``, ``previous=`` and ``limit=``."""
-        if field.options.keys:
-            raise ExecutionError(f"field {field.name!r}: keyed rows are "
-                                 "not supported by this port")
-        if call.args.get("like") is not None:
-            raise ExecutionError("Rows: like= is not supported by this port")
+        honoring ``column=``, ``like=`` (a pattern over a keyed field's
+        row keys), ``previous=`` and ``limit=``."""
         frm, to = call.args.get("from"), call.args.get("to")
         if frm is not None or to is not None:
             views = [field.view(v) for v in self._time_cover_views(
@@ -1544,22 +1647,40 @@ class Executor:
         column = call.args.get("column")
         if column is not None:
             # one column lies in one shard: one probe of its rows there
-            col_id = self._col_id(ctx, column)
-            shard, off = col_id // SHARD_WIDTH, col_id % SHARD_WIDTH
+            col_id = self._col_id(ctx, column, create=False)
             parts = []
-            for v in views:
-                frag = v.fragment(shard) if shard in ctx.shards else None
-                if frag is not None:
-                    ids = np.asarray(frag.row_ids(), np.uint64)
-                    parts.append(ids[frag.rows_contain(ids, [off])[:, 0]])
+            if col_id is not None:
+                shard, off = col_id // SHARD_WIDTH, col_id % SHARD_WIDTH
+                for v in views:
+                    frag = v.fragment(shard) if shard in ctx.shards else None
+                    if frag is not None:
+                        ids = np.asarray(frag.row_ids(), np.uint64)
+                        parts.append(
+                            ids[frag.rows_contain(ids, [off])[:, 0]])
         else:
             parts = [frag.row_ids_array() for v in views for s in ctx.shards
                      if (frag := v.fragment(s)) is not None]
         rows = (np.unique(np.concatenate(parts)) if parts
                 else np.empty(0, np.uint64))
+        like = call.args.get("like")
+        if like is not None:
+            # SQL LIKE over the row keys: % any run, _ one character
+            if not field.options.keys:
+                raise ExecutionError("Rows: like= requires a keyed field")
+            pattern = (str(like).replace("*", "[*]").replace("?", "[?]")
+                       .replace("%", "*").replace("_", "?"))
+            rx = re.compile(fnmatch.translate(pattern))
+            keys = self.translate.rows(ctx.index.name,
+                                       field.name).keys_of(rows,
+                                                           strict=False)
+            keep = [k is not None and rx.match(k) is not None for k in keys]
+            rows = rows[np.array(keep, dtype=bool)] if len(rows) else rows
         prev = call.args.get("previous")
         if prev is not None:
-            rows = rows[rows > self._row_id(field, prev)]
+            # an unknown key pages from the start
+            prev_id = self._row_id(field, prev, create=False)
+            if prev_id is not None:
+                rows = rows[rows > prev_id]
         limit = call.args.get("limit")
         if limit is not None:
             rows = rows[:int(limit)]
@@ -1756,9 +1877,21 @@ class Executor:
         if not acc_rows:
             return GroupCountsResult([])
         n = None if limit is None else int(limit)
+        row_ids = np.concatenate(acc_rows)[:n]
+        # a keyed level translates once, over its unique row ids
+        row_keys: list = [None] * n_levels
+        for lvl, (f, _, _) in enumerate(specs):
+            if f.options.keys:
+                uniq, inv = np.unique(row_ids[:, lvl], return_inverse=True)
+                keys = self.translate.rows(ctx.index.name,
+                                           f.name).keys_of(uniq,
+                                                           strict=False)
+                row_keys[lvl] = [keys[i] for i in inv]
         return GroupCountsResult(
             fields=[f.name for f, _, _ in specs],
-            row_ids=np.concatenate(acc_rows)[:n],
+            row_ids=row_ids,
+            row_keys=(row_keys if any(k is not None for k in row_keys)
+                      else None),
             counts=np.concatenate(acc_counts)[:n],
             aggs=np.concatenate(acc_aggs)[:n] if acc_aggs else None,
             agg_mask=np.concatenate(acc_mask)[:n] if acc_mask else None)
@@ -1888,20 +2021,38 @@ class Executor:
     # -- Options, IncludesColumn --------------------------------------------
 
     def _execute_options(self, ctx: _Ctx, call: Call):
-        """``Options(call, shards=, excludeColumns=)``: the child over the
-        shards ``_execute_calls`` chose (:meth:`_shards_for`); with
-        ``excludeColumns=true`` a bitmap child runs but its columns are
-        never read to the host."""
+        """``Options(call, shards=, columnAttrs=, excludeColumns=)``: the
+        child over the shards ``_execute_calls`` chose
+        (:meth:`_shards_for`).  ``columnAttrs=true`` attaches the
+        attributes of a row result's ``columns`` (none on a keyed index,
+        whose result holds keys), and ``excludeColumns=true`` empties
+        them; an unkeyed bitmap child without ``columnAttrs`` then runs
+        but its columns are never read to the host."""
         if len(call.children) != 1:
             raise ExecutionError("Options: exactly one child required")
-        if call.args.get("columnAttrs"):
-            raise ExecutionError("Options: columnAttrs= is not supported "
-                                 "by this port")
         child = call.children[0]
-        if call.args.get("excludeColumns") and child.name in _BITMAP_CALLS:
-            self._bitmap_words(ctx, child)
-            return RowResult()
-        return self._call(ctx, child)
+        col_attrs = call.args.get("columnAttrs")
+        exclude = call.args.get("excludeColumns")
+        if (exclude and not col_attrs and not ctx.index.keys
+                and child.name in _BITMAP_CALLS):
+            self._fused_bitmap(ctx, child)
+            result = RowResult()
+            if child.name == "Row":
+                self._attach_row_attrs(ctx, child, result)
+            return result
+        result = self._call(ctx, child)
+        if not isinstance(result, RowResult):
+            return result
+        if col_attrs:
+            store = ctx.index.column_attrs
+            result.attrs = {int(c): a for c, a in
+                            zip(result.columns,
+                                store.attrs_many(result.columns)) if a}
+        if exclude:
+            result.columns = np.empty(0, np.uint64)
+            if result.keys is not None:
+                result.keys = []
+        return result
 
     def _execute_includescolumn(self, ctx: _Ctx, call: Call) -> bool:
         """``IncludesColumn(bitmap, column=c)``: the child evaluated over
@@ -1913,7 +2064,9 @@ class Executor:
         column = call.args.get("column")
         if column is None:
             raise ExecutionError("IncludesColumn: missing column argument")
-        col_id = self._col_id(ctx, column)
+        col_id = self._col_id(ctx, column, create=False)
+        if col_id is None:
+            return False
         shard, off = divmod(col_id, SHARD_WIDTH)
         if shard not in ctx.shards:
             return False
@@ -1931,11 +2084,8 @@ class Executor:
         """``Extract(bitmap, Rows(f), ...)``: per selected column, each
         field's value.  The per-shard counts come first (one read of an
         int32 per shard) so the cap holds before anything is
-        materialized, then only the non-empty shard rows are read."""
-        if ctx.index.keys:
-            raise ExecutionError(
-                f"index {ctx.index.name!r}: Extract on a keyed index is "
-                "not supported by this port")
+        materialized, then only the non-empty shard rows are read.  A keyed
+        index answers column keys, a keyed field row keys."""
         if not call.children:
             raise ExecutionError("Extract: bitmap filter child required")
         flt, *field_calls = call.children
@@ -1948,11 +2098,7 @@ class Executor:
             fname = fc.args.get("_field") or fc.args.get("field")
             if fname is None:
                 raise ExecutionError("Extract: Rows child missing field")
-            field = self._field(ctx, str(fname))
-            if field.options.keys:
-                raise ExecutionError(f"field {field.name!r}: keyed rows are "
-                                     "not supported by this port")
-            fields.append(field)
+            fields.append(self._field(ctx, str(fname)))
         words = self._fused_bitmap(ctx, flt)
         counts = kernels.count(words).cpu().numpy()
         total = int(counts.sum(dtype=np.int64))
@@ -1968,6 +2114,9 @@ class Executor:
         columns = [int(s) * SHARD_WIDTH + int(o)
                    for _, s, offs in col_parts for o in offs.tolist()]
         per_field = [self._extract_field(ctx, f, col_parts) for f in fields]
+        if ctx.index.keys:
+            columns = self.translate.columns(ctx.index.name).keys_of(
+                columns, strict=False)
         return ExtractResult(
             field_specs=[(f.name, f.options.type) for f in fields],
             columns=[(c, [vals[i] for vals in per_field])
@@ -1993,6 +2142,8 @@ class Executor:
         if field.options.type in BSI_TYPES:
             return self._extract_bsi(ctx, field, col_parts)
         opts = field.options
+        key_log = (self.translate.rows(ctx.index.name, field.name)
+                   if opts.keys else None)
         if self.planes.plane_bytes(field, VIEW_STANDARD,
                                    ctx.shards) > self.planes.budget:
             view = field.standard_view()
@@ -2003,16 +2154,17 @@ class Executor:
                                  np.uint64)
                 held = (frag.rows_contain(ids, offs) if frag is not None
                         else np.zeros((0, len(offs)), bool))
-                out.extend(self._extract_cell(opts, ids[held[:, j]])
+                out.extend(self._extract_cell(opts, key_log, ids[held[:, j]])
                            for j in range(len(offs)))
             return out
         ps = self.planes.field_plane(ctx.index.name, field, VIEW_STANDARD,
                                      ctx.shards)
         if ps.n_rows == 0:
-            return [self._extract_cell(opts, ps.row_ids)
+            return [self._extract_cell(opts, key_log, ps.row_ids)
                     for _, _, offs in col_parts for _ in range(len(offs))]
         bits = self._column_probe(ps.plane, col_parts)[:, :ps.n_rows]
-        return [self._extract_cell(opts, ps.row_ids[np.flatnonzero(b)])
+        return [self._extract_cell(opts, key_log,
+                                   ps.row_ids[np.flatnonzero(b)])
                 for b in bits]
 
     def _extract_bsi(self, ctx: _Ctx, field: Field, col_parts) -> list:
@@ -2046,12 +2198,18 @@ class Executor:
             torch.from_numpy(slots).to(dev))[:, :, 0].cpu().numpy()
 
     @staticmethod
-    def _extract_cell(opts, rows):
-        """One (column, field) cell from the column's sorted row ids."""
+    def _extract_cell(opts, key_log, rows):
+        """One (column, field) cell from the column's sorted row ids, as
+        keys through ``key_log`` on a keyed field."""
         if opts.type == TYPE_BOOL:
             return bool(rows[-1]) if len(rows) else None
         if opts.type == TYPE_MUTEX:
-            return int(rows[0]) if len(rows) else None
+            if not len(rows):
+                return None
+            r = int(rows[0])
+            return key_log.key_of(r) if key_log else r
+        if key_log is not None:
+            return key_log.keys_of(rows, strict=False)
         return [int(r) for r in rows]
 
     # -- writes -------------------------------------------------------------
@@ -2060,7 +2218,7 @@ class Executor:
         col = call.args.get("_col")
         if col is None:
             raise ExecutionError("Set: missing column argument")
-        col_id = self._col_id(ctx, col)
+        col_id = self._col_id(ctx, col, create=True)
         hit = _field_arg(call)
         if hit is None:
             raise ExecutionError("Set: missing field=value argument")
@@ -2079,8 +2237,9 @@ class Executor:
         ts = call.args.get("_timestamp")
         # the store writes the quantum views of a time field only, as in
         # the reference
-        changed = field.set_bit(self._row_id(field, value), col_id,
-                                _parse_time(ts) if ts is not None else None)
+        changed = field.set_bit(self._row_id(field, value, create=True),
+                                col_id, _parse_time(ts) if ts is not None
+                                else None)
         ctx.index.note_columns(np.array([col_id], np.uint64))
         return changed
 
@@ -2088,7 +2247,9 @@ class Executor:
         col = call.args.get("_col")
         if col is None:
             raise ExecutionError("Clear: missing column argument")
-        col_id = self._col_id(ctx, col)
+        col_id = self._col_id(ctx, col, create=False)
+        if col_id is None:
+            return False
         hit = _field_arg(call)
         if hit is None:
             raise ExecutionError("Clear: missing field argument")
@@ -2099,7 +2260,10 @@ class Executor:
         if field.options.type not in ROW_TYPES:
             raise ExecutionError(f"Clear on {field.options.type!r} field "
                                  f"{fname!r} is not supported by this port")
-        return field.clear_bit(self._row_id(field, value), col_id)
+        row_id = self._row_id(field, value, create=False)
+        if row_id is None:
+            return False
+        return field.clear_bit(row_id, col_id)
 
     def _execute_clearrow(self, ctx: _Ctx, call: Call) -> bool:
         """``ClearRow(f=row)``: one whole-row clear per fragment of the
@@ -2110,7 +2274,9 @@ class Executor:
             raise ExecutionError("ClearRow: missing field=row argument")
         fname, value = hit
         field = self._field(ctx, fname)
-        row_id = self._row_id(field, value)
+        row_id = self._row_id(field, value, create=False)
+        if row_id is None:
+            return False
         view = field.standard_view()
         changed = 0
         if view is not None:
@@ -2133,7 +2299,7 @@ class Executor:
             raise ExecutionError("Store: missing field=row argument")
         fname, value = hit
         field = self._field(ctx, fname)
-        row_id = self._row_id(field, value)
+        row_id = self._row_id(field, value, create=True)
         words = self._fused_bitmap(ctx, call.children[0])
         nz = np.flatnonzero(kernels.count(words).cpu().numpy())
         host = dict(zip(nz.tolist(), self._shard_rows(words, nz)))
@@ -2144,3 +2310,31 @@ class Executor:
                     else np.empty(0, np.uint32))
             changed |= view.fragment(s, create=True).set_row(row_id, cols)
         return changed
+
+    # -- attributes ---------------------------------------------------------
+
+    def _execute_setrowattrs(self, ctx: _Ctx, call: Call):
+        """``SetRowAttrs(f, row, k=v, ...)``: merged into the field's row
+        attributes (a null value deletes a key); a new key is created."""
+        fname = call.args.get("_field")
+        if fname is None:
+            raise ExecutionError("SetRowAttrs: missing field")
+        field = self._field(ctx, str(fname))
+        row = call.args.get("_row")
+        if row is None:
+            raise ExecutionError("SetRowAttrs: missing row")
+        row_id = self._row_id(field, row, create=True)
+        field.row_attrs.set_attrs(int(row_id), {
+            k: v for k, v in call.args.items() if not k.startswith("_")})
+        return None
+
+    def _execute_setcolumnattrs(self, ctx: _Ctx, call: Call):
+        """``SetColumnAttrs(col, k=v, ...)``: merged into the index's
+        column attributes; a new key is created."""
+        col = call.args.get("_col")
+        if col is None:
+            raise ExecutionError("SetColumnAttrs: missing column")
+        col_id = self._col_id(ctx, col, create=True)
+        ctx.index.column_attrs.set_attrs(int(col_id), {
+            k: v for k, v in call.args.items() if not k.startswith("_")})
+        return None

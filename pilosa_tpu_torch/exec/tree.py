@@ -110,6 +110,7 @@ class TreeSpec:
     bsi_fields: tuple = ()  # BSI fields whose predicates were resolved
     #                         against their depth and base
     volatile: bool = False  # the row set depends on data (UnionRows)
+    keyed: tuple = ()       # keyed fields whose row keys were resolved
 
 
 class _Lower:
@@ -130,6 +131,7 @@ class _Lower:
         self.cse_hits = 0
         self.bsi_fields: dict[str, None] = {}
         self.volatile = False
+        self.keyed: dict[str, None] = {}
 
     def _emit(self, op: int, arg=0) -> None:
         if op not in TREE_STATIC_OPS:  # a static op pops one, pushes one
@@ -241,6 +243,11 @@ class _Lower:
             self._bsi(*bsi)
             return
         field, row_id = self.ex._row_leaf(self.ctx, call)
+        if field.options.keys:
+            self.keyed[field.name] = None
+        if row_id is None:  # an unknown key: an empty row
+            self._emit(TREE_ZERO)
+            return
         rng = self.ex._time_args(field, call)
         if rng is not None:
             # one extra operand: the OR over the field's time plane (or the
@@ -286,7 +293,7 @@ def lower_count_tree(ex, ctx, call: Call) -> TreeSpec:
                     extras=tuple(low.extras), prog=prog,
                     depth=low.depth, cse_hits=low.cse_hits,
                     bsi_fields=tuple(low.bsi_fields),
-                    volatile=low.volatile)
+                    volatile=low.volatile, keyed=tuple(low.keyed))
 
 
 def assemble_items(items) -> tuple:

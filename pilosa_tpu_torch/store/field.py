@@ -36,6 +36,7 @@ import numpy as np
 from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
 from pilosa_tpu_torch.store import timeq
+from pilosa_tpu_torch.store.attrs import AttrStore
 from pilosa_tpu_torch.store.timeq import parse_pql_time
 from pilosa_tpu_torch.store.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 
@@ -112,6 +113,7 @@ class Field:
         self.options = options or FieldOptions()
         self.fsync = fsync
         self.views: dict[str, View] = {}
+        self._row_attrs = None
         self._lock = threading.RLock()
 
     def open(self) -> "Field":
@@ -136,6 +138,28 @@ class Field:
     def close(self) -> None:
         for v in self.views.values():
             v.close()
+        if self._row_attrs is not None:
+            self._row_attrs.close()
+            self._row_attrs = None
+
+    @property
+    def row_attrs(self) -> AttrStore:
+        """The row attribute store ``<field>/_attrs.db``, created on
+        first use."""
+        with self._lock:
+            if self._row_attrs is None:
+                self._row_attrs = AttrStore(
+                    os.path.join(self.path, "_attrs.db"))
+            return self._row_attrs
+
+    @property
+    def has_row_attrs(self) -> bool:
+        """Whether a row attribute store exists, without creating one: a
+        read never writes a store into the data directory."""
+        with self._lock:
+            if self._row_attrs is not None:
+                return True
+        return os.path.exists(os.path.join(self.path, "_attrs.db"))
 
     def view(self, name: str, create: bool = False) -> View | None:
         with self._lock:

@@ -1,6 +1,8 @@
 """Index: a collection of fields over one column space.  With existence
 tracking on, the internal ``_exists`` field (row 0) records every written
-column, which ``Not`` and ``All`` read."""
+column, which ``Not`` and ``All`` read.  Column attributes live in
+``<index>/_attrs.db`` and, on a keyed index, column and row keys in
+``<index>/_keys/`` (:mod:`.translate`)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import time
 
 import numpy as np
 
+from pilosa_tpu_torch.store.attrs import AttrStore
 from pilosa_tpu_torch.store.field import TYPE_SET, Field, FieldOptions
 
 EXISTENCE_FIELD = "_exists"
@@ -27,6 +30,7 @@ class Index:
         self.created_at = created_at
         self.fsync = fsync
         self.fields: dict[str, Field] = {}
+        self._column_attrs = None
         self._lock = threading.RLock()
 
     def open(self) -> "Index":
@@ -60,6 +64,9 @@ class Index:
     def close(self) -> None:
         for f in self.fields.values():
             f.close()
+        if self._column_attrs is not None:
+            self._column_attrs.close()
+            self._column_attrs = None
 
     def create_field(self, name: str,
                      options: FieldOptions | None = None) -> Field:
@@ -78,6 +85,16 @@ class Index:
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
+
+    @property
+    def column_attrs(self) -> AttrStore:
+        """The column attribute store ``<index>/_attrs.db``, created on
+        first use."""
+        with self._lock:
+            if self._column_attrs is None:
+                self._column_attrs = AttrStore(
+                    os.path.join(self.path, "_attrs.db"))
+            return self._column_attrs
 
     @property
     def existence_field(self) -> Field | None:

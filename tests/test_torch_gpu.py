@@ -2,8 +2,9 @@
 the delta-overlay merge and fold, the word overlays, the whole-tree
 programs (Shift and Limit among them), the time-range scan over an
 overlay, the BSI and GroupBy paths, the Extract gathers, a mutex import
-over a resident plane and a small concurrent burst through the default
-executor on the card against the same calls on the CPU.
+over a resident plane, keyed requests and a small concurrent burst
+through the default executor on the card against the same calls on the
+CPU.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -536,6 +537,57 @@ def test_mutex_import_over_resident_plane_equal_cpu(dev, tmp_path):
         before = api.query("i", counts)["results"]
         api.import_bits("i", "m", row_ids=rng.integers(0, 16, 4096).tolist(),
                         col_ids=cols[:4096].tolist())
+        after = api.query("i", counts)
+        assert (planes.builds, planes.delta_absorbs) == (builds,
+                                                         absorbs + 1)
+        assert after["results"] != before
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
+    finally:
+        api.executor.close()
+        holder.close()
+
+
+def test_keyed_requests_over_resident_plane_equal_cpu(dev, tmp_path):
+    """Keyed TopN, GroupBy and Counts over a resident keyed plane on the
+    card equal the "off" executor's answers on the CPU (one translate
+    store shared), before and after a keyed import that the plane absorbs
+    into its overlay."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    rng = np.random.default_rng(78)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    idx.create_field("seg", FieldOptions(keys=True))
+    idx.create_field("g")
+    api = API(holder, Executor(holder, device=dev))
+    cpu = API(holder, Executor(holder, device="cpu",
+                               count_batch_window="off", tree_fusion=False,
+                               translate=api.executor.translate))
+    keys = [f"seg-{r:02d}" for r in range(1, 32)]
+    cols = rng.choice(6 << 20, 200000, replace=False)
+    api.import_bits("i", "seg", row_keys=[keys[r] for r in
+                                          rng.integers(0, 31, len(cols))],
+                    col_ids=cols.tolist())
+    api.import_bits("i", "g", row_ids=rng.integers(0, 2, len(cols)).tolist(),
+                    col_ids=cols.tolist())
+    counts = "".join(f'Count(Row(seg="{k}"))' for k in keys[:8])
+    mix = [counts, 'Count(Row(seg="seg-05"))', 'Count(Row(seg="nope"))',
+           'Count(Intersect(Row(seg="seg-05"), Row(g=1)))',
+           "TopN(seg, Row(g=0), n=5)", "TopN(seg, n=3)",
+           'Rows(seg, like="seg-0%")', "GroupBy(Rows(seg, limit=4), Rows(g))"]
+    try:
+        for q in mix:
+            assert api.query("i", q) == cpu.query("i", q), q
+        planes = api.executor.planes
+        builds, absorbs = planes.builds, planes.delta_absorbs
+        before = api.query("i", counts)["results"]
+        api.import_bits("i", "seg",
+                        row_keys=[keys[r] for r in
+                                  rng.integers(0, 8, 4096)],
+                        col_ids=rng.choice(6 << 20, 4096,
+                                           replace=False).tolist())
         after = api.query("i", counts)
         assert (planes.builds, planes.delta_absorbs) == (builds,
                                                          absorbs + 1)

@@ -404,8 +404,11 @@ def test_recreated_field_rebuilds(port):
 
 def test_import_errors_and_roaring(port):
     holder, api = port
-    for kw in ({"row_keys": ["a"], "col_ids": [1]},
-               {"row_ids": [1], "col_ids": [1], "timestamps": ["x"]},
+    # row keys on an unkeyed field: the reference's 400 and message
+    with pytest.raises(ApiError, match="^field 'f' is not keyed$") as e:
+        api.import_bits("i", "f", row_keys=["a"], col_ids=[1])
+    assert e.value.status == 400
+    for kw in ({"row_ids": [1], "col_ids": [1], "timestamps": ["x"]},
                {"row_ids": [1], "col_ids": [1], "op_id": "x"},
                {"row_ids": [1, 2], "col_ids": [1]},
                {"col_ids": [1]}):

@@ -7,9 +7,10 @@ mode) and through the port's ``API`` on the CPU, both in two
 configurations: "off" (``count_batch_window="off", tree_fusion=False``,
 each request alone) and "default" (the adaptive cross-request batcher,
 whole-tree compilation and the plan cache).  The JSON must be equal, in
-process and over REST.  Also here: the import hygiene of the port and
-its refusal to run without a card unless the CPU is asked for, and its
-refusal of keyed data (keys are not ported yet).
+process and over REST.  Also here: the import hygiene of the port, its
+refusal to run without a card unless the CPU is asked for, and the calls
+on keyed data that the first slices refused, now equal to the JAX
+package's answers (``tests/test_torch_keys.py`` covers keys in full).
 """
 
 import ast
@@ -237,33 +238,58 @@ def test_range_on_fields_named_like_options(tmp_path, monkeypatch, config):
         jh.close()
 
 
-def test_keyed_calls_refused(tmp_path):
-    """Keys are not ported: TopN on a keyed field, a bitmap result on a
-    keyed index and import-roaring into either raise; a Count is
-    served."""
-    holder = THolder(str(tmp_path)).open()
-    api = TAPI(holder, TExecutor(holder, device="cpu"))
-    try:
-        api.create_index("k", {"keys": True})
-        api.create_field("k", "f")
-        api.create_index("u")
-        api.create_field("u", "kf", {"keys": True})
-        api.create_field("u", "f")
-        blob = jroaring.serialize(np.array([1, 5], np.uint64))
-        for index, field in (("k", "f"), ("u", "kf")):
-            with pytest.raises(ApiError, match="not supported by this port"):
-                api.import_roaring(index, field, 0, blob)
-        assert api.import_roaring("u", "f", 0, blob) == 2
-        with pytest.raises(ApiError, match="not supported by this port"):
-            api.query("u", "TopN(kf)")
-        for pql in ("Row(f=1)", "All()", "Union(Row(f=1), Row(f=2))",
-                    "ConstRow(columns=[1])"):
-            with pytest.raises(ApiError, match="not supported by this port"):
-                api.query("k", pql)
-        assert api.query("k", "Count(Row(f=1))") == {"results": [0]}
-    finally:
-        api.executor.close()
-        holder.close()
+def test_keyed_calls_equal(tmp_path, monkeypatch):
+    """The calls the first slices refused on a keyed field or index (TopN
+    on a keyed field, bitmap results on a keyed index, import-roaring into
+    either) answer what ``pilosa_tpu`` answers, each package on its own
+    copy, and leave the same fragment bytes."""
+    monkeypatch.setenv("PILOSA_PALLAS_INTERPRET", "1")
+    outs, files = [], []
+    for name in ("jax", "port"):
+        root = str(tmp_path / name)
+        if name == "jax":
+            holder = JHolder(root).open()
+            api = JAPI(holder, JExecutor(holder, plane_paging=False,
+                                         kernel_tier="pallas"))
+        else:
+            holder = THolder(root).open()
+            api = TAPI(holder, TExecutor(holder, device="cpu"))
+        out = []
+        try:
+            api.create_index("k", {"keys": True})
+            api.create_field("k", "f")
+            api.create_index("u")
+            api.create_field("u", "kf", {"keys": True})
+            api.create_field("u", "f")
+            api.import_bits("u", "kf", row_keys=["x", "y", "x"],
+                            col_ids=[3, 4, 5])
+            api.import_bits("k", "f", row_ids=[1, 1, 2],
+                            col_keys=["c1", "c2", "c3"])
+            blob = jroaring.serialize(np.array([1, 5], np.uint64))
+            for index, field in (("k", "f"), ("u", "kf"), ("u", "f")):
+                out.append(api.import_roaring(index, field, 0, blob))
+            for index, pql in (("u", "TopN(kf)"),
+                               ("k", "Row(f=2)"), ("k", "All()"),
+                               ("k", "Union(Row(f=2), Row(f=0))"),
+                               ("k", 'ConstRow(columns=["c2"])'),
+                               ("k", "Count(Row(f=1))")):
+                try:
+                    out.append(api.query(index, pql)["results"])
+                except Exception as e:  # noqa: BLE001 — compared below
+                    out.append(("error", type(e).__name__, str(e)))
+        finally:
+            if name == "jax":
+                api.executor.translate.close()
+            else:
+                api.executor.close()
+            holder.close()
+        outs.append(json.dumps(out))
+        files.append({os.path.relpath(os.path.join(d, f), root):
+                      open(os.path.join(d, f), "rb").read()
+                      for d, _, fs in os.walk(root) for f in fs
+                      if "sqlite" not in f and f != ".meta"})
+    assert outs[1] == outs[0]
+    assert files[1] == files[0]
 
 
 def test_errors_are_400(apis):

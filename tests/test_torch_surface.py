@@ -18,7 +18,7 @@ JSON must be equal byte for byte:
   afterwards;
 - the Extract cap, Extract past the plane budget (one probe of the
   selected columns in each shard's fragment), ``Options(columnAttrs=)``
-  and a keyed index refused;
+  and an Extract on a keyed index;
 - ``column_bits`` and ``column_bits_grouped`` against the JAX functions;
 - the plan cache's "generic" entries: hits on repeated compound Counts
   without the tree compiler, and a write to a dependency dropping them.
@@ -212,22 +212,43 @@ def test_includes_column_equal(apis):
                  f"{cols['in']}), shards=[0])") == [False]
 
 
-def test_columnattrs_and_keyed_extract_refused(apis, tmp_path):
-    _, tapi, _, _ = apis
+def test_columnattrs_and_keyed_extract_equal(apis, tmp_path, monkeypatch):
+    """``Options(columnAttrs=)`` (no attributes set: an empty map on a
+    row result, nothing on a Count) and an Extract on a keyed index, which
+    the first slices refused, answer what ``pilosa_tpu`` answers."""
+    japi, tapi, _, _ = apis
     for pql in ("Options(Row(f=1), columnAttrs=true)",
                 "Options(Count(Row(f=1)), columnAttrs=true)"):
-        with pytest.raises(ApiError, match="not supported by this port"):
-            tapi.query("i", pql)
-    holder = THolder(str(tmp_path)).open()
-    api = TAPI(holder, TExecutor(holder, device="cpu"))
-    try:
-        api.create_index("k", {"keys": True})
-        api.create_field("k", "f")
-        with pytest.raises(ApiError, match="not supported by this port"):
-            api.query("k", "Extract(All(), Rows(f))")
-    finally:
-        api.executor.close()
-        holder.close()
+        _same(japi, tapi, pql)
+    monkeypatch.setenv("PILOSA_PALLAS_INTERPRET", "1")
+    outs = []
+    for name in ("jax", "port"):
+        out = []
+        root = str(tmp_path / name)
+        if name == "jax":
+            holder = JHolder(root).open()
+            api = JAPI(holder, JExecutor(holder, plane_paging=False,
+                                         kernel_tier="pallas"))
+        else:
+            holder = THolder(root).open()
+            api = TAPI(holder, TExecutor(holder, device="cpu"))
+        try:
+            api.create_index("k", {"keys": True})
+            api.create_field("k", "f")
+            out.append(api.query("k", "Extract(All(), Rows(f))")["results"])
+            api.import_bits("k", "f", row_ids=[1, 2, 2],
+                            col_keys=["x", "y", "x"])
+            out.append(api.query("k", "Extract(All(), Rows(f))")["results"])
+        finally:
+            api.executor.translate.close()
+            if name == "port":
+                api.executor.close()
+            holder.close()
+        outs.append(out)
+    assert json.dumps(outs[1]) == json.dumps(outs[0])
+    assert outs[1][1] == [{"fields": [{"name": "f", "type": "set"}],
+                           "columns": [{"key": "x", "rows": [[1, 2]]},
+                                       {"key": "y", "rows": [[2]]}]}]
 
 
 def test_extract_cap_equal(apis, monkeypatch):

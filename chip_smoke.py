@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Ten phases; any failure raises and the exit code is non-zero:
+Eleven phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -124,7 +124,30 @@ Ten phases; any failure raises and the exit code is non-zero:
    followed by a Sum.  The phase must launch ``count``, ``row_counts``
    and ``selected_row_counts``.  Launch counters are reset at the start
    and read at the end.
-10. Print the ``kernels`` JSON line, the card's name and power limit, and
+10. Fields past the plane budget, on ``bench``: (a)
+   ``bench/config10_product_families.py``'s sparse field, not cut: ``tags``,
+   20,000,000 (row, column) draws over 5,000,000 rows and every column,
+   deduplicated, written as 954 fragment snapshots (its dense plane would
+   be ~1.05 PB; its CSR residency is ~302 MB).  ``TopN(tags, Row(f=0),
+   n=5)`` (the sparse top-k on the card), ``TopN(tags, n=5)`` (host row
+   cardinalities, no launch) and a tanimoto TopN filtered by a tags row
+   (sparse full counts) through the default executor and the "off" one,
+   checked against a numpy oracle, with the first request's time (it
+   builds the residency) and the sparse counts' device ms beside one read
+   of the CSR arrays and the gathered filter words.  (b) ``f`` through
+   two executors (default and "off") with a 2 GiB budget: the 32-Count and
+   the 4-Count in 64 MiB pages, ``TopN(f, Row(g=0), n=5)``, a tanimoto TopN
+   whose threshold keeps half the rows and its ``_rowCounts=1`` form
+   streamed in row blocks; then a 32-Count under a 128 MiB tenant byte
+   quota (two pages leased, the rest from the host's row cardinalities).
+   (c) Serve-while-build: a fresh executor answers a filtered TopN by
+   streaming while f's 4.0 GB plane builds on a thread, then over the
+   plane.  (d) A tenant slot quota of 1 behind the REST server, 8 clients
+   x 4 Counts: sheds answer 503 with ``Retry-After`` and a
+   ``tenantThrottled`` body, ``/status`` counts them.  The phase must
+   launch ``row_counts``, ``count`` and ``selected_row_counts``.  Launch
+   counters are reset at the start and read at the end.
+11. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -397,6 +420,7 @@ def make_index(data_dir: str, shards: int, seed: int):
     idx.create_field("g")
     idx.create_field("amount", FieldOptions(type="int", min=BSI_MIN,
                                             max=BSI_MAX))
+    idx.create_field("tags")  # phase 10's sparse field
     if idx.field("amount").options.bit_depth != BSI_DEPTH:
         raise AssertionError("amount's bit depth is not 20")
     h.close()
@@ -412,6 +436,8 @@ def make_index(data_dir: str, shards: int, seed: int):
                 fh.write(blob)
     log(f"index written: {2 * shards} fragment snapshots, "
         f"{total / 1e9:.2f} GB in {time.perf_counter() - t0:.1f}s")
+    # phase 10's sparse field, written beside f's snapshots
+    tags = make_tags(data_dir, shards, seed)
     # phase 9's keyed field holds f's rows as written here (phase 4 and
     # 6's imports reach f only); written while the page cache is clean
     seg_oracle = make_keys(data_dir, f, g, shards)
@@ -451,6 +477,10 @@ def make_index(data_dir: str, shards: int, seed: int):
     # phase 8's mutex and bool fields, over f and amount as phases 4-6
     # left them
     oracle["mutex"] = make_mutex(data_dir, f, shards, seed, oracle["bsi"])
+    # phase 10 serves f as phase 8 leaves it, and tags
+    oracle["budget"] = make_budget_oracle(f, g, tags,
+                                          oracle["mutex"]["f_counts"])
+    del tags
     # phase 7's index of timestamped events
     oracle["events"] = make_events(data_dir, shards, seed)
     oracle["keys"] = seg_oracle
@@ -1054,10 +1084,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 9 over one holder; returns the launch counts of each
+    """Phases 2 to 10 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
     "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
-    "groupby", "events", "mutex" and "keys"."""
+    "groupby", "events", "mutex", "keys" and "budget"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1106,6 +1136,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             per_request[pql[:40]] = {
                 k: (v - before[k]) // reps
                 for k, v in cuda_kernels.LAUNCHES.items() if v - before[k]}
+        # the plane of f built in the background (past SYNC_BUILD_MAX)
+        # while the first requests answered another way
+        planes.wait_builds()
         build_s = planes.stats()["lastBuildSeconds"]
 
         busy = device_busy_share(lambda: ask(Q32, expect[Q32], 10)) \
@@ -1158,7 +1191,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         index = holder.index("bench")
         shards = tuple(index.available_shards())
         planes.field_plane("bench", index.field("f"), "standard", shards)
-        if planes.field_plane_delta("bench", index.field("f"), "standard",
+        if planes.field_plane_nowait("bench", index.field("f"), "standard",
                                     shards).delta is not None:
             raise AssertionError("the plane still carries an overlay")
         served = oracle["served"]
@@ -1180,31 +1213,42 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
                                        cuda, api, clients, passes)
         log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f}s")
         t_phase = time.perf_counter()
+        planes.wait_builds()
         log("== phase 5: BSI ==")
         bsi = bsi_phase(client, holder, planes, oracle["bsi"], cuda,
                         device, clients, passes)
         log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f}s")
         t_phase = time.perf_counter()
+        planes.wait_builds()
         log("== phase 6: GroupBy ==")
         gb = groupby_phase(client, holder, planes, oracle["groupby"], cuda,
                            device, clients)
         log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f}s")
         t_phase = time.perf_counter()
+        planes.wait_builds()
         log("== phase 7: time views ==")
         ev = events_phase(client, holder, planes, oracle["events"], cuda,
                           device, clients)
         log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f}s")
         t_phase = time.perf_counter()
+        planes.wait_builds()
         log("== phase 8: mutex and bool fields, Extract, Store ==")
         mx = mutex_phase(client, holder, planes, oracle["mutex"], cuda,
                          device, (_median_ms(client.lat["REST import"])
                                   if "REST import" in client.lat else None))
         log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f}s")
         t_phase = time.perf_counter()
+        planes.wait_builds()
         log("== phase 9: keys and attributes ==")
         kp = keys_phase(client, holder, planes, oracle["keys"], cuda, device,
                         clients)
         log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 10: fields past the plane budget ==")
+        bp = budget_phase(client, holder, planes, oracle["budget"], cuda,
+                          device)
+        log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1227,7 +1271,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp}
+            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -1304,6 +1348,7 @@ def ingest_phase(client, planes, batches: dict, cuda: bool, api,
     import_batch(rows, cols, clear, changed, "REST import, over cap")
     want = expect(counts, filtered)
     client.ask(Q32, want[Q32], tag="32-Count after the over-cap batch")
+    planes.wait_builds()   # the rebuild runs beside the request
     if planes.builds != builds0 + 1:
         raise AssertionError(f"the over-cap batch did not rebuild once: "
                              f"builds {builds0} -> {planes.builds}")
@@ -2079,6 +2124,7 @@ def events_phase(client, holder, planes, evo: dict, cuda: bool, device,
                    index="events")
         log(f"events {EV_NAMES[q]} first request: "
             f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    planes.wait_builds()   # ev's standard plane builds in the background
     for q in EV_SEQ:
         client.ask(q, expect[q], reps=3, tag=f"events {EV_NAMES[q]}",
                    index="events")
@@ -2700,6 +2746,7 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
     ps = planes.field_plane("bench", seg, "standard", shards)
     if planes.builds != b0 + 1:
         raise AssertionError("the seg plane did not build")
+    RECORD["seg_build_s"] = planes.last_build_seconds
     log(f"seg plane int32{list(ps.plane.shape)} "
         f"({planes.last_build_bytes / 1e9:.3f} GB) built in "
         f"{planes.last_build_seconds:.2f} s")
@@ -2832,7 +2879,10 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
             f"{client.lat[f'{KC_NAMES[q]}, first'][0] * 1e3:.1f} ms "
             f"[default], "
             f"{offc.lat[f'off {KC_NAMES[q]}, first'][0] * 1e3:.1f} ms [off]")
-    kps = planes.field_plane_delta("k", holder.index("k").field("f"),
+    # k's 2.15 GB plane built in the background while the first requests
+    # answered another way
+    planes.wait_builds()
+    kps = planes.field_plane_nowait("k", holder.index("k").field("f"),
                                    "standard", (0,))
     log(f"k plane int32{list(kps.plane.shape)} "
         f"({kps.plane.numel() * 4 / 1e9:.3f} GB, {kps.n_rows} live rows)")
@@ -2897,6 +2947,410 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
     return {"keys": launched}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: fields past the plane budget
+# ---------------------------------------------------------------------------
+
+TAG_ROWS = 5_000_000           # config10's sparse field (SPARSE_ROWS)
+TAG_BITS = 20_000_000          # (row, column) draws, before dedupe
+SMALL_BUDGET = 2 << 30         # below f's 4.0 GB plane: paging, streaming
+TENANT_QUOTA = 128 << 20       # two 64 MiB pages of f
+QOS_CLIENTS, QOS_COUNTS = 8, 4
+SW_MASK = (1 << 20) - 1        # a column's offset in its shard
+BT_TOPN = "TopN(tags, Row(f=0), n=5)"
+BT_HOST = "TopN(tags, n=5)"
+RECORD: dict = {}              # numbers one phase passes to a later one
+
+
+def make_tags(data_dir: str, shards: int, seed: int) -> dict:
+    """``bench/config10_product_families.py``'s sparse field, not cut:
+    field ``tags`` of ``bench`` (created with the index), TAG_BITS (row,
+    column) draws over TAG_ROWS rows and every column of ``shards`` shards,
+    deduplicated, written as one fragment snapshot per shard.  Returns the
+    bits' rows and columns, sorted by row."""
+    from pilosa_tpu_torch.store import roaring
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 10])
+    rows = rng.integers(0, TAG_ROWS, TAG_BITS).astype(np.uint64)
+    cols = rng.integers(0, shards << 20, TAG_BITS).astype(np.uint64)
+    key = np.unique((rows << np.uint64(40)) | cols)
+    rows = key >> np.uint64(40)
+    cols = key & np.uint64((1 << 40) - 1)
+    del key
+    shard = cols >> np.uint64(20)
+    order = np.argsort(shard, kind="stable")
+    srows, scols = rows[order], cols[order]
+    bounds = np.searchsorted(shard[order], np.arange(shards + 1))
+    del shard, order
+    tdir = os.path.join(data_dir, "bench", "tags", "views", "standard",
+                        "fragments")
+    os.makedirs(tdir, exist_ok=True)
+    nbytes = 0
+    for s in range(shards):
+        a, b = bounds[s], bounds[s + 1]
+        if a == b:
+            continue
+        blob = roaring.serialize((srows[a:b] << np.uint64(20))
+                                 | (scols[a:b] & np.uint64(SW_MASK)))
+        nbytes += len(blob)
+        with open(os.path.join(tdir, str(s)), "wb") as fh:
+            fh.write(blob)
+    log(f"tags: {len(rows)} bits (of {TAG_BITS} draws) over {TAG_ROWS} "
+        f"rows, {shards} fragment snapshots, {nbytes / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"rows": rows, "cols": cols}
+
+
+def _pairs(totals: np.ndarray, n: int) -> list:
+    """TopN pairs: count descending, ties by row id, zeros dropped."""
+    order = np.argsort(-totals, kind="stable")[:n]
+    return [{"id": int(r), "count": int(totals[r])} for r in order
+            if totals[r] > 0]
+
+
+def _tanimoto(t: np.ndarray, rc: np.ndarray, src: int, thr: float,
+              n: int) -> list:
+    keep = (t > 0) & (100.0 * t >= thr * (src + rc - t))
+    return _pairs(np.where(keep, t, 0), n)
+
+
+def make_budget_oracle(f: np.ndarray, g: np.ndarray, tags: dict,
+                       f_counts: list) -> dict:
+    """Phase 10's answers over ``f`` and ``g`` as phases 4-8 leave them and
+    over ``tags``."""
+    t0 = time.perf_counter()
+    shards = f.shape[0]
+    filtered = np.zeros(ROWS, np.int64)
+    src = 0
+    for s0 in range(0, shards, 64):
+        g0 = g[s0:s0 + 64, 0]
+        filtered += _popcounts(f[s0:s0 + 64] & g0[:, None, :]).sum(axis=0)
+        src += int(_popcounts(g0).sum())
+    rc = np.asarray(f_counts, np.int64)
+    # a threshold between the two middle coefficients: half the rows pass
+    coef = np.sort(100.0 * filtered / (src + rc - filtered))
+    thr_s = f"{(coef[ROWS // 2 - 1] + coef[ROWS // 2]) / 2:.9f}"
+    thr = float(thr_s)
+    kept = (100.0 * filtered >= thr * (src + rc - filtered)).sum()
+    f_tan = f"TopN(f, Row(g=0), tanimoto={thr_s}, n=5)"
+    f_part = "TopN(f, Row(g=0), _rowCounts=1)"
+    # tags: the filter f row 0, the hosts' cards, and a tanimoto source row
+    rows, cols = tags["rows"], tags["cols"]
+    shard = (cols >> np.uint64(20)).astype(np.int64)
+    off = (cols & np.uint64(SW_MASK)).astype(np.int64)
+    hit = ((f[shard, 0, off >> 5] >> (off & 31).astype(np.uint32)) & 1) == 1
+    del shard, off
+    t_f0 = np.bincount(rows[hit].astype(np.int64), minlength=TAG_ROWS)
+    t_rc = np.bincount(rows.astype(np.int64), minlength=TAG_ROWS)
+    # a source row sharing columns with other rows, so that tanimoto=50
+    # keeps some of them and drops others (the bits come sorted by row)
+    rrow, rcol = rows, cols
+    by_col = np.argsort(cols, kind="stable")
+    scol, srow = cols[by_col], rows[by_col]
+    del by_col
+    dup = np.flatnonzero(scol[1:] == scol[:-1])
+    pick = None
+    for r in dict.fromkeys(srow[dup[:4000]].tolist()):
+        cs = rcol[np.searchsorted(rrow, r):np.searchsorted(rrow, r, "right")]
+        lo = np.searchsorted(scol, cs)
+        hi = np.searchsorted(scol, cs, "right")
+        share, t = np.unique(np.concatenate(
+            [srow[a_:b_] for a_, b_ in zip(lo, hi)]), return_counts=True)
+        other = share != r
+        share, t = share[other].astype(np.int64), t[other]
+        ok = 100.0 * t >= 50.0 * (len(cs) + t_rc[share] - t)
+        if (~ok).any() and (ok.any() or pick is None):
+            pick = (int(r), share, t, len(cs))
+            if ok.any():
+                break
+    r, share, t, tsrc = pick
+    t_r = np.zeros(TAG_ROWS, np.int64)
+    t_r[share] = t
+    t_r[r] = tsrc
+    tag_tan = f"TopN(tags, Row(tags={r}), tanimoto=50, n=5)"
+    out = {
+        "seq": (BT_TOPN, BT_HOST, tag_tan),
+        "expect": {BT_TOPN: [_pairs(t_f0, 5)], BT_HOST: [_pairs(t_rc, 5)],
+                   tag_tan: [_tanimoto(t_r, t_rc, tsrc, 50.0, 5)],
+                   Q32: [int(c) for c in rc],
+                   Q4: [int(rc[r_]) for r_ in SELECTED],
+                   TOPN_G: [_pairs(filtered, 5)],
+                   f_tan: [_tanimoto(filtered, rc, src, thr, 5)],
+                   f_part: [{"pairs": [
+                       {"id": r_, "count": int(filtered[r_]),
+                        "rowCount": int(rc[r_])}
+                       for r_ in range(ROWS) if rc[r_] > 0],
+                       "srcCount": src}]},
+        "f_seq": (Q32, Q4, TOPN_G, f_tan, f_part),
+        "tags_bits": len(rows), "tags_rows": int((t_rc > 0).sum()),
+        "tanimoto_row": r}
+    log(f"phase 10 oracle in {time.perf_counter() - t0:.1f}s: tanimoto "
+        f"{thr_s} over f keeps {kept} of {ROWS} rows; tags source row {r} "
+        f"({tsrc} bits) keeps "
+        f"{len(out['expect'][tag_tan][0])} pairs at 50")
+    return out
+
+
+def _sparse_device_ms(planes, holder, shards, cuda: bool) -> list:
+    """Device ms of the sparse counts and top-k over ``tags`` filtered by
+    f row 0, beside one read of the CSR arrays, the gathered filter words
+    and the counts."""
+    from pilosa_tpu_torch.engine import sparse as sparsek
+    idx = holder.index("bench")
+    ss = planes.sparse_plane("bench", idx.field("tags"), "standard", shards)
+    fw = planes.row_words("bench", idx.field("f"), "standard", 0, shards)
+    n = int(ss.row_ptr[-1])
+    r = ss.n_rows
+    csr = 8 * n + 4 * (r + 1)
+    out = []
+    for name, fn, nbytes in (
+            ("sparse_row_counts", lambda: sparsek.sparse_row_counts(
+                fw, ss.word_idx, ss.mask, ss.row_ptr),
+             csr + 4 * n + 4 * r),
+            ("topn_sparse k=8", lambda: sparsek.topn_sparse(
+                fw, ss.word_idx, ss.mask, ss.row_ptr, 8),
+             csr + 4 * n + 8 * 8)):
+        ms = time_ms(fn, 5) if cuda else float("nan")
+        b_ms, b_by = bound(nbytes, 0)
+        out.append({"name": name, "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "bits": n, "rows": r,
+                    "n_pad": int(ss.word_idx.numel()),
+                    "r_pad": ss.n_rows_pad, "nbytes": ss.nbytes})
+        log(f"[budget] {name} over {n} bits / {r} rows (N_pad "
+            f"{ss.word_idx.numel()}, R_pad {ss.n_rows_pad}, "
+            f"{ss.nbytes / 1e6:.1f} MB resident): {ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by} ({b_ms / ms:.1%} of the bound rate)")
+    return out
+
+
+def budget_phase(client, holder, planes, bo: dict, cuda: bool,
+                 device) -> dict:
+    """Phase 10: (a) config10's sparse field through the default executor
+    and the "off" one (sparse top-k, host cards, sparse tanimoto); (b) f
+    past a 2 GiB budget in both configurations (paged Counts, streamed
+    TopN, tanimoto and _rowCounts) and under a 128 MiB tenant quota; (c)
+    serve-while-build; (d) a tenant slot quota over REST.  The launch
+    counters are reset when the phase starts and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    t0 = time.perf_counter()
+    if cuda:
+        log(f"phase 10 on {card_line()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    ex = client.api.executor
+    expect = bo["expect"]
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    tags = index.field("tags")
+
+    # (a) the sparse field through both configurations
+    off = Executor(holder, device=device, plane_budget=32 << 30,
+                   count_batch_window="off", tree_fusion=False,
+                   translate=ex.translate)
+    off.planes = planes
+    offc = _Client(API(holder, off), cuda)
+    est = planes.plane_bytes(tags, "standard", shards)
+    sb = planes.sparse_bytes(tags, "standard", shards)
+    log(f"[budget] tags: dense plane estimate {est / 1e15:.3f} PB, sparse "
+        f"residency {sb / 1e6:.1f} MB ({bo['tags_bits']} bits, "
+        f"{bo['tags_rows']} rows); estimates in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for q in bo["seq"]:
+        t = time.perf_counter()
+        client.ask(q, expect[q], tag=f"budget {q[:28]}, first")
+        first = time.perf_counter() - t
+        t = time.perf_counter()
+        offc.ask(q, expect[q], tag=f"budget off {q[:28]}, first")
+        log(f"[budget] {q}: first {first * 1e3:.1f} ms [default], "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms [off]")
+    for q in bo["seq"]:
+        client.ask(q, expect[q], reps=2, tag=f"budget {q[:28]}")
+        log(f"[budget] {q}: median "
+            f"{_median_ms(client.lat[f'budget {q[:28]}']):.2f} ms")
+    served = {"default": ex.serving_stats()["topnServed"],
+              "off": off.serving_stats()["topnServed"]}
+    log(f"[budget] TopNs served over tags: {json.dumps(served)}")
+    for cfg, by in served.items():
+        if by["sparse"] < 2 or by["host"] < 1:
+            raise AssertionError(f"the sparse and host paths were not "
+                                 f"taken [{cfg}]: {by}")
+    sparse_ms = _sparse_device_ms(planes, holder, shards, cuda)
+    off.close()
+    t_a = time.perf_counter() - t0
+
+    # (b) f past a 2 GiB budget, both configurations (with fewer
+    # --shards, half f's plane, and the quota an eighth)
+    t1 = time.perf_counter()
+    f_plane = len(shards) * ROWS * WORDS * 4
+    small_budget = SMALL_BUDGET if f_plane > SMALL_BUDGET else f_plane // 2
+    quota = TENANT_QUOTA if f_plane > 8 * TENANT_QUOTA else f_plane // 8
+    small = {}
+    for cfg, kw in (("default", {}),
+                    ("off", {"count_batch_window": "off",
+                             "tree_fusion": False})):
+        e = Executor(holder, device=device, plane_budget=small_budget,
+                     translate=ex.translate, **kw)
+        c = _Client(API(holder, e), cuda)
+        for q in bo["f_seq"]:
+            c.ask(q, expect[q], tag=f"{cfg} {q[:30]}")
+        ten = e.tenancy_status()
+        small[cfg] = (e, c, ten)
+        log(f"[budget] f past {small_budget / 2**30:.2f} GiB [{cfg}]: "
+            f"{ten['pageIns']} page-ins in {ten['pageInSeconds']:.2f} s, "
+            f"{ten['residentPages']} resident pages, evictions "
+            f"{json.dumps(ten['evictionsByReason'])}, TopNs "
+            f"{json.dumps(e.serving_stats()['topnServed'])}; latency "
+            + ", ".join(f"{n} {c.lat[f'{cfg} {q[:30]}'][0] * 1e3:.1f} ms"
+                        for n, q in zip(("32-Count", "4-Count", "TopN",
+                                         "tanimoto", "_rowCounts"),
+                                        bo["f_seq"])))
+        if (ten["pageIns"] < 2 or e.planes.builds
+                or e.serving_stats()["topnServed"]["streamed"] != 3):
+            raise AssertionError(f"f was not paged and streamed [{cfg}]")
+    pages = small["default"][0].pager.partition(index.field("f"),
+                                                 "standard", shards)
+    log(f"[budget] f in {len(pages)} pages of {len(pages[0])} shards "
+        f"({len(pages[0]) * ROWS * WORDS * 4 / 2**20:.0f} MiB)")
+    # a tenant byte quota of two pages: the query leases two, the rest
+    # answer from the host's row cardinalities
+    qe = Executor(holder, device=device, plane_budget=32 << 30,
+                  tenant_byte_quota=quota, translate=ex.translate)
+    qc = _Client(API(holder, qe), cuda)
+    qc.ask(Q32, expect[Q32], tag="quota 32-Count")
+    qten = qe.tenancy_status()
+    log(f"[budget] 32-Count under a {quota >> 20} MiB quota: "
+        f"{qc.lat['quota 32-Count'][0] * 1e3:.1f} ms, page-ins "
+        f"{qten['pageIns']}, quota denials {qten['quotaDenials']}, oracle "
+        f"serves {qten['oracleServes']}, resident "
+        f"{qten['tenants']['bench']['residentBytes'] / 2**20:.0f} MiB")
+    if qten["quotaDenials"] < 1 or qten["oracleServes"] < 1:
+        raise AssertionError(f"the quota denied nothing: {qten}")
+    for e, _, _ in small.values():
+        e.planes.evict_unpinned(reason="phase end")
+        e.close()
+    qe.planes.evict_unpinned(reason="phase end")
+    qe.close()
+    small_lat = {cfg: dict(c.lat) for cfg, (_, c, _) in small.items()}
+    del small, qe, qc
+    if cuda:
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t1
+
+    # (c) serve-while-build: a fresh executor, f's plane not yet resident
+    t2 = time.perf_counter()
+    be = Executor(holder, device=device, plane_budget=32 << 30,
+                  translate=ex.translate)
+    if f_plane <= be.planes.SYNC_BUILD_MAX:
+        be.planes.SYNC_BUILD_MAX = f_plane // 2
+        log(f"CUT: SYNC_BUILD_MAX {f_plane // 2} bytes, below f's plane")
+    bc = _Client(API(holder, be), cuda)
+    bc.ask(TOPN_G, expect[TOPN_G], tag="build first")
+    st = be.planes.stats()
+    # one build: in flight, publishing (counted, not yet cleared) or done
+    started = (st["builds"] <= 1 and st["building"] <= 1
+               and st["builds"] + st["building"] >= 1)
+    log(f"[budget] first filtered TopN while the plane builds: "
+        f"{bc.lat['build first'][0] * 1e3:.1f} ms, TopNs "
+        f"{json.dumps(be.serving_stats()['topnServed'])}, building "
+        f"{st['building']}, built {st['builds']}")
+    if be.serving_stats()["topnServed"]["streamed"] != 1 or not started:
+        raise AssertionError("the first TopN did not stream beside one "
+                             "background build")
+    be.planes.wait_builds()
+    st = be.planes.stats()
+    bc.ask(TOPN_G, expect[TOPN_G], reps=3, tag="build after")
+    if (st["buildFailures"] or st["builds"] != 1
+            or be.serving_stats()["topnServed"]["dense"] != 3):
+        raise AssertionError(f"the background build did not serve: {st}")
+    log(f"[budget] background build {st['lastBuildSeconds']:.2f} s "
+        f"({st['lastBuildBytes'] / 1e9:.2f} GB); then the TopN over the "
+        f"plane: median {_median_ms(bc.lat['build after']):.2f} ms; the "
+        f"synchronous seg build in phase 9: "
+        f"{RECORD.get('seg_build_s', float('nan')):.2f} s")
+    t_c = time.perf_counter() - t2
+
+    # (d) a tenant slot quota over REST: 8 clients x 4 Counts
+    t3 = time.perf_counter()
+    qx = Executor(holder, device=device, plane_budget=32 << 30,
+                  tenant_slot_quota=1, translate=ex.translate)
+    qx.planes = be.planes
+    server = Server(API(holder, qx), "127.0.0.1", 0).start()
+    base = "http://%s:%d" % server.address
+    want = expect[Q32][1]
+    codes: list = []
+    lock = threading.Lock()
+
+    def count_client() -> None:
+        for _ in range(QOS_COUNTS):
+            req = urllib.request.Request(base + "/index/bench/query",
+                                         data=b"Count(Row(f=1))",
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    got = (resp.status, None,
+                           json.loads(resp.read())["results"])
+            except urllib.error.HTTPError as err:
+                got = (err.code, err.headers.get("Retry-After"),
+                       json.loads(err.read()))
+            with lock:
+                codes.append(got)
+
+    try:
+        threads = [threading.Thread(target=count_client)
+                   for _ in range(QOS_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        shed = [c for c in codes if c[0] == 503]
+        if not shed:
+            # the burst never overlapped: hold the tenant's slot
+            qx.qos.admit("bench")
+            try:
+                count_client()
+            finally:
+                qx.qos.release("bench")
+            shed = [c for c in codes if c[0] == 503]
+        with urllib.request.urlopen(base + "/status", timeout=60) as resp:
+            tstat = json.loads(resp.read())["tenancy"]
+    finally:
+        server.close()
+    ok = [c for c in codes if c[0] == 200]
+    bad = [c for c in ok if c[2] != [want]]
+    tt = shed[0][2].get("tenantThrottled") if shed else None
+    log(f"[budget] QoS over REST ({QOS_CLIENTS} clients x {QOS_COUNTS} "
+        f"Counts, slot quota 1): {len(ok)} answered, {len(shed)} shed with "
+        f"503 (Retry-After {shed[0][1] if shed else None}, body "
+        f"{json.dumps(tt)}); /status sheds {json.dumps(tstat['qos'])}")
+    if (bad or not shed or any(c[1] is None for c in shed)
+            or tt != {"tenant": "bench", "quota": 1, "kind": "slots"}
+            or tstat["qos"]["sheds"].get("bench") != len(shed)
+            or len(ok) + len(shed) != len(codes)):
+        raise AssertionError(f"QoS over REST: {codes[:5]} {tstat}")
+    qx.close()
+    be.planes.evict_unpinned(reason="phase end")
+    be.close()
+    t_d = time.perf_counter() - t3
+
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"launches in phase 10: {json.dumps(launched)}; peak device memory "
+        f"in the phase {peak / 1e9:.2f} GB; phase 10 walls (a) {t_a:.1f}s "
+        f"(b) {t_b:.1f}s (c) {t_c:.1f}s (d) {t_d:.1f}s, total "
+        f"{time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("row_counts", "count", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 10 never launched {k}")
+    return {"budget": launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -2934,7 +3388,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 10: output ==")
+    log("== phase 11: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -23,12 +23,30 @@ from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_SET, TYPE_TIME,
                                           BoolRowError)
 from pilosa_tpu_torch.store.timeq import parse_pql_time, parse_view_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
+from pilosa_tpu_torch.tenancy import TenantThrottledError
 
 
 class ApiError(Exception):
-    def __init__(self, msg: str, status: int = 400):
+    """An HTTP error: its status, a ``Retry-After`` in seconds for a shed
+    request, and structured fields answered beside ``"error"``."""
+
+    def __init__(self, msg: str, status: int = 400,
+                 retry_after: float | None = None,
+                 extra: dict | None = None):
         super().__init__(msg)
         self.status = status
+        self.retry_after = retry_after
+        self.extra = extra or {}
+
+    @classmethod
+    def tenant_throttled(cls, exc: TenantThrottledError) -> "ApiError":
+        """A tenant's own quota shed it: 503 with ``Retry-After`` and a
+        ``tenantThrottled{tenant, quota, kind}`` body, told apart from an
+        overloaded executor."""
+        return cls(str(exc), 503, retry_after=exc.retry_after,
+                   extra={"tenantThrottled": {
+                       "tenant": exc.tenant, "quota": exc.quota,
+                       "kind": exc.kind}})
 
 
 def field_options_from_json(o: dict) -> FieldOptions:
@@ -77,8 +95,10 @@ class API:
         self._index(index)
         try:
             results = self.executor.execute(index, pql, shards=shards)
+        except TenantThrottledError as e:
+            raise ApiError.tenant_throttled(e)
         except ExecutorSaturatedError as e:
-            raise ApiError(str(e), 503)
+            raise ApiError(str(e), 503, retry_after=e.retry_after)
         except (ParseError, ExecutionError) as e:
             raise ApiError(str(e), 400)
         return {"results": [result_to_json(r) for r in results]}
@@ -217,7 +237,8 @@ class API:
                 "batcher": self.executor.serving_stats(),
                 "ingest": {**self.executor.planes.delta_stats(),
                            "importedBits": imported},
-                "timeViews": self.executor.time_status()}
+                "timeViews": self.executor.time_status(),
+                "tenancy": self.executor.tenancy_status()}
 
     def _index(self, name: str):
         idx = self.holder.index(name)

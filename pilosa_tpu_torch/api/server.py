@@ -22,7 +22,14 @@ calls)::
                                  fast-lane hits, current window, plan
                                  cache hits and misses) and the
                                  ``ingest`` block (overlay fill,
-                                 absorbs, compactions, imported bits)
+                                 absorbs, compactions, imported bits),
+                                 ``timeViews`` and the ``tenancy``
+                                 block (paging, evictions, QoS sheds,
+                                 per-tenant residency)
+
+A query shed by its tenant's quota answers 503 with ``Retry-After`` and a
+``tenantThrottled{tenant, quota, kind}`` body; a saturated executor
+answers 503 with ``Retry-After``.
 """
 
 from __future__ import annotations
@@ -74,11 +81,13 @@ class Handler(BaseHTTPRequestHandler):
         except json.JSONDecodeError as e:
             raise ApiError(f"invalid JSON body: {e}")
 
-    def _reply(self, obj, status: int = 200) -> None:
+    def _reply(self, obj, status: int = 200, headers=None) -> None:
         data = json.dumps(obj).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
 
@@ -100,7 +109,10 @@ class Handler(BaseHTTPRequestHandler):
         try:
             getattr(self, name)(**hit.groupdict())
         except ApiError as e:
-            self._reply({"error": str(e)}, e.status)
+            # a shed (503) tells the client when to come back
+            hdrs = (None if e.retry_after is None
+                    else {"Retry-After": str(max(1, int(e.retry_after)))})
+            self._reply({"error": str(e), **e.extra}, e.status, hdrs)
         except Exception as e:  # noqa: BLE001 — the server must not die
             self._reply({"error": f"internal error: {e}"}, 500)
 

@@ -1,7 +1,7 @@
 """Executor: PQL AST -> hand-written kernels over resident planes.
 
-The counterpart of ``pilosa_tpu.exec.executor.Executor`` with
-``plane_paging=False``, in its default serving configuration:
+The counterpart of ``pilosa_tpu.exec.executor.Executor``, in its default
+serving configuration:
 
 - ``count_batch_window="adaptive"``: concurrent requests coalesce in the
   :class:`~pilosa_tpu_torch.exec.batcher.CountBatcher` (one family call
@@ -15,7 +15,15 @@ The counterpart of ``pilosa_tpu.exec.executor.Executor`` with
 - a plan cache: a repeated all-Count query string skips parse and plan
   (same-field row Counts over the resident plane, simple BSI range
   Counts, compiled trees, and any other Count tree as a "generic" entry
-  of leaf specs).
+  of leaf specs);
+- ``plane_paging=True``: plain-row Counts over a plane past the budget
+  (or the tenant's byte quota) are served in shard pages
+  (:mod:`pilosa_tpu_torch.tenancy.paging`), resident pages on the card,
+  the others from the host's row cardinalities;
+- tenant quotas, all off by default: ``tenant_byte_quota`` (resident
+  bytes per index), ``tenant_qps_quota`` and ``tenant_slot_quota`` (a
+  query over quota is shed with :class:`~pilosa_tpu_torch.tenancy.
+  TenantThrottledError` before it takes a slot).
 
 ``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
 as the port's first slices did.  Every resident shard is one slice of a
@@ -31,7 +39,12 @@ positional ``Range(t=1, <from>, <to>)``; BSI conditions such as
 ``Row(amount > 5)`` and ``Row(-1 < amount < 1)``), ``Intersect``,
 ``Union``, ``Difference``, ``Xor``, ``Not``, ``All`` (with ``limit=`` /
 ``offset=`` paging), ``Shift``, ``Limit``, ``ConstRow``, ``UnionRows``,
-``TopN(field[, filter], n=)`` on the dense plane, the BSI aggregates
+``TopN(field[, filter], n=)`` (with ``tanimoto=`` and ``_rowCounts=``:
+on the resident dense plane, which past ``SYNC_BUILD_MAX`` builds in the
+background; from the host's row cardinalities when unfiltered; from a
+sparse CSR residency of the field's bits when the dense plane exceeds the
+budget and the sparse one fits; else by streaming row blocks through the
+card), the BSI aggregates
 ``Sum``, ``Min``, ``Max``, ``Percentile`` and ``Distinct``, ``Rows`` and
 ``GroupBy`` (over rows planes of the selected rows, with ``filter=``, a
 Count/Sum/Min/Max aggregate, ``having=``, ``limit=`` and ``previous=``;
@@ -75,12 +88,14 @@ import torch
 
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels, resolve_device
+from pilosa_tpu_torch.engine import sparse as sparsek
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.batcher import CountBatcher
 from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable
-from pilosa_tpu_torch.exec.planes import DEFAULT_BUDGET, PlaneCache
+from pilosa_tpu_torch.exec.planes import (DEFAULT_BUDGET, PlaneCache,
+                                          merge_row_cards)
 from pilosa_tpu_torch.exec.result import (DistinctResult, ExtractResult,
                                           GroupCountsResult, Pair,
                                           PairsResult, RowIdsResult,
@@ -99,6 +114,8 @@ from pilosa_tpu_torch.store.timeq import (parse_pql_time, view_span,
                                           views_by_time_range)
 from pilosa_tpu_torch.store.translate import TranslateStore
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
+from pilosa_tpu_torch.tenancy import (PlanePager, ResidencyGovernor,
+                                      TenantQos)
 
 # option keys that are never field names in call args (reservation is per
 # call: a field named "n" still works in Set(5, n=777))
@@ -141,6 +158,8 @@ def _lex_gt(mat: np.ndarray, prev: tuple) -> np.ndarray:
 
 class ExecutorSaturatedError(ExecutionError):
     """Every admission slot stayed taken for ``SLOT_TIMEOUT_S``."""
+
+    retry_after = 1.0
 
 
 def bsi_offset(field: Field, op_key: str, value):
@@ -310,15 +329,32 @@ class Executor:
                  count_batch_window: float | str = "adaptive",
                  tree_fusion: bool = True,
                  max_concurrent: int = 8,
-                 translate: TranslateStore | None = None):
+                 translate: TranslateStore | None = None,
+                 plane_paging: bool = True,
+                 plane_page_bytes: int = 64 << 20,
+                 tenant_byte_quota: int = 0,
+                 tenant_qps_quota: float = 0.0,
+                 tenant_slot_quota: int = 0,
+                 tenant_device_seconds_quota: float = 0.0):
+        if tenant_device_seconds_quota:
+            raise ValueError("tenant_device_seconds_quota is not supported "
+                             "by this port (it reads a device-cost ledger)")
         self.holder = holder
         # the key stores: this executor's own unless the caller shares its
         self._owns_translate = translate is None
         self.translate = translate or TranslateStore(holder.path)
         self.device = resolve_device(device)
+        # with no quota and no telemetry the governor's eviction order is
+        # the cache's LRU order
+        self.governor = ResidencyGovernor(byte_quota=tenant_byte_quota)
         self.planes = PlaneCache(
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
-            delta_compact_fraction=delta_compact_fraction)
+            delta_compact_fraction=delta_compact_fraction,
+            governor=self.governor)
+        self.pager = (PlanePager(self.planes, self.governor,
+                                 page_bytes=plane_page_bytes)
+                      if plane_paging else None)
+        self.qos = TenantQos(tenant_qps_quota, tenant_slot_quota)
         self.fused = FusedCache()
         self.tree_fusion = bool(tree_fusion)
         window = parse_window(count_batch_window)
@@ -333,10 +369,13 @@ class Executor:
         self.max_concurrent = max_concurrent
         self._exec_slots = (threading.BoundedSemaphore(max_concurrent)
                             if max_concurrent else None)
-        # time ranges served off the time plane / by the cover views' rows
-        self._time_lock = threading.Lock()
+        # time ranges served off the time plane / by the cover views'
+        # rows, and TopNs by each representation
+        self._served_lock = threading.Lock()
         self.time_ranges_plane = 0
         self.time_ranges_span = 0
+        self.topn_served = dict.fromkeys(
+            ("dense", "host", "sparse", "streamed"), 0)
 
     def close(self) -> None:
         """Stop the batcher's threads and close the key stores this
@@ -356,13 +395,48 @@ class Executor:
             out.update(planCacheHits=self.plan_hits,
                        planCacheMisses=self.plan_misses,
                        plans=len(self._plans))
+        with self._served_lock:
+            out["topnServed"] = dict(self.topn_served)
+        return out
+
+    def tenancy_status(self) -> dict:
+        """The ``/status`` ``tenancy`` block: paging, the byte quota,
+        evictions by reason, QoS state and per-tenant residency, page hits
+        and sheds (the reference's shape)."""
+        planes = self.planes
+        with planes._lock:
+            out = {"paging": self.pager is not None,
+                   "tenantByteQuota": self.governor.byte_quota,
+                   "evictions": planes.evictions,
+                   "evictionsByReason": dict(planes._evictions_by_reason),
+                   "qos": self.qos.payload()}
+        if self.pager is not None:
+            pg = self.pager.payload()
+            tenants = pg.pop("tenants")
+            out.update(pg)
+        else:
+            tenants = {}
+            with planes._lock:
+                for k, v in planes._entries.items():
+                    d = tenants.setdefault(
+                        k[1], {"residentBytes": 0, "residentPages": 0,
+                               "residentEntries": 0})
+                    d["residentBytes"] += v[2]
+                    d["residentEntries"] += 1
+        sheds = out["qos"]["sheds"]
+        for t in sheds:
+            tenants.setdefault(t, {"residentBytes": 0, "residentPages": 0,
+                                   "residentEntries": 0})
+        for t, d in tenants.items():
+            d["sheds"] = sheds.get(t, 0)
+        out["tenants"] = tenants
         return out
 
     def time_status(self) -> dict:
         """The ``/status`` ``timeViews`` block: the resident time planes,
         and how many time ranges each path served."""
         planes = self.planes.time_plane_status()
-        with self._time_lock:
+        with self._served_lock:
             served = {"plane": self.time_ranges_plane,
                       "span": self.time_ranges_span}
         return {"planes": planes,
@@ -378,11 +452,23 @@ class Executor:
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index {index_name!r} not found")
-        if self._exec_slots is not None and not self._exec_slots.acquire(
-                timeout=self.SLOT_TIMEOUT_S):
-            raise ExecutorSaturatedError(
-                f"executor at max concurrent queries ({self.max_concurrent})"
-                f" for {self.SLOT_TIMEOUT_S:.0f}s; retry later")
+        # the tenant's quotas first: a shed query never takes a slot
+        qos_held = self.qos.enabled
+        if qos_held:
+            self.qos.admit(index_name)  # raises TenantThrottledError
+        try:
+            if self._exec_slots is not None and not self._exec_slots.acquire(
+                    timeout=self.SLOT_TIMEOUT_S):
+                raise ExecutorSaturatedError(
+                    f"executor at max concurrent queries "
+                    f"({self.max_concurrent}) for "
+                    f"{self.SLOT_TIMEOUT_S:.0f}s; retry later")
+        except BaseException:
+            if qos_held:
+                self.qos.release(index_name)
+            raise
+        # the planes this query is handed stay resident until it ends
+        self.planes.begin_query()
         try:
             if isinstance(query, str):
                 out = self._execute_planned(index, index_name, query, shards)
@@ -391,8 +477,11 @@ class Executor:
                 query = parse_cached(query)
             return self._execute_calls(index, query, shards)
         finally:
+            self.planes.end_query()
             if self._exec_slots is not None:
                 self._exec_slots.release()
+            if qos_held:
+                self.qos.release(index_name)
 
     def _execute_calls(self, index: Index, query: Query, shards) -> list:
         results = []
@@ -587,8 +676,8 @@ class Executor:
         PUSH args rewritten against the LIVE slot map (a row with no bits
         anywhere becomes a zero push), extras materialized.  None = not
         served by the tree path now (shard count past the int32 device
-        reduce, plane over budget, or a small slice of a wide plane that
-        is not resident)."""
+        reduce, plane over budget, a small slice of a wide plane that
+        is not resident, or a plane building in the background)."""
         field = ctx.index.field(spec.field)
         if field is None or field.options.type not in ROW_TYPES:
             return None
@@ -596,8 +685,10 @@ class Executor:
             return None
         if not self._plane_admitted(ctx, field, max(1, len(spec.rows))):
             return None
-        ps = self.planes.field_plane_delta(ctx.index.name, field,
-                                           VIEW_STANDARD, ctx.shards)
+        ps = self.planes.field_plane_nowait(ctx.index.name, field,
+                                            VIEW_STANDARD, ctx.shards)
+        if ps is None:
+            return None  # building in the background
         slots: list[int] = []
         slot_arg: list[int | None] = []
         for r in spec.rows:
@@ -655,34 +746,102 @@ class Executor:
     def _count_batch_plane(self, ctx: _Ctx, calls: list[Call]) \
             -> list[int] | None:
         """Same-field plain-row Count batches run over the resident
-        whole-field plane.  None when the batch doesn't match, or when a
-        plane that is not resident yet is over budget or would be scanned
-        for a small slice of its rows.  A resident plane behind the
-        fragments absorbs the write gap into its overlay."""
+        whole-field plane, or in pages when the plane is past the budget
+        or the tenant's quota.  None when the batch doesn't match, when a
+        plane that is not resident yet is over budget (with paging off) or
+        would be scanned for a small slice of its rows, or while it builds
+        in the background (the generic path answers).  A resident plane
+        behind the fragments absorbs the write gap into its overlay."""
         hit = self._plain_row_parse(ctx, calls)
         if hit is None:
             return None
         field, values = hit
-        if not self._plane_admitted(ctx, field, len(calls)):
-            return None
+        if not self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
+                                     ctx.shards):
+            est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
+            if self._paging_engaged(est):
+                return self._paged_count(ctx, field, values)
+            if not self._plane_admitted(ctx, field, len(calls), est):
+                return None
         row_ids = [self._row_id(field, v, create=False)
                    for v in values]
-        ps = self.planes.field_plane_delta(ctx.index.name, field,
-                                           VIEW_STANDARD, ctx.shards)
+        ps = self.planes.field_plane_nowait(ctx.index.name, field,
+                                            VIEW_STANDARD, ctx.shards)
+        if ps is None:
+            return None
         return self._plane_count_rows(ps, row_ids)
 
-    def _plane_admitted(self, ctx: _Ctx, field: Field, n_rows: int) -> bool:
+    def _plane_admitted(self, ctx: _Ctx, field: Field, n_rows: int,
+                        est: int | None = None) -> bool:
         """A request reading ``n_rows`` rows may use the whole-field
         plane: it is resident, or building it stays within the budget and
         does not scan the plane for a small slice of its rows."""
-        if self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
-                                 ctx.shards):
-            return True
-        est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
+        if est is None:
+            if self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
+                                     ctx.shards):
+                return True
+            est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
         if est > self.planes.budget:
             return False
         r_est = max(1, est // (len(ctx.shards) * WORDS_PER_SHARD * 4))
         return n_rows * 4 >= r_est
+
+    # -- paged residency ----------------------------------------------------
+
+    def _paging_engaged(self, est: int) -> bool:
+        """Whether a plane of ``est`` bytes is served in pages: paging is
+        on and the plane exceeds the budget or the tenant's byte quota."""
+        if self.pager is None:
+            return False
+        limit = self.planes.budget
+        if self.governor.byte_quota > 0:
+            limit = min(limit, self.governor.byte_quota)
+        return est > limit
+
+    def _count_batch_paged(self, ctx: _Ctx,
+                           calls: list[Call]) -> list[int] | None:
+        """A single Count's entry to paging: plain-row Counts over a plane
+        past the limit and not resident; None otherwise."""
+        if self.pager is None or not ctx.shards:
+            return None
+        hit = self._plain_row_parse(ctx, calls)
+        if hit is None:
+            return None
+        field, values = hit
+        if self.planes.has_plane(ctx.index.name, field, VIEW_STANDARD,
+                                 ctx.shards):
+            return None
+        est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
+        if not self._paging_engaged(est):
+            return None
+        return self._paged_count(ctx, field, values)
+
+    def _paged_count(self, ctx: _Ctx, field: Field,
+                     values: list) -> list[int] | None:
+        """Per-call totals over a plane past the limit, page by page: a
+        resident page answers on the card (its overlay included), an
+        absent one is paged in (within the tenant's byte quota) or, when
+        the quota denies it, answered from the host's row cardinalities.
+        Exact whatever the mix.  None when the shards make one page."""
+        pages = self.pager.partition(field, VIEW_STANDARD, ctx.shards)
+        if pages is None:
+            return None
+        row_ids = [self._row_id(field, v, create=False) for v in values]
+        totals = [0] * len(row_ids)
+        for page_shards in pages:
+            ps = self.pager.resident_page(ctx.index.name, field,
+                                          VIEW_STANDARD, page_shards)
+            if ps is None:
+                ps = self.pager.page_in(ctx.index.name, field,
+                                        VIEW_STANDARD, page_shards)
+            if ps is not None:
+                part = self._plane_count_rows(ps, row_ids)
+            else:
+                part = self.pager.oracle_counts(field, VIEW_STANDARD,
+                                                page_shards, row_ids)
+            for i, v in enumerate(part):
+                totals[i] += int(v)
+        return totals
 
     def _plain_row_parse(self, ctx: _Ctx, calls: list[Call]):
         """``(field, values)`` when every call is ``Count(Row(f=v))`` over
@@ -1044,8 +1203,10 @@ class Executor:
         if field is None or not self.planes.has_plane(
                 index.name, field, VIEW_STANDARD, ctx.shards):
             return None
-        ps = self.planes.field_plane_delta(index.name, field, VIEW_STANDARD,
-                                           ctx.shards)
+        ps = self.planes.field_plane_nowait(index.name, field, VIEW_STANDARD,
+                                            ctx.shards)
+        if ps is None:
+            return None
         return self._plane_count_rows(ps, entry.row_ids)
 
     def _shards_for(self, index: Index, shards,
@@ -1313,7 +1474,7 @@ class Executor:
                                             ctx.shards)
         if tps is None:
             return None
-        with self._time_lock:
+        with self._served_lock:
             self.time_ranges_plane += 1
         idx = tps.slot_of.get(int(row_id))
         b0, b1 = tps.bucket_range(start, end)
@@ -1329,7 +1490,7 @@ class Executor:
         (an omitted bound would otherwise walk the calendar unit by unit):
         the path for a time plane over the budget, and the oracle the
         plane is held to."""
-        with self._time_lock:
+        with self._served_lock:
             self.time_ranges_span += 1
         acc = self._zeros(ctx)
         for vname in self._time_cover_views(field, start, end):
@@ -1537,6 +1698,9 @@ class Executor:
     def _execute_count(self, ctx: _Ctx, call: Call) -> int:
         if len(call.children) != 1:
             raise ExecutionError("Count: exactly one child required")
+        paged = self._count_batch_paged(ctx, [call])
+        if paged is not None:
+            return paged[0]
         fast = self._count_batch_bsi(ctx, [call])
         if fast is not None:
             return fast[0]
@@ -1551,48 +1715,100 @@ class Executor:
         per_shard = self._fused_bitmap(ctx, call.children[0], want="count")
         return int(kernels.shard_totals(per_shard))
 
-    def _execute_topn(self, ctx: _Ctx, call: Call) -> PairsResult:
+    def _execute_topn(self, ctx: _Ctx, call: Call):
         fname = call.args.get("_field") or call.args.get("field")
         if fname is None:
             raise ExecutionError("TopN: missing field argument")
         field = self._field(ctx, str(fname))
-        for opt in ("tanimoto", "_rowCounts"):
-            if call.args.get(opt) is not None:
-                raise ExecutionError(f"TopN: {opt}= is not supported by "
-                                     "this port")
         n = call.args.get("n")
         filter_words = self._filter_words(ctx, call)
-        if (not self.planes.has_entry(ctx.index.name, field, VIEW_STANDARD,
-                                      ctx.shards)
-                and self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
-                > self.planes.budget):
+        # tanimoto= keeps the rows whose coefficient against the filter
+        # row, 100 |row & src| / (|src| + |row| - |row & src|), reaches the
+        # threshold; _rowCounts=1 answers each row's filtered and full
+        # counts and |src| instead of the pairs
+        tanimoto = call.args.get("tanimoto")
+        want_partial = bool(call.args.get("_rowCounts"))
+        if tanimoto is not None:
+            tanimoto = float(tanimoto)
+            if not 0 < tanimoto <= 100:
+                raise ExecutionError("TopN: tanimoto must be in (0, 100]")
+        need_row_counts = want_partial or tanimoto is not None
+        if need_row_counts and filter_words is None:
             raise ExecutionError(
-                f"TopN: field {field.name!r} exceeds the plane budget "
-                f"({self.planes.budget} bytes); streaming TopN is not "
-                "supported by this port")
-        ps = self.planes.field_plane_delta(ctx.index.name, field,
-                                           VIEW_STANDARD, ctx.shards)
-        if ps.n_rows == 0:
-            return PairsResult([])
-        if self.batcher is not None and \
-                len(ctx.shards) <= self._REDUCE_SHARD_MAX:
-            # concurrent TopNs over one plane and filter share one scan
-            totals = self.batcher.submit_rowcounts(
-                ps.plane, filter_words, delta=ps.delta)[:ps.n_rows]
-        elif ps.delta is not None:
-            # per-shard base+delta counts, finished on the host
-            totals = kernels.shard_totals(self.fused.run_rowcounts_delta(
-                ps.plane, ps.delta, filter_words, reduce=False))[:ps.n_rows]
-        elif len(ctx.shards) <= self._REDUCE_SHARD_MAX:
-            # shard axis reduced on the device, one int32[R_pad] read
-            flags = (filter_words is not None,)
-            leaves = (ps.plane,) + ((filter_words,) if flags[0] else ())
-            totals = self.fused.run_rowcounts_batch(flags, leaves)[0]
-            totals = totals.cpu().numpy().astype(np.int64)[:ps.n_rows]
+                "TopN: tanimoto requires a filter row (source bitmap)")
+        src_count = 0
+        if need_row_counts:
+            src_count = int(kernels.shard_totals(kernels.count(filter_words)))
+        empty = ({"pairs": [], "srcCount": src_count} if want_partial
+                 else PairsResult([]))
+        # the representation: 1. the resident dense plane (one within the
+        # budget builds now, or in the background past SYNC_BUILD_MAX);
+        # 2. unfiltered, the host's row cardinalities; 3. past the budget,
+        # the sparse residency when it fits; 4. row blocks streamed
+        row_totals = None
+        ps = None
+        tried = False
+        if self.planes.has_entry(ctx.index.name, field, VIEW_STANDARD,
+                                 ctx.shards):
+            ps = self.planes.field_plane_nowait(ctx.index.name, field,
+                                                VIEW_STANDARD, ctx.shards)
+            tried = True
+        if ps is None:
+            est = self.planes.plane_bytes(field, VIEW_STANDARD, ctx.shards)
+            if est <= self.planes.budget and not tried:
+                ps = self.planes.field_plane_nowait(
+                    ctx.index.name, field, VIEW_STANDARD, ctx.shards)
+        if ps is not None:
+            self._note_topn("dense")
+            if ps.n_rows == 0:
+                return empty
+            totals, row_totals = self._topn_dense(ctx, ps, filter_words,
+                                                  need_row_counts)
+            all_rows = ps.row_ids
+        elif filter_words is None:
+            self._note_topn("host")
+            all_rows, totals = self._host_row_cards(ctx, field)
+            if len(all_rows) == 0:
+                return PairsResult([])
+        elif (est > self.planes.budget  # not while the dense plane builds
+              and self.planes.sparse_bytes(field, VIEW_STANDARD, ctx.shards)
+              <= self.planes.budget):
+            self._note_topn("sparse")
+            ss = self.planes.sparse_plane(ctx.index.name, field,
+                                          VIEW_STANDARD, ctx.shards)
+            if ss.n_rows == 0:
+                return empty
+            if (n is not None and tanimoto is None and not want_partial
+                    and call.args.get("ids") is None
+                    and call.args.get("attrName") is None):
+                # plain TopN(n, filter): the top k on the card, k pairs read
+                k = min(int(n), ss.n_rows)
+                k_pad = min(ss.n_rows_pad, 1 << max(0, (k - 1).bit_length()))
+                vals, slots = sparsek.topn_sparse(
+                    filter_words, ss.word_idx, ss.mask, ss.row_ptr, k_pad)
+                vals = vals.cpu().numpy()[:k]
+                slots = slots.cpu().numpy()[:k]
+                live = vals > 0
+                row_ids, vals = ss.row_ids[slots[live]], vals[live]
+                if field.options.keys:
+                    log = self.translate.rows(ctx.index.name, field.name)
+                    return PairsResult(
+                        [Pair(key=k_, count=int(c)) for k_, c in
+                         zip(log.keys_of(row_ids, strict=False), vals)])
+                return PairsResult([Pair(id=int(r), count=int(c))
+                                    for r, c in zip(row_ids, vals)])
+            counts = sparsek.sparse_row_counts(
+                filter_words, ss.word_idx, ss.mask, ss.row_ptr)
+            totals = counts.cpu().numpy().astype(np.int64)[:ss.n_rows]
+            all_rows = ss.row_ids
+            if need_row_counts:
+                row_totals = ss.row_cards  # host truth, no second pass
         else:
-            totals = kernels.shard_totals(
-                kernels.row_counts(ps.plane, filter_words))[:ps.n_rows]
-        all_rows = ps.row_ids
+            self._note_topn("streamed")
+            all_rows, totals, row_totals = self._topn_streamed(
+                ctx, field, filter_words, need_row_counts, est)
+            if not len(all_rows):
+                return empty
         ids_arg = call.args.get("ids")
         attr_name = call.args.get("attrName")
         if attr_name is not None:
@@ -1604,6 +1820,17 @@ class Executor:
         if ids_arg is not None:
             wanted = {int(r) for r in ids_arg}
             keep = np.array([int(r) in wanted for r in all_rows])
+            totals = np.where(keep, totals, 0)
+        if want_partial:
+            live = row_totals > 0
+            return {"pairs": [
+                {"id": int(r), "count": int(c), "rowCount": int(rc)}
+                for r, c, rc in zip(all_rows[live], totals[live],
+                                    row_totals[live])],
+                "srcCount": src_count}
+        if tanimoto is not None:
+            union = src_count + row_totals - totals
+            keep = (totals > 0) & (100.0 * totals >= tanimoto * union)
             totals = np.where(keep, totals, 0)
         # host ordering: count descending, ties in row-id order
         k = len(all_rows) if n is None else min(int(n), len(all_rows))
@@ -1617,6 +1844,97 @@ class Executor:
                                 for r, c in zip(row_ids, vals)])
         return PairsResult([Pair(id=int(r), count=int(c))
                             for r, c in zip(row_ids, vals)])
+
+    def _note_topn(self, path: str) -> None:
+        with self._served_lock:
+            self.topn_served[path] += 1
+
+    def _topn_dense(self, ctx: _Ctx, ps, filter_words, need_row_counts):
+        """Per-row totals int64[R] over a resident plane (base+delta when it
+        carries an overlay) and, for tanimoto, each row's full count."""
+        n_rows = ps.n_rows
+        row_totals = None
+        if self.batcher is not None and \
+                len(ctx.shards) <= self._REDUCE_SHARD_MAX:
+            # concurrent TopNs over one plane and filter share one scan;
+            # tanimoto enqueues both reads before waiting on either
+            if need_row_counts:
+                h1 = self.batcher.enqueue_rowcounts(ps.plane, filter_words,
+                                                    delta=ps.delta)
+                h2 = self.batcher.enqueue_rowcounts(ps.plane, delta=ps.delta)
+                totals = self.batcher.wait(h1)[:n_rows]
+                row_totals = self.batcher.wait(h2)[:n_rows]
+            else:
+                totals = self.batcher.submit_rowcounts(
+                    ps.plane, filter_words, delta=ps.delta)[:n_rows]
+        elif ps.delta is not None:
+            # per-shard base+delta counts, finished on the host
+            totals = kernels.shard_totals(self.fused.run_rowcounts_delta(
+                ps.plane, ps.delta, filter_words, reduce=False))[:n_rows]
+            if need_row_counts:
+                row_totals = kernels.shard_totals(
+                    self.fused.run_rowcounts_delta(
+                        ps.plane, ps.delta, reduce=False))[:n_rows]
+        elif len(ctx.shards) <= self._REDUCE_SHARD_MAX:
+            # shard axis reduced on the device, one int32[R_pad] read
+            flags = (filter_words is not None,)
+            leaves = (ps.plane,) + ((filter_words,) if flags[0] else ())
+            if need_row_counts:
+                flags, leaves = flags + (False,), leaves + (ps.plane,)
+            out = self.fused.run_rowcounts_batch(flags, leaves)
+            out = out.cpu().numpy().astype(np.int64)[:, :n_rows]
+            totals = out[0]
+            if need_row_counts:
+                row_totals = out[1]
+        else:
+            totals = kernels.shard_totals(
+                kernels.row_counts(ps.plane, filter_words))[:n_rows]
+            if need_row_counts:
+                row_totals = kernels.shard_totals(
+                    kernels.row_counts(ps.plane))[:n_rows]
+        return totals, row_totals
+
+    def _topn_streamed(self, ctx: _Ctx, field: Field, filter_words,
+                       need_row_counts: bool, est: int):
+        """``(row_ids, totals, row_totals)`` with the view's rows streamed
+        through the card in zero-padded blocks, one ``row_counts`` pass
+        per block (two for tanimoto).  The reference's block is
+        ``max(64, budget / (4 * S * W * 4))`` rows; here it is also at most
+        the view's rows padded to a power of two (``est``'s row axis), so
+        a narrow field is one block the size of its plane rather than a
+        64-row one.  The answer does not depend on the block."""
+        lane = len(ctx.shards) * WORDS_PER_SHARD * 4
+        block = max(64, int(self.planes.budget // (lane * 4)))
+        block = min(block, max(1, est // lane))
+        parts_rows, parts_totals, parts_row_totals = [], [], []
+        for chunk_rows, chunk_plane in self.planes.iter_row_blocks(
+                field, VIEW_STANDARD, ctx.shards, block):
+            n = len(chunk_rows)
+            parts_totals.append(kernels.shard_totals(
+                kernels.row_counts(chunk_plane, filter_words))[:n])
+            if need_row_counts:
+                parts_row_totals.append(kernels.shard_totals(
+                    kernels.row_counts(chunk_plane))[:n])
+            parts_rows.append(chunk_rows)
+            del chunk_plane
+        if not parts_rows:
+            return np.empty(0, np.uint64), np.empty(0, np.int64), None
+        return (np.concatenate(parts_rows), np.concatenate(parts_totals),
+                np.concatenate(parts_row_totals) if need_row_counts
+                else None)
+
+    def _host_row_cards(self, ctx: _Ctx, field: Field):
+        """Exact per-row cardinalities merged across shards from the
+        fragments' host metadata: the unfiltered TopN, with no device
+        work."""
+        view = field.view(VIEW_STANDARD)
+        frags = []
+        if view is not None:
+            for s in ctx.shards:
+                frag = view.fragment(s)
+                if frag is not None:
+                    frags.append(frag)
+        return merge_row_cards(frags)
 
     # -- Rows ---------------------------------------------------------------
 

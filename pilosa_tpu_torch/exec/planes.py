@@ -39,7 +39,22 @@ buffer and copies each chunk into one preallocated device tensor; two
 staging buffers alternate so chunk N's expansion overlaps chunk N-1's
 host-to-device copy.  The expansion runs on the calling thread: it is
 many small numpy steps under the interpreter lock, where a thread pool
-only contends for the lock and runs slower.
+only contends for the lock and runs slower.  A plane past
+``SYNC_BUILD_MAX`` asked for through :meth:`PlaneCache.field_plane_nowait`
+builds on a background thread while requests stream.
+
+A field whose dense plane exceeds the budget has three more forms: its
+host row cardinalities (:func:`merge_row_cards`), a CSR residency of its
+set bits (:meth:`PlaneCache.sparse_plane`, counted by
+:mod:`pilosa_tpu_torch.engine.sparse`) and row blocks streamed through the
+card (:meth:`PlaneCache.iter_row_blocks`); Counts over it are served in
+shard pages (:mod:`pilosa_tpu_torch.tenancy.paging`).
+
+Eviction: past the budget, entries leave in the order of the
+:class:`~pilosa_tpu_torch.tenancy.governor.ResidencyGovernor`'s keep-score,
+least recently used first among equals (with no telemetry, plain LRU).
+Entries handed to a query between :meth:`PlaneCache.begin_query` and
+:meth:`PlaneCache.end_query` are leased to it and never evicted meanwhile.
 """
 
 from __future__ import annotations
@@ -56,12 +71,41 @@ import torch
 from pilosa_tpu_torch import timeviews
 from pilosa_tpu_torch.engine import resolve_device
 from pilosa_tpu_torch.engine.bsi import OFFSET_ROW
-from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD, pow2_bucket
+from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
+                                           pow2_bucket)
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.store.field import Field
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 DEFAULT_BUDGET = 4 << 30
+
+
+def merge_row_cards(frags) -> tuple[np.ndarray, np.ndarray]:
+    """Per-fragment ``(row_ids, cardinalities)`` merged across shards:
+    (uint64[R] sorted ids, int64[R] summed cards), with no bit expanded."""
+    id_parts, card_parts = [], []
+    for frag in frags:
+        ids, cards = frag.row_cardinalities()
+        if len(ids):
+            id_parts.append(ids)
+            card_parts.append(cards)
+    if not id_parts:
+        return np.empty(0, np.uint64), np.empty(0, np.int64)
+    ids = np.concatenate(id_parts)
+    cards = np.concatenate(card_parts)
+    top = int(max(p[-1] for p in id_parts))
+    if top < 4 * len(ids) + (1 << 16):
+        # dense ids (millions of sparse rows): one pass instead of a sort;
+        # every listed row has at least one bit, so the nonzero sums are
+        # the rows
+        sums = np.bincount(ids.astype(np.int64), weights=cards,
+                           minlength=top + 1)
+        all_ids = np.flatnonzero(sums).astype(np.uint64)
+        return all_ids, sums[all_ids.astype(np.int64)].astype(np.int64)
+    all_ids = np.unique(ids)
+    totals = np.zeros(len(all_ids), np.int64)
+    np.add.at(totals, np.searchsorted(all_ids, ids), cards)
+    return all_ids, totals
 
 
 def plane_from_numpy(words: np.ndarray, device=None) -> torch.Tensor:
@@ -126,17 +170,43 @@ class PlaneSet:
         return len(self.row_ids)
 
 
+@dataclass
+class SparseSet:
+    """One (field, view) as CSR arrays of its set bits
+    (:mod:`pilosa_tpu_torch.engine.sparse`): memory grows with the bits,
+    not with rows x shard width.  Bits are sorted by row; pad bits carry
+    mask 0 and pad rows repeat the bit count in ``row_ptr``."""
+
+    word_idx: torch.Tensor    # int32[N_pad] flat filter word per bit
+    mask: torch.Tensor        # int32[N_pad]: the bit's uint32 lane mask
+    row_ptr: torch.Tensor     # int32[R_pad + 1] row boundaries
+    row_ids: np.ndarray       # uint64[R] sorted rows
+    row_cards: np.ndarray     # int64[R] each row's bits
+    shards: tuple[int, ...]
+    nbytes: int
+    n_rows_pad: int
+    delta: None = None        # never carries an overlay: a write rebuilds
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.row_ids)
+
+
 class PlaneCache:
     BUILD_CHUNK_BYTES = 256 << 20
     # past this many changed cells beyond the overlay's cap a fold (or a
     # row refresh) gives way to a rebuild
     MAX_INCR_CELLS = 4096
+    # planes up to this size build on the request that asks; past it
+    # field_plane_nowait builds them on a background thread
+    SYNC_BUILD_MAX = 256 << 20
 
     def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET,
                  delta_cells: int = 65536,
-                 delta_compact_fraction: float = 0.5):
+                 delta_compact_fraction: float = 0.5, governor=None):
         self.device = resolve_device(device)
         self.budget = budget_bytes
+        self.governor = governor
         self._entries: OrderedDict = OrderedDict()  # key -> (gens, ps, n)
         self._bytes = 0
         self._zeros: dict[int, torch.Tensor] = {}
@@ -146,6 +216,13 @@ class PlaneCache:
         self.builds = 0
         self.last_build_seconds = 0.0
         self.last_build_bytes = 0
+        self.build_failures = 0
+        self._failed_logged: set = set()
+        self._building: dict = {}  # key -> background builder thread
+        # entries leased to each thread's query (never evicted meanwhile)
+        self._leases: dict[int, set] = {}
+        self.evictions = 0
+        self._evictions_by_reason: dict[str, int] = {}
         # delta overlays: key -> (base plane tensor, DeltaMirror); a
         # rebuilt or folded base invalidates its mirror by identity
         self.delta_cells = int(delta_cells)
@@ -166,16 +243,84 @@ class PlaneCache:
         key = ("plane", index, field.name, view_name, shards)
         return self._get(key, field, view_name, shards, self._build_plane)
 
-    def field_plane_delta(self, index: str, field: Field, view_name: str,
-                          shards: tuple[int, ...]) -> PlaneSet:
-        """Whole-view plane for the delta-aware families (the stale-entry
-        half of the reference's ``field_plane_nowait``): a fresh entry
-        serves as it is, overlay and all; a stale one absorbs its write
-        gap into the overlay, else folds it into the base; an absent one,
-        or a gap the journal cannot cover, builds synchronously."""
-        return self._delta_fetch(("plane", index, field.name, view_name,
-                                  shards), field, view_name, shards,
-                                 self._build_plane)
+    def field_plane_nowait(self, index: str, field: Field, view_name: str,
+                           shards: tuple[int, ...]) -> PlaneSet | None:
+        """The whole-view plane for the delta-aware families, or None while
+        it is not resident: a fresh entry serves as it is, a stale one
+        absorbs or folds its write gap; an absent plane (or one the journal
+        cannot bring up to date) of at most ``SYNC_BUILD_MAX`` bytes builds
+        here, a larger one on a background thread (one per key) while the
+        caller serves another way.  None too when the plane exceeds the
+        budget."""
+        key = ("plane", index, field.name, view_name, shards)
+        gens = self._gens(field, view_name, shards)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and hit[0] == gens:
+                self._touch(key)
+                self._lease(key)
+                return hit[1]
+            if key in self._building:
+                return None
+        if hit is not None:
+            ps = self._delta_update(key, field, view_name, shards, hit)
+            if ps is not None:
+                self._lease(key)
+                return ps
+            del hit
+        est = self.plane_bytes(field, view_name, shards)
+        if est > self.budget:
+            return None
+        if est <= self.SYNC_BUILD_MAX:
+            return self.field_plane(index, field, view_name, shards)
+        with self._lock:
+            if key in self._building:
+                return None
+            t = threading.Thread(target=self._background_build,
+                                 args=(key, field, view_name, shards, gens),
+                                 name="plane-build", daemon=True)
+            self._building[key] = t
+        t.start()
+        return None
+
+    def _background_build(self, key, field: Field, view_name: str,
+                          shards: tuple[int, ...], gens) -> None:
+        """Build a plane off the request path and publish it at the
+        generations read before the build (a write meanwhile leaves it
+        stale, and the next request absorbs the gap).  ``assemble`` waits
+        on the host for every copy it issued, so a reader on any stream
+        sees the whole plane.  A failure is counted and logged once per
+        key; requests keep streaming and the next one retries."""
+        try:
+            ps = self._build_plane(field, view_name, shards)
+            # published before _building is cleared: wait_builds() never
+            # returns with a plane about to appear
+            self._insert_entry(key, gens, ps, ps.plane.numel() * 4)
+        except Exception:  # noqa: BLE001 — a failed build is not a failed request
+            with self._lock:
+                self.build_failures += 1
+                first = key not in self._failed_logged
+                if first:
+                    if len(self._failed_logged) > 64:
+                        self._failed_logged.clear()
+                    self._failed_logged.add(key)
+            if first:
+                logging.getLogger("pilosa_tpu_torch.exec").exception(
+                    "background plane build failed for %s (requests keep "
+                    "streaming; the next one retries)", key)
+        finally:
+            with self._lock:
+                self._building.pop(key, None)
+
+    def wait_builds(self, timeout: float = 300.0) -> None:
+        """Join the background plane builds in flight."""
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            with self._lock:
+                t = next(iter(self._building.values()), None)
+            if t is None:
+                return
+            t.join(max(0.1, end - time.monotonic()))
 
     @staticmethod
     def _bsi_key(index: str, field: Field, shards: tuple[int, ...]):
@@ -221,6 +366,193 @@ class PlaneCache:
                          lambda f, v, s: self._build_row(f, v, s, row_id)
                          ).plane
 
+    # -- past the budget ----------------------------------------------------
+
+    def sparse_bytes(self, field: Field, view_name: str,
+                     shards: tuple[int, ...]) -> int:
+        """The sparse residency's footprint with the padding its build
+        applies (so the budget never admits a set the cache then refuses):
+        8 bytes per pow2-padded bit, 4 per pow2-padded row plus one, the
+        rows counted per fragment as the reference counts them."""
+        view = field.view(view_name)
+        bits = total_rows = 0
+        if view is not None:
+            for s in shards:
+                frag = view.fragment(s)
+                if frag is not None:
+                    ids, cards = frag.row_cardinalities()
+                    bits += int(cards.sum())
+                    total_rows += len(ids)
+        return pow2_bucket(bits) * 8 + (pow2_bucket(total_rows) + 1) * 4
+
+    def sparse_plane(self, index: str, field: Field, view_name: str,
+                     shards: tuple[int, ...]) -> SparseSet:
+        """A view's CSR residency (cached and invalidated like a plane; a
+        stale one rebuilds from the fragments)."""
+        key = ("sparse", index, field.name, view_name, shards)
+        return self._get(key, field, view_name, shards, self._build_sparse)
+
+    def _build_sparse(self, field: Field, view_name: str,
+                      shards: tuple[int, ...]) -> SparseSet:
+        view = field.view(view_name)
+        per_shard, frags = [], []
+        if view is not None:
+            for si, s in enumerate(shards):
+                frag = view.fragment(s)
+                if frag is not None:
+                    frags.append(frag)
+                    per_shard.append((si, frag.positions()))
+        all_ids, row_cards = merge_row_cards(frags)
+        r_pad = pow2_bucket(len(all_ids))
+        wi_parts, mask_parts, slot_parts = [], [], []
+        for si, pos in per_shard:
+            if not len(pos):
+                continue
+            cols = (pos % np.uint64(SHARD_WIDTH)).astype(np.int64)
+            wi_parts.append((si * WORDS_PER_SHARD + (cols >> 5))
+                            .astype(np.int32))
+            mask_parts.append(np.uint32(1) << (cols & 31).astype(np.uint32))
+            slot_parts.append(np.searchsorted(
+                all_ids, pos // np.uint64(SHARD_WIDTH)).astype(np.int32))
+        if wi_parts:
+            sl = np.concatenate(slot_parts)
+            order = np.argsort(sl, kind="stable")  # CSR row order
+            wi = np.concatenate(wi_parts)[order]
+            mk = np.concatenate(mask_parts)[order]
+            sl = sl[order]
+        else:
+            wi = np.empty(0, np.int32)
+            mk = np.empty(0, np.uint32)
+            sl = np.empty(0, np.int32)
+        n_pad = pow2_bucket(len(wi))
+        wi_out = np.zeros(n_pad, np.int32)
+        mk_out = np.zeros(n_pad, np.uint32)   # mask 0 = padding
+        wi_out[:len(wi)] = wi
+        mk_out[:len(mk)] = mk
+        # row boundaries; pad rows are empty segments at N
+        rp = np.searchsorted(sl, np.arange(r_pad + 1, dtype=np.int64)
+                             ).astype(np.int32)
+        return SparseSet(
+            word_idx=torch.from_numpy(wi_out).to(self.device),
+            mask=torch.from_numpy(mk_out.view(np.int32)).to(self.device),
+            row_ptr=torch.from_numpy(rp).to(self.device),
+            row_ids=all_ids, row_cards=row_cards, shards=shards,
+            nbytes=n_pad * 8 + (r_pad + 1) * 4, n_rows_pad=r_pad)
+
+    def iter_row_blocks(self, field: Field, view_name: str,
+                        shards: tuple[int, ...], block_rows: int):
+        """Stream a view's rows through the card in blocks: yields
+        ``(row_ids, int32[n_shards, block_rows, W])``, the last block
+        zero-padded (its pad rows count 0; callers slice)."""
+        view = field.view(view_name)
+        row_ids = union_row_ids(field, view_name, shards)
+        for start in range(0, len(row_ids), block_rows):
+            chunk = row_ids[start:start + block_rows]
+            yield chunk, self.assemble(
+                shards, block_rows,
+                [(view, chunk, np.arange(len(chunk)))], tally=False)
+
+    def build_rows_plane(self, field: Field, view_name: str,
+                         shards: tuple[int, ...], row_ids: np.ndarray,
+                         r_pad: int, tally: bool = True) -> PlaneSet:
+        """A new plane of ``row_ids`` at slots 0.. of ``r_pad`` rows over
+        ``shards`` (``tally=False``: a page-in, not a plane build)."""
+        slot_of = {int(r): i for i, r in enumerate(row_ids)}
+        full = self.assemble(shards, r_pad,
+                             [(field.view(view_name), row_ids,
+                               np.arange(len(row_ids)))], tally=tally)
+        return PlaneSet(full, shards, row_ids, slot_of)
+
+    # -- leases and eviction ------------------------------------------------
+
+    def begin_query(self) -> None:
+        """Open this thread's lease set: entries handed out until
+        :meth:`end_query` are not evicted meanwhile."""
+        with self._lock:
+            self._leases[threading.get_ident()] = set()
+
+    def end_query(self) -> None:
+        with self._lock:
+            self._leases.pop(threading.get_ident(), None)
+
+    def _lease(self, key) -> None:
+        with self._lock:
+            lease = self._leases.get(threading.get_ident())
+            if lease is not None:
+                lease.add(key)
+
+    def _pinned(self) -> set:
+        # caller holds self._lock
+        if not self._leases:
+            return set()
+        return set().union(*self._leases.values())
+
+    def _touch(self, key) -> None:
+        """A served hit: most recently used, and a hit for the governor.
+        Caller holds self._lock."""
+        self._entries.move_to_end(key)
+        if self.governor is not None:
+            self.governor.note_hit(key)
+
+    def _eviction_order(self, pinned: set, keys=None) -> list:
+        """Unleased keys, first to evict first: the governor's keep-score
+        ascending, least recently used first among equals (the whole order
+        without a governor or telemetry).  Caller holds self._lock."""
+        rank = {k: i for i, k in enumerate(self._entries)}
+        ks = [k for k in (self._entries if keys is None else keys)
+              if k not in pinned and k in rank]
+        g = self.governor
+        if g is None:
+            return sorted(ks, key=rank.__getitem__)
+        return sorted(ks, key=lambda k: (g.keep_score(
+            k, self._entries[k][2]), rank[k]))
+
+    def _evict_entry(self, key, reason: str) -> int:
+        """Drop one entry as an eviction (caller holds self._lock and has
+        checked leases); returns the bytes freed."""
+        nbytes = self._entries.pop(key)[2]
+        self._delta_mirrors.pop(key, None)
+        self._bytes -= nbytes
+        self.evictions += 1
+        self._evictions_by_reason[reason] = \
+            self._evictions_by_reason.get(reason, 0) + 1
+        if self.governor is not None:
+            self.governor.note_evict(key)
+        return nbytes
+
+    def evict_unpinned(self, target_bytes: int | None = None,
+                       reason: str = "oom") -> int:
+        """Evict unleased entries in eviction order until ``target_bytes``
+        are freed (None: all of them); returns the bytes freed."""
+        with self._lock:
+            self._bytes_cache.clear()
+            freed = 0
+            for key in self._eviction_order(self._pinned()):
+                if target_bytes is not None and freed >= target_bytes:
+                    break
+                freed += self._evict_entry(key, reason)
+            return freed
+
+    def evict_tenant(self, index: str, need_bytes: int,
+                     reason: str = "quota") -> int:
+        """Free up to ``need_bytes`` of one tenant's unleased entries, in
+        eviction order; returns the bytes freed."""
+        with self._lock:
+            keys = [k for k in self._entries if k[1] == index]
+            freed = 0
+            for key in self._eviction_order(self._pinned(), keys):
+                if freed >= need_bytes:
+                    break
+                freed += self._evict_entry(key, reason)
+            return freed
+
+    def tenant_bytes(self, index: str) -> int:
+        """Resident bytes of one tenant (every key holds its index at
+        position 1)."""
+        with self._lock:
+            return sum(v[2] for k, v in self._entries.items()
+                       if k[1] == index)
+
     def has_plane(self, index: str, field: Field, view_name: str,
                   shards: tuple[int, ...]) -> bool:
         """A whole-view plane entry can serve: fresh, or stale but
@@ -250,7 +582,7 @@ class PlaneCache:
             if hit is not None and hit[0] == gens:
                 return hit[1]
         est = (len(shards)
-               * pow2_bucket(len(_union_row_ids(field, view_name, shards)))
+               * pow2_bucket(len(union_row_ids(field, view_name, shards)))
                * WORDS_PER_SHARD * 4)
         with self._lock:
             self._bytes_cache[key] = (gens, est)
@@ -273,7 +605,11 @@ class PlaneCache:
             return {"bytes": self._bytes, "budgetBytes": self.budget,
                     "entries": len(self._entries), "builds": self.builds,
                     "lastBuildSeconds": self.last_build_seconds,
-                    "lastBuildBytes": self.last_build_bytes}
+                    "lastBuildBytes": self.last_build_bytes,
+                    "buildFailures": self.build_failures,
+                    "building": len(self._building),
+                    "evictions": self.evictions,
+                    "evictionsByReason": dict(self._evictions_by_reason)}
 
     def delta_stats(self) -> dict:
         """The overlay half of the ``/status`` ingest block."""
@@ -311,17 +647,20 @@ class PlaneCache:
                 field, shards, fast=True):
             with self._lock:
                 if key in self._entries:
-                    self._entries.move_to_end(key)
+                    self._touch(key)
+                    self._lease(key)
             return hit[1]
         gens = timeviews.time_gens(field, shards)
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == gens:
-                self._entries.move_to_end(key)
+                self._touch(key)
+                self._lease(key)
                 return hit[1]
         if hit is not None:
             tps = self._time_absorb(key, field, shards, hit)
             if tps is not None:
+                self._lease(key)
                 return tps
             del hit
         with self._build_lock:
@@ -339,7 +678,7 @@ class PlaneCache:
                 return None
             tps = timeviews.build_time_plane(field, shards, self.assemble,
                                              plan=plan)
-            self._insert_entry(key, gens, tps, plan[-1])
+            self._insert_entry(key, gens, tps, plan[-1], lease=True)
         return tps
 
     def _time_absorb(self, key, field: Field, shards: tuple[int, ...], hit,
@@ -479,11 +818,13 @@ class PlaneCache:
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == gens:
-                self._entries.move_to_end(key)
+                self._touch(key)
+                self._lease(key)
                 return hit[1]
         if hit is not None:
             ps = self._delta_update(key, field, view_name, shards, hit)
             if ps is not None:
+                self._lease(key)
                 return ps
         return self._get(key, field, view_name, shards, build)
 
@@ -496,26 +837,32 @@ class PlaneCache:
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == gens and hit[1].delta is None:
-                self._entries.move_to_end(key)
+                self._touch(key)
+                self._lease(key)
                 return hit[1]
-        if hit is not None:
+        if hit is not None and key[0] != "sparse":
+            # a sparse residency takes no overlay: stale, it rebuilds
             refresh = (self._incremental if key[0] in ("row", "rows")
                        else self._fold)
             ps = refresh(key, field, view_name, shards, hit)
             if ps is not None:
+                self._lease(key)
                 return ps
         with self._build_lock:
             with self._lock:
                 hit = self._entries.get(key)
                 if (hit is not None and hit[0] == gens
                         and hit[1].delta is None):
+                    self._lease(key)
                     return hit[1]
                 if hit is not None:
                     # stale: release its device memory before rebuilding
                     self._drop(key)
                     del hit
             ps = build(field, view_name, shards)
-            self._insert_entry(key, gens, ps, ps.plane.numel() * 4)
+            nbytes = getattr(ps, "nbytes", None)
+            self._insert_entry(key, gens, ps, ps.plane.numel() * 4
+                               if nbytes is None else nbytes, lease=True)
         return ps
 
     def _drop(self, key) -> None:
@@ -523,20 +870,29 @@ class PlaneCache:
         self._bytes -= self._entries.pop(key)[2]
         self._delta_mirrors.pop(key, None)
 
-    def _insert_entry(self, key, gens, ps: PlaneSet, nbytes: int) -> None:
-        """Cache a built plane, LRU-evicting to the budget.  A rebuilt
-        base supersedes any pending overlay: the build re-read every
-        fragment, so the mirror's cells are already in it."""
+    def _insert_entry(self, key, gens, ps, nbytes: int,
+                      lease: bool = False) -> None:
+        """Cache a built plane (leased to the calling query when ``lease``)
+        and evict other unleased entries in eviction order down to the
+        budget.  A rebuilt base supersedes any pending overlay: the build
+        re-read every fragment, so the mirror's cells are already in it."""
         with self._lock:
             if key in self._entries:
                 self._drop(key)
             self._delta_mirrors.pop(key, None)
             if nbytes > self.budget:
                 return  # served this once, never resident
-            while self._entries and self._bytes + nbytes > self.budget:
-                self._drop(next(iter(self._entries)))
             self._entries[key] = (gens, ps, nbytes)
             self._bytes += nbytes
+            if lease:
+                self._lease(key)
+            if self._bytes > self.budget and len(self._entries) > 1:
+                for k in self._eviction_order(self._pinned()):
+                    if (self._bytes <= self.budget
+                            or len(self._entries) <= 1):
+                        break
+                    if k != key:
+                        self._evict_entry(k, "budget")
 
     def _swap(self, key, ps: PlaneSet, gens, new_ps: PlaneSet) -> bool:
         """Replace the entry serving ``ps`` by ``new_ps`` at ``gens``;
@@ -840,21 +1196,21 @@ class PlaneCache:
         """``row_ids`` at slots 0.. of an ``r_pad``-row plane, or every
         row id of the view padded to a power of two."""
         if row_ids is None:
-            row_ids = _union_row_ids(field, view_name, shards)
+            row_ids = union_row_ids(field, view_name, shards)
             r_pad = pow2_bucket(len(row_ids))
-        slot_of = {int(r): i for i, r in enumerate(row_ids)}
-        full = self.assemble(shards, r_pad, [(field.view(view_name), row_ids,
-                                              np.arange(len(row_ids)))])
-        return PlaneSet(full, shards, row_ids, slot_of)
+        return self.build_rows_plane(field, view_name, shards, row_ids,
+                                     r_pad)
 
     def assemble(self, shards: tuple[int, ...], r_pad: int,
-                 sources) -> torch.Tensor:
+                 sources, tally: bool = True) -> torch.Tensor:
         """A new ``int32[len(shards), r_pad, W]`` device tensor holding, for
         each ``(view, row_ids, slots)`` of ``sources``, row ``row_ids[i]``
         of the view's fragment of every shard at slot ``slots[i]`` (absent
         fragments and rows leave zeros).  Fragments expand chunk by chunk
         into a pinned host staging buffer, and each chunk is copied into
-        the device tensor while the next one expands."""
+        the device tensor while the next one expands; it returns once every
+        copy has landed.  ``tally=False`` (a page-in, a streamed block)
+        leaves the build counters alone."""
         t0 = time.perf_counter()
         full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
                            dtype=torch.int32, device=self.device)
@@ -886,9 +1242,11 @@ class PlaneCache:
         for ev in copied:
             if ev is not None:
                 ev.synchronize()
-        self.builds += 1
-        self.last_build_seconds = time.perf_counter() - t0
-        self.last_build_bytes = full.numel() * 4
+        if tally:
+            with self._lock:
+                self.builds += 1
+                self.last_build_seconds = time.perf_counter() - t0
+                self.last_build_bytes = full.numel() * 4
         return full
 
     def _build_row(self, field: Field, view_name: str,
@@ -912,7 +1270,7 @@ def _sync(t: torch.Tensor) -> None:
         ev.synchronize()
 
 
-def _union_row_ids(field: Field, view_name: str,
+def union_row_ids(field: Field, view_name: str,
                    shards: tuple[int, ...]) -> np.ndarray:
     """Sorted distinct row ids across shards."""
     view = field.view(view_name)

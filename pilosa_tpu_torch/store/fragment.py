@@ -198,8 +198,19 @@ class Fragment:
     def positions(self) -> np.ndarray:
         """All set bits as sorted uint64 ``row*SHARD_WIDTH + col``."""
         with self.lock:
-            parts = [np.uint64(r) * _SW + self._snap_dir.expand_row(r)
-                     .astype(np.uint64) for r in self._snap_pending]
+            parts = []
+            pend = self._snap_pending
+            if pend and len(pend) * 4 >= len(self._snap_dir.row_cards()[0]):
+                # most snapshot rows unread: one vectorized pass over the
+                # directory, the materialized rows filtered out
+                snap = self._snap_dir.positions()
+                if len(pend) != len(self._snap_dir.row_cards()[0]):
+                    snap = snap[np.isin(snap // _SW, np.fromiter(
+                        pend, np.uint64, len(pend)))]
+                parts.append(snap)
+            else:
+                parts += [np.uint64(r) * _SW + self._snap_dir.expand_row(r)
+                          .astype(np.uint64) for r in pend]
             parts += [np.uint64(r) * _SW + cols.astype(np.uint64)
                       for r, cols in self.rows.items()]
             parts += [np.uint64(r) * _SW + unpack_columns(words)
@@ -207,6 +218,53 @@ class Fragment:
         if not parts:
             return np.empty(0, np.uint64)
         return np.sort(np.concatenate(parts))
+
+    def row_cardinalities(self) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ids uint64[R] sorted, cards int64[R]) with no bit expanded:
+        directory sums for snapshot-resident rows, the offset count or the
+        words' popcount for materialized ones (a row lives in one tier).
+        Cached per generation: budget checks ask on every request."""
+        with self.lock:
+            hit = getattr(self, "_rc_cache", None)
+            if hit is not None and hit[0] == self.generation:
+                return hit[1]
+            out = self._row_cardinalities()
+            self._rc_cache = (self.generation, out)
+            return out
+
+    def _row_cardinalities(self) -> tuple[np.ndarray, np.ndarray]:
+        with self.lock:
+            ids, cards = [], []
+            if self._snap_pending and self._snap_dir is not None:
+                uniq, ucards = self._snap_dir.row_cards()
+                if len(self._snap_pending) != len(uniq):
+                    keep = np.isin(uniq, np.fromiter(
+                        self._snap_pending, np.uint64,
+                        len(self._snap_pending)))
+                    uniq, ucards = uniq[keep], ucards[keep]
+                ids.append(uniq)
+                cards.append(ucards)
+            if self.rows:
+                ids.append(np.fromiter(self.rows, np.uint64, len(self.rows)))
+                cards.append(np.fromiter((len(c) for c in self.rows.values()),
+                                         np.int64, len(self.rows)))
+            if self.dense:
+                ids.append(np.fromiter(self.dense, np.uint64, len(self.dense)))
+                cards.append(np.fromiter(
+                    (int(np.bitwise_count(w).sum())
+                     for w in self.dense.values()), np.int64, len(self.dense)))
+            snap_only = len(ids) == 1 and not (self.rows or self.dense)
+        if not ids:
+            return np.empty(0, np.uint64), np.empty(0, np.int64)
+        if snap_only:
+            return ids[0], cards[0]
+        all_ids = np.concatenate(ids)
+        order = np.argsort(all_ids, kind="stable")
+        return all_ids[order], np.concatenate(cards)[order]
+
+    def cardinality(self) -> int:
+        """Set bits in the fragment, from :meth:`row_cardinalities`."""
+        return int(self.row_cardinalities()[1].sum())
 
     def row_words(self, row_id: int, word_idx=None) -> np.ndarray:
         """One row's current packed words, uint32[W] (a copy), or just the

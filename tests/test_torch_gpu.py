@@ -597,3 +597,110 @@ def test_keyed_requests_over_resident_plane_equal_cpu(dev, tmp_path):
     finally:
         api.executor.close()
         holder.close()
+
+
+# -- fields past the plane budget --------------------------------------------
+
+
+def _sparse_csr(seed: int, n_rows: int, s: int):
+    """CSR arrays over ``s`` shards with tie-heavy row sizes and lane-31
+    bits (a negative int32 mask)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.choice([0, 1, 2, 2, 3, 3, 3], n_rows)
+    n = int(sizes.sum())
+    word_idx = rng.integers(0, s * 32768, n).astype(np.int32)
+    lane = rng.integers(0, 32, n)
+    lane[::7] = 31
+    mask = (np.uint32(1) << lane.astype(np.uint32)).view(np.int32)
+    r_pad = 1 << max(0, (n_rows - 1).bit_length())
+    row_ptr = np.full(r_pad + 1, n, np.int32)
+    row_ptr[:n_rows + 1] = np.concatenate([[0], np.cumsum(sizes)])
+    n_pad = 1 << max(0, (n - 1).bit_length())
+    wi = np.zeros(n_pad, np.int32)
+    mk = np.zeros(n_pad, np.int32)
+    wi[:n], mk[:n] = word_idx, mask
+    return wi, mk, row_ptr
+
+
+def test_sparse_counts_and_topk_equal_cpu(dev):
+    from pilosa_tpu_torch.engine import sparse
+    s = 6
+    wi, mk, rp = _sparse_csr(3, 100_000, s)
+    fw = _words(9, (s, 32768), torch.device("cpu"))
+    cpu = [torch.from_numpy(a) for a in (wi, mk, rp)]
+    gpu = [t.to(dev) for t in cpu]
+    want = sparse.sparse_row_counts(fw, *cpu)
+    got = sparse.sparse_row_counts(fw.to(dev), *gpu)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    for k in (1, 5, 64, 4096):
+        wv, ws = sparse.topn_sparse(fw, *cpu, k)
+        gv, gs = sparse.topn_sparse(fw.to(dev), *gpu, k)
+        assert torch.equal(gv.cpu(), wv) and torch.equal(gs.cpu(), ws)
+        # ties in ascending slot order
+        v, sl = wv.numpy(), ws.numpy()
+        assert all(v[i] > v[i + 1] or sl[i] < sl[i + 1]
+                   for i in range(len(v) - 1))
+
+
+def _budget_holder(path: str):
+    from pilosa_tpu_torch.store import Holder
+    rng = np.random.default_rng(11)
+    holder = Holder(path).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 40), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(5 << 20, 60000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+    return holder
+
+
+def test_background_built_plane_equals_sync_build(dev, tmp_path):
+    from pilosa_tpu_torch.exec.planes import PlaneCache
+    holder = _budget_holder(str(tmp_path))
+    f = holder.index("i").field("f")
+    shards = tuple(range(5))
+    try:
+        cache = PlaneCache(dev)
+        cache.SYNC_BUILD_MAX = 1 << 20
+        assert cache.field_plane_nowait("i", f, "standard", shards) is None
+        cache.wait_builds()
+        assert cache.build_failures == 0 and cache.builds == 1
+        ps = cache.field_plane_nowait("i", f, "standard", shards)
+        sync = PlaneCache("cpu").field_plane("i", f, "standard", shards)
+        assert ps.plane.device.type == dev.type
+        assert torch.equal(ps.plane.cpu(), sync.plane)
+        assert np.array_equal(ps.row_ids, sync.row_ids)
+    finally:
+        holder.close()
+
+
+@pytest.mark.parametrize("budget", [256 << 10, 6 << 20])
+def test_streamed_sparse_and_paged_equal_cpu(dev, tmp_path, budget):
+    """Past f's 40 MiB plane: a 256 KiB budget streams its filtered TopNs
+    (the ~0.5 MiB sparse form does not fit either), 6 MiB serves them
+    sparse; Counts go in pages on both."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    holder = _budget_holder(str(tmp_path))
+    qs = ["TopN(f, Row(g=0), n=5)", "TopN(f, Row(g=1), tanimoto=20, n=9)",
+          "TopN(f, Row(g=0), _rowCounts=1)", "TopN(f, n=4)",
+          "".join(f"Count(Row(f={r}))" for r in range(40)),
+          "Count(Row(f=3))Count(Row(f=7))", "Count(Row(f=9))"]
+    cpu = API(holder, Executor(holder, device="cpu", plane_budget=budget))
+    want = [cpu.query("i", q) for q in qs]
+    ex = Executor(holder, device=dev, plane_budget=budget,
+                  plane_page_bytes=1 << 20)
+    api = API(holder, ex)
+    try:
+        for _ in range(2):
+            assert [api.query("i", q) for q in qs] == want
+        served = ex.serving_stats()["topnServed"]
+        path = "streamed" if budget < (1 << 20) else "sparse"
+        assert served[path] == 6 and served["host"] == 2, served
+        assert ex.tenancy_status()["pageIns"] >= 2
+    finally:
+        ex.close()
+        cpu.executor.close()
+        holder.close()

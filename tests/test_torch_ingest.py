@@ -333,7 +333,7 @@ def test_reader_keeps_pre_fold_answer(port):
                     col_ids=[3, SW + 64, 2 * SW + 5])
     planes = api.executor.planes
     shards = tuple(range(SHARDS))
-    old = planes.field_plane_delta("i", f, "standard", shards)
+    old = planes.field_plane_nowait("i", f, "standard", shards)
     assert old.delta is not None and old.delta.n == 3
     fused = api.executor.fused
     before = fused.run_rowcounts_delta(old.plane, old.delta).clone()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--shards 954]
 
-Eleven phases; any failure raises and the exit code is non-zero:
+Twelve phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -147,7 +147,31 @@ Eleven phases; any failure raises and the exit code is non-zero:
    ``tenantThrottled`` body, ``/status`` counts them.  The phase must
    launch ``row_counts``, ``count`` and ``selected_row_counts``.  Launch
    counters are reset at the start and read at the end.
-11. Print the ``kernels`` JSON line, the card's name and power limit, and
+11. Robustness, protobuf bodies and the ``distinct`` kind, on ``bench``
+   as phase 10 leaves it: (a) the 32-Count, the 4-Count and a filtered
+   TopN as protobuf ``/query`` beside JSON, a 4096-pair protobuf
+   ``/import`` into ``f`` carrying ``X-Pilosa-Op-Id`` (absorbed, no
+   build), a 1024-value protobuf ``importValue`` into ``amount`` and a
+   Sum, and Extract asked for in protobuf (its protobuf 400); (b) 32
+   clients x 2 passes of ``Distinct(field=amount)`` and a filtered
+   Distinct, whose identical items must share presence scans; (c)
+   ``?timeout=`` 504s on a double Percentile (at the call boundary) and a
+   GroupBy Max (in a batcher stage) through an executor without the fast
+   lane, and a Count burst where half the clients carry a 1 ms deadline:
+   the others answer exactly and no slot stays taken; (d) a watchdog
+   bound below the GroupBy Max window's device time: the 500
+   ``pipelineStall`` body, ``deviceHealth`` degraded, requests served one
+   at a time through the hand kernels with the fast lane off, the bound
+   restored and one probe window back to healthy, the live threads back
+   to their count; (e) a fresh executor with ``f`` and ``amount``
+   resident, a ballast sized from ``torch.cuda.mem_get_info()`` so that
+   ``m``'s 2.00 GB plane cannot fit: the 16-Count over ``m`` raises a
+   real ``torch.cuda.OutOfMemoryError``, stage 1 evicts the unleased
+   planes and the retry answers exactly.  Every answer is checked against
+   the numpy oracle; the phase must launch ``count``, ``row_counts`` and
+   ``selected_row_counts``.  Launch counters are reset at the start and
+   read at the end.
+12. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own.
 
@@ -481,6 +505,8 @@ def make_index(data_dir: str, shards: int, seed: int):
     oracle["budget"] = make_budget_oracle(f, g, tags,
                                           oracle["mutex"]["f_counts"])
     del tags
+    # phase 11 serves f as phase 10 leaves it and amount as phase 6 did
+    oracle["robust"] = make_robust(f, g, shards, seed, oracle)
     # phase 7's index of timestamped events
     oracle["events"] = make_events(data_dir, shards, seed)
     oracle["keys"] = seg_oracle
@@ -777,7 +803,7 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
     pick = np.sort(perm[VALUE_OVER_CAP:VALUE_OVER_CAP + GB_VALUES])
     new = rng.integers(BSI_MIN, BSI_MAX + 1, len(pick))
     return {"expect": expect, "batches": out[:-1], "over_cap": out[-1],
-            "final": (cand, final),
+            "final": (cand, final), "hist": hist,
             "gb_values": (cand[pick], new, final[pick],
                           _changed_bits(final[pick], new))}
 
@@ -1084,10 +1110,10 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 10 over one holder; returns the launch counts of each
+    """Phases 2 to 11 over one holder; returns the launch counts of each
     path's run, keyed "serve", "concurrent", "concurrent_off",
     "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
-    "groupby", "events", "mutex", "keys" and "budget"."""
+    "groupby", "events", "mutex", "keys", "budget" and "robust"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1249,6 +1275,12 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         bp = budget_phase(client, holder, planes, oracle["budget"], cuda,
                           device)
         log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 11: protobuf, distinct, deadlines, watchdog, OOM ==")
+        rb = robust_phase(client, holder, planes, oracle["robust"], cuda,
+                          device)
+        log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1271,7 +1303,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp}
+            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -3084,7 +3116,7 @@ def make_budget_oracle(f: np.ndarray, g: np.ndarray, tags: dict,
                        "srcCount": src}]},
         "f_seq": (Q32, Q4, TOPN_G, f_tan, f_part),
         "tags_bits": len(rows), "tags_rows": int((t_rc > 0).sum()),
-        "tanimoto_row": r}
+        "tanimoto_row": r, "filtered": filtered}
     log(f"phase 10 oracle in {time.perf_counter() - t0:.1f}s: tanimoto "
         f"{thr_s} over f keeps {kept} of {ROWS} rows; tags source row {r} "
         f"({tsrc} bits) keeps "
@@ -3351,6 +3383,575 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
     return {"budget": launched}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: protobuf bodies, the distinct kind, deadlines, the watchdog and
+# the health governor, device-OOM recovery
+# ---------------------------------------------------------------------------
+
+RB_VALUES = 1024               # the protobuf importValue batch
+RB_VALUE_SHARDS = 4            # shards its columns come from
+RB_PASSES = 2                  # passes of the distinct burst
+RB_DOOMED_REQS = 4             # requests per client of the deadline burst
+RB_WATCHDOG_S = 0.01           # below a GroupBy Max window's device time
+RQ_PCT = "Percentile(field=amount, nth=99)"
+RQ_PCT2 = RQ_PCT + RQ_PCT      # a deadline expires between the two
+RQ_DISTINCT = "Distinct(field=amount)"
+RQ_DISTINCT_F = "Distinct(Row(g=0), field=amount)"  # a shared filter
+RQ_SUM = "Sum(field=amount)"
+RQ_EXTRACT = "Extract(Limit(Row(f=0), limit=10), Rows(f))"
+PROTO = "application/x-protobuf"
+
+
+def _pct_expect(hist: "_Hist", nth: float) -> list:
+    total, cnt = hist.sum_count()
+    target = min(cnt, max(1, math.ceil(nth / 100.0 * cnt)))
+    v = int(np.searchsorted(np.cumsum(hist.h), target)) + BSI_MIN
+    return _vc(v, hist.at(v))
+
+
+def _amount_shard(s: int, seed: int, f1: np.ndarray, g: np.ndarray,
+                  offs: np.ndarray, vals_at: np.ndarray,
+                  present: np.ndarray) -> list:
+    """Shard ``s`` of ``amount`` as generated, overwritten at ``offs`` by
+    ``vals_at`` (``_EMPTY`` = none): per ``g`` row, the count of ``f`` row
+    1 (``f1``) in it and the (max, its count) of the values there; the
+    values in ``g`` row 0 are marked in ``present`` (shared: every writer
+    only sets)."""
+    exists, vals = _bsi_values(seed, s)
+    vals = vals.astype(np.int64)
+    exists[offs] = vals_at != _EMPTY
+    vals[offs] = np.where(exists[offs], vals_at, 0)
+    f1b = _bits(f1)
+    gb = []
+    for k in range(4):
+        m = _bits(g[k]) & f1b & exists
+        best = int(vals[m].max()) if m.any() else None
+        gb.append((int(_popcounts(g[k] & f1)),
+                   None if best is None
+                   else (best, int((vals[m] == best).sum()))))
+    present[vals[_bits(g[0]) & exists] - BSI_MIN] = True
+    return gb
+
+
+def _amount_expect(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
+                   writes: list) -> tuple:
+    """Over ``f`` as it stands and ``amount`` after ``writes`` ((columns,
+    values) in write order): ``GroupBy(Rows(g), filter=Row(f=1),
+    aggregate=Max(field=amount))`` and the distinct values in ``g`` row 0
+    (phase 6's set batch changes ``f`` row 1, so phase 6's own answer for
+    that GroupBy holds only before it)."""
+    from concurrent.futures import ThreadPoolExecutor
+    cols = np.concatenate([c for c, _ in writes])
+    vals = np.concatenate([v for _, v in writes]).astype(np.int64)
+    order = np.argsort(cols, kind="stable")
+    cols, vals = cols[order], vals[order]
+    last = np.r_[cols[1:] != cols[:-1], True]   # the last write wins
+    cols, vals = cols[last], vals[last]
+    b = np.searchsorted(cols, np.arange(shards + 1) << 20)
+    present = np.zeros(BSI_MAX - BSI_MIN + 1, bool)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        parts = list(pool.map(
+            lambda s: _amount_shard(s, seed, f[s, 1], g[s],
+                                    cols[b[s]:b[s + 1]] & _MASK20,
+                                    vals[b[s]:b[s + 1]], present),
+            range(shards)))
+    counts = [sum(p[k][0] for p in parts) for k in range(4)]
+    maxes = []
+    for k in range(4):
+        ms = [p[k][1] for p in parts if p[k][1] is not None]
+        best = max((v for v, _ in ms), default=None)
+        maxes.append(None if best is None
+                     else (best, sum(c for v, c in ms if v == best)))
+    return ([_gb_json(("g",), [(k,) for k in range(4)], counts,
+                      [m and m[0] for m in maxes])],
+            [{"values": [int(v) for v in np.flatnonzero(present)
+                         + BSI_MIN]}])
+
+
+def make_robust(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
+                oracle: dict) -> dict:
+    """Phase 11's oracle over ``f`` as phase 10 leaves it and ``amount``
+    as phase 6 leaves it: the protobuf pair batch into ``f`` (rows 2..31,
+    so GroupBy's ``Row(f=1)`` filter keeps its columns), the protobuf
+    value batch into ``amount`` (columns no earlier batch wrote, outside
+    ``f`` row 1), and the answers before and after each."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    bo, bsi = oracle["budget"], oracle["bsi"]
+    state = {"counts": np.asarray(oracle["mutex"]["f_counts"], np.int64),
+             "filtered": bo["filtered"].copy()}
+
+    def f_answers() -> dict:
+        c = state["counts"]
+        return {Q32: [int(x) for x in c], Q4: [int(c[r]) for r in SELECTED],
+                TOPN_G: [_pairs(state["filtered"], 5)]}
+
+    before = f_answers()
+    rows = rng.integers(2, ROWS, BATCH)
+    cols = np.sort(rng.choice(shards << 20, BATCH, replace=False))
+    hit = _apply_pairs(f, g[:, 0], state, rows, cols, clear=False)
+    after = f_answers()
+    # amount: phase 5's histogram plus phase 6's value batch
+    hist = _Hist(bsi["hist"].h.copy())
+    vc6, new6, old6, _ = bsi["gb_values"]
+    hist.move(old6, new6)
+    cand, final = bsi["final"]
+    written = np.union1d(cand, vc6)
+    vcols, olds = [], []
+    per = RB_VALUES // RB_VALUE_SHARDS
+    for s in range(min(RB_VALUE_SHARDS, shards)):
+        exists, vals = _bsi_values(seed, s)
+        free = np.ones(1 << 20, bool)
+        free[written[(written >> 20) == s] & _MASK20] = False
+        free &= ~_bits(f[s, 1])
+        offs = np.sort(rng.choice(np.flatnonzero(free), per, replace=False))
+        vcols.append((s << 20) + offs)
+        olds.append(np.where(exists[offs], vals[offs].astype(np.int64),
+                             _EMPTY))
+    vcols, old = np.concatenate(vcols), np.concatenate(olds)
+    new = rng.integers(BSI_MIN, BSI_MAX + 1, len(vcols))
+    new[:8] = BSI_MIN
+    vchanged = _changed_bits(old, new)
+    sum_before = _vc(*hist.sum_count())
+    hist.move(old, new)
+    vals = hist.nonzero()
+    gb_max, distinct_g0 = _amount_expect(
+        f, g, shards, seed, [(cand, final), (vc6, new6), (vcols, new)])
+    bsi_after = {
+        RQ_SUM: _vc(*hist.sum_count()),
+        RQ_PCT: _pct_expect(hist, 99),
+        RQ_DISTINCT: [{"values": [int(v) for v in vals]}],
+        RQ_DISTINCT_F: distinct_g0,
+        GB_SEQ[3]: gb_max,
+    }
+    log(f"phase 11 oracle in {time.perf_counter() - t0:.1f}s: the pair "
+        f"batch sets {int(hit.sum())} bits, the value batch changes "
+        f"{vchanged} bits; amount holds {len(vals)} distinct values, "
+        f"{len(distinct_g0[0]['values'])} in g row 0")
+    return {"before": before, "after": after,
+            "pairs": (rows, cols, int(hit.sum())),
+            "values": (vcols, new, vchanged), "sum_before": sum_before,
+            "bsi": bsi_after,
+            "m16": oracle["mutex"]["after_import"][MQ16]}
+
+
+def _http(base: str, path: str, body: bytes | None = None,
+          headers: dict | None = None, method: str = "POST"):
+    """(status, content type, body bytes) of one request."""
+    req = urllib.request.Request(base + path, data=body, method=method)
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def _ballast(need: int) -> list:
+    """Device tensors that leave less than ``need / 2`` allocatable: the
+    card's free memory after ``empty_cache()`` (sized from
+    ``torch.cuda.mem_get_info()``) less ``need / 2`` in one piece, then
+    pieces of ``need / 2`` until one fails, which also takes every block
+    of that size the caching allocator keeps in partly used segments."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step = max(need // 2, 2 << 20)
+    free = torch.cuda.mem_get_info()[0]
+    pieces = []
+    if free > 2 * step:
+        pieces.append(torch.empty(free - step, dtype=torch.uint8,
+                                  device="cuda"))
+    while True:
+        try:
+            pieces.append(torch.empty(step, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.OutOfMemoryError:
+            break
+    torch.cuda.empty_cache()
+    return pieces
+
+
+def _timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def robust_phase(client, holder, planes, ro: dict, cuda: bool,
+                 device) -> dict:
+    """Phase 11: (a) protobuf ``/query``, ``/import`` (with an
+    ``X-Pilosa-Op-Id``) and ``importValue`` over REST; (b) the
+    ``distinct`` kind under a burst; (c) ``?timeout=`` 504s and a Count
+    burst with tight deadlines; (d) a watchdog trip on a real window,
+    degraded serving and a probe back to healthy; (e) a real device OOM
+    recovered by stage 1.  The launch counters are reset when the phase
+    starts and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API, ApiError, Server, proto
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+
+    t0 = time.perf_counter()
+    if cuda:
+        log(f"phase 11 on {card_line()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    api = client.api
+    ex = api.executor
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    f_field = index.field("f")
+
+    # (a) protobuf over REST, on the default executor
+    server = Server(api, "127.0.0.1", 0).start()
+    base = "http://%s:%d" % server.address
+    both = {"Content-Type": PROTO, "Accept": PROTO}
+    try:
+        lat: dict = {}
+        for pql in (Q32, Q4, TOPN_G):
+            want = ro["before"][pql]
+            for _ in range(6):
+                (st, _, raw), ms_j = _timed(lambda: _http(
+                    base, "/index/bench/query", pql.encode()))
+                if st != 200 or json.loads(raw)["results"] != want:
+                    raise AssertionError(f"JSON {pql[:40]}: {st} "
+                                         f"{raw[:200]!r}")
+                (st, ct, raw), ms_p = _timed(lambda: _http(
+                    base, "/index/bench/query",
+                    proto.encode_query_request(pql), both))
+                got = proto.decode_query_response(raw)
+                if st != 200 or ct != PROTO or got["results"] != want:
+                    raise AssertionError(f"protobuf {pql[:40]}: {st} {got}")
+                lat.setdefault(pql, ([], []))
+                lat[pql][0].append(ms_j)
+                lat[pql][1].append(ms_p)
+        planes.wait_builds()
+        for pql, (js, ps) in lat.items():
+            log(f"[robust] REST {MIX_NAMES[pql]}: JSON median "
+                f"{sorted(js)[len(js) // 2]:.2f} ms, protobuf median "
+                f"{sorted(ps)[len(ps) // 2]:.2f} ms over {len(js)} "
+                f"(first JSON {js[0]:.2f} ms)")
+        # a 4096-pair protobuf import into f with an op id: absorbed into
+        # the resident plane's overlay, no build
+        rows, cols, changed = ro["pairs"]
+        if not planes.has_plane("bench", f_field, "standard", shards):
+            raise AssertionError("f's plane is not resident before the "
+                                 "protobuf import")
+        builds, absorbs = planes.builds, planes.delta_absorbs
+        body = proto.encode_import_request(row_ids=rows, col_ids=cols)
+        (st, ct, raw), ms_i = _timed(lambda: _http(
+            base, "/index/bench/field/f/import", body,
+            {"Content-Type": PROTO, "Accept": PROTO,
+             "X-Pilosa-Op-Id": "phase11-pairs"}))
+        got = proto.decode_import_response(raw)
+        if st != 200 or ct != PROTO or got["changed"] != changed:
+            raise AssertionError(f"protobuf import: {st} {got}, want "
+                                 f"{changed}")
+        for pql in (Q32, Q4, TOPN_G):
+            client.ask(pql, ro["after"][pql], tag="robust " + pql)
+        if planes.builds != builds or planes.delta_absorbs <= absorbs:
+            raise AssertionError(
+                f"the protobuf import was not absorbed: builds {builds} -> "
+                f"{planes.builds}, absorbs {absorbs} -> "
+                f"{planes.delta_absorbs}")
+        log(f"[robust] protobuf /import of {len(rows)} pairs with "
+            f"X-Pilosa-Op-Id: {ms_i:.2f} ms, changed {changed}, absorbed "
+            f"(absorbs +{planes.delta_absorbs - absorbs}, builds +0)")
+        # a 1024-value protobuf importValue into amount, then Sum
+        client.ask(RQ_SUM, ro["sum_before"], tag="robust Sum before")
+        vcols, vals, vchanged = ro["values"]
+        body = proto.encode_import_value_request(
+            col_ids=vcols, values=[int(v) for v in vals])
+        (st, _, raw), ms_v = _timed(lambda: _http(
+            base, "/index/bench/field/amount/importValue", body,
+            {"Content-Type": PROTO}))
+        if st != 200 or json.loads(raw)["changed"] != vchanged:
+            raise AssertionError(f"protobuf importValue: {st} {raw!r}, "
+                                 f"want {vchanged}")
+        client.ask(RQ_SUM, ro["bsi"][RQ_SUM], tag="robust Sum after")
+        log(f"[robust] protobuf importValue of {len(vcols)} values "
+            f"(from {vals.min()}): {ms_v:.2f} ms, changed {vchanged}; Sum "
+            f"after {ro['bsi'][RQ_SUM]}")
+        # Extract asked for in protobuf: answered with the protobuf error
+        st, ct, raw = _http(base, "/index/bench/query",
+                            proto.encode_query_request(RQ_EXTRACT), both)
+        err = proto.decode_query_response(raw).get("error", "")
+        if st != 400 or ct != PROTO or "Extract" not in err:
+            raise AssertionError(f"protobuf Extract: {st} {ct} {err!r}")
+        log(f"[robust] protobuf Extract: {st}, error {err!r}")
+    finally:
+        server.close()
+    t_a = time.perf_counter() - t0
+
+    # (b) the distinct kind: identical concurrent Distincts share a scan
+    t1 = time.perf_counter()
+    dexpect = {q: ro["bsi"][q] for q in (RQ_DISTINCT, RQ_DISTINCT_F)}
+    for q in dexpect:
+        client.ask(q, dexpect[q], tag="robust " + q)
+    b0 = ex.serving_stats()
+    run = burst(api, dexpect, CLIENTS, RB_PASSES,
+                mix=(RQ_DISTINCT, RQ_DISTINCT_F),
+                names={RQ_DISTINCT: "Distinct",
+                       RQ_DISTINCT_F: "filtered Distinct"})
+    b1 = ex.serving_stats()
+    scans = b1["distinctScans"] - b0["distinctScans"]
+    dwin = b1["distinctWindows"] - b0["distinctWindows"]
+    reqs = run["requests"]
+    log(f"[robust] distinct burst {CLIENTS} x {RB_PASSES} x 2: {reqs} "
+        f"requests in {run['wall']:.3f} s ({reqs / run['wall']:.1f}/s), "
+        f"{dwin} windows, {scans} presence scans ({scans / max(1, dwin):.2f} "
+        f"per window, {reqs / max(1, scans):.2f} requests per scan); p50 "
+        + ", ".join(f"{n} {_pct_ms(run['lat'][q], 0.5):.1f} ms"
+                    for q, n in ((RQ_DISTINCT, "Distinct"),
+                                 (RQ_DISTINCT_F, "filtered"))))
+    if not 0 < scans < reqs:
+        raise AssertionError(f"{scans} distinct scans for {reqs} requests: "
+                             "no dedupe")
+    t_b = time.perf_counter() - t1
+
+    # (c) deadlines: an executor without the fast lane behind REST, so
+    # requests wait in the batcher, sharing the plane cache
+    t2 = time.perf_counter()
+    nofl = Executor(holder, device=device, plane_budget=32 << 30,
+                    solo_fastlane=False, translate=ex.translate)
+    nofl.planes = planes
+    napi = API(holder, nofl)
+    nclient = _Client(napi, cuda)
+    server = Server(napi, "127.0.0.1", 0).start()
+    base = "http://%s:%d" % server.address
+    gbq, gb_want = GB_SEQ[3], ro["bsi"][GB_SEQ[3]]
+    try:
+        _, pct_ms = _timed(lambda: nclient.ask(RQ_PCT, ro["bsi"][RQ_PCT]))
+        _, pct_ms = _timed(lambda: nclient.ask(RQ_PCT, ro["bsi"][RQ_PCT]))
+        _, gb_ms = _timed(lambda: nclient.ask(gbq, gb_want))
+        _, gb_ms = _timed(lambda: nclient.ask(gbq, gb_want))
+        timeouts = {}
+        for tag, pql, budget in (
+                ("Percentile x2", RQ_PCT2, round(0.6 * pct_ms / 1e3, 4)),
+                ("GroupBy Max", gbq, round(min(0.03, 0.3 * gb_ms / 1e3), 4))):
+            (st, _, raw), ms = _timed(lambda: _http(
+                base, f"/index/bench/query?timeout={budget}", pql.encode()))
+            body = json.loads(raw)
+            tb = body.get("timeout")
+            if st != 504 or tb is None or sorted(tb) != [
+                    "deadlineSeconds", "elapsedSeconds",
+                    "shardsOutstanding", "stage"] \
+                    or tb["deadlineSeconds"] != budget:
+                raise AssertionError(f"{tag} with ?timeout={budget}: {st} "
+                                     f"{body}")
+            timeouts[tag] = (budget, ms, tb)
+            log(f"[robust] {tag} (warm {pct_ms if 'Perc' in tag else gb_ms:.1f}"
+                f" ms) with ?timeout={budget}: 504 after {ms:.1f} ms, "
+                f"timeout block {json.dumps(tb)}")
+        if timeouts["GroupBy Max"][2]["stage"] not in ("dispatch",
+                                                       "readback"):
+            raise AssertionError("the GroupBy Max 504 names no batcher stage")
+        nclient.ask(gbq, gb_want, tag="GroupBy Max after its 504")
+        # a Count burst: half the clients carry a 1 ms deadline
+        mix = (Q32, Q4)
+        want = {q: ro["after"][q] for q in mix}
+        errors, doomed = [], {"timeout": 0, "exact": 0}
+        lock = threading.Lock()
+        start = threading.Barrier(CLIENTS + 1, timeout=600)
+
+        def cclient(k: int) -> None:
+            try:
+                start.wait()
+                for i in range(RB_DOOMED_REQS):
+                    q = mix[(k + i) % 2]
+                    if k % 2:
+                        got = api.query("bench", q)["results"]
+                        if got != want[q]:
+                            raise AssertionError(f"{q[:30]}: {got}")
+                        continue
+                    try:
+                        got = api.query("bench", q, timeout=0.001)
+                    except ApiError as e:
+                        if e.status != 504:
+                            raise
+                        with lock:
+                            doomed["timeout"] += 1
+                        continue
+                    if got["results"] != want[q]:
+                        raise AssertionError(f"doomed {q[:30]}: {got}")
+                    with lock:
+                        doomed["exact"] += 1
+            except Exception as e:  # noqa: BLE001 — reported below
+                with lock:
+                    errors.append(repr(e)[:300])
+
+        threads = [threading.Thread(target=cclient, args=(k,), daemon=True)
+                   for k in range(CLIENTS)]
+        for th in threads:
+            th.start()
+        start.wait()
+        _, burst_ms = _timed(lambda: [th.join(600) for th in threads])
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"deadline burst: {errors[:3]}")
+        if ex.slots_in_use or nofl.slots_in_use:
+            raise AssertionError("slots still in use after the burst")
+        client.ask(Q32, ro["after"][Q32], tag="Q32 after the deadline burst")
+        log(f"[robust] Count burst, {CLIENTS // 2} clients with a 1 ms "
+            f"deadline and {CLIENTS // 2} with none, {RB_DOOMED_REQS} "
+            f"requests each: {burst_ms:.1f} ms; doomed requests "
+            f"{doomed['timeout']} timed out (504), {doomed['exact']} answered "
+            f"exactly; the others all exact; slots in use 0")
+        t_c = time.perf_counter() - t2
+
+        # (d) the watchdog on a real window: a bound below the GroupBy
+        # Max window's device time trips in the readback stage
+        t3 = time.perf_counter()
+        b = nofl.batcher
+        base_threads = threading.active_count()
+        b.watchdog_s = RB_WATCHDOG_S
+        time.sleep(1.2)  # the monitor's last long tick ends
+        if cuda and len(shards) < 954:
+            # a cut index's window is shorter than a watchdog tick: the
+            # stream sleeps ~0.2 s ahead of it
+            log("CUT: a device sleep of ~0.2 s ahead of the GroupBy Max "
+                "window (fewer shards than 954)")
+            torch.cuda._sleep(400_000_000)
+        (st, _, raw), stall_ms = _timed(lambda: _http(
+            base, "/index/bench/query", gbq.encode()))
+        body = json.loads(raw)
+        if st != 500 or "pipelineStall" not in body:
+            raise AssertionError(f"watchdog trip: {st} {body}")
+        t_trip = time.monotonic()
+        _, _, raw = _http(base, "/status", method="GET")
+        dh = json.loads(raw)["deviceHealth"]
+        if dh["state"] != "degraded" or dh["watchdogTrips"] < 1:
+            raise AssertionError(f"deviceHealth after the trip: {dh}")
+        log(f"[robust] watchdog {RB_WATCHDOG_S} s: GroupBy Max answered 500 "
+            f"after {stall_ms:.1f} ms, body pipelineStall "
+            f"{json.dumps(body['pipelineStall'])}; deviceHealth "
+            f"{json.dumps(dh)}")
+        # degraded: each item alone through the hand kernels; the
+        # governor (not the knob) keeps the fast lane off
+        b.governor.probe_after_s = 60.0
+        b.solo_fastlane = True
+        hits = nofl.serving_stats()["fastLaneHits"]
+        before = dict(cuda_kernels.LAUNCHES)
+        deg = {}
+        for pql, want_ in ((Q32, ro["after"][Q32]), (Q4, ro["after"][Q4]),
+                           (TOPN_G, ro["after"][TOPN_G]), (gbq, gb_want),
+                           (RQ_SUM, ro["bsi"][RQ_SUM])):
+            _, deg[pql] = _timed(lambda: nclient.ask(pql, want_,
+                                                     tag="degraded " + pql))
+        launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items()}
+        if nofl.serving_stats()["fastLaneHits"] != hits \
+                or b.governor.state != "degraded":
+            raise AssertionError("degraded serving took the fast lane or "
+                                 "left degraded")
+        if cuda and any(launched[k] < 1 for k in
+                        ("count", "row_counts", "selected_row_counts")):
+            raise AssertionError(f"degraded serving launched {launched}")
+        log("[robust] degraded, one item at a time, fast lane off: "
+            + ", ".join(f"{(MIX_NAMES.get(q) or q[:24])} {ms:.1f} ms"
+                        for q, ms in deg.items())
+            + f"; launches {json.dumps(launched)}")
+        # the bound restored: one probe window returns it to healthy
+        b.watchdog_s = 30.0
+        b.governor.probe_after_s = 0.2
+        time.sleep(0.25)
+        t_probe = time.monotonic()
+        nclient.ask(Q4, ro["after"][Q4], tag="probe")
+        if b.governor.state != "healthy":
+            raise AssertionError(f"the probe left {b.governor.state}")
+        healthy_after = time.monotonic() - t_trip
+        for _ in range(5):  # once the adaptive window is back at 0
+            nclient.ask(Q4, ro["after"][Q4], tag="fast lane back")
+        if nofl.serving_stats()["fastLaneHits"] <= hits:
+            raise AssertionError("the fast lane did not come back")
+        end = time.monotonic() + 20
+        while threading.active_count() > base_threads \
+                and time.monotonic() < end:
+            time.sleep(0.1)
+        if threading.active_count() > base_threads:
+            raise AssertionError(f"{threading.active_count()} threads after "
+                                 f"the trip, {base_threads} before")
+        log(f"[robust] probe window: healthy {(time.monotonic() - t_probe) * 1e3:.1f}"
+            f" ms after the probe began, {healthy_after:.3f} s after the trip"
+            f" (degraded serving included); live threads back to "
+            f"{threading.active_count()} ({base_threads} before)")
+        t_d = time.perf_counter() - t3
+    finally:
+        server.close()
+        nofl.close()
+
+    # (e) a real device OOM, recovered by stage 1
+    t4 = time.perf_counter()
+    oe = Executor(holder, device=device, plane_budget=32 << 30,
+                  translate=ex.translate)
+    oe.planes.SYNC_BUILD_MAX = 1 << 40  # planes build on the request
+    oc = _Client(API(holder, oe), cuda)
+    oom = {}
+    try:
+        oc.ask(Q32, ro["after"][Q32], tag="oom Q32")
+        oc.ask(RQ_SUM, ro["bsi"][RQ_SUM], tag="oom Sum")
+        resident = oe.planes.stats()["bytes"]
+        m_bytes = oe.planes.plane_bytes(index.field("m"), "standard",
+                                        shards)
+        ballast = None
+        planes.wait_compactions(300)  # no fold allocates beside the ballast
+        if cuda:
+            free0 = torch.cuda.mem_get_info()[0]
+            ballast = _ballast(m_bytes)
+            size = sum(t.numel() for t in ballast)
+            oom["before"] = (torch.cuda.memory_allocated(),
+                             torch.cuda.memory_reserved(),
+                             torch.cuda.mem_get_info()[0])
+            log(f"[robust] OOM: f and amount resident in a fresh executor "
+                f"({resident / 1e9:.2f} GB); ballast {size / 1e9:.2f} GB in "
+                f"{len(ballast)} tensors ({free0 / 1e9:.2f} GB was free) "
+                f"leaves {oom['before'][2] / 1e9:.3f} GB free on the card "
+                f"for m's {m_bytes / 1e9:.2f} GB plane; allocated "
+                f"{oom['before'][0] / 1e9:.2f} GB, reserved "
+                f"{oom['before'][1] / 1e9:.2f} GB")
+        _, oom_ms = _timed(lambda: oc.ask(MQ16, ro["m16"], tag="oom m16"))
+        st = oe.serving_stats()
+        last = st["lastDeviceOom"]
+        if cuda and (st["deviceOomRetries"] != 1 or last is None
+                     or "out of memory" not in last["error"].lower()):
+            raise AssertionError(f"no device OOM recovered: {st}")
+        _, m_ms = _timed(lambda: oc.ask(MQ16, ro["m16"], tag="m16 again"))
+        if cuda:
+            oom["after"] = (torch.cuda.memory_allocated(),
+                            torch.cuda.memory_reserved())
+            log(f"[robust] OOM: the 16-Count over m raised "
+                f"{last['error'][:120]!r}; stage 1 evicted "
+                f"{last.get('evictedBytes', 0) / 1e9:.2f} GB and answered "
+                f"exactly in {oom_ms:.1f} ms (the next one {m_ms:.1f} ms); "
+                f"deviceOomRetries {st['deviceOomRetries']}, exclusive "
+                f"{st['deviceOomExclusiveRetries']}; allocated/reserved "
+                f"before {oom['before'][0] / 1e9:.2f}/"
+                f"{oom['before'][1] / 1e9:.2f} GB, at the OOM "
+                f"{last['allocated'] / 1e9:.2f}/{last['reserved'] / 1e9:.2f}"
+                f" GB, after {oom['after'][0] / 1e9:.2f}/"
+                f"{oom['after'][1] / 1e9:.2f} GB")
+        del ballast
+    finally:
+        oe.planes.evict_unpinned(reason="phase end")
+        oe.close()
+        if cuda:
+            torch.cuda.empty_cache()
+    t_e = time.perf_counter() - t4
+
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"launches in phase 11: {json.dumps(launched)}; peak device memory "
+        f"in the phase {peak / 1e9:.2f} GB; phase 11 walls (a) {t_a:.1f}s "
+        f"(b) {t_b:.1f}s (c) {t_c:.1f}s (d) {t_d:.1f}s (e) {t_e:.1f}s, "
+        f"total {time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("row_counts", "count", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 11 never launched {k}")
+    return {"robust": launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -3388,7 +3989,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 11: output ==")
+    log("== phase 12: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

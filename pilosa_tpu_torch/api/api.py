@@ -1,13 +1,15 @@
 """Programmatic API: index/field creation, schema, queries, imports.
 
 The counterpart of ``pilosa_tpu.api.api.API`` for the calls this port
-serves; ``query`` answers the same ``{"results": [...]}`` JSON and the
-imports the same changed-bit counts.
+serves; ``query`` answers the same ``{"results": [...]}`` JSON (and the
+same 504, 500 and 503 bodies) and the imports the same changed-bit
+counts.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from datetime import datetime, timezone
 
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
 from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
+from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
+                                          QueryTimeoutError)
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
@@ -37,6 +41,26 @@ class ApiError(Exception):
         self.status = status
         self.retry_after = retry_after
         self.extra = extra or {}
+
+    @classmethod
+    def timeout(cls, exc: QueryTimeoutError, elapsed: float,
+                deadline: float | None) -> "ApiError":
+        """The deadline passed: 504 with a ``timeout`` block (how long the
+        query ran, its budget, the shards that never answered, and the
+        batcher stage it waited in, None at a call boundary)."""
+        return cls(str(exc), 504, extra={"timeout": {
+            "elapsedSeconds": round(elapsed, 6),
+            "deadlineSeconds": deadline or None,
+            "shardsOutstanding": getattr(exc, "shards_outstanding", None),
+            "stage": getattr(exc, "stage", None)}})
+
+    @classmethod
+    def pipeline_stall(cls, exc: PipelineStalledError) -> "ApiError":
+        """A quarantined batcher window: 500 with a ``pipelineStall``
+        block naming the stalled stage and how long it aged."""
+        return cls(str(exc), 500, extra={"pipelineStall": {
+            "stage": getattr(exc, "stage", None),
+            "elapsedSeconds": round(getattr(exc, "elapsed", 0.0), 3)}})
 
     @classmethod
     def tenant_throttled(cls, exc: TenantThrottledError) -> "ApiError":
@@ -63,9 +87,12 @@ def field_options_from_json(o: dict) -> FieldOptions:
 
 
 class API:
-    def __init__(self, holder: Holder, executor: Executor):
+    def __init__(self, holder: Holder, executor: Executor,
+                 query_timeout: float = 0.0):
         self.holder = holder
         self.executor = executor
+        # seconds; a cap on every request's timeout (0: no cap)
+        self.query_timeout = query_timeout
         self._imported_bits = 0
         self._stats_lock = threading.Lock()
 
@@ -91,10 +118,27 @@ class API:
         return self.holder.schema()
 
     def query(self, index: str, pql: str,
-              shards: list[int] | None = None) -> dict:
+              shards: list[int] | None = None,
+              timeout: float | None = None) -> dict:
+        """``timeout`` (seconds) bounds the query: past it the answer is
+        a 504 with a ``timeout`` block.  ``query_timeout`` caps it (a
+        request cannot lift the operator's bound), and None or 0 means
+        the cap."""
         self._index(index)
+        cap = self.query_timeout
+        if timeout is None or timeout == 0:
+            timeout = cap
+        elif cap:
+            timeout = min(timeout, cap)
+        t0 = time.perf_counter()
+        deadline = (time.monotonic() + timeout) if timeout else None
         try:
-            results = self.executor.execute(index, pql, shards=shards)
+            results = self.executor.execute(index, pql, shards=shards,
+                                            deadline=deadline)
+        except QueryTimeoutError as e:
+            raise ApiError.timeout(e, time.perf_counter() - t0, timeout)
+        except PipelineStalledError as e:
+            raise ApiError.pipeline_stall(e)
         except TenantThrottledError as e:
             raise ApiError.tenant_throttled(e)
         except ExecutorSaturatedError as e:
@@ -119,11 +163,11 @@ class API:
         string, epoch seconds, or None / 0 / "" for none) also write a
         time field's quantum views.  Returns the bits changed.  The next
         Count or TopN over a resident plane absorbs the batch into its
-        delta overlay."""
+        delta overlay.  ``op_id`` (``X-Pilosa-Op-Id``) names the batch for
+        a cluster's duplicate-delivery check; a single node has no
+        cluster, so, as in the reference, every delivery applies."""
         idx = self._index(index)
         f = self._field(idx, field)
-        if op_id is not None:
-            raise ApiError("import: op ids are not supported by this port")
         rows = self._translate_rows(idx, f, row_ids, row_keys)
         cols = self._translate_cols(idx, col_ids, col_keys)
         if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
@@ -187,13 +231,15 @@ class API:
 
     def import_roaring(self, index: str, field: str, shard: int,
                        blob: bytes, view: str = VIEW_STANDARD,
-                       clear: bool = False) -> int:
+                       clear: bool = False,
+                       op_id: str | None = None) -> int:
         """Import a roaring-encoded bit set (positions ``row *
         SHARD_WIDTH + column offset``) into one shard of a set or time
         field's view (``standard``, or a time view ``standard_<YYYY[MM[DD
         [HH]]]>``); returns the bits changed.  A mutex or bool field
         takes pair imports only.  The positions are ids on a keyed field
-        or index too, as in the reference."""
+        or index too, as in the reference.  ``op_id`` as for
+        :meth:`import_bits`: every delivery applies on a single node."""
         idx = self._index(index)
         f = self._field(idx, field)
         if f.options.type not in (TYPE_SET, TYPE_TIME):
@@ -238,7 +284,8 @@ class API:
                 "ingest": {**self.executor.planes.delta_stats(),
                            "importedBits": imported},
                 "timeViews": self.executor.time_status(),
-                "tenancy": self.executor.tenancy_status()}
+                "tenancy": self.executor.tenancy_status(),
+                "deviceHealth": self.executor.device_health()}
 
     def _index(self, name: str):
         idx = self.holder.index(name)

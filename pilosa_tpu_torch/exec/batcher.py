@@ -24,7 +24,10 @@ window's int32 outputs into ONE device tensor, read back with one copy:
 - ``groupby``: one GroupBy combination block; identical blocks (same
   planes, filter, overlay, aggregate and combinations, by a digest of
   the combination slots) DEDUPE to one, and every caller gets the same
-  host arrays.
+  host arrays;
+- ``distinct``: BSI Distinct presence scans; identical items (same plane
+  and filter) share ONE scan, different ones scan on their own threads
+  (a scan is a loop of launches and reads, so it joins no packed read).
 
 The window is adaptive: it stays at 0 while traffic is solo and doubles
 (``ADAPT_MIN`` .. ``ADAPT_MAX``) while windows coalesce.  With no queue
@@ -37,9 +40,39 @@ whole, which would wait on the next window's work) and delivers the
 answers, while the collector forms the next window.  Every launch and
 copy goes to the current stream.
 
+Robustness (the reference's self-healing pipeline):
+
+- **Deadlines.**  Every submit carries the query's ``time.monotonic()``
+  deadline: an expired one is refused before it is queued or launched,
+  and :meth:`CountBatcher.wait` blocks at most until it, then marks the
+  item ABANDONED and raises ``QueryTimeoutError`` naming the item's
+  stage (``queued`` / ``dispatch`` / ``readback``).  The window's shared
+  finish skips an abandoned item; co-batched answers are untouched.
+- **Watchdog and quarantine.**  A monitor thread ages each dispatched
+  window's current stage against ``watchdog_s``.  A window past it is
+  quarantined: its unanswered items fail with ``PipelineStalledError``
+  naming the stage, its pipeline slot is reclaimed, and the stage's
+  worker (collector or reader) is superseded by a fresh thread; the old
+  one exits when its wait ends.  A launch returns at once, so a slow or
+  stalled card ages a window in ``readback``.  Launched work cannot be
+  cancelled: a quarantined window's operands, packed output and pinned
+  buffer stay referenced (``_limbo``) until its CUDA event completes,
+  and its late answers are dropped, never delivered twice.  A window of
+  several groups launches them on a pool and bounds each group's launch
+  by the watchdog: a hung group fails alone.
+- **Device health governor** (:mod:`pilosa_tpu_torch.exec.health`):
+  consecutive launch faults, or one watchdog trip, degrade serving: the
+  fast lane and pipelining are off and each window's items run one at a
+  time, read back inline, through the same hand kernels.  A probe window
+  after ``probe_after_s`` restores healthy.
+
 There is no fallback.  A group whose launch or readback raises delivers
-that exception to every item of the group, a failing fast-lane call
-raises to its caller, and the collector serves the next window.
+that exception to every item of the group (and counts a governor fault),
+a failing fast-lane call raises to its caller, and the collector serves
+the next window.  The reference retries a failed fused launch item by
+item; on CUDA a launch fault is sticky (the context is lost) or
+deterministic (the launch is refused again), so a retry could only hide
+it.
 """
 
 from __future__ import annotations
@@ -47,65 +80,105 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import fault
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.exec import groupby as gb
+from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
+                                          QueryTimeoutError)
 from pilosa_tpu_torch.exec.fused import shift_leaves
+from pilosa_tpu_torch.exec.health import DeviceHealthGovernor
 from pilosa_tpu_torch.exec.tree import assemble_items
 
 
 class _Pending:
     __slots__ = ("kind", "nodes", "leaves", "delta", "event", "result",
-                 "error")
+                 "error", "deadline", "abandoned", "stage", "delivered")
 
-    def __init__(self, kind, nodes, leaves, delta=None):
+    def __init__(self, kind, nodes, leaves, delta=None, deadline=None):
         self.kind = kind      # "count" | "rowcounts" | "selcounts" | "tree"
         #                       | "sum" | "minmax" | "bsirange" | "groupby"
+        #                       | "distinct"
         self.nodes = nodes    # count: plan trees; selcounts: plane row
         #                       slots; tree: (slots, prog, extras);
         #                       bsirange: (spec, operands, sig); groupby:
         #                       (args, (agg, meta), sig);
-        #                       rowcounts, sum, minmax: None
+        #                       rowcounts, sum, minmax, distinct: None
         self.leaves = leaves  # count: plan leaves; others: plane[, filter]
         self.delta = delta    # the plane's DeltaOverlay (base+delta)
         self.event = threading.Event()
         self.result = None
         self.error: Exception | None = None
+        # the query's time.monotonic() cutoff; on expiry the caller marks
+        # the item abandoned and leaves.  ``stage`` says where the item is
+        # (queued -> dispatch -> readback); ``delivered`` is True once an
+        # answer or an error was stored (the event alone cannot tell an
+        # answer from an acknowledged abandon)
+        self.deadline = deadline
+        self.abandoned = False
+        self.stage = "queued"
+        self.delivered = False
 
 
 class _Window:
-    """One dispatched window: ``(group, device out, finish)`` per group,
-    the packed output, its host copy and the event that copy records.
-    Holding the device tensors until the reader is done keeps their
-    memory from being reused under the copy."""
+    """One dispatched window: what the watchdog ages, quarantine fails and
+    a pipeline slot belongs to.  ``pending`` holds ``(group, device out,
+    finish)`` per launched group; ``packed`` / ``host`` / ``event`` are
+    the packed output, its pinned host copy and the event recorded after
+    the copy.  Holding them until the reader is done (or, for a
+    quarantined window, until the event completes) keeps their memory
+    from being reused under the copy."""
 
-    __slots__ = ("pending", "packed", "host", "event")
+    __slots__ = ("wid", "items", "stage", "t0", "pending", "distinct_futs",
+                 "slot_held", "inflight", "done", "faulted", "bounded",
+                 "packed", "host", "event")
 
-    def __init__(self, pending: list):
-        self.pending = pending
+    def __init__(self, wid: int, items: list, slot_held: bool):
+        self.wid = wid
+        self.items = items          # every item popped into this window
+        self.stage = "dispatch"     # "dispatch" -> "readback"
+        self.t0 = time.monotonic()  # the current stage's start
+        self.pending: list = []
+        self.distinct_futs: list = []
+        self.slot_held = slot_held  # owns a _pipe_slots token
+        self.inflight = False       # counted in _inflight_windows
+        self.done = False           # finished or quarantined
+        self.faulted = False        # a group of it raised
+        # the collector bounds its group joins itself (a window of
+        # several groups): the whole-window watchdog defers
+        self.bounded = False
         self.packed = self.host = self.event = None
 
 
 class CountBatcher:
-    """Coalesces concurrent requests' Count, row-count, selected-count
-    and tree items into one family call per (kind, plane) group and one
-    packed read per window."""
+    """Coalesces concurrent requests' Count, row-count, selected-count,
+    tree, BSI, GroupBy and Distinct items into one family call per
+    (kind, plane) group and one packed read per window."""
 
     # adaptive-window bounds: below MIN the window snaps to 0 (solo
     # traffic does not wait); MAX bounds what a burst adds to its tail
     ADAPT_MIN = 0.0005
     ADAPT_MAX = 0.005
 
-    # most items one window takes; at most PIPELINE_DEPTH windows are
+    # most items one window takes; at most ``pipeline_depth`` windows are
     # dispatched but not yet read (a slot is taken before a window
-    # launches and given back when the reader is done with it)
+    # launches and given back when it is read or quarantined)
     MAX_BATCH = 64
     PIPELINE_DEPTH = 2
 
-    def __init__(self, fused, window_s="adaptive"):
+    # consecutive quiet watchdog ticks after which the monitor parks (the
+    # next enqueue restarts it)
+    WATCHDOG_IDLE_TICKS = 8
+
+    def __init__(self, fused, window_s="adaptive",
+                 pipeline_depth: int = PIPELINE_DEPTH,
+                 solo_fastlane: bool = True, watchdog_s: float = 5.0,
+                 probe_after_s: float = 5.0, tier: str = "cuda"):
         self.fused = fused
         self.adaptive = window_s == "adaptive"
         self.window_s = 0.0 if self.adaptive else float(window_s)
@@ -115,99 +188,180 @@ class CountBatcher:
         self._kick = threading.Event()
         self._thread: threading.Thread | None = None
         self._closed = False
-        self._readq: queue.Queue = queue.Queue()
-        self._pipe_slots = threading.Semaphore(self.PIPELINE_DEPTH)
+        self._stop = threading.Event()  # wakes the watchdog on close
+        self._busy = 0  # collector cycles between pop and window register
+        # pipelined readback; depth <= 1 finishes every window inline
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._readq: queue.Queue | None = (
+            queue.Queue() if self.pipeline_depth > 1 else None)
+        self._pipe_slots = threading.Semaphore(self.pipeline_depth)
         self._read_thread: threading.Thread | None = None
+        self._pool: ThreadPoolExecutor | None = None
+        # the window registry the watchdog ages (0 disables the watchdog:
+        # no monitor thread, unbounded group joins)
+        self.watchdog_s = max(0.0, float(watchdog_s))
+        self._pipe_lock = threading.Lock()
+        self._windows: dict[int, _Window] = {}
+        self._win_seq = 0
+        self._inflight_windows = 0
+        self._watchdog: threading.Thread | None = None
+        # quarantined windows whose launched work has not completed
+        self._limbo: dict[int, _Window] = {}
+        self._trips = 0
+        self._quarantined = 0
+        self.governor = DeviceHealthGovernor(probe_after_s=probe_after_s,
+                                             tier=tier)
         # solo fast lane: admitted only while no other fast-lane call is
         # in flight, so overlapping callers fall into the window (the
         # adaptive window's pressure signal)
+        self.solo_fastlane = bool(solo_fastlane)
         self._fl_active = 0
         self._fl_lock = threading.Lock()
-        # counters: windows/items/max by the collector alone, the rest
-        # under _fl_lock
+        # counters: windows/items/max/kinds by the collector alone, the
+        # rest under _fl_lock
         self.windows = 0
         self.items = 0
         self.max_window_items = 0
         self.fastlane_hits = 0
-        self._inflight = 0
+        self.bsi_batch_hits = 0
+        self.distinct_windows = 0
+        self.distinct_scans = 0
         # per kind: [family calls (groups), items, largest group]
         self.kinds: dict[str, list[int]] = {}
 
-    def health_payload(self) -> dict:
+    def stats_payload(self) -> dict:
         """The ``/status`` batcher block."""
         with self._fl_lock:
-            hits, inflight = self.fastlane_hits, self._inflight
+            hits, scans = self.fastlane_hits, self.distinct_scans
         return {"window": "adaptive" if self.adaptive else self.window_s,
                 "currentWindowSeconds": self._win,
                 "windows": self.windows, "items": self.items,
                 "maxWindowItems": self.max_window_items,
-                "fastLaneHits": hits, "inflightWindows": inflight,
+                "fastLaneHits": hits,
+                "inflightWindows": self._inflight_windows,
+                "distinctWindows": self.distinct_windows,
+                "distinctScans": scans,
                 "kinds": {k: {"groups": g, "items": n, "maxItems": m}
                           for k, (g, n, m) in list(self.kinds.items())}}
 
+    def health_payload(self) -> dict:
+        """The ``/status`` deviceHealth block: the governor's state and
+        counters, the watchdog's bound and the quarantine count."""
+        out = self.governor.payload()
+        out.update({"watchdogSeconds": self.watchdog_s,
+                    "quarantinedWindows": self._quarantined,
+                    "inflightWindows": self._inflight_windows,
+                    "bsiBatchHits": self.bsi_batch_hits})
+        return out
+
     def close(self, timeout: float = 30.0) -> None:
-        """Stop the collector and the reader; queued items fail."""
+        """Stop the collector, the reader, the watchdog and the group
+        pool; queued items fail."""
         with self._lock:
             self._closed = True
             batch = self._queue[:]
             self._queue.clear()
         self._kick.set()
+        self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
-        if self._read_thread is not None:
+        if self._readq is not None:
             self._readq.put(None)
+        if self._read_thread is not None:
             self._read_thread.join(timeout)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
         err = RuntimeError("batcher closed")
         for p in batch:
             self._deliver_error(p, err)
 
     # -- delivery --------------------------------------------------------
+    #
+    # Every answer and error goes through these two, so an item is never
+    # finished twice (quarantine racing a late readback) and an abandoned
+    # item is skipped without disturbing its neighbours.
 
     @staticmethod
     def _deliver(p: _Pending, value) -> None:
-        if not p.event.is_set():
+        if not (p.abandoned or p.event.is_set()):
             p.result = value
-            p.event.set()
+            p.delivered = True
+        p.event.set()
 
     @staticmethod
     def _deliver_error(p: _Pending, err: Exception) -> None:
-        if not p.event.is_set():
+        if not (p.abandoned or p.event.is_set()):
             p.error = err
-            p.event.set()
+            p.delivered = True
+        p.event.set()
 
     def _fail(self, group: list, err: Exception) -> None:
         for p in group:
             self._deliver_error(p, err)
 
+    @staticmethod
+    def _check_deadline(deadline: float | None,
+                        stage: str = "dispatch") -> None:
+        """Refuse work whose deadline already passed: before the fast
+        lane launches, and before an item takes a window slot."""
+        if deadline is not None and time.monotonic() > deadline:
+            raise QueryTimeoutError(
+                f"query deadline expired before {stage}", stage=stage)
+
     def wait(self, p: _Pending):
         """Block on an enqueued item (pairs with the ``enqueue_*``
         methods: a request enqueues all its items into one window before
-        waiting on any)."""
-        p.event.wait()
+        waiting on any).  An item with a deadline waits at most until it,
+        is then marked abandoned and raises ``QueryTimeoutError`` naming
+        its stage; an answer stored before the mark still returns."""
+        if p.deadline is None:
+            p.event.wait()
+        else:
+            remaining = p.deadline - time.monotonic()
+            if remaining <= 0 or not p.event.wait(remaining):
+                p.abandoned = True
+                # a deliverer between the timeout and the mark either
+                # stored the answer (delivered) or saw the mark and
+                # stored nothing: only ``delivered`` tells them apart
+                if not p.delivered:
+                    raise QueryTimeoutError(
+                        "query deadline expired in the dispatch pipeline "
+                        f"(stage={p.stage})", stage=p.stage)
         if p.error is not None:
             raise p.error
         return p.result
+
+    def _ensure_worker(self) -> None:
+        # caller holds self._lock
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._run_collector, name="pilosa-torch-batcher",
+                daemon=True)
+            self._thread.start()
+        self._ensure_watchdog()
 
     def _enqueue(self, p: _Pending) -> _Pending:
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher closed")
             self._queue.append(p)
-            if self._thread is None or not self._thread.is_alive():
-                self._thread = threading.Thread(
-                    target=self._run_collector, name="pilosa-torch-batcher",
-                    daemon=True)
-                self._thread.start()
+            self._ensure_worker()
         self._kick.set()
         return p
+
+    def _submit(self, p: _Pending):
+        return self.wait(self._enqueue(p))
 
     # -- solo fast lane ----------------------------------------------------
 
     def _fl_try_enter(self) -> bool:
-        """Admit ONE fast-lane call: adaptive window at 0 (solo
-        traffic), nothing queued, no other fast-lane call in flight
-        (checked and taken under one lock)."""
-        if not (self.adaptive and self._win == 0.0 and not self._queue):
+        """Admit ONE fast-lane call: the lane on, the card healthy, the
+        adaptive window at 0 (solo traffic), nothing queued, no other
+        fast-lane call in flight (checked and taken under one lock)."""
+        if not (self.solo_fastlane and self.adaptive and self._win == 0.0
+                and not self._queue and self.governor.fastlane_ok()):
             return False
         with self._fl_lock:
             if self._fl_active:
@@ -217,11 +371,15 @@ class CountBatcher:
 
     def _fastlane(self, fn, *args):
         """``fn(*args)`` on the caller's thread when the lane admits it;
-        :data:`_MISS` otherwise.  Exceptions reach the caller."""
+        :data:`_MISS` otherwise.  An exception counts a governor fault and
+        reaches the caller."""
         if not self._fl_try_enter():
             return _MISS
         try:
             out = fn(*args)
+        except Exception:
+            self.governor.record_fault()
+            raise
         finally:
             with self._fl_lock:
                 self._fl_active -= 1
@@ -277,109 +435,136 @@ class CountBatcher:
         return gb.unflatten_block(out.cpu().numpy(), *meta, agg_kind)
 
     # -- submits -----------------------------------------------------------
+    #
+    # ``deadline``: the query's time.monotonic() cutoff (None: unbounded).
 
-    def submit(self, node, leaves) -> int:
+    def submit(self, node, leaves, deadline: float | None = None) -> int:
         """One Count tree over its planned leaves -> int64 total."""
-        return self.submit_many((node,), leaves)[0]
+        return self.submit_many((node,), leaves, deadline=deadline)[0]
 
-    def submit_many(self, nodes, leaves) -> list[int]:
+    def submit_many(self, nodes, leaves,
+                    deadline: float | None = None) -> list[int]:
         """A whole request's Count run as ONE item (the nodes share one
         leaf list)."""
         nodes, leaves = tuple(nodes), tuple(leaves)
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_counts, nodes, leaves)
         if out is not _MISS:
             return out
-        return self.wait(self._enqueue(_Pending("count", nodes, leaves)))
+        return self._submit(_Pending("count", nodes, leaves,
+                                     deadline=deadline))
 
-    def submit_rowcounts(self, plane, filter_words=None,
-                         delta=None) -> np.ndarray:
+    def submit_rowcounts(self, plane, filter_words=None, delta=None,
+                         deadline: float | None = None) -> np.ndarray:
         """Whole-plane per-row totals int64[R_pad] (the shard axis
         reduced on the device: callers gate on the int32-exact shard
         bound), base+delta when ``delta`` is set."""
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_rowcounts, plane, filter_words,
                              delta)
         if out is not _MISS:
             return out
-        return self.wait(self.enqueue_rowcounts(plane, filter_words, delta))
+        return self.wait(self.enqueue_rowcounts(plane, filter_words, delta,
+                                                deadline=deadline))
 
-    def enqueue_rowcounts(self, plane, filter_words=None,
-                          delta=None) -> _Pending:
+    def enqueue_rowcounts(self, plane, filter_words=None, delta=None,
+                          deadline: float | None = None) -> _Pending:
+        self._check_deadline(deadline, stage="queued")
         leaves = (plane,) if filter_words is None else (plane, filter_words)
-        return self._enqueue(_Pending("rowcounts", None, leaves, delta))
+        return self._enqueue(_Pending("rowcounts", None, leaves, delta,
+                                      deadline=deadline))
 
-    def submit_selected(self, plane, slots: tuple,
-                        delta=None) -> np.ndarray:
+    def submit_selected(self, plane, slots: tuple, delta=None,
+                        deadline: float | None = None) -> np.ndarray:
         """Selected-row totals int64[len(slots)] in the caller's slot
         order; the window's items over one (plane, overlay) pair gather
         the union of their slots once."""
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_selected, plane, tuple(slots),
                              delta)
         if out is not _MISS:
             return out
-        return self.wait(self._enqueue(
-            _Pending("selcounts", tuple(slots), (plane,), delta)))
+        return self._submit(_Pending("selcounts", tuple(slots), (plane,),
+                                     delta, deadline=deadline))
 
     def submit_tree(self, plane, slots: tuple, prog: tuple,
-                    extras: tuple = (), delta=None) -> int:
+                    extras: tuple = (), delta=None,
+                    deadline: float | None = None) -> int:
         """One compound-tree Count (``exec.tree`` operands) -> total."""
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_tree, plane, slots, prog,
                              extras, delta)
         if out is not _MISS:
             return out
         return self.wait(self.enqueue_tree(plane, slots, prog, extras,
-                                           delta))
+                                           delta, deadline=deadline))
 
     def enqueue_tree(self, plane, slots: tuple, prog: tuple,
-                     extras: tuple = (), delta=None) -> _Pending:
+                     extras: tuple = (), delta=None,
+                     deadline: float | None = None) -> _Pending:
+        self._check_deadline(deadline, stage="queued")
         return self._enqueue(_Pending(
             "tree", (tuple(slots), tuple(prog), tuple(extras)), (plane,),
-            delta))
+            delta, deadline=deadline))
 
-    def submit_sum(self, plane, filter_words=None, delta=None):
+    def submit_sum(self, plane, filter_words=None, delta=None,
+                   deadline: float | None = None):
         """BSI Sum -> (sum of offsets, non-null count), host-finished.
         ``delta`` (a ``BsiOverlay``) merges the plane's pending write
         columns: base+delta."""
-        return self._submit_agg("sum", plane, filter_words, delta)
+        return self._submit_agg("sum", plane, filter_words, delta,
+                                deadline)
 
-    def submit_minmax(self, plane, filter_words=None, delta=None) -> list:
+    def submit_minmax(self, plane, filter_words=None, delta=None,
+                      deadline: float | None = None) -> list:
         """BSI Min/Max -> (min, min_cnt, max, max_cnt) per shard, plus one
         per overlay column (zero-count entries: the caller drops them)."""
-        return self._submit_agg("minmax", plane, filter_words, delta)
+        return self._submit_agg("minmax", plane, filter_words, delta,
+                                deadline)
 
-    def _submit_agg(self, kind: str, plane, filter_words, delta):
+    def _submit_agg(self, kind: str, plane, filter_words, delta, deadline):
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_agg, kind, plane, filter_words,
                              delta)
         if out is not _MISS:
             return out
         leaves = (plane,) if filter_words is None else (plane, filter_words)
-        return self.wait(self._enqueue(_Pending(kind, None, leaves, delta)))
+        return self._submit(_Pending(kind, None, leaves, delta,
+                                     deadline=deadline))
 
     def submit_bsirange(self, plane, spec: tuple, operands: tuple,
-                        sig: tuple, delta=None) -> int:
+                        sig: tuple, delta=None,
+                        deadline: float | None = None) -> int:
         """One BSI range Count (``spec`` = (op_keys, has_filter), see
         ``FusedCache.run_range_batch``); identical predicates (same
         ``sig``) in a window dedupe to one comparison chain."""
+        self._check_deadline(deadline)
         out = self._fastlane(self._fastlane_bsirange, plane, spec, operands,
                              delta)
         if out is not _MISS:
             return out
         return self.wait(self.enqueue_bsirange(plane, spec, operands, sig,
-                                               delta))
+                                               delta, deadline=deadline))
 
     def enqueue_bsirange(self, plane, spec: tuple, operands: tuple,
-                         sig: tuple, delta=None) -> _Pending:
+                         sig: tuple, delta=None,
+                         deadline: float | None = None) -> _Pending:
+        self._check_deadline(deadline, stage="queued")
         return self._enqueue(_Pending(
-            "bsirange", (spec, tuple(operands), sig), (plane,), delta))
+            "bsirange", (spec, tuple(operands), sig), (plane,), delta,
+            deadline=deadline))
 
     def submit_groupby(self, planes: tuple, combo_idx, last_plane,
                        filter_words, agg_plane, agg_kind, meta: tuple,
-                       digest: bytes, delta=None) -> dict:
+                       digest: bytes, delta=None,
+                       deadline: float | None = None) -> dict:
         """One GroupBy combination block (``exec.groupby.groupby_out``'s
         arguments; ``combo_idx`` a host array) -> its parts as host arrays.
         ``meta`` = (combinations, innermost rows, depth) for the unflatten;
         ``digest`` hashes the combination slots, so identical concurrent
         blocks (same planes, filter, overlay, aggregate and combinations)
         dedupe to one call.  ``delta``: the bit plane's ``BsiOverlay``."""
+        self._check_deadline(deadline)
         args = (tuple(planes), combo_idx, last_plane, filter_words,
                 agg_plane, delta)
         out = self._fastlane(self._fastlane_groupby, args, agg_kind, meta)
@@ -389,31 +574,55 @@ class CountBatcher:
                id(filter_words) if filter_words is not None else 0,
                id(agg_plane) if agg_plane is not None else 0,
                id(delta) if delta is not None else 0, agg_kind, digest)
-        return self.wait(self._enqueue(_Pending(
-            "groupby", (args, (agg_kind, meta), sig), (last_plane,))))
+        return self._submit(_Pending(
+            "groupby", (args, (agg_kind, meta), sig), (last_plane,),
+            deadline=deadline))
+
+    def submit_distinct(self, plane, filter_words=None,
+                        deadline: float | None = None):
+        """BSI Distinct presence -> host (pos bool[2^d], neg bool[2^d]).
+        Coalescing is deduplication only: identical concurrent items
+        share one scan; the scan is a loop of launches and reads, so it
+        never takes the fast lane or a packed read."""
+        self._check_deadline(deadline)
+        leaves = (plane,) if filter_words is None else (plane, filter_words)
+        return self._submit(_Pending("distinct", None, leaves,
+                                     deadline=deadline))
 
     # -- collector ---------------------------------------------------------
 
+    def _superseded(self) -> bool:
+        """A quarantine restart replaced this collector: stop touching
+        the queue."""
+        return self._thread is not threading.current_thread()
+
     def _run_collector(self) -> None:
         while not self._closed:
+            if self._superseded():
+                return
             try:
                 self._collect_once()
             except Exception as e:  # noqa: BLE001 — the worker must survive
                 self._fail_backlog(e)
 
     def _fail_backlog(self, exc: Exception) -> None:
-        """A collector cycle failed outside any group: every queued item
-        gets the exception instead of waiting forever."""
+        """A collector cycle failed outside any window: every queued item
+        fails with a stall error naming the ``collect`` stage instead of
+        waiting forever, and the same thread keeps serving."""
         with self._lock:
             batch = self._queue[:]
             self._queue.clear()
             self._kick.clear()
+        err = PipelineStalledError(
+            f"dispatch collector failed; {len(batch)} queued item(s) "
+            f"aborted: {exc!r}", stage="collect")
+        err.__cause__ = exc
         for p in batch:
-            self._deliver_error(p, exc)
+            self._deliver_error(p, err)
 
     def _collect_once(self) -> None:
         self._kick.wait()
-        if self._closed:
+        if self._closed or self._superseded():
             return
         if self._win > 0:
             time.sleep(self._win)
@@ -423,12 +632,17 @@ class CountBatcher:
             del self._queue[: len(batch)]
             if not self._queue:
                 self._kick.clear()
+            if batch:
+                self._busy += 1  # the idle watchdog waits for the window
         if not batch:
             return
         try:
             self._process_batch(batch, backlog)
         except Exception as e:  # noqa: BLE001 — answer, never strand
             self._fail(batch, e)
+        finally:
+            with self._lock:
+                self._busy -= 1
 
     def _process_batch(self, batch: list, backlog: int) -> None:
         if self.adaptive:
@@ -449,7 +663,22 @@ class CountBatcher:
             st[0] += 1
             st[1] += len(group)
             st[2] = max(st[2], len(group))
-        self._dispatch_window(groups)
+            if key[0] in ("sum", "minmax", "bsirange"):
+                self.bsi_batch_hits += len(group) - 1
+        if any(key[0] == "distinct" for key in groups):
+            self.distinct_windows += 1
+        if not self.governor.admit():
+            # DEGRADED: each item alone, read back inline, through the
+            # same hand kernels; no pipeline, no shared readback to stall
+            for p in batch:
+                p.stage = "dispatch"
+            for key, group in groups.items():
+                if key[0] == "distinct":
+                    self._run_distinct(group)
+                else:
+                    self._run_per_item(key[0], group)
+            return
+        self._dispatch_window(batch, groups)
 
     @staticmethod
     def _group_key(p: _Pending) -> tuple:
@@ -457,7 +686,8 @@ class CountBatcher:
         count; selcounts and trees share a gather, and BSI items a family
         call, per (plane, overlay) identity; rowcounts stack by plane
         shape (and dedupe by leaf identity), or share one base+delta scan
-        per (plane, overlay, filter) identity."""
+        per (plane, overlay, filter) identity; Distincts dedupe by leaf
+        identity within their plane shape."""
         delta = id(p.delta) if p.delta is not None else 0
         if p.kind == "groupby":
             return ("groupby",) + p.nodes[2]
@@ -465,44 +695,113 @@ class CountBatcher:
             return ("count", p.leaves[0].shape[0])
         if p.kind in ("selcounts", "tree", "sum", "minmax", "bsirange"):
             return (p.kind, id(p.leaves[0]), delta)
+        if p.kind == "distinct":
+            return ("distinct", tuple(p.leaves[0].shape))
         if p.delta is not None:
             return ("rowcounts-delta", id(p.leaves[0]), delta,
                     id(p.leaves[1]) if len(p.leaves) == 2 else 0)
         return ("rowcounts", tuple(p.leaves[0].shape))
 
-    def _dispatch_window(self, groups: dict) -> None:
-        self._pipe_slots.acquire()
-        handed = False
-        try:
-            pending = []
-            for key, group in groups.items():
+    def _group_pool(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=8, thread_name_prefix="pilosa-torch-batch-group")
+        return self._pool
+
+    def _dispatch_window(self, batch: list, groups: dict) -> None:
+        """One launch per group, the window's outputs packed into one
+        readback (handed to the reader while pipelining is on), the
+        window registered with the watchdog from launch to delivery."""
+        program_groups, distinct_groups = [], []
+        for key, group in groups.items():
+            (distinct_groups if key[0] == "distinct"
+             else program_groups).append((key, group))
+        slot_held = False
+        if self._readq is not None and self.governor.pipelining_ok():
+            self._pipe_slots.acquire()
+            slot_held = True
+        w = self._register_window(batch, slot_held)
+        for p in batch:
+            p.stage = "dispatch"
+        distinct_futs = [self._group_pool().submit(self._run_distinct, g)
+                         for _, g in distinct_groups]
+        pending = []
+        if len(program_groups) == 1:
+            key, group = program_groups[0]
+            try:
+                pending.append((group,) + self._dispatch_group(key[0], group))
+            except Exception as e:  # noqa: BLE001 — to its callers
+                w.faulted = True
+                self.governor.record_fault()
+                self._fail(group, e)
+        elif program_groups:
+            # several groups launch on the pool and each join is bounded
+            # by the watchdog: a hung group fails alone while the others
+            # proceed (the whole-window watchdog defers meanwhile)
+            futs = [(key, group, self._group_pool().submit(
+                self._dispatch_group, key[0], group))
+                for key, group in program_groups]
+            bound = self.watchdog_s if self.watchdog_s > 0 else None
+            w.bounded = True
+            for key, group, fut in futs:
                 try:
-                    out, finish = self._dispatch_one(key[0], group)
+                    pending.append((group,) + fut.result(bound))
+                except _FutTimeout:
+                    self._fail_stalled_group(key, group, bound)
+                    w.faulted = True
                 except Exception as e:  # noqa: BLE001 — to its callers
+                    w.faulted = True
+                    self.governor.record_fault()
                     self._fail(group, e)
-                    continue
-                pending.append((group, out, finish))
-            if not pending:
-                return
-            w = _Window(pending)
+                w.t0 = time.monotonic()  # the bound is per stall, not total
+            w.bounded = False
+        if w.done:
+            return  # quarantined meanwhile: its items already failed
+        w.pending = pending
+        w.distinct_futs = distinct_futs
+        if pending:
             try:
                 self._start_read(w)
             except Exception as e:  # noqa: BLE001 — to its callers
+                w.faulted = True
+                self.governor.record_fault()
                 for group, _, _ in pending:
                     self._fail(group, e)
-                return
-            with self._fl_lock:
-                self._inflight += 1
-            if self._read_thread is None or not self._read_thread.is_alive():
-                self._read_thread = threading.Thread(
-                    target=self._read_loop, name="pilosa-torch-readback",
-                    daemon=True)
-                self._read_thread.start()
+                w.pending = []
+        if not (w.pending or distinct_futs):
+            self._window_done(w)
+            return
+        with self._pipe_lock:
+            w.stage = "readback"
+            w.t0 = time.monotonic()
+        for p in batch:
+            p.stage = "readback"
+        if slot_held:
+            with self._pipe_lock:
+                if w.done:
+                    return
+                self._inflight_windows += 1
+                w.inflight = True
+            self._ensure_reader()
             self._readq.put(w)
-            handed = True  # the reader gives the slot back
-        finally:
-            if not handed:
-                self._pipe_slots.release()
+            return
+        err = None
+        try:
+            self._finish_window(w)
+        except Exception as e:  # noqa: BLE001 — fail, never wedge, the window
+            err = e
+        if err is not None:
+            self._fail_window_items(w, _wrap_readback_error(err))
+        if self._window_done(w) and err is None and not w.faulted:
+            self.governor.record_success()
+
+    def _dispatch_group(self, kind: str, group: list):
+        """One group's launch: ``(device out, finish)``."""
+        if fault.ACTIVE:
+            # a stalled launch (delay) and a refused one (error)
+            fault.fire("exec.dispatch_hang", kind=kind)
+            fault.fire("exec.dispatch_error", kind=kind)
+        return self._dispatch_one(kind, group)
 
     def _dispatch_one(self, kind: str, group: list):
         if kind == "count":
@@ -521,7 +820,214 @@ class CountBatcher:
             return self._dispatch_groupby(group)
         return self._dispatch_rowcounts(group)
 
+    def _run_per_item(self, kind: str, group: list) -> None:
+        """Degraded serving: each live item launched alone (the same
+        family call, hence the same hand kernels) and read back at once;
+        its error goes to it alone."""
+        for p in group:
+            if p.abandoned or p.event.is_set():
+                continue
+            try:
+                out, finish = self._dispatch_one(kind, [p])
+                finish(out.cpu().numpy())
+            except Exception as e:  # noqa: BLE001 — to its caller
+                self._deliver_error(p, e)
+
+    def _run_distinct(self, group: list) -> None:
+        """The group's unique (plane, filter) items scan once each, on
+        their own threads when there are several; every item gets its
+        representative's host arrays."""
+        items, assign = _dedupe(group)
+        results: list = [None] * len(items)
+        errors: list = [None] * len(items)
+
+        def scan(i: int) -> None:
+            p = items[i]
+            try:
+                flt = p.leaves[1] if len(p.leaves) == 2 else None
+                pos, neg = bsik.distinct_presence(p.leaves[0], flt)
+                results[i] = (pos.cpu().numpy(), neg.cpu().numpy())
+            except Exception as e:  # noqa: BLE001 — to its callers
+                errors[i] = e
+
+        if len(items) == 1:
+            scan(0)
+        else:
+            # plain threads, not the group pool this may itself run on
+            ts = [threading.Thread(target=scan, args=(i,),
+                                   name="pilosa-torch-distinct")
+                  for i in range(len(items))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        with self._fl_lock:
+            self.distinct_scans += len(items)
+        for p, slot in zip(group, assign):
+            if errors[slot] is not None:
+                self._deliver_error(p, errors[slot])
+            else:
+                self._deliver(p, results[slot])
+
+    def _fail_stalled_group(self, key, group: list, bound: float) -> None:
+        """One group's launch outlived the watchdog bound while the rest
+        of its window proceeded: its items alone fail, naming the
+        ``dispatch`` stage, and the governor degrades (the wedged pool
+        worker finishes when the hang ends; its answer is dropped)."""
+        self._trips += 1
+        self._quarantined += 1
+        self.governor.record_trip()
+        err = PipelineStalledError(
+            f"{key[0]} dispatch stalled past the {bound:g}s watchdog bound "
+            "and was quarantined (dispatch_watchdog_seconds)",
+            stage="dispatch", elapsed=bound)
+        self._fail(group, err)
+
+    # -- window registry and watchdog --------------------------------------
+
+    def _register_window(self, batch: list, slot_held: bool) -> _Window:
+        with self._pipe_lock:
+            self._win_seq += 1
+            w = _Window(self._win_seq, batch, slot_held)
+            if self.watchdog_s > 0:
+                self._windows[w.wid] = w
+        return w
+
+    def _window_done(self, w: _Window) -> bool:
+        """Close a window once: unregister it, give back its pipeline
+        slot.  False when it was already closed (quarantined, or a
+        superseded worker finishing late)."""
+        with self._pipe_lock:
+            if w.done:
+                return False
+            w.done = True
+            self._windows.pop(w.wid, None)
+            if w.inflight:
+                w.inflight = False
+                self._inflight_windows -= 1
+            slot = w.slot_held
+            w.slot_held = False
+        if slot:
+            self._pipe_slots.release()
+        return True
+
+    def _fail_window_items(self, w: _Window, err: Exception) -> None:
+        """Fail every unanswered item of the window (answered and
+        abandoned ones are skipped by the delivery guard)."""
+        for p in w.items:
+            self._deliver_error(p, err)
+
+    def _ensure_watchdog(self) -> None:
+        # caller holds self._lock
+        if self.watchdog_s <= 0:
+            return
+        if self._watchdog is None or not self._watchdog.is_alive():
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, name="pilosa-torch-watchdog",
+                daemon=True)
+            self._watchdog.start()
+
+    def _watchdog_loop(self) -> None:
+        """Age every registered window's stage; quarantine the overdue.
+        Windows whose group joins the collector bounds itself
+        (``bounded``) are skipped.  Quarantined windows leave ``_limbo``
+        once their event completes.  Parks after ``WATCHDOG_IDLE_TICKS``
+        quiet ticks (the next enqueue revives it)."""
+        idle = 0
+        while not self._closed:
+            # re-derived per tick: a live change of watchdog_s applies
+            if self._stop.wait(max(0.02, min(self.watchdog_s / 4.0, 1.0))
+                               if self.watchdog_s > 0 else 0.25):
+                return
+            self._prune_limbo()
+            if self.watchdog_s <= 0:
+                with self._lock:
+                    if self._watchdog is threading.current_thread():
+                        self._watchdog = None
+                return
+            now = time.monotonic()
+            with self._pipe_lock:
+                stuck = [w for w in self._windows.values()
+                         if not w.done and not w.bounded
+                         and now - w.t0 > self.watchdog_s]
+            for w in stuck:
+                self._quarantine(w, now - w.t0)
+            with self._lock:
+                backlog = bool(self._queue)
+                t = self._thread
+                if (not self._queue and not self._busy and not self._windows
+                        and not self._limbo):
+                    idle += 1
+                    if (idle >= self.WATCHDOG_IDLE_TICKS
+                            and self._watchdog is threading.current_thread()):
+                        self._watchdog = None
+                        return
+                else:
+                    idle = 0
+            if backlog and t is not None and not t.is_alive():
+                self._restart_collector()
+
+    def _prune_limbo(self) -> None:
+        for wid, w in list(self._limbo.items()):
+            try:
+                finished = w.event is None or w.event.query()
+            except Exception:  # noqa: BLE001 — a failed event is finished
+                finished = True
+            if finished:
+                self._limbo.pop(wid, None)
+
+    def _quarantine(self, w: _Window, age: float) -> None:
+        """A window outlived the watchdog bound in ``w.stage``: fail its
+        unanswered items with a stall error naming the stage, give back
+        its slot, keep its operands until its event completes, and
+        supersede the stage's worker so the queue keeps draining."""
+        stage = w.stage
+        # read before _window_done clears it: a window handed to the
+        # reader wedges the reader, else the collector is finishing it
+        handed = w.inflight
+        if not self._window_done(w):
+            return  # finished meanwhile: no trip
+        self._trips += 1
+        self._quarantined += 1
+        if w.event is not None:
+            self._limbo[w.wid] = w
+        self.governor.record_trip()
+        err = PipelineStalledError(
+            f"dispatch-pipeline window stalled in {stage} for {age:.2f}s "
+            f"(dispatch_watchdog_seconds={self.watchdog_s:g}); the window "
+            "was quarantined and its pipeline slot reclaimed",
+            stage=stage, elapsed=age)
+        self._fail_window_items(w, err)
+        if stage == "readback" and handed and self._readq is not None:
+            self._restart_reader()
+        else:
+            self._restart_collector()
+
+    def _restart_collector(self) -> None:
+        with self._lock:
+            self._thread = threading.Thread(
+                target=self._run_collector, name="pilosa-torch-batcher",
+                daemon=True)
+            self._thread.start()
+        # wake a superseded collector parked on the kick (it exits) and
+        # hand any backlog to the new one
+        self._kick.set()
+
+    def _restart_reader(self) -> None:
+        self._read_thread = threading.Thread(
+            target=self._read_loop, name="pilosa-torch-readback",
+            daemon=True)
+        self._read_thread.start()
+        self._readq.put(None)  # wakes a parked superseded reader
+
     # -- readback ----------------------------------------------------------
+
+    def _ensure_reader(self) -> None:
+        if self._read_thread is None or not self._read_thread.is_alive():
+            self._read_thread = threading.Thread(
+                target=self._read_loop, name="pilosa-torch-readback",
+                daemon=True)
+            self._read_thread.start()
 
     def _start_read(self, w: _Window) -> None:
         """Pack the window's outputs into one int32 tensor and start its
@@ -541,30 +1047,51 @@ class CountBatcher:
 
     def _read_loop(self) -> None:
         while True:
+            if self._read_thread is not threading.current_thread():
+                return  # superseded by a quarantine restart
             w = self._readq.get()
             if w is None:
-                return
+                if self._closed:
+                    return
+                continue  # a wake-up
+            if w.done:
+                continue  # quarantined while queued
+            err = None
             try:
                 self._finish_window(w)
-            except Exception as e:  # noqa: BLE001 — answer, never strand
-                for group, _, _ in w.pending:
-                    self._fail(group, e)
-            finally:
-                with self._fl_lock:
-                    self._inflight -= 1
-                self._pipe_slots.release()
-                # the last window must not keep its planes alive while
-                # the reader waits for the next one
-                w = None
+            except Exception as e:  # noqa: BLE001 — fail, never wedge
+                err = e
+            if err is not None:
+                self._fail_window_items(w, _wrap_readback_error(err))
+            if self._window_done(w) and err is None and not w.faulted:
+                self.governor.record_success()
+            # the last window must not keep its planes alive while the
+            # reader waits for the next one
+            w = None
 
     def _finish_window(self, w: _Window) -> None:
+        if fault.ACTIVE:
+            fault.fire("exec.readback_hang")  # a stalled readback
+        self._readback(w)
+        for f in w.distinct_futs:
+            try:
+                f.result()
+            except Exception:  # noqa: BLE001 — _run_distinct delivers its own
+                pass
+
+    def _readback(self, w: _Window) -> None:
         """Wait for the window's copy, then slice each group's answers
-        out of the one host array."""
+        out of the one host array.  A failed wait reaches every item of
+        the window, a failed finish its group."""
+        if not w.pending:
+            return
         try:
             if w.event is not None:
                 w.event.synchronize()
             flat = w.host.numpy()
         except Exception as e:  # noqa: BLE001 — to every item
+            w.faulted = True
+            self.governor.record_fault()
             for group, _, _ in w.pending:
                 self._fail(group, e)
             return
@@ -574,6 +1101,8 @@ class CountBatcher:
             try:
                 finish(flat[off:off + n].reshape(tuple(out.shape)))
             except Exception as e:  # noqa: BLE001 — to its callers
+                w.faulted = True
+                self.governor.record_fault()
                 self._fail(group, e)
             off += n
 
@@ -723,3 +1252,13 @@ def _dedupe(group: list):
             items.append(p)
         assign.append(slot)
     return items, assign
+
+
+def _wrap_readback_error(exc: Exception) -> Exception:
+    """A failure escaping a window's finish outside its groups: a stall
+    error naming the ``readback`` stage, so every unanswered item fails
+    instead of waiting forever."""
+    err = PipelineStalledError(f"window readback failed: {exc!r}",
+                               stage="readback")
+    err.__cause__ = exc
+    return err

@@ -77,15 +77,18 @@ column attributes.  Anything else raises :class:`ExecutionError`.
 from __future__ import annotations
 
 import fnmatch
+import gc
 import hashlib
 import re
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import fault
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels, resolve_device
 from pilosa_tpu_torch.engine import sparse as sparsek
@@ -93,6 +96,7 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.batcher import CountBatcher
+from pilosa_tpu_torch.exec.errors import ExecutionError, QueryTimeoutError
 from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable
 from pilosa_tpu_torch.exec.planes import (DEFAULT_BUDGET, PlaneCache,
                                           merge_row_cards)
@@ -107,7 +111,7 @@ from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
 from pilosa_tpu_torch.store.field import (BSI_TYPES, ROW_TYPES, TYPE_BOOL,
-                                          TYPE_MUTEX, Field)
+                                          TYPE_DECIMAL, TYPE_MUTEX, Field)
 from pilosa_tpu_torch.store.holder import Holder
 from pilosa_tpu_torch.store.index import Index
 from pilosa_tpu_torch.store.timeq import (parse_pql_time, view_span,
@@ -140,8 +144,12 @@ _BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
                            "UnionRows", "ConstRow", "Limit"})
 
 
-class ExecutionError(Exception):
-    pass
+def _is_device_oom(e: Exception) -> bool:
+    """Device-memory exhaustion, by type: ``torch.OutOfMemoryError``
+    (``torch.cuda.OutOfMemoryError``), raised where an allocation on the
+    card fails.  Never a string match: an error that merely quotes "out of
+    memory" (a PQL key, a field name) must not drop the cache."""
+    return isinstance(e, torch.OutOfMemoryError)
 
 
 def _lex_gt(mat: np.ndarray, prev: tuple) -> np.ndarray:
@@ -206,9 +214,15 @@ def _field_arg(call: Call):
 
 
 class _Ctx:
-    def __init__(self, index: Index, shards: tuple[int, ...]):
+    def __init__(self, index: Index, shards: tuple[int, ...],
+                 deadline: float | None = None):
         self.index = index
         self.shards = shards
+        self.deadline = deadline  # time.monotonic() cutoff
+
+    def check_deadline(self) -> None:
+        if self.deadline is not None and time.monotonic() > self.deadline:
+            raise QueryTimeoutError("query timeout exceeded")
 
 
 def _parse_time(t: str):
@@ -335,7 +349,11 @@ class Executor:
                  tenant_byte_quota: int = 0,
                  tenant_qps_quota: float = 0.0,
                  tenant_slot_quota: int = 0,
-                 tenant_device_seconds_quota: float = 0.0):
+                 tenant_device_seconds_quota: float = 0.0,
+                 dispatch_pipeline_depth: int = 2,
+                 solo_fastlane: bool = True,
+                 dispatch_watchdog_seconds: float = 30.0,
+                 device_health_probe_seconds: float = 5.0):
         if tenant_device_seconds_quota:
             raise ValueError("tenant_device_seconds_quota is not supported "
                              "by this port (it reads a device-cost ledger)")
@@ -358,8 +376,14 @@ class Executor:
         self.fused = FusedCache()
         self.tree_fusion = bool(tree_fusion)
         window = parse_window(count_batch_window)
-        self.batcher = (CountBatcher(self.fused, window_s=window)
-                        if window == "adaptive" or window > 0 else None)
+        self.batcher = (CountBatcher(
+            self.fused, window_s=window,
+            pipeline_depth=dispatch_pipeline_depth,
+            solo_fastlane=solo_fastlane,
+            watchdog_s=dispatch_watchdog_seconds,
+            probe_after_s=device_health_probe_seconds,
+            tier=self._kernel_tier())
+            if window == "adaptive" or window > 0 else None)
         # query-plan cache: (index, stripped PQL, shards) -> _PlanEntry
         self._plans: OrderedDict = OrderedDict()
         self._plans_lock = threading.Lock()
@@ -369,6 +393,18 @@ class Executor:
         self.max_concurrent = max_concurrent
         self._exec_slots = (threading.BoundedSemaphore(max_concurrent)
                             if max_concurrent else None)
+        # device-OOM recovery: one recovery at a time through the gate;
+        # the in-flight count lets its exclusive stage drain the other
+        # queries, and new arrivals park on _recovery_open meanwhile
+        self._oom_gate = threading.Lock()
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
+        self._recovery_open = threading.Event()
+        self._recovery_open.set()
+        self._tls = threading.local()
+        self.device_oom_retries = 0
+        self.device_oom_exclusive_retries = 0
+        self.last_device_oom: dict | None = None
         # time ranges served off the time plane / by the cover views'
         # rows, and TopNs by each representation
         self._served_lock = threading.Lock()
@@ -387,9 +423,10 @@ class Executor:
 
     def serving_stats(self) -> dict:
         """The ``/status`` batcher block: the batcher's windows, items,
-        fast-lane hits and current window, and the plan cache's hits and
-        misses."""
-        out = (self.batcher.health_payload() if self.batcher is not None
+        fast-lane hits, current window and Distinct windows and scans, the
+        plan cache's hits and misses, and the device-OOM recoveries (the
+        last one's error and device memory at the moment it struck)."""
+        out = (self.batcher.stats_payload() if self.batcher is not None
                else {"window": "off"})
         with self._plans_lock:
             out.update(planCacheHits=self.plan_hits,
@@ -397,7 +434,134 @@ class Executor:
                        plans=len(self._plans))
         with self._served_lock:
             out["topnServed"] = dict(self.topn_served)
+            out.update(deviceOomRetries=self.device_oom_retries,
+                       deviceOomExclusiveRetries=(
+                           self.device_oom_exclusive_retries),
+                       lastDeviceOom=self.last_device_oom)
         return out
+
+    def _kernel_tier(self) -> str:
+        """What the count functions run: the hand kernels on a CUDA
+        device, their plain versions on the CPU."""
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    def device_health(self) -> dict:
+        """The ``/status`` deviceHealth block: the batcher's governor
+        state, watchdog bound and quarantine counts (an executor without a
+        batcher has no shared pipeline to stall: always healthy)."""
+        if self.batcher is None:
+            return {"state": "healthy", "stateCode": 0,
+                    "watchdogSeconds": 0.0, "quarantinedWindows": 0,
+                    "inflightWindows": 0, "consecutiveFaults": 0,
+                    "watchdogTrips": 0, "kernelTier": self._kernel_tier()}
+        return self.batcher.health_payload()
+
+    @property
+    def slots_in_use(self) -> int:
+        """Admitted queries executing now."""
+        return self._inflight
+
+    def _query_deadline(self) -> float | None:
+        """The serving thread's query deadline (set by :meth:`execute`),
+        which every batcher submit carries."""
+        return getattr(self._tls, "deadline", None)
+
+    # -- in-flight accounting (device-OOM recovery) -------------------------
+
+    def _enter_inflight(self) -> None:
+        with self._inflight_cv:
+            self._inflight += 1
+
+    def _leave_inflight(self) -> None:
+        with self._inflight_cv:
+            self._inflight -= 1
+            self._inflight_cv.notify_all()
+
+    def _drain_to_exclusive(self, timeout: float = 120.0) -> bool:
+        """Wait until this query is the only one in flight (the others
+        finish or park at the gate).  Bounded: on timeout the retry runs
+        anyway, and may fail honestly."""
+        with self._inflight_cv:
+            end = time.monotonic() + timeout
+            while self._inflight > 1:
+                remaining = end - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._inflight_cv.wait(remaining)
+        return True
+
+    def _note_oom(self, e: Exception, stage: int) -> None:
+        dev = self.device
+        mem = ({"allocated": torch.cuda.memory_allocated(dev),
+                "reserved": torch.cuda.memory_reserved(dev)}
+               if dev.type == "cuda" else {})
+        with self._served_lock:
+            if stage == 1:
+                self.device_oom_retries += 1
+            else:
+                self.device_oom_exclusive_retries += 1
+            self.last_device_oom = {"stage": stage, "error": str(e)[:300],
+                                    **mem}
+
+    def _attempt(self, fn, attempt: int):
+        if fault.ACTIVE:
+            # ``oom`` raises the torch.OutOfMemoryError this recovery
+            # classifies: an injected OOM drives the real stages
+            fault.fire("exec.oom", attempt=attempt)
+        return fn()
+
+    def _with_oom_retry(self, fn):
+        """Run ``fn``; on a device OOM, recover in stages that coordinate
+        across concurrent queries.
+
+        Stage 1 (one recovery at a time, under the gate): evict the
+        UNLEASED planes (a leased one frees nothing: its query holds the
+        tensor), collect garbage, retry.  The caching allocator already
+        gave its cached blocks back and retried before it raised, so only
+        dropped cache entries free memory.
+
+        Stage 2 (still under the gate): park new arrivals, drain to
+        exclusivity, join the background builds (whose memory the cache
+        cannot see yet), drop ALL residency and retry once more.
+
+        At most three attempts per call.  Wraps every execute path: the
+        Count batches, each call and each plan-cache hit."""
+        try:
+            return self._attempt(fn, 1)
+        except Exception as e:  # noqa: BLE001 — filtered below
+            if not _is_device_oom(e):
+                raise
+            self._note_oom(e, 1)
+        # wait for the gate OUTSIDE the in-flight count: an active
+        # recovery may be draining to exclusivity
+        self._leave_inflight()
+        try:
+            with self._oom_gate:
+                self._enter_inflight()
+                try:
+                    freed = self.planes.evict_unpinned(reason="oom")
+                    with self._served_lock:
+                        self.last_device_oom["evictedBytes"] = freed
+                    gc.collect()
+                    try:
+                        return self._attempt(fn, 2)
+                    except Exception as e:  # noqa: BLE001
+                        if not _is_device_oom(e):
+                            raise
+                        self._note_oom(e, 2)
+                    self._recovery_open.clear()  # park new arrivals
+                    try:
+                        self._drain_to_exclusive()
+                        self.planes.wait_builds()
+                        self.planes.invalidate()
+                        gc.collect()
+                        return self._attempt(fn, 3)
+                    finally:
+                        self._recovery_open.set()
+                finally:
+                    self._leave_inflight()
+        finally:
+            self._enter_inflight()
 
     def tenancy_status(self) -> dict:
         """The ``/status`` ``tenancy`` block: paging, the byte quota,
@@ -447,8 +611,12 @@ class Executor:
     # ------------------------------------------------------------------ api
 
     def execute(self, index_name: str, query: str | Query,
-                shards: list[int] | None = None) -> list:
-        """Run every top-level call; returns one result per call."""
+                shards: list[int] | None = None,
+                deadline: float | None = None) -> list:
+        """Run every top-level call; returns one result per call.
+        ``deadline`` (a ``time.monotonic()`` cutoff) aborts with
+        :class:`QueryTimeoutError` between calls, between streamed blocks
+        and while the query waits on the batcher."""
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index {index_name!r} not found")
@@ -467,23 +635,40 @@ class Executor:
             if qos_held:
                 self.qos.release(index_name)
             raise
-        # the planes this query is handed stay resident until it ends
-        self.planes.begin_query()
         try:
+            # park while a stage-2 OOM recovery drains to exclusivity
+            # (bounded: a wedged recovery must not refuse service forever)
+            self._recovery_open.wait(timeout=180.0)
+            self._enter_inflight()
+            # the planes this query is handed stay resident until it ends
+            self.planes.begin_query()
+        except BaseException:
+            if self._exec_slots is not None:
+                self._exec_slots.release()
+            if qos_held:
+                self.qos.release(index_name)
+            raise
+        self._tls.deadline = deadline
+        try:
+            if fault.ACTIVE:
+                fault.fire("exec.execute", index=index_name)
             if isinstance(query, str):
                 out = self._execute_planned(index, index_name, query, shards)
                 if out is not None:
                     return out
                 query = parse_cached(query)
-            return self._execute_calls(index, query, shards)
+            return self._execute_calls(index, query, shards, deadline)
         finally:
+            self._tls.deadline = None
             self.planes.end_query()
+            self._leave_inflight()
             if self._exec_slots is not None:
                 self._exec_slots.release()
             if qos_held:
                 self.qos.release(index_name)
 
-    def _execute_calls(self, index: Index, query: Query, shards) -> list:
+    def _execute_calls(self, index: Index, query: Query, shards,
+                       deadline: float | None = None) -> list:
         results = []
         calls = query.calls
         i = 0
@@ -495,12 +680,18 @@ class Executor:
             while (run_end < len(calls) and calls[run_end].name == "Count"
                    and len(calls[run_end].children) == 1):
                 run_end += 1
-            ctx = _Ctx(index, self._shards_for(index, shards, calls[i]))
+            ctx = _Ctx(index, self._shards_for(index, shards, calls[i]),
+                       deadline)
+            ctx.check_deadline()
             if run_end - i > 1:
-                results.extend(self._count_batch(ctx, calls[i:run_end]))
+                batch = calls[i:run_end]
+                results.extend(self._with_oom_retry(
+                    lambda: self._count_batch(ctx, batch)))
                 i = run_end
                 continue
-            results.append(self._call(ctx, calls[i]))
+            call = calls[i]
+            results.append(self._with_oom_retry(
+                lambda: self._call(ctx, call)))
             i += 1
         return results
 
@@ -525,7 +716,8 @@ class Executor:
         item (concurrent requests share a launch and a read), or one
         batch and one read of its own."""
         if self.batcher is not None:
-            return self.batcher.submit_many(nodes, leaves)
+            return self.batcher.submit_many(
+                nodes, leaves, deadline=self._query_deadline())
         per_shard = self.fused.run_count_batch(nodes, leaves)
         host = per_shard.cpu().numpy().astype(np.int64)  # one read
         return [int(row.sum()) for row in host]
@@ -601,18 +793,19 @@ class Executor:
             if field.name not in planes:
                 planes[field.name] = self.planes.bsi_plane_delta(
                     ctx.index.name, field, ctx.shards)
+        deadline = self._query_deadline()
         if len(items) == 1:
             field, op_keys, offsets, operands = items[0]
             ps = planes[field.name]
             return [self.batcher.submit_bsirange(
                 ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
-                delta=ps.delta)]
+                delta=ps.delta, deadline=deadline)]
         handles = []
         for field, op_keys, offsets, operands in items:
             ps = planes[field.name]
             handles.append(self.batcher.enqueue_bsirange(
                 ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
-                delta=ps.delta))
+                delta=ps.delta, deadline=deadline))
         return [self.batcher.wait(h) for h in handles]
 
     # ---------------------------------------------------------- whole trees
@@ -646,14 +839,17 @@ class Executor:
                 return None
             resolved.append(hit)
         if self.batcher is not None:
+            deadline = self._query_deadline()
             if len(resolved) == 1:
                 # a single tree may take the solo fast lane
                 ps, item = resolved[0]
                 return [self.batcher.submit_tree(ps.plane, *item,
-                                                 delta=ps.delta)]
+                                                 delta=ps.delta,
+                                                 deadline=deadline)]
             # enqueue ALL trees before waiting on any: one window
             handles = [self.batcher.enqueue_tree(ps.plane, *item,
-                                                 delta=ps.delta)
+                                                 delta=ps.delta,
+                                                 deadline=deadline)
                        for ps, item in resolved]
             return [self.batcher.wait(h) for h in handles]
         # no batcher: one family call per (plane, overlay) pair
@@ -897,7 +1093,8 @@ class Executor:
         ``_REDUCE_SHARD_MAX``), coalesced across concurrent requests by
         the batcher."""
         if self.batcher is not None:
-            vals = self.batcher.submit_selected(ps.plane, slots, ps.delta)
+            vals = self.batcher.submit_selected(
+                ps.plane, slots, ps.delta, deadline=self._query_deadline())
         else:
             vals = self.fused.run_selected_counts(ps.plane, slots, ps.delta)
             vals = vals.cpu().numpy().astype(np.int64)[:len(slots)]
@@ -910,7 +1107,8 @@ class Executor:
         and finished in int64 on the host."""
         small = len(ps.shards) <= self._REDUCE_SHARD_MAX
         if self.batcher is not None and small:
-            return self.batcher.submit_rowcounts(ps.plane, delta=ps.delta)
+            return self.batcher.submit_rowcounts(
+                ps.plane, delta=ps.delta, deadline=self._query_deadline())
         if ps.delta is not None:
             out = self.fused.run_rowcounts_delta(ps.plane, ps.delta,
                                                  reduce=small)
@@ -1183,7 +1381,12 @@ class Executor:
     def _run_plan(self, index: Index, entry: _PlanEntry) -> list | None:
         """Run a valid plan; None = its plane is not resident (the parse
         path decides admission)."""
-        ctx = _Ctx(index, entry.shards)
+        ctx = _Ctx(index, entry.shards, self._query_deadline())
+        ctx.check_deadline()
+        return self._with_oom_retry(lambda: self._run_plan_inner(ctx, entry))
+
+    def _run_plan_inner(self, ctx: _Ctx, entry: _PlanEntry) -> list | None:
+        index = ctx.index
         if entry.kind == "tree":
             if not self.tree_fusion:
                 return None
@@ -1711,7 +1914,8 @@ class Executor:
             # one batcher item: concurrent Counts share a launch and a read
             walk = _Walk()
             node = self._plan(ctx, call.children[0], walk)
-            return self.batcher.submit(node, self._leaves(ctx, walk))
+            return self.batcher.submit(node, self._leaves(ctx, walk),
+                                       deadline=self._query_deadline())
         per_shard = self._fused_bitmap(ctx, call.children[0], want="count")
         return int(kernels.shard_totals(per_shard))
 
@@ -1858,15 +2062,18 @@ class Executor:
                 len(ctx.shards) <= self._REDUCE_SHARD_MAX:
             # concurrent TopNs over one plane and filter share one scan;
             # tanimoto enqueues both reads before waiting on either
+            deadline = self._query_deadline()
             if need_row_counts:
-                h1 = self.batcher.enqueue_rowcounts(ps.plane, filter_words,
-                                                    delta=ps.delta)
-                h2 = self.batcher.enqueue_rowcounts(ps.plane, delta=ps.delta)
+                h1 = self.batcher.enqueue_rowcounts(
+                    ps.plane, filter_words, delta=ps.delta, deadline=deadline)
+                h2 = self.batcher.enqueue_rowcounts(
+                    ps.plane, delta=ps.delta, deadline=deadline)
                 totals = self.batcher.wait(h1)[:n_rows]
                 row_totals = self.batcher.wait(h2)[:n_rows]
             else:
                 totals = self.batcher.submit_rowcounts(
-                    ps.plane, filter_words, delta=ps.delta)[:n_rows]
+                    ps.plane, filter_words, delta=ps.delta,
+                    deadline=deadline)[:n_rows]
         elif ps.delta is not None:
             # per-shard base+delta counts, finished on the host
             totals = kernels.shard_totals(self.fused.run_rowcounts_delta(
@@ -1909,6 +2116,7 @@ class Executor:
         parts_rows, parts_totals, parts_row_totals = [], [], []
         for chunk_rows, chunk_plane in self.planes.iter_row_blocks(
                 field, VIEW_STANDARD, ctx.shards, block):
+            ctx.check_deadline()  # streaming can run for seconds
             n = len(chunk_rows)
             parts_totals.append(kernels.shard_totals(
                 kernels.row_counts(chunk_plane, filter_words))[:n])
@@ -2050,13 +2258,15 @@ class Executor:
         direct call without a batcher."""
         if self.batcher is None:
             return None
+        deadline = self._query_deadline()
 
         def run(pl, ci, lp, fw, ap, agg, ad):
             meta = (int(ci.shape[0]) if pl else 1, int(lp.shape[1]),
                     int(ap.shape[1]) - 2 if ap is not None else 0)
             digest = hashlib.blake2b(ci.tobytes(), digest_size=8).digest()
             return self.batcher.submit_groupby(pl, ci, lp, fw, ap, agg, meta,
-                                               digest, delta=ad)
+                                               digest, delta=ad,
+                                               deadline=deadline)
         return run
 
     @staticmethod
@@ -2148,6 +2358,7 @@ class Executor:
                 agg_kind, limited=limit is not None, run=self._groupby_run(),
                 agg_delta=(None if minmax_host or agg_plane is None
                            else agg_plane.delta)):
+            ctx.check_deadline()  # many combination blocks stream
             sub = out["counts"][:, slots].astype(np.int64)  # [C, L]
             aggs = agg_ok = None
             if agg_name == "Count":
@@ -2262,8 +2473,9 @@ class Executor:
         field, filter_words = self._agg_args(ctx, call)
         ps = self.planes.bsi_plane_delta(ctx.index.name, field, ctx.shards)
         if self.batcher is not None:
-            total, cnt = self.batcher.submit_sum(ps.plane, filter_words,
-                                                 delta=ps.delta)
+            total, cnt = self.batcher.submit_sum(
+                ps.plane, filter_words, delta=ps.delta,
+                deadline=self._query_deadline())
         else:
             out = self.fused.run_sum_plane_batch(
                 ps.plane, *self._agg_filters(filter_words), delta=ps.delta)
@@ -2282,8 +2494,9 @@ class Executor:
         field, filter_words = self._agg_args(ctx, call)
         ps = self.planes.bsi_plane_delta(ctx.index.name, field, ctx.shards)
         if self.batcher is not None:
-            per_shard = self.batcher.submit_minmax(ps.plane, filter_words,
-                                                   delta=ps.delta)
+            per_shard = self.batcher.submit_minmax(
+                ps.plane, filter_words, delta=ps.delta,
+                deadline=self._query_deadline())
         else:
             out = self.fused.run_minmax_plane_batch(
                 ps.plane, *self._agg_filters(filter_words), delta=ps.delta)
@@ -2329,12 +2542,24 @@ class Executor:
                 "Distinct: bit depth > 24 not supported (presence array "
                 "would exceed 16M entries)")
         ps = self.planes.bsi_plane(ctx.index.name, field, ctx.shards)
-        pos, neg = bsik.distinct_presence(ps.plane, filter_words)
-        base = field.options.base
-        stored = sorted(
-            {int(v) + base for v in np.nonzero(pos.cpu().numpy())[0]}
-            | {base - int(v) for v in np.nonzero(neg.cpu().numpy())[0]})
-        return DistinctResult([field.from_stored(v) for v in stored])
+        if self.batcher is not None:
+            # identical concurrent Distincts share one presence scan
+            pos, neg = self.batcher.submit_distinct(
+                ps.plane, filter_words, deadline=self._query_deadline())
+        else:
+            pos, neg = bsik.distinct_presence(ps.plane, filter_words)
+            pos, neg = pos.cpu().numpy(), neg.cpu().numpy()
+        # offsets below the base descending, then above it ascending: the
+        # sorted union with no sort (the two meet only at the base itself)
+        nz_pos, nz_neg = np.flatnonzero(pos), np.flatnonzero(neg)
+        if len(nz_pos) and len(nz_neg) and nz_pos[0] == 0 == nz_neg[0]:
+            nz_neg = nz_neg[1:]
+        base = np.int64(field.options.base)
+        values = np.concatenate([base - nz_neg[::-1].astype(np.int64),
+                                 base + nz_pos.astype(np.int64)]).tolist()
+        if field.options.type == TYPE_DECIMAL:
+            values = [field.from_stored(v) for v in values]
+        return DistinctResult(values)
 
     # -- Options, IncludesColumn --------------------------------------------
 

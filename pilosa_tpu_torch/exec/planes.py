@@ -533,6 +533,15 @@ class PlaneCache:
                 freed += self._evict_entry(key, reason)
             return freed
 
+    def invalidate(self) -> None:
+        """Drop every entry, leased or not, with its overlay: the
+        device-OOM recovery's last stage, run once the other queries have
+        drained."""
+        with self._lock:
+            self._bytes_cache.clear()
+            for key in list(self._entries):
+                self._drop(key)
+
     def evict_tenant(self, index: str, need_bytes: int,
                      reason: str = "quota") -> int:
         """Free up to ``need_bytes`` of one tenant's unleased entries, in

@@ -1,9 +1,11 @@
 """Serve an index directory over REST on the torch device:
 
     python -m pilosa_tpu_torch.server --data-dir D --bind H:P [--device cpu]
+        [--query-timeout SECONDS]
 
 Without ``--device`` the server runs on the CUDA device and refuses to
-start when there is none.
+start when there is none.  ``--query-timeout`` caps every query's
+``?timeout=`` (0, the default: no cap).
 """
 
 from __future__ import annotations
@@ -21,11 +23,14 @@ def main(argv=None) -> None:
     p.add_argument("--bind", default="127.0.0.1:10101")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
+    p.add_argument("--query-timeout", type=float, default=0.0,
+                   help="cap on a query's timeout in seconds (0: none)")
     args = p.parse_args(argv)
     host, _, port = args.bind.rpartition(":")
     holder = Holder(args.data_dir).open()
     executor = Executor(holder, device=args.device)
-    server = Server(API(holder, executor), host or "127.0.0.1", int(port))
+    server = Server(API(holder, executor, query_timeout=args.query_timeout),
+                    host or "127.0.0.1", int(port))
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"{server.address[0]}:{server.address[1]} ({executor.device})",
           flush=True)

@@ -4,7 +4,9 @@ programs (Shift and Limit among them), the time-range scan over an
 overlay, the BSI and GroupBy paths, the Extract gathers, a mutex import
 over a resident plane, keyed requests and a small concurrent burst
 through the default executor on the card against the same calls on the
-CPU.
+CPU; and the robustness paths on the card: a real device OOM recovered by
+stage 1, a window quarantined while its kernels still run, and the
+``distinct`` batcher kind.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -703,4 +705,182 @@ def test_streamed_sparse_and_paged_equal_cpu(dev, tmp_path, budget):
     finally:
         ex.close()
         cpu.executor.close()
+        holder.close()
+
+
+def _robust_holder(root: str, f_rows: int, extra: int):
+    """Index ``i``: ``f`` with ``f_rows`` rows and ``h`` with ``extra``
+    rows over 6 shards (every row set somewhere), and ``g`` with 2."""
+    from pilosa_tpu_torch.store import Holder
+    rng = np.random.default_rng(11)
+    holder = Holder(root).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", f_rows), ("h", extra), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(6 << 20, 20 * rows + 4000,
+                          replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            (np.arange(len(cols)) % rows).astype(np.uint64), cols)
+    return holder
+
+
+def _ballast(need: int) -> list:
+    """Device tensors that leave less than ``need / 2`` allocatable: the
+    free memory in one piece, then ``need / 2`` pieces until one fails
+    (taking the allocator's cached blocks of that size too)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step = max(need // 2, 2 << 20)
+    free = torch.cuda.mem_get_info()[0]
+    pieces = []
+    if free > 2 * step:
+        pieces.append(torch.empty(free - step, dtype=torch.uint8,
+                                  device="cuda"))
+    while True:
+        try:
+            pieces.append(torch.empty(step, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.OutOfMemoryError:
+            break
+    torch.cuda.empty_cache()
+    return pieces
+
+
+def test_real_device_oom_recovered_by_stage_one(dev, tmp_path):
+    """A real ``torch.cuda.OutOfMemoryError``: with ``f``'s plane resident
+    and a ballast that leaves half of ``h``'s plane free, the Count over
+    ``h`` raises inside, stage 1 evicts the unleased planes and the retry
+    answers the CPU's answer."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.executor import _is_device_oom
+    holder = _robust_holder(str(tmp_path), 256, 16)
+    qf = "".join(f"Count(Row(f={r}))" for r in range(0, 256, 4))
+    qh = "".join(f"Count(Row(h={r}))" for r in range(16))
+    cpu = API(holder, Executor(holder, device="cpu"))
+    want = {q: cpu.query("i", q) for q in (qf, qh)}
+    ex = Executor(holder, device=dev)
+    ex.planes.SYNC_BUILD_MAX = 1 << 40
+    api = API(holder, ex)
+    ballast = None
+    try:
+        assert api.query("i", qf) == want[qf]
+        shards = tuple(range(6))
+        h_bytes = ex.planes.plane_bytes(holder.index("i").field("h"),
+                                        "standard", shards)
+        assert ex.planes.stats()["bytes"] >= 4 * h_bytes
+        ballast = _ballast(h_bytes)
+        with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+            torch.empty(h_bytes, dtype=torch.uint8, device=dev)
+        assert _is_device_oom(ei.value)
+        del ei
+        assert api.query("i", qh) == want[qh]
+        st = ex.serving_stats()
+        assert st["deviceOomRetries"] == 1
+        assert st["deviceOomExclusiveRetries"] == 0
+        assert "out of memory" in st["lastDeviceOom"]["error"].lower()
+        assert st["lastDeviceOom"]["evictedBytes"] >= 4 * h_bytes
+    finally:
+        del ballast
+        ex.close()
+        cpu.executor.close()
+        holder.close()
+        torch.cuda.empty_cache()
+
+
+def test_quarantined_window_in_flight(dev, tmp_path):
+    """A window still running on the card when the watchdog quarantines
+    it: its caller gets the ``readback`` stall at once, its operands and
+    pinned buffer stay held (``_limbo``) until its event completes, its
+    late answer is dropped, and the next window answers exactly."""
+    import time
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.exec.errors import PipelineStalledError
+    holder = _robust_holder(str(tmp_path), 8, 2)
+    shards = tuple(range(6))
+    cpu = Executor(holder, device="cpu", count_batch_window="off")
+    want = cpu.execute("i", "".join(f"Count(Row(f={r}))" for r in range(8)))
+    ex = Executor(holder, device=dev, count_batch_window=0.002,
+                  solo_fastlane=False, dispatch_watchdog_seconds=5.0,
+                  device_health_probe_seconds=0.1)
+    b = ex.batcher
+    try:
+        ps = ex.planes.field_plane("i", holder.index("i").field("f"),
+                                   "standard", shards)
+        assert b.submit_rowcounts(ps.plane)[:8].tolist() == want
+        b.watchdog_s = 0.01
+        time.sleep(1.2)  # the monitor's last long tick ends
+        torch.cuda._sleep(2_000_000_000)  # the stream stalls ~1 s
+        h = b.enqueue_rowcounts(ps.plane)
+        with pytest.raises(PipelineStalledError) as ei:
+            b.wait(h)
+        assert ei.value.stage == "readback"
+        held = list(b._limbo.values())
+        assert len(held) == 1
+        w = held[0]
+        assert not w.event.query() and w.packed is not None
+        assert w.host is not None and w.pending
+        torch.cuda.synchronize()
+        end = time.monotonic() + 10
+        while b._limbo and time.monotonic() < end:
+            time.sleep(0.02)
+        assert not b._limbo
+        assert h.result is None and isinstance(h.error, PipelineStalledError)
+        b.watchdog_s = 5.0
+        end = time.monotonic() + 10
+        while time.monotonic() < end:
+            assert b.submit_rowcounts(ps.plane)[:8].tolist() == want
+            if b.governor.state == "healthy":
+                break
+            time.sleep(0.05)
+        assert b.governor.state == "healthy"
+    finally:
+        ex.close()
+        holder.close()
+
+
+def test_distinct_window_equal_cpu(dev, tmp_path):
+    """Concurrent Distincts through the card's batcher share presence
+    scans and answer the CPU's values."""
+    import threading
+
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions
+    holder = _robust_holder(str(tmp_path), 8, 2)
+    idx = holder.index("i")
+    idx.create_field("v", FieldOptions(type="int", min=-1_000_000,
+                                       max=1_000_000))
+    rng = np.random.default_rng(13)
+    cols = rng.choice(6 << 20, 300000, replace=False).astype(np.uint64)
+    idx.field("v").import_values(
+        cols, rng.integers(-1_000_000, 1_000_001, len(cols)).tolist())
+    qs = ["Distinct(field=v)", "Distinct(Row(f=1), field=v)"]
+    cpu = Executor(holder, device="cpu", count_batch_window="off")
+    want = {q: cpu.execute("i", q)[0].values for q in qs}
+    ex = Executor(holder, device=dev, count_batch_window=0.05)
+    got, errors = [], []
+    start = threading.Barrier(8)
+
+    def client(k):
+        try:
+            start.wait(30)
+            q = qs[k % 2]
+            got.append(ex.execute("i", q)[0].values == want[q])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors, errors[:3]
+        assert got == [True] * 8
+        st = ex.serving_stats()
+        assert 2 <= st["distinctScans"] < 8 and st["distinctWindows"] >= 1
+    finally:
+        ex.close()
         holder.close()

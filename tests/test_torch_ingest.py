@@ -409,12 +409,22 @@ def test_import_errors_and_roaring(port):
         api.import_bits("i", "f", row_keys=["a"], col_ids=[1])
     assert e.value.status == 400
     for kw in ({"row_ids": [1], "col_ids": [1], "timestamps": ["x"]},
-               {"row_ids": [1], "col_ids": [1], "op_id": "x"},
                {"row_ids": [1, 2], "col_ids": [1]},
                {"col_ids": [1]}):
         with pytest.raises(ApiError) as e:
             api.import_bits("i", "f", **kw)
         assert e.value.status == 400
+    # an op id applies every delivery on a single node, as in the
+    # reference (no cluster: no duplicate check)
+    f0 = holder.index("i").field("f")
+    was = _counts_oracle(f0, [7])
+    assert api.import_bits("i", "f", row_ids=[7], col_ids=[2 * SW + 9],
+                           op_id="x") == 1
+    assert api.import_bits("i", "f", row_ids=[7], col_ids=[2 * SW + 9],
+                           op_id="x") == 0
+    assert api.import_bits("i", "f", row_ids=[7], col_ids=[2 * SW + 9],
+                           clear=True, op_id="y") == 1
+    assert _counts_oracle(f0, [7]) == was
     with pytest.raises(ApiError) as e:
         api.import_bits("i", "nope", row_ids=[1], col_ids=[1])
     assert e.value.status == 404

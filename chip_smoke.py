@@ -1,9 +1,19 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed 42] [--shards 954]
+    python3 chip_smoke.py [--seed 42] [--shards 477]
 
-Twelve phases; any failure raises and the exit code is non-zero:
+The data has the shapes of a 1B-column index, 954 shards of 2^20
+columns (``FULL_SHARDS``).  By default the run serves 477 of them (5.0e8
+columns), printed as a CUT line: at 954 shards the run took 935 s of its
+1200 s limit on one card machine and ran past it on another: most of
+the run is host work (numpy, file reads and writes), whose speed varies
+between card machines.
+Sizes below that scale with the shards are quoted at 954 shards and
+halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
+8.0 GB).
+
+Thirteen phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -11,7 +21,7 @@ Twelve phases; any failure raises and the exit code is non-zero:
    shapes and at ragged ones (``row_counts`` also at the BSI shapes: the
    [954, 22, 32768] bit plane with a filter and a [2048, 22, 1] overlay
    mini plane), and time both with CUDA events.
-2. Serve a 1B-column index (954 shards x 32 rows x 32768 words, ~25%
+2. Serve the index (954 shards x 32 rows x 32768 words, ~25%
    dense, generated from --seed) written as real fragment snapshots:
    fresh Holder -> Executor (its defaults: the adaptive cross-request
    batcher, whole-tree compilation, the plan cache) -> API, in process
@@ -171,9 +181,43 @@ Twelve phases; any failure raises and the exit code is non-zero:
    the numpy oracle; the phase must launch ``count``, ``row_counts`` and
    ``selected_row_counts``.  Launch counters are reset at the start and
    read at the end.
-12. Print the ``kernels`` JSON line, the card's name and power limit, and
+12. The host storage path, on ``bench`` as phase 11 leaves it: (a)
+   2,048 single-pair REST imports into shard 0 of ``f`` push its op-log
+   past ``MAX_OP_N``; the holder's ``SnapshotQueue`` compacts it off the
+   write path (its seconds, the import p50/p99 before and while it runs,
+   the op-log bytes before and after, an exact 32-Count).  (b) The
+   builder pool: a fresh executor builds ``f``'s 4.0 GB plane through the
+   32-Count with no ``.dense`` images on disk (cold: build seconds, warm
+   hits and misses summing to the shards, the image bytes the writer
+   thread wrote and its seconds), then again after an eviction (warm:
+   every fragment a hit), the two planes ``torch.equal`` on the card; the
+   same for ``amount``'s 2.75 GB plane through Sum.  (c) Phase 10 (b)'s
+   2 GiB-budget 32-Count and 4-Count in 64 MiB pages and the filtered
+   TopN streamed, over warm images, beside phase 10's times.  (d) A
+   cProfile of a sample of fragment opens; a fresh executor whose first
+   32-Count builds ``f`` all warm; then, with ``f``'s and ``m``'s op-logs
+   fsyncing as ``Holder(fsync=True)`` makes them, a 4096-pair ``/import``
+   into ``f`` and 4096 mutex moves into ``m``, each with its latency, the
+   fsyncs ``SyncBatch`` issued (one per touched op-log) and the records
+   appended; reads after each exact.  The crash restart (reopening the
+   unclosed directory) runs in ``tests/test_torch_gpu.py`` at 32 shards:
+   beside the serving process (~62 GB) a second opened tree of this size
+   passes the card machine's 96 GiB.
+   (e) One inline compaction each of an ``f`` and an ``amount``
+   fragment, and the close reckoned from them and the dirty op-logs on
+   disk (not run).  (f) The native codec against the numpy one on this
+   host at ``f``'s and an events day view's fragment shapes (serialize,
+   decode, expand; bytes and bits checked equal).  The images' bytes on
+   disk and the free disk at the end.  The phase must launch ``count``, ``row_counts`` and
+   ``selected_row_counts``; launch counters are reset at the start and
+   read at the end.  Phases 2-11 run with ``plane_sidecars=False``
+   (``_executor``): a card machine takes about 45 GiB of disk writes per
+   call, and at the reference's default their builds would write ~60 GB
+   of images.
+13. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
-   seconds are printed on a line of their own.
+   seconds are printed on a line of their own, and the free disk before
+   phase 2.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX or of ``pilosa_tpu``.
@@ -183,6 +227,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import faulthandler
 import json
 import math
 import os
@@ -199,6 +244,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
+T_START = time.monotonic()
+RUN_LIMIT_S = 1200             # the run's time limit, kernel builds included
+FULL_SHARDS = 954              # 1.0e9 columns: the full configuration
 ROWS = 32                      # the bench field's rows (bench.py N_ROWS)
 WORDS = 32768                  # words per shard
 SELECTED = (0, 5, 9, 17)       # the 4-Count request's rows
@@ -229,6 +277,11 @@ SOURCE = "pilosa_tpu_torch/engine/csrc/popcount.cu"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if msg.startswith(("== ", "CUT")):
+        # phase headers on stderr too, with the run's seconds: the end of
+        # stderr then says where a run that was cut had got to
+        print(f"[{time.monotonic() - T_START:.0f} s] {msg}", file=sys.stderr,
+              flush=True)
 
 
 def card_line() -> str:
@@ -423,6 +476,27 @@ def _popcounts(words: np.ndarray) -> np.ndarray:
     return np.bitwise_count(words).sum(axis=-1, dtype=np.int64)
 
 
+def _create_fields(data_dir: str, index: str, fields: dict,
+                   new_index: bool = False) -> None:
+    """Write the schema of ``fields`` (name -> FieldOptions) into
+    ``index``, created first (no existence field) when ``new_index``.  An
+    unopened Holder and Index write the same ``.meta`` files as opened
+    ones, without reading the snapshots already on disk: at full size an
+    opened Holder reads every fragment written so far."""
+    from pilosa_tpu_torch.store import Holder
+    from pilosa_tpu_torch.store.index import Index
+
+    h = Holder(data_dir)
+    if new_index:
+        idx = h.create_index(index, track_existence=False)
+    else:
+        idx = Index(os.path.join(data_dir, index), index,
+                    track_existence=False)
+    for name, opts in fields.items():
+        idx.create_field(name, opts)
+    h.close()
+
+
 def make_index(data_dir: str, shards: int, seed: int):
     """Generate the bench data and write it as real fragment snapshots
     (index ``bench``: field ``f`` 32 rows ~25% dense, field ``g`` 4
@@ -507,6 +581,8 @@ def make_index(data_dir: str, shards: int, seed: int):
     del tags
     # phase 11 serves f as phase 10 leaves it and amount as phase 6 did
     oracle["robust"] = make_robust(f, g, shards, seed, oracle)
+    # phase 12 writes f and m as phase 11 leaves them
+    oracle["storage"] = make_storage(f, g, shards, seed, oracle)
     # phase 7's index of timestamped events
     oracle["events"] = make_events(data_dir, shards, seed)
     oracle["keys"] = seg_oracle
@@ -1108,12 +1184,23 @@ def fold_vs_count(api, expect: dict, reps: int = 5) -> None:
                                        for k, v in rows[:8]))
 
 
+def _executor(holder, **kw):
+    """An executor of phases 2-11: the reference's serving defaults but for
+    the ``.dense`` images.  A card machine's disk takes about 45 GiB of
+    writes per call, and the data already is 29.3 GB; at the reference's
+    default every build past 256 MiB would write its images (~60 GB over
+    phases 2-11), so they are written and read in phase 12 only."""
+    from pilosa_tpu_torch.exec import Executor
+    return Executor(holder, plane_sidecars=False, **kw)
+
+
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 11 over one holder; returns the launch counts of each
-    path's run, keyed "serve", "concurrent", "concurrent_off",
-    "concurrent_overlay", "ingest", "bsi", "bsi_concurrent", "bsi_ingest",
-    "groupby", "events", "mutex", "keys", "budget" and "robust"."""
+    """Phases 2 to 12 over one holder; returns the
+    launch counts of each path's run, keyed "serve", "concurrent",
+    "concurrent_off", "concurrent_overlay", "ingest", "bsi",
+    "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
+    "budget", "robust" and "storage"."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1139,16 +1226,17 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     # quarter of them, not half: a cell is journaled only for a bit that
     # changed, so at 25% density ten 4096-pair set batches write ~30700
     # cells, under half of the cap, and the fold would never run here
-    executor = Executor(holder, device=device, plane_budget=32 << 30,
-                        delta_compact_fraction=COMPACT_FRACTION)
+    executor = _executor(holder, device=device, plane_budget=32 << 30,
+                         delta_compact_fraction=COMPACT_FRACTION)
     api = API(holder, executor)
     planes = executor.planes
     client = _Client(api, cuda)
     ask = client.ask
 
-    # The holder is not closed: closing compacts every fragment the
-    # ingest phase wrote into a new snapshot (all 954 of field f), and
-    # the data directory is deleted right after.
+    # The holder is not closed: closing compacts every fragment phases
+    # 4-12 wrote (about 954 of f and 954 of amount, besides m, b, the
+    # events views and k); phase 12 (e) times single compactions and
+    # reckons the close from them instead of running it.
     server = None
     try:
         if cuda:
@@ -1223,9 +1311,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         served = oracle["served"]
         # the PR 2 configuration shares the default executor's plane
         # cache: one plane build, one resident plane
-        off = Executor(holder, device=device, plane_budget=32 << 30,
-                       delta_compact_fraction=COMPACT_FRACTION,
-                       count_batch_window="off", tree_fusion=False)
+        off = _executor(holder, device=device, plane_budget=32 << 30,
+                        delta_compact_fraction=COMPACT_FRACTION,
+                        count_batch_window="off", tree_fusion=False)
         off.planes = planes
         conc = concurrent_phase(
             {"default": api, "off": API(holder, off)},
@@ -1281,6 +1369,12 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         rb = robust_phase(client, holder, planes, oracle["robust"], cuda,
                           device)
         log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 12: the host storage path ==")
+        sp = storage_phase(client, holder, planes, oracle["storage"], cuda,
+                           device, data_dir)
+        log(f"phase 12 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1303,7 +1397,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError(f"serving never launched the {k} kernel")
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
-            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb}
+            "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
+            **sp}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -1467,9 +1562,9 @@ def bsi_phase(client, holder, planes, bsi: dict, cuda: bool, device,
     if hits < 3 * 8:   # every request but Percentile and Distinct
         raise AssertionError(f"{hits} fast-lane hits for the 24 BSI "
                              "requests that go through the batcher")
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   delta_compact_fraction=COMPACT_FRACTION,
-                   count_batch_window="off", tree_fusion=False)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    delta_compact_fraction=COMPACT_FRACTION,
+                    count_batch_window="off", tree_fusion=False)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     for q in BSI_SEQ:
@@ -1811,9 +1906,9 @@ def groupby_phase(client, holder, planes, gbo: dict, cuda: bool, device,
     if hits < 3 * len(reqs):
         raise AssertionError(f"{hits} fast-lane hits for the "
                              f"{3 * len(reqs)} sequential GroupBys")
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   delta_compact_fraction=COMPACT_FRACTION,
-                   count_batch_window="off", tree_fusion=False)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    delta_compact_fraction=COMPACT_FRACTION,
+                    count_batch_window="off", tree_fusion=False)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     for q in reqs:
@@ -2042,13 +2137,11 @@ def make_events(data_dir: str, shards: int, seed: int) -> dict:
     requests and imports."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.store import FieldOptions
 
     t0 = time.perf_counter()
-    h = Holder(data_dir).open()
-    h.create_index("events", track_existence=False).create_field(
-        "ev", FieldOptions(type="time", time_quantum="YMD"))
-    h.close()
+    _create_fields(data_dir, "events", {"ev": FieldOptions(
+        type="time", time_quantum="YMD")}, new_index=True)
     views = ["standard", "standard_2021", "standard_202102"] + \
         [f"standard_202102{d + 1:02d}" for d in range(EV_DAYS)]
     for v in views:
@@ -2145,9 +2238,9 @@ def events_phase(client, holder, planes, evo: dict, cuda: bool, device,
     if (tp["buckets"], tp["rows"]) != (EV_DAYS, EV_ROWS):
         raise AssertionError(f"time plane geometry {tp}")
 
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   delta_compact_fraction=COMPACT_FRACTION,
-                   count_batch_window="off", tree_fusion=False)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    delta_compact_fraction=COMPACT_FRACTION,
+                    count_batch_window="off", tree_fusion=False)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     for q in EV_SEQ:
@@ -2172,8 +2265,8 @@ def events_phase(client, holder, planes, evo: dict, cuda: bool, device,
 
     # both time paths at scale: an executor whose budget the plane
     # exceeds unions the cover views' rows (request 4: the month view)
-    span = Executor(holder, device=device,
-                    plane_budget=min(EV_SPAN_BUDGET, tp["bytes"] // 2))
+    span = _executor(holder, device=device,
+                     plane_budget=min(EV_SPAN_BUDGET, tp["bytes"] // 2))
     spanc = _Client(API(holder, span), cuda)
     try:
         for q in EV_SEQ[:4]:
@@ -2382,14 +2475,11 @@ def make_mutex(data_dir: str, f: np.ndarray, shards: int, seed: int,
     after each write."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.store import FieldOptions
 
     t0 = time.perf_counter()
-    h = Holder(data_dir).open()
-    idx = h.index("bench")
-    idx.create_field("m", FieldOptions(type="mutex"))
-    idx.create_field("b", FieldOptions(type="bool"))
-    h.close()
+    _create_fields(data_dir, "bench", {"m": FieldOptions(type="mutex"),
+                                       "b": FieldOptions(type="bool")})
     for name in ("m", "b"):
         os.makedirs(os.path.join(data_dir, "bench", name, "views",
                                  "standard", "fragments"), exist_ok=True)
@@ -2498,9 +2588,9 @@ def mutex_phase(client, holder, planes, mxo: dict, cuda: bool, device,
         f"{n} {b / 1e9:.3f} GB built in {s:.2f} s"
         for n, (s, b) in built.items()))
 
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   delta_compact_fraction=COMPACT_FRACTION,
-                   count_batch_window="off", tree_fusion=False)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    delta_compact_fraction=COMPACT_FRACTION,
+                    count_batch_window="off", tree_fusion=False)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     for q in seq:
@@ -2679,13 +2769,11 @@ def make_keys(data_dir: str, f: np.ndarray, g: np.ndarray,
     9's oracle."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.store import FieldOptions
     from pilosa_tpu_torch.store.translate import TranslateStore
 
     t0 = time.perf_counter()
-    h = Holder(data_dir).open()
-    h.index("bench").create_field("seg", FieldOptions(keys=True))
-    h.close()
+    _create_fields(data_dir, "bench", {"seg": FieldOptions(keys=True)})
     ts = TranslateStore(data_dir)
     ids = ts.rows("bench", "seg").translate(SEG_KEYS, create=True)
     ts.close()
@@ -2745,7 +2833,7 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
                clients: int = CLIENTS, passes: int = KEYS_PASSES,
                k_cols: int = K_COLS, k_rows: int = K_ROWS,
                k_batch: int = K_BATCH, k_values: int = K_VALUES) -> dict:
-    """Phase 9: (a) the keyed field ``seg`` over the 1B-column index
+    """Phase 9: (a) the keyed field ``seg`` over the ``bench`` index
     through the default executor (fast lane) and the "off" one, every
     answer against the oracle, with row attributes and an unknown key; the
     device ms of the device requests beside one read of what each needs;
@@ -2784,10 +2872,10 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
         f"{planes.last_build_seconds:.2f} s")
 
     # the "off" configuration shares the plane cache and the key stores
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   delta_compact_fraction=COMPACT_FRACTION,
-                   count_batch_window="off", tree_fusion=False,
-                   translate=ex.translate)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    delta_compact_fraction=COMPACT_FRACTION,
+                    count_batch_window="off", tree_fusion=False,
+                    translate=ex.translate)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     # each configuration's first request is timed apart from its median:
@@ -3010,8 +3098,8 @@ def make_tags(data_dir: str, shards: int, seed: int) -> dict:
     rows = key >> np.uint64(40)
     cols = key & np.uint64((1 << 40) - 1)
     del key
-    shard = cols >> np.uint64(20)
-    order = np.argsort(shard, kind="stable")
+    shard = (cols >> np.uint64(20)).astype(np.uint16)
+    order = np.argsort(shard, kind="stable")  # a radix sort on 16 bits
     srows, scols = rows[order], cols[order]
     bounds = np.searchsorted(shard[order], np.arange(shards + 1))
     del shard, order
@@ -3084,7 +3172,10 @@ def make_budget_oracle(f: np.ndarray, g: np.ndarray, tags: dict,
     dup = np.flatnonzero(scol[1:] == scol[:-1])
     pick = None
     for r in dict.fromkeys(srow[dup[:4000]].tolist()):
-        cs = rcol[np.searchsorted(rrow, r):np.searchsorted(rrow, r, "right")]
+        # a uint64 needle: a Python int would cast all of rrow per search
+        r64 = np.uint64(r)
+        cs = rcol[np.searchsorted(rrow, r64):
+                  np.searchsorted(rrow, r64, "right")]
         lo = np.searchsorted(scol, cs)
         hi = np.searchsorted(scol, cs, "right")
         share, t = np.unique(np.concatenate(
@@ -3182,9 +3273,9 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
     tags = index.field("tags")
 
     # (a) the sparse field through both configurations
-    off = Executor(holder, device=device, plane_budget=32 << 30,
-                   count_batch_window="off", tree_fusion=False,
-                   translate=ex.translate)
+    off = _executor(holder, device=device, plane_budget=32 << 30,
+                    count_batch_window="off", tree_fusion=False,
+                    translate=ex.translate)
     off.planes = planes
     offc = _Client(API(holder, off), cuda)
     est = planes.plane_bytes(tags, "standard", shards)
@@ -3226,8 +3317,8 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
     for cfg, kw in (("default", {}),
                     ("off", {"count_batch_window": "off",
                              "tree_fusion": False})):
-        e = Executor(holder, device=device, plane_budget=small_budget,
-                     translate=ex.translate, **kw)
+        e = _executor(holder, device=device, plane_budget=small_budget,
+                      translate=ex.translate, **kw)
         c = _Client(API(holder, e), cuda)
         for q in bo["f_seq"]:
             c.ask(q, expect[q], tag=f"{cfg} {q[:30]}")
@@ -3245,14 +3336,18 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
         if (ten["pageIns"] < 2 or e.planes.builds
                 or e.serving_stats()["topnServed"]["streamed"] != 3):
             raise AssertionError(f"f was not paged and streamed [{cfg}]")
+    dc, dten = small["default"][1], small["default"][2]
+    RECORD["budget_f"] = {
+        "lat": {q: dc.lat[f"default {q[:30]}"][0] for q in bo["f_seq"][:3]},
+        "pageIns": dten["pageIns"], "pageInSeconds": dten["pageInSeconds"]}
     pages = small["default"][0].pager.partition(index.field("f"),
                                                  "standard", shards)
     log(f"[budget] f in {len(pages)} pages of {len(pages[0])} shards "
         f"({len(pages[0]) * ROWS * WORDS * 4 / 2**20:.0f} MiB)")
     # a tenant byte quota of two pages: the query leases two, the rest
     # answer from the host's row cardinalities
-    qe = Executor(holder, device=device, plane_budget=32 << 30,
-                  tenant_byte_quota=quota, translate=ex.translate)
+    qe = _executor(holder, device=device, plane_budget=32 << 30,
+                   tenant_byte_quota=quota, translate=ex.translate)
     qc = _Client(API(holder, qe), cuda)
     qc.ask(Q32, expect[Q32], tag="quota 32-Count")
     qten = qe.tenancy_status()
@@ -3276,8 +3371,8 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
 
     # (c) serve-while-build: a fresh executor, f's plane not yet resident
     t2 = time.perf_counter()
-    be = Executor(holder, device=device, plane_budget=32 << 30,
-                  translate=ex.translate)
+    be = _executor(holder, device=device, plane_budget=32 << 30,
+                   translate=ex.translate)
     if f_plane <= be.planes.SYNC_BUILD_MAX:
         be.planes.SYNC_BUILD_MAX = f_plane // 2
         log(f"CUT: SYNC_BUILD_MAX {f_plane // 2} bytes, below f's plane")
@@ -3309,8 +3404,8 @@ def budget_phase(client, holder, planes, bo: dict, cuda: bool,
 
     # (d) a tenant slot quota over REST: 8 clients x 4 Counts
     t3 = time.perf_counter()
-    qx = Executor(holder, device=device, plane_budget=32 << 30,
-                  tenant_slot_quota=1, translate=ex.translate)
+    qx = _executor(holder, device=device, plane_budget=32 << 30,
+                   tenant_slot_quota=1, translate=ex.translate)
     qx.planes = be.planes
     server = Server(API(holder, qx), "127.0.0.1", 0).start()
     base = "http://%s:%d" % server.address
@@ -3529,6 +3624,7 @@ def make_robust(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
         f"{vchanged} bits; amount holds {len(vals)} distinct values, "
         f"{len(distinct_g0[0]['values'])} in g row 0")
     return {"before": before, "after": after,
+            "state": {k: v.copy() for k, v in state.items()},
             "pairs": (rows, cols, int(hit.sum())),
             "values": (vcols, new, vchanged), "sum_before": sum_before,
             "bsi": bsi_after,
@@ -3715,8 +3811,8 @@ def robust_phase(client, holder, planes, ro: dict, cuda: bool,
     # (c) deadlines: an executor without the fast lane behind REST, so
     # requests wait in the batcher, sharing the plane cache
     t2 = time.perf_counter()
-    nofl = Executor(holder, device=device, plane_budget=32 << 30,
-                    solo_fastlane=False, translate=ex.translate)
+    nofl = _executor(holder, device=device, plane_budget=32 << 30,
+                     solo_fastlane=False, translate=ex.translate)
     nofl.planes = planes
     napi = API(holder, nofl)
     nclient = _Client(napi, cuda)
@@ -3808,11 +3904,11 @@ def robust_phase(client, holder, planes, ro: dict, cuda: bool,
         base_threads = threading.active_count()
         b.watchdog_s = RB_WATCHDOG_S
         time.sleep(1.2)  # the monitor's last long tick ends
-        if cuda and len(shards) < 954:
+        if cuda and len(shards) < FULL_SHARDS:
             # a cut index's window is shorter than a watchdog tick: the
             # stream sleeps ~0.2 s ahead of it
             log("CUT: a device sleep of ~0.2 s ahead of the GroupBy Max "
-                "window (fewer shards than 954)")
+                f"window (fewer shards than {FULL_SHARDS})")
             torch.cuda._sleep(400_000_000)
         (st, _, raw), stall_ms = _timed(lambda: _http(
             base, "/index/bench/query", gbq.encode()))
@@ -3883,8 +3979,8 @@ def robust_phase(client, holder, planes, ro: dict, cuda: bool,
 
     # (e) a real device OOM, recovered by stage 1
     t4 = time.perf_counter()
-    oe = Executor(holder, device=device, plane_budget=32 << 30,
-                  translate=ex.translate)
+    oe = _executor(holder, device=device, plane_budget=32 << 30,
+                   translate=ex.translate)
     oe.planes.SYNC_BUILD_MAX = 1 << 40  # planes build on the request
     oc = _Client(API(holder, oe), cuda)
     oom = {}
@@ -3951,12 +4047,476 @@ def robust_phase(client, holder, planes, ro: dict, cuda: bool,
                 raise AssertionError(f"phase 11 never launched {k}")
     return {"robust": launched}
 
+# ---------------------------------------------------------------------------
+# phase 12: the host storage path: background compaction, the builder pool
+# and the .dense sidecars, pages over warm images, a crash restart with
+# durable batched writes, and the close reckoned
+# ---------------------------------------------------------------------------
+
+ST_PAIRS = 2048                # single-pair imports into shard 0 of f
+QC12 = "Count(Intersect(Row(f=1), Row(g=0)))"   # a tree: the count kernel
+ST_PROFILE_FRAGS = 80          # fragments of each index opened under cProfile
+
+
+def make_storage(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
+                 oracle: dict) -> dict:
+    """Phase 12's oracle over ``f`` as phase 11 leaves it and ``m`` as
+    phase 8 leaves it: (a)'s single pairs into shard 0 of f, (d)'s
+    4096-pair batch into f and its 4096 mutex moves (phase 8's moved
+    columns, each to another row), with the answers after each."""
+    rng = np.random.default_rng(seed + 12)
+    st = oracle["robust"]["state"]
+    state = {k: v.copy() for k, v in st.items()}
+
+    def answers() -> dict:
+        c, fl = state["counts"], state["filtered"]
+        return {Q32: [int(x) for x in c], Q4: [int(c[r]) for r in SELECTED],
+                TOPN_G: [_pairs(fl, 5)], QC12: [int(fl[1])]}
+
+    # bits still clear, so every import appends one op-log record
+    cols = rng.choice(1 << 20, 4 * ST_PAIRS, replace=False)
+    rows = rng.integers(0, ROWS, len(cols))
+    clear = (f[0, rows, cols >> 5] >> (cols & 31).astype(np.uint32)) & 1 == 0
+    cols, rows = cols[clear][:ST_PAIRS], rows[clear][:ST_PAIRS]
+    hit_a = _apply_pairs(f, g[:, 0], state, rows, cols, clear=False)
+    if not hit_a.all() or len(cols) < ST_PAIRS:
+        raise AssertionError("phase 12's single pairs are not all new bits")
+    after_a = answers()
+    rows_d, cols_d = _distinct_pairs(rng, BATCH, shards)
+    hit_d = _apply_pairs(f, g[:, 0], state, rows_d, cols_d, clear=False)
+    mx = oracle["mutex"]
+    mcols, mrows = mx["import"]
+    new = (mrows + 1 + rng.integers(0, MX_ROWS - 1, len(mrows))) % MX_ROWS
+    m_after = (np.asarray(mx["after_import"][MQ16], np.int64)
+               - np.bincount(mrows, minlength=MX_ROWS)
+               + np.bincount(new, minlength=MX_ROWS))
+    return {"a": (rows, cols, hit_a), "after_a": after_a,
+            "d": (rows_d, cols_d, int(hit_d.sum())), "after_d": answers(),
+            "m": (mcols, new), "m_after": [int(x) for x in m_after],
+            "sum": oracle["robust"]["bsi"][RQ_SUM]}
+
+
+def _frags(field, view: str = "standard") -> list:
+    v = field.view(view)
+    return [] if v is None else list(v.fragments.values())
+
+
+def _remove_sidecars(field, view: str = "standard") -> int:
+    n = 0
+    for frag in _frags(field, view):
+        try:
+            os.unlink(frag.dense_path)
+            n += 1
+        except FileNotFoundError:
+            pass
+    return n
+
+
+def _pct(ts: list, q: float) -> float:
+    return _pct_ms(ts, q) if ts else float("nan")
+
+
+def _profile_opens(holder) -> str:
+    """The top of a cProfile of opening a sample of the holder's
+    fragments again, one by one (``ST_PROFILE_FRAGS`` spread over each
+    index's views; the holder opens indexes on a thread pool, where this
+    thread's profiler sees nothing)."""
+    import cProfile
+    import io
+    import pstats
+
+    from pilosa_tpu_torch.store.fragment import Fragment
+    paths = []
+    for idx in holder.indexes.values():
+        mine = [(fr.path, fr.shard) for field in idx.fields.values()
+                for v in field.views.values() for fr in v.fragments.values()]
+        step = max(1, len(mine) // ST_PROFILE_FRAGS)
+        paths += mine[::step][:ST_PROFILE_FRAGS]
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for path, shard in paths:
+        Fragment(path, shard).open()._drop_snapshot()
+    prof.disable()
+    dt = time.perf_counter() - t0
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+    lines = [ln.replace(REPO + os.sep, "") for ln in
+             out.getvalue().splitlines()
+             if ln.strip() and not ln.startswith(("   Ordered", "   List"))]
+    return (f"{len(paths)} fragments in {dt:.2f}s under cProfile; by own "
+            "time:\n  " + "\n  ".join(lines[-12:]))
+
+
+def _best_s(fn, reps: int = 2) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def codec_table(frags: dict) -> dict:
+    """The native codec against the numpy one on this host, per fragment
+    shape (``name -> Fragment``): serialize its positions, decode its
+    snapshot blob, expand its rows into a zeroed slab; bytes and bits
+    checked equal.  Returns seconds by shape and operation."""
+    from pilosa_tpu_torch.store import native, roaring
+    out = {}
+    for name, frag in frags.items():
+        pos = frag.positions()
+        blob = native.serialize(pos)
+        if blob != roaring._serialize_plain(pos):
+            raise AssertionError(f"codec bytes differ on {name}")
+        rows = np.unique(pos >> np.uint64(20))
+        slots = np.arange(len(rows), dtype=np.uint64)
+        a = np.zeros((len(rows), WORDS), np.uint32)
+        b = np.zeros_like(a)
+        native.expand_rows_into(blob, 1 << 20, rows, slots, a)
+        d = roaring.Directory(memoryview(blob))
+        for i, r in enumerate(rows.tolist()):
+            d.row_words(r, b[i])
+        if not np.array_equal(a, b) or not np.array_equal(
+                native.deserialize(blob), roaring._deserialize_plain(blob)):
+            raise AssertionError(f"codec decode differs on {name}")
+        t = {
+            "serialize": (_best_s(lambda: native.serialize(pos)),
+                          _best_s(lambda: roaring._serialize_plain(pos))),
+            "deserialize": (_best_s(lambda: native.deserialize(blob)),
+                            _best_s(lambda: roaring._deserialize_plain(
+                                blob))),
+            "expand": (_best_s(lambda: native.expand_rows_into(
+                blob, 1 << 20, rows, slots, np.zeros_like(a))),
+                _best_s(lambda: [d.row_words(r, b[i]) for i, r in
+                                 enumerate(rows.tolist())])),
+        }
+        out[name] = t
+        log(f"[storage] (f) host codec, {name} ({len(rows)} rows, "
+            f"{len(pos)} bits, {len(blob) / 1e6:.2f} MB): native / numpy "
+            + ", ".join(f"{k} {v[0] * 1e3:.2f} / {v[1] * 1e3:.2f} ms "
+                        f"({v[1] / max(v[0], 1e-9):.1f}x)"
+                        for k, v in t.items()))
+    return out
+
+
+def storage_phase(client, holder, planes, so: dict, cuda: bool, device,
+                  data_dir: str) -> dict:
+    """Phase 12: (a) background compaction under single-pair imports; (b)
+    the builder pool: f's and amount's planes cold (images removed) and
+    warm, bit-equal on the card; (c) pages and a streamed TopN over warm
+    images; (d) a profile of fragment opens, a fresh executor's warm
+    build, and durable imports into f and m (their op-logs fsync) with
+    their fsyncs and records; (e) single compactions of an f and an
+    amount fragment and the reckoned close; (f) the host codec table.  The launch counters are
+    reset when the phase starts and read when it ends."""
+    import torch
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store.fragment import MAX_OP_N
+
+    t0 = time.perf_counter()
+    if cuda:
+        log(f"phase 12 on {card_line()}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    api = client.api
+    ex = api.executor
+    index = holder.index("bench")
+    shards = tuple(index.available_shards())
+    f_field, amount = index.field("f"), index.field("amount")
+    queue = holder.snapshot_queue
+    after_a = so["after_a"]
+
+    # (a) background compaction: single-pair imports past MAX_OP_N
+    frag0 = f_field.standard_view().fragment(0)
+    log_before, op_before, done0 = (frag0._oplog.size(), frag0.op_n,
+                                    queue.compactions)
+    rows, cols, hit = so["a"]
+    spans, log_peak = [], log_before
+    for r, c, h in zip(rows.tolist(), cols.tolist(), hit.tolist()):
+        body = json.dumps({"rowIDs": [r], "columnIDs": [c]}).encode()
+        t = time.perf_counter()
+        got = client.post("/index/bench/field/f/import", body,
+                          "storage single pair")
+        spans.append((t, time.perf_counter()))
+        if got != {"changed": int(h)}:
+            raise AssertionError(f"single-pair import ({r}, {c}): {got}")
+        log_peak = max(log_peak, frag0._oplog.size())
+    if not queue.wait_idle(600):
+        raise AssertionError("the background compaction never finished")
+    if queue.compactions <= done0 or queue.last_compaction_span is None:
+        raise AssertionError(f"no background compaction: op_n "
+                             f"{frag0.op_n}, max {MAX_OP_N}")
+    c_start, c_end = queue.last_compaction_span
+    before = [e - s for s, e in spans if e <= c_start]
+    during = [e - s for s, e in spans if s < c_end and e > c_start]
+    after = [e - s for s, e in spans if s >= c_end]
+    client.ask(Q32, after_a[Q32], tag="storage 32-Count after compaction")
+    log(f"[storage] (a) {ST_PAIRS} single-pair REST imports into shard 0 "
+        f"of f (op_n {op_before} before, MAX_OP_N {MAX_OP_N}): background "
+        f"compaction {queue.last_compaction_seconds:.3f} s; import latency "
+        f"p50/p99 before it {_pct(before, 0.5):.2f}/{_pct(before, 0.99):.2f}"
+        f" ms over {len(before)}, while it runs {_pct(during, 0.5):.2f}/"
+        f"{_pct(during, 0.99):.2f} ms over {len(during)}, after "
+        f"{_pct(after, 0.5):.2f}/{_pct(after, 0.99):.2f} ms over "
+        f"{len(after)}; op-log {log_before} B before, {log_peak} B at its "
+        f"peak, {frag0._oplog.size()} B after (op_n {frag0.op_n}); the "
+        f"32-Count after it exact")
+    t_a = time.perf_counter() - t0
+
+    # (b) the builder pool, cold then warm, on a fresh executor
+    t1 = time.perf_counter()
+    planes.evict_unpinned(reason="phase 12")
+    if cuda:
+        torch.cuda.empty_cache()
+    be = Executor(holder, device=device, plane_budget=32 << 30,
+                  translate=ex.translate)
+    bp = be.planes
+    bc = _Client(API(holder, be), cuda)
+    fkey = ("plane", "bench", "f", "standard", shards)
+    f_plane = len(shards) * ROWS * WORDS * 4
+    if f_plane <= bp.SYNC_BUILD_MAX:
+        bp.SYNC_BUILD_MAX = f_plane // 2
+        log(f"CUT: SYNC_BUILD_MAX {f_plane // 2} bytes, below f's plane "
+            "(builds past it write images)")
+
+    def build(name, ask, plane_of, removed):
+        w0 = (bp.warm_hits, bp.warm_misses, bp.sidecar_bytes_written,
+              bp.sidecar_write_seconds, bp.builds)
+        t = time.perf_counter()
+        ask()
+        bp.wait_builds()
+        wall = time.perf_counter() - t
+        st = bp.stats()
+        got = {"build_s": st["lastBuildSeconds"], "wall_s": wall,
+               "hits": bp.warm_hits - w0[0],
+               "misses": bp.warm_misses - w0[1],
+               "written": bp.sidecar_bytes_written - w0[2],
+               "writer_s": bp.sidecar_write_seconds - w0[3],
+               "builds": bp.builds - w0[4], "plane": plane_of()}
+        log(f"[storage] (b) {name}: build {got['build_s']:.2f} s (request "
+            f"to built {wall:.2f} s, {st['lastBuildBytes'] / 1e9:.2f} GB), "
+            f"warm hits {got['hits']}, misses {got['misses']}, sidecars "
+            f"written {got['written'] / 1e9:.2f} GB by the writer thread in "
+            f"{got['writer_s']:.2f} s" + (f" ({removed} images removed "
+                                          "first)" if removed else ""))
+        if got["builds"] != 1 or got["hits"] + got["misses"] != len(shards):
+            raise AssertionError(f"{name}: {got['builds']} builds, "
+                                 f"{got['hits']} + {got['misses']} "
+                                 f"fragments, want 1 and {len(shards)}")
+        return got
+
+    removed = _remove_sidecars(f_field)
+    cold = build("f cold", lambda: bc.ask(Q32, after_a[Q32],
+                                          tag="storage f cold"),
+                 lambda: bp._entries[fkey][1].plane, removed)
+    bc.ask(Q32, after_a[Q32], reps=3, tag="storage 32-Count, cold plane")
+    bp.evict_unpinned(reason="warm rebuild")
+    warm = build("f warm", lambda: bc.ask(Q32, after_a[Q32],
+                                          tag="storage f warm"),
+                 lambda: bp._entries[fkey][1].plane, 0)
+    bc.ask(Q32, after_a[Q32], reps=3, tag="storage 32-Count, warm plane")
+    f_equal = bool(torch.equal(cold["plane"], warm["plane"]))
+    if warm["hits"] != len(shards) or not f_equal:
+        raise AssertionError(f"f's warm build: {warm['hits']} hits, "
+                             f"bit-equal {f_equal}")
+    cold["plane"] = warm["plane"] = None
+    bp.evict_unpinned(reason="phase 12")
+    removed = _remove_sidecars(amount, amount.bsi_view_name)
+    a_plane = lambda: bp.bsi_plane("bench", amount, shards).plane  # noqa
+    acold = build("amount cold", lambda: bc.ask(RQ_SUM, so["sum"],
+                                                tag="storage Sum cold"),
+                  a_plane, removed)
+    bp.evict_unpinned(reason="warm rebuild")
+    awarm = build("amount warm", lambda: bc.ask(RQ_SUM, so["sum"],
+                                                tag="storage Sum warm"),
+                  a_plane, 0)
+    a_equal = bool(torch.equal(acold["plane"], awarm["plane"]))
+    if awarm["hits"] != len(shards) or not a_equal:
+        raise AssertionError(f"amount's warm build: {awarm['hits']} hits, "
+                             f"bit-equal {a_equal}")
+    acold["plane"] = awarm["plane"] = None
+    log(f"[storage] (b) warm planes bit-equal to the cold ones on the card "
+        f"(torch.equal): f {f_equal}, amount {a_equal}")
+    bp.evict_unpinned(reason="phase end")
+    be.close()
+    if cuda:
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t1
+
+    # (c) pages and a streamed TopN over warm images (phase 10 (b)'s)
+    t2 = time.perf_counter()
+    small_budget = SMALL_BUDGET if f_plane > SMALL_BUDGET else f_plane // 2
+    pe = Executor(holder, device=device, plane_budget=small_budget,
+                  translate=ex.translate)
+    pc = _Client(API(holder, pe), cuda)
+    h0 = (pe.planes.warm_hits, pe.planes.warm_misses)
+    for q in (Q32, Q4, TOPN_G):
+        pc.ask(q, after_a[q], tag=f"pages {q[:30]}")
+    ten = pe.tenancy_status()
+    prev = RECORD.get("budget_f", {})
+    names = {Q32: "32-Count", Q4: "4-Count", TOPN_G: "filtered TopN"}
+    log(f"[storage] (c) f past a {small_budget / 2**30:.2f} GiB budget over "
+        f"warm images: {ten['pageIns']} page-ins in "
+        f"{ten['pageInSeconds']:.2f} s (phase 10: "
+        f"{prev.get('pageIns')} in {prev.get('pageInSeconds', 0):.2f} s), "
+        f"warm hits {pe.planes.warm_hits - h0[0]}, misses "
+        f"{pe.planes.warm_misses - h0[1]}, TopNs "
+        f"{json.dumps(pe.serving_stats()['topnServed'])}; "
+        + ", ".join(f"{n} {pc.lat[f'pages {q[:30]}'][0] * 1e3:.1f} ms "
+                    f"(phase 10 {prev.get('lat', {}).get(q, 0) * 1e3:.1f} ms)"
+                    for q, n in names.items()))
+    if (ten["pageIns"] < 2 or pe.planes.builds
+            or pe.serving_stats()["topnServed"]["streamed"] != 1
+            or pe.planes.warm_hits - h0[0] < len(shards)):
+        raise AssertionError(f"f was not paged and streamed from warm "
+                             f"images: {ten}")
+    pe.planes.evict_unpinned(reason="phase end")
+    pe.close()
+    if cuda:
+        torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t2
+
+    # (d) durable imports over a fresh executor: its first build of f
+    # reads the images (b) wrote, then f's and m's op-logs fsync as
+    # Holder(fsync=True) makes them.  The crash restart itself (reopening
+    # the unclosed directory) runs in tests/test_torch_gpu.py at 32
+    # shards: a second opened tree of this size does not fit beside the
+    # first in the card machine's 96 GiB
+    t3 = time.perf_counter()
+    planes.evict_unpinned(reason="phase 12")
+    log(f"[storage] (d) open profile: {_profile_opens(holder)}")
+    h2 = holder
+    for name in ("f", "m"):
+        for frag in _frags(index.field(name)):
+            frag._oplog.fsync = True
+    ex2 = Executor(h2, device=device, plane_budget=32 << 30)
+    ex2.planes.SYNC_BUILD_MAX = bp.SYNC_BUILD_MAX
+    api2 = API(h2, ex2)
+    server2 = Server(api2, "127.0.0.1", 0).start()
+    c2 = _Client(api2, cuda)
+    c2.base = "http://%s:%d" % server2.address
+    try:
+        f2, m2 = h2.index("bench").field("f"), h2.index("bench").field("m")
+        c2.ask(Q32, after_a[Q32], tag="restart 32-Count, first")
+        ex2.planes.wait_builds()
+        st = ex2.planes.stats()
+        c2.ask(Q32, after_a[Q32], reps=3, tag="restart 32-Count")
+        c2.ask(QC12, after_a[QC12], tag="restart compound Count")
+        log(f"[storage] (d) a fresh executor's first 32-Count "
+            f"{c2.lat['restart 32-Count, first'][0] * 1e3:.1f} ms; f's "
+            f"plane built in {st['lastBuildSeconds']:.2f} s, warm hits "
+            f"{st['warmHits']}, misses {st['warmMisses']}")
+        if st["warmHits"] != len(shards) or st["builds"] != 1:
+            raise AssertionError(f"f was not built warm: {st}")
+
+        def durable(field, path, body, want_changed, what):
+            ops0 = {id(fr): fr.op_n for fr in _frags(field)}
+            t = time.perf_counter()
+            got = c2.post(path, body, what)
+            ms = (time.perf_counter() - t) * 1e3
+            if got != {"changed": want_changed}:
+                raise AssertionError(f"{what}: {got}, want {want_changed}")
+            grown = [fr.op_n - ops0.get(id(fr), 0) for fr in _frags(field)
+                     if fr.op_n != ops0.get(id(fr), 0)]
+            fsyncs = api2.last_import_fsyncs
+            records = sum(grown)
+            log(f"[storage] (d) {what}: {ms:.1f} ms, {fsyncs} fsyncs by "
+                f"SyncBatch.flush for {records} op-log records in "
+                f"{len(grown)} logs ({records / max(1, fsyncs):.2f} records "
+                "per fsync)")
+            if fsyncs != len(grown) or min(grown, default=1) < 1:
+                raise AssertionError(f"{what}: {fsyncs} fsyncs for "
+                                     f"{len(grown)} touched logs")
+            return ms, fsyncs, records
+
+        rows_d, cols_d, changed_d = so["d"]
+        imp_f = durable(f2, "/index/bench/field/f/import",
+                        json.dumps({"rowIDs": rows_d.tolist(),
+                                    "columnIDs": cols_d.tolist()}).encode(),
+                        changed_d, "durable /import of 4096 pairs into f")
+        for q in (Q32, Q4, TOPN_G, QC12):
+            c2.ask(q, so["after_d"][q], tag=f"restart {q[:30]} after")
+        mcols, mrows = so["m"]
+        imp_m = durable(m2, "/index/bench/field/m/import",
+                        json.dumps({"rowIDs": mrows.tolist(),
+                                    "columnIDs": mcols.tolist()}).encode(),
+                        2 * len(mcols),
+                        f"durable mutex /import of {len(mcols)} moves into m")
+        if imp_m[2] <= imp_m[1]:
+            raise AssertionError("the mutex import took an fsync per record")
+        c2.ask(MQ16, so["m_after"], tag="restart 16-Count after")
+        c2.ask(RQ_SUM, so["sum"], tag="restart Sum")
+        t_d = time.perf_counter() - t3
+
+        # (e) the close, reckoned: one inline compaction each of an f and
+        # an amount fragment, times the dirty fragments on disk
+        t4 = time.perf_counter()
+        dirty: dict = {}
+        for iname, idx in h2.indexes.items():
+            for fname, fld in idx.fields.items():
+                n = sum(1 for v in fld.views.values()
+                        for fr in v.fragments.values()
+                        if fr._oplog.size() > 0)
+                if n:
+                    dirty[(iname, fname, fld.options.type)] = n
+        per = {}
+        for fld, view in ((f2, "standard"),
+                          (h2.index("bench").field("amount"),
+                           h2.index("bench").field("amount").bsi_view_name)):
+            frag = next(fr for fr in _frags(fld, view)
+                        if fr._oplog.size() > 0)
+            t = time.perf_counter()
+            frag.snapshot()
+            per[fld.name] = time.perf_counter() - t
+        reckoned = sum(n * per["amount" if kind == "int" else "f"]
+                       for (_, _, kind), n in dirty.items())
+        log(f"[storage] (e) an inline compaction: f fragment "
+            f"{per['f']:.3f} s, amount fragment {per['amount']:.3f} s; "
+            f"dirty fragments on disk "
+            + ", ".join(f"{i}/{fn} {n}" for (i, fn, _), n in dirty.items())
+            + f" ({sum(dirty.values())}); the close reckoned at "
+            f"{reckoned:.0f} s, not run")
+        c2.ask(Q32, so["after_d"][Q32], tag="restart 32-Count after (e)")
+        t_e = time.perf_counter() - t4
+        ev = h2.index("events").field("ev") if h2.index("events") else None
+        shapes = {"f": f2.standard_view().fragment(1)}
+        if ev is not None:
+            day = sorted(n for n in ev.views if len(n) == len(
+                "standard_20210201"))[0]
+            shapes["events day view"] = ev.view(day).fragment(1)
+        codec_table({k: v for k, v in shapes.items() if v is not None})
+    finally:
+        server2.close()
+        ex2.close()
+    sidecars = [(d, n) for d, _, files in os.walk(data_dir) for n in files
+                if n.endswith(".dense")]
+    side_bytes = sum(os.path.getsize(os.path.join(d, n)) for d, n in sidecars)
+    du = shutil.disk_usage(data_dir)
+    log(f"[storage] sidecars on disk at the end: {len(sidecars)} images, "
+        f"{side_bytes / 1e9:.2f} GB; disk free {du.free / 1e9:.1f} GB")
+    launched = dict(cuda_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"launches in phase 12: {json.dumps(launched)}; peak device memory "
+        f"in the phase {peak / 1e9:.2f} GB; phase 12 walls (a) {t_a:.1f}s "
+        f"(b) {t_b:.1f}s (c) {t_c:.1f}s (d) {t_d:.1f}s (e) {t_e:.1f}s, "
+        f"total {time.perf_counter() - t0:.1f}s")
+    if cuda:
+        for k in ("row_counts", "count", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 12 never launched {k}")
+    return {"storage": launched}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--shards", type=int, default=954,
-                    help="shards of 2^20 columns (954 = 1.0e9 columns)")
+    ap.add_argument("--shards", type=int, default=477,
+                    help=f"shards of 2^20 columns ({FULL_SHARDS} = 1.0e9 "
+                         "columns, the full configuration)")
     args = ap.parse_args()
 
     import torch
@@ -3966,11 +4526,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import pilosa_tpu_torch  # noqa: F401 — fails outside the repo
 
+    # a minute before the limit, every thread's stack goes to stderr
+    faulthandler.dump_traceback_later(RUN_LIMIT_S - 60, exit=False)
+
     smi = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {smi}")
-    if args.shards != 954:
-        log(f"CUT: {args.shards} shards instead of 954 "
+    if args.shards != FULL_SHARDS:
+        log(f"CUT: {args.shards} shards instead of {FULL_SHARDS} "
             f"({args.shards * 2 ** 20:.3g} columns)")
 
     t_all = time.perf_counter()
@@ -3984,12 +4547,16 @@ def main() -> int:
         t0 = time.perf_counter()
         oracle = make_index(data_dir, args.shards, args.seed)
         log(f"data and oracle wall: {time.perf_counter() - t0:.1f}s")
+        du = shutil.disk_usage(data_dir)
+        log(f"disk before phase 2: {du.free / 1e9:.1f} GB free of "
+            f"{du.total / 1e9:.1f} GB; the data "
+            f"{_dir_bytes(data_dir) / 1e9:.2f} GB")
         log("== phase 2: serving ==")
         launches = serve_phase(data_dir, oracle)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 12: output ==")
+    log("== phase 13: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],
@@ -4003,6 +4570,7 @@ def main() -> int:
          **({"blocks_ms": r["blocks_ms"]} if "blocks_ms" in r else {})}
         for name, r in kres.items()]}
     log(f"total {time.perf_counter() - t_all:.1f}s")
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

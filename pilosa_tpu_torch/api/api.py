@@ -8,6 +8,7 @@ counts.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from datetime import datetime, timezone
@@ -25,6 +26,7 @@ from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
 from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_SET, TYPE_TIME,
                                           BoolRowError)
+from pilosa_tpu_torch.store.oplog import SyncBatch
 from pilosa_tpu_torch.store.timeq import parse_pql_time, parse_view_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 from pilosa_tpu_torch.tenancy import TenantThrottledError
@@ -94,6 +96,8 @@ class API:
         # seconds; a cap on every request's timeout (0: no cap)
         self.query_timeout = query_timeout
         self._imported_bits = 0
+        self._import_fsyncs = 0
+        self.last_import_fsyncs = 0  # fsyncs of the last import's flush
         self._stats_lock = threading.Lock()
 
     def create_index(self, name: str, options: dict | None = None):
@@ -165,7 +169,9 @@ class API:
         Count or TopN over a resident plane absorbs the batch into its
         delta overlay.  ``op_id`` (``X-Pilosa-Op-Id``) names the batch for
         a cluster's duplicate-delivery check; a single node has no
-        cluster, so, as in the reference, every delivery applies."""
+        cluster, so, as in the reference, every delivery applies.  On a
+        holder with ``fsync`` on the batch is durable when this returns,
+        with one fsync per op-log it touched (a :class:`SyncBatch`)."""
         idx = self._index(index)
         f = self._field(idx, field)
         rows = self._translate_rows(idx, f, row_ids, row_keys)
@@ -173,18 +179,28 @@ class API:
         if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
             raise ApiError("rows and columns length mismatch")
         ts = self._parse_timestamps(timestamps)
+        sb = SyncBatch()
         try:
             if clear:
-                changed = f.clear_import(rows, cols)
+                changed = f.clear_import(rows, cols, sync_batch=sb)
             else:
-                changed = f.import_bits(rows, cols, ts)
-                idx.note_columns(cols)
+                changed = f.import_bits(rows, cols, ts, sync_batch=sb)
+                idx.note_columns(cols, sync_batch=sb)
         except BoolRowError:
             raise  # the reference's 500
         except ValueError as e:
             raise ApiError(str(e))
+        finally:
+            self._flush(sb)
         self._count_imported(changed)
         return changed
+
+    def _flush(self, sb: SyncBatch) -> None:
+        """Flush an import's fsyncs and tally them for ``/status``."""
+        n = sb.flush()
+        with self._stats_lock:
+            self._import_fsyncs += n
+            self.last_import_fsyncs = n
 
     @staticmethod
     def _parse_timestamps(timestamps) -> list | None:
@@ -256,14 +272,20 @@ class API:
                 raise ApiError(f"import-roaring: view {view!r} is not "
                                "supported by this port")
         frag = f.view(view, create=True).fragment(shard, create=True)
+        sb = SyncBatch()
         try:
-            changed = frag.import_roaring(blob, clear=clear)
-        except ValueError as e:
-            raise ApiError(f"bad roaring payload: {e}")
-        if changed and idx.track_existence and not clear:
-            positions = roaring.deserialize(blob)
-            idx.note_columns(np.unique(positions % np.uint64(SHARD_WIDTH))
-                             + np.uint64(shard * SHARD_WIDTH))
+            try:
+                changed = frag.import_roaring(blob, clear=clear,
+                                              sync_batch=sb)
+            except ValueError as e:
+                raise ApiError(f"bad roaring payload: {e}")
+            if changed and idx.track_existence and not clear:
+                positions = roaring.deserialize(blob)
+                idx.note_columns(
+                    np.unique(positions % np.uint64(SHARD_WIDTH))
+                    + np.uint64(shard * SHARD_WIDTH), sync_batch=sb)
+        finally:
+            self._flush(sb)
         self._count_imported(changed)
         return changed
 
@@ -285,7 +307,42 @@ class API:
                            "importedBits": imported},
                 "timeViews": self.executor.time_status(),
                 "tenancy": self.executor.tenancy_status(),
-                "deviceHealth": self.executor.device_health()}
+                "deviceHealth": self.executor.device_health(),
+                "storage": self.storage_status()}
+
+    def storage_stats(self) -> dict:
+        """Fragments, op-log bytes (write-ahead growth not yet compacted)
+        and snapshot bytes on disk, from stat calls alone."""
+        frags = oplog = snap = 0
+        for idx in list(self.holder.indexes.values()):
+            for f in list(idx.fields.values()):
+                for v in list(f.views.values()):
+                    for frag in list(v.fragments.values()):
+                        frags += 1
+                        oplog += frag._oplog.size()
+                        try:
+                            snap += os.path.getsize(frag.path)
+                        except OSError:
+                            pass
+        return {"fragmentCount": frags, "oplogBytes": oplog,
+                "snapshotBytes": snap}
+
+    def storage_status(self) -> dict:
+        """The ``/status`` storage block: the footprint, the plane builds
+        (with the sidecars' warm hits and misses), the background
+        compactions and the import fsyncs."""
+        pc = self.executor.planes.stats()
+        q = self.holder.snapshot_queue
+        with self._stats_lock:
+            fsyncs = self._import_fsyncs
+        return {**self.storage_stats(),
+                "planeBuild": {k: pc[k] for k in (
+                    "builds", "buildSeconds", "buildBytes", "buildFailures",
+                    "warmHits", "warmMisses", "meshed")},
+                "snapshotQueue": None if q is None else {
+                    "pending": q.pending(), "compactions": q.compactions,
+                    "lastCompactionSeconds": q.last_compaction_seconds},
+                "fsync": self.holder.fsync, "importFsyncs": fsyncs}
 
     def _index(self, name: str):
         idx = self.holder.index(name)

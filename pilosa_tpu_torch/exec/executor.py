@@ -20,6 +20,9 @@ serving configuration:
   (or the tenant's byte quota) are served in shard pages
   (:mod:`pilosa_tpu_torch.tenancy.paging`), resident pages on the card,
   the others from the host's row cardinalities;
+- ``plane_sidecars=True``: plane builds read fragments' fresh ``.dense``
+  images warm and write one after a cold expansion
+  (:class:`~pilosa_tpu_torch.exec.planes.PlaneCache`);
 - tenant quotas, all off by default: ``tenant_byte_quota`` (resident
   bytes per index), ``tenant_qps_quota`` and ``tenant_slot_quota`` (a
   query over quota is shed with :class:`~pilosa_tpu_torch.tenancy.
@@ -353,7 +356,8 @@ class Executor:
                  dispatch_pipeline_depth: int = 2,
                  solo_fastlane: bool = True,
                  dispatch_watchdog_seconds: float = 30.0,
-                 device_health_probe_seconds: float = 5.0):
+                 device_health_probe_seconds: float = 5.0,
+                 plane_sidecars: bool = True):
         if tenant_device_seconds_quota:
             raise ValueError("tenant_device_seconds_quota is not supported "
                              "by this port (it reads a device-cost ledger)")
@@ -368,7 +372,7 @@ class Executor:
         self.planes = PlaneCache(
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
             delta_compact_fraction=delta_compact_fraction,
-            governor=self.governor)
+            governor=self.governor, sidecars=plane_sidecars)
         self.pager = (PlanePager(self.planes, self.governor,
                                  page_bytes=plane_page_bytes)
                       if plane_paging else None)

@@ -37,9 +37,18 @@ rebuilds it.  Time planes never fold.
 The build expands fragments chunk by chunk into a pinned host staging
 buffer and copies each chunk into one preallocated device tensor; two
 staging buffers alternate so chunk N's expansion overlaps chunk N-1's
-host-to-device copy.  The expansion runs on the calling thread: it is
-many small numpy steps under the interpreter lock, where a thread pool
-only contends for the lock and runs slower.  A plane past
+host-to-device copy.  A chunk's fragments expand at once on
+``BUILD_WORKERS`` builder threads (each expansion is one native codec
+call, which releases the interpreter lock), each into its own slab row
+under its own fragment's lock.  With ``sidecars`` on (the default, as in
+the reference) a fragment with a fresh ``.dense`` image is read from it
+(a warm hit).  A cold expansion over the fragment's full row set writes
+one in a build past ``SYNC_BUILD_MAX`` bytes and in a page-in, where the
+reference writes them (its background builds and page-ins); a smaller
+build expands from the snapshots and writes nothing, as the reference's
+inline builds do.  The disk writes go to one writer thread through a
+bounded queue, so a slow disk holds the builders back instead of
+buffering images.  A plane past
 ``SYNC_BUILD_MAX`` asked for through :meth:`PlaneCache.field_plane_nowait`
 builds on a background thread while requests stream.
 
@@ -60,10 +69,13 @@ Entries handed to a query between :meth:`PlaneCache.begin_query` and
 from __future__ import annotations
 
 import logging
+import queue
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -75,6 +87,7 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            pow2_bucket)
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.store.field import Field
+from pilosa_tpu_torch.store.fragment import Fragment
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 
 DEFAULT_BUDGET = 4 << 30
@@ -200,13 +213,25 @@ class PlaneCache:
     # planes up to this size build on the request that asks; past it
     # field_plane_nowait builds them on a background thread
     SYNC_BUILD_MAX = 256 << 20
+    # builder threads expanding one chunk's fragments
+    BUILD_WORKERS = 8
+    # sidecar images queued for the writer thread before builders wait
+    SIDECAR_QUEUE = 8
 
     def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET,
                  delta_cells: int = 65536,
-                 delta_compact_fraction: float = 0.5, governor=None):
+                 delta_compact_fraction: float = 0.5, governor=None,
+                 sidecars: bool = True):
         self.device = resolve_device(device)
         self.budget = budget_bytes
         self.governor = governor
+        self.sidecars = sidecars
+        # fragment expansions served from a sidecar (warm) or expanded
+        # and, over a full row set, written to one (cold); page-ins count
+        self.warm_hits = 0
+        self.warm_misses = 0
+        self.sidecar_bytes_written = 0
+        self.sidecar_write_seconds = 0.0
         self._entries: OrderedDict = OrderedDict()  # key -> (gens, ps, n)
         self._bytes = 0
         self._zeros: dict[int, torch.Tensor] = {}
@@ -216,6 +241,8 @@ class PlaneCache:
         self.builds = 0
         self.last_build_seconds = 0.0
         self.last_build_bytes = 0
+        self.build_seconds_total = 0.0
+        self.build_bytes_total = 0
         self.build_failures = 0
         self._failed_logged: set = set()
         self._building: dict = {}  # key -> background builder thread
@@ -450,17 +477,20 @@ class PlaneCache:
             chunk = row_ids[start:start + block_rows]
             yield chunk, self.assemble(
                 shards, block_rows,
-                [(view, chunk, np.arange(len(chunk)))], tally=False)
+                [(view, chunk, np.arange(len(chunk)))], tally=False,
+                warm_tally=False)
 
     def build_rows_plane(self, field: Field, view_name: str,
                          shards: tuple[int, ...], row_ids: np.ndarray,
-                         r_pad: int, tally: bool = True) -> PlaneSet:
+                         r_pad: int, tally: bool = True,
+                         sidecar_write: bool | None = None) -> PlaneSet:
         """A new plane of ``row_ids`` at slots 0.. of ``r_pad`` rows over
         ``shards`` (``tally=False``: a page-in, not a plane build)."""
         slot_of = {int(r): i for i, r in enumerate(row_ids)}
         full = self.assemble(shards, r_pad,
                              [(field.view(view_name), row_ids,
-                               np.arange(len(row_ids)))], tally=tally)
+                               np.arange(len(row_ids)))], tally=tally,
+                             sidecar_write=sidecar_write)
         return PlaneSet(full, shards, row_ids, slot_of)
 
     # -- leases and eviction ------------------------------------------------
@@ -615,7 +645,13 @@ class PlaneCache:
                     "entries": len(self._entries), "builds": self.builds,
                     "lastBuildSeconds": self.last_build_seconds,
                     "lastBuildBytes": self.last_build_bytes,
+                    "buildSeconds": round(self.build_seconds_total, 3),
+                    "buildBytes": self.build_bytes_total,
                     "buildFailures": self.build_failures,
+                    "warmHits": self.warm_hits,
+                    "warmMisses": self.warm_misses,
+                    "sidecarBytesWritten": self.sidecar_bytes_written,
+                    "meshed": False,
                     "building": len(self._building),
                     "evictions": self.evictions,
                     "evictionsByReason": dict(self._evictions_by_reason)}
@@ -1211,15 +1247,22 @@ class PlaneCache:
                                      r_pad)
 
     def assemble(self, shards: tuple[int, ...], r_pad: int,
-                 sources, tally: bool = True) -> torch.Tensor:
+                 sources, tally: bool = True, warm_tally: bool = True,
+                 sidecars: bool | None = None,
+                 sidecar_write: bool | None = None) -> torch.Tensor:
         """A new ``int32[len(shards), r_pad, W]`` device tensor holding, for
         each ``(view, row_ids, slots)`` of ``sources``, row ``row_ids[i]``
         of the view's fragment of every shard at slot ``slots[i]`` (absent
         fragments and rows leave zeros).  Fragments expand chunk by chunk
-        into a pinned host staging buffer, and each chunk is copied into
-        the device tensor while the next one expands; it returns once every
-        copy has landed.  ``tally=False`` (a page-in, a streamed block)
-        leaves the build counters alone."""
+        into a pinned host staging buffer, each chunk's fragments at once
+        on the builder threads, and each chunk is copied into the device
+        tensor while the next one expands; it returns once every copy has
+        landed.  ``tally=False`` (a page-in, a streamed block) leaves the
+        build counters alone; ``warm_tally=False`` (a streamed block,
+        which visits each fragment once per block) the sidecar ones.
+        ``sidecars`` overrides the cache's setting for this build;
+        ``sidecar_write`` whether cold expansions write images (default:
+        a build past ``SYNC_BUILD_MAX`` bytes)."""
         t0 = time.perf_counter()
         full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
                            dtype=torch.int32, device=self.device)
@@ -1230,45 +1273,120 @@ class PlaneCache:
                             dtype=torch.int32, pin_memory=cuda)
                 for _ in range(2 if len(shards) > spc else 1)]
         copied: list = [None] * len(bufs)
-        sources = [(view, row_ids, slots) for view, row_ids, slots in sources
+        sources = [(view, np.asarray(row_ids, np.uint64),
+                    np.asarray(slots, np.uint64))
+                   for view, row_ids, slots in sources
                    if view is not None and len(row_ids)]
-        for ci, s0 in enumerate(range(0, len(shards), spc)):
-            glen = min(spc, len(shards) - s0)
-            par = ci % len(bufs)
-            if copied[par] is not None:
-                copied[par].synchronize()  # its last copy has landed
-            host = bufs[par].numpy().view(np.uint32)[:glen]
-            host.fill(0)
-            for view, row_ids, slots in sources:
-                for li, s in enumerate(shards[s0:s0 + glen]):
-                    frag = view.fragment(s)
-                    if frag is not None:
-                        frag.expand_rows_into(row_ids, host[li], slots)
-            full[s0:s0 + glen].copy_(bufs[par][:glen], non_blocking=cuda)
-            if cuda:
-                copied[par] = torch.cuda.Event()
-                copied[par].record()
-        for ev in copied:
-            if ev is not None:
-                ev.synchronize()
+        sidecars = self.sidecars if sidecars is None else sidecars
+        if sidecar_write is None:
+            sidecar_write = len(shards) * slab > self.SYNC_BUILD_MAX
+        sidecar_write = sidecars and sidecar_write
+        writer = (_SidecarWriter(self) if sidecar_write and sources
+                  else None)
+        workers = min(self.BUILD_WORKERS, len(shards) * len(sources))
+        pool = ThreadPoolExecutor(workers) if workers > 1 else None
+        try:
+            for ci, s0 in enumerate(range(0, len(shards), spc)):
+                glen = min(spc, len(shards) - s0)
+                par = ci % len(bufs)
+                if copied[par] is not None:
+                    copied[par].synchronize()  # its last copy has landed
+                host = bufs[par].numpy().view(np.uint32)[:glen]
+                host.fill(0)
+                tasks = []
+                for view, row_ids, slots in sources:
+                    for li, s in enumerate(shards[s0:s0 + glen]):
+                        frag = view.fragment(s)
+                        if frag is not None:
+                            tasks.append(partial(
+                                frag.expand_rows_into, row_ids, host[li],
+                                slots, sidecar=sidecars,
+                                sidecar_write=sidecar_write,
+                                sidecar_submit=(writer.submit if writer
+                                                else None)))
+                self._expand_tasks(pool, tasks, warm_tally and sidecars)
+                full[s0:s0 + glen].copy_(bufs[par][:glen], non_blocking=cuda)
+                if cuda:
+                    copied[par] = torch.cuda.Event()
+                    copied[par].record()
+            for ev in copied:
+                if ev is not None:
+                    ev.synchronize()
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+            if writer is not None:
+                writer.close()
         if tally:
+            dt = time.perf_counter() - t0
             with self._lock:
                 self.builds += 1
-                self.last_build_seconds = time.perf_counter() - t0
+                self.last_build_seconds = dt
                 self.last_build_bytes = full.numel() * 4
+                self.build_seconds_total += dt
+                self.build_bytes_total += full.numel() * 4
         return full
+
+    def _expand_tasks(self, pool, tasks, tally: bool = True) -> None:
+        """Run fragment expansions on the builder pool (inline without
+        one), tally warm and cold, one per fragment, and re-raise the
+        first failure: a build never ships a half-expanded chunk."""
+        if pool is None:
+            modes = [t() for t in tasks]
+        else:
+            futs = [pool.submit(t) for t in tasks]
+            wait(futs)
+            modes = [f.result() for f in futs]
+        if not tally:
+            return
+        hits = sum(m == "warm" for m in modes)
+        with self._lock:
+            self.warm_hits += hits
+            self.warm_misses += len(modes) - hits
 
     def _build_row(self, field: Field, view_name: str,
                    shards: tuple[int, ...], row_id: int) -> PlaneSet:
-        host = np.zeros((len(shards), WORDS_PER_SHARD), dtype=np.uint32)
-        view = field.view(view_name)
-        if view is not None:
-            for si, s in enumerate(shards):
-                frag = view.fragment(s)
-                if frag is not None:
-                    frag.expand_rows_into([row_id], host[si:si + 1])
-        return PlaneSet(plane_from_numpy(host, self.device), shards,
-                        np.array([row_id], np.uint64), {row_id: 0})
+        """One row across shards, through the builder pool like a plane,
+        from the snapshots: checking a sidecar's crc reads its whole image,
+        more than expanding one row costs."""
+        full = self.assemble(shards, 1, [(field.view(view_name),
+                                          np.array([row_id], np.uint64),
+                                          np.zeros(1, np.uint64))],
+                             tally=False, sidecars=False)
+        return PlaneSet(full[:, 0], shards, np.array([row_id], np.uint64),
+                        {row_id: 0})
+
+
+class _SidecarWriter:
+    """One thread writing sidecar images handed over by the builders,
+    through a bounded queue: a slow disk backpressures the build."""
+
+    def __init__(self, cache: PlaneCache):
+        self.cache = cache
+        self.q: queue.Queue = queue.Queue(maxsize=cache.SIDECAR_QUEUE)
+        self.thread = threading.Thread(target=self._run,
+                                       name="plane-sidecar", daemon=True)
+        self.thread.start()
+
+    def submit(self, path: str, hdr: bytes, blob: bytes) -> None:
+        self.q.put((path, hdr, blob))
+
+    def _run(self) -> None:
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            t0 = time.perf_counter()
+            Fragment.write_sidecar_file(*item)
+            dt = time.perf_counter() - t0
+            with self.cache._lock:
+                self.cache.sidecar_bytes_written += len(item[1]) + len(
+                    item[2])
+                self.cache.sidecar_write_seconds += dt
+
+    def close(self) -> None:
+        self.q.put(None)
+        self.thread.join()
 
 
 def _sync(t: torch.Tensor) -> None:

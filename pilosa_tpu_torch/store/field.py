@@ -106,12 +106,13 @@ class FieldOptions:
 class Field:
     def __init__(self, path: str, index_name: str, name: str,
                  options: FieldOptions | None = None, *,
-                 fsync: bool = False):
+                 fsync: bool = False, snapshot_submit=None):
         self.path = path
         self.index_name = index_name
         self.name = name
         self.options = options or FieldOptions()
         self.fsync = fsync
+        self.snapshot_submit = snapshot_submit
         self.views: dict[str, View] = {}
         self._row_attrs = None
         self._lock = threading.RLock()
@@ -124,8 +125,9 @@ class Field:
         views_dir = os.path.join(self.path, "views")
         if os.path.isdir(views_dir):
             for name in sorted(os.listdir(views_dir)):
-                self.views[name] = View(os.path.join(views_dir, name), name,
-                                        fsync=self.fsync).open()
+                self.views[name] = View(
+                    os.path.join(views_dir, name), name, fsync=self.fsync,
+                    snapshot_submit=self.snapshot_submit).open()
         return self
 
     def save_meta(self) -> None:
@@ -166,7 +168,8 @@ class Field:
             v = self.views.get(name)
             if v is None and create:
                 v = View(os.path.join(self.path, "views", name), name,
-                         fsync=self.fsync).open()
+                         fsync=self.fsync,
+                         snapshot_submit=self.snapshot_submit).open()
                 self.views[name] = v
             return v
 
@@ -215,13 +218,15 @@ class Field:
         return changed > 0
 
     def import_bits(self, row_ids: np.ndarray, cols: np.ndarray,
-                    timestamps: list | None = None) -> int:
+                    timestamps: list | None = None, sync_batch=None) -> int:
         """Bulk (row, col[, timestamp]) writes: one batch per shard into
         the standard view (through :meth:`_set_mutex` on a mutex or bool
         field); on a time field each timestamped pair also lands in every
         view of the quantum, one write per pair and view as in the
         reference, so fragments and their journals match it.  Returns
-        the number of bits changed in the standard view."""
+        the number of bits changed in the standard view.  ``sync_batch``
+        (an :class:`~.oplog.SyncBatch`) defers every op-log fsync to the
+        batch's flush: one per touched fragment."""
         self._require_rows("Set")
         opts = self.options
         row_ids = np.asarray(row_ids, np.uint64)
@@ -237,9 +242,9 @@ class Field:
                                                 "import_bits"):
             frag = view.fragment(shard, create=True)
             if mutex:
-                changed += self._set_mutex(frag, rows, offs)
+                changed += self._set_mutex(frag, rows, offs, sync_batch)
                 continue
-            changed += frag.set_bits(rows, offs)
+            changed += frag.set_bits(rows, offs, sync_batch=sync_batch)
             if not stamped:
                 continue
             for r, c, i in zip(rows.tolist(), offs.tolist(), idx.tolist()):
@@ -251,10 +256,11 @@ class Field:
                     self.view(vname, create=True).fragment(
                         shard, create=True).set_bits(
                             np.array([r], np.uint64),
-                            np.array([c], np.uint64))
+                            np.array([c], np.uint64), sync_batch=sync_batch)
         return changed
 
-    def clear_import(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
+    def clear_import(self, row_ids: np.ndarray, cols: np.ndarray,
+                     sync_batch=None) -> int:
         """Bulk clear of (row, col) pairs in every view, one batch per
         shard and view (the ``clear`` half of the import endpoint);
         returns the number of bits cleared in the standard view."""
@@ -267,13 +273,14 @@ class Field:
             for v in views:
                 frag = v.fragment(shard)
                 if frag is not None:
-                    n = frag.clear_bits(rows, offs)
+                    n = frag.clear_bits(rows, offs, sync_batch=sync_batch)
                     if v.name == VIEW_STANDARD:
                         changed += n
         return changed
 
     @staticmethod
-    def _set_mutex(frag, row_ids: np.ndarray, cols: np.ndarray) -> int:
+    def _set_mutex(frag, row_ids: np.ndarray, cols: np.ndarray,
+                   sync_batch=None) -> int:
         """One shard's mutex batch, record for record the reference's
         ``_set_mutex``: the last write of a column in the batch wins;
         then, for each existing row in id order, one clear of the batch
@@ -295,8 +302,9 @@ class Field:
                 to_clear = cols[has & (row_ids != r)]
                 if len(to_clear):
                     changed += frag.clear_bits(
-                        np.full(len(to_clear), r, np.uint64), to_clear)
-            changed += frag.set_bits(row_ids, cols)
+                        np.full(len(to_clear), r, np.uint64), to_clear,
+                        sync_batch=sync_batch)
+            changed += frag.set_bits(row_ids, cols, sync_batch=sync_batch)
         return changed
 
     # -- BSI value writes ---------------------------------------------------

@@ -19,6 +19,16 @@ container is materialized as words too: copying the container is far
 cheaper than listing its bits.  A row id is in at most one of the
 three.
 
+A ``<snapshot>.dense`` sidecar (the reference's format, byte for byte)
+holds the fragment's rows as an all-bitmap image, stamped with the
+on-disk state it captured: a plane build reads a fresh one at memcpy
+speed instead of expanding the snapshot, and a cold expansion over the
+fragment's full row set writes one (:meth:`Fragment.expand_rows_into`).
+Snapshot rows expand, and snapshots serialize, through the native codec
+(:mod:`.native`).  Past ``max_op_n`` op-log records a fragment hands
+itself to ``snapshot_submit`` (the holder's background queue) when it
+has one, else compacts inline.
+
 ``generation`` moves on every mutation that changes a bit; the device
 plane cache keys on it.  ``_recent`` journals which (row, word) cells
 each generation touched, so a resident plane can absorb a write gap
@@ -27,6 +37,7 @@ each generation touched, so a resident plane can absorb a write gap
 
 from __future__ import annotations
 
+import logging
 import mmap
 import os
 import struct
@@ -38,7 +49,7 @@ import numpy as np
 
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            pack_columns, unpack_columns)
-from pilosa_tpu_torch.store import roaring, syswrap
+from pilosa_tpu_torch.store import native, roaring, syswrap
 from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
                                           OP_SET_BITS, OP_SET_ROW, OpLog)
 
@@ -70,11 +81,21 @@ class Fragment:
     # larger batches and clears journal every word they name
     PEND_FLUSH_N = 65536
 
+    # <snapshot>.dense: header (magic, version, reserved, the stamp's
+    # snapshot size, snapshot mtime_ns and op-log size, image length,
+    # crc32 of the image) + a serialize_dense image of the full rows
+    DENSE_MAGIC = b"PDN1"
+    DENSE_VERSION = 1
+    _DENSE_HDR = struct.Struct("<4sHHQQQQI")
+
     def __init__(self, path: str, shard: int, *, max_op_n: int = MAX_OP_N,
-                 fsync: bool = False):
+                 fsync: bool = False, snapshot_submit=None):
         self.path = path                      # snapshot file
         self.shard = shard
         self.max_op_n = max_op_n
+        # set: op-log compaction goes to this background queue instead of
+        # running on the write path
+        self._snapshot_submit = snapshot_submit
         self.rows: dict[int, np.ndarray] = {}
         self.dense: dict[int, np.ndarray] = {}
         self.op_n = 0
@@ -129,7 +150,7 @@ class Fragment:
                                  "length or crc mismatch")
         self._snap_mm = mm
         self._snap_dir = roaring.Directory(blob)
-        self._snap_pending = set(int(r) for r in self._snap_dir.row_ids())
+        self._snap_pending = set(self._snap_dir.row_ids().tolist())
         syswrap.GLOBAL.register(self)
 
     def _demote_map(self) -> bool:
@@ -201,9 +222,11 @@ class Fragment:
             parts = []
             pend = self._snap_pending
             if pend and len(pend) * 4 >= len(self._snap_dir.row_cards()[0]):
-                # most snapshot rows unread: one vectorized pass over the
-                # directory, the materialized rows filtered out
-                snap = self._snap_dir.positions()
+                # most snapshot rows unread: one native decode of the
+                # blob, the materialized rows filtered out
+                snap = native.deserialize(self._snap_dir.buf)
+                if not self._snap_dir._keys_sorted:
+                    snap = np.sort(snap)
                 if len(pend) != len(self._snap_dir.row_cards()[0]):
                     snap = snap[np.isin(snap // _SW, np.fromiter(
                         pend, np.uint64, len(pend)))]
@@ -217,6 +240,9 @@ class Fragment:
                       for r, words in self.dense.items()]
         if not parts:
             return np.empty(0, np.uint64)
+        if len(parts) == 1:
+            return parts[0] if len(parts[0]) < 2 or bool(
+                (parts[0][1:] > parts[0][:-1]).all()) else np.sort(parts[0])
         return np.sort(np.concatenate(parts))
 
     def row_cardinalities(self) -> tuple[np.ndarray, np.ndarray]:
@@ -312,45 +338,199 @@ class Fragment:
                     np.asarray(row_ids, np.uint64)[snap], cols)
         return out
 
-    def expand_rows_into(self, row_ids, out: np.ndarray, slots=None) -> None:
+    def expand_rows_into(self, row_ids, out: np.ndarray, slots=None, *,
+                         sidecar: bool = False, sidecar_write: bool = True,
+                         sidecar_submit=None) -> str:
         """OR ``row_ids[i]``'s packed words into ``out[slots[i]]``
-        (uint32[.., W]; callers pass zeroed slabs).  Snapshot-resident
-        rows expand straight from the blob — bitmap containers are a
-        plain copy of their 8 KiB payload."""
+        (``out`` a C-contiguous ``uint32[n, W]``; callers pass zeroed
+        slabs).  Snapshot-resident rows expand straight from the blob in
+        one native call, which releases the interpreter lock, so builder
+        threads expanding other fragments run at the same time.
+
+        With ``sidecar``, a fresh ``.dense`` image replaces the whole
+        expansion, and (unless ``sidecar_write`` is off) a cold expansion
+        that covered the fragment's full row set writes one, handed to
+        ``sidecar_submit(path, header, blob)`` when given (a deferred
+        writer) or written here.  Content
+        and stamp are captured together under the fragment lock: a write
+        racing a deferred sidecar only leaves a stale stamp, which the
+        next reader rejects.  Returns ``"warm"`` or ``"cold"``."""
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
         if slots is None:
-            slots = range(len(row_ids))
-        w = out.shape[-1]
+            slots = np.arange(len(row_ids), dtype=np.uint64)
+        else:
+            slots = np.asarray(slots, dtype=np.uint64)
+        if len(row_ids) > 1 and not (row_ids[1:] >= row_ids[:-1]).all():
+            # the native lookup binary-searches row_ids: unsorted ids
+            # would miss rows, not fail
+            order = np.argsort(row_ids, kind="stable")
+            row_ids, slots = row_ids[order], slots[order]
         with self.lock:
-            for r, s in zip(row_ids, slots):
-                r, s = int(r), int(s)
+            if sidecar and self._expand_sidecar(row_ids, slots, out):
+                return "warm"
+            pend, pend_slots = [], []
+            for r, s in zip(row_ids.tolist(), slots.tolist()):
                 if r in self._snap_pending:
-                    self._snap_dir.row_words(r, out[s])
+                    pend.append(r)
+                    pend_slots.append(s)
                 elif r in self.dense:
                     out[s] |= self.dense[r]
                 else:
                     cols = self.rows.get(r)
                     if cols is not None:
-                        out[s] |= pack_columns(cols, w)
+                        out[s] |= pack_columns(cols, out.shape[-1])
+            if pend:
+                native.expand_rows_into(
+                    self._snap_dir.buf, SHARD_WIDTH,
+                    np.array(pend, np.uint64),
+                    np.array(pend_slots, np.uint64), out)
+            if sidecar and sidecar_write:
+                self._write_sidecar(row_ids, slots, out, sidecar_submit)
+            return "cold"
+
+    # -- dense sidecar ------------------------------------------------------
+
+    @property
+    def dense_path(self) -> str:
+        return self.path + ".dense"
+
+    def _dense_stamp(self) -> tuple[int, int, int]:
+        """The on-disk state a sidecar captures: (snapshot size, snapshot
+        mtime_ns, op-log size), each (0, 0) for a snapshot never written.
+        Every write grows the op-log and every compaction replaces the
+        snapshot, so the stamp moves with both, across restarts too."""
+        try:
+            st = os.stat(self.path)
+            snap = (st.st_size, st.st_mtime_ns)
+        except OSError:
+            snap = (0, 0)
+        return (snap[0], snap[1], self._oplog.size())
+
+    def _expand_sidecar(self, row_ids: np.ndarray, slots: np.ndarray,
+                        out: np.ndarray) -> bool:
+        """OR a valid sidecar's rows into ``out``; False when it is absent,
+        stale, truncated or fails its crc (the caller expands cold and
+        rewrites it).  The caller holds the lock."""
+        hs = self._DENSE_HDR
+        try:
+            with open(self.dense_path, "rb") as f:
+                hdr = f.read(hs.size)
+                if len(hdr) != hs.size:
+                    return False
+                magic, ver, _, s0, s1, s2, blen, crc = hs.unpack(hdr)
+                if (magic != self.DENSE_MAGIC or ver != self.DENSE_VERSION
+                        or (s0, s1, s2) != self._dense_stamp()
+                        or os.fstat(f.fileno()).st_size != hs.size + blen):
+                    return False
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            return False
+        blob = memoryview(mm)[hs.size:]
+        try:
+            # an image corrupted inside can still parse: check first
+            # (zlib releases the interpreter lock)
+            if zlib.crc32(blob) != crc:
+                return False
+            native.expand_rows_into(blob, SHARD_WIDTH, row_ids, slots, out)
+            return True
+        except ValueError:
+            return False
+        finally:
+            del blob
+            try:
+                mm.close()
+            except BufferError:
+                pass  # a view still alive: the map closes when it dies
+
+    def _write_sidecar(self, row_ids: np.ndarray, slots: np.ndarray,
+                       out: np.ndarray, submit=None) -> None:
+        """Write the image just expanded, when it covered the fragment's
+        full row set: a partial image would serve the missing rows as
+        empty on the next warm read.  Best effort: a sidecar never fails
+        a build."""
+        live = self.row_ids_array()
+        if not len(live) or not np.isin(live, row_ids).all():
+            return
+        stamp = self._dense_stamp()
+        try:
+            blob = roaring.serialize_dense(out[slots.astype(np.intp)],
+                                           row_ids)
+        except ValueError:
+            return  # past the format's 4 GB limit: stays cold
+        hdr = self._DENSE_HDR.pack(self.DENSE_MAGIC, self.DENSE_VERSION, 0,
+                                   *stamp, len(blob), zlib.crc32(blob))
+        if submit is not None:
+            submit(self.dense_path, hdr, blob)
+        else:
+            self.write_sidecar_file(self.dense_path, hdr, blob)
+
+    @staticmethod
+    def write_sidecar_file(path: str, hdr: bytes, blob: bytes) -> None:
+        """Write a sidecar atomically (temp + rename), also from a deferred
+        writer thread: the blob is immutable bytes.  A failure is logged
+        and swallowed: a sidecar is a cache."""
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(hdr)
+                f.write(blob)
+            os.replace(tmp, path)
+        except OSError as e:
+            logging.getLogger("pilosa_tpu_torch.store").warning(
+                "sidecar write failed at %s: %s", path, e)
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+    def _restamp_sidecar(self, pre_stamp: tuple[int, int, int]) -> None:
+        """After a compaction, which keeps the content: carry a sidecar
+        that matched the state before it forward to the new stamp, and
+        drop a stale one.  The caller holds the lock.  A crash in the
+        rewrite only tears the header, which then fails its stamp."""
+        hs = self._DENSE_HDR
+        try:
+            with open(self.dense_path, "r+b") as f:
+                hdr = f.read(hs.size)
+                if len(hdr) == hs.size:
+                    magic, ver, _, s0, s1, s2, blen, crc = hs.unpack(hdr)
+                    if (magic == self.DENSE_MAGIC
+                            and ver == self.DENSE_VERSION
+                            and (s0, s1, s2) == pre_stamp):
+                        f.seek(0)
+                        f.write(hs.pack(magic, ver, 0, *self._dense_stamp(),
+                                        blen, crc))
+                        return
+        except OSError:
+            return  # no sidecar
+        try:
+            os.unlink(self.dense_path)
+        except OSError:
+            pass
 
     # -- mutation -----------------------------------------------------------
 
-    def set_bits(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
-        """Bulk set; returns the number of newly set bits."""
-        return self._mutate(OP_SET_BITS, row_ids, cols)
+    def set_bits(self, row_ids: np.ndarray, cols: np.ndarray,
+                 sync_batch=None) -> int:
+        """Bulk set; returns the number of newly set bits.  ``sync_batch``
+        (an :class:`~.oplog.SyncBatch`) defers the op-log fsync to the
+        batch's flush: one fsync per touched log per batch."""
+        return self._mutate(OP_SET_BITS, row_ids, cols, sync_batch)
 
-    def clear_bits(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
-        return self._mutate(OP_CLEAR_BITS, row_ids, cols)
+    def clear_bits(self, row_ids: np.ndarray, cols: np.ndarray,
+                   sync_batch=None) -> int:
+        return self._mutate(OP_CLEAR_BITS, row_ids, cols, sync_batch)
 
-    def set_bits_grouped(self, groups) -> int:
+    def set_bits_grouped(self, groups, sync_batch=None) -> int:
         """Bulk set from pre-grouped ``[(row_id, column offsets), ...]``
         (the shape a BSI value import builds): one op, one op-log record
         and one journal entry naming every word of every group."""
-        return self._apply_grouped(OP_SET_BITS, groups)
+        return self._apply_grouped(OP_SET_BITS, groups, sync_batch)
 
-    def clear_bits_grouped(self, groups) -> int:
-        return self._apply_grouped(OP_CLEAR_BITS, groups)
+    def clear_bits_grouped(self, groups, sync_batch=None) -> int:
+        return self._apply_grouped(OP_CLEAR_BITS, groups, sync_batch)
 
-    def _apply_grouped(self, op: int, groups) -> int:
+    def _apply_grouped(self, op: int, groups, sync_batch=None) -> int:
         with self.lock:
             changed = 0
             parts = []
@@ -369,7 +549,7 @@ class Fragment:
             if changed:
                 self.generation += 1
                 self._note_delta(delta)
-                self._log(op, 0, np.concatenate(parts))
+                self._log(op, 0, np.concatenate(parts), sync_batch)
             return changed
 
     def clear_row(self, row_id: int) -> int:
@@ -402,7 +582,8 @@ class Fragment:
             self._log(OP_SET_ROW, row_id, positions)
             return True
 
-    def import_roaring(self, blob: bytes, clear: bool = False) -> int:
+    def import_roaring(self, blob: bytes, clear: bool = False,
+                       sync_batch=None) -> int:
         """Union (or clear) a roaring-encoded bit set (positions
         ``row*SHARD_WIDTH + col``); returns the bits changed."""
         positions = roaring.deserialize(blob)
@@ -410,16 +591,16 @@ class Fragment:
         with self.lock:
             changed = self._apply(op, 0, positions)
             if changed:
-                self._log(op, 0, positions)
+                self._log(op, 0, positions, sync_batch)
             return changed
 
-    def _mutate(self, op: int, row_ids, cols) -> int:
+    def _mutate(self, op: int, row_ids, cols, sync_batch=None) -> int:
         positions = (np.asarray(row_ids, np.uint64) * _SW
                      + np.asarray(cols, np.uint64))
         with self.lock:
             changed = self._apply(op, 0, positions)
             if changed:
-                self._log(op, 0, positions)
+                self._log(op, 0, positions, sync_batch)
             return changed
 
     def _apply(self, op: int, aux: int, positions: np.ndarray | None) -> int:
@@ -497,10 +678,10 @@ class Fragment:
         was = np.isin(chunk, old, assume_unique=True)
         if op == OP_SET_BITS:
             hit = chunk[~was]
-            new = np.union1d(old, hit).astype(np.uint32)
+            new = native.union_sorted_u32(old, hit)
         else:
             hit = chunk[was]
-            new = np.setdiff1d(old, hit, assume_unique=True).astype(np.uint32)
+            new = native.diff_sorted_u32(old, hit)
         if len(new) > DENSE_MIN_BITS:
             self.rows.pop(r, None)
             self.dense[r] = pack_columns(new)
@@ -548,11 +729,22 @@ class Fragment:
                             int(w) for w in words)
             return merged
 
-    def _log(self, op: int, aux: int, positions: np.ndarray | None) -> None:
-        self._oplog.append(op, aux, positions)
+    def _log(self, op: int, aux: int, positions: np.ndarray | None,
+             sync_batch=None) -> None:
+        self._oplog.append(op, aux, positions, sync_batch=sync_batch)
         self.op_n += 1
         if self.op_n > self.max_op_n:
-            self.snapshot()
+            if self._snapshot_submit is not None:
+                self._snapshot_submit(self)  # background compaction
+            else:
+                self.snapshot()
+
+    def maybe_snapshot(self) -> None:
+        """The background queue's entry point: compact only while still
+        past the threshold (a fragment queued twice compacts once)."""
+        with self.lock:
+            if self._open and self.op_n > self.max_op_n:
+                self.snapshot()
 
     def _load_positions(self, positions: np.ndarray) -> None:
         self._apply_bits(OP_SET_BITS, positions, {})
@@ -563,6 +755,7 @@ class Fragment:
         """Rewrite the snapshot (framed, atomic via temp + rename),
         truncate the op-log and re-open the new file lazily."""
         with self.lock:
+            pre_stamp = self._dense_stamp()  # the state a sidecar may match
             blob = roaring.serialize(self.positions())
             hdr = self._SNAP_HDR.pack(self.SNAP_MAGIC, self.SNAP_VERSION,
                                       0, len(blob), zlib.crc32(blob))
@@ -580,3 +773,7 @@ class Fragment:
             self._open_snapshot()
             self._oplog.truncate()
             self.op_n = 0
+            # compaction keeps the content: a sidecar of the state before
+            # it stays valid under the new stamp
+            self._restamp_sidecar(pre_stamp)
+

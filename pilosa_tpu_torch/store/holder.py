@@ -3,37 +3,163 @@
 
     <data>/<index>/.meta
     <data>/<index>/<field>/.meta
-    <data>/<index>/<field>/views/<view>/fragments/<shard>[.oplog]
+    <data>/<index>/<field>/views/<view>/fragments/<shard>[.oplog|.dense]
+
+With ``async_snapshots`` (the default, as in the reference) a fragment
+past its op-log threshold is compacted by the holder's
+:class:`SnapshotQueue` on a background thread, off the write path.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from pilosa_tpu_torch.store.index import Index
 
+_log = logging.getLogger("pilosa_tpu_torch.store")
+
+
+class SnapshotQueue:
+    """Background op-log compaction (``pilosa_tpu.store.holder``'s): the
+    write path hands fragments past their threshold here.  Deduped by
+    fragment; the worker thread starts on the first submit."""
+
+    def __init__(self):
+        self._pending: list = []
+        self._inq: set[int] = set()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread: threading.Thread | None = None
+        self._active = 0
+        self.compactions = 0
+        self.last_compaction_seconds = 0.0
+        self.last_compaction_span: tuple[float, float] | None = None
+
+    def submit(self, frag) -> None:
+        with self._cv:
+            if not self._stop:
+                if id(frag) in self._inq:
+                    return
+                self._inq.add(id(frag))
+                self._pending.append(frag)
+                if self._thread is None:
+                    self._thread = threading.Thread(
+                        target=self._loop, name="pilosa-snapshot",
+                        daemon=True)
+                    self._thread.start()
+                self._cv.notify()
+                return
+        self._compact(frag)  # queue closed: compact inline
+
+    def _compact(self, frag) -> None:
+        t0 = time.perf_counter()
+        before = frag.op_n
+        try:
+            frag.maybe_snapshot()
+        except Exception:  # noqa: BLE001 — the op-log stays the truth
+            _log.exception("background snapshot failed for %s", frag.path)
+            return
+        if frag.op_n < before:
+            t1 = time.perf_counter()
+            with self._cv:
+                self.compactions += 1
+                self.last_compaction_seconds = t1 - t0
+                self.last_compaction_span = (t0, t1)  # perf_counter
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._pending and not self._stop:
+                    self._cv.wait()
+                if self._stop and not self._pending:
+                    return
+                frag = self._pending.pop(0)
+                self._inq.discard(id(frag))
+                self._active += 1
+            try:
+                self._compact(frag)
+            finally:
+                with self._cv:
+                    self._active -= 1
+                    self._cv.notify_all()
+
+    def pending(self) -> int:
+        """Fragments queued or being compacted."""
+        with self._cv:
+            return len(self._pending) + self._active
+
+    def wait_idle(self, timeout: float | None = None) -> bool:
+        """Wait until nothing is queued or being compacted; False on
+        timeout."""
+        with self._cv:
+            return self._cv.wait_for(
+                lambda: not self._pending and not self._active, timeout)
+
+    def close(self) -> None:
+        """Stop taking work and drain the backlog; anything left after
+        the bounded join compacts inline here."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        with self._cv:
+            leftover, self._pending = self._pending, []
+            self._inq.clear()
+        for frag in leftover:
+            self._compact(frag)
+
 
 class Holder:
-    def __init__(self, path: str, *, fsync: bool = False):
+    # indexes opened at once: each open reads and crc-checks its snapshots
+    # and replays its op-logs; mmap reads and crc32 release the lock
+    OPEN_WORKERS = 8
+
+    def __init__(self, path: str, *, fsync: bool = False,
+                 async_snapshots: bool = True):
         self.path = path
         self.fsync = fsync
         self.indexes: dict[str, Index] = {}
         self._lock = threading.RLock()
+        self.snapshot_queue = SnapshotQueue() if async_snapshots else None
+
+    @property
+    def _submit(self):
+        q = self.snapshot_queue
+        return q.submit if q is not None else None
 
     def open(self) -> "Holder":
+        """Open every index of the tree, several at once."""
         os.makedirs(self.path, exist_ok=True)
-        for entry in sorted(os.listdir(self.path)):
-            if (os.path.isdir(os.path.join(self.path, entry))
-                    and not entry.startswith(".")):
-                self.indexes[entry] = Index(os.path.join(self.path, entry),
-                                            entry, fsync=self.fsync).open()
+        entries = [e for e in sorted(os.listdir(self.path))
+                   if os.path.isdir(os.path.join(self.path, e))
+                   and not e.startswith(".")]
+
+        def one(entry: str) -> Index:
+            return Index(os.path.join(self.path, entry), entry,
+                         fsync=self.fsync,
+                         snapshot_submit=self._submit).open()
+
+        if len(entries) <= 1:
+            opened = map(one, entries)
+        else:
+            with ThreadPoolExecutor(
+                    max_workers=min(self.OPEN_WORKERS, len(entries))) as pool:
+                opened = list(pool.map(one, entries))
+        for entry, idx in zip(entries, opened):
+            self.indexes[entry] = idx
         return self
 
     def close(self) -> None:
-        """Closing compacts every fragment with pending op-log records."""
+        """Drain the background compactions, then close every index,
+        which compacts every fragment with op-log records left."""
+        if self.snapshot_queue is not None:
+            self.snapshot_queue.close()
         with self._lock:
             for idx in self.indexes.values():
                 idx.close()
@@ -49,7 +175,8 @@ class Holder:
                 raise ValueError(f"invalid name {name!r}")
             idx = Index(os.path.join(self.path, name), name, keys=keys,
                         track_existence=track_existence, fsync=self.fsync,
-                        created_at=created_at or time.time())
+                        created_at=created_at or time.time(),
+                        snapshot_submit=self._submit)
             os.makedirs(idx.path, exist_ok=True)
             idx.save_meta()
             idx.open()

@@ -22,13 +22,14 @@ EXISTENCE_FIELD = "_exists"
 class Index:
     def __init__(self, path: str, name: str, *, keys: bool = False,
                  track_existence: bool = True, fsync: bool = False,
-                 created_at: float = 0.0):
+                 created_at: float = 0.0, snapshot_submit=None):
         self.path = path
         self.name = name
         self.keys = keys
         self.track_existence = track_existence
         self.created_at = created_at
         self.fsync = fsync
+        self.snapshot_submit = snapshot_submit
         self.fields: dict[str, Field] = {}
         self._column_attrs = None
         self._lock = threading.RLock()
@@ -46,8 +47,9 @@ class Index:
         for entry in entries:
             fpath = os.path.join(self.path, entry)
             if os.path.isdir(fpath) and not entry.startswith("."):
-                self.fields[entry] = Field(fpath, self.name, entry,
-                                           fsync=self.fsync).open()
+                self.fields[entry] = Field(
+                    fpath, self.name, entry, fsync=self.fsync,
+                    snapshot_submit=self.snapshot_submit).open()
         if self.track_existence and EXISTENCE_FIELD not in self.fields:
             self.create_field(EXISTENCE_FIELD, FieldOptions(type=TYPE_SET))
         return self
@@ -77,7 +79,8 @@ class Index:
             if not options.created_at:
                 options.created_at = time.time()
             f = Field(os.path.join(self.path, name), self.name, name,
-                      options, fsync=self.fsync)
+                      options, fsync=self.fsync,
+                      snapshot_submit=self.snapshot_submit)
             os.makedirs(f.path, exist_ok=True)
             f.save_meta()
             self.fields[name] = f
@@ -100,12 +103,13 @@ class Index:
     def existence_field(self) -> Field | None:
         return self.fields.get(EXISTENCE_FIELD)
 
-    def note_columns(self, cols: np.ndarray) -> None:
+    def note_columns(self, cols: np.ndarray, sync_batch=None) -> None:
         """Record columns in the existence field (row 0)."""
         ef = self.existence_field
         if ef is not None and len(cols):
             ef.import_bits(np.zeros(len(cols), np.uint64),
-                           np.asarray(cols, np.uint64))
+                           np.asarray(cols, np.uint64),
+                           sync_batch=sync_batch)
 
     def set_value(self, field: str, col: int, value) -> bool:
         """Write one BSI value and record the column's existence."""

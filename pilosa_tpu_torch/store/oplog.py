@@ -12,12 +12,18 @@ layout (little-endian):
     payload    roaring-serialized (or raw) bit positions
 
 Replay stops at, and truncates, the first torn or corrupt record.
+
+A :class:`SyncBatch` (``pilosa_tpu.store.oplog``'s) makes an import batch
+the unit of durability: a log that fsyncs notes itself on the batch at
+each append, and the batch's :meth:`SyncBatch.flush` fsyncs each noted
+log once.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
 from typing import Iterator
 
@@ -48,6 +54,30 @@ def _clean_prefix_end(buf: bytes) -> int:
     return pos
 
 
+class SyncBatch:
+    """Fsync coalescer for one import batch: every append inside the
+    batch to a log with ``fsync`` on notes the log here instead of
+    fsyncing, and :meth:`flush` fsyncs each noted log once, at the batch
+    boundary.  A crash before the flush may lose the batch's unsynced
+    tail; replay still recovers a record-boundary prefix."""
+
+    def __init__(self):
+        self._logs: dict[int, "OpLog"] = {}
+        self._lock = threading.Lock()
+
+    def note(self, log: "OpLog") -> None:
+        with self._lock:
+            self._logs[id(log)] = log
+
+    def flush(self) -> int:
+        """Fsync every noted log once; returns how many were synced."""
+        with self._lock:
+            logs, self._logs = list(self._logs.values()), {}
+        for log in logs:
+            log.sync()
+        return len(logs)
+
+
 class OpLog:
     """One fragment's op log.  Not thread-safe; the fragment serializes.
     The file is opened for each append, not held: a holder has one log
@@ -58,7 +88,10 @@ class OpLog:
         self.fsync = fsync
 
     def append(self, op: int, aux: int = 0,
-               positions: np.ndarray | None = None) -> None:
+               positions: np.ndarray | None = None,
+               sync_batch: SyncBatch | None = None) -> None:
+        """Append one record; with ``fsync`` on it is synced before the
+        call returns, or, given ``sync_batch``, at the batch's flush."""
         if positions is None:
             payload = b""
         elif len(positions) <= RAW_MAX_POSITIONS:
@@ -73,7 +106,10 @@ class OpLog:
                 f.write(record)
                 f.flush()
                 if self.fsync:
-                    os.fsync(f.fileno())
+                    if sync_batch is not None:
+                        sync_batch.note(self)
+                    else:
+                        os.fsync(f.fileno())
         except OSError:
             # a short write leaves partial bytes: cut back to the last
             # whole record so the next append lands on a boundary
@@ -104,6 +140,27 @@ class OpLog:
         if end < len(buf):
             with open(self.path, "r+b") as f:
                 f.truncate(end)
+
+    def sync(self) -> None:
+        """Fsync the log if durability is on: the deferred half of a
+        batched append.  The file is opened again for it; on Linux an
+        fsync through any descriptor flushes the file's data."""
+        if not self.fsync:
+            return
+        try:
+            fd = os.open(self.path, os.O_RDONLY)
+        except FileNotFoundError:
+            return  # never written, or compacted away since
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    def size(self) -> int:
+        try:
+            return os.path.getsize(self.path)
+        except OSError:
+            return 0
 
     def truncate(self) -> None:
         """Discard the log (after a snapshot compaction)."""

@@ -27,9 +27,13 @@ Two formats:
   for interop with other roaring implementations; read only.  Runs here are (start, length-1) pairs
   per the public spec — note the difference from the pilosa format.
 
-A copy of ``pilosa_tpu.store.roaring``'s reader and writers (numpy
-decode only): the port writes byte-identical files and reads every file
-the JAX package writes.
+A copy of ``pilosa_tpu.store.roaring``'s reader and writers: the port
+writes byte-identical files and reads every file the JAX package writes.
+:func:`serialize` and the pilosa-format :func:`deserialize` go through the
+native codec (:mod:`pilosa_tpu_torch.store.native`), as the reference's
+do; the numpy codec stays as ``_serialize_plain`` / ``_deserialize_plain``,
+the plain version the tests hold the native one to, and nothing on a
+serving path calls it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from pilosa_tpu_torch.store import native
 
 MAGIC = 12348
 VERSION = 0
@@ -139,12 +145,18 @@ def _group_by_high(positions: np.ndarray, shift: int) -> tuple[np.ndarray, list[
 
 
 def serialize(positions: np.ndarray) -> bytes:
-    """Sorted-or-not uint64 bit positions -> pilosa-format bytes.
-    The same bytes as ``pilosa_tpu.store.roaring.serialize``."""
+    """Sorted-or-not uint64 bit positions -> pilosa-format bytes, through
+    the native codec.  The same bytes as
+    ``pilosa_tpu.store.roaring.serialize``."""
+    positions = np.asarray(positions, dtype=np.uint64)
+    if len(positions) > 1 and not (positions[1:] > positions[:-1]).all():
+        positions = np.unique(positions)
+    return native.serialize(positions)
+
+
+def _serialize_plain(positions: np.ndarray) -> bytes:
+    """:func:`serialize` in numpy: the plain version."""
     positions = np.unique(np.asarray(positions, dtype=np.uint64))
-    fast = _serialize_arrays(positions)
-    if fast is not None:
-        return fast
     keys, lows_per = _group_by_high(positions, 16)
     n = len(keys)
     out = bytearray()
@@ -174,38 +186,6 @@ def serialize(positions: np.ndarray) -> bytes:
     for data in payloads:
         out += data
     return bytes(out)
-
-
-def _serialize_arrays(positions: np.ndarray) -> bytes | None:
-    """:func:`serialize`'s bytes in one vectorized pass when every
-    container would be an array container (a sparse fragment: millions
-    of rows of a few bits each), else None.  The container choice is
-    :func:`_best_container`'s, computed for all containers at once."""
-    if not len(positions):
-        return None
-    keys, starts = np.unique(positions >> np.uint64(16), return_index=True)
-    n = len(keys)
-    cards = np.diff(np.append(starts, len(positions)))
-    brk = np.ones(len(positions), bool)
-    brk[1:] = np.diff(positions) != 1
-    brk[starts] = True
-    runs = np.add.reduceat(brk.astype(np.int64), starts)
-    if ((2 + 4 * runs < np.minimum(2 * cards, 8192)).any()
-            or (cards > ARRAY_MAX).any()):
-        return None
-    meta = np.zeros(n, dtype=[("k", "<u8"), ("t", "<u2"), ("c", "<u2")])
-    meta["k"] = keys
-    meta["t"] = TYPE_ARRAY
-    meta["c"] = cards - 1
-    offsets = np.empty(n, np.int64)
-    offsets[0] = 8 + 16 * n
-    np.cumsum(2 * cards[:-1], out=offsets[1:])
-    offsets[1:] += offsets[0]
-    if int(offsets[-1]) + 2 * int(cards[-1]) > 0xFFFFFFFF:
-        return None
-    return (struct.pack("<HHI", MAGIC, VERSION, n) + meta.tobytes()
-            + offsets.astype("<u4").tobytes()
-            + (positions & np.uint64(0xFFFF)).astype("<u2").tobytes())
 
 
 def serialize_dense(words: np.ndarray, row_ids: np.ndarray | None = None
@@ -255,13 +235,23 @@ def serialize_dense(words: np.ndarray, row_ids: np.ndarray | None = None
 
 
 def deserialize(buf: bytes | memoryview) -> np.ndarray:
-    """Pilosa-format or standard-32-bit bytes -> sorted uint64 positions."""
+    """Pilosa-format or standard-32-bit bytes -> sorted uint64 positions;
+    the pilosa format through the native codec."""
+    return _deserialize(buf, native.deserialize)
+
+
+def _deserialize_plain(buf: bytes | memoryview) -> np.ndarray:
+    """:func:`deserialize` in numpy: the plain version."""
+    return _deserialize(buf, _deserialize_pilosa)
+
+
+def _deserialize(buf, pilosa) -> np.ndarray:
     buf = memoryview(buf)
     if len(buf) < 4:
         raise ValueError("roaring: buffer too short")
     magic, = struct.unpack_from("<H", buf, 0)
     if magic == MAGIC:
-        return _deserialize_pilosa(buf)
+        return pilosa(buf)
     cookie, = struct.unpack_from("<I", buf, 0)
     if cookie == COOKIE_NO_RUN or (cookie & 0xFFFF) == COOKIE_RUN:
         return read_standard32(buf).astype(np.uint64)
@@ -409,37 +399,6 @@ class Directory:
             np.add.at(cards, inv, self.cards)
             cached = self._row_cards_cache = (uniq, cards)
         return cached
-
-    def positions(self) -> np.ndarray:
-        """Every set bit as ``row * SHARD_WIDTH + column``, uint64, sorted.
-        Array containers are gathered in one vectorized pass (a sparse
-        snapshot holds millions of one-bit containers); bitmap and run
-        containers expand one by one."""
-        n = len(self.keys)
-        if not n:
-            return np.empty(0, np.uint64)
-        lows = np.empty(int(self.cards.sum()), np.uint16)
-        starts = np.zeros(n, np.int64)
-        np.cumsum(self.cards[:-1], out=starts[1:])
-        arr = self.types == TYPE_ARRAY
-        if arr.any() and not (self.offsets[arr] & 1).any():
-            u16 = np.frombuffer(self.buf, dtype="<u2",
-                                count=len(self.buf) // 2)
-            cards = self.cards[arr]
-            begin = np.zeros(len(cards), np.int64)
-            np.cumsum(cards[:-1], out=begin[1:])
-            within = np.arange(int(cards.sum())) - np.repeat(begin, cards)
-            lows[np.repeat(starts[arr], cards) + within] = \
-                u16[np.repeat(self.offsets[arr] // 2, cards) + within]
-            rest = np.flatnonzero(~arr)
-        else:
-            rest = np.arange(n)
-        for i in rest.tolist():
-            lows[starts[i]:starts[i] + self.cards[i]] = \
-                self.expand_container(i)
-        pos = (np.repeat(self.keys, self.cards) << np.uint64(16)) \
-            | lows.astype(np.uint64)
-        return pos if self._keys_sorted else np.sort(pos)
 
     def row_words(self, row: int, out: np.ndarray) -> None:
         """OR one row's bits into ``out`` (uint32[32768], the row's

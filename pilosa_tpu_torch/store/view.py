@@ -15,10 +15,12 @@ VIEW_BSI_PREFIX = "bsi_"
 
 
 class View:
-    def __init__(self, path: str, name: str, *, fsync: bool = False):
+    def __init__(self, path: str, name: str, *, fsync: bool = False,
+                 snapshot_submit=None):
         self.path = path  # <field>/views/<name>
         self.name = name
         self.fsync = fsync
+        self.snapshot_submit = snapshot_submit
         self.fragments: dict[int, Fragment] = {}
         self._lock = threading.RLock()
 
@@ -35,7 +37,8 @@ class View:
             for shard in sorted(shards):
                 self.fragments[shard] = Fragment(
                     os.path.join(frag_dir, str(shard)), shard,
-                    fsync=self.fsync).open()
+                    fsync=self.fsync,
+                    snapshot_submit=self.snapshot_submit).open()
         return self
 
     def fragment(self, shard: int, create: bool = False) -> Fragment | None:
@@ -44,7 +47,8 @@ class View:
             if frag is None and create:
                 path = os.path.join(self.path, "fragments", str(shard))
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-                frag = Fragment(path, shard, fsync=self.fsync).open()
+                frag = Fragment(path, shard, fsync=self.fsync,
+                                snapshot_submit=self.snapshot_submit).open()
                 self.fragments[shard] = frag
             return frag
 

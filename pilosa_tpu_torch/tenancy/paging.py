@@ -9,9 +9,12 @@ whole plane.  A Count answers resident pages on the card and the rest from
 the host's row cardinalities (container-header sums, no bit expanded),
 summed per row across pages: exact whatever the residency.
 
-Page-ins expand the page's fragments from their snapshots (the reference
-reads ``.dense`` sidecars, which this port does not keep) and do not count
-as plane builds.
+A page-in goes through the plane build's bulk path
+(:meth:`~pilosa_tpu_torch.exec.planes.PlaneCache.assemble`): each fragment
+of the page expands once, on the builder threads, against the page's full
+row union, so a fresh ``.dense`` sidecar is read warm and a cold
+expansion writes one.  Page-ins count warm hits and misses but not plane
+builds.
 """
 
 from __future__ import annotations
@@ -130,7 +133,7 @@ class PlanePager:
                     return None
         t0 = time.perf_counter()
         ps = cache.build_rows_plane(field, view_name, page_shards, row_ids,
-                                    r_pad, tally=False)
+                                    r_pad, tally=False, sidecar_write=True)
         dt = time.perf_counter() - t0
         cache._insert_entry(key, gens, ps, ps.plane.numel() * 4, lease=True)
         if g is not None:

@@ -18,8 +18,8 @@ representation is forced by the budget:
 The JSON must be equal, errors included; the port's counters must show the
 path.  Also held to the reference: ``Directory.row_cards``,
 ``Fragment.row_cardinalities`` and ``cardinality`` (snapshot, array,
-bitmap and run containers, after writes), the vectorized
-``serialize`` / ``Directory.positions``, the CSR arrays of the sparse build,
+bitmap and run containers, after writes), ``serialize`` and
+``deserialize`` (and the numpy writer), the CSR arrays of the sparse build,
 and :mod:`pilosa_tpu_torch.engine.sparse` against
 ``pilosa_tpu.engine.sparse`` on the same arrays with tie-heavy counts.
 """
@@ -207,9 +207,8 @@ def test_serialize_and_directory_positions_equal(kind):
             (rng.integers(3, 90, 500).astype(np.uint64) << np.uint64(20))
             + rng.integers(0, SW, 500).astype(np.uint64)])
     blob = troaring.serialize(pos)
-    assert blob == jroaring.serialize(pos)
-    assert np.array_equal(troaring.Directory(blob).positions(),
-                          np.unique(pos))
+    assert blob == jroaring.serialize(pos) == troaring._serialize_plain(pos)
+    assert np.array_equal(troaring.deserialize(blob), np.unique(pos))
 
 
 # -- the sparse residency and its counts ------------------------------------

@@ -6,7 +6,9 @@ over a resident plane, keyed requests and a small concurrent burst
 through the default executor on the card against the same calls on the
 CPU; and the robustness paths on the card: a real device OOM recovered by
 stage 1, a window quarantined while its kernels still run, and the
-``distinct`` batcher kind.
+``distinct`` batcher kind; and the plane build's builder pool on the card
+against the serial CPU build, a build from ``.dense`` images against the
+cold one, and a page-in from images against one from snapshots.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -884,3 +886,201 @@ def test_distinct_window_equal_cpu(dev, tmp_path):
     finally:
         ex.close()
         holder.close()
+
+
+def _sidecar_holder(root: str):
+    """Index ``i``: ``f`` with 24 rows of every container kind over 6
+    shards, written to snapshots and then a little more to the op-logs."""
+    from pilosa_tpu_torch.store import Holder
+    rng = np.random.default_rng(23)
+    holder = Holder(root).open()
+    f = holder.create_index("i").create_field("f")
+    for s in range(6):
+        base = s << 20
+        f.import_bits(np.full(9000, 1, np.uint64),
+                      (base + np.arange(5000, 14000)).astype(np.uint64))
+        f.import_bits(rng.integers(0, 24, 30000).astype(np.uint64),
+                      (base + rng.integers(0, 1 << 20, 30000))
+                      .astype(np.uint64))
+    for frag in f.standard_view().fragments.values():
+        frag.snapshot()
+    f.import_bits(rng.integers(0, 24, 500).astype(np.uint64),
+                  rng.integers(0, 6 << 20, 500).astype(np.uint64))
+    return holder
+
+
+def _serial_cpu_plane(field, shards):
+    """The plain build: one fragment after another on this thread, from
+    the snapshots, no sidecars."""
+    from pilosa_tpu_torch.exec.planes import PlaneCache
+    cache = PlaneCache("cpu", sidecars=False)
+    cache.BUILD_WORKERS = 1
+    return cache._build_plane(field, "standard", shards)
+
+
+def test_pool_build_on_card_equals_serial_cpu_build(dev, tmp_path):
+    from pilosa_tpu_torch.exec.planes import PlaneCache
+    holder = _sidecar_holder(str(tmp_path))
+    f = holder.index("i").field("f")
+    shards = tuple(range(6))
+    try:
+        cache = PlaneCache(dev)
+        cache.SYNC_BUILD_MAX = 0           # writes images
+        cache.BUILD_CHUNK_BYTES = 1        # one shard a chunk: both buffers
+        ps = cache._build_plane(f, "standard", shards)
+        want = _serial_cpu_plane(f, shards)
+        assert ps.plane.device.type == "cuda"
+        assert torch.equal(ps.plane.cpu(), want.plane)
+        assert cache.warm_misses == 6 and cache.warm_hits == 0
+    finally:
+        holder.close()
+
+
+def test_warm_build_on_card_equals_cold(dev, tmp_path):
+    from pilosa_tpu_torch.exec.planes import PlaneCache
+    holder = _sidecar_holder(str(tmp_path))
+    f = holder.index("i").field("f")
+    shards = tuple(range(6))
+    try:
+        cold_cache = PlaneCache(dev)
+        cold_cache.SYNC_BUILD_MAX = 0
+        cold = cold_cache._build_plane(f, "standard", shards)
+        warm_cache = PlaneCache(dev)
+        warm = warm_cache._build_plane(f, "standard", shards)
+        assert warm_cache.warm_hits == 6 and warm_cache.warm_misses == 0
+        assert torch.equal(warm.plane, cold.plane)
+        assert torch.equal(
+            tk.row_counts(warm.plane),
+            tk.row_counts_plain(_serial_cpu_plane(f, shards).plane)
+            .to(dev))
+    finally:
+        holder.close()
+
+
+def test_page_in_from_images_equals_from_snapshots(dev, tmp_path):
+    from pilosa_tpu_torch.exec import Executor
+    holder = _sidecar_holder(str(tmp_path))
+    q = "".join(f"Count(Row(f={r}))" for r in range(24))
+    paged = {"plane_budget": 3 << 20, "plane_page_bytes": 1 << 20}
+    try:
+        cold = Executor(holder, device=dev, plane_sidecars=False, **paged)
+        want = cold.execute("i", q)
+        assert cold.tenancy_status()["pageIns"] >= 2
+        cold.close()
+        ex = Executor(holder, device=dev, **paged)
+        assert ex.execute("i", q) == want      # page-ins write images
+        assert ex.planes.warm_misses == 6
+        ex.planes.evict_unpinned(reason="test")
+        assert ex.execute("i", q) == want      # page-ins read them
+        assert ex.planes.warm_hits == 6
+        cpu = Executor(holder, device="cpu", plane_sidecars=False, **paged)
+        assert cpu.execute("i", q) == want
+        cpu.close()
+        ex.close()
+    finally:
+        holder.close()
+
+
+def test_crash_restart_reads_images_warm_and_imports_durably(dev, tmp_path):
+    """Phase 12's crash restart at 32 shards: a holder that served and
+    took writes is left unclosed; ``Holder(fsync=True)`` reopens the
+    directory, the first 32-Count builds ``f`` from its images (every
+    fragment a warm hit), and a set and a mutex import each fsync every
+    op-log they touched once; every answer equals the numpy oracle."""
+    import json
+    import os
+    import urllib.request
+
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
+    from pilosa_tpu_torch.store import oplog as toplog
+    shards, rows = 32, 32
+    rng = np.random.default_rng(12)
+    words = (rng.integers(0, 1 << 32, (shards, rows, 32768), np.uint32)
+             & rng.integers(0, 1 << 32, (shards, rows, 32768), np.uint32))
+    root = str(tmp_path / "d")
+    h = Holder(root).open()
+    idx = h.create_index("bench", track_existence=False)
+    f = idx.create_field("f")
+    idx.create_field("m", FieldOptions(type="mutex"))
+    frag_dir = f"{root}/bench/f/views/standard/fragments"
+    os.makedirs(frag_dir, exist_ok=True)
+    h.close()
+    for s in range(shards):
+        with open(f"{frag_dir}/{s}", "wb") as fh:
+            fh.write(roaring.serialize_dense(words[s]))
+    counts = np.bitwise_count(words).sum(axis=(0, 2)).astype(np.int64)
+    q32 = "".join(f"Count(Row(f={r}))" for r in range(rows))
+
+    h = Holder(root).open()
+    ex = Executor(h, device=dev)
+    ex.planes.SYNC_BUILD_MAX = 0   # f's build writes its images
+    assert ex.execute("bench", q32) == counts.tolist()
+    ex.planes.wait_builds()
+    assert ex.execute("bench", q32) == counts.tolist()
+    # a write after the images: that fragment's stamp moves on
+    cols = rng.choice(shards << 20, 64, replace=False).astype(np.uint64)
+    r = rng.integers(0, rows, 64).astype(np.uint64)
+    before = h.index("bench").field("f").standard_view()
+    was = np.array([bool(before.fragment(int(c) >> 20).rows_contain(
+        [int(rr)], np.array([int(c) & 0xFFFFF], np.uint32))[0, 0])
+        for rr, c in zip(r, cols)])
+    h.index("bench").field("f").import_bits(r, cols)
+    np.add.at(counts, r[~was].astype(np.intp), 1)
+    # fragments whose op-log grew: only a changed bit appends a record
+    touched = len(set((cols[~was] >> np.uint64(20)).tolist()))
+    ex.close()
+    del h, ex                      # not closed: a killed process
+
+    h2 = Holder(root, fsync=True).open()
+    ex2 = Executor(h2, device=dev)
+    ex2.planes.SYNC_BUILD_MAX = 0
+    server = Server(API(h2, ex2), "127.0.0.1", 0).start()
+    base = "http://%s:%d" % server.address
+    seen = []
+    real = os.fsync
+
+    def counted(fd):
+        seen.append(fd)
+        return real(fd)
+
+    try:
+        assert ex2.execute("bench", q32) == counts.tolist()
+        ex2.planes.wait_builds()
+        st = ex2.planes.stats()
+        assert st["warmHits"] == shards - touched
+        assert st["warmMisses"] == touched
+        assert ex2.execute("bench", q32) == counts.tolist()
+        toplog.os.fsync = counted
+        cols = rng.choice(shards << 20, 4096, replace=False)
+        r = rng.integers(0, rows, 4096)
+        body = json.dumps({"rowIDs": r.tolist(),
+                           "columnIDs": cols.tolist()}).encode()
+        req = urllib.request.Request(base + "/index/bench/field/f/import",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            changed = json.loads(resp.read())["changed"]
+        assert len(seen) == len(set((cols >> 20).tolist()))
+        ans = ex2.execute("bench", q32)
+        assert sum(ans) == int(counts.sum()) + changed
+        seen.clear()
+        mcols = rng.choice(shards << 20, 2048, replace=False)
+        for rows_m in (rng.integers(0, 4, 2048), rng.integers(4, 8, 2048)):
+            body = json.dumps({"rowIDs": rows_m.tolist(),
+                               "columnIDs": mcols.tolist()}).encode()
+            req = urllib.request.Request(
+                base + "/index/bench/field/m/import", data=body,
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                json.loads(resp.read())
+        # two imports, each one fsync per touched log
+        assert len(seen) == 2 * len(set((mcols >> 20).tolist()))
+        want = np.bincount(rows_m, minlength=8).tolist()
+        assert ex2.execute("bench", "".join(
+            f"Count(Row(m={k}))" for k in range(8))) == want
+    finally:
+        toplog.os.fsync = real
+        server.close()
+        ex2.close()
+        h2.close()

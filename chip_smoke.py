@@ -13,7 +13,7 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Thirteen phases; any failure raises and the exit code is non-zero:
+Fourteen phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -214,7 +214,30 @@ Thirteen phases; any failure raises and the exit code is non-zero:
    (``_executor``): a card machine takes about 45 GiB of disk writes per
    call, and at the reference's default their builds would write ~60 GB
    of images.
-13. Print the ``kernels`` JSON line, the card's name and power limit, and
+13. The single-node API, the HTTP client and the CLI, on the holder
+   and REST server phase 12 leaves serving, through the port's
+   ``api.client.Client``: (a) ``/info``, ``/version`` and the schema
+   routes against the entries the run expects; ``/export`` of ``k``'s
+   keyed set field (about 1M lines) and keyed BSI field against phase 9's
+   oracle, with their seconds and bytes; ``DELETE /index/k`` (``/status``
+   plane bytes and ``torch.cuda.memory_allocated()`` drop by k's resident
+   bytes, the directory and key stores are gone, a query answers 404;
+   ``k`` recreated keyed, 100,000 keyed pairs imported, ids from 1, a
+   keyed Count exact); ``DELETE /index/bench/field/seg`` (every plane of
+   ``bench`` leaves the cache, the next 32-Count rebuilds ``f`` exact,
+   ``seg`` recreated answers 0).  (b) A second process: ``python -m
+   pilosa_tpu_torch.cli server --config <toml>`` (a free port, a fresh
+   data directory, a 1 GiB plane budget, ``fsync = true``) on the card;
+   ``cli import --create`` of 1,000,000 pairs from --seed (16 rows over
+   the first 64 shards); the 16-Count, ``TopN(f, n=5)`` and a compound
+   Count through the client against a numpy oracle; ``cli export``
+   byte for byte against the oracle's CSV; SIGTERM (exit 0 within 30 s);
+   ``cli check`` ("all fragments ok") and ``cli config``.  The phase must
+   launch ``count``, ``row_counts`` and ``selected_row_counts`` in this
+   process (the second process's launches are not counted; its answers
+   are checked).  gRPC and TLS are not driven: the card machine has no
+   grpcio, and nothing there may be relied on to make certificates.
+14. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own, and the free disk before
    phase 2.
@@ -1195,12 +1218,14 @@ def _executor(holder, **kw):
 
 
 def serve_phase(data_dir: str, oracle: dict, device=None,
-                clients: int = CLIENTS, passes: int = PASSES) -> dict:
-    """Phases 2 to 12 over one holder; returns the
+                clients: int = CLIENTS, passes: int = PASSES,
+                seed: int = 42, **api_kw) -> dict:
+    """Phases 2 to 13 over one holder; returns the
     launch counts of each path's run, keyed "serve", "concurrent",
     "concurrent_off", "concurrent_overlay", "ingest", "bsi",
     "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
-    "budget", "robust" and "storage"."""
+    "budget", "robust", "storage" and "api" (``api_kw`` sizes phase 13:
+    phase 9's ``k`` and the CLI's pairs)."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
@@ -1375,6 +1400,12 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         sp = storage_phase(client, holder, planes, oracle["storage"], cuda,
                            device, data_dir)
         log(f"phase 12 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 13: the single-node API, client and CLI ==")
+        ap = api_phase(client, executor, oracle["storage"], cuda, device,
+                       data_dir, seed, **api_kw)
+        log(f"phase 13 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1398,7 +1429,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
-            **sp}
+            **sp, **ap}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -4511,6 +4542,409 @@ def storage_phase(client, holder, planes, so: dict, cuda: bool, device,
     return {"storage": launched}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: the single-node API, the HTTP client and the CLI
+
+CLI_PAIRS = 1_000_000          # (b)'s CSV: pairs over CLI_ROWS x CLI_SHARDS
+CLI_ROWS, CLI_SHARDS = 16, 64
+K_RECREATE = 100_000           # keyed pairs imported into the recreated k
+SEG_RECREATE = "seg-05"
+
+
+def _opts_json(o) -> dict:
+    """A field's options as the schema routes answer them."""
+    return {"type": o.type, "keys": o.keys, "cacheType": o.cache_type,
+            "cacheSize": o.cache_size, "timeQuantum": o.time_quantum,
+            "min": o.min, "max": o.max, "base": o.base,
+            "bitDepth": o.bit_depth, "scale": o.scale, "epoch": o.epoch,
+            "timeUnit": o.time_unit}
+
+
+def _mem_total() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _cli_csv_oracle(rows: np.ndarray, cols: np.ndarray) -> tuple:
+    """(the export's bytes, per-row counts, the row 1 x row 2
+    intersection) of (row, col) pairs: the export writes shard by shard,
+    rows ascending, columns ascending, each pair once."""
+    pos = np.unique(rows.astype(np.uint64) * np.uint64(1 << 32)
+                    + cols.astype(np.uint64))
+    r = (pos >> np.uint64(32)).astype(np.int64)
+    c = (pos & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    order = np.lexsort((c, r, c >> 20))
+    r, c = r[order], c[order]
+    text = "".join(f"{a},{b}\n" for a, b in zip(r.tolist(), c.tolist()))
+    counts = np.bincount(r, minlength=CLI_ROWS)
+    inter = len(np.intersect1d(c[r == 1], c[r == 2]))
+    return text.encode(), counts, inter
+
+
+def _run_cli(argv: list) -> tuple[int, str]:
+    """``python -m pilosa_tpu_torch.cli`` in this process: (exit code,
+    what it printed)."""
+    import contextlib
+    import io
+
+    from pilosa_tpu_torch.cli.main import main as cli_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue()
+
+
+def api_phase(client, executor, so: dict, cuda: bool, device,
+              data_dir: str, seed: int, k_cols: int = K_COLS,
+              k_rows: int = K_ROWS, k_values: int = K_VALUES,
+              cli_pairs: int = CLI_PAIRS) -> dict:
+    """Phase 13: (a) the serving process's REST server through the port's
+    ``api.client.Client``: ``/info``, ``/version``, the schema routes,
+    ``/export`` of ``k``'s keyed set and BSI fields against phase 9's
+    oracle, ``DELETE /index/k`` (the planes' and the card's bytes freed,
+    the directory and key stores gone, the reference's 404, ``k``
+    recreated with ids from 1), ``DELETE /index/bench/field/seg`` (every
+    plane of ``bench`` dropped, ``f`` rebuilt exact, ``seg`` recreated
+    empty).  (b) A second process, ``python -m pilosa_tpu_torch.cli
+    server --config <toml>`` on the card, loaded by ``cli import`` with
+    ``cli_pairs`` pairs from the seed, read through the client against a
+    numpy oracle, exported by ``cli export`` byte for byte, stopped by
+    SIGTERM (exit 0 within 30 s), then ``cli check`` and ``cli config``.
+    Launch counters are reset at the start and read at the end (the
+    second process's launches are not counted; its answers are
+    checked).  gRPC and TLS are not driven: the card machine has no
+    grpcio, and nothing there may be relied on to make certificates."""
+    import gc
+    import signal
+    import socket
+    import tempfile
+    import weakref
+
+    import torch
+
+    import pilosa_tpu_torch
+    from pilosa_tpu_torch.api.client import Client, ClientError
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.store import FieldOptions
+
+    if cuda:
+        log(f"phase 13 on {card_line()}")
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    planes = executor.planes
+    host, port = client.base.rsplit("//", 1)[1].rsplit(":", 1)
+    c = Client(host, int(port), timeout=600)
+    nums: dict = {}
+
+    # (a) the schema routes, /info and /version
+    schema = {i["name"]: i for i in c.schema()}
+    info = c.info()
+    if info != {"shardWidth": 1 << 20, "cpuPhysicalCores": os.cpu_count(),
+                "memory": _mem_total()}:
+        raise AssertionError(f"/info: {info}")
+    if c.version() != pilosa_tpu_torch.__version__:
+        raise AssertionError("/version")
+    bench = c._json("GET", "/index/bench")
+    kidx = c._json("GET", "/index/k")
+    fjson = c._json("GET", "/index/bench/field/f")
+    want_f = _opts_json(FieldOptions())
+    want_k = {"f": _opts_json(FieldOptions(keys=True)),
+              "spend": _opts_json(FieldOptions(type="int", min=0,
+                                               max=1000))}
+    if (bench != schema["bench"] or kidx != schema["k"]
+            or bench["options"] != {"keys": False, "trackExistence": False}
+            or kidx["options"] != {"keys": True, "trackExistence": True}
+            or fjson["name"] != "f" or fjson["options"] != want_f
+            or {f["name"]: f["options"] for f in kidx["fields"]} != want_k
+            or fjson not in bench["fields"]):
+        raise AssertionError(f"schema routes: {bench}, {kidx}, {fjson}")
+    log(f"[api] /info {info}; /version {pilosa_tpu_torch.__version__}; "
+        f"/index/bench ({len(bench['fields'])} fields), /index/k and "
+        "/index/bench/field/f equal their /schema entries")
+
+    # /export of k: phase 9's pairs and values, keys as the stores hold
+    # them (ids in the order the keys were created)
+    ex_cols = executor.translate.columns("k")
+    ex_rows = executor.translate.rows("k", "f")
+    if (ex_cols.translate([f"user-{0:09d}", f"user-{k_cols - 1:09d}",
+                           "user-new"]) != [1, k_cols, k_cols + 1]
+            or ex_rows.translate([f"seg-{0:05d}", f"seg-{k_rows - 1:05d}",
+                                  "seg-new"]) != [1, k_rows, k_rows + 1]):
+        raise AssertionError("k's key ids are not phase 9's")
+    t = time.perf_counter()
+    got = c.export_csv("k", "f")
+    nums["export_f_s"] = time.perf_counter() - t
+    cid = np.arange(1, k_cols + 2, dtype=np.int64)
+    rid = np.append(np.arange(k_cols) % k_rows + 1, k_rows + 1)
+    order = np.lexsort((cid, rid, cid >> 20))
+    rkey = [f"seg-{r:05d}" for r in range(k_rows)] + ["seg-new"]
+    want = "".join(
+        f"{rkey[r - 1]},"
+        f"{'user-new' if cc > k_cols else f'user-{cc - 1:09d}'}\n"
+        for r, cc in zip(rid[order].tolist(), cid[order].tolist()))
+    if got != want:
+        raise AssertionError(f"/export k f: {len(got)} bytes, want "
+                             f"{len(want)}")
+    nums["export_f_bytes"] = len(got.encode())
+    t = time.perf_counter()
+    got = c.export_csv("k", "spend")
+    nums["export_spend_s"] = time.perf_counter() - t
+    want = "".join(f"user-{i:09d},{i % 1001}\n" for i in range(k_values))
+    if got != want:
+        raise AssertionError("/export k spend")
+    nums["export_spend_bytes"] = len(got.encode())
+    log(f"[api] /export k/f: {k_cols + 1} lines, "
+        f"{nums['export_f_bytes']} bytes in {nums['export_f_s']:.2f} s; "
+        f"k/spend: {k_values} lines, {nums['export_spend_bytes']} bytes in "
+        f"{nums['export_spend_s']:.2f} s; both equal the oracle")
+
+    # bench's planes, then k's, resident (phase 12 evicted the cache)
+    after = so["after_d"]
+    for q in (Q32, Q4, QC12, TOPN_G):
+        client.ask(q, after[q], tag=f"phase 13 {q[:20]}")
+    planes.wait_builds()
+    per_row = k_cols // k_rows
+    ktop = [[{"key": f"seg-{i:05d}", "count": per_row} for i in range(5)]]
+    for _ in range(2):  # k's plane builds in the background, then serves
+        if (c.query("k", KC_COUNT) != [per_row]
+                or c.query("k", KC_TOPN) != ktop):
+            raise AssertionError("k's keyed Count or TopN before the "
+                                 "delete")
+        planes.wait_builds()
+    kplane = next(v[1].plane for key, v in planes._entries.items()
+                  if key[0] == "plane" and key[1] == "k")
+    kref = weakref.ref(kplane)
+    kshape = list(kplane.shape)
+    del kplane
+    for q in (Q32, Q4):  # the batcher's threads move past k's window
+        client.ask(q, after[q], tag=f"phase 13 {q[:20]}")
+
+    # DELETE /index/k
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+    kbytes = planes.tenant_bytes("k")
+    st0 = c.status()["planes"]["bytes"]
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    t = time.perf_counter()
+    c.delete_index("k")
+    nums["delete_k_s"] = time.perf_counter() - t
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+    st1 = c.status()["planes"]["bytes"]
+    mem1 = torch.cuda.memory_allocated() if cuda else 0
+    nums["delete_k_freed"] = mem0 - mem1
+    if (st0 - st1 != kbytes or kbytes < 4 * np.prod(kshape)
+            or kref() is not None or (cuda and mem0 - mem1 < kbytes)):
+        raise AssertionError(
+            f"DELETE k: /status planes {st0} -> {st1}, k resident {kbytes}, "
+            f"device {mem0} -> {mem1}, plane alive {kref() is not None}")
+    if (os.path.exists(os.path.join(data_dir, "k"))
+            or [key for key in executor.translate._logs if key[0] == "k"]
+            or [key for key in planes._entries if key[1] == "k"]):
+        raise AssertionError("DELETE k left its directory, key stores or "
+                             "planes")
+    try:
+        c.query("k", KC_COUNT)
+        raise AssertionError("a query on the deleted k answered")
+    except ClientError as e:
+        if (e.status, str(e)) != (404, "index 'k' not found"):
+            raise
+    log(f"[api] DELETE /index/k in {nums['delete_k_s']:.3f} s: /status "
+        f"planes {st0} -> {st1} bytes (k's int32{kshape} plane and the "
+        f"rest of k: {kbytes} bytes); device memory allocated {mem0} -> "
+        f"{mem1} ({(mem0 - mem1) / 1e9:.3f} GB freed); directory and key "
+        "stores gone; a query answers 404")
+
+    # k recreated: keys from id 1, a keyed Count exact
+    c.create_index("k", {"keys": True})
+    c.create_field("k", "f", {"keys": True})
+    n_rows = 100
+    t = time.perf_counter()
+    changed = c.import_bits("k", "f", rowKeys=[
+        f"seg-{i % n_rows:03d}" for i in range(K_RECREATE)],
+        columnKeys=[f"user-{i:09d}" for i in range(K_RECREATE)])
+    nums["recreate_import_s"] = time.perf_counter() - t
+    if (changed != K_RECREATE
+            or ex_cols is executor.translate.columns("k")
+            or executor.translate.columns("k").translate(
+                [f"user-{0:09d}"]) != [1]
+            or executor.translate.rows("k", "f").translate(["seg-000"])
+            != [1]):
+        raise AssertionError("k recreated: changed or ids")
+    for _ in range(2):
+        if c.query("k", 'Count(Row(f="seg-007"))') != [K_RECREATE // n_rows]:
+            raise AssertionError("k recreated: keyed Count")
+        planes.wait_builds()
+    log(f"[api] k recreated: {K_RECREATE} keyed pairs in "
+        f"{nums['recreate_import_s']:.2f} s, ids from 1, keyed Count exact")
+
+    # DELETE /index/bench/field/seg: every plane of bench leaves the cache
+    before = planes.tenant_bytes("bench")
+    t = time.perf_counter()
+    c.delete_field("bench", "seg")
+    nums["delete_seg_s"] = time.perf_counter() - t
+    if (planes.tenant_bytes("bench") != 0 or before == 0
+            or os.path.exists(os.path.join(data_dir, "bench", "seg"))):
+        raise AssertionError(f"DELETE seg: bench planes {before} -> "
+                             f"{planes.tenant_bytes('bench')}")
+    builds = planes.builds
+    t = time.perf_counter()
+    client.ask(Q32, after[Q32], tag="phase 13 32-Count after the delete")
+    planes.wait_builds()
+    nums["rebuild_s"] = time.perf_counter() - t
+    if planes.builds != builds + 1:
+        raise AssertionError("f was not rebuilt once")
+    nums["rebuild_build_s"] = planes.stats()["lastBuildSeconds"]
+    for q in (Q32, Q4, QC12, TOPN_G):
+        client.ask(q, after[q], tag=f"phase 13 {q[:20]} rebuilt")
+    c.create_field("bench", "seg", {"keys": True})
+    if c.query("bench", f'Count(Row(seg="{SEG_RECREATE}"))') != [0]:
+        raise AssertionError("seg recreated is not empty")
+    log(f"[api] DELETE /index/bench/field/seg in {nums['delete_seg_s']:.3f}"
+        f" s: bench's {before} resident bytes dropped; the next 32-Count "
+        f"rebuilt f in {nums['rebuild_build_s']:.2f} s "
+        f"({nums['rebuild_s']:.2f} s to the plane), every answer exact; seg "
+        "recreated empty")
+    t_a = time.perf_counter() - t0
+
+    # (b) the CLI: a server process from a TOML, import, reads, export,
+    # SIGTERM, check, config
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    proc = None
+    try:
+        cdir = os.path.join(tmp, "data")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            cport = sk.getsockname()[1]
+        toml = os.path.join(tmp, "server.toml")
+        with open(toml, "w") as f:
+            f.write(f'bind = "127.0.0.1:{cport}"\ndata-dir = "{cdir}"\n'
+                    f"plane-budget-bytes = {1 << 30}\nfsync = true\n"
+                    + (f'device = "{device}"\n' if device else ""))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PILOSA_")}
+        t_boot = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+             "--config", toml], cwd=REPO, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        lines: list = []
+        up = threading.Event()
+
+        def drain():
+            for line in proc.stderr:
+                lines.append(line.rstrip())
+                if "listening on" in line:
+                    up.set()
+
+        drainer = threading.Thread(target=drain, daemon=True)
+        drainer.start()
+        if not up.wait(300):
+            raise AssertionError("the CLI server did not start: "
+                                 + " | ".join(lines[-5:]))
+        listening = next(ln for ln in lines if "listening on" in ln)
+        log(f"[cli] server log: {listening.split(': ', 1)[-1]}")
+        if cuda and "device=cuda" not in listening:
+            raise AssertionError("the CLI server is not on the card")
+        cc = Client("127.0.0.1", cport, timeout=600)
+        cc.version()
+        nums["boot_s"] = time.perf_counter() - t_boot
+
+        rng = np.random.default_rng(seed + 13)
+        rows = rng.integers(0, CLI_ROWS, cli_pairs)
+        cols = rng.integers(0, CLI_SHARDS << 20, cli_pairs)
+        csv = os.path.join(tmp, "pairs.csv")
+        with open(csv, "w") as f:
+            f.write("".join(f"{r},{cc_}\n" for r, cc_ in
+                            zip(rows.tolist(), cols.tolist())))
+        want_csv, counts, inter = _cli_csv_oracle(rows, cols)
+        t = time.perf_counter()
+        imp = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "import",
+             "--bind", f"127.0.0.1:{cport}", "--create", "-i", "cli", "-f",
+             "f", csv], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=600)
+        nums["import_s"] = time.perf_counter() - t
+        if imp.returncode != 0:
+            raise AssertionError(f"cli import: {imp.stderr[-2000:]}")
+        log(f"[cli] cli import: {cli_pairs} pairs ({len(want_csv)} CSV "
+            f"bytes of unique pairs) in {nums['import_s']:.2f} s = "
+            f"{cli_pairs / nums['import_s']:.0f} pairs/s (process start "
+            f"included); {imp.stderr.strip().splitlines()[-1]}")
+        q16 = "".join(f"Count(Row(f={r}))" for r in range(CLI_ROWS))
+        for q, w in ((q16, [int(x) for x in counts]),
+                     ("TopN(f, n=5)", [_topn(counts, 5)]),
+                     ("Count(Intersect(Row(f=1), Row(f=2)))", [inter])):
+            for _ in range(2):
+                got = cc.query("cli", q)
+                if got != w:
+                    raise AssertionError(f"cli {q[:40]}: {got}, want {w}")
+        out = os.path.join(tmp, "export.csv")
+        t = time.perf_counter()
+        rc, _ = _run_cli(["export", "--bind", f"127.0.0.1:{cport}", "-i",
+                          "cli", "-f", "f", "-o", out])
+        nums["cli_export_s"] = time.perf_counter() - t
+        with open(out, "rb") as f:
+            exported = f.read()
+        if rc != 0 or exported != want_csv:
+            raise AssertionError(f"cli export: rc {rc}, {len(exported)} "
+                                 f"bytes, want {len(want_csv)}")
+        log(f"[cli] the 16-Count, TopN(f, n=5) and a compound Count exact; "
+            f"cli export {len(exported)} bytes in {nums['cli_export_s']:.2f}"
+            " s, equal to the oracle's CSV")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(30)
+        nums["close_s"] = time.perf_counter() - t
+        drainer.join(10)
+        if rc != 0:
+            raise AssertionError(f"the CLI server exited {rc}: "
+                                 + " | ".join(lines[-5:]))
+        rc, text = _run_cli(["check", "--data-dir", cdir])
+        oks = sum(ln.startswith("ok ") for ln in text.splitlines())
+        if rc != 0 or not text.endswith("all fragments ok\n") \
+                or oks != 2 * CLI_SHARDS:
+            raise AssertionError(f"cli check: rc {rc}, {text[-300:]}")
+        saved = os.environ.pop("PILOSA_DEVICE", None)
+        try:
+            rc, text = _run_cli(["config", "--config", toml])
+        finally:
+            if saved is not None:
+                os.environ["PILOSA_DEVICE"] = saved
+        eff = json.loads(text)
+        if (rc != 0 or eff["bind"] != f"127.0.0.1:{cport}" or not eff["fsync"]
+                or eff["device"] != (device or "")):
+            raise AssertionError(f"cli config: {text[:300]}")
+        log(f"[cli] SIGTERM: exit 0 in {nums['close_s']:.2f} s; cli check: "
+            f"{oks} fragments ok; cli config: "
+            + json.dumps({k: eff[k] for k in (
+                "bind", "data_dir", "device", "fsync", "plane_budget_bytes",
+                "count_batch_window", "mesh")}))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_b = time.perf_counter() - t1
+    launched = dict(cuda_kernels.LAUNCHES)
+    log(f"launches in phase 13: {json.dumps(launched)}; phase 13 walls (a) "
+        f"{t_a:.1f}s (b) {t_b:.1f}s (boot to first answer "
+        f"{nums['boot_s']:.2f} s), total {time.perf_counter() - t0:.1f}s")
+    log(f"phase 13 numbers: {json.dumps(nums)}")
+    if cuda:
+        for k in ("row_counts", "count", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 13 never launched {k}")
+    return {"api": launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -4552,11 +4986,11 @@ def main() -> int:
             f"{du.total / 1e9:.1f} GB; the data "
             f"{_dir_bytes(data_dir) / 1e9:.2f} GB")
         log("== phase 2: serving ==")
-        launches = serve_phase(data_dir, oracle)
+        launches = serve_phase(data_dir, oracle, seed=args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 13: output ==")
+    log("== phase 14: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -1,9 +1,10 @@
-"""Programmatic API: index/field creation, schema, queries, imports.
+"""Programmatic API: index and field creation and deletion, schema,
+queries, imports, CSV export and node info.
 
 The counterpart of ``pilosa_tpu.api.api.API`` for the calls this port
 serves; ``query`` answers the same ``{"results": [...]}`` JSON (and the
-same 504, 500 and 503 bodies) and the imports the same changed-bit
-counts.
+same 504, 500 and 503 bodies), the imports the same changed-bit counts
+and ``export_csv`` the same bytes.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
-from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_SET, TYPE_TIME,
-                                          BoolRowError)
+from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
+from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_DECIMAL, TYPE_SET,
+                                          TYPE_TIME, BoolRowError)
 from pilosa_tpu_torch.store.oplog import SyncBatch
-from pilosa_tpu_torch.store.timeq import parse_pql_time, parse_view_time
+from pilosa_tpu_torch.store.timeq import parse_pql_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
 from pilosa_tpu_torch.tenancy import TenantThrottledError
 
@@ -118,8 +120,35 @@ class API:
         except ValueError as e:
             raise ApiError(str(e), 409 if "exists" in str(e) else 400)
 
+    def delete_index(self, name: str) -> None:
+        """Delete an index, its directory, its key stores and everything
+        the executor holds of it (404 when absent)."""
+        try:
+            self.holder.delete_index(
+                name, release=lambda path: self.executor.forget_index(
+                    name, path))
+        except KeyError:
+            raise ApiError(f"index {name!r} not found", 404)
+
+    def delete_field(self, index: str, name: str) -> None:
+        """Delete a field, its directory and its key files; every cached
+        plane of the index drops, as in the reference (404 when absent)."""
+        idx = self._index(index)
+
+        def release(path: str) -> None:
+            self.holder.forget_path(path)
+            self.executor.forget_index(index, path, field=name)
+
+        try:
+            idx.delete_field(name, release=release)
+        except KeyError:
+            raise ApiError(f"field {name!r} not found", 404)
+
     def schema(self) -> list[dict]:
         return self.holder.schema()
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        self.holder.apply_schema(schema)
 
     def query(self, index: str, pql: str,
               shards: list[int] | None = None,
@@ -250,9 +279,8 @@ class API:
                        clear: bool = False,
                        op_id: str | None = None) -> int:
         """Import a roaring-encoded bit set (positions ``row *
-        SHARD_WIDTH + column offset``) into one shard of a set or time
-        field's view (``standard``, or a time view ``standard_<YYYY[MM[DD
-        [HH]]]>``); returns the bits changed.  A mutex or bool field
+        SHARD_WIDTH + column offset``) into one shard of any view of a set
+        or time field, created on first use; returns the bits changed.  A mutex or bool field
         takes pair imports only.  The positions are ids on a keyed field
         or index too, as in the reference.  ``op_id`` as for
         :meth:`import_bits`: every delivery applies on a single node."""
@@ -263,14 +291,9 @@ class API:
             # check
             raise ApiError("import-roaring supports set/time fields, not "
                            f"{f.options.type!r}; use the pair import")
-        if view != VIEW_STANDARD:
-            try:
-                if not view.startswith(VIEW_STANDARD + "_"):
-                    raise ValueError(view)
-                parse_view_time(view[len(VIEW_STANDARD) + 1:])
-            except ValueError:
-                raise ApiError(f"import-roaring: view {view!r} is not "
-                               "supported by this port")
+        if view in ("", ".", "..") or "/" in view or "\0" in view:
+            # a view is one directory under the field
+            raise ApiError(f"import-roaring: invalid view name {view!r}")
         frag = f.view(view, create=True).fragment(shard, create=True)
         sb = SyncBatch()
         try:
@@ -344,6 +367,62 @@ class API:
                     "lastCompactionSeconds": q.last_compaction_seconds},
                 "fsync": self.holder.fsync, "importFsyncs": fsyncs}
 
+    def export_csv(self, index: str, field: str) -> str:
+        """The field as CSV: ``row,column`` lines of the standard view
+        (set, time, mutex and bool fields), ``column,value`` of a BSI
+        field, shard by shard, rows and columns ascending; keys where the
+        index or field is keyed and its store holds any (an id without a
+        key prints ``None``), as the reference writes them."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        col_log = (self.executor.translate.columns(index)
+                   if idx.keys else None)
+        col_keys = col_log is not None and len(col_log) > 0
+        lines: list[str] = []
+        if f.options.type in BSI_TYPES:
+            view = f.bsi_view()
+            for shard in sorted(view.fragments) if view is not None else ():
+                cols, vals = _bsi_values(view.fragment(shard),
+                                         f.options.bit_depth)
+                if not len(cols):
+                    continue
+                vals += f.options.base
+                cols = cols + np.uint64(shard * SHARD_WIDTH)
+                cells = (col_log.keys_of(cols.tolist(), strict=False)
+                         if col_keys else cols.tolist())
+                if f.options.type == TYPE_DECIMAL:
+                    out = [f.from_stored(v) for v in vals.tolist()]
+                else:
+                    out = vals.tolist()
+                lines += [f"{c},{v}\n" for c, v in zip(cells, out)]
+            return "".join(lines)
+        row_log = (self.executor.translate.rows(index, field)
+                   if f.options.keys else None)
+        row_keys = row_log is not None and len(row_log) > 0
+        view = f.standard_view()
+        for shard in sorted(view.fragments) if view is not None else ():
+            pos = view.fragment(shard).positions()
+            if not len(pos):
+                continue
+            rows = pos // np.uint64(SHARD_WIDTH)
+            cols = (pos % np.uint64(SHARD_WIDTH)
+                    + np.uint64(shard * SHARD_WIDTH))
+            if row_keys:
+                ids, inv = np.unique(rows, return_inverse=True)
+                names = row_log.keys_of(ids.tolist(), strict=False)
+                rcell = [names[i] for i in inv.tolist()]
+            else:
+                rcell = rows.tolist()
+            ccell = (col_log.keys_of(cols.tolist(), strict=False)
+                     if col_keys else cols.tolist())
+            lines += [f"{r},{c}\n" for r, c in zip(rcell, ccell)]
+        return "".join(lines)
+
+    def info(self) -> dict:
+        return {"shardWidth": SHARD_WIDTH,
+                "cpuPhysicalCores": os.cpu_count(),
+                "memory": _total_memory_bytes()}
+
     def _index(self, name: str):
         idx = self.holder.index(name)
         if idx is None:
@@ -394,3 +473,38 @@ class API:
         if idx.keys:
             raise ApiError(f"index {idx.name!r} is keyed; use columnKeys")
         return self._ids(col_ids)
+
+
+def _bsi_values(frag, depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """A BSI fragment's (columns with a value, stored - base values):
+    the exists row's columns ascending, each value read from the offset
+    and sign rows."""
+    def bits(row: int, at: np.ndarray) -> np.ndarray:
+        words = frag.row_words(row)
+        return (words[at >> 5] >> (at & 31).astype(np.uint32)) & 1
+
+    words = frag.row_words(EXISTS_ROW)
+    cols = np.flatnonzero(np.unpackbits(
+        words.view(np.uint8), bitorder="little")).astype(np.uint64)
+    vals = np.zeros(len(cols), np.int64)
+    if not len(cols):
+        return cols, vals
+    at = cols.astype(np.int64)
+    for b in range(depth):
+        vals += bits(OFFSET_ROW + b, at).astype(np.int64) << b
+    neg = bits(SIGN_ROW, at).astype(bool)
+    vals[neg] = -vals[neg]
+    return cols, vals
+
+
+def _total_memory_bytes() -> int:
+    """The host's memory (``MemTotal`` of ``/proc/meminfo``), 0 where it
+    cannot be read."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0

@@ -79,6 +79,18 @@ def _string(field: int, s: str) -> bytes:
     return _tag(field, _LEN) + _varint(len(raw)) + raw
 
 
+def _strings(field: int, items, what: str) -> bytes:
+    """Repeated string ``field`` (one join: appending to a growing bytes
+    object per item is quadratic); an empty item is refused, since an
+    empty string elides and would desync the parallel arrays."""
+    parts = []
+    for s in items:
+        if not s:
+            raise ValueError(f"proto: empty {what}")
+        parts.append(_string(field, s))
+    return b"".join(parts)
+
+
 def _sub(field: int, raw: bytes) -> bytes:
     return _tag(field, _LEN) + _varint(len(raw)) + raw
 
@@ -262,23 +274,14 @@ def encode_import_request(*, index: str = "", field: str = "",
     # empty strings are unrepresentable on this wire (zero-valued
     # fields elide — an empty key would silently vanish and desync the
     # parallel arrays): refuse so callers' JSON fallback fires
-    for k in row_keys or []:
-        if not k:
-            raise ValueError("proto: empty row key")
-        out += _string(5, k)
-    for k in col_keys or []:
-        if not k:
-            raise ValueError("proto: empty column key")
-        out += _string(6, k)
+    out += _strings(5, row_keys or [], "row key")
+    out += _strings(6, col_keys or [], "column key")
     if timestamps is not None and len(timestamps):
         if all(isinstance(t, int) for t in timestamps):
             out += _packed(7, _vec_zigzag([int(t) for t in timestamps]),
                            _varint)
         elif all(isinstance(t, str) for t in timestamps):
-            for t in timestamps:
-                if not t:
-                    raise ValueError("proto: empty timestamp")
-                out += _string(9, t)
+            out += _strings(9, timestamps, "timestamp")
         else:
             raise ValueError("proto: mixed timestamp types")
     if clear:
@@ -330,10 +333,8 @@ def encode_import_value_request(*, index: str = "", field: str = "",
     out = _string(1, index) + _string(2, field)
     if col_ids is not None and len(col_ids):
         out += _packed(3, col_ids, _varint)
-    for k in col_keys or []:
-        if not k:  # see encode_import_request: empty strings elide
-            raise ValueError("proto: empty column key")
-        out += _string(4, k)
+    # see encode_import_request: empty strings elide
+    out += _strings(4, col_keys or [], "column key")
     vals = values if values is not None else []
     if len(vals):
         if all(isinstance(v, bool) for v in vals):
@@ -356,10 +357,7 @@ def encode_import_value_request(*, index: str = "", field: str = "",
             raw = b"".join(struct.pack("<d", float(v)) for v in vals)
             out += _tag(6, _LEN) + _varint(len(raw)) + raw
         elif all(isinstance(v, str) for v in vals):
-            for v in vals:
-                if not v:
-                    raise ValueError("proto: empty value string")
-                out += _string(7, v)
+            out += _strings(7, vals, "value string")
         else:
             raise ValueError("proto: mixed import value types")
     return out
@@ -441,7 +439,7 @@ def _enc_result(r) -> bytes:
         return _uint(1, T_COUNT) + _uint(3, r)
     if isinstance(r, list):  # TopN pairs or GroupBy groups
         if r and "group" in r[0]:
-            out = _uint(1, T_GROUPS)
+            out = [_uint(1, T_GROUPS)]
             for g in r:
                 sub = b""
                 for fr in g["group"]:
@@ -455,17 +453,17 @@ def _enc_result(r) -> bytes:
                 if g.get("agg") is not None:
                     sub += _tag(3, _VARINT) + _varint(_zigzag(int(g["agg"])))
                     sub += _uint(4, 1)
-                out += _sub(9, sub)
-            return out
-        out = _uint(1, T_PAIRS)
+                out.append(_sub(9, sub))
+            return b"".join(out)
+        out = [_uint(1, T_PAIRS)]
         for p in r:
             sub = _uint(2, p.get("count", 0))
             if "key" in p:
                 sub += _string(3, p["key"])
             else:
                 sub += _uint(1, p.get("id", 0))
-            out += _sub(5, sub)
-        return out
+            out.append(_sub(5, sub))
+        return b"".join(out)
     if isinstance(r, dict):
         if "fields" in r:  # Extract: tabular, no proto representation
             raise ValueError(
@@ -475,8 +473,7 @@ def _enc_result(r) -> bytes:
                  and "value" not in r and "values" not in r)
         if "columns" in r or keyed:
             sub = _packed(1, r.get("columns", []), _varint)
-            for k in r.get("keys", []) or []:
-                sub += _string(2, k)
+            sub += b"".join(_string(2, k) for k in r.get("keys", []) or [])
             if keyed:  # explicit flag so {"keys": []} round-trips
                 sub += _uint(3, 1)
             if r.get("rowAttrs") or r.get("attrs"):
@@ -503,10 +500,8 @@ def _enc_result(r) -> bytes:
 
 
 def encode_query_response(results=None, err: str = "") -> bytes:
-    out = _string(1, err)
-    for r in results or []:
-        out += _sub(2, _enc_result(r))
-    return out
+    return _string(1, err) + b"".join(_sub(2, _enc_result(r))
+                                      for r in results or [])
 
 
 # -- response decode (client/test side) --------------------------------------

@@ -1,0 +1,290 @@
+"""Layered configuration: TOML file ⊕ ``PILOSA_*`` env vars ⊕ CLI flags
+(``pilosa_tpu.cli.config``'s).
+
+Flags override env, env overrides the file, the file overrides the
+defaults.  :class:`Config` has the reference's keys in the reference's
+order, then the one key the port adds, ``device`` (``--device``,
+``PILOSA_DEVICE``): the torch device to serve on, ``""`` meaning the CUDA
+device (with no card the server refuses to start).  An unknown key in the
+file is an error, as in the reference.
+
+What the port does with each key (:func:`check_served` applies it when a
+server boots):
+
+========================================  ==================================
+key                                       verdict
+========================================  ==================================
+bind, data_dir, verbose, fsync, faults,   served
+query_timeout, grpc_bind, tls_*,
+count_batch_window, plane_budget_bytes,
+delta_buffer_cells,
+delta_compact_fraction, tree_fusion,
+dispatch_pipeline_depth, solo_fastlane,
+dispatch_watchdog_seconds,
+device_health_probe_seconds,
+plane_paging, plane_page_bytes,
+tenant_byte_quota, tenant_qps_quota,
+tenant_slot_quota, plane_sidecars,
+max_concurrent_queries, max_map_count,
+device
+log_format                                served as "text"; "json" refused
+                                          (item 10)
+mesh                                      served on one device (the
+                                          reference places nothing on
+                                          one); true with more than one
+                                          CUDA device refused (item 11)
+name, seeds, replicas, cluster_enabled,   refused unless at the default
+anti_entropy_interval,                    (item 11: no cluster); ``name``
+heartbeat_interval, failover_max_depth,   may also equal ``bind``
+hedge_after, breaker_threshold,
+hint_max_age, hint_replay_batch
+stats_backend, statsd_address,            refused unless at the default
+diagnostics_interval                      (item 10)
+kernel_tier ("xla"),                      refused unless at the default:
+dispatch_loop_fusion, fused_warmup,       XLA and JAX knobs (ROADMAP: not
+compilation_cache_dir, jax_coordinator,   to port); the port has one kernel
+jax_num_processes, jax_process_id         tier, its hand kernels
+trace_sample_rate, slow_query_threshold,  default changed to the off value
+scrub_interval_seconds,                   (0); any other value refused
+scrub_bytes_per_second,                   (item 10: no tracer, scrubber or
+disk_min_free_bytes, disk_probe_seconds   disk governor yet)
+========================================  ==================================
+
+:data:`CHANGED_DEFAULTS` lists the defaults that differ from the
+reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field as dc_field
+
+ENV_PREFIX = "PILOSA_"
+
+
+@dataclass
+class Config:
+    bind: str = "127.0.0.1:10101"
+    data_dir: str = "~/.pilosa_tpu"
+    verbose: bool = False
+    log_format: str = "text"
+    fsync: bool = False
+    # cluster (refused: the port serves one node)
+    name: str = ""
+    seeds: list[str] = dc_field(default_factory=list)
+    replicas: int = 1
+    cluster_enabled: bool = False
+    anti_entropy_interval: float = 600.0
+    heartbeat_interval: float = 2.0
+    failover_max_depth: int = 2
+    hedge_after: float = 0.0
+    breaker_threshold: int = 3
+    hint_max_age: float = 300.0
+    hint_replay_batch: int = 256
+    diagnostics_interval: float = 0.0
+    # observability (refused: the port has no metrics registry or tracer)
+    stats_backend: str = ""
+    statsd_address: str = "127.0.0.1:8125"
+    trace_sample_rate: float = 0.0
+    slow_query_threshold: float = 0.0
+    # fault injection: a JSON list of failpoint specs armed at boot
+    faults: str = ""
+    # serving
+    count_batch_window: str = "adaptive"
+    query_timeout: float = 0.0         # seconds per query; 0 = unlimited
+    plane_budget_bytes: int = 4 << 30
+    delta_buffer_cells: int = 65536
+    delta_compact_fraction: float = 0.5
+    tree_fusion: bool = True
+    dispatch_pipeline_depth: int = 2
+    solo_fastlane: bool = True
+    dispatch_watchdog_seconds: float = 30.0
+    device_health_probe_seconds: float = 5.0
+    kernel_tier: str = "xla"
+    dispatch_loop_fusion: bool = False
+    fused_warmup: bool = False
+    # storage integrity (refused: no scrubber or disk governor yet)
+    scrub_interval_seconds: float = 0.0
+    scrub_bytes_per_second: int = 0
+    disk_min_free_bytes: int = 0
+    disk_probe_seconds: float = 0.0
+    # tenancy
+    plane_paging: bool = True
+    plane_page_bytes: int = 64 << 20
+    tenant_byte_quota: int = 0
+    tenant_qps_quota: float = 0.0
+    tenant_slot_quota: int = 0
+    plane_sidecars: bool = True
+    compilation_cache_dir: str = ""
+    max_concurrent_queries: int = 8
+    max_map_count: int = 32768          # live snapshot maps (also bounded
+                                        # by half the descriptor limit)
+    grpc_bind: str = ""                 # host:port; "" disables gRPC
+    mesh: bool = True
+    # tls: one block turns on HTTPS and gRPC TLS together
+    tls_certificate: str = ""           # PEM cert path; "" = plaintext
+    tls_key: str = ""                   # PEM private key path
+    tls_ca_certificate: str = ""        # CA bundle for verifying peers
+    tls_skip_verify: bool = False       # outbound: skip server-cert check
+    tls_enable_client_auth: bool = False  # inbound: require client certs
+    jax_coordinator: str = ""
+    jax_num_processes: int = 0
+    jax_process_id: int = -1
+    # the port's one added key: the torch device ("" = the CUDA device)
+    device: str = ""
+
+    @property
+    def host(self) -> str:
+        return self.bind.rsplit(":", 1)[0]
+
+    @property
+    def port(self) -> int:
+        return int(self.bind.rsplit(":", 1)[1])
+
+    def effective(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+# the defaults that differ from the reference's: each switches on a
+# subsystem the port lacks there, and is off here
+CHANGED_DEFAULTS = {
+    "trace_sample_rate": (0.01, 0.0),
+    "slow_query_threshold": (1.0, 0.0),
+    "scrub_interval_seconds": (600.0, 0.0),
+    "scrub_bytes_per_second": (32 << 20, 0),
+    "disk_min_free_bytes": (64 << 20, 0),
+    "disk_probe_seconds": (5.0, 0.0),
+}
+
+_ITEM_10 = "ROADMAP Queue 1 item 10: observability and storage integrity"
+_ITEM_11 = "ROADMAP Queue 1 item 11: cluster"
+_JAX = "ROADMAP: not to port (the port has one kernel tier)"
+
+# refused keys: set to anything but the default, the server refuses to
+# boot, naming the key and the roadmap item that would serve it
+REFUSED = {
+    **dict.fromkeys(
+        ("name", "seeds", "replicas", "cluster_enabled",
+         "anti_entropy_interval", "heartbeat_interval",
+         "failover_max_depth", "hedge_after", "breaker_threshold",
+         "hint_max_age", "hint_replay_batch"), _ITEM_11),
+    **dict.fromkeys(
+        ("stats_backend", "statsd_address", "diagnostics_interval",
+         "log_format", *CHANGED_DEFAULTS), _ITEM_10),
+    **dict.fromkeys(
+        ("kernel_tier", "dispatch_loop_fusion", "fused_warmup",
+         "compilation_cache_dir", "jax_coordinator", "jax_num_processes",
+         "jax_process_id"), _JAX),
+}
+
+
+def check_served(cfg: Config, cuda_devices: int = 1) -> None:
+    """Refuse a config that asks for what the port does not serve:
+    ``ValueError`` naming the first such key.  ``cuda_devices`` is the
+    number of CUDA devices the server would see (``mesh`` shards over
+    several, which the port does not)."""
+    defaults = Config()
+    for key, item in REFUSED.items():
+        value = getattr(cfg, key)
+        if value == getattr(defaults, key):
+            continue
+        if key == "name" and value == cfg.bind:
+            continue  # derived from bind by load()
+        raise ValueError(f"config key {key} = {value!r} is not supported "
+                         f"by this port ({item})")
+    if cfg.mesh and cuda_devices > 1 and not cfg.device.startswith("cpu"):
+        raise ValueError(f"config key mesh = true over {cuda_devices} "
+                         "CUDA devices is not supported by this port "
+                         f"({_ITEM_11}); set mesh = false to serve on one")
+
+
+_BOOL_TRUE = {"1", "true", "yes", "on"}
+
+
+def _coerce(value: str, typ):
+    if typ is bool:
+        return value.lower() in _BOOL_TRUE
+    if typ is int:
+        return int(value)
+    if typ is float:
+        return float(value)
+    if typ == list[str]:
+        return [s.strip() for s in value.split(",") if s.strip()]
+    return value
+
+
+def load(path: str | None = None, env: dict | None = None,
+         overrides: dict | None = None) -> Config:
+    """defaults ← TOML file ← PILOSA_* env ← explicit overrides."""
+    cfg = Config()
+    fields = {f.name: f.type for f in dataclasses.fields(Config)}
+
+    if path:
+        import tomllib
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+        for k, v in data.items():
+            k = k.replace("-", "_")
+            if k == "tls" and isinstance(v, dict):
+                # [tls] table: certificate = "...", key = "...", ...
+                for tk, tv in v.items():
+                    tk = "tls_" + tk.replace("-", "_")
+                    if tk not in fields:
+                        raise ValueError(
+                            f"unknown [tls] key {tk[4:]!r} in {path}")
+                    setattr(cfg, tk, tv)
+                continue
+            if k not in fields:
+                raise ValueError(f"unknown config key {k!r} in {path}")
+            setattr(cfg, k, v)
+
+    env = env if env is not None else os.environ
+    for k in fields:
+        ev = env.get(ENV_PREFIX + k.upper())
+        if ev is not None:
+            setattr(cfg, k, _coerce(ev, _resolve_type(fields[k])))
+
+    for k, v in (overrides or {}).items():
+        if v is not None:
+            setattr(cfg, k, v)
+
+    cfg.data_dir = os.path.expanduser(cfg.data_dir)
+    for k in ("tls_certificate", "tls_key", "tls_ca_certificate"):
+        v = getattr(cfg, k)
+        if v:
+            setattr(cfg, k, os.path.expanduser(v))
+    if not cfg.name:
+        cfg.name = cfg.bind
+    return cfg
+
+
+def tls_of(cfg: Config):
+    """The resolved tls block as a :class:`pilosa_tpu_torch.api.tls.
+    TLSConfig`."""
+    from pilosa_tpu_torch.api.tls import TLSConfig
+    return TLSConfig(
+        certificate=cfg.tls_certificate, key=cfg.tls_key,
+        ca_certificate=cfg.tls_ca_certificate,
+        skip_verify=cfg.tls_skip_verify,
+        enable_client_auth=cfg.tls_enable_client_auth)
+
+
+def client_ssl_of(cfg: Config):
+    """Outbound TLS context for this config (the CLI's client), or None
+    when the tls block is off."""
+    from pilosa_tpu_torch.api.tls import client_context
+    return client_context(tls_of(cfg))
+
+
+def _resolve_type(t):
+    # dataclass field types are strings under future annotations
+    if t in ("bool", bool):
+        return bool
+    if t in ("int", int):
+        return int
+    if t in ("float", float):
+        return float
+    if t in ("list[str]",) or t == list[str]:
+        return list[str]
+    return str

@@ -81,6 +81,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as wait_futures
 from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as np
@@ -197,6 +198,10 @@ class CountBatcher:
         self._pipe_slots = threading.Semaphore(self.pipeline_depth)
         self._read_thread: threading.Thread | None = None
         self._pool: ThreadPoolExecutor | None = None
+        # launches on the group pool not yet finished: close() joins them,
+        # so a hung launch cannot reach a fault site or the device after
+        # its batcher closed
+        self._pool_futs: set = set()
         # the window registry the watchdog ages (0 disables the watchdog:
         # no monitor thread, unbounded group joins)
         self.watchdog_s = max(0.0, float(watchdog_s))
@@ -256,7 +261,8 @@ class CountBatcher:
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the collector, the reader, the watchdog and the group
-        pool; queued items fail."""
+        pool, each joined within ``timeout`` (a launch still hung on the
+        pool included); queued items fail."""
         with self._lock:
             self._closed = True
             batch = self._queue[:]
@@ -273,6 +279,9 @@ class CountBatcher:
             self._watchdog.join(timeout)
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+            with self._lock:
+                futs = list(self._pool_futs)
+            wait_futures(futs, timeout)
         err = RuntimeError("batcher closed")
         for p in batch:
             self._deliver_error(p, err)
@@ -702,11 +711,20 @@ class CountBatcher:
                     id(p.leaves[1]) if len(p.leaves) == 2 else 0)
         return ("rowcounts", tuple(p.leaves[0].shape))
 
-    def _group_pool(self) -> ThreadPoolExecutor:
+    def _pool_submit(self, fn, *args):
+        """Run ``fn(*args)`` on the group pool, tracked until it ends."""
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=8, thread_name_prefix="pilosa-torch-batch-group")
-        return self._pool
+        fut = self._pool.submit(fn, *args)
+        with self._lock:
+            self._pool_futs.add(fut)
+        fut.add_done_callback(self._pool_done)
+        return fut
+
+    def _pool_done(self, fut) -> None:
+        with self._lock:
+            self._pool_futs.discard(fut)
 
     def _dispatch_window(self, batch: list, groups: dict) -> None:
         """One launch per group, the window's outputs packed into one
@@ -723,7 +741,7 @@ class CountBatcher:
         w = self._register_window(batch, slot_held)
         for p in batch:
             p.stage = "dispatch"
-        distinct_futs = [self._group_pool().submit(self._run_distinct, g)
+        distinct_futs = [self._pool_submit(self._run_distinct, g)
                          for _, g in distinct_groups]
         pending = []
         if len(program_groups) == 1:
@@ -738,7 +756,7 @@ class CountBatcher:
             # several groups launch on the pool and each join is bounded
             # by the watchdog: a hung group fails alone while the others
             # proceed (the whole-window watchdog defers meanwhile)
-            futs = [(key, group, self._group_pool().submit(
+            futs = [(key, group, self._pool_submit(
                 self._dispatch_group, key[0], group))
                 for key, group in program_groups]
             bound = self.watchdog_s if self.watchdog_s > 0 else None

@@ -1126,6 +1126,25 @@ class Executor:
 
     # ----------------------------------------------------------- plan cache
 
+    def forget_index(self, index: str, path: str,
+                     field: str | None = None) -> None:
+        """Drop what this executor holds of a deleted index, or of one
+        deleted field: every cached plane of the index (the reference's
+        ``invalidate(index)``, even for a field) once the builds reading
+        under ``path`` are done, its plans and key stores (a field's key
+        files removed too), and, for a whole index, the tenant's paging
+        and QoS state."""
+        self.planes.invalidate(index)
+        self.planes.wait_idle(index, path)
+        self.invalidate_plans(index)
+        if field is None:
+            self.translate.drop(index)
+            if self.pager is not None:
+                self.pager.forget(index)
+            self.qos.forget(index)
+        else:
+            self.translate.drop(index, field, remove_files=True)
+
     def invalidate_plans(self, index: str | None = None) -> None:
         """Drop cached plans (all, or one index's)."""
         with self._plans_lock:

@@ -69,6 +69,7 @@ Entries handed to a query between :meth:`PlaneCache.begin_query` and
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -246,6 +247,9 @@ class PlaneCache:
         self.build_failures = 0
         self._failed_logged: set = set()
         self._building: dict = {}  # key -> background builder thread
+        # view paths each running assemble reads, by a token of the call
+        self._assembling: dict[int, tuple] = {}
+        self._assembled = threading.Condition(self._lock)
         # entries leased to each thread's query (never evicted meanwhile)
         self._leases: dict[int, set] = {}
         self.evictions = 0
@@ -322,7 +326,7 @@ class PlaneCache:
             ps = self._build_plane(field, view_name, shards)
             # published before _building is cleared: wait_builds() never
             # returns with a plane about to appear
-            self._insert_entry(key, gens, ps, ps.plane.numel() * 4)
+            self._insert_entry(key, gens, ps, ps.plane.numel() * 4, field)
         except Exception:  # noqa: BLE001 — a failed build is not a failed request
             with self._lock:
                 self.build_failures += 1
@@ -563,14 +567,48 @@ class PlaneCache:
                 freed += self._evict_entry(key, reason)
             return freed
 
-    def invalidate(self) -> None:
-        """Drop every entry, leased or not, with its overlay: the
+    def invalidate(self, index: str | None = None) -> None:
+        """Drop every entry, leased or not, with its overlay (the
         device-OOM recovery's last stage, run once the other queries have
-        drained."""
+        drained), or every entry of one index, whose field was deleted
+        (as the reference's, even for one field).  Footprint estimates
+        drop wholesale either way: an index or field recreated at the
+        same path restarts its generations, which an old estimate could
+        match."""
         with self._lock:
             self._bytes_cache.clear()
             for key in list(self._entries):
-                self._drop(key)
+                if index is None or key[1] == index:
+                    self._drop(key)
+            if index is not None and self.governor is not None:
+                self.governor.forget(index)
+
+    def wait_idle(self, index: str, path: str,
+                  timeout: float = 300.0) -> bool:
+        """Wait until no background build or compaction of ``index``
+        runs and no plane build reads fragments under ``path`` (a
+        directory about to be removed): afterwards nothing of theirs
+        writes a ``.dense`` image there.  False on timeout."""
+        prefix = os.path.join(path, "")
+        end = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                threads = [t for k, t in list(self._building.items())
+                           + list(self._compacting.items())
+                           if k[1] == index]
+                busy = any(p.startswith(prefix)
+                           for paths in self._assembling.values()
+                           for p in paths)
+            if not threads and not busy:
+                return True
+            left = end - time.monotonic()
+            if left <= 0:
+                return False
+            for t in threads:
+                t.join(max(0.0, min(left, 0.05)))
+            if not threads:
+                with self._assembled:
+                    self._assembled.wait(min(left, 0.05))
 
     def evict_tenant(self, index: str, need_bytes: int,
                      reason: str = "quota") -> int:
@@ -624,6 +662,8 @@ class PlaneCache:
                * pow2_bucket(len(union_row_ids(field, view_name, shards)))
                * WORDS_PER_SHARD * 4)
         with self._lock:
+            if field.deleted:
+                return est  # a recreated field could match its stamp
             self._bytes_cache[key] = (gens, est)
             while len(self._bytes_cache) > 256:
                 self._bytes_cache.pop(next(iter(self._bytes_cache)))
@@ -723,7 +763,7 @@ class PlaneCache:
                 return None
             tps = timeviews.build_time_plane(field, shards, self.assemble,
                                              plan=plan)
-            self._insert_entry(key, gens, tps, plan[-1], lease=True)
+            self._insert_entry(key, gens, tps, plan[-1], field, lease=True)
         return tps
 
     def _time_absorb(self, key, field: Field, shards: tuple[int, ...], hit,
@@ -907,7 +947,8 @@ class PlaneCache:
             ps = build(field, view_name, shards)
             nbytes = getattr(ps, "nbytes", None)
             self._insert_entry(key, gens, ps, ps.plane.numel() * 4
-                               if nbytes is None else nbytes, lease=True)
+                               if nbytes is None else nbytes, field,
+                               lease=True)
         return ps
 
     def _drop(self, key) -> None:
@@ -916,12 +957,19 @@ class PlaneCache:
         self._delta_mirrors.pop(key, None)
 
     def _insert_entry(self, key, gens, ps, nbytes: int,
+                      field: Field | None = None,
                       lease: bool = False) -> None:
         """Cache a built plane (leased to the calling query when ``lease``)
         and evict other unleased entries in eviction order down to the
         budget.  A rebuilt base supersedes any pending overlay: the build
-        re-read every fragment, so the mirror's cells are already in it."""
+        re-read every fragment, so the mirror's cells are already in it.
+        A plane of a field deleted meanwhile is not cached: a field
+        recreated at the same path restarts its generations, which the
+        stale plane's could match (the deletion sets ``field.deleted``
+        before it takes this lock to invalidate)."""
         with self._lock:
+            if field is not None and field.deleted:
+                return
             if key in self._entries:
                 self._drop(key)
             self._delta_mirrors.pop(key, None)
@@ -1281,6 +1329,10 @@ class PlaneCache:
         if sidecar_write is None:
             sidecar_write = len(shards) * slab > self.SYNC_BUILD_MAX
         sidecar_write = sidecars and sidecar_write
+        token = object()
+        with self._lock:
+            self._assembling[id(token)] = tuple(
+                view.path for view, _, _ in sources)
         writer = (_SidecarWriter(self) if sidecar_write and sources
                   else None)
         workers = min(self.BUILD_WORKERS, len(shards) * len(sources))
@@ -1317,6 +1369,9 @@ class PlaneCache:
                 pool.shutdown(wait=True, cancel_futures=True)
             if writer is not None:
                 writer.close()
+            with self._lock:
+                del self._assembling[id(token)]
+                self._assembled.notify_all()
         if tally:
             dt = time.perf_counter() - t0
             with self._lock:

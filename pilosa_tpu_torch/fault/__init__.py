@@ -19,13 +19,19 @@ Sites of this package:
   first attempt, as in the reference);
 - ``exec.dispatch_hang`` / ``exec.dispatch_error``: a window group's
   launch (``kind=``);
-- ``exec.readback_hang``: a window's readback.
+- ``exec.readback_hang``: a window's readback;
+- ``client.send``: an HTTP client request before it leaves
+  (``peer=``, ``method=``, ``path=``);
+- ``client.recv``: the same request after it was sent.
 
 Actions: ``error`` raises :class:`FaultError`, ``delay`` sleeps
 ``args.seconds``, ``oom`` raises ``torch.OutOfMemoryError`` (the type the
-executor's recovery classifies).  The reference's site-interpreted
-actions (``torn_write``, ``partition``, ``drop_response``, ``drop``)
-belong to sites this package does not have and are refused.
+executor's recovery classifies).  ``partition`` (at ``client.send``: the
+peer is unreachable) and ``drop`` (at ``client.recv``: the response is
+lost) are interpreted by their site, which :func:`fire` hands the spec.
+The reference's other site-interpreted actions (``torn_write``,
+``drop_response``) belong to sites this package does not have and are
+refused.
 """
 
 from __future__ import annotations
@@ -58,9 +64,10 @@ class Failpoint:
                  prob: float | None = None, seed: int | None = None,
                  times: int | None = None, match: dict | None = None,
                  args: dict | None = None):
-        if action not in ("error", "delay", "oom"):
+        if action not in ("error", "delay", "oom", "partition", "drop"):
             raise ValueError(f"fault action {action!r} is not supported by "
-                             "this port (error, delay, oom)")
+                             "this port (error, delay, oom, partition, "
+                             "drop)")
         if prob is not None and not 0.0 <= prob <= 1.0:
             raise ValueError(f"fault prob must be in [0,1], got {prob}")
         self.site = site
@@ -137,7 +144,8 @@ def list_faults() -> list[dict]:
 def fire(site: str, **ctx) -> dict | None:
     """Evaluate ``site``'s failpoints against this hit: ``error`` raises,
     ``oom`` raises ``torch.OutOfMemoryError``, ``delay`` sleeps and returns
-    its spec.  None when nothing triggered."""
+    its spec, a site-interpreted action returns its spec.  None when
+    nothing triggered."""
     with _lock:
         fps = list(_registry.get(site, ()))
     for fp in fps:
@@ -148,6 +156,8 @@ def fire(site: str, **ctx) -> dict | None:
             return fp.to_json()
         if fp.action == "error":
             raise FaultError(f"injected fault at {site}")
+        if fp.action != "oom":
+            return fp.to_json()  # site-interpreted
         import torch
         raise torch.OutOfMemoryError(
             f"CUDA out of memory: injected fault at {site}")

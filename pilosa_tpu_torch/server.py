@@ -1,22 +1,147 @@
-"""Serve an index directory over REST on the torch device:
+"""Composition root: holder, executor, API, the REST server (HTTPS with a
+tls block) and, with ``grpc_bind``, the gRPC server, opened and closed in
+``pilosa_tpu.server``'s order from one :class:`~pilosa_tpu_torch.cli.
+config.Config`.
+
+The port has no cluster, scrubber, diagnostics or metrics registry:
+:func:`~pilosa_tpu_torch.cli.config.check_served` refuses a config that
+asks for one before anything opens.
+
+Also a thin entry point over the same config::
 
     python -m pilosa_tpu_torch.server --data-dir D --bind H:P [--device cpu]
         [--query-timeout SECONDS] [--fsync]
 
 Without ``--device`` the server runs on the CUDA device and refuses to
 start when there is none.  ``--query-timeout`` caps every query's
-``?timeout=`` (0, the default: no cap).  ``--fsync`` (the reference's
-``fsync`` config key) makes every acknowledged write durable: each
-import batch fsyncs every op-log it touched once before it answers.
+``?timeout=`` (0, the default: no cap).  ``--fsync`` makes every
+acknowledged write durable: each import batch fsyncs every op-log it
+touched once before it answers.  ``python -m pilosa_tpu_torch.cli
+server`` takes the whole config.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import logging
+import signal
+import sys
 
-from pilosa_tpu_torch.api import API, Server
+import torch
+
+from pilosa_tpu_torch import fault
+from pilosa_tpu_torch.api import API, Server as HttpServer
+from pilosa_tpu_torch.api import tls as tlsmod
+from pilosa_tpu_torch.cli import config as cfgmod
+from pilosa_tpu_torch.cli.config import Config
 from pilosa_tpu_torch.exec import Executor
-from pilosa_tpu_torch.store import Holder
+from pilosa_tpu_torch.store import Holder, syswrap
+
+
+def get_logger(verbose: bool = False) -> logging.Logger:
+    """The port's logger, one text line per record on stderr."""
+    log = logging.getLogger("pilosa_tpu_torch")
+    if not log.handlers:
+        h = logging.StreamHandler()
+        h.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+        log.addHandler(h)
+    log.setLevel(logging.DEBUG if verbose else logging.INFO)
+    return log
+
+
+class PilosaTPUServer:
+    def __init__(self, cfg: Config):
+        cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        cfgmod.check_served(cfg, cuda_devices=cuda)
+        self.cfg = cfg
+        self.logger = get_logger(cfg.verbose)
+        self.holder = Holder(cfg.data_dir, fsync=cfg.fsync)
+        self.executor: Executor | None = None
+        self.api: API | None = None
+        self.http: HttpServer | None = None
+        self.grpc = None
+
+    def open(self) -> "PilosaTPUServer":
+        cfg = self.cfg
+        if cfg.faults:
+            # armed before anything opens, so boot-time seams fire too
+            fault.configure(cfg.faults)
+        syswrap.GLOBAL.set_max(cfg.max_map_count)
+        self.holder.open()
+        self.executor = Executor(
+            self.holder, device=cfg.device or None,
+            plane_budget=cfg.plane_budget_bytes,
+            count_batch_window=cfg.count_batch_window,
+            max_concurrent=cfg.max_concurrent_queries,
+            plane_sidecars=cfg.plane_sidecars,
+            delta_cells=cfg.delta_buffer_cells,
+            delta_compact_fraction=cfg.delta_compact_fraction,
+            tree_fusion=cfg.tree_fusion,
+            dispatch_pipeline_depth=cfg.dispatch_pipeline_depth,
+            solo_fastlane=cfg.solo_fastlane,
+            dispatch_watchdog_seconds=cfg.dispatch_watchdog_seconds,
+            device_health_probe_seconds=cfg.device_health_probe_seconds,
+            plane_paging=cfg.plane_paging,
+            plane_page_bytes=cfg.plane_page_bytes,
+            tenant_byte_quota=cfg.tenant_byte_quota,
+            tenant_qps_quota=cfg.tenant_qps_quota,
+            tenant_slot_quota=cfg.tenant_slot_quota)
+        self.api = API(self.holder, self.executor,
+                       query_timeout=cfg.query_timeout)
+        tls_cfg = cfgmod.tls_of(cfg)
+        ssl_ctx = tlsmod.server_context(tls_cfg)
+        if ssl_ctx is not None:
+            self.logger.info("tls: serving HTTPS%s",
+                             " with required client certs"
+                             if tls_cfg.enable_client_auth else "")
+        self.http = HttpServer(self.api, cfg.host, cfg.port,
+                               ssl_context=ssl_ctx).start()
+        if cfg.grpc_bind:
+            from pilosa_tpu_torch.api.grpc import GrpcServer
+            ghost, _, gport = cfg.grpc_bind.rpartition(":")
+            self.grpc = GrpcServer(
+                self.api, ghost or "127.0.0.1", int(gport),
+                credentials=tlsmod.grpc_server_credentials(tls_cfg),
+            ).start()
+            self.logger.info("grpc: listening on %s:%d",
+                             ghost or "127.0.0.1", self.grpc.port)
+        return self
+
+    def close(self) -> None:
+        if self.grpc is not None:
+            self.grpc.close()
+        if self.http is not None:
+            self.http.close()
+        if self.executor is not None:
+            self.executor.close()
+        self.holder.close()
+
+    @property
+    def port(self) -> int:
+        return self.http.address[1]
+
+    @property
+    def device(self) -> str:
+        """The serving device and, on a card, its name."""
+        dev = self.executor.device
+        if dev.type == "cuda":
+            return f"{dev} ({torch.cuda.get_device_name(dev)})"
+        return str(dev)
+
+
+def serve_until_signalled(srv: PilosaTPUServer) -> None:
+    """Serve until SIGINT or SIGTERM, then close the server."""
+    stop: list = []
+    signal.signal(signal.SIGINT, lambda *a: stop.append(1))
+    signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+    try:
+        while not stop:
+            signal.pause()
+    finally:
+        srv.logger.info("shutting down")
+        srv.close()
 
 
 def main(argv=None) -> None:
@@ -25,28 +150,21 @@ def main(argv=None) -> None:
     p.add_argument("--bind", default="127.0.0.1:10101")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device")
-    p.add_argument("--query-timeout", type=float, default=0.0,
+    p.add_argument("--query-timeout", type=float, default=None,
                    help="cap on a query's timeout in seconds (0: none)")
-    p.add_argument("--fsync", action="store_true",
+    p.add_argument("--fsync", action="store_true", default=None,
                    help="fsync op-log appends (once per import batch)")
     args = p.parse_args(argv)
-    host, _, port = args.bind.rpartition(":")
-    holder = Holder(args.data_dir, fsync=args.fsync).open()
-    executor = Executor(holder, device=args.device)
-    server = Server(API(holder, executor, query_timeout=args.query_timeout),
-                    host or "127.0.0.1", int(port))
-    print(f"pilosa_tpu_torch serving {args.data_dir} on "
-          f"{server.address[0]}:{server.address[1]} ({executor.device})",
-          flush=True)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.close()
-        executor.close()
-        holder.close()
+    cfg = cfgmod.load(overrides={
+        "data_dir": args.data_dir, "bind": args.bind, "device": args.device,
+        "query_timeout": args.query_timeout, "fsync": args.fsync})
+    srv = PilosaTPUServer(cfg).open()
+    host, port = srv.http.address
+    print(f"pilosa_tpu_torch serving {cfg.data_dir} on {host}:{port} "
+          f"({srv.executor.device})", flush=True)
+    srv.logger.debug("effective config: %s", json.dumps(cfg.effective()))
+    serve_until_signalled(srv)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

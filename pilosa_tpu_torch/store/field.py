@@ -116,6 +116,9 @@ class Field:
         self.views: dict[str, View] = {}
         self._row_attrs = None
         self._lock = threading.RLock()
+        # set once the field is deleted: a plane built from it afterwards
+        # is never cached
+        self.deleted = False
 
     def open(self) -> "Field":
         meta = os.path.join(self.path, ".meta")
@@ -140,9 +143,24 @@ class Field:
     def close(self) -> None:
         for v in self.views.values():
             v.close()
-        if self._row_attrs is not None:
-            self._row_attrs.close()
-            self._row_attrs = None
+        self._close_attrs()
+
+    def discard(self) -> None:
+        """Close a field that is being deleted: marked deleted, every view
+        closed without compacting, and the attribute store closed so its
+        file's space is freed when the directory goes."""
+        self.deleted = True
+        with self._lock:
+            views = list(self.views.values())
+        for v in views:
+            v.discard()
+        self._close_attrs()
+
+    def _close_attrs(self) -> None:
+        with self._lock:
+            if self._row_attrs is not None:
+                self._row_attrs.close()
+                self._row_attrs = None
 
     @property
     def row_attrs(self) -> AttrStore:

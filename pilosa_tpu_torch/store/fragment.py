@@ -186,6 +186,21 @@ class Fragment:
             self._drop_snapshot()
             self._open = False
 
+    def discard(self) -> None:
+        """Close a fragment whose files are about to be removed: its
+        op-log state is dropped, not compacted (the reference compacts it
+        on close, then removes the file).  Taking the lock waits out a
+        compaction in progress; a later one finds the fragment closed, and
+        an expansion finds no rows, so it writes no ``.dense`` image."""
+        with self.lock:
+            self._drop_snapshot()
+            self.rows = {}
+            self.dense = {}
+            self._recent.clear()
+            self._rc_cache = None
+            self.op_n = 0
+            self._open = False
+
     # -- reads --------------------------------------------------------------
 
     def _ensure_row(self, row_id: int) -> None:

@@ -15,10 +15,12 @@ from __future__ import annotations
 import logging
 import os
 import re
+import shutil
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from pilosa_tpu_torch.store.field import FieldOptions
 from pilosa_tpu_torch.store.index import Index
 
 _log = logging.getLogger("pilosa_tpu_torch.store")
@@ -36,6 +38,7 @@ class SnapshotQueue:
         self._stop = False
         self._thread: threading.Thread | None = None
         self._active = 0
+        self._current = None  # the fragment being compacted
         self.compactions = 0
         self.last_compaction_seconds = 0.0
         self.last_compaction_span: tuple[float, float] | None = None
@@ -81,12 +84,25 @@ class SnapshotQueue:
                 frag = self._pending.pop(0)
                 self._inq.discard(id(frag))
                 self._active += 1
+                self._current = frag
             try:
                 self._compact(frag)
             finally:
                 with self._cv:
                     self._active -= 1
+                    self._current = None
                     self._cv.notify_all()
+
+    def forget(self, path: str) -> None:
+        """Drop the queued fragments under ``path`` (a directory being
+        deleted) and wait out a compaction of one of them in progress."""
+        prefix = os.path.join(path, "")
+        with self._cv:
+            self._pending = [f for f in self._pending
+                             if not f.path.startswith(prefix)]
+            self._inq = {id(f) for f in self._pending}
+            self._cv.wait_for(lambda: self._current is None
+                              or not self._current.path.startswith(prefix))
 
     def pending(self) -> int:
         """Fragments queued or being compacted."""
@@ -186,6 +202,28 @@ class Holder:
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
 
+    def delete_index(self, name: str, release=None) -> None:
+        """Remove an index and its directory (``KeyError`` when absent).
+        The reference closes it first, which compacts every dirty
+        fragment only for the files to be removed; the port discards
+        them instead (:meth:`Index.discard`), drops its queued
+        compactions, and runs ``release(path)`` (the caller's, to close
+        the key stores and drop the cached planes) before the removal."""
+        with self._lock:
+            idx = self.indexes.pop(name, None)
+            if idx is None:
+                raise KeyError(name)
+            idx.discard()
+            self.forget_path(idx.path)
+            if release is not None:
+                release(idx.path)
+            shutil.rmtree(idx.path, ignore_errors=True)
+
+    def forget_path(self, path: str) -> None:
+        """Drop the background compactions queued under ``path``."""
+        if self.snapshot_queue is not None:
+            self.snapshot_queue.forget(path)
+
     def schema(self) -> list[dict]:
         """JSON-able schema dump, the shape ``pilosa_tpu`` returns."""
         out = []
@@ -216,3 +254,29 @@ class Holder:
                             "createdAt": idx.created_at,
                             "fields": fields})
         return out
+
+    def apply_schema(self, schema: list[dict]) -> None:
+        """Create the indexes and fields of a schema dump that are
+        missing (the reference's restore and schema sync)."""
+        for ispec in schema:
+            idx = self.indexes.get(ispec["name"])
+            if idx is None:
+                opts = ispec.get("options", {})
+                idx = self.create_index(
+                    ispec["name"], keys=opts.get("keys", False),
+                    track_existence=opts.get("trackExistence", True),
+                    created_at=ispec.get("createdAt", 0.0))
+            for fspec in ispec.get("fields", []):
+                if fspec["name"] in idx.fields:
+                    continue
+                o = fspec.get("options", {})
+                idx.create_field(fspec["name"], FieldOptions(
+                    type=o.get("type", "set"), keys=o.get("keys", False),
+                    cache_type=o.get("cacheType", "ranked"),
+                    cache_size=o.get("cacheSize", 50000),
+                    time_quantum=o.get("timeQuantum", ""),
+                    min=o.get("min"), max=o.get("max"),
+                    base=o.get("base", 0), bit_depth=o.get("bitDepth", 0),
+                    scale=o.get("scale", 0), epoch=o.get("epoch", ""),
+                    time_unit=o.get("timeUnit", "s"),
+                    created_at=fspec.get("createdAt", 0.0)))

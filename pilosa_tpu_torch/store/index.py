@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 import time
 
@@ -66,9 +67,22 @@ class Index:
     def close(self) -> None:
         for f in self.fields.values():
             f.close()
-        if self._column_attrs is not None:
-            self._column_attrs.close()
-            self._column_attrs = None
+        self._close_attrs()
+
+    def discard(self) -> None:
+        """Close an index that is being deleted: every field discarded
+        (:meth:`Field.discard`) and the column attribute store closed."""
+        with self._lock:
+            fields = list(self.fields.values())
+        for f in fields:
+            f.discard()
+        self._close_attrs()
+
+    def _close_attrs(self) -> None:
+        with self._lock:
+            if self._column_attrs is not None:
+                self._column_attrs.close()
+                self._column_attrs = None
 
     def create_field(self, name: str,
                      options: FieldOptions | None = None) -> Field:
@@ -88,6 +102,20 @@ class Index:
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
+
+    def delete_field(self, name: str, release=None) -> None:
+        """Remove a field and its directory (``KeyError`` when absent).
+        Its fragments are discarded, not compacted, and ``release(path)``
+        (the caller's, to drop what else holds the field) runs before the
+        directory is removed."""
+        with self._lock:
+            f = self.fields.pop(name, None)
+            if f is None:
+                raise KeyError(name)
+            f.discard()
+            if release is not None:
+                release(f.path)
+            shutil.rmtree(f.path, ignore_errors=True)
 
     @property
     def column_attrs(self) -> AttrStore:
@@ -122,6 +150,7 @@ class Index:
 
     def available_shards(self) -> list[int]:
         shards: set[int] = set()
-        for f in self.fields.values():
+        # a copy: a field created meanwhile must not break the iteration
+        for f in list(self.fields.values()):
             shards.update(f.available_shards())
         return sorted(shards)

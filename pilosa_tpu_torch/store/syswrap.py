@@ -35,6 +35,11 @@ class MapPool:
         self._lock = threading.Lock()
         self._order: OrderedDict = OrderedDict()  # id -> weakref(fragment)
 
+    def set_max(self, n: int) -> None:
+        """Cap live maps at ``n`` (the ``max_map_count`` config key),
+        never past half the descriptor limit."""
+        self.max_maps = max(1, min(int(n), default_max_maps()))
+
     @property
     def live(self) -> int:
         with self._lock:

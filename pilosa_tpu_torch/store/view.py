@@ -80,3 +80,10 @@ class View:
         with self._lock:
             for frag in self.fragments.values():
                 frag.close()
+
+    def discard(self) -> None:
+        """Close every fragment without compacting it (:meth:`Fragment.
+        discard`): the view's files are about to be removed."""
+        with self._lock:
+            for frag in self.fragments.values():
+                frag.discard()

@@ -56,6 +56,13 @@ class ResidencyGovernor:
         # recency value resets
         self._hits.pop(key, None)
 
+    def forget(self, index: str) -> None:
+        """Drop the telemetry of one index's keys (its entries were
+        invalidated: a recreated index starts cold)."""
+        for d in (self._hits, self._build_s):
+            for k in [k for k in list(d) if k[1] == index]:
+                d.pop(k, None)
+
     def keep_score(self, key, nbytes: int) -> float:
         """Higher = more worth keeping; 0.0 without recorded hits."""
         self._maybe_decay()

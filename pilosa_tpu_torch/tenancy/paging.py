@@ -135,7 +135,8 @@ class PlanePager:
         ps = cache.build_rows_plane(field, view_name, page_shards, row_ids,
                                     r_pad, tally=False, sidecar_write=True)
         dt = time.perf_counter() - t0
-        cache._insert_entry(key, gens, ps, ps.plane.numel() * 4, lease=True)
+        cache._insert_entry(key, gens, ps, ps.plane.numel() * 4, field,
+                            lease=True)
         if g is not None:
             g.note_build(key, dt)
         with self._lock:
@@ -178,6 +179,12 @@ class PlanePager:
         return totals
 
     # -- telemetry ----------------------------------------------------------
+
+    def forget(self, tenant: str) -> None:
+        """Drop a deleted tenant's page hits, misses and page-ins."""
+        with self._lock:
+            for d in (self._t_hits, self._t_misses, self._t_page_ins):
+                d.pop(tenant, None)
 
     def _note(self, d: dict, tenant: str) -> None:
         with self._lock:

@@ -89,6 +89,13 @@ class TenantQos:
             f"retry later", tenant, quota, kind,
             retry_after=max(0.05, retry_after))
 
+    def forget(self, tenant: str) -> None:
+        """Drop a deleted tenant's token bucket and shed count (its
+        in-flight queries still release their slots)."""
+        with self._lock:
+            self._buckets.pop(tenant, None)
+            self._sheds.pop(tenant, None)
+
     def sheds(self, tenant: str) -> int:
         return self._sheds.get(tenant, 0)
 

@@ -8,7 +8,8 @@ CPU; and the robustness paths on the card: a real device OOM recovered by
 stage 1, a window quarantined while its kernels still run, and the
 ``distinct`` batcher kind; and the plane build's builder pool on the card
 against the serial CPU build, a build from ``.dense`` images against the
-cold one, and a page-in from images against one from snapshots.
+cold one, and a page-in from images against one from snapshots; and a
+deleted field's device bytes freed, and the CLI's server on the card.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -1084,3 +1085,93 @@ def test_crash_restart_reads_images_warm_and_imports_durably(dev, tmp_path):
         server.close()
         ex2.close()
         h2.close()
+
+
+# -- the single-node API and the CLI -----------------------------------------
+
+
+def test_delete_field_frees_its_plane_and_recreated_serves(dev, tmp_path):
+    """A field's resident plane on the card: deleting the field drops
+    every plane of its index and frees their device bytes; the field
+    recreated and written answers what the CPU answers."""
+    import gc
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    holder = _budget_holder(str(tmp_path / "d"))
+    api = API(holder, Executor(holder, device=dev))
+    planes = api.executor.planes
+    try:
+        q = "".join(f"Count(Row(f={r}))" for r in range(8))
+        want = api.query("i", q)
+        planes.wait_builds()
+        assert api.query("i", q) == want
+        assert api.query("i", "TopN(f, n=3)")["results"]
+        planes.wait_builds()
+        resident = planes.tenant_bytes("i")
+        assert resident > 0
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        api.delete_field("i", "f")
+        gc.collect()
+        torch.cuda.synchronize()
+        assert planes.tenant_bytes("i") == 0
+        assert mem0 - torch.cuda.memory_allocated() >= resident
+        api.create_field("i", "f")
+        api.import_bits("i", "f", row_ids=[1, 1, 2, 7],
+                        col_ids=[3, (1 << 20) + 3, 5, 4 << 20])
+        cpu = API(holder, Executor(holder, device="cpu",
+                                   count_batch_window="off",
+                                   tree_fusion=False))
+        for _ in range(2):
+            for pql in (q, "TopN(f, n=3)",
+                        "Count(Intersect(Row(f=1), Row(g=0)))"):
+                assert api.query("i", pql) == cpu.query("i", pql), pql
+            planes.wait_builds()
+    finally:
+        api.executor.close()
+        holder.close()
+
+
+def test_cli_server_answers_on_the_card(dev, tmp_path):
+    """``python -m pilosa_tpu_torch.cli server`` with no ``--device``
+    serves on the card: its log names the CUDA device, a Count answers
+    exactly, and SIGTERM closes it with exit code 0."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from pilosa_tpu_torch.api.client import Client
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PILOSA_")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--bind",
+         "127.0.0.1:0", "--data-dir", str(tmp_path / "d")], cwd=repo,
+        env=env, stderr=subprocess.PIPE, text=True)
+    try:
+        port = None
+        for _ in range(50):
+            line = proc.stderr.readline()
+            if "listening on http://127.0.0.1:" in line:
+                assert "device=cuda" in line, line
+                port = int(line.split("127.0.0.1:")[1].split()[0])
+                break
+        assert port is not None
+        c = Client("127.0.0.1", port)
+        c.create_index("i")
+        c.create_field("i", "f")
+        cols = list(range(0, 3 << 20, 997))
+        assert c.import_bits("i", "f", rowIDs=[1] * len(cols),
+                             columnIDs=cols) == len(cols)
+        assert c.query("i", "Count(Row(f=1))TopN(f, n=1)") == \
+            [len(cols), [{"id": 1, "count": len(cols)}]]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        proc.stderr.close()

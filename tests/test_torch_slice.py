@@ -399,7 +399,9 @@ def test_import_hygiene():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, pilosa_tpu_torch.server, pilosa_tpu_torch.api, "
-            "pilosa_tpu_torch.engine.cuda_kernels; "
+            "pilosa_tpu_torch.engine.cuda_kernels, "
+            "pilosa_tpu_torch.cli.main, pilosa_tpu_torch.api.client, "
+            "pilosa_tpu_torch.api.tls, pilosa_tpu_torch.api.grpc; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pilosa_tpu')]; "
             "assert not bad, bad")

@@ -13,7 +13,7 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Fourteen phases; any failure raises and the exit code is non-zero:
+Fifteen phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -237,7 +237,42 @@ Fourteen phases; any failure raises and the exit code is non-zero:
    process (the second process's launches are not counted; its answers
    are checked).  gRPC and TLS are not driven: the card machine has no
    grpcio, and nothing there may be relied on to make certificates.
-14. Print the ``kernels`` JSON line, the card's name and power limit, and
+14. Observability and storage integrity, on ``bench`` as phase 13
+   leaves it, through an executor with a metrics registry
+   (``pilosa_tpu_torch.obs.Stats``) sharing the plane cache, behind its
+   own REST server, with the reference's 1% trace sample and 1 s slow
+   log: (a) a burst of 32 clients x 3 passes of phase 2's mix (the
+   32-Count, the 4-Count, the filtered TopN and a compound Count), its
+   requests/s beside phase 3's (no registry), then a ``/metrics``
+   scrape: every expected family present, ``kernel_dispatch_seconds``
+   counts by kind equal to the batcher's groups,
+   ``kernel_bytes_scanned_total`` equal to the cost ledger's bytes, the
+   window and item counters equal to the batcher's, and every value the
+   ``kernel_bandwidth_gbps`` gauge took in (0, 3350] GB/s; (b)
+   ``?profile`` on sequential requests (the 32-Count, a compound Count,
+   the filtered TopN, a GroupBy): each request's kernels timed with CUDA
+   events (``cuda_kernels.EVENTS``) <= its root's ledger
+   ``deviceSeconds`` <= its wall; (c) a burst over ``bench`` and ``k``:
+   every window's apportioned shares sum exactly to its seconds and the
+   tenants' seconds to the ledger's total, then a
+   ``tenant_device_seconds_quota`` below ``k``'s recent seconds sheds it
+   with a 503 ``tenantThrottled{kind: device-seconds}``; (d) phase 11's
+   10 ms watchdog on a windowed GroupBy Max: a 500, the ``/debug/flight``
+   ring holding the run-up (enqueue, dispatch, readback) and the trip
+   (watchdog_trip, quarantine, incident, governor), an incident file under
+   ``_flight``, a probe back to healthy; (e) one byte of one ``f``
+   snapshot flipped in place (after an inline compaction of that
+   fragment): the scrubber at 1 GiB/s over ``f``'s last 32 fragments (a
+   cut: all 477 took 14.9 s at the card machine's disk speed)
+   quarantines it, the next 32-Count equals the oracle with that shard's rows empty,
+   a write to the shard answers 503 ``storageFault``, and ``cli check``
+   of a copy of the fragment prints BAD; (f) last (a profiler session
+   slows what follows it), ``POST /debug/profile?seconds=1`` while
+   requests run: its Chrome trace names every hand kernel launched
+   meanwhile.  The phase must launch ``count``, ``row_counts`` and
+   ``selected_row_counts``; launch counters are reset at the start and
+   read at the end.
+15. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own, and the free disk before
    phase 2.
@@ -1106,6 +1141,11 @@ def burst(api, expect: dict, clients: int = CLIENTS,
                                              for q in mix)}
 
 
+# requests/s of each configuration's first timed burst (phase 3's), which
+# phase 14's instrumented burst is printed beside
+BURST_RATES: dict = {}
+
+
 def concurrent_phase(apis: dict, expect: dict, cuda: bool,
                      clients: int = CLIENTS, passes: int = PASSES,
                      profile: bool = True) -> dict:
@@ -1135,6 +1175,7 @@ def concurrent_phase(apis: dict, expect: dict, cuda: bool,
         b1 = ex.serving_stats()
         launches[name] = launched
         reqs = run["requests"]
+        BURST_RATES.setdefault(name, reqs / run["wall"])
         log(f"[{name}] {clients} clients x {passes} passes: {reqs} "
             f"requests in {run['wall']:.3f} s = {reqs / run['wall']:.1f} "
             f"requests/s, {run['counts'] / run['wall']:.1f} Count "
@@ -1220,11 +1261,11 @@ def _executor(holder, **kw):
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES,
                 seed: int = 42, **api_kw) -> dict:
-    """Phases 2 to 13 over one holder; returns the
+    """Phases 2 to 14 over one holder; returns the
     launch counts of each path's run, keyed "serve", "concurrent",
     "concurrent_off", "concurrent_overlay", "ingest", "bsi",
     "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
-    "budget", "robust", "storage" and "api" (``api_kw`` sizes phase 13:
+    "budget", "robust", "storage", "api" and "obs" (``api_kw`` sizes phase 13:
     phase 9's ``k`` and the CLI's pairs)."""
     import torch
     from pilosa_tpu_torch.api import API, Server
@@ -1406,6 +1447,12 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         ap = api_phase(client, executor, oracle["storage"], cuda, device,
                        data_dir, seed, **api_kw)
         log(f"phase 13 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 14: observability and storage integrity ==")
+        op = obs_phase(client, holder, planes, oracle["storage"], cuda,
+                       device, data_dir)
+        log(f"phase 14 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1429,7 +1476,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
-            **sp, **ap}
+            **sp, **ap, **op}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -4124,7 +4171,9 @@ def make_storage(f: np.ndarray, g: np.ndarray, shards: int, seed: int,
     return {"a": (rows, cols, hit_a), "after_a": after_a,
             "d": (rows_d, cols_d, int(hit_d.sum())), "after_d": answers(),
             "m": (mcols, new), "m_after": [int(x) for x in m_after],
-            "sum": oracle["robust"]["bsi"][RQ_SUM]}
+            "sum": oracle["robust"]["bsi"][RQ_SUM],
+            # f's words after (d): phase 14's oracle for a poisoned shard
+            "f": f}
 
 
 def _frags(field, view: str = "standard") -> list:
@@ -4945,6 +4994,462 @@ def api_phase(client, executor, so: dict, cuda: bool, device,
     return {"api": launched}
 
 
+OB_PEAK_GBPS = 3350.0          # H100 SXM HBM3 peak (HBM_BYTES_PER_S)
+OB_SCRUB_RATE = 1 << 30        # (e)'s scrubber budget, bytes per second
+# (e) scrubs f's last fragments, the corrupt one among them: all 477 (4.0
+# GB with their images) took 14.92 s at the card machine's disk speed,
+# and the run passed 720 s by its clock
+OB_SCRUB_FRAGS = 32
+OB_PASSES = 3                  # passes of (a)'s and (c)'s bursts
+OB_K_COUNT = 'Count(Row(f="seg-007"))'   # phase 13's recreated k: 1000
+OB_K_WANT = [K_RECREATE // 100]
+OB_GB = "GroupBy(Rows(f, limit=4))"    # its oracle: f's first 4 counts
+OB_PROFILED = (Q32, QC12, TOPN_G, OB_GB)
+# families (a)'s scrape must carry: the batcher's, the kernels', the
+# pipeline's, the fast lane's, the ledger's, the plane cache's, the
+# executor's and the storage governor's
+OB_FAMILIES = (
+    "batcher_batches", "batcher_items", "batcher_window_seconds",
+    "batcher_window_items", "batcher_window_fill_ratio",
+    "kernel_dispatch_seconds", "kernel_bytes_scanned_total",
+    "kernel_window_bytes", "kernel_bandwidth_gbps", "pipeline_window_fill",
+    "readback_overlap_ratio", "dispatch_pipeline_depth",
+    "solo_fastlane_hits_total", "tenant_device_seconds_total",
+    "tenant_device_bytes_total", "shape_device_seconds_total",
+    "plane_device_seconds_total", "query_device_seconds", "query_seconds",
+    "query_stage_seconds", "query_queue_wait_seconds", "plan_cache_hits",
+    "flight_events_total", "plane_cache_bytes", "plane_cache_hit_ratio",
+    "plane_cache_entries", "plan_cache_entries", "device_health_state",
+    "query_slots_in_use", "fragment_count", "disk_health_state",
+    "storage_fragment_quarantined", "http_requests_total",
+    "http_request_seconds")
+
+
+def _families(text: str) -> dict:
+    return dict(re.findall(r"^# TYPE (\S+) (\S+)$", text, re.M))
+
+
+def _series(text: str, name: str) -> dict:
+    """label text -> value of one family's plain samples."""
+    out = {}
+    for m in re.finditer(rf"^{name}(\{{[^}}]*\}})? (\S+)$", text, re.M):
+        out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def _kind_of(labels: str) -> str:
+    return re.search(r'kind="([^"]+)"', labels).group(1)
+
+
+def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
+              data_dir: str) -> dict:
+    """Phase 14: observability and storage integrity, on ``bench`` as
+    phase 13 leaves it, through an executor with a metrics registry
+    sharing the plane cache, behind its own REST server.  (a) A burst of
+    phase 2's mix with the default 1% trace sample, then a ``/metrics``
+    scrape: the families, the dispatch and byte counters against the
+    batcher's and the ledger's own, the bandwidth gauge's every value in
+    (0, peak].  (b) ``?profile`` on sequential requests: their kernels'
+    CUDA-event ms <= the root's ledger ``deviceSeconds`` <= the wall.
+    (c) A burst over ``bench`` and ``k``: every window's shares sum
+    exactly to its seconds, the tenants' rollups to the total; a
+    device-seconds quota sheds ``k``.  (d) Phase 11's 10 ms watchdog on a
+    windowed GroupBy Max: the flight ring holds the run-up and the trip,
+    and an incident file exists.  (e) One ``f`` snapshot flipped in place:
+    the scrubber (paced) quarantines it, the next 32-Count leaves that
+    shard out, a write to it answers 503, ``cli check`` prints BAD.  (f)
+    Last, ``POST /debug/profile?seconds=1``: its Chrome trace names the
+    kernels launched meanwhile.  Launch counters are reset at the start
+    and read at the end."""
+    import fractions
+    import glob
+
+    import torch
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.obs import Stats
+    from pilosa_tpu_torch.obs.ledger import apportion
+    from pilosa_tpu_torch.store.scrub import Scrubber
+
+    class PeakStats(Stats):
+        """The registry, keeping each gauge's largest value too."""
+
+        def __init__(self):
+            super().__init__()
+            self.peak: dict = {}
+
+        def gauge(self, name, value, **labels):
+            super().gauge(name, value, **labels)
+            if value > self.peak.get(name, float("-inf")):
+                self.peak[name] = value
+
+    if cuda:
+        log(f"phase 14 on {card_line()}")
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    st = PeakStats()
+    base_ex = client.api.executor
+    ex = _executor(holder, device=device, plane_budget=32 << 30, stats=st,
+                   translate=base_ex.translate)
+    ex.planes = planes
+    # the shared cache and the holder's disk governor report here too
+    planes._stats, planes.flight = st, ex.flight
+    holder.storage_health.configure(stats=st)
+    api = API(holder, ex)  # the reference's 1% trace sample, 1 s slow log
+    c14 = _Client(api, cuda)
+    server = Server(api, "127.0.0.1", 0).start()
+    base = "http://%s:%d" % server.address
+    after = so["after_d"]
+    mix = (Q32, Q4, TOPN_G, QC12)
+    names = {**MIX_NAMES, QC12: "compound Count"}
+    nums: dict = {}
+    try:
+        # (a) a burst with a scrape
+        for q in mix:
+            c14.ask(q, after[q], tag=f"phase 14 {names[q]}")
+        run = burst(api, after, CLIENTS, OB_PASSES, mix=mix, names=names)
+        rate = run["requests"] / run["wall"]
+        nums["burst_rps"] = rate
+        nums["phase3_rps"] = BURST_RATES.get("default")
+        st_code, _, raw = _http(base, "/status", method="GET")
+        if st_code != 200 or "costs" not in json.loads(raw):
+            raise AssertionError(f"/status {st_code}")
+        st_code, _, raw = _http(base, "/metrics", method="GET")
+        text = raw.decode()
+        fams = _families(text)
+        missing = [f for f in OB_FAMILIES if f not in fams]
+        if st_code != 200 or missing:
+            raise AssertionError(f"/metrics {st_code}: missing {missing}")
+        b = ex.batcher
+        disp = {_kind_of(k): int(v) for k, v in
+                _series(text, "kernel_dispatch_seconds_count").items()}
+        groups = {k: g for k, (g, _, _) in b.kinds.items()}
+        scanned = sum(_series(text, "kernel_bytes_scanned_total").values())
+        solo = sum(_series(text, "solo_fastlane_hits_total").values())
+        led = ex.ledger.payload()
+        # the ledger books each item's share of its group's bytes as an
+        # int (the reference's): under the scanned bytes by < 1 per item
+        short = scanned - led["bytesScannedTotal"]
+        if (disp != groups or not 0 <= short < b.items + b.fastlane_hits
+                or _series(text, "batcher_batches")[""] != b.windows
+                or _series(text, "batcher_items")[""] != b.items
+                or solo != b.fastlane_hits):
+            raise AssertionError(
+                f"/metrics against the batcher: dispatches {disp} vs "
+                f"groups {groups}; bytes {scanned} vs ledger "
+                f"{led['bytesScannedTotal']}; windows "
+                f"{_series(text, 'batcher_batches')} vs {b.windows}; "
+                f"items {b.items}; fast lane {solo} vs {b.fastlane_hits}")
+        bw_peak = st.peak.get("kernel_bandwidth_gbps", 0.0)
+        bw_last = _series(text, "kernel_bandwidth_gbps")[""]
+        if not 0 < bw_peak <= OB_PEAK_GBPS:
+            raise AssertionError(f"kernel_bandwidth_gbps peaked at "
+                                 f"{bw_peak} GB/s (0, {OB_PEAK_GBPS}]")
+        nums.update(bandwidth_peak_gbps=bw_peak, bandwidth_last_gbps=bw_last,
+                    windows=b.windows, items=b.items,
+                    fastlane=b.fastlane_hits, scrape_bytes=len(raw),
+                    families=len(fams))
+        log(f"[obs] (a) {CLIENTS} x {OB_PASSES} burst with the 1% trace "
+            f"sample and the registry: {rate:.1f} requests/s (phase 3's, no "
+            f"registry: {nums['phase3_rps'] or 0:.1f}); /metrics {len(raw)} "
+            f"bytes, {len(fams)} families; {b.windows} windows, {b.items} "
+            f"items, {b.fastlane_hits} fast-lane hits; dispatch counts by "
+            f"kind {json.dumps(disp)} = the batcher's groups; "
+            f"{scanned:.0f} B scanned, the ledger's {short:.0f} B short "
+            f"(whole bytes per item); "
+            f"kernel_bandwidth_gbps peak {bw_peak} GB/s, last {bw_last}")
+
+        # (b) ?profile on sequential requests
+        want_b = {**after, OB_GB: [[
+            {"group": [{"field": "f", "rowID": r}], "count": c}
+            for r, c in enumerate(after[Q32][:4]) if c]]}
+        for q in OB_PROFILED:  # plans built, rows planes resident
+            c14.ask(q, want_b[q], tag=f"phase 14 (b) {q[:20]}")
+        prof: dict = {}
+        for q in OB_PROFILED:
+            rows = []
+            for _ in range(3):
+                cuda_kernels.EVENTS = []
+                if cuda:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = api.query("bench", q, profile=True)
+                wall = time.perf_counter() - t
+                events, cuda_kernels.EVENTS = cuda_kernels.EVENTS, None
+                if cuda:
+                    torch.cuda.synchronize()
+                kms = sum(a.elapsed_time(e) for _, a, e in events)
+                root = out["profile"][0]
+                dev_s = root["tags"].get("deviceSeconds", 0.0)
+                if out["results"] != want_b[q]:
+                    raise AssertionError(f"(b) profiled {q[:40]}")
+                if not (kms / 1e3 <= dev_s <= wall and dev_s > 0):
+                    raise AssertionError(
+                        f"(b) {q[:40]}: kernels {kms:.4f} ms, ledger "
+                        f"{dev_s * 1e3:.4f} ms, wall {wall * 1e3:.4f} ms")
+                rows.append((kms, dev_s * 1e3, wall * 1e3, len(events),
+                             [c["name"] for c in root["children"]]))
+            prof[names.get(q, q[:24])] = rows
+        for q, rows in prof.items():
+            kms, dms, wms, n, kids = rows[-1]
+            log(f"[obs] (b) {q}: kernels {kms:.4f} ms ({n} launches) <= "
+                f"ledger {dms:.4f} ms <= wall {wms:.4f} ms (the last of "
+                f"{len(rows)}; all hold); spans {kids}")
+        nums["profiled"] = {q: rows[-1][:3] for q, rows in prof.items()}
+
+        # (c) the ledger over two tenants
+        windows: list = []
+        charge_window = ex.ledger.charge_window
+
+        def checked(wall, entries):
+            entries = list(entries)
+            shares = apportion(float(wall), [e[3] for e in entries])
+            acc = 0.0
+            for x in shares:
+                acc += x
+            windows.append((acc == float(wall), len(entries)))
+            return charge_window(wall, entries)
+
+        ex.ledger.charge_window = checked
+        tenants0 = {k: list(v) for k, v in ex.ledger._tenants.items()}
+        total0 = ex.ledger.total_seconds
+        mix2 = (Q32, Q4, OB_K_COUNT)
+        exp2 = {**after, OB_K_COUNT: OB_K_WANT}
+        lat2: dict = {q: [] for q in mix2}
+        errs: list = []
+        start = threading.Barrier(CLIENTS + 1, timeout=600)
+
+        def two(k: int) -> None:
+            try:
+                start.wait()
+                for i in range(OB_PASSES * len(mix2)):
+                    q = mix2[(k + i) % len(mix2)]
+                    index = "k" if q == OB_K_COUNT else "bench"
+                    t = time.perf_counter()
+                    got = api.query(index, q)["results"]
+                    lat2[q].append(time.perf_counter() - t)
+                    if got != exp2[q]:
+                        raise AssertionError(f"{q[:30]}: {got}")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(repr(e)[:300])
+
+        ths = [threading.Thread(target=two, args=(k,), daemon=True)
+               for k in range(CLIENTS)]
+        for th in ths:
+            th.start()
+        start.wait()
+        for th in ths:
+            th.join(600)
+        ex.ledger.charge_window = charge_window
+        if errs or any(th.is_alive() for th in ths):
+            raise AssertionError(f"(c) burst: {errs[:3]}")
+        if not windows or not all(ok for ok, _ in windows):
+            raise AssertionError(f"(c) {sum(not ok for ok, _ in windows)} "
+                                 f"of {len(windows)} windows' shares did "
+                                 "not sum to their seconds")
+        spent = {k: fractions.Fraction(v[0]) - fractions.Fraction(
+            tenants0.get(k, [0.0])[0]) for k, v in ex.ledger._tenants.items()}
+        total = (fractions.Fraction(ex.ledger.total_seconds)
+                 - fractions.Fraction(total0))
+        drift = float(abs(sum(spent.values()) - total))
+        if set(k for k, v in spent.items() if v) != {"bench", "k"} \
+                or drift > 1e-12 * max(1.0, float(total)):
+            raise AssertionError(f"(c) tenants {spent} vs total {total}")
+        ksec = ex.ledger.recent_seconds("k")
+        ex.qos.device_seconds_quota = ksec / 2
+        st_code, _, raw = _http(base, "/index/k/query", OB_K_COUNT.encode())
+        shed = json.loads(raw)
+        ex.qos.device_seconds_quota = 0.0
+        if st_code != 503 or shed.get("tenantThrottled", {}).get(
+                "kind") != "device-seconds":
+            raise AssertionError(f"(c) quota: {st_code} {shed}")
+        c14.ask(OB_K_COUNT, OB_K_WANT, index="k", tag="k after the quota")
+        nums.update(c_windows=len(windows), c_tenants={
+            k: float(v) for k, v in spent.items()}, c_total=float(total))
+        log(f"[obs] (c) burst over bench and k, {CLIENTS} clients x "
+            f"{OB_PASSES * len(mix2)}: "
+            f"{len(windows)} windows, every one's shares summing exactly to "
+            f"its seconds; tenant seconds "
+            f"{json.dumps({k: float(v) for k, v in spent.items()})} sum to "
+            f"{float(total):.6f} s (exact sum off by {drift:.3g} s); a "
+            f"device-seconds quota of {ksec / 2:.6f} s shed k: 503 "
+            f"{json.dumps(shed['tenantThrottled'])}")
+
+        # (d) the watchdog trip in the flight ring
+        gbq = GB_SEQ[3]
+        api.query("bench", gbq)  # its planes resident
+        seq0 = ex.flight.snapshot()["lastSeq"]
+        b.solo_fastlane = False
+        b.watchdog_s = RB_WATCHDOG_S
+        time.sleep(1.2)  # the monitor's last long tick ends
+        if cuda and len(holder.index("bench").available_shards()) \
+                < FULL_SHARDS:
+            log("CUT: a device sleep of ~0.2 s ahead of the GroupBy Max "
+                f"window (fewer shards than {FULL_SHARDS})")
+            torch.cuda._sleep(400_000_000)
+        st_code, _, raw = _http(base, "/index/bench/query", gbq.encode())
+        if st_code != 500 or "pipelineStall" not in json.loads(raw):
+            raise AssertionError(f"(d) watchdog trip: {st_code} {raw[:200]}")
+        _, _, raw = _http(base, "/debug/flight", method="GET")
+        ring = json.loads(raw)
+        mine = [e for e in ring["events"] if e["seq"] > seq0]
+        kinds = [e["kind"] for e in mine]
+        # on the card a launch returns at once and the window ages in its
+        # readback; on the CPU the launch itself computes, and trips
+        for k in ("enqueue", "dispatch", "watchdog_trip", "quarantine",
+                  "incident", "governor") + (("readback",) if cuda else ()):
+            if k not in kinds:
+                raise AssertionError(f"(d) the ring lacks {k}: {kinds}")
+        if kinds.index("enqueue") > kinds.index("watchdog_trip"):
+            raise AssertionError("(d) no run-up before the trip")
+        dumps = sorted(glob.glob(os.path.join(data_dir, "_flight",
+                                              "flight-*.json")))
+        if not dumps or not ring["dumps"]:
+            raise AssertionError("(d) no incident file")
+        dumped = json.load(open(ring["dumps"][-1]))
+        b.watchdog_s = 30.0
+        b.governor.probe_after_s = 0.2
+        time.sleep(0.25)
+        c14.ask(Q4, after[Q4], tag="probe after phase 14's trip")
+        if b.governor.state != "healthy":
+            raise AssertionError(f"(d) the probe left {b.governor.state}")
+        b.solo_fastlane = True
+        trip = next(e for e in mine if e["kind"] == "watchdog_trip")
+        log(f"[obs] (d) watchdog {RB_WATCHDOG_S} s tripped on the GroupBy "
+            f"Max window: 500 pipelineStall; the ring holds {len(mine)} "
+            f"events since (kinds {sorted(set(kinds))}), the trip "
+            f"{json.dumps(trip)}; incident files {len(dumps)}, the last "
+            f"{os.path.basename(ring['dumps'][-1])} with "
+            f"{len(dumped['events'])} events (reason {dumped['reason']}); "
+            "a probe window back to healthy")
+
+        # (e) a corrupt snapshot found by the scrubber
+        f_field = holder.index("bench").field("f")
+        view = f_field.view("standard")
+        shard = max(s for s in view.fragments if s != 0)
+        frag = view.fragment(shard)
+        frag.snapshot()  # a clean fragment: every row in its snapshot
+        fw = so["f"][shard]
+        rows_s = np.bitwise_count(fw).sum(axis=1).astype(np.int64)
+        if [int(x) for x in frag.row_cardinalities()[1]] != \
+                [int(x) for x in rows_s if x]:
+            raise AssertionError("(e) the fragment differs from the oracle")
+        want_e = [int(c - r) for c, r in zip(after[Q32], rows_s)]
+        size = os.path.getsize(frag.path)
+        with open(frag.path, "r+b") as fh:  # one byte, in place
+            fh.seek(size // 2)
+            byte = fh.read(1)
+            fh.seek(size // 2)
+            fh.write(bytes([byte[0] ^ 0xFF]))
+
+        from types import SimpleNamespace as NS
+        frags = {sh: view.fragments[sh]
+                 for sh in sorted(view.fragments)[-OB_SCRUB_FRAGS:]}
+        log(f"CUT: the scrub reads f's last {len(frags)} fragments of "
+            f"{len(view.fragments)}")
+        scope = NS(path=holder.path, storage_health=holder.storage_health,
+                   indexes={"bench": NS(fields={"f": NS(views={
+                       "standard": NS(fragments=frags)})})})
+        f_bytes = sum(os.path.getsize(fr.path) + fr._oplog.size()
+                      + (os.path.getsize(fr.dense_path)
+                         if os.path.exists(fr.dense_path) else 0)
+                      for fr in frags.values())
+        scrub = Scrubber(scope, interval=600.0,
+                         bytes_per_second=OB_SCRUB_RATE, stats=st)
+        t = time.perf_counter()
+        res = scrub.run_once()
+        scrub_s = time.perf_counter() - t
+        entries = holder.storage_health.quarantined_entries()
+        if (res["corrupt"] != 1 or [e["key"] for e in entries]
+                != [("bench", "f", "standard", shard)]):
+            raise AssertionError(f"(e) scrub {res}, quarantined {entries}")
+        if scrub_s < res["bytes"] / OB_SCRUB_RATE - 1.1:
+            raise AssertionError(f"(e) the scrub ran past its budget: "
+                                 f"{res['bytes']} bytes in {scrub_s:.2f} s")
+        builds = planes.builds
+        c14.ask(Q32, want_e, tag="32-Count with a quarantined shard")
+        planes.wait_builds()
+        c14.ask(Q32, want_e, tag="32-Count with a quarantined shard")
+        col = shard * (1 << 20) + 11
+        st_code, _, raw = _http(base, "/index/bench/field/f/import",
+                                json.dumps({"rowIDs": [1],
+                                            "columnIDs": [col]}).encode())
+        fault = json.loads(raw)
+        if st_code != 503 or fault.get("storageFault", {}).get(
+                "kind") != "snapshot":
+            raise AssertionError(f"(e) write: {st_code} {fault}")
+        _, _, raw = _http(base, "/status", method="GET")
+        sh = json.loads(raw)["storageHealth"]
+        tmp = os.path.join(data_dir, "_check")
+        for rel in (".meta", os.path.join("f", ".meta")):
+            os.makedirs(os.path.dirname(os.path.join(tmp, "bench", rel)),
+                        exist_ok=True)
+            shutil.copy(os.path.join(data_dir, "bench", rel),
+                        os.path.join(tmp, "bench", rel))
+        fdir = os.path.join(tmp, "bench", "f", "views", "standard",
+                            "fragments")
+        os.makedirs(fdir)
+        shutil.copy(frag.path, fdir)
+        rc, out = _run_cli(["check", "--data-dir", tmp])
+        shutil.rmtree(tmp, ignore_errors=True)
+        if rc != 1 or "BAD " not in out or "quarantined (snapshot)" not in out:
+            raise AssertionError(f"(e) cli check: {rc} {out[-300:]}")
+        nums.update(scrub=res, scrub_s=scrub_s, f_bytes=f_bytes)
+        log(f"[obs] (e) shard {shard}'s f snapshot flipped at byte "
+            f"{size // 2} of {size}: the scrubber at "
+            f"{OB_SCRUB_RATE / 2 ** 20:.0f} MiB/s over f's last "
+            f"{len(frags)} fragments read {res['bytes']} bytes in "
+            f"{scrub_s:.2f} s and quarantined it; the 32-Count left the "
+            f"shard out (plane builds {builds} -> {planes.builds}), exact; "
+            f"a write answered 503 {json.dumps(fault['storageFault'])}; "
+            f"storageHealth {json.dumps(sh)[:300]}; cli check: "
+            f"{[ln for ln in out.splitlines() if ln.startswith('BAD')]}")
+
+        # (f) last: a profiler capture names the hand kernels
+        stop = threading.Event()
+
+        def load() -> None:
+            while not stop.is_set():
+                for q in (Q32, Q4, QC12):
+                    api.query("bench", q)
+
+        before = dict(cuda_kernels.LAUNCHES)
+        th = threading.Thread(target=load, daemon=True)
+        th.start()
+        try:
+            st_code, _, raw = _http(base, "/debug/profile?seconds=1&dir="
+                                    + os.path.join(data_dir, "_profiles"))
+        finally:
+            stop.set()
+            th.join(60)
+        cap = json.loads(raw)
+        launched_f = {k for k, v in cuda_kernels.LAUNCHES.items()
+                      if v > before[k]}
+        trace = open(cap["traceFile"]).read() if st_code == 200 else ""
+        named = {k for k in launched_f
+                 if re.search(rf"(?<![A-Za-z_]){k}_kernel", trace)}
+        if st_code != 200 or (cuda and named != launched_f) or not named \
+                and cuda:
+            raise AssertionError(f"(f) profile {st_code} {cap}: launched "
+                                 f"{launched_f}, named {named}")
+        log(f"[obs] (f) POST /debug/profile?seconds=1: {st_code}, "
+            f"{len(trace)} bytes of Chrome trace naming "
+            f"{sorted(k + '_kernel' for k in named)}")
+    finally:
+        cuda_kernels.EVENTS = None
+        server.close()
+        ex.close()
+    launched = dict(cuda_kernels.LAUNCHES)
+    log(f"launches in phase 14: {json.dumps(launched)}; wall "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"phase 14 numbers: {json.dumps(nums, default=str)}")
+    if cuda:
+        for k in ("row_counts", "count", "selected_row_counts"):
+            if launched[k] < 1:
+                raise AssertionError(f"phase 14 never launched {k}")
+    return {"obs": launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -4962,6 +5467,10 @@ def main() -> int:
 
     # a minute before the limit, every thread's stack goes to stderr
     faulthandler.dump_traceback_later(RUN_LIMIT_S - 60, exit=False)
+    # slow queries (the reference's 1 s threshold) stay counted and kept
+    # in /debug/slow; a warning line each would bury the phase headers
+    import logging
+    logging.getLogger("pilosa_tpu_torch.api").setLevel(logging.ERROR)
 
     smi = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4990,7 +5499,7 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
-    log("== phase 14: output ==")
+    log("== phase 15: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -3,13 +3,28 @@ queries, imports, CSV export and node info.
 
 The counterpart of ``pilosa_tpu.api.api.API`` for the calls this port
 serves; ``query`` answers the same ``{"results": [...]}`` JSON (and the
-same 504, 500 and 503 bodies), the imports the same changed-bit counts
-and ``export_csv`` the same bytes.
+same 504, 500 and 503 bodies, and the storage layer's 503 / 507), the
+imports the same changed-bit counts and ``export_csv`` the same bytes.
+
+Every query has a trace id: :meth:`API.last_trace_id` on the thread
+that ran it, ``X-Pilosa-Trace-Id`` over REST (the reference returns it in
+the answer dict, which the port keeps ``{"results": ...}``).  The
+retention decision is made before any span exists: a sampled
+(``trace_sample_rate``), profiled or slow-hunted query
+(``slow_query_threshold`` at or under :data:`API.SLOW_TRACE_FLOOR`) runs
+under its own :class:`~pilosa_tpu_torch.obs.Tracer` and is kept in the
+process ring; any other runs under a
+:class:`~pilosa_tpu_torch.obs.LiteTracer` (an id and stage marks), and
+one that still comes in over the threshold lands in the slow log with its
+root and ``stage.*`` breakdown.  A profiled query's root carries the cost
+ledger's ``deviceSeconds`` for its trace.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import random
 import threading
 import time
 from datetime import datetime, timezone
@@ -23,11 +38,15 @@ from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
                                           QueryTimeoutError)
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
+from pilosa_tpu_torch.obs import (GLOBAL_TRACER, LiteTracer, SlowQueryLog,
+                                  Tracer)
+from pilosa_tpu_torch.obs.tracing import set_current_trace_id
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
 from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
 from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_DECIMAL, TYPE_SET,
                                           TYPE_TIME, BoolRowError)
+from pilosa_tpu_torch.store.health import StorageFaultError
 from pilosa_tpu_torch.store.oplog import SyncBatch
 from pilosa_tpu_torch.store.timeq import parse_pql_time
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -76,6 +95,23 @@ class ApiError(Exception):
                        "tenant": exc.tenant, "quota": exc.quota,
                        "kind": exc.kind}})
 
+    @classmethod
+    def storage_fault(cls, exc: StorageFaultError) -> "ApiError":
+        """The storage layer refused a write: a full disk answers 507
+        with ``writeUnavailable{reason: "disk_full"}`` (the node is
+        read-only, reads keep serving), a quarantined fragment 503 with
+        ``storageFault{path, kind}``; both with ``Retry-After``."""
+        kind = getattr(exc, "kind", "unknown")
+        retry = getattr(exc, "retry_after", 1.0)
+        if kind == "disk_full":
+            return cls(str(exc), 507, retry_after=retry,
+                       extra={"writeUnavailable": {
+                           "op": None, "replica": None,
+                           "reason": "disk_full"}})
+        return cls(str(exc), 503, retry_after=retry,
+                   extra={"storageFault": {
+                       "path": getattr(exc, "path", None), "kind": kind}})
+
 
 def field_options_from_json(o: dict) -> FieldOptions:
     """REST field-options body -> FieldOptions."""
@@ -91,16 +127,37 @@ def field_options_from_json(o: dict) -> FieldOptions:
 
 
 class API:
+    # span trees are built only for queries that may be kept: sampled,
+    # profiled, or slow-hunted (a slow threshold at or under this floor
+    # asks for full trees on nearly every query); above it a slow
+    # capture carries the root and its stage breakdown
+    SLOW_TRACE_FLOOR = 0.05
+
     def __init__(self, holder: Holder, executor: Executor,
-                 query_timeout: float = 0.0):
+                 query_timeout: float = 0.0,
+                 trace_sample_rate: float = 0.01,
+                 slow_query_threshold: float = 1.0):
         self.holder = holder
         self.executor = executor
         # seconds; a cap on every request's timeout (0: no cap)
         self.query_timeout = query_timeout
+        # this fraction of ordinary queries is kept in the trace ring
+        self.trace_sample_rate = min(max(float(trace_sample_rate), 0.0),
+                                     1.0)
+        # queries slower than this (seconds) land in GET /debug/slow;
+        # 0 disables
+        self.slow_query_threshold = float(slow_query_threshold)
+        self.slow_log = SlowQueryLog()
+        self.scrubber = None  # set by the server when it runs one
+        self._trace_tls = threading.local()
         self._imported_bits = 0
         self._import_fsyncs = 0
         self.last_import_fsyncs = 0  # fsyncs of the last import's flush
         self._stats_lock = threading.Lock()
+
+    def last_trace_id(self) -> str | None:
+        """The trace id of the last query this thread ran."""
+        return getattr(self._trace_tls, "trace_id", None)
 
     def create_index(self, name: str, options: dict | None = None):
         options = options or {}
@@ -152,33 +209,134 @@ class API:
 
     def query(self, index: str, pql: str,
               shards: list[int] | None = None,
+              profile: bool = False,
               timeout: float | None = None) -> dict:
         """``timeout`` (seconds) bounds the query: past it the answer is
         a 504 with a ``timeout`` block.  ``query_timeout`` caps it (a
         request cannot lift the operator's bound), and None or 0 means
-        the cap."""
+        the cap.  ``profile`` adds the query's span tree (``profile``),
+        its root tagged with the cost ledger's ``deviceSeconds`` and
+        ``deviceShare``.  The trace id: :meth:`last_trace_id`."""
         self._index(index)
         cap = self.query_timeout
         if timeout is None or timeout == 0:
             timeout = cap
         elif cap:
             timeout = min(timeout, cap)
-        t0 = time.perf_counter()
         deadline = (time.monotonic() + timeout) if timeout else None
+        sampled = (self.trace_sample_rate > 0
+                   and random.random() < self.trace_sample_rate)
+        trace = (profile or sampled
+                 or 0 < self.slow_query_threshold <= self.SLOW_TRACE_FLOOR)
+        stats = self.executor.stats
+        if not trace:
+            tracer = LiteTracer()
+            self._trace_tls.trace_id = tracer.trace_id
+            # the thread's active trace id: log lines join the query
+            set_current_trace_id(tracer.trace_id)
+            t0 = time.perf_counter()
+            try:
+                out, err = self._run_query(index, pql, shards, tracer,
+                                           deadline, timeout, t0)
+            finally:
+                set_current_trace_id(None)
+            duration = time.perf_counter() - t0
+            if (self.slow_query_threshold > 0
+                    and duration >= self.slow_query_threshold):
+                root = tracer.slow_root("query", duration, index=index,
+                                        node="local", liteTrace=True)
+                if err is not None:
+                    root.tags["error"] = str(err)
+                stats.count("slow_query_total", 1)
+                self.slow_log.record(self._slow_entry(
+                    index, pql, shards, duration, root, err))
+                GLOBAL_TRACER.record(root)
+                self._log_slow(index, pql, duration, tracer.trace_id)
+            if err is not None:
+                raise err
+            return out
+        tracer = Tracer()
+        tracer.sampled = sampled or profile
+        t0 = time.perf_counter()
+        with tracer.span("query", index=index, node="local") as root:
+            self._trace_tls.trace_id = root.trace_id
+            set_current_trace_id(root.trace_id)
+            try:
+                out, err = self._run_query(index, pql, shards, tracer,
+                                           deadline, timeout, t0)
+            finally:
+                set_current_trace_id(None)
+            if err is not None:
+                root.tags["error"] = str(err)
+        duration = time.perf_counter() - t0
+        dev_s = self.executor.ledger.trace_seconds(root.trace_id)
+        if dev_s is not None and dev_s > 0:
+            root.tags["deviceSeconds"] = round(dev_s, 6)
+            if duration > 0:
+                root.tags["deviceShare"] = round(min(1.0, dev_s / duration),
+                                                 4)
+        slow = (self.slow_query_threshold > 0
+                and duration >= self.slow_query_threshold)
+        if sampled:
+            stats.count("trace_sampled_total", 1)
+        if slow:
+            stats.count("slow_query_total", 1)
+            self.slow_log.record(self._slow_entry(
+                index, pql, shards, duration, root, err))
+            self._log_slow(index, pql, duration, root.trace_id)
+        if sampled or slow or profile:
+            # resolvable at /internal/traces?trace_id= afterwards
+            GLOBAL_TRACER.record(root)
+        if err is not None:
+            raise err
+        if profile:
+            out["profile"] = [sp.to_json() for sp in tracer.finished()]
+        return out
+
+    def _run_query(self, index: str, pql: str, shards, tracer, deadline,
+                   timeout, t0) -> tuple[dict, ApiError | None]:
+        """Execute and classify the error: (answer, ApiError or None);
+        the caller orders the raise and the slow capture."""
         try:
             results = self.executor.execute(index, pql, shards=shards,
-                                            deadline=deadline)
+                                            deadline=deadline, tracer=tracer)
+            return {"results": [result_to_json(r) for r in results]}, None
         except QueryTimeoutError as e:
-            raise ApiError.timeout(e, time.perf_counter() - t0, timeout)
+            return {}, ApiError.timeout(e, time.perf_counter() - t0, timeout)
         except PipelineStalledError as e:
-            raise ApiError.pipeline_stall(e)
+            return {}, ApiError.pipeline_stall(e)
         except TenantThrottledError as e:
-            raise ApiError.tenant_throttled(e)
+            return {}, ApiError.tenant_throttled(e)
         except ExecutorSaturatedError as e:
-            raise ApiError(str(e), 503, retry_after=e.retry_after)
+            return {}, ApiError(str(e), 503, retry_after=e.retry_after)
+        except StorageFaultError as e:
+            return {}, ApiError.storage_fault(e)
         except (ParseError, ExecutionError) as e:
-            raise ApiError(str(e), 400)
-        return {"results": [result_to_json(r) for r in results]}
+            return {}, ApiError(str(e), 400)
+
+    def _slow_entry(self, index: str, pql: str, shards, duration: float,
+                    root, err) -> dict:
+        return {
+            "ts": time.time(), "index": index,
+            "pql": pql if len(pql) <= 4096 else pql[:4096] + "…",
+            "shards": list(shards) if shards is not None else None,
+            "durationMs": round(duration * 1e3, 3),
+            "traceId": root.trace_id,
+            # which path answered: batched, one request at a time, paged,
+            # the row-directory oracle, or the degraded governor
+            "path": self.executor.serving_path(),
+            "error": str(err) if err is not None else None,
+            "profile": root.to_json()}
+
+    @staticmethod
+    def _log_slow(index: str, pql: str, duration: float,
+                  trace_id: str) -> None:
+        """One WARNING per slow capture, carrying the query's trace id
+        (the JSON formatter's ``traceId``)."""
+        logging.getLogger("pilosa_tpu_torch.api").warning(
+            "slow query %.3fs index=%s pql=%s",
+            duration, index, pql if len(pql) <= 200 else pql[:200] + "…",
+            extra={"traceId": trace_id})
 
     # -- imports ------------------------------------------------------------
 
@@ -200,7 +358,19 @@ class API:
         a cluster's duplicate-delivery check; a single node has no
         cluster, so, as in the reference, every delivery applies.  On a
         holder with ``fsync`` on the batch is durable when this returns,
-        with one fsync per op-log it touched (a :class:`SyncBatch`)."""
+        with one fsync per op-log it touched (a :class:`SyncBatch`).
+        Timed on ``import_batch_seconds``."""
+        t0 = time.perf_counter()
+        changed = self._import_bits(index, field, row_ids=row_ids,
+                                    col_ids=col_ids, row_keys=row_keys,
+                                    col_keys=col_keys,
+                                    timestamps=timestamps, clear=clear)
+        self.executor.stats.observe("import_batch_seconds",
+                                    time.perf_counter() - t0)
+        return changed
+
+    def _import_bits(self, index: str, field: str, *, row_ids, col_ids,
+                     row_keys, col_keys, timestamps, clear: bool) -> int:
         idx = self._index(index)
         f = self._field(idx, field)
         rows = self._translate_rows(idx, f, row_ids, row_keys)
@@ -271,7 +441,7 @@ class API:
         except (TypeError, ValueError, OverflowError) as e:
             raise ApiError(str(e))
         idx.note_columns(cols)
-        self._count_imported(changed)
+        self._count_imported(changed, ingest=False)
         return changed
 
     def import_roaring(self, index: str, field: str, shard: int,
@@ -284,6 +454,7 @@ class API:
         takes pair imports only.  The positions are ids on a keyed field
         or index too, as in the reference.  ``op_id`` as for
         :meth:`import_bits`: every delivery applies on a single node."""
+        t0 = time.perf_counter()
         idx = self._index(index)
         f = self._field(idx, field)
         if f.options.type not in (TYPE_SET, TYPE_TIME):
@@ -310,9 +481,16 @@ class API:
         finally:
             self._flush(sb)
         self._count_imported(changed)
+        self.executor.stats.observe("import_batch_seconds",
+                                    time.perf_counter() - t0)
         return changed
 
-    def _count_imported(self, changed: int) -> None:
+    def _count_imported(self, changed: int, ingest: bool = True) -> None:
+        """Tally the bits an import changed; bit imports also count on
+        ``ingest_bits_total`` (as in the reference, value imports do
+        not)."""
+        if changed and ingest:
+            self.executor.stats.count("ingest_bits_total", changed)
         with self._stats_lock:
             self._imported_bits += changed
 
@@ -331,7 +509,22 @@ class API:
                 "timeViews": self.executor.time_status(),
                 "tenancy": self.executor.tenancy_status(),
                 "deviceHealth": self.executor.device_health(),
-                "storage": self.storage_status()}
+                "storage": self.storage_status(),
+                "storageHealth": self.storage_health(),
+                "costs": self.executor.cost_status(),
+                "slowQueries": {**self.slow_log.summary(),
+                                "thresholdSeconds":
+                                    self.slow_query_threshold},
+                "queryStages": self.executor.stats.histogram_summary(
+                    "query_stage_seconds")}
+
+    def storage_health(self) -> dict:
+        """The ``/status`` storageHealth block: the disk governor's state,
+        the quarantine registry and, with a scrubber, its progress."""
+        out = self.holder.storage_health.payload()
+        if self.scrubber is not None:
+            out["scrub"] = self.scrubber.payload()
+        return out
 
     def storage_stats(self) -> dict:
         """Fragments, op-log bytes (write-ahead growth not yet compacted)

@@ -505,8 +505,8 @@ class Client:
         return self._json("GET", "/version")["version"]
 
     def metrics_text(self, openmetrics: bool = False) -> str:
-        """The reference's ``/metrics`` text, which this port does not
-        serve yet."""
-        raise NotImplementedError(
-            "metrics_text is not supported by this port (it serves no "
-            "/metrics yet; ROADMAP item 10)")
+        """``/metrics`` exposition text; ``openmetrics`` negotiates the
+        OpenMetrics format (the only one that carries exemplars)."""
+        headers = ({"Accept": "application/openmetrics-text"}
+                   if openmetrics else None)
+        return self._do("GET", "/metrics", headers=headers).decode()

@@ -3,10 +3,14 @@
 Routes (the single-node surface of ``pilosa_tpu.api.server``; the query
 and import endpoints negotiate JSON or ``application/x-protobuf``)::
 
-    POST   /index/{i}/query[?timeout=s][&shards=a,b]
+    POST   /index/{i}/query[?timeout=s][&shards=a,b][&profile=true]
                                  PQL body (or a protobuf QueryRequest)
                                  -> {"results": [...]} (a protobuf
-                                 QueryResponse when Accept asks for one)
+                                 QueryResponse when Accept asks for one),
+                                 the trace id in X-Pilosa-Trace-Id;
+                                 ``profile`` adds the span tree (JSON
+                                 only: with a protobuf answer it is a
+                                 400)
     POST   /index/{i}/field/{f}/import
                                  JSON {"rowIDs" | "rowKeys",
                                  "columnIDs" | "columnKeys",
@@ -40,8 +44,22 @@ and import endpoints negotiate JSON or ``application/x-protobuf``)::
                                  block (paging, evictions, QoS sheds,
                                  per-tenant residency),
                                  ``deviceHealth`` (the governor's state,
-                                 the watchdog bound, quarantines) and
-                                 ``storage``
+                                 the watchdog bound, quarantines),
+                                 ``storage``, ``storageHealth`` (disk
+                                 state, quarantined fragments, scrub
+                                 progress), ``costs`` (the device-cost
+                                 ledger), ``slowQueries``, ``queryStages``
+    GET    /metrics              Prometheus text (OpenMetrics, with trace
+                                 exemplars, when Accept asks for it)
+    GET    /internal/traces[?trace_id=]
+                                 retained traces (sampled, slow, profiled)
+    GET    /debug/slow           the slow-query ring
+    GET    /debug/flight[?limit=n]
+                                 the flight recorder's ring
+    GET    /debug/threads        every thread's stack
+    POST   /debug/profile[?seconds=s][&dir=d]
+                                 a torch.profiler capture (CPU and CUDA)
+                                 written as a Chrome trace under ``dir``
 
 ``?timeout=`` bounds a query (the API's ``query_timeout`` caps it; 0 means
 the cap): past it the answer is 504 with a ``timeout{elapsedSeconds,
@@ -49,14 +67,17 @@ deadlineSeconds, shardsOutstanding, stage}`` body.  A query whose batcher
 window was quarantined answers 500 with ``pipelineStall{stage,
 elapsedSeconds}``.  A query shed by its tenant's quota answers 503 with
 ``Retry-After`` and a ``tenantThrottled{tenant, quota, kind}`` body; a
-saturated executor answers 503 with ``Retry-After``.  A protobuf query's
-errors answer in protobuf with the same status.  Imports accept an
-``X-Pilosa-Op-Id`` header and, on a single node, apply every delivery.
+saturated executor answers 503 with ``Retry-After``.  A write the
+storage layer refuses answers 503 ``storageFault{path, kind}`` (a
+quarantined fragment) or 507 ``writeUnavailable{reason: "disk_full"}``.
+A protobuf query's errors answer in protobuf with the same status.
+Imports accept an ``X-Pilosa-Op-Id`` header and, on a single node, apply
+every delivery.  Every request counts on ``http_requests_total{method,
+status}`` and ``http_request_seconds{method}``.
 
-The reference's ``/metrics``, ``/debug/*``, ``/internal/*`` and
-``?profile`` are not served yet: they answer 404, and ``?profile`` the
-"not supported by this port" 400.  With an ``ssl_context`` the server
-speaks HTTPS only.
+The reference's cluster routes (``/metrics/cluster``, ``/status/cluster``,
+``/internal/*`` but ``/internal/traces``) are not served.  With an
+``ssl_context`` the server speaks HTTPS only.
 """
 
 from __future__ import annotations
@@ -64,15 +85,21 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import re
 import socket
+import sys
 import threading
+import time
+import traceback
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.api import proto
 from pilosa_tpu_torch.api.api import API, ApiError
+from pilosa_tpu_torch.obs import GLOBAL_TRACER
+from pilosa_tpu_torch.store.health import StorageFaultError
 
 _log = logging.getLogger("pilosa_tpu_torch.api")
 
@@ -88,6 +115,18 @@ def parse_timeout_param(raw: str) -> float:
     if timeout is None or not math.isfinite(timeout) or timeout < 0:
         raise ApiError(f"bad timeout param {raw!r}")
     return timeout
+
+
+# /debug/profile capture bounds: shorter is noise, longer holds the
+# profiler and the handler thread hostage
+PROFILE_SECONDS_MIN = 0.1
+PROFILE_SECONDS_MAX = 60.0
+
+
+def clamp_profile_seconds(seconds: float) -> float:
+    """Clamp a ``?seconds=`` capture window to [PROFILE_SECONDS_MIN,
+    PROFILE_SECONDS_MAX]."""
+    return min(max(seconds, PROFILE_SECONDS_MIN), PROFILE_SECONDS_MAX)
 
 
 def _route(method: str, pattern: str, name: str):
@@ -125,6 +164,12 @@ class Handler(BaseHTTPRequestHandler):
         _route("GET", "/status", "h_status"),
         _route("GET", "/info", "h_info"),
         _route("GET", "/version", "h_version"),
+        _route("GET", "/metrics", "h_metrics"),
+        _route("GET", "/internal/traces", "h_traces"),
+        _route("GET", "/debug/slow", "h_debug_slow"),
+        _route("GET", "/debug/flight", "h_debug_flight"),
+        _route("GET", "/debug/threads", "h_debug_threads"),
+        _route("POST", "/debug/profile", "h_debug_profile"),
     ]
 
     def log_message(self, fmt, *args):
@@ -175,28 +220,43 @@ class Handler(BaseHTTPRequestHandler):
                                   "supported; send Content-Length"}, 411)
             return
         self._body()
-        for m, rx, name in self.ROUTES:
-            hit = rx.match(path)
-            if m == method and hit:
-                break
-        else:
-            self._reply({"error": f"no route {method} {path}"}, 404)
-            return
+        t0 = time.perf_counter()
+        code = 200
         try:
+            for m, rx, name in self.ROUTES:
+                hit = rx.match(path)
+                if m == method and hit:
+                    break
+            else:
+                code = 404
+                self._reply({"error": f"no route {method} {path}"}, 404)
+                return
             getattr(self, name)(**hit.groupdict())
-        except ApiError as e:
+        except (ApiError, StorageFaultError) as e:
+            if isinstance(e, StorageFaultError):
+                # a storage refusal from any handler: the structured
+                # 503 / 507, never a generic 500
+                e = ApiError.storage_fault(e)
+            code = e.status
             # a shed (503) tells the client when to come back
             hdrs = (None if e.retry_after is None
                     else {"Retry-After": str(max(1, int(e.retry_after)))})
             self._reply({"error": str(e), **e.extra}, e.status, hdrs)
         except BrokenPipeError:
-            pass  # the client left
+            code = 499  # the client left
         except Exception as e:  # noqa: BLE001 — the server must not die
+            code = 500
             _log.exception("http 500: %s %s", method, path)
             try:
                 self._reply({"error": f"internal error: {e}"}, 500)
             except BrokenPipeError:
                 pass
+        finally:
+            stats = self.server.stats
+            stats.count("http_requests_total", 1, method=method,
+                        status=str(code))
+            stats.observe("http_request_seconds", time.perf_counter() - t0,
+                          method=method)
 
     def do_GET(self):
         self._dispatch("GET")
@@ -231,31 +291,42 @@ class Handler(BaseHTTPRequestHandler):
                 shards = [int(s) for s in q["shards"][0].split(",") if s]
             except ValueError:
                 raise ApiError(f"bad shards param {q['shards'][0]!r}")
-        if "profile" in q:
-            raise ApiError("?profile is not supported by this port (it has "
-                           "no tracer yet)")
+        # as the reference parses it: a blank ``?profile`` asks nothing
+        profile = any(q.get("profile", ()))
         timeout = None
         if "timeout" in q:
             timeout = parse_timeout_param(q["timeout"][0])
         if not want_proto:
-            self._reply(self.api.query(index, pql, shards=shards,
-                                       timeout=timeout))
+            out = self.api.query(index, pql, shards=shards, profile=profile,
+                                 timeout=timeout)
+            # the trace id rides a header, not the body
+            self._reply(out, headers={
+                "X-Pilosa-Trace-Id": self.api.last_trace_id()})
             return
+        if profile:
+            # a QueryResponse has no profile field: refuse rather than
+            # drop the span tree the caller asked for
+            raise ApiError("?profile is not supported with "
+                           "application/x-protobuf responses")
         # errors answer in protobuf, with the status the JSON surface
         # would give
         status = 200
+        trace_id = None
         try:
             res = self.api.query(index, pql, shards=shards, timeout=timeout)
         except ApiError as e:
             raw = proto.encode_query_response(err=str(e))
             status = e.status
         else:
+            trace_id = self.api.last_trace_id()
             try:
                 raw = proto.encode_query_response(res["results"])
             except ValueError as e:  # a result with no protobuf encoding
                 raw = proto.encode_query_response(err=str(e))
                 status = 400
-        self._reply(raw, status=status, content_type=proto.CONTENT_TYPE)
+        self._reply(raw, status=status, content_type=proto.CONTENT_TYPE,
+                    headers={"X-Pilosa-Trace-Id": trace_id}
+                    if trace_id else None)
 
     @property
     def _op_id(self) -> str | None:
@@ -366,6 +437,116 @@ class Handler(BaseHTTPRequestHandler):
     def h_version(self) -> None:
         self._reply({"version": __version__})
 
+    def _refresh_scrape_gauges(self) -> None:
+        """Point-in-time gauges, refreshed at each scrape: the plane
+        cache's residency, the overlays, the plan cache, the batcher's
+        window, the governor, the admission slots, the storage footprint
+        and the disk governor."""
+        stats = self.server.stats
+        ex = self.api.executor
+        pc = ex.planes.stats()
+        stats.gauge("plane_cache_bytes", pc["bytes"])
+        stats.gauge("plane_cache_budget_bytes", pc["budgetBytes"])
+        stats.gauge("plane_cache_entries", pc["entries"])
+        stats.gauge("plane_cache_incremental_refreshes",
+                    pc["incrementalRefreshes"])
+        stats.gauge("plane_cache_pinned_entries", pc["pinnedEntries"])
+        stats.gauge("plane_lease_count", pc["leases"])
+        stats.gauge("plane_cache_hit_ratio", pc["hitRatio"])
+        stats.gauge("delta_overlay_bits",
+                    ex.planes.delta_stats()["deltaOverlayBits"])
+        stats.gauge("plan_cache_entries", ex.serving_stats()["plans"])
+        if ex.batcher is not None:
+            stats.gauge("count_batcher_window_seconds", ex.batcher._win)
+        stats.gauge("device_health_state", ex.device_health()["stateCode"])
+        stats.gauge("query_slots_in_use", ex.slots_in_use)
+        stats.gauge("query_slots_max", ex.max_concurrent)
+        st = self.api.storage_stats()
+        stats.gauge("oplog_bytes", st["oplogBytes"])
+        stats.gauge("fragment_count", st["fragmentCount"])
+        stats.gauge("snapshot_bytes", st["snapshotBytes"])
+        pay = self.api.holder.storage_health.payload()
+        stats.gauge("disk_health_state", pay["stateCode"])
+        stats.gauge("storage_fragment_quarantined", len(pay["quarantined"]))
+
+    # the only exposition format in which exemplars are legal
+    OPENMETRICS_TYPE = "application/openmetrics-text"
+
+    def h_metrics(self) -> None:
+        self._refresh_scrape_gauges()
+        om = self.OPENMETRICS_TYPE in (self.headers.get("Accept") or "")
+        text = self.server.stats.prometheus_text(openmetrics=om)
+        self._reply(text.encode(),
+                    content_type=(self.OPENMETRICS_TYPE
+                                  + "; version=1.0.0; charset=utf-8"
+                                  if om else "text/plain; version=0.0.4"))
+
+    def h_traces(self) -> None:
+        """Retained traces (sampled, slow, profiled); ``?trace_id=``
+        narrows to one."""
+        spans = GLOBAL_TRACER.finished()
+        want = self.query.get("trace_id", [None])[0]
+        if want:
+            spans = [sp for sp in spans if sp.trace_id == want]
+        self._reply({"traces": [sp.to_json() for sp in spans]})
+
+    def h_debug_slow(self) -> None:
+        api = self.api
+        self._reply({"thresholdSeconds": api.slow_query_threshold,
+                     **api.slow_log.summary(),
+                     "slow": api.slow_log.entries()})
+
+    def h_debug_flight(self) -> None:
+        """The flight recorder's ring, oldest first; ``?limit=`` keeps
+        the newest N events."""
+        raw = self.query.get("limit", ["0"])[0]
+        try:
+            limit = int(raw)
+        except ValueError:
+            raise ApiError(f"bad limit param {raw!r}")
+        self._reply(self.api.executor.flight.snapshot(limit=limit or None))
+
+    def h_debug_threads(self) -> None:
+        """Every thread's Python stack."""
+        names = {t.ident: t.name for t in threading.enumerate()}
+        out = []
+        for ident, frame in sys._current_frames().items():
+            out.append(f"Thread {names.get(ident, '?')} ({ident}):")
+            out.extend(line.rstrip()
+                       for line in traceback.format_stack(frame))
+            out.append("")
+        self._reply("\n".join(out).encode(), content_type="text/plain")
+
+    def h_debug_profile(self) -> None:
+        """A ``torch.profiler`` capture (CPU, and CUDA on a card) of
+        ``?seconds=`` (default 3, clamped) written as a Chrome trace into
+        ``?dir=`` (default ``<data dir>/_profiles``).  A capture slows
+        what runs under it and the burst after it."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        raw = self.query.get("seconds", ["3"])[0]
+        try:
+            seconds = float(raw)
+        except ValueError:
+            raise ApiError(f"bad seconds param {raw!r}")
+        if not math.isfinite(seconds):
+            raise ApiError(f"bad seconds param {raw!r}")
+        seconds = clamp_profile_seconds(seconds)
+        out_dir = (self.query.get("dir", [None])[0]
+                   or os.path.join(self.api.holder.path, "_profiles"))
+        acts = [ProfilerActivity.CPU]
+        if self.api.executor.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            time.sleep(seconds)
+            if self.api.executor.device.type == "cuda":
+                torch.cuda.synchronize(self.api.executor.device)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace-{int(time.time() * 1e3)}.json")
+        prof.export_chrome_trace(path)
+        self._reply({"traceDir": out_dir, "seconds": seconds,
+                     "traceFile": path})
+
 
 class _HTTPServer(ThreadingHTTPServer):
     """Tracks its connections so ``close`` can sever them: with HTTP/1.1
@@ -421,8 +602,11 @@ class Server:
     server_context`)."""
 
     def __init__(self, api: API, host: str = "127.0.0.1", port: int = 10101,
-                 ssl_context=None):
+                 ssl_context=None, stats=None):
         self.httpd = _HTTPServer((host, port), Handler)
+        # the registry /metrics renders and the http_* families count
+        # on: the executor's unless another is given
+        self.httpd.stats = stats if stats is not None else api.executor.stats
         if ssl_context is not None:
             # the handshake runs on the connection's own thread at its
             # first read, not in the accept loop: a client that connects

@@ -14,10 +14,10 @@ server boots):
 ========================================  ==================================
 key                                       verdict
 ========================================  ==================================
-bind, data_dir, verbose, fsync, faults,   served
-query_timeout, grpc_bind, tls_*,
-count_batch_window, plane_budget_bytes,
-delta_buffer_cells,
+bind, data_dir, verbose, log_format,      served
+fsync, faults, query_timeout, grpc_bind,
+tls_*, count_batch_window,
+plane_budget_bytes, delta_buffer_cells,
 delta_compact_fraction, tree_fusion,
 dispatch_pipeline_depth, solo_fastlane,
 dispatch_watchdog_seconds,
@@ -26,9 +26,13 @@ plane_paging, plane_page_bytes,
 tenant_byte_quota, tenant_qps_quota,
 tenant_slot_quota, plane_sidecars,
 max_concurrent_queries, max_map_count,
+stats_backend, statsd_address,
+diagnostics_interval,
+trace_sample_rate, slow_query_threshold,
+scrub_interval_seconds,
+scrub_bytes_per_second,
+disk_min_free_bytes, disk_probe_seconds,
 device
-log_format                                served as "text"; "json" refused
-                                          (item 10)
 mesh                                      served on one device (the
                                           reference places nothing on
                                           one); true with more than one
@@ -38,20 +42,13 @@ anti_entropy_interval,                    (item 11: no cluster); ``name``
 heartbeat_interval, failover_max_depth,   may also equal ``bind``
 hedge_after, breaker_threshold,
 hint_max_age, hint_replay_batch
-stats_backend, statsd_address,            refused unless at the default
-diagnostics_interval                      (item 10)
 kernel_tier ("xla"),                      refused unless at the default:
 dispatch_loop_fusion, fused_warmup,       XLA and JAX knobs (ROADMAP: not
 compilation_cache_dir, jax_coordinator,   to port); the port has one kernel
 jax_num_processes, jax_process_id         tier, its hand kernels
-trace_sample_rate, slow_query_threshold,  default changed to the off value
-scrub_interval_seconds,                   (0); any other value refused
-scrub_bytes_per_second,                   (item 10: no tracer, scrubber or
-disk_min_free_bytes, disk_probe_seconds   disk governor yet)
 ========================================  ==================================
 
-:data:`CHANGED_DEFAULTS` lists the defaults that differ from the
-reference's.
+Every default is the reference's (:data:`CHANGED_DEFAULTS` is empty).
 """
 
 from __future__ import annotations
@@ -82,12 +79,15 @@ class Config:
     breaker_threshold: int = 3
     hint_max_age: float = 300.0
     hint_replay_batch: int = 256
-    diagnostics_interval: float = 0.0
-    # observability (refused: the port has no metrics registry or tracer)
+    diagnostics_interval: float = 0.0   # opt-in usage snapshot; 0 = off
+    # observability: "" = the in-process registry behind /metrics;
+    # "statsd" also emits every observation as a UDP packet
     stats_backend: str = ""
     statsd_address: str = "127.0.0.1:8125"
-    trace_sample_rate: float = 0.0
-    slow_query_threshold: float = 0.0
+    # the fraction of queries whose traces are kept without ?profile
+    trace_sample_rate: float = 0.01
+    # seconds; slower queries land in /debug/slow (0 disables)
+    slow_query_threshold: float = 1.0
     # fault injection: a JSON list of failpoint specs armed at boot
     faults: str = ""
     # serving
@@ -104,11 +104,12 @@ class Config:
     kernel_tier: str = "xla"
     dispatch_loop_fusion: bool = False
     fused_warmup: bool = False
-    # storage integrity (refused: no scrubber or disk governor yet)
-    scrub_interval_seconds: float = 0.0
-    scrub_bytes_per_second: int = 0
-    disk_min_free_bytes: int = 0
-    disk_probe_seconds: float = 0.0
+    # storage integrity: the background scrubber (0 bytes/s: off) and the
+    # disk governor's free-space floor and probe period
+    scrub_interval_seconds: float = 600.0
+    scrub_bytes_per_second: int = 32 << 20
+    disk_min_free_bytes: int = 64 << 20
+    disk_probe_seconds: float = 5.0
     # tenancy
     plane_paging: bool = True
     plane_page_bytes: int = 64 << 20
@@ -146,18 +147,10 @@ class Config:
         return dataclasses.asdict(self)
 
 
-# the defaults that differ from the reference's: each switches on a
-# subsystem the port lacks there, and is off here
-CHANGED_DEFAULTS = {
-    "trace_sample_rate": (0.01, 0.0),
-    "slow_query_threshold": (1.0, 0.0),
-    "scrub_interval_seconds": (600.0, 0.0),
-    "scrub_bytes_per_second": (32 << 20, 0),
-    "disk_min_free_bytes": (64 << 20, 0),
-    "disk_probe_seconds": (5.0, 0.0),
-}
+# the defaults that differ from the reference's: key -> (reference's,
+# port's); none do
+CHANGED_DEFAULTS: dict = {}
 
-_ITEM_10 = "ROADMAP Queue 1 item 10: observability and storage integrity"
 _ITEM_11 = "ROADMAP Queue 1 item 11: cluster"
 _JAX = "ROADMAP: not to port (the port has one kernel tier)"
 
@@ -169,9 +162,6 @@ REFUSED = {
          "anti_entropy_interval", "heartbeat_interval",
          "failover_max_depth", "hedge_after", "breaker_threshold",
          "hint_max_age", "hint_replay_batch"), _ITEM_11),
-    **dict.fromkeys(
-        ("stats_backend", "statsd_address", "diagnostics_interval",
-         "log_format", *CHANGED_DEFAULTS), _ITEM_10),
     **dict.fromkeys(
         ("kernel_tier", "dispatch_loop_fusion", "fused_warmup",
          "compilation_cache_dir", "jax_coordinator", "jax_num_processes",

@@ -8,10 +8,9 @@
   request with ``--workers`` requests in flight.
 - ``export``: a field as CSV.
 - ``check``: an offline check of a closed data directory: every fragment
-  expands fully.  A snapshot whose frame fails its check stops the holder
-  open: the port has no quarantine registry yet, so that prints ``FATAL``
-  (the reference quarantines the fragment and prints ``BAD``); both exit
-  1.
+  expands fully, and every fragment the open quarantined (a snapshot
+  whose frame fails its check) prints ``BAD <path>: quarantined``; any
+  problem exits 1.
 - ``config`` (the effective config as JSON), ``generate-config`` (the
   defaults as TOML) and ``version``.
 - ``backup`` and ``restore`` are not supported by this port and exit 1.
@@ -73,9 +72,11 @@ def _client(cfg: cfgmod.Config):
 
 def cmd_server(args) -> int:
     cfg = _load_cfg(args)
-    from pilosa_tpu_torch.server import (PilosaTPUServer, get_logger,
+    from pilosa_tpu_torch.obs import get_logger
+    from pilosa_tpu_torch.server import (PilosaTPUServer,
                                          serve_until_signalled)
-    log = get_logger(verbose=cfg.verbose)
+    log = get_logger("pilosa_tpu_torch", verbose=cfg.verbose,
+                     fmt=cfg.log_format or None)
     log.info("effective config: %s", json.dumps(cfg.effective()))
     srv = PilosaTPUServer(cfg).open()
     scheme = "https" if cfg.tls_certificate else "http"
@@ -206,6 +207,12 @@ def cmd_check(args) -> int:
                     except Exception as e:  # noqa: BLE001
                         problems += 1
                         print(f"BAD {iname}/{fname}/{vname}/{shard}: {e}")
+    # a corrupt snapshot quarantines its fragment at open instead of
+    # failing it, so the check reads the registry too
+    for entry in h.storage_health.quarantined_entries():
+        problems += 1
+        print(f"BAD {entry['path']}: quarantined "
+              f"({entry['kind']}) {entry['detail']}")
     h.close()
     print(f"{problems} problems" if problems else "all fragments ok")
     return 1 if problems else 0

@@ -12,7 +12,10 @@ Each wrapper takes CUDA ``int32`` tensors (the slot list of
 shape and contiguity and raises on anything else, allocates its output
 with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises
 if the launch was refused, and adds one to ``LAUNCHES[name]``
-(under a lock: several threads launch at once).  The
+(under a lock: several threads launch at once).  While ``EVENTS`` is a
+list, each launch also appends ``(name, start, end)``: CUDA events
+recorded around it on its stream, so a caller can time the kernels of one
+request.  The
 routing in :mod:`pilosa_tpu_torch.engine.kernels` sends CPU tensors to the
 plain PyTorch versions; nothing here falls back.
 """
@@ -38,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # launches per kernel; main-path runs reset and read these
 LAUNCHES = {"row_counts": 0, "selected_row_counts": 0, "count": 0,
             "intersect_count": 0}
+# a list: every launch appends (kernel, start event, end event); None: no
+# events (the default)
+EVENTS: list | None = None
 
 _MAX_BLOCKS = (1 << 31) - 1
 _lock = threading.Lock()
@@ -126,10 +132,18 @@ def _check(name: str, t: torch.Tensor, ndim: int) -> None:
 def _launch(kernel: str, fn, blocks: int, out: torch.Tensor, *args) -> None:
     if blocks > _MAX_BLOCKS:
         raise ValueError(f"{kernel}: {blocks} blocks exceed the grid limit")
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = fn(*args, stream)
+    cur = torch.cuda.current_stream(out.device)
+    events = EVENTS
+    if events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(cur)
+    err = fn(*args, cur.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")
+    if events is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(cur)
+        events.append((kernel, start, end))
 
 
 def _same_device(name: str, a: torch.Tensor, b: torch.Tensor) -> None:

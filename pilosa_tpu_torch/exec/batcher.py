@@ -66,6 +66,21 @@ Robustness (the reference's self-healing pipeline):
   time, read back inline, through the same hand kernels.  A probe window
   after ``probe_after_s`` restores healthy.
 
+**Instruments** (the reference's families, names, labels and buckets):
+``batcher_*`` per window, ``kernel_dispatch_seconds{kind}`` per group
+launch (enqueue only: CUDA launches are asynchronous, so device time
+lands in the readback), ``kernel_bytes_scanned_total{kind}``,
+``kernel_window_bytes`` and ``kernel_bandwidth_gbps`` (a window's bytes
+over its launch seconds plus its packed readback's wall),
+``pipeline_*``, ``readback_overlap_ratio`` and
+``solo_fastlane_hits_total{kind}``.  The cost ledger is charged each
+window's launch seconds plus its readback wall, apportioned over its
+items by bytes; a fast-lane call is charged whole (its wall spans the
+launch and the read).  Each item carries the tenant, plane and trace it
+was built under on the caller's thread, whichever thread launches it.
+The flight recorder rings enqueue, dispatch, readback, deliver, watchdog
+trips and quarantines.
+
 There is no fallback.  A group whose launch or readback raises delivers
 that exception to every item of the group (and counts a governor fault),
 a failing fast-lane call raises to its caller, and the collector serves
@@ -95,11 +110,16 @@ from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
 from pilosa_tpu_torch.exec.fused import shift_leaves
 from pilosa_tpu_torch.exec.health import DeviceHealthGovernor
 from pilosa_tpu_torch.exec.tree import assemble_items
+from pilosa_tpu_torch.obs import NULL_FLIGHT, NULL_LEDGER, NopStats
+from pilosa_tpu_torch.obs.ledger import query_context as _query_ctx
+from pilosa_tpu_torch.obs.metrics import (BYTE_BUCKETS, COUNT_BUCKETS,
+                                          RATIO_BUCKETS)
 
 
 class _Pending:
     __slots__ = ("kind", "nodes", "leaves", "delta", "event", "result",
-                 "error", "deadline", "abandoned", "stage", "delivered")
+                 "error", "deadline", "abandoned", "stage", "delivered",
+                 "tenant", "plane", "trace")
 
     def __init__(self, kind, nodes, leaves, delta=None, deadline=None):
         self.kind = kind      # "count" | "rowcounts" | "selcounts" | "tree"
@@ -124,6 +144,10 @@ class _Pending:
         self.abandoned = False
         self.stage = "queued"
         self.delivered = False
+        # the cost ledger's charge context, stamped on the caller's
+        # thread where the item is built: who pays for its share of the
+        # window, which plane it scans, and the trace it belongs to
+        self.tenant, self.plane, self.trace = _query_ctx()
 
 
 class _Window:
@@ -137,7 +161,8 @@ class _Window:
 
     __slots__ = ("wid", "items", "stage", "t0", "pending", "distinct_futs",
                  "slot_held", "inflight", "done", "faulted", "bounded",
-                 "packed", "host", "event")
+                 "packed", "host", "event", "win_bytes", "charge",
+                 "read_t")
 
     def __init__(self, wid: int, items: list, slot_held: bool):
         self.wid = wid
@@ -154,6 +179,10 @@ class _Window:
         # several groups): the whole-window watchdog defers
         self.bounded = False
         self.packed = self.host = self.event = None
+        self.win_bytes = 0  # bytes the window's launches read
+        self.read_t = 0.0  # its launches done: its readback begins
+        # the ledger's (tenant, shape, plane, byte share, trace) per item
+        self.charge: list = []
 
 
 class CountBatcher:
@@ -179,8 +208,24 @@ class CountBatcher:
     def __init__(self, fused, window_s="adaptive",
                  pipeline_depth: int = PIPELINE_DEPTH,
                  solo_fastlane: bool = True, watchdog_s: float = 5.0,
-                 probe_after_s: float = 5.0, tier: str = "cuda"):
+                 probe_after_s: float = 5.0, tier: str = "cuda",
+                 stats=None, ledger=None, flight=None):
         self.fused = fused
+        self.stats = stats or NopStats()
+        # item counts and ratios, not latencies: their own buckets
+        self.stats.set_buckets("batcher_window_items", COUNT_BUCKETS)
+        self.stats.set_buckets("batcher_window_fill_ratio", RATIO_BUCKETS)
+        self.stats.set_buckets("kernel_window_bytes", BYTE_BUCKETS)
+        self.stats.set_buckets("readback_overlap_ratio", RATIO_BUCKETS)
+        self.stats.set_buckets("pipeline_window_fill", COUNT_BUCKETS)
+        self.ledger = ledger or NULL_LEDGER
+        self.flight = flight or NULL_FLIGHT
+        # per-group launch seconds, taken into the window's charge at
+        # readback (id(group) keys: plain dict writes, no lock)
+        self._disp_s: dict[int, float] = {}
+        # when the reader's last wait on a window's copy returned: the
+        # card is done with that window, and the next one's kernels run
+        self._synced_t = 0.0
         self.adaptive = window_s == "adaptive"
         self.window_s = 0.0 if self.adaptive else float(window_s)
         self._win = self.window_s
@@ -215,7 +260,8 @@ class CountBatcher:
         self._trips = 0
         self._quarantined = 0
         self.governor = DeviceHealthGovernor(probe_after_s=probe_after_s,
-                                             tier=tier)
+                                             tier=tier, stats=self.stats,
+                                             flight=self.flight)
         # solo fast lane: admitted only while no other fast-lane call is
         # in flight, so overlapping callers fall into the window (the
         # adaptive window's pressure signal)
@@ -352,6 +398,7 @@ class CountBatcher:
         self._ensure_watchdog()
 
     def _enqueue(self, p: _Pending) -> _Pending:
+        self.flight.record("enqueue", p.tenant, p.kind)
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher closed")
@@ -378,12 +425,15 @@ class CountBatcher:
             self._fl_active += 1
         return True
 
-    def _fastlane(self, fn, *args):
+    def _fastlane(self, p: _Pending, fn, *args):
         """``fn(*args)`` on the caller's thread when the lane admits it;
-        :data:`_MISS` otherwise.  An exception counts a governor fault and
-        reaches the caller."""
+        :data:`_MISS` otherwise (then ``p`` goes to the window).  An
+        exception counts a governor fault and reaches the caller.  The
+        call's wall spans the launch and the host read, so it is the
+        item's whole device charge."""
         if not self._fl_try_enter():
             return _MISS
+        t0 = time.perf_counter()
         try:
             out = fn(*args)
         except Exception:
@@ -392,8 +442,18 @@ class CountBatcher:
         finally:
             with self._fl_lock:
                 self._fl_active -= 1
+        wall = time.perf_counter() - t0
         with self._fl_lock:
             self.fastlane_hits += 1
+        # no kernel_dispatch_seconds here: that family is the windowed
+        # path's enqueue time, and this wall includes the read
+        nbytes = _group_bytes(self._group_key(p)[0], [p])
+        self.stats.count("solo_fastlane_hits_total", 1, kind=p.kind)
+        if nbytes:
+            self.stats.count("kernel_bytes_scanned_total", nbytes,
+                             kind=p.kind)
+        self.ledger.charge_solo(p.tenant, p.kind, p.plane, wall, nbytes,
+                                trace_id=p.trace)
         return out
 
     def _fastlane_counts(self, nodes: tuple, leaves: tuple) -> list[int]:
@@ -457,11 +517,11 @@ class CountBatcher:
         leaf list)."""
         nodes, leaves = tuple(nodes), tuple(leaves)
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_counts, nodes, leaves)
+        p = _Pending("count", nodes, leaves, deadline=deadline)
+        out = self._fastlane(p, self._fastlane_counts, nodes, leaves)
         if out is not _MISS:
             return out
-        return self._submit(_Pending("count", nodes, leaves,
-                                     deadline=deadline))
+        return self._submit(p)
 
     def submit_rowcounts(self, plane, filter_words=None, delta=None,
                          deadline: float | None = None) -> np.ndarray:
@@ -469,19 +529,23 @@ class CountBatcher:
         reduced on the device: callers gate on the int32-exact shard
         bound), base+delta when ``delta`` is set."""
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_rowcounts, plane, filter_words,
-                             delta)
+        p = self._rowcounts_item(plane, filter_words, delta, deadline)
+        out = self._fastlane(p, self._fastlane_rowcounts, plane,
+                             filter_words, delta)
         if out is not _MISS:
             return out
-        return self.wait(self.enqueue_rowcounts(plane, filter_words, delta,
-                                                deadline=deadline))
+        return self._submit(p)
 
     def enqueue_rowcounts(self, plane, filter_words=None, delta=None,
                           deadline: float | None = None) -> _Pending:
         self._check_deadline(deadline, stage="queued")
+        return self._enqueue(self._rowcounts_item(plane, filter_words,
+                                                  delta, deadline))
+
+    @staticmethod
+    def _rowcounts_item(plane, filter_words, delta, deadline) -> _Pending:
         leaves = (plane,) if filter_words is None else (plane, filter_words)
-        return self._enqueue(_Pending("rowcounts", None, leaves, delta,
-                                      deadline=deadline))
+        return _Pending("rowcounts", None, leaves, delta, deadline=deadline)
 
     def submit_selected(self, plane, slots: tuple, delta=None,
                         deadline: float | None = None) -> np.ndarray:
@@ -489,32 +553,37 @@ class CountBatcher:
         order; the window's items over one (plane, overlay) pair gather
         the union of their slots once."""
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_selected, plane, tuple(slots),
-                             delta)
+        p = _Pending("selcounts", tuple(slots), (plane,), delta,
+                     deadline=deadline)
+        out = self._fastlane(p, self._fastlane_selected, plane,
+                             tuple(slots), delta)
         if out is not _MISS:
             return out
-        return self._submit(_Pending("selcounts", tuple(slots), (plane,),
-                                     delta, deadline=deadline))
+        return self._submit(p)
 
     def submit_tree(self, plane, slots: tuple, prog: tuple,
                     extras: tuple = (), delta=None,
                     deadline: float | None = None) -> int:
         """One compound-tree Count (``exec.tree`` operands) -> total."""
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_tree, plane, slots, prog,
+        p = self._tree_item(plane, slots, prog, extras, delta, deadline)
+        out = self._fastlane(p, self._fastlane_tree, plane, slots, prog,
                              extras, delta)
         if out is not _MISS:
             return out
-        return self.wait(self.enqueue_tree(plane, slots, prog, extras,
-                                           delta, deadline=deadline))
+        return self._submit(p)
 
     def enqueue_tree(self, plane, slots: tuple, prog: tuple,
                      extras: tuple = (), delta=None,
                      deadline: float | None = None) -> _Pending:
         self._check_deadline(deadline, stage="queued")
-        return self._enqueue(_Pending(
-            "tree", (tuple(slots), tuple(prog), tuple(extras)), (plane,),
-            delta, deadline=deadline))
+        return self._enqueue(self._tree_item(plane, slots, prog, extras,
+                                             delta, deadline))
+
+    @staticmethod
+    def _tree_item(plane, slots, prog, extras, delta, deadline) -> _Pending:
+        return _Pending("tree", (tuple(slots), tuple(prog), tuple(extras)),
+                        (plane,), delta, deadline=deadline)
 
     def submit_sum(self, plane, filter_words=None, delta=None,
                    deadline: float | None = None):
@@ -533,13 +602,13 @@ class CountBatcher:
 
     def _submit_agg(self, kind: str, plane, filter_words, delta, deadline):
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_agg, kind, plane, filter_words,
-                             delta)
+        leaves = (plane,) if filter_words is None else (plane, filter_words)
+        p = _Pending(kind, None, leaves, delta, deadline=deadline)
+        out = self._fastlane(p, self._fastlane_agg, kind, plane,
+                             filter_words, delta)
         if out is not _MISS:
             return out
-        leaves = (plane,) if filter_words is None else (plane, filter_words)
-        return self._submit(_Pending(kind, None, leaves, delta,
-                                     deadline=deadline))
+        return self._submit(p)
 
     def submit_bsirange(self, plane, spec: tuple, operands: tuple,
                         sig: tuple, delta=None,
@@ -548,20 +617,25 @@ class CountBatcher:
         ``FusedCache.run_range_batch``); identical predicates (same
         ``sig``) in a window dedupe to one comparison chain."""
         self._check_deadline(deadline)
-        out = self._fastlane(self._fastlane_bsirange, plane, spec, operands,
-                             delta)
+        p = self._bsirange_item(plane, spec, operands, sig, delta, deadline)
+        out = self._fastlane(p, self._fastlane_bsirange, plane, spec,
+                             operands, delta)
         if out is not _MISS:
             return out
-        return self.wait(self.enqueue_bsirange(plane, spec, operands, sig,
-                                               delta, deadline=deadline))
+        return self._submit(p)
 
     def enqueue_bsirange(self, plane, spec: tuple, operands: tuple,
                          sig: tuple, delta=None,
                          deadline: float | None = None) -> _Pending:
         self._check_deadline(deadline, stage="queued")
-        return self._enqueue(_Pending(
-            "bsirange", (spec, tuple(operands), sig), (plane,), delta,
-            deadline=deadline))
+        return self._enqueue(self._bsirange_item(plane, spec, operands, sig,
+                                                 delta, deadline))
+
+    @staticmethod
+    def _bsirange_item(plane, spec, operands, sig, delta,
+                       deadline) -> _Pending:
+        return _Pending("bsirange", (spec, tuple(operands), sig), (plane,),
+                        delta, deadline=deadline)
 
     def submit_groupby(self, planes: tuple, combo_idx, last_plane,
                        filter_words, agg_plane, agg_kind, meta: tuple,
@@ -576,16 +650,16 @@ class CountBatcher:
         self._check_deadline(deadline)
         args = (tuple(planes), combo_idx, last_plane, filter_words,
                 agg_plane, delta)
-        out = self._fastlane(self._fastlane_groupby, args, agg_kind, meta)
-        if out is not _MISS:
-            return out
         sig = (tuple(id(p) for p in planes), id(last_plane),
                id(filter_words) if filter_words is not None else 0,
                id(agg_plane) if agg_plane is not None else 0,
                id(delta) if delta is not None else 0, agg_kind, digest)
-        return self._submit(_Pending(
-            "groupby", (args, (agg_kind, meta), sig), (last_plane,),
-            deadline=deadline))
+        p = _Pending("groupby", (args, (agg_kind, meta), sig),
+                     (last_plane,), deadline=deadline)
+        out = self._fastlane(p, self._fastlane_groupby, args, agg_kind, meta)
+        if out is not _MISS:
+            return out
+        return self._submit(p)
 
     def submit_distinct(self, plane, filter_words=None,
                         deadline: float | None = None):
@@ -664,15 +738,25 @@ class CountBatcher:
         self.windows += 1
         self.items += len(batch)
         self.max_window_items = max(self.max_window_items, len(batch))
+        st = self.stats
+        st.count("batcher_batches", 1)
+        st.count("batcher_items", len(batch))
+        st.gauge("batcher_window_seconds", self._win)
+        st.observe("batcher_window_items", float(len(batch)))
+        st.observe("batcher_window_fill_ratio", len(batch) / self.MAX_BATCH)
         groups: dict[tuple, list[_Pending]] = {}
         for p in batch:
             groups.setdefault(self._group_key(p), []).append(p)
         for key, group in groups.items():
-            st = self.kinds.setdefault(key[0], [0, 0, 0])
-            st[0] += 1
-            st[1] += len(group)
-            st[2] = max(st[2], len(group))
-            if key[0] in ("sum", "minmax", "bsirange"):
+            ks = self.kinds.setdefault(key[0], [0, 0, 0])
+            ks[0] += 1
+            ks[1] += len(group)
+            ks[2] = max(ks[2], len(group))
+            st.observe("pipeline_window_fill", float(len(group)),
+                       kind=key[0])
+            if key[0] in ("sum", "minmax", "bsirange") and len(group) > 1:
+                st.count("bsi_batch_hits_total", len(group) - 1,
+                         kind=key[0])
                 self.bsi_batch_hits += len(group) - 1
         if any(key[0] == "distinct" for key in groups):
             self.distinct_windows += 1
@@ -773,8 +857,21 @@ class CountBatcher:
                     self._fail(group, e)
                 w.t0 = time.monotonic()  # the bound is per stall, not total
             w.bounded = False
+        w.read_t = time.perf_counter()
         if w.done:
             return  # quarantined meanwhile: its items already failed
+        # the bytes the launches read (a group's items share one pass);
+        # each item's ledger weight is its equal share of its group's
+        for group, _, _ in pending:
+            kind = self._group_key(group[0])[0]
+            nbytes = _group_bytes(kind, group)
+            if nbytes:
+                self.stats.count("kernel_bytes_scanned_total", nbytes,
+                                 kind=kind)
+                w.win_bytes += nbytes
+            share = nbytes / max(1, len(group))
+            for p in group:
+                w.charge.append((p.tenant, p.kind, p.plane, share, p.trace))
         w.pending = pending
         w.distinct_futs = distinct_futs
         if pending:
@@ -787,19 +884,26 @@ class CountBatcher:
                     self._fail(group, e)
                 w.pending = []
         if not (w.pending or distinct_futs):
-            self._window_done(w)
+            if self._window_done(w):
+                self._note_delivered(w)
             return
         with self._pipe_lock:
             w.stage = "readback"
             w.t0 = time.monotonic()
+        self.flight.record("readback", f"w{w.wid}")
         for p in batch:
             p.stage = "readback"
         if slot_held:
             with self._pipe_lock:
                 if w.done:
                     return
+                overlapped = self._inflight_windows > 0
                 self._inflight_windows += 1
                 w.inflight = True
+                depth = self._inflight_windows
+            self.stats.observe("readback_overlap_ratio",
+                               1.0 if overlapped else 0.0)
+            self.stats.gauge("dispatch_pipeline_depth", depth)
             self._ensure_reader()
             self._readq.put(w)
             return
@@ -810,16 +914,28 @@ class CountBatcher:
             err = e
         if err is not None:
             self._fail_window_items(w, _wrap_readback_error(err))
-        if self._window_done(w) and err is None and not w.faulted:
-            self.governor.record_success()
+        if self._window_done(w):
+            self._note_delivered(w)
+            if err is None and not w.faulted:
+                self.governor.record_success()
+
+    def _note_delivered(self, w: _Window) -> None:
+        self.flight.record("deliver", f"w{w.wid}", "", float(len(w.items)))
 
     def _dispatch_group(self, kind: str, group: list):
-        """One group's launch: ``(device out, finish)``."""
+        """One group's launch: ``(device out, finish)``.  Its seconds are
+        observed per kind (``kernel_dispatch_seconds``) and kept for the
+        window's charge."""
+        t0 = time.perf_counter()
         if fault.ACTIVE:
             # a stalled launch (delay) and a refused one (error)
             fault.fire("exec.dispatch_hang", kind=kind)
             fault.fire("exec.dispatch_error", kind=kind)
-        return self._dispatch_one(kind, group)
+        ret = self._dispatch_one(kind, group)
+        elapsed = time.perf_counter() - t0
+        self.stats.observe("kernel_dispatch_seconds", elapsed, kind=kind)
+        self._disp_s[id(group)] = elapsed
+        return ret
 
     def _dispatch_one(self, kind: str, group: list):
         if kind == "count":
@@ -855,6 +971,7 @@ class CountBatcher:
         """The group's unique (plane, filter) items scan once each, on
         their own threads when there are several; every item gets its
         representative's host arrays."""
+        t0 = time.perf_counter()
         items, assign = _dedupe(group)
         results: list = [None] * len(items)
         errors: list = [None] * len(items)
@@ -886,6 +1003,14 @@ class CountBatcher:
                 self._deliver_error(p, errors[slot])
             else:
                 self._deliver(p, results[slot])
+        # a Distinct scan joins no packed read: its observation covers
+        # the whole scan, read included
+        self.stats.observe("kernel_dispatch_seconds",
+                           time.perf_counter() - t0, kind="distinct")
+        nbytes = _group_bytes("distinct", group)
+        if nbytes:
+            self.stats.count("kernel_bytes_scanned_total", nbytes,
+                             kind="distinct")
 
     def _fail_stalled_group(self, key, group: list, bound: float) -> None:
         """One group's launch outlived the watchdog bound while the rest
@@ -894,6 +1019,14 @@ class CountBatcher:
         worker finishes when the hang ends; its answer is dropped)."""
         self._trips += 1
         self._quarantined += 1
+        self.stats.count("pipeline_watchdog_trips_total", 1,
+                         stage="dispatch")
+        self.stats.count("pipeline_quarantined_windows_total", 1)
+        # recorded and dumped before the governor trips, so its degrade
+        # incident cannot rate-limit this one away
+        self.flight.record("watchdog_trip", key[0], "dispatch", bound)
+        self.flight.record("quarantine", key[0], "dispatch", bound)
+        self.flight.incident("quarantine", key[0], "dispatch")
         self.governor.record_trip()
         err = PipelineStalledError(
             f"{key[0]} dispatch stalled past the {bound:g}s watchdog bound "
@@ -909,6 +1042,7 @@ class CountBatcher:
             w = _Window(self._win_seq, batch, slot_held)
             if self.watchdog_s > 0:
                 self._windows[w.wid] = w
+        self.flight.record("dispatch", f"w{w.wid}", "", float(len(batch)))
         return w
 
     def _window_done(self, w: _Window) -> bool:
@@ -920,13 +1054,21 @@ class CountBatcher:
                 return False
             w.done = True
             self._windows.pop(w.wid, None)
+            depth = None
             if w.inflight:
                 w.inflight = False
                 self._inflight_windows -= 1
+                depth = self._inflight_windows
             slot = w.slot_held
             w.slot_held = False
+        if depth is not None:
+            self.stats.gauge("dispatch_pipeline_depth", depth)
         if slot:
             self._pipe_slots.release()
+        # a quarantined window never reaches the charge: drop its groups'
+        # launch seconds here
+        for group, _, _ in w.pending:
+            self._disp_s.pop(id(group), None)
         return True
 
     def _fail_window_items(self, w: _Window, err: Exception) -> None:
@@ -1009,6 +1151,12 @@ class CountBatcher:
         self._quarantined += 1
         if w.event is not None:
             self._limbo[w.wid] = w
+        self.stats.count("pipeline_watchdog_trips_total", 1, stage=stage)
+        self.stats.count("pipeline_quarantined_windows_total", 1)
+        # the flight events name the stage the callers' error names
+        self.flight.record("watchdog_trip", f"w{w.wid}", stage, age)
+        self.flight.record("quarantine", f"w{w.wid}", stage, age)
+        self.flight.incident("quarantine", f"w{w.wid}", stage)
         self.governor.record_trip()
         err = PipelineStalledError(
             f"dispatch-pipeline window stalled in {stage} for {age:.2f}s "
@@ -1081,8 +1229,10 @@ class CountBatcher:
                 err = e
             if err is not None:
                 self._fail_window_items(w, _wrap_readback_error(err))
-            if self._window_done(w) and err is None and not w.faulted:
-                self.governor.record_success()
+            if self._window_done(w):
+                self._note_delivered(w)
+                if err is None and not w.faulted:
+                    self.governor.record_success()
             # the last window must not keep its planes alive while the
             # reader waits for the next one
             w = None
@@ -1090,7 +1240,33 @@ class CountBatcher:
     def _finish_window(self, w: _Window) -> None:
         if fault.ACTIVE:
             fault.fire("exec.readback_hang")  # a stalled readback
+        # the wall starts at the read, not at the launch: a pipelined
+        # window's wait behind the previous one is not its device time,
+        # and the read still blocks on the window's own kernels.  The
+        # read begins once the launches are done (the packing, the
+        # pinned copy and the wait are the reference's packed readback),
+        # or, behind a previous window, when the card is done with it:
+        # the card runs this window's kernels while the collector packs
+        # it and the reader delivers the window before, and a clock
+        # started after that host work would miss them
+        t0 = time.perf_counter()
+        if w.read_t:
+            t0 = min(t0, max(w.read_t, self._synced_t))
         self._readback(w)
+        wall = time.perf_counter() - t0
+        disp = 0.0
+        for group, _, _ in w.pending:
+            disp += self._disp_s.pop(id(group), 0.0)
+        if w.charge:
+            self.ledger.charge_window(disp + wall, w.charge)
+        if w.win_bytes:
+            self.stats.observe("kernel_window_bytes", float(w.win_bytes))
+            # over the window's charged seconds: its launches too, since
+            # a kernel starts on an idle card as it is launched
+            if disp + wall > 0:
+                self.stats.gauge("kernel_bandwidth_gbps",
+                                 round(w.win_bytes / (disp + wall) / 1e9,
+                                       4))
         for f in w.distinct_futs:
             try:
                 f.result()
@@ -1106,7 +1282,11 @@ class CountBatcher:
         try:
             if w.event is not None:
                 w.event.synchronize()
+                self._synced_t = time.perf_counter()
             flat = w.host.numpy()
+            if len(w.pending) > 1:
+                self.stats.count("batcher_readback_packed", 1)
+                self.stats.count("batcher_readback_groups", len(w.pending))
         except Exception as e:  # noqa: BLE001 — to every item
             w.faulted = True
             self.governor.record_fault()
@@ -1251,6 +1431,53 @@ class CountBatcher:
             for p in group:
                 self._deliver(p, parts)
         return out, finish
+
+
+def _nbytes(a) -> int:
+    return int(getattr(a, "nbytes", 0) or 0) if a is not None else 0
+
+
+def _group_bytes(kind: str, group: list) -> int:
+    """Bytes one group's launch reads (``pilosa_tpu.exec.batcher``'s
+    estimate): count leaves each enter the batch; selcounts and trees
+    gather only the union of the requested rows (a tree also its extras
+    once); the deduplicated kinds scan each unique plane[, filter] once
+    however many items share it; an overlay adds its own bytes."""
+    p0 = group[0]
+    if kind == "selcounts":
+        plane = p0.leaves[0]
+        rows = {s for p in group for s in p.nodes}
+        return (len(rows) * plane.shape[0] * plane.shape[-1] * 4
+                + _nbytes(p0.delta))
+    if kind == "tree":
+        plane = p0.leaves[0]
+        rows = {s for p in group for s in p.nodes[0]}
+        extras = {id(a): a for p in group for a in p.nodes[2]}
+        return (len(rows) * plane.shape[0] * plane.shape[-1] * 4
+                + sum(_nbytes(a) for a in extras.values())
+                + _nbytes(p0.delta))
+    if kind == "rowcounts-delta":
+        return sum(_nbytes(a) for a in p0.leaves) + _nbytes(p0.delta)
+    if kind == "count":
+        return sum(_nbytes(a) for p in group for a in p.leaves)
+    if kind == "bsirange":
+        return (len({p.nodes[2] for p in group}) * _nbytes(p0.leaves[0])
+                + _nbytes(p0.delta))
+    if kind == "groupby":
+        planes, _ci, lp, fw, ap, dl = p0.nodes[0]
+        return (sum(_nbytes(p) for p in planes) + _nbytes(lp) + _nbytes(fw)
+                + _nbytes(ap) + _nbytes(dl))
+    seen: set = set()
+    total = 0
+    for p in group:
+        k = tuple(id(a) for a in p.leaves)
+        if k in seen:
+            continue
+        seen.add(k)
+        total += sum(_nbytes(a) for a in p.leaves)
+    if kind in ("sum", "minmax"):
+        total += _nbytes(p0.delta)
+    return total
 
 
 _MISS = object()  # the fast lane did not admit the call

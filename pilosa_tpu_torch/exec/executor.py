@@ -110,6 +110,13 @@ from pilosa_tpu_torch.exec.result import (DistinctResult, ExtractResult,
 from pilosa_tpu_torch.exec.tree import (TREE_CALLS, assemble_items,
                                         fold_bool_call, is_not_bool,
                                         lower_count_tree)
+from pilosa_tpu_torch.obs import (GLOBAL_TRACER, NULL_FLIGHT, NULL_LEDGER,
+                                  CostLedger, FlightRecorder, NopStats,
+                                  StageTimer)
+from pilosa_tpu_torch.obs.ledger import (clear_query_context,
+                                         set_query_context)
+from pilosa_tpu_torch.obs.metrics import DEPTH_BUCKETS
+from pilosa_tpu_torch.obs.tracing import current_trace_id
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
@@ -297,6 +304,7 @@ class _PlanEntry:
     leaf_specs: tuple = ()   # these leaf specs, re-materialized per hit
     bsi_sigs: tuple = ()     # ((field, bsi_signature), ...) pinned
     checked: bool = False    # a hit compares ``deps``' generations
+    n_calls: int = 0         # the query's Count calls (span tag)
 
 
 class _Walk:
@@ -357,11 +365,22 @@ class Executor:
                  solo_fastlane: bool = True,
                  dispatch_watchdog_seconds: float = 30.0,
                  device_health_probe_seconds: float = 5.0,
-                 plane_sidecars: bool = True):
-        if tenant_device_seconds_quota:
-            raise ValueError("tenant_device_seconds_quota is not supported "
-                             "by this port (it reads a device-cost ledger)")
+                 plane_sidecars: bool = True,
+                 stats=None, tracer=None, cost_observability: bool = True):
         self.holder = holder
+        # the metrics registry (``NopStats``: none), the shared tracer a
+        # query without its own runs under, and the device-cost ledger and
+        # flight recorder (null objects with ``cost_observability`` off),
+        # threaded into every layer that spends device time
+        self.stats = stats or NopStats()
+        self.tracer = tracer or GLOBAL_TRACER
+        if cost_observability:
+            self.ledger = CostLedger(stats=self.stats)
+            self.flight = FlightRecorder(
+                dump_dir=f"{holder.path}/_flight", stats=self.stats)
+        else:
+            self.ledger = NULL_LEDGER
+            self.flight = NULL_FLIGHT
         # the key stores: this executor's own unless the caller shares its
         self._owns_translate = translate is None
         self.translate = translate or TranslateStore(holder.path)
@@ -372,13 +391,19 @@ class Executor:
         self.planes = PlaneCache(
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
             delta_compact_fraction=delta_compact_fraction,
-            governor=self.governor, sidecars=plane_sidecars)
+            governor=self.governor, sidecars=plane_sidecars,
+            stats=self.stats, flight=self.flight)
         self.pager = (PlanePager(self.planes, self.governor,
-                                 page_bytes=plane_page_bytes)
+                                 page_bytes=plane_page_bytes,
+                                 stats=self.stats, flight=self.flight)
                       if plane_paging else None)
-        self.qos = TenantQos(tenant_qps_quota, tenant_slot_quota)
+        self.qos = TenantQos(tenant_qps_quota, tenant_slot_quota,
+                             stats=self.stats,
+                             device_seconds_quota=tenant_device_seconds_quota,
+                             ledger=self.ledger)
         self.fused = FusedCache()
         self.tree_fusion = bool(tree_fusion)
+        self.stats.set_buckets("tree_fusion_depth", DEPTH_BUCKETS)
         window = parse_window(count_batch_window)
         self.batcher = (CountBatcher(
             self.fused, window_s=window,
@@ -386,8 +411,11 @@ class Executor:
             solo_fastlane=solo_fastlane,
             watchdog_s=dispatch_watchdog_seconds,
             probe_after_s=device_health_probe_seconds,
-            tier=self._kernel_tier())
+            tier=self._kernel_tier(), stats=self.stats, ledger=self.ledger,
+            flight=self.flight)
             if window == "adaptive" or window > 0 else None)
+        # the card count the planes span: one (the port serves one card)
+        self.stats.gauge("mesh_devices", 1)
         # query-plan cache: (index, stripped PQL, shards) -> _PlanEntry
         self._plans: OrderedDict = OrderedDict()
         self._plans_lock = threading.Lock()
@@ -460,6 +488,37 @@ class Executor:
                     "watchdogTrips": 0, "kernelTier": self._kernel_tier()}
         return self.batcher.health_payload()
 
+    def cost_status(self) -> dict:
+        """The ``/status`` costs block: the ledger's measured device
+        seconds and bytes per tenant, query shape and plane (top-K with an
+        ``other`` fold)."""
+        return self.ledger.payload()
+
+    def _admission_path(self) -> str:
+        """The path a query starts on: the batched pipeline, one request
+        at a time (no batcher), or the degraded governor's per-item
+        serving; refined down-stack (paged, row-directory oracle)."""
+        if self.batcher is None:
+            return "op-at-a-time fallback"
+        if self.batcher.governor.state != "healthy":
+            return "degraded governor"
+        return "fused"
+
+    def _note_path(self, path: str) -> None:
+        self._tls.spath = path
+
+    def serving_path(self) -> str:
+        """The path that answered this thread's last query (the slow
+        query log names it)."""
+        return getattr(self._tls, "spath", "fused")
+
+    def _mark(self, stage: str) -> None:
+        """Charge the time since the last mark to ``stage`` on the
+        serving thread's :class:`StageTimer` (none: nothing)."""
+        timer = getattr(self._tls, "stage_timer", None)
+        if timer is not None:
+            timer.mark(stage)
+
     @property
     def slots_in_use(self) -> int:
         """Admitted queries executing now."""
@@ -499,6 +558,8 @@ class Executor:
         mem = ({"allocated": torch.cuda.memory_allocated(dev),
                 "reserved": torch.cuda.memory_reserved(dev)}
                if dev.type == "cuda" else {})
+        self.stats.count("device_oom_retries" if stage == 1
+                         else "device_oom_exclusive_retries", 1)
         with self._served_lock:
             if stage == 1:
                 self.device_oom_retries += 1
@@ -616,25 +677,35 @@ class Executor:
 
     def execute(self, index_name: str, query: str | Query,
                 shards: list[int] | None = None,
-                deadline: float | None = None) -> list:
+                deadline: float | None = None, tracer=None) -> list:
         """Run every top-level call; returns one result per call.
         ``deadline`` (a ``time.monotonic()`` cutoff) aborts with
         :class:`QueryTimeoutError` between calls, between streamed blocks
-        and while the query waits on the batcher."""
+        and while the query waits on the batcher.  ``tracer`` overrides
+        the shared one (a profiled query's own, so concurrent queries'
+        spans never interleave)."""
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index {index_name!r} not found")
+        # stage marks double as ``stage.*`` child spans of a traced query
+        timer = StageTimer(self.stats, tracer=tracer or self.tracer)
         # the tenant's quotas first: a shed query never takes a slot
         qos_held = self.qos.enabled
         if qos_held:
             self.qos.admit(index_name)  # raises TenantThrottledError
         try:
-            if self._exec_slots is not None and not self._exec_slots.acquire(
-                    timeout=self.SLOT_TIMEOUT_S):
-                raise ExecutorSaturatedError(
-                    f"executor at max concurrent queries "
-                    f"({self.max_concurrent}) for "
-                    f"{self.SLOT_TIMEOUT_S:.0f}s; retry later")
+            if self._exec_slots is not None:
+                t_wait = time.perf_counter()
+                acquired = self._exec_slots.acquire(
+                    timeout=self.SLOT_TIMEOUT_S)
+                self.stats.observe("query_queue_wait_seconds",
+                                   time.perf_counter() - t_wait)
+                if not acquired:
+                    self.stats.count("query_shed_total", 1)
+                    raise ExecutorSaturatedError(
+                        f"executor at max concurrent queries "
+                        f"({self.max_concurrent}) for "
+                        f"{self.SLOT_TIMEOUT_S:.0f}s; retry later")
         except BaseException:
             if qos_held:
                 self.qos.release(index_name)
@@ -652,18 +723,30 @@ class Executor:
             if qos_held:
                 self.qos.release(index_name)
             raise
+        timer.mark("admit")
+        self._tls.stage_timer = timer
         self._tls.deadline = deadline
+        # the ledger's charge context: tenant and trace on this thread,
+        # the plane filled in where the query resolves one
+        set_query_context(index_name, trace_id=current_trace_id())
+        self._tls.spath = self._admission_path()
         try:
             if fault.ACTIVE:
                 fault.fire("exec.execute", index=index_name)
+                timer.reset()  # an injected delay is no stage's time
             if isinstance(query, str):
-                out = self._execute_planned(index, index_name, query, shards)
+                out = self._execute_planned(index, index_name, query, shards,
+                                            tracer)
                 if out is not None:
                     return out
                 query = parse_cached(query)
-            return self._execute_calls(index, query, shards, deadline)
+                timer.mark("parse")
+            return self._execute_calls(index, query, shards, deadline,
+                                       tracer)
         finally:
+            self._tls.stage_timer = None
             self._tls.deadline = None
+            clear_query_context()
             self.planes.end_query()
             self._leave_inflight()
             if self._exec_slots is not None:
@@ -672,7 +755,9 @@ class Executor:
                 self.qos.release(index_name)
 
     def _execute_calls(self, index: Index, query: Query, shards,
-                       deadline: float | None = None) -> list:
+                       deadline: float | None = None, tracer=None) -> list:
+        # a span and a query_seconds observation per call (per Count run)
+        tracer = tracer or self.tracer
         results = []
         calls = query.calls
         i = 0
@@ -689,13 +774,25 @@ class Executor:
             ctx.check_deadline()
             if run_end - i > 1:
                 batch = calls[i:run_end]
-                results.extend(self._with_oom_retry(
-                    lambda: self._count_batch(ctx, batch)))
+                with tracer.span("executor.CountBatch",
+                                 index=index.name, calls=run_end - i,
+                                 shards=len(ctx.shards)):
+                    t0 = time.perf_counter()
+                    results.extend(self._with_oom_retry(
+                        lambda: self._count_batch(ctx, batch)))
+                    self.stats.timing("query_seconds",
+                                      time.perf_counter() - t0,
+                                      call="CountBatch")
                 i = run_end
                 continue
             call = calls[i]
-            results.append(self._with_oom_retry(
-                lambda: self._call(ctx, call)))
+            with tracer.span("executor." + call.name, index=index.name,
+                             shards=len(ctx.shards)):
+                t0 = time.perf_counter()
+                results.append(self._with_oom_retry(
+                    lambda: self._call(ctx, call)))
+                self.stats.timing("query_seconds", time.perf_counter() - t0,
+                                  call=call.name)
             i += 1
         return results
 
@@ -713,17 +810,23 @@ class Executor:
             return fast
         walk = _Walk()
         nodes = tuple(self._plan(ctx, c.children[0], walk) for c in calls)
-        return self._dispatch_count_run(nodes, self._leaves(ctx, walk))
+        leaves = self._leaves(ctx, walk)
+        self._mark("plan")
+        return self._dispatch_count_run(nodes, leaves)
 
     def _dispatch_count_run(self, nodes: tuple, leaves: tuple) -> list[int]:
         """One request's planned Count run -> per-call totals: ONE batcher
         item (concurrent requests share a launch and a read), or one
         batch and one read of its own."""
         if self.batcher is not None:
-            return self.batcher.submit_many(
+            out = self.batcher.submit_many(
                 nodes, leaves, deadline=self._query_deadline())
+            self._mark("read")
+            return out
         per_shard = self.fused.run_count_batch(nodes, leaves)
+        self._mark("dispatch")
         host = per_shard.cpu().numpy().astype(np.int64)  # one read
+        self._mark("read")
         return [int(row.sum()) for row in host]
 
     # ------------------------------------------------------------ BSI range
@@ -797,20 +900,25 @@ class Executor:
             if field.name not in planes:
                 planes[field.name] = self.planes.bsi_plane_delta(
                     ctx.index.name, field, ctx.shards)
+        self._mark("plan")
         deadline = self._query_deadline()
         if len(items) == 1:
             field, op_keys, offsets, operands = items[0]
             ps = planes[field.name]
-            return [self.batcher.submit_bsirange(
+            out = [self.batcher.submit_bsirange(
                 ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
                 delta=ps.delta, deadline=deadline)]
-        handles = []
-        for field, op_keys, offsets, operands in items:
-            ps = planes[field.name]
-            handles.append(self.batcher.enqueue_bsirange(
-                ps.plane, (op_keys, False), operands, (op_keys, offsets, 0),
-                delta=ps.delta, deadline=deadline))
-        return [self.batcher.wait(h) for h in handles]
+        else:
+            handles = []
+            for field, op_keys, offsets, operands in items:
+                ps = planes[field.name]
+                handles.append(self.batcher.enqueue_bsirange(
+                    ps.plane, (op_keys, False), operands,
+                    (op_keys, offsets, 0), delta=ps.delta,
+                    deadline=deadline))
+            out = [self.batcher.wait(h) for h in handles]
+        self._mark("read")  # the coalesced wait: window, launch and read
+        return out
 
     # ---------------------------------------------------------- whole trees
 
@@ -842,20 +950,28 @@ class Executor:
             if hit is None:
                 return None
             resolved.append(hit)
+        for spec in specs:
+            self.stats.observe("tree_fusion_depth", float(spec.depth))
+            if spec.cse_hits:
+                self.stats.count("tree_cse_hits_total", spec.cse_hits)
+        self._mark("plan")
         if self.batcher is not None:
             deadline = self._query_deadline()
             if len(resolved) == 1:
                 # a single tree may take the solo fast lane
                 ps, item = resolved[0]
-                return [self.batcher.submit_tree(ps.plane, *item,
-                                                 delta=ps.delta,
-                                                 deadline=deadline)]
-            # enqueue ALL trees before waiting on any: one window
-            handles = [self.batcher.enqueue_tree(ps.plane, *item,
-                                                 delta=ps.delta,
-                                                 deadline=deadline)
-                       for ps, item in resolved]
-            return [self.batcher.wait(h) for h in handles]
+                out = [self.batcher.submit_tree(ps.plane, *item,
+                                                delta=ps.delta,
+                                                deadline=deadline)]
+            else:
+                # enqueue ALL trees before waiting on any: one window
+                handles = [self.batcher.enqueue_tree(ps.plane, *item,
+                                                     delta=ps.delta,
+                                                     deadline=deadline)
+                           for ps, item in resolved]
+                out = [self.batcher.wait(h) for h in handles]
+            self._mark("read")  # the coalesced window, launch and read
+            return out
         # no batcher: one family call per (plane, overlay) pair
         groups: dict[tuple, list[int]] = {}
         for i, (ps, _item) in enumerate(resolved):
@@ -867,8 +983,10 @@ class Executor:
                 [resolved[i][1] for i in idxs])
             vals = self.fused.run_tree_counts(ps.plane, slots, progs, extras,
                                               delta=ps.delta)
+            self._mark("dispatch")
             for j, v in zip(idxs, vals.cpu().numpy().tolist()):
                 out[j] = int(v)
+        self._mark("read")
         return out
 
     def _tree_item(self, ctx: _Ctx, spec):
@@ -1026,6 +1144,7 @@ class Executor:
         pages = self.pager.partition(field, VIEW_STANDARD, ctx.shards)
         if pages is None:
             return None
+        self._note_path("paged")
         row_ids = [self._row_id(field, v, create=False) for v in values]
         totals = [0] * len(row_ids)
         for page_shards in pages:
@@ -1037,10 +1156,12 @@ class Executor:
             if ps is not None:
                 part = self._plane_count_rows(ps, row_ids)
             else:
+                self._note_path("row-directory oracle")
                 part = self.pager.oracle_counts(field, VIEW_STANDARD,
                                                 page_shards, row_ids)
             for i, v in enumerate(part):
                 totals[i] += int(v)
+        self._mark("read")
         return totals
 
     def _plain_row_parse(self, ctx: _Ctx, calls: list[Call]):
@@ -1099,9 +1220,12 @@ class Executor:
         if self.batcher is not None:
             vals = self.batcher.submit_selected(
                 ps.plane, slots, ps.delta, deadline=self._query_deadline())
+            self._mark("read")  # the coalesced window, launch and read
         else:
             vals = self.fused.run_selected_counts(ps.plane, slots, ps.delta)
+            self._mark("dispatch")
             vals = vals.cpu().numpy().astype(np.int64)[:len(slots)]
+            self._mark("read")
         return dict(zip(slots, vals.tolist()))
 
     def _plane_totals(self, ps) -> np.ndarray:
@@ -1111,18 +1235,22 @@ class Executor:
         and finished in int64 on the host."""
         small = len(ps.shards) <= self._REDUCE_SHARD_MAX
         if self.batcher is not None and small:
-            return self.batcher.submit_rowcounts(
+            totals = self.batcher.submit_rowcounts(
                 ps.plane, delta=ps.delta, deadline=self._query_deadline())
+            self._mark("read")  # the coalesced window, launch and read
+            return totals
         if ps.delta is not None:
             out = self.fused.run_rowcounts_delta(ps.plane, ps.delta,
                                                  reduce=small)
-            if small:
-                return out.cpu().numpy().astype(np.int64)
-            return kernels.shard_totals(out)
-        if small:
+        elif small:
             out = self.fused.run_rowcounts_batch((False,), (ps.plane,))[0]
-            return out.cpu().numpy().astype(np.int64)
-        return kernels.shard_totals(kernels.row_counts(ps.plane))
+        else:
+            out = kernels.row_counts(ps.plane)
+        self._mark("dispatch")
+        totals = (out.cpu().numpy().astype(np.int64) if small
+                  else kernels.shard_totals(out))
+        self._mark("read")
+        return totals
 
     # ----------------------------------------------------------- plan cache
 
@@ -1155,7 +1283,7 @@ class Executor:
                 del self._plans[key]
 
     def _execute_planned(self, index: Index, index_name: str, query: str,
-                         shards) -> list | None:
+                         shards, tracer=None) -> list | None:
         """Plan-cache path for all-Count queries: a repeated query string
         skips parse and plan.  None = take the parse path (not plannable,
         no longer valid, or its plane is not resident: admission stays on
@@ -1171,6 +1299,10 @@ class Executor:
                     self.plan_hits += 1
             else:
                 self.plan_misses += 1
+        if entry is None:
+            self.stats.count("plan_cache_misses", 1)
+        elif entry is not _UNPLANNABLE:
+            self.stats.count("plan_cache_hits", 1)
         if entry is _UNPLANNABLE:
             return None
         if entry is None:
@@ -1201,11 +1333,12 @@ class Executor:
                 or any((f := index.field(name)) is None
                        or bsi_signature(f.options) != sig
                        for name, sig in entry.bsi_sigs)):
+            self.stats.count("plan_cache_invalidations", 1)
             with self._plans_lock:
                 if self._plans.get(skey) is entry:
                     del self._plans[skey]
             return None
-        return self._run_plan(index, entry)
+        return self._run_plan(index, entry, tracer)
 
     def _build_plan(self, index: Index, query: str,
                     shards) -> _PlanEntry | None:
@@ -1218,13 +1351,16 @@ class Executor:
             return None
         ctx = _Ctx(index, self._shards_for(index, shards))
         try:
-            return (self._plan_plane_entry(ctx, calls)
-                    or self._plan_bsirange_entry(ctx, calls)
-                    or self._plan_tree_entry(ctx, calls)
-                    or self._plan_generic_entry(ctx, calls))
+            entry = (self._plan_plane_entry(ctx, calls)
+                     or self._plan_bsirange_entry(ctx, calls)
+                     or self._plan_tree_entry(ctx, calls)
+                     or self._plan_generic_entry(ctx, calls))
         except (Unfusable, ExecutionError):
             # the parse path raises the same errors
             return None
+        if entry is not None:
+            entry.n_calls = len(calls)
+        return entry
 
     def _plan_plane_entry(self, ctx: _Ctx, calls) -> _PlanEntry | None:
         """The same-field plain-row batch :meth:`_count_batch_plane`
@@ -1401,30 +1537,48 @@ class Executor:
                        else None)
         return tuple(out)
 
-    def _run_plan(self, index: Index, entry: _PlanEntry) -> list | None:
+    def _run_plan(self, index: Index, entry: _PlanEntry,
+                  tracer=None) -> list | None:
         """Run a valid plan; None = its plane is not resident (the parse
         path decides admission)."""
         ctx = _Ctx(index, entry.shards, self._query_deadline())
         ctx.check_deadline()
-        return self._with_oom_retry(lambda: self._run_plan_inner(ctx, entry))
+        tracer = tracer or self.tracer
+        with tracer.span("executor.PlanCached", index=index.name,
+                         calls=entry.n_calls, shards=len(ctx.shards)):
+            t0 = time.perf_counter()
+            out = self._with_oom_retry(
+                lambda: self._run_plan_inner(ctx, entry))
+            if out is not None:
+                self.stats.timing("query_seconds", time.perf_counter() - t0,
+                                  call="CountBatch")
+        return out
 
     def _run_plan_inner(self, ctx: _Ctx, entry: _PlanEntry) -> list | None:
         index = ctx.index
         if entry.kind == "tree":
             if not self.tree_fusion:
                 return None
-            return self._run_tree_specs(ctx, list(entry.tree_specs))
+            out = self._run_tree_specs(ctx, list(entry.tree_specs))
+            if out is not None:
+                self._mark("assemble")
+            return out
         if entry.kind == "bsirange":
             if self.batcher is None:
                 return None
-            return self._run_bsirange_items(ctx, [
+            out = self._run_bsirange_items(ctx, [
                 (index.field(fname), op_keys, offsets, operands)
                 for fname, op_keys, offsets, operands in entry.range_items])
+            self._mark("assemble")
+            return out
         if entry.kind == "generic":
             leaves = self._leaves_from_specs(ctx, entry.leaf_specs)
             if leaves is None:
                 return None
-            return self._dispatch_count_run(entry.nodes, tuple(leaves))
+            self._mark("plan")
+            out = self._dispatch_count_run(entry.nodes, tuple(leaves))
+            self._mark("assemble")
+            return out
         field = index.field(entry.field_name)
         if field is None or not self.planes.has_plane(
                 index.name, field, VIEW_STANDARD, ctx.shards):
@@ -1433,7 +1587,10 @@ class Executor:
                                             ctx.shards)
         if ps is None:
             return None
-        return self._plane_count_rows(ps, entry.row_ids)
+        self._mark("plan")
+        out = self._plane_count_rows(ps, entry.row_ids)
+        self._mark("assemble")
+        return out
 
     def _shards_for(self, index: Index, shards,
                     call: Call | None = None) -> tuple[int, ...]:
@@ -1706,6 +1863,7 @@ class Executor:
         b0, b1 = tps.bucket_range(start, end)
         if idx is None or b1 <= b0:
             return self._zeros(ctx)
+        self.stats.observe("time_range_cover_size", float(b1 - b0))
         return self.fused.run_time_range(tps.plane, idx * tps.n_buckets + b0,
                                          b1 - b0, delta=tps.delta)
 

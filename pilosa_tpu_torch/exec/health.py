@@ -44,12 +44,18 @@ class DeviceHealthGovernor:
       is admitted as the probe (PROBING) and the others wait for its
       verdict.
 
-    Its counters live in :meth:`payload` (the port has no metrics
-    registry or flight recorder yet)."""
+    Every transition sets the ``device_health_state`` gauge (0 healthy,
+    1 degraded, 2 probing) and lands on the flight recorder; a degrade
+    also dumps the ring (the run-up to the breaker opening is the
+    postmortem)."""
 
     FAULT_THRESHOLD = 3
 
-    def __init__(self, probe_after_s: float = 5.0, tier: str = "cuda"):
+    def __init__(self, probe_after_s: float = 5.0, tier: str = "cuda",
+                 stats=None, flight=None):
+        from pilosa_tpu_torch.obs import NULL_FLIGHT, NopStats
+        self._stats = stats or NopStats()
+        self.flight = flight or NULL_FLIGHT
         self.tier = tier
         self.probe_after_s = max(0.05, float(probe_after_s))
         self._state = HEALTHY
@@ -80,8 +86,14 @@ class DeviceHealthGovernor:
 
     def _transition(self, to: str) -> None:
         """Caller holds the lock."""
+        came = self._state
         self._state = to
         self._since = time.monotonic()
+        self._stats.gauge("device_health_state", STATE_CODE[to])
+        self.flight.record("governor", "device", f"{came}->{to}")
+        if to == DEGRADED:
+            self.flight.incident("governor_degrade", "device",
+                                 f"from {came}")
 
     def record_fault(self) -> None:
         with self._lock:

@@ -87,6 +87,8 @@ from pilosa_tpu_torch.engine.bsi import OFFSET_ROW
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            pow2_bucket)
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
+from pilosa_tpu_torch.obs import NULL_FLIGHT, NopStats
+from pilosa_tpu_torch.obs.ledger import set_plane_context
 from pilosa_tpu_torch.store.field import Field
 from pilosa_tpu_torch.store.fragment import Fragment
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -222,8 +224,11 @@ class PlaneCache:
     def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET,
                  delta_cells: int = 65536,
                  delta_compact_fraction: float = 0.5, governor=None,
-                 sidecars: bool = True):
+                 sidecars: bool = True, stats=None, flight=None):
         self.device = resolve_device(device)
+        # the plane_* / delta_* metric families and the eviction events
+        self._stats = stats or NopStats()
+        self.flight = flight or NULL_FLIGHT
         self.budget = budget_bytes
         self.governor = governor
         self.sidecars = sidecars
@@ -254,6 +259,9 @@ class PlaneCache:
         self._leases: dict[int, set] = {}
         self.evictions = 0
         self._evictions_by_reason: dict[str, int] = {}
+        # plane requests answered by a resident entry / built first
+        self.hits = 0
+        self.misses = 0
         # delta overlays: key -> (base plane tensor, DeltaMirror); a
         # rebuilt or folded base invalidates its mirror by identity
         self.delta_cells = int(delta_cells)
@@ -284,10 +292,12 @@ class PlaneCache:
         caller serves another way.  None too when the plane exceeds the
         budget."""
         key = ("plane", index, field.name, view_name, shards)
+        set_plane_context(f"{index}/{field.name}")
         gens = self._gens(field, view_name, shards)
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == gens:
+                self.hits += 1
                 self._touch(key)
                 self._lease(key)
                 return hit[1]
@@ -328,6 +338,7 @@ class PlaneCache:
             # returns with a plane about to appear
             self._insert_entry(key, gens, ps, ps.plane.numel() * 4, field)
         except Exception:  # noqa: BLE001 — a failed build is not a failed request
+            self._stats.count("plane_build_failures_total", 1)
             with self._lock:
                 self.build_failures += 1
                 first = key not in self._failed_logged
@@ -550,6 +561,9 @@ class PlaneCache:
         self.evictions += 1
         self._evictions_by_reason[reason] = \
             self._evictions_by_reason.get(reason, 0) + 1
+        self._stats.count("plane_evictions_total", 1, reason=reason)
+        self.flight.record("evict", f"{key[1]}/{key[2]}", reason,
+                           float(nbytes))
         if self.governor is not None:
             self.governor.note_evict(key)
         return nbytes
@@ -681,8 +695,16 @@ class PlaneCache:
 
     def stats(self) -> dict:
         with self._lock:
+            hits, misses = self.hits, self.misses
             return {"bytes": self._bytes, "budgetBytes": self.budget,
-                    "entries": len(self._entries), "builds": self.builds,
+                    "entries": len(self._entries),
+                    "pinnedEntries": len(self._pinned()),
+                    "leases": len(self._leases),
+                    "hits": hits, "misses": misses,
+                    "hitRatio": (round(hits / (hits + misses), 4)
+                                 if hits + misses else 0.0),
+                    "incrementalRefreshes": self.incremental_applied,
+                    "builds": self.builds,
                     "lastBuildSeconds": self.last_build_seconds,
                     "lastBuildBytes": self.last_build_bytes,
                     "buildSeconds": round(self.build_seconds_total, 3),
@@ -727,6 +749,7 @@ class PlaneCache:
         build at a time (the reference's entry point of this name builds
         synchronously too)."""
         key = ("tplane", index, field.name, shards)
+        set_plane_context(f"{index}/{field.name}")
         hit = self._entries.get(key)
         if hit is not None and hit[0] == timeviews.time_gens(
                 field, shards, fast=True):
@@ -763,6 +786,7 @@ class PlaneCache:
                 return None
             tps = timeviews.build_time_plane(field, shards, self.assemble,
                                              plan=plan)
+            self._stats.gauge("time_view_buckets", float(len(plan[0])))
             self._insert_entry(key, gens, tps, plan[-1], field, lease=True)
         return tps
 
@@ -899,6 +923,7 @@ class PlaneCache:
                      shards: tuple[int, ...], build) -> PlaneSet:
         """A fresh entry as it is, overlay and all; a stale one brought up
         to date by :meth:`_delta_update`; else :meth:`_get`."""
+        set_plane_context(f"{key[1]}/{key[2]}")
         gens = self._gens(field, view_name, shards)
         with self._lock:
             hit = self._entries.get(key)
@@ -918,10 +943,13 @@ class PlaneCache:
         """A clean entry for ``key``: fresh ones serve as they are; a
         stale or overlay-carrying plane folds, a stale row refreshes;
         otherwise (or when the journal cannot cover the gap) it builds."""
+        # the cost ledger's plane: one thread-local write
+        set_plane_context(f"{key[1]}/{key[2]}")
         gens = self._gens(field, view_name, shards)
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None and hit[0] == gens and hit[1].delta is None:
+                self.hits += 1
                 self._touch(key)
                 self._lease(key)
                 return hit[1]
@@ -944,6 +972,7 @@ class PlaneCache:
                     # stale: release its device memory before rebuilding
                     self._drop(key)
                     del hit
+                self.misses += 1
             ps = build(field, view_name, shards)
             nbytes = getattr(ps, "nbytes", None)
             self._insert_entry(key, gens, ps, ps.plane.numel() * 4
@@ -1181,6 +1210,7 @@ class PlaneCache:
             if mirror_cells or ps.delta is not None:
                 self.delta_compactions += 1
                 self.last_compaction_seconds = time.perf_counter() - t0
+                self._stats.count("delta_compactions_total", 1)
         return new_ps
 
     def _compact_async(self, key, field: Field, view_name: str,
@@ -1380,6 +1410,8 @@ class PlaneCache:
                 self.last_build_bytes = full.numel() * 4
                 self.build_seconds_total += dt
                 self.build_bytes_total += full.numel() * 4
+            self._stats.observe("plane_build_seconds", dt)
+            self._stats.count("plane_build_bytes_total", full.numel() * 4)
         return full
 
     def _expand_tasks(self, pool, tasks, tally: bool = True) -> None:
@@ -1398,6 +1430,11 @@ class PlaneCache:
         with self._lock:
             self.warm_hits += hits
             self.warm_misses += len(modes) - hits
+        if hits:
+            self._stats.count("plane_cache_warm_hits_total", hits)
+        if len(modes) - hits:
+            self._stats.count("plane_cache_warm_misses_total",
+                              len(modes) - hits)
 
     def _build_row(self, field: Field, view_name: str,
                    shards: tuple[int, ...], row_id: int) -> PlaneSet:

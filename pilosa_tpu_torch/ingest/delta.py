@@ -61,6 +61,12 @@ class DeltaOverlay:
     n: int               # live cells (<= C_pad)
     bits: int            # set bits carried by the live cells
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes a scan of the overlay reads: three int32 per
+        lane."""
+        return int(self.rows.numel()) * 12
+
 
 @dataclass
 class BsiOverlay:
@@ -81,6 +87,12 @@ class BsiOverlay:
     col_mask: torch.Tensor   # int32[K_pad, rows] -1 = row touched
     n: int                   # live columns (<= K_pad)
     bits: int                # set bits carried by the live cells
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes a scan of the overlay reads: the value and mask
+        words of every lane plus its shard and word indices."""
+        return int(self.col_vals.numel()) * 8 + int(self.col_shard.numel()) * 8
 
 
 class DeltaMirror:

@@ -1,11 +1,13 @@
-"""Composition root: holder, executor, API, the REST server (HTTPS with a
-tls block) and, with ``grpc_bind``, the gRPC server, opened and closed in
+"""Composition root: the metrics registry (with ``stats_backend =
+"statsd"`` also a UDP sink), holder, executor, API, the REST server (HTTPS
+with a tls block), with ``grpc_bind`` the gRPC server, the background
+scrubber and the diagnostics reporter, opened and closed in
 ``pilosa_tpu.server``'s order from one :class:`~pilosa_tpu_torch.cli.
-config.Config`.
+config.Config`.  The disk governor is configured before the holder opens,
+so a corrupt snapshot found at boot is counted in the same registry.
 
-The port has no cluster, scrubber, diagnostics or metrics registry:
-:func:`~pilosa_tpu_torch.cli.config.check_served` refuses a config that
-asks for one before anything opens.
+The port has no cluster: :func:`~pilosa_tpu_torch.cli.config.
+check_served` refuses a config that asks for one before anything opens.
 
 Also a thin entry point over the same config::
 
@@ -24,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import signal
 import sys
 
@@ -36,19 +37,10 @@ from pilosa_tpu_torch.api import tls as tlsmod
 from pilosa_tpu_torch.cli import config as cfgmod
 from pilosa_tpu_torch.cli.config import Config
 from pilosa_tpu_torch.exec import Executor
+from pilosa_tpu_torch.obs import Stats, StatsdStats, get_logger
+from pilosa_tpu_torch.obs.diagnostics import Diagnostics
 from pilosa_tpu_torch.store import Holder, syswrap
-
-
-def get_logger(verbose: bool = False) -> logging.Logger:
-    """The port's logger, one text line per record on stderr."""
-    log = logging.getLogger("pilosa_tpu_torch")
-    if not log.handlers:
-        h = logging.StreamHandler()
-        h.setFormatter(logging.Formatter(
-            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
-        log.addHandler(h)
-    log.setLevel(logging.DEBUG if verbose else logging.INFO)
-    return log
+from pilosa_tpu_torch.store.scrub import Scrubber
 
 
 class PilosaTPUServer:
@@ -56,12 +48,28 @@ class PilosaTPUServer:
         cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
         cfgmod.check_served(cfg, cuda_devices=cuda)
         self.cfg = cfg
-        self.logger = get_logger(cfg.verbose)
+        self.logger = get_logger("pilosa_tpu_torch", verbose=cfg.verbose,
+                                 fmt=cfg.log_format or None)
+        if cfg.stats_backend == "statsd":
+            # the in-process registry stays authoritative (/metrics);
+            # every observation also goes out as a statsd packet
+            host, _, port = cfg.statsd_address.rpartition(":")
+            self.stats = StatsdStats(host or "127.0.0.1", int(port or 8125))
+            self.logger.info("stats: statsd emission to %s",
+                             cfg.statsd_address)
+        elif cfg.stats_backend not in ("", "prometheus"):
+            raise ValueError(
+                f"unknown stats_backend {cfg.stats_backend!r} "
+                "(expected '', 'prometheus' or 'statsd')")
+        else:
+            self.stats = Stats()
         self.holder = Holder(cfg.data_dir, fsync=cfg.fsync)
         self.executor: Executor | None = None
         self.api: API | None = None
         self.http: HttpServer | None = None
         self.grpc = None
+        self.scrubber: Scrubber | None = None
+        self.diagnostics: Diagnostics | None = None
 
     def open(self) -> "PilosaTPUServer":
         cfg = self.cfg
@@ -69,6 +77,10 @@ class PilosaTPUServer:
             # armed before anything opens, so boot-time seams fire too
             fault.configure(cfg.faults)
         syswrap.GLOBAL.set_max(cfg.max_map_count)
+        self.holder.storage_health.configure(
+            base=cfg.data_dir, stats=self.stats, logger=self.logger,
+            min_free_bytes=cfg.disk_min_free_bytes,
+            probe_seconds=cfg.disk_probe_seconds)
         self.holder.open()
         self.executor = Executor(
             self.holder, device=cfg.device or None,
@@ -87,9 +99,12 @@ class PilosaTPUServer:
             plane_page_bytes=cfg.plane_page_bytes,
             tenant_byte_quota=cfg.tenant_byte_quota,
             tenant_qps_quota=cfg.tenant_qps_quota,
-            tenant_slot_quota=cfg.tenant_slot_quota)
+            tenant_slot_quota=cfg.tenant_slot_quota,
+            stats=self.stats)
         self.api = API(self.holder, self.executor,
-                       query_timeout=cfg.query_timeout)
+                       query_timeout=cfg.query_timeout,
+                       trace_sample_rate=cfg.trace_sample_rate,
+                       slow_query_threshold=cfg.slow_query_threshold)
         tls_cfg = cfgmod.tls_of(cfg)
         ssl_ctx = tlsmod.server_context(tls_cfg)
         if ssl_ctx is not None:
@@ -97,7 +112,7 @@ class PilosaTPUServer:
                              " with required client certs"
                              if tls_cfg.enable_client_auth else "")
         self.http = HttpServer(self.api, cfg.host, cfg.port,
-                               ssl_context=ssl_ctx).start()
+                               ssl_context=ssl_ctx, stats=self.stats).start()
         if cfg.grpc_bind:
             from pilosa_tpu_torch.api.grpc import GrpcServer
             ghost, _, gport = cfg.grpc_bind.rpartition(":")
@@ -107,9 +122,24 @@ class PilosaTPUServer:
             ).start()
             self.logger.info("grpc: listening on %s:%d",
                              ghost or "127.0.0.1", self.grpc.port)
+        # re-verifies every on-disk checksum at the configured byte rate
+        # (0 bytes/s: no thread); a corrupt fragment quarantines
+        self.scrubber = Scrubber(
+            self.holder, interval=cfg.scrub_interval_seconds,
+            bytes_per_second=cfg.scrub_bytes_per_second, stats=self.stats,
+            logger=self.logger).start()
+        self.api.scrubber = self.scrubber
+        self.diagnostics = Diagnostics(
+            self.holder, interval=cfg.diagnostics_interval,
+            logger=self.logger, stats=self.stats,
+            slow_log=self.api.slow_log, executor=self.executor).start()
         return self
 
     def close(self) -> None:
+        if self.diagnostics is not None:
+            self.diagnostics.close()
+        if self.scrubber is not None:
+            self.scrubber.close()
         if self.grpc is not None:
             self.grpc.close()
         if self.http is not None:
@@ -117,6 +147,8 @@ class PilosaTPUServer:
         if self.executor is not None:
             self.executor.close()
         self.holder.close()
+        if isinstance(self.stats, StatsdStats):
+            self.stats.close()
 
     @property
     def port(self) -> int:

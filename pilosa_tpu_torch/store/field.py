@@ -106,13 +106,14 @@ class FieldOptions:
 class Field:
     def __init__(self, path: str, index_name: str, name: str,
                  options: FieldOptions | None = None, *,
-                 fsync: bool = False, snapshot_submit=None):
+                 fsync: bool = False, snapshot_submit=None, health=None):
         self.path = path
         self.index_name = index_name
         self.name = name
         self.options = options or FieldOptions()
         self.fsync = fsync
         self.snapshot_submit = snapshot_submit
+        self.health = health  # the holder's StorageHealth
         self.views: dict[str, View] = {}
         self._row_attrs = None
         self._lock = threading.RLock()
@@ -130,7 +131,8 @@ class Field:
             for name in sorted(os.listdir(views_dir)):
                 self.views[name] = View(
                     os.path.join(views_dir, name), name, fsync=self.fsync,
-                    snapshot_submit=self.snapshot_submit).open()
+                    snapshot_submit=self.snapshot_submit,
+                    health=self.health).open()
         return self
 
     def save_meta(self) -> None:
@@ -187,7 +189,8 @@ class Field:
             if v is None and create:
                 v = View(os.path.join(self.path, "views", name), name,
                          fsync=self.fsync,
-                         snapshot_submit=self.snapshot_submit).open()
+                         snapshot_submit=self.snapshot_submit,
+                         health=self.health).open()
                 self.views[name] = v
             return v
 

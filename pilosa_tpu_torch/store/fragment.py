@@ -49,6 +49,7 @@ import numpy as np
 
 from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            pack_columns, unpack_columns)
+from pilosa_tpu_torch.store import health as _storage_health
 from pilosa_tpu_torch.store import native, roaring, syswrap
 from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
                                           OP_SET_BITS, OP_SET_ROW, OpLog)
@@ -89,10 +90,14 @@ class Fragment:
     _DENSE_HDR = struct.Struct("<4sHHQQQQI")
 
     def __init__(self, path: str, shard: int, *, max_op_n: int = MAX_OP_N,
-                 fsync: bool = False, snapshot_submit=None):
+                 fsync: bool = False, snapshot_submit=None, health=None):
         self.path = path                      # snapshot file
         self.shard = shard
         self.max_op_n = max_op_n
+        # the holder's disk-health governor and quarantine registry
+        # (:class:`~.health.StorageHealth`; None: no gate, corruption
+        # is only logged)
+        self._health = health
         # set: op-log compaction goes to this background queue instead of
         # running on the write path
         self._snapshot_submit = snapshot_submit
@@ -106,6 +111,9 @@ class Fragment:
         self._snap_mm = None
         self._snap_dir: roaring.Directory | None = None
         self._snap_pending: set[int] = set()
+        # the framed snapshot's crc32 (None: legacy unframed), checked
+        # again when the map is demoted to a heap copy
+        self._snap_crc: int | None = None
         # (generation, {row: word indices | None = whole row} | None =
         # gap) per bit-changing op
         self._recent: deque = deque(maxlen=self.RECENT_MAX)
@@ -117,7 +125,12 @@ class Fragment:
             if self._open:
                 return self
             if os.path.exists(self.path) and os.path.getsize(self.path) > 0:
-                self._open_snapshot()
+                try:
+                    self._open_snapshot()
+                except Exception as e:  # noqa: BLE001 — a corrupt
+                    # snapshot quarantines this fragment, never the
+                    # whole holder open
+                    self._mark_corrupt("snapshot", f"open failed: {e}")
             for op, aux, positions in self._oplog.replay():
                 self._apply(op, aux, positions)
                 self.op_n += 1
@@ -125,8 +138,11 @@ class Fragment:
         return self
 
     def _open_snapshot(self) -> None:
-        """mmap the snapshot and parse only its container directory; a
-        framed snapshot's crc is verified before any bit is served."""
+        """mmap the snapshot and parse only its container directory.  A
+        framed snapshot's crc is verified before any bit is served: a
+        mismatch (or a truncated header, an unknown version) quarantines
+        the fragment through :meth:`_mark_corrupt`, which then serves
+        what its op-log holds."""
         with open(self.path, "rb") as f:
             head = f.read(self._SNAP_HDR.size)
             framed = head[:4] == self.SNAP_MAGIC
@@ -137,18 +153,32 @@ class Fragment:
                 f.seek(0)
                 self._load_positions(roaring.deserialize(f.read()))
                 return
+            crc = None
+            if framed:
+                if len(head) < self._SNAP_HDR.size:
+                    self._mark_corrupt("snapshot", "truncated frame header")
+                    return
+                _, ver, _, blen, crc = self._SNAP_HDR.unpack(head)
+                if ver != self.SNAP_VERSION:
+                    self._mark_corrupt("snapshot",
+                                       f"unknown frame version {ver}")
+                    return
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         blob = memoryview(mm)
         if framed:
-            if len(head) < self._SNAP_HDR.size:
-                raise ValueError(f"{self.path}: truncated snapshot header")
-            _, ver, _, blen, crc = self._SNAP_HDR.unpack(head)
             blob = blob[self._SNAP_HDR.size:]
-            if ver != self.SNAP_VERSION or len(blob) != blen \
-                    or zlib.crc32(blob) != crc:
-                raise ValueError(f"{self.path}: snapshot frame version, "
-                                 "length or crc mismatch")
+            # zlib releases the interpreter lock: concurrent opens overlap
+            if len(blob) != blen or zlib.crc32(blob) != crc:
+                del blob
+                try:
+                    mm.close()
+                except BufferError:
+                    pass
+                self._mark_corrupt(
+                    "snapshot", "frame length/crc mismatch (disk corruption)")
+                return
         self._snap_mm = mm
+        self._snap_crc = crc
         self._snap_dir = roaring.Directory(blob)
         self._snap_pending = set(self._snap_dir.row_ids().tolist())
         syswrap.GLOBAL.register(self)
@@ -161,12 +191,45 @@ class Fragment:
             return False
         try:
             if self._snap_mm is not None and self._snap_dir is not None:
-                self._snap_dir = roaring.Directory(
-                    memoryview(bytes(self._snap_dir.buf)))
+                heap = bytes(self._snap_dir.buf)
+                if self._snap_crc is not None \
+                        and zlib.crc32(heap) != self._snap_crc:
+                    # the mapped bytes changed under the map: the copy is
+                    # poisoned, quarantine instead of serving it
+                    self._mark_corrupt("snapshot",
+                                       "crc mismatch at mmap demotion")
+                    return True
+                self._snap_dir = roaring.Directory(memoryview(heap))
                 self._snap_mm = None
             return True
         finally:
             self.lock.release()
+
+    def poison_snapshot(self) -> None:
+        """Scrub-detected corruption of a live fragment's snapshot: drop
+        the map, so no pending row expands from the corrupt blob, and
+        move the generation past a gap marker, so a resident plane built
+        over the bad bytes rebuilds.  The registry entry is the
+        caller's."""
+        with self.lock:
+            self._drop_snapshot()
+            self._snap_crc = None
+            self.generation += 1
+            self._recent.clear()
+            self._recent.append((self.generation, None))
+
+    def _mark_corrupt(self, kind: str, detail: str) -> None:
+        """Quarantine this fragment after a checksum (or parse) failure:
+        drop the snapshot and serve what the op-log holds; with no
+        governor the failure is only logged."""
+        self._drop_snapshot()
+        self._snap_crc = None
+        if self._health is not None:
+            self._health.quarantine(self.path, kind, detail)
+        else:
+            logging.getLogger("pilosa_tpu_torch.store").error(
+                "fragment snapshot corrupt (%s) at %s: %s",
+                kind, self.path, detail)
 
     def _drop_snapshot(self) -> None:
         syswrap.GLOBAL.release(self)
@@ -417,7 +480,12 @@ class Fragment:
         try:
             st = os.stat(self.path)
             snap = (st.st_size, st.st_mtime_ns)
-        except OSError:
+        except OSError as e:
+            # no snapshot yet (ENOENT) is the plain case; any other errno
+            # is a disk fault: logged once and counted, and the zero stamp
+            # only sends the next build cold
+            _storage_health.note_os_error("fragment.stamp", self.path, e,
+                                          health=self._health)
             snap = (0, 0)
         return (snap[0], snap[1], self._oplog.size())
 
@@ -477,13 +545,17 @@ class Fragment:
         if submit is not None:
             submit(self.dense_path, hdr, blob)
         else:
-            self.write_sidecar_file(self.dense_path, hdr, blob)
+            self.write_sidecar_file(self.dense_path, hdr, blob,
+                                    health=self._health)
 
     @staticmethod
-    def write_sidecar_file(path: str, hdr: bytes, blob: bytes) -> None:
+    def write_sidecar_file(path: str, hdr: bytes, blob: bytes,
+                           health=None) -> None:
         """Write a sidecar atomically (temp + rename), also from a deferred
-        writer thread: the blob is immutable bytes.  A failure is logged
-        and swallowed: a sidecar is a cache."""
+        writer thread: the blob is immutable bytes.  A failure is
+        swallowed (a sidecar is a cache), logged once and fed to the
+        disk-health governor: an ENOSPC here is the full disk the op-log
+        would hit next."""
         tmp = path + ".tmp"
         try:
             with open(tmp, "wb") as f:
@@ -491,8 +563,8 @@ class Fragment:
                 f.write(blob)
             os.replace(tmp, path)
         except OSError as e:
-            logging.getLogger("pilosa_tpu_torch.store").warning(
-                "sidecar write failed at %s: %s", path, e)
+            _storage_health.note_os_error("sidecar.write", path, e,
+                                          health=health)
             try:
                 os.unlink(tmp)
             except OSError:
@@ -516,14 +588,28 @@ class Fragment:
                         f.write(hs.pack(magic, ver, 0, *self._dense_stamp(),
                                         blen, crc))
                         return
-        except OSError:
-            return  # no sidecar
+        except OSError as e:
+            # no sidecar (ENOENT) is the plain case
+            _storage_health.note_os_error("sidecar.restamp",
+                                          self.dense_path, e,
+                                          health=self._health)
+            return
         try:
             os.unlink(self.dense_path)
-        except OSError:
-            pass
+        except OSError as e:
+            _storage_health.note_os_error("sidecar.unlink", self.dense_path,
+                                          e, health=self._health)
 
     # -- mutation -----------------------------------------------------------
+
+    def _write_gate(self) -> None:
+        """Refuse a mutation before any in-memory change while the
+        storage layer is sick (the node read-only on a full disk, or this
+        fragment quarantined): a refusal never half-applies.  Healthy, it
+        is one attribute load and a false branch."""
+        h = self._health
+        if h is not None and h.gate_active:
+            h.check_write(self.path)
 
     def set_bits(self, row_ids: np.ndarray, cols: np.ndarray,
                  sync_batch=None) -> int:
@@ -546,6 +632,7 @@ class Fragment:
         return self._apply_grouped(OP_CLEAR_BITS, groups, sync_batch)
 
     def _apply_grouped(self, op: int, groups, sync_batch=None) -> int:
+        self._write_gate()
         with self.lock:
             changed = 0
             parts = []
@@ -570,6 +657,7 @@ class Fragment:
     def clear_row(self, row_id: int) -> int:
         """Clear every bit of a row: one ``OP_CLEAR_ROW`` record (none when
         the row is empty).  Returns the bits cleared."""
+        self._write_gate()
         with self.lock:
             changed = self._apply(OP_CLEAR_ROW, row_id, None)
             if changed:
@@ -584,6 +672,7 @@ class Fragment:
         new = np.unique(np.asarray(cols, np.uint32))
         if len(new) and int(new[-1]) >= SHARD_WIDTH:
             raise ValueError(f"column {new[-1]} out of shard range")
+        self._write_gate()
         with self.lock:
             self._ensure_row(row_id)
             words = self.dense.get(row_id)
@@ -603,6 +692,7 @@ class Fragment:
         ``row*SHARD_WIDTH + col``); returns the bits changed."""
         positions = roaring.deserialize(blob)
         op = OP_CLEAR_BITS if clear else OP_SET_BITS
+        self._write_gate()
         with self.lock:
             changed = self._apply(op, 0, positions)
             if changed:
@@ -612,6 +702,7 @@ class Fragment:
     def _mutate(self, op: int, row_ids, cols, sync_batch=None) -> int:
         positions = (np.asarray(row_ids, np.uint64) * _SW
                      + np.asarray(cols, np.uint64))
+        self._write_gate()
         with self.lock:
             changed = self._apply(op, 0, positions)
             if changed:
@@ -746,7 +837,20 @@ class Fragment:
 
     def _log(self, op: int, aux: int, positions: np.ndarray | None,
              sync_batch=None) -> None:
-        self._oplog.append(op, aux, positions, sync_batch=sync_batch)
+        h = self._health
+        try:
+            self._oplog.append(op, aux, positions, sync_batch=sync_batch)
+        except OSError as e:
+            # classified by errno: ENOSPC flips the node read-only (this
+            # op is not acknowledged), repeated EIO quarantines this
+            # fragment
+            if h is not None and not isinstance(
+                    e, _storage_health.StorageFaultError):
+                raise h.write_failed(self._oplog.path, e,
+                                     site="oplog.append") from e
+            raise
+        if h is not None:
+            h.note_write_success(self.path)
         self.op_n += 1
         if self.op_n > self.max_op_n:
             if self._snapshot_submit is not None:
@@ -768,7 +872,15 @@ class Fragment:
 
     def snapshot(self) -> None:
         """Rewrite the snapshot (framed, atomic via temp + rename),
-        truncate the op-log and re-open the new file lazily."""
+        truncate the op-log and re-open the new file lazily.  A
+        quarantined fragment is not compacted: a valid frame over what
+        memory holds would mask the corruption for good."""
+        h = self._health
+        if h is not None and h.is_quarantined(self.path):
+            logging.getLogger("pilosa_tpu_torch.store").warning(
+                "refusing to compact quarantined fragment %s "
+                "(would mask corruption as valid data)", self.path)
+            return
         with self.lock:
             pre_stamp = self._dense_stamp()  # the state a sidecar may match
             blob = roaring.serialize(self.positions())
@@ -776,12 +888,23 @@ class Fragment:
                                       0, len(blob), zlib.crc32(blob))
             tmp = self.path + ".tmp"
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
-            with open(tmp, "wb") as f:
-                f.write(hdr)
-                f.write(blob)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, self.path)
+            try:
+                with open(tmp, "wb") as f:
+                    f.write(hdr)
+                    f.write(blob)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, self.path)
+            except OSError as e:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                if h is not None and not isinstance(
+                        e, _storage_health.StorageFaultError):
+                    raise h.write_failed(self.path, e,
+                                         site="fragment.snapshot") from e
+                raise
             self._drop_snapshot()
             self.rows = {}
             self.dense = {}

@@ -21,6 +21,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 from pilosa_tpu_torch.store.field import FieldOptions
+from pilosa_tpu_torch.store.health import StorageHealth
 from pilosa_tpu_torch.store.index import Index
 
 _log = logging.getLogger("pilosa_tpu_torch.store")
@@ -143,6 +144,9 @@ class Holder:
         self.indexes: dict[str, Index] = {}
         self._lock = threading.RLock()
         self.snapshot_queue = SnapshotQueue() if async_snapshots else None
+        # the tree's disk-health governor and quarantine registry, shared
+        # by every fragment (the server configures it before open)
+        self.storage_health = StorageHealth(base=path)
 
     @property
     def _submit(self):
@@ -159,7 +163,8 @@ class Holder:
         def one(entry: str) -> Index:
             return Index(os.path.join(self.path, entry), entry,
                          fsync=self.fsync,
-                         snapshot_submit=self._submit).open()
+                         snapshot_submit=self._submit,
+                         health=self.storage_health).open()
 
         if len(entries) <= 1:
             opened = map(one, entries)
@@ -180,6 +185,7 @@ class Holder:
             for idx in self.indexes.values():
                 idx.close()
             self.indexes.clear()
+        self.storage_health.close()
 
     def create_index(self, name: str, *, keys: bool = False,
                      track_existence: bool = True,
@@ -192,7 +198,8 @@ class Holder:
             idx = Index(os.path.join(self.path, name), name, keys=keys,
                         track_existence=track_existence, fsync=self.fsync,
                         created_at=created_at or time.time(),
-                        snapshot_submit=self._submit)
+                        snapshot_submit=self._submit,
+                        health=self.storage_health)
             os.makedirs(idx.path, exist_ok=True)
             idx.save_meta()
             idx.open()

@@ -23,7 +23,7 @@ EXISTENCE_FIELD = "_exists"
 class Index:
     def __init__(self, path: str, name: str, *, keys: bool = False,
                  track_existence: bool = True, fsync: bool = False,
-                 created_at: float = 0.0, snapshot_submit=None):
+                 created_at: float = 0.0, snapshot_submit=None, health=None):
         self.path = path
         self.name = name
         self.keys = keys
@@ -31,6 +31,7 @@ class Index:
         self.created_at = created_at
         self.fsync = fsync
         self.snapshot_submit = snapshot_submit
+        self.health = health  # the holder's StorageHealth
         self.fields: dict[str, Field] = {}
         self._column_attrs = None
         self._lock = threading.RLock()
@@ -50,7 +51,8 @@ class Index:
             if os.path.isdir(fpath) and not entry.startswith("."):
                 self.fields[entry] = Field(
                     fpath, self.name, entry, fsync=self.fsync,
-                    snapshot_submit=self.snapshot_submit).open()
+                    snapshot_submit=self.snapshot_submit,
+                    health=self.health).open()
         if self.track_existence and EXISTENCE_FIELD not in self.fields:
             self.create_field(EXISTENCE_FIELD, FieldOptions(type=TYPE_SET))
         return self
@@ -94,7 +96,7 @@ class Index:
                 options.created_at = time.time()
             f = Field(os.path.join(self.path, name), self.name, name,
                       options, fsync=self.fsync,
-                      snapshot_submit=self.snapshot_submit)
+                      snapshot_submit=self.snapshot_submit, health=self.health)
             os.makedirs(f.path, exist_ok=True)
             f.save_meta()
             self.fields[name] = f

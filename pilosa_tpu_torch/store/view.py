@@ -16,11 +16,12 @@ VIEW_BSI_PREFIX = "bsi_"
 
 class View:
     def __init__(self, path: str, name: str, *, fsync: bool = False,
-                 snapshot_submit=None):
+                 snapshot_submit=None, health=None):
         self.path = path  # <field>/views/<name>
         self.name = name
         self.fsync = fsync
         self.snapshot_submit = snapshot_submit
+        self.health = health  # the holder's StorageHealth
         self.fragments: dict[int, Fragment] = {}
         self._lock = threading.RLock()
 
@@ -38,7 +39,8 @@ class View:
                 self.fragments[shard] = Fragment(
                     os.path.join(frag_dir, str(shard)), shard,
                     fsync=self.fsync,
-                    snapshot_submit=self.snapshot_submit).open()
+                    snapshot_submit=self.snapshot_submit,
+                    health=self.health).open()
         return self
 
     def fragment(self, shard: int, create: bool = False) -> Fragment | None:
@@ -48,7 +50,8 @@ class View:
                 path = os.path.join(self.path, "fragments", str(shard))
                 os.makedirs(os.path.dirname(path), exist_ok=True)
                 frag = Fragment(path, shard, fsync=self.fsync,
-                                snapshot_submit=self.snapshot_submit).open()
+                                snapshot_submit=self.snapshot_submit,
+                                health=self.health).open()
                 self.fragments[shard] = frag
             return frag
 

@@ -26,6 +26,7 @@ import numpy as np
 
 from pilosa_tpu_torch.engine.words import WORDS_PER_SHARD, pow2_bucket
 from pilosa_tpu_torch.exec.planes import union_row_ids
+from pilosa_tpu_torch.obs import NULL_FLIGHT, NopStats
 
 
 class PlanePager:
@@ -34,8 +35,11 @@ class PlanePager:
     :class:`~pilosa_tpu_torch.tenancy.governor.ResidencyGovernor`'s,
     shared with the cache."""
 
-    def __init__(self, cache, governor=None, page_bytes: int = 64 << 20):
+    def __init__(self, cache, governor=None, page_bytes: int = 64 << 20,
+                 stats=None, flight=None):
         self.cache = cache
+        self._stats = stats or NopStats()
+        self.flight = flight or NULL_FLIGHT
         self.governor = governor
         self.page_bytes = max(1 << 20, int(page_bytes))
         self._lock = threading.Lock()
@@ -139,6 +143,9 @@ class PlanePager:
                             lease=True)
         if g is not None:
             g.note_build(key, dt)
+        self._stats.observe("plane_page_in_seconds", dt)
+        self.flight.record("pagein", f"{index}/{field.name}",
+                           f"{len(page_shards)} shards", dt)
         with self._lock:
             self.page_ins += 1
             self.page_in_seconds_total += dt
@@ -217,6 +224,7 @@ class PlanePager:
                       "oracleServes": self.oracle_serves,
                       "quotaDenials": self.quota_denials}
         n_pages = sum(d["residentPages"] for d in per.values())
+        self._stats.gauge("plane_resident_pages", n_pages)
         for t in set(hits) | set(misses) | set(page_ins):
             d = per.setdefault(t, {"residentBytes": 0, "residentPages": 0,
                                    "residentEntries": 0})

@@ -1,17 +1,20 @@
 """Per-tenant admission quotas (``pilosa_tpu.tenancy.qos``).
 
-Tenant = index name.  Both quotas are off by default:
+Tenant = index name.  The three quotas are off by default:
 
 - a qps quota: a token bucket per tenant holding one second of quota,
   refilled continuously;
 - a slot quota: at most this many of the tenant's queries execute at
-  once.
+  once;
+- a device-seconds quota: a tenant whose decayed recent device seconds
+  (the cost ledger's :meth:`~pilosa_tpu_torch.obs.ledger.CostLedger.
+  recent_seconds`) reach the quota sheds until the window decays back
+  under it, whatever its request rate.
 
 A query over quota raises :class:`TenantThrottledError` before it takes
 an executor slot; the API answers it with a 503, a ``Retry-After`` header
-and a ``tenantThrottled{tenant, quota, kind}`` body.  The reference's
-third quota, device seconds, reads its cost ledger, which this port does
-not have.
+and a ``tenantThrottled{tenant, quota, kind}`` body.  Each shed counts on
+``tenant_shed_total{tenant}``.
 """
 
 from __future__ import annotations
@@ -29,16 +32,22 @@ class TenantThrottledError(Exception):
         super().__init__(msg)
         self.tenant = tenant
         self.quota = quota
-        self.kind = kind  # "qps" | "slots"
+        self.kind = kind  # "qps" | "slots" | "device-seconds"
         self.retry_after = retry_after
 
 
 class TenantQos:
     """Per-tenant admission state under one lock."""
 
-    def __init__(self, qps_quota: float = 0.0, slot_quota: int = 0):
+    def __init__(self, qps_quota: float = 0.0, slot_quota: int = 0,
+                 stats=None, device_seconds_quota: float = 0.0,
+                 ledger=None):
+        from pilosa_tpu_torch.obs import NopStats
         self.qps_quota = float(qps_quota)
         self.slot_quota = int(slot_quota)
+        self.device_seconds_quota = float(device_seconds_quota)
+        self._ledger = ledger
+        self._stats = stats or NopStats()
         self._lock = threading.Lock()
         self._buckets: dict[str, list] = {}   # tenant -> [tokens, ts]
         self._inflight: dict[str, int] = {}
@@ -46,7 +55,9 @@ class TenantQos:
 
     @property
     def enabled(self) -> bool:
-        return self.qps_quota > 0 or self.slot_quota > 0
+        return (self.qps_quota > 0 or self.slot_quota > 0
+                or (self.device_seconds_quota > 0
+                    and self._ledger is not None))
 
     def admit(self, tenant: str) -> None:
         """Admit one query of ``tenant`` or raise
@@ -69,6 +80,24 @@ class TenantQos:
                     self._shed(tenant, self.slot_quota, "slots",
                                retry_after=0.5)
                 self._inflight[tenant] = used + 1
+            if self.device_seconds_quota > 0 and self._ledger is not None:
+                spent = self._ledger.recent_seconds(tenant)
+                if spent >= self.device_seconds_quota:
+                    self._inflight_undo(tenant)
+                    self._shed(tenant, self.device_seconds_quota,
+                               "device-seconds", retry_after=1.0)
+
+    def _inflight_undo(self, tenant: str) -> None:
+        """Caller holds the lock: give back the slot this admit just
+        took before a later quota sheds (a raising admit is never paired
+        with :meth:`release`)."""
+        if self.slot_quota <= 0:
+            return
+        left = self._inflight.get(tenant, 0) - 1
+        if left > 0:
+            self._inflight[tenant] = left
+        else:
+            self._inflight.pop(tenant, None)
 
     def release(self, tenant: str) -> None:
         if self.slot_quota <= 0:
@@ -84,6 +113,7 @@ class TenantQos:
               retry_after: float) -> None:
         # caller holds self._lock
         self._sheds[tenant] = self._sheds.get(tenant, 0) + 1
+        self._stats.count("tenant_shed_total", 1, tenant=tenant)
         raise TenantThrottledError(
             f"tenant {tenant!r} over its {kind} quota ({quota:g}); "
             f"retry later", tenant, quota, kind,
@@ -104,7 +134,7 @@ class TenantQos:
         with self._lock:
             return {"qpsQuota": self.qps_quota,
                     "slotQuota": self.slot_quota,
-                    "deviceSecondsQuota": 0.0,
+                    "deviceSecondsQuota": self.device_seconds_quota,
                     "inflight": dict(self._inflight),
                     "sheds": dict(self._sheds),
                     "shedTotal": int(sum(self._sheds.values()))}

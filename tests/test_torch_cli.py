@@ -9,8 +9,9 @@
   keys reach the executor, the API and the holder, and the keys whose
   defaults differ from the reference's are pinned;
 - ``generate-config``, ``config``, ``import`` (ids, keys, values),
-  ``export``, ``check`` on a clean and on a corrupt directory (the port
-  prints FATAL where the reference prints BAD; both exit 1),
+  ``export``, ``check`` on a clean and on a corrupt directory (both
+  packages quarantine the fragment, print the same ``BAD`` line and
+  exit 1),
   ``version``, and ``backup`` / ``restore`` refused;
 - the ``server`` command in a subprocess with ``--device cpu``, closed by
   SIGTERM with exit code 0.
@@ -50,13 +51,18 @@ def test_keys_in_the_reference_order_plus_device():
 
 
 def test_changed_defaults_pinned():
+    # every default is the reference's, the observability and storage
+    # keys (a 1% trace sample, a 1 s slow log, a 32 MiB/s scrubber every
+    # 600 s, the disk governor's floor and probe) included
     t, j = tconfig.Config(), jconfig.Config()
     changed = {k for k in _keys(jconfig) if getattr(t, k) != getattr(j, k)}
-    assert changed == {"trace_sample_rate", "slow_query_threshold",
-                       "scrub_interval_seconds", "scrub_bytes_per_second",
-                       "disk_min_free_bytes", "disk_probe_seconds"}
-    assert tconfig.CHANGED_DEFAULTS == {
-        k: (getattr(j, k), getattr(t, k)) for k in changed}
+    assert changed == set()
+    assert tconfig.CHANGED_DEFAULTS == {}
+    for key in ("trace_sample_rate", "slow_query_threshold",
+                "scrub_interval_seconds", "scrub_bytes_per_second",
+                "disk_min_free_bytes", "disk_probe_seconds", "log_format",
+                "stats_backend", "statsd_address", "diagnostics_interval"):
+        assert key not in tconfig.REFUSED
 
 
 def test_layering_equal(tmp_path):
@@ -276,10 +282,11 @@ def test_check_clean_and_corrupt(tmp_path, capsys):
     shutil.copytree(root, jroot)
     assert tmain.main(["check", "--data-dir", root]) == 1
     out = capsys.readouterr().out
-    assert out.startswith("FATAL: holder open failed: ")
-    assert "crc mismatch" in out
+    assert f"BAD {snap}: quarantined (snapshot) frame length/crc " \
+        "mismatch (disk corruption)" in out
+    assert out.endswith("1 problems\n")
     assert jmain.main(["check", "--data-dir", jroot]) == 1
-    assert "BAD " in capsys.readouterr().out
+    assert capsys.readouterr().out == out.replace(root, jroot)
 
 
 def test_server_command_in_a_subprocess(tmp_path):

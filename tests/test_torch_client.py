@@ -251,7 +251,9 @@ def test_client_error_kinds():
 
 def test_reference_only_calls_refused():
     c = Client("127.0.0.1", 1)
-    for call in (c.write_health, c.metrics_text):
-        with pytest.raises(NotImplementedError,
-                           match="not supported by this port"):
-            call()
+    with pytest.raises(NotImplementedError,
+                       match="not supported by this port"):
+        c.write_health()
+    # /metrics is served: the call goes to the wire (nothing listens)
+    with pytest.raises(ClientError):
+        c.metrics_text()

@@ -9,7 +9,11 @@ stage 1, a window quarantined while its kernels still run, and the
 ``distinct`` batcher kind; and the plane build's builder pool on the card
 against the serial CPU build, a build from ``.dense`` images against the
 cold one, and a page-in from images against one from snapshots; and a
-deleted field's device bytes freed, and the CLI's server on the card.
+deleted field's device bytes freed, and the CLI's server on the card;
+and the instruments on the card: the bandwidth gauge within the HBM peak
+under a burst, a profiled request's kernel time within its ledger
+seconds within its wall, and a ``/debug/profile`` capture naming the
+hand kernels.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -1175,3 +1179,140 @@ def test_cli_server_answers_on_the_card(dev, tmp_path):
             proc.kill()
             proc.wait(30)
         proc.stderr.close()
+
+
+def _obs_api(root: str, dev):
+    """A 6-shard ``i`` (``f`` 32 rows, ``h`` 4, ``g`` 2) behind the
+    default executor with a metrics registry on the card."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.obs import Stats
+
+    class PeakStats(Stats):
+        def __init__(self):
+            super().__init__()
+            self.peak = {}
+
+        def gauge(self, name, value, **labels):
+            super().gauge(name, value, **labels)
+            self.peak[name] = max(value, self.peak.get(name, value))
+
+    holder = _robust_holder(root, 32, 4)
+    ex = Executor(holder, device=dev, stats=PeakStats())
+    return API(holder, ex)
+
+
+def test_bandwidth_gauge_within_the_card_peak(dev, tmp_path):
+    """Under a concurrent burst every ``kernel_bandwidth_gbps`` value the
+    windows set lies in (0, 3350] GB/s (the H100's HBM peak): a window's
+    wall never misses its kernels."""
+    import threading
+    api = _obs_api(str(tmp_path / "d"), dev)
+    ex = api.executor
+    qs = ("".join(f"Count(Row(f={r}))" for r in range(32)),
+          "Count(Row(f=1))Count(Row(f=9))",
+          "Count(Intersect(Row(f=1), Row(g=0)))Count(Union(Row(f=2), "
+          "Row(h=1)))")
+    try:
+        want = {q: api.query("i", q) for q in qs}
+        ex.planes.wait_builds()
+        errs = []
+
+        def client(k):
+            try:
+                for i in range(12):
+                    q = qs[(k + i) % len(qs)]
+                    assert api.query("i", q) == want[q]
+            except Exception as e:  # noqa: BLE001
+                errs.append(repr(e))
+
+        ts = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        assert not errs and ex.batcher.windows > 0
+        peak = ex.stats.peak.get("kernel_bandwidth_gbps")
+        assert peak is not None and 0 < peak <= 3350.0
+    finally:
+        ex.close()
+        api.holder.close()
+
+
+@pytest.mark.parametrize("pql", [
+    "".join(f"Count(Row(f={r}))" for r in range(32)),
+    "Count(Intersect(Row(f=1), Row(g=0)))",
+    "TopN(f, Row(g=0), n=5)",
+    "GroupBy(Rows(f, limit=4), Rows(g))"])
+def test_kernel_ms_within_ledger_within_wall(dev, tmp_path, pql):
+    """A sequential profiled request: its kernels' CUDA-event time <= the
+    cost ledger's ``deviceSeconds`` on its root <= its wall."""
+    import time
+    api = _obs_api(str(tmp_path / "d"), dev)
+    try:
+        want = api.query("i", pql)["results"]
+        api.executor.planes.wait_builds()
+        for _ in range(3):
+            cuda_kernels.EVENTS = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = api.query("i", pql, profile=True)
+            wall = time.perf_counter() - t
+            events, cuda_kernels.EVENTS = cuda_kernels.EVENTS, None
+            torch.cuda.synchronize()
+            assert out["results"] == want
+            kms = sum(a.elapsed_time(b) for _, a, b in events)
+            dev_s = out["profile"][0]["tags"]["deviceSeconds"]
+            assert kms / 1e3 <= dev_s <= wall
+    finally:
+        cuda_kernels.EVENTS = None
+        api.executor.close()
+        api.holder.close()
+
+
+def test_debug_profile_capture_lists_the_hand_kernels(dev, tmp_path):
+    """``POST /debug/profile`` while requests run: the Chrome trace names
+    every hand kernel launched meanwhile."""
+    import json
+    import re
+    import threading
+    import urllib.request
+
+    from pilosa_tpu_torch.api import Server
+    api = _obs_api(str(tmp_path / "d"), dev)
+    server = Server(api, "127.0.0.1", 0).start()
+    stop = threading.Event()
+    qs = ("".join(f"Count(Row(f={r}))" for r in range(32)),
+          "Count(Row(f=1))Count(Row(f=9))",
+          "Count(Intersect(Row(f=1), Row(g=0)))")
+
+    def load():
+        while not stop.is_set():
+            for q in qs:
+                api.query("i", q)
+
+    try:
+        for q in qs:
+            api.query("i", q)
+        api.executor.planes.wait_builds()
+        before = dict(cuda_kernels.LAUNCHES)
+        th = threading.Thread(target=load)
+        th.start()
+        url = ("http://%s:%d/debug/profile?seconds=1&dir=" % server.address
+               + str(tmp_path / "prof"))
+        req = urllib.request.Request(url, data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            cap = json.loads(r.read())
+        stop.set()
+        th.join(60)
+        launched = {k for k, v in cuda_kernels.LAUNCHES.items()
+                    if v > before[k]}
+        trace = open(cap["traceFile"]).read()
+        assert launched >= {"row_counts", "selected_row_counts", "count"}
+        for k in launched:
+            assert re.search(rf"(?<![A-Za-z_]){k}_kernel", trace), k
+    finally:
+        stop.set()
+        server.close()
+        api.executor.close()
+        api.holder.close()

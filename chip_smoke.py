@@ -13,7 +13,7 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Fifteen phases; any failure raises and the exit code is non-zero:
+Sixteen phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -272,7 +272,31 @@ Fifteen phases; any failure raises and the exit code is non-zero:
    meanwhile.  The phase must launch ``count``, ``row_counts`` and
    ``selected_row_counts``; launch counters are reset at the start and
    read at the end.
-15. Print the ``kernels`` JSON line, the card's name and power limit, and
+15. The cluster: three nodes in this process with ``replicas = 2`` (the
+   layout of ``bench/config22_availability.py``), each its own executor
+   on the card with a 4 GiB plane budget, the periodic anti-entropy off.
+   (b) ``f``'s and ``g``'s snapshot blobs as data generation wrote them
+   (kept as hard links: later phases replace those files), over the first
+   128 shards (a CUT line), to any node by ``/import-roaring``, each
+   routed to both owners (its seconds and bytes; every owner holds each
+   shard's bits, no other node does).  (a) The 32-Count, the 4-Count, a
+   compound Count, the filtered TopN and a GroupBy g x f asked of every
+   node, a
+   keyed Count after keys created through a non-coordinator replicate to
+   every node, all against the numpy oracle; the sequential p50 and a
+   32-client burst through one node beside phases 2 and 3; the path
+   kernels must launch.  (b) A PQL ``Set`` / ``Clear`` and a 4096-pair
+   ``/import`` sent through the node that does not own shard 0, read back
+   from each replica's holder.  (c) One node closed while a reader
+   thread asks the 32-Count through the coordinator: no read fails;
+   Sets to its shards are hinted; it reopens, the hints replay (seconds
+   to converge); one diverged fragment is repaired by an AAE round
+   triggered over it alone; a quarantined fragment is rebuilt from its
+   replica through ``repair_quarantined``.  (d) ``/metrics/cluster`` and
+   ``/status/cluster`` with three nodes up; the placement loaded is the
+   placement at the end (no resize moved it).  The nodes then close
+   without compacting (the tree is removed).
+16. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
    seconds are printed on a line of their own, and the free disk before
    phase 2.
@@ -592,6 +616,16 @@ def make_index(data_dir: str, shards: int, seed: int):
                 fh.write(blob)
     log(f"index written: {2 * shards} fragment snapshots, "
         f"{total / 1e9:.2f} GB in {time.perf_counter() - t0:.1f}s")
+    # phase 15 imports these blobs into its cluster; later phases compact
+    # and damage some snapshot files (each a new file: tmp + rename), so
+    # the originals are kept as hard links (no bytes copied)
+    for name in ("f", "g"):
+        src = os.path.join(CLUSTER_DIR, "src", name)
+        os.makedirs(src, exist_ok=True)
+        for s in range(shards):
+            os.link(os.path.join(data_dir, "bench", name, "views",
+                                 "standard", "fragments", str(s)),
+                    os.path.join(src, str(s)))
     # phase 10's sparse field, written beside f's snapshots
     tags = make_tags(data_dir, shards, seed)
     # phase 9's keyed field holds f's rows as written here (phase 4 and
@@ -599,21 +633,26 @@ def make_index(data_dir: str, shards: int, seed: int):
     seg_oracle = make_keys(data_dir, f, g, shards)
 
     t0 = time.perf_counter()
-    counts = np.zeros(ROWS, np.int64)
-    filtered = np.zeros(ROWS, np.int64)
-    inter = union = 0
+    # per shard, for phase 15's prefix of the shards
+    ps = {"counts": np.zeros((shards, ROWS), np.int64),
+          "filtered": np.zeros((shards, ROWS), np.int64),
+          "inter": np.zeros(shards, np.int64),
+          "union": np.zeros(shards, np.int64)}
     for s0 in range(0, shards, 64):
         fc, g0 = f[s0:s0 + 64], g[s0:s0 + 64, 0]
-        counts += _popcounts(fc).sum(axis=0)
-        filtered += _popcounts(fc & g0[:, None, :]).sum(axis=0)
-        inter += int(_popcounts(fc[:, 1] & g0).sum())
-        union += int(_popcounts(fc[:, 1] | g0).sum())
+        ps["counts"][s0:s0 + 64] = _popcounts(fc)
+        ps["filtered"][s0:s0 + 64] = _popcounts(fc & g0[:, None, :])
+        ps["inter"][s0:s0 + 64] = _popcounts(fc[:, 1] & g0)
+        ps["union"][s0:s0 + 64] = _popcounts(fc[:, 1] | g0)
+    counts = ps["counts"].sum(axis=0)
+    filtered = ps["filtered"].sum(axis=0)
+    inter, union = int(ps["inter"].sum()), int(ps["union"].sum())
     # a column of row 3 that is still clear, for the write check
     zero = np.nonzero(np.unpackbits(f[0, 3].view(np.uint8),
                                     bitorder="little") == 0)[0]
     free_col = int(zero[0])
     oracle = {"counts": counts, "filtered": filtered, "inter": inter,
-              "union": union, "free_col": free_col}
+              "union": union, "free_col": free_col, "per_shard": ps}
     # the write check sets that bit; the concurrent phase serves that
     # state, and the ingest batches follow it
     state = {"counts": counts.copy(), "filtered": filtered.copy()}
@@ -1261,11 +1300,13 @@ def _executor(holder, **kw):
 def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES,
                 seed: int = 42, **api_kw) -> dict:
-    """Phases 2 to 14 over one holder; returns the
+    """Phases 2 to 15 over one holder (phase 15's cluster beside it);
+    returns the
     launch counts of each path's run, keyed "serve", "concurrent",
     "concurrent_off", "concurrent_overlay", "ingest", "bsi",
     "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
-    "budget", "robust", "storage", "api" and "obs" (``api_kw`` sizes phase 13:
+    "budget", "robust", "storage", "api", "obs" and "cluster" (``api_kw``
+    sizes phase 13:
     phase 9's ``k`` and the CLI's pairs)."""
     import torch
     from pilosa_tpu_torch.api import API, Server
@@ -1453,6 +1494,13 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         op = obs_phase(client, holder, planes, oracle["storage"], cuda,
                        device, data_dir)
         log(f"phase 14 wall: {time.perf_counter() - t_phase:.1f}s")
+        t_phase = time.perf_counter()
+        planes.wait_builds()
+        log("== phase 15: the cluster ==")
+        cl = cluster_phase(
+            oracle, cuda, device, len(oracle["per_shard"]["inter"]),
+            {"p50_ms": _median_ms(client.lat["REST " + Q32])})
+        log(f"phase 15 wall: {time.perf_counter() - t_phase:.1f}s")
     finally:
         if server is not None:
             server.close()
@@ -1476,7 +1524,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
-            **sp, **ap, **op}
+            **sp, **ap, **op, "cluster": cl["launches"]}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -3150,7 +3198,7 @@ def keys_phase(client, holder, planes, keyo: dict, cuda: bool, device,
 # ---------------------------------------------------------------------------
 
 TAG_ROWS = 5_000_000           # config10's sparse field (SPARSE_ROWS)
-TAG_BITS = 20_000_000          # (row, column) draws, before dedupe
+TAG_BITS = 20_000_000          # expected bits (one probability per cell)
 SMALL_BUDGET = 2 << 30         # below f's 4.0 GB plane: paging, streaming
 TENANT_QUOTA = 128 << 20       # two 64 MiB pages of f
 QOS_CLIENTS, QOS_COUNTS = 8, 4
@@ -3162,20 +3210,26 @@ RECORD: dict = {}              # numbers one phase passes to a later one
 
 def make_tags(data_dir: str, shards: int, seed: int) -> dict:
     """``bench/config10_product_families.py``'s sparse field, not cut:
-    field ``tags`` of ``bench`` (created with the index), TAG_BITS (row,
-    column) draws over TAG_ROWS rows and every column of ``shards`` shards,
-    deduplicated, written as one fragment snapshot per shard.  Returns the
-    bits' rows and columns, sorted by row."""
+    field ``tags`` of ``bench`` (created with the index), about TAG_BITS
+    bits, each (row, column) cell of TAG_ROWS rows over every column of
+    ``shards`` shards set with one probability, written as one fragment
+    snapshot per shard.  Returns the bits' rows and columns, sorted by
+    row."""
     from pilosa_tpu_torch.store import roaring
 
     t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 10])
-    rows = rng.integers(0, TAG_ROWS, TAG_BITS).astype(np.uint64)
-    cols = rng.integers(0, shards << 20, TAG_BITS).astype(np.uint64)
-    key = np.unique((rows << np.uint64(40)) | cols)
-    rows = key >> np.uint64(40)
-    cols = key & np.uint64((1 << 40) - 1)
-    del key
+    # each (row, column) cell set with probability TAG_BITS / cells: the
+    # set cells in row-major order are a cumulative sum of geometric gaps,
+    # sorted and distinct as drawn (no sort of 20M keys: the card
+    # machine's host sorts slowly)
+    width = shards << 20
+    cells = TAG_ROWS * width
+    pos = np.cumsum(rng.geometric(TAG_BITS / cells, TAG_BITS)) - 1
+    pos = pos[pos < cells].astype(np.uint64)
+    rows = pos // np.uint64(width)
+    cols = pos % np.uint64(width)
+    del pos
     shard = (cols >> np.uint64(20)).astype(np.uint16)
     order = np.argsort(shard, kind="stable")  # a radix sort on 16 bits
     srows, scols = rows[order], cols[order]
@@ -3194,7 +3248,7 @@ def make_tags(data_dir: str, shards: int, seed: int) -> dict:
         nbytes += len(blob)
         with open(os.path.join(tdir, str(s)), "wb") as fh:
             fh.write(blob)
-    log(f"tags: {len(rows)} bits (of {TAG_BITS} draws) over {TAG_ROWS} "
+    log(f"tags: {len(rows)} bits (about {TAG_BITS}) over {TAG_ROWS} "
         f"rows, {shards} fragment snapshots, {nbytes / 1e6:.1f} MB in "
         f"{time.perf_counter() - t0:.1f}s")
     return {"rows": rows, "cols": cols}
@@ -5450,6 +5504,440 @@ def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
     return {"obs": launched}
 
 
+# -- phase 15: the cluster ----------------------------------------------------
+
+CLUSTER_DIR = os.path.join(REPO, "chip_smoke_cluster")
+CL_NODES = 3                   # bench/config22_availability.py's layout:
+CL_REPLICAS = 2                # 3 nodes, replicas = 2
+CL_SHARDS = 128                # phase 15's depth (a CUT line below the run's)
+CL_BUDGET = 4 << 30            # each node's plane budget: 12 GiB for three
+# seconds, the reference's default; a node is suspect after three.  A
+# shorter interval lets a node whose heartbeat thread waits on the
+# interpreter lock (three nodes and 32 clients in one process) take its
+# peers for suspect: a shard universe read then holds only its own
+# shards, and the reference's semantics serve that as complete
+CL_HEARTBEAT = 2.0
+CL_THREADS = 8                 # import-roaring requests in flight
+CL_SEQ = 20                    # sequential 32-Counts timed through one node
+CL_PASSES = 2                  # passes of the 32-client burst
+CL_KEY_PAIRS = 4096            # keyed pairs over 8 row keys
+CL_NEW_ROW = 40                # the 4096-pair /import writes rows 40-47
+CL_LOSS_ROW = 50               # the Sets made while a node is down
+CL_QC = ("Count(Intersect(Row(f=1), Row(g=0)))"
+         "Count(Union(Row(f=1), Row(g=0)))")
+CL_GB = "GroupBy(Rows(g, limit=1), Rows(f, limit=4))"
+CL_KEYQ = 'Count(Row(kseg="seg-05"))'
+CL_READS = (Q32, Q4, CL_QC, TOPN_G, CL_GB)
+CL_NAMES = {Q32: "32-Count", Q4: "4-Count", CL_QC: "compound Count",
+            TOPN_G: "filtered TopN", CL_GB: "GroupBy g x f"}
+
+
+class _RestApi:
+    """``api.query`` through one node's REST endpoint (a burst's client)."""
+
+    def __init__(self, port: int):
+        from pilosa_tpu_torch.api.client import Client
+        self.client = Client("127.0.0.1", port, timeout=600)
+
+    def query(self, index: str, pql: str) -> dict:
+        return {"results": self.client.query(index, pql)}
+
+
+def _cl_expect(ps: dict, n: int) -> dict:
+    """The numpy oracle of phase 15's reads over the first ``n`` shards."""
+    counts = ps["counts"][:n].sum(axis=0)
+    filtered = ps["filtered"][:n].sum(axis=0)
+    groups = [{"group": [{"field": "g", "rowID": 0},
+                         {"field": "f", "rowID": r}],
+               "count": int(filtered[r])} for r in range(4) if filtered[r]]
+    return {Q32: [int(c) for c in counts],
+            Q4: [int(counts[r]) for r in SELECTED],
+            CL_QC: [int(ps["inter"][:n].sum()), int(ps["union"][:n].sum())],
+            TOPN_G: [_topn(filtered, 5)], CL_GB: [groups]}
+
+
+def _cl_frag(srv, field: str, shard: int):
+    idx = srv.holder.index("cb")
+    f = idx.field(field) if idx is not None else None
+    v = f.standard_view() if f is not None else None
+    return v.fragment(shard) if v is not None else None
+
+
+def _cl_drop(srv) -> None:
+    """Close a node without compacting its fragments (the tree is removed
+    after the run): the cluster, REST server and executor stop, and the
+    holder's in-memory rows are dropped."""
+    srv.diagnostics.close()
+    srv.scrubber.close()
+    srv.cluster.close()
+    srv.http.close()
+    srv.executor.close()
+    for idx in list(srv.holder.indexes.values()):
+        for f in list(idx.fields.values()):
+            for v in list(f.views.values()):
+                for frag in list(v.fragments.values()):
+                    frag.discard()
+    srv.holder.close()
+
+
+def _cl_await(pred, what: str, timeout: float = 120.0) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if pred():
+            return time.perf_counter() - t0
+        time.sleep(0.02)
+    raise AssertionError(f"phase 15: timed out waiting for {what}")
+
+
+def cluster_phase(oracle: dict, cuda: bool, device, shards: int,
+                  single: dict) -> dict:
+    """Phase 15: a 3-node cluster with ``replicas = 2`` in this process,
+    each node its own executor on the card.  Returns its launch counts
+    under "cluster"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from pilosa_tpu_torch.api.client import Client
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.server import PilosaTPUServer
+    from pilosa_tpu_torch.testing import TestCluster, free_ports, node_config
+
+    n = min(shards, CL_SHARDS)
+    if n < shards:
+        log(f"CUT: phase 15's cluster serves the first {n} of the run's "
+            f"{shards} shards: every node imports and applies each of its "
+            f"fragments on the host, about {2 * 4.2:.1f} MB of bits per "
+            "shard per replica, within the phase's 90 s")
+    expect = _cl_expect(oracle["per_shard"], n)
+    ports = free_ports(CL_NODES)
+    base = os.path.join(CLUSTER_DIR, "nodes")
+
+    def config(i: int, seed):
+        # no scrubber and no .dense images (the disk-write cap); AAE only
+        # when triggered
+        return node_config(i, base, seed, port=ports[i],
+                           replicas=CL_REPLICAS, heartbeat=CL_HEARTBEAT,
+                           device=device or "", plane_budget_bytes=CL_BUDGET,
+                           plane_sidecars=False, scrub_bytes_per_second=0)
+
+    out: dict = {}
+    servers: list = []
+    try:
+        t0 = time.perf_counter()
+        seed = None
+        for i in range(CL_NODES):
+            srv = PilosaTPUServer(config(i, seed)).open()
+            servers.append(srv)
+            seed = seed or srv.cluster.node_id
+        tc = TestCluster(servers)
+        tc.await_membership(CL_NODES, 60)
+        tc.await_state("NORMAL", 60)
+        coord = servers[0].cluster.coordinator_id()
+        log(f"cluster up in {time.perf_counter() - t0:.2f}s: "
+            f"{[s.cluster.node_id for s in servers]}, coordinator {coord}, "
+            f"{CL_NODES} x {CL_BUDGET >> 30} GiB plane budgets on one card")
+        pos = {s.cluster.node_id: i for i, s in enumerate(servers)}
+        clients = [Client("127.0.0.1", s.port, timeout=600)
+                   for s in servers]
+        c0 = clients[0]
+        c0.create_index("cb", {"trackExistence": False})
+        c0.create_field("cb", "f")
+        c0.create_field("cb", "g")
+        c0.create_field("cb", "kseg", {"keys": True})
+        placement = [list(s.cluster.placement_ids) for s in servers]
+
+        # (b) the bulk import: every shard's f and g blobs, as data
+        # generation wrote them, to any node; routed to both owners
+        def one(job):
+            name, sh = job
+            with open(os.path.join(CLUSTER_DIR, "src", name, str(sh)),
+                      "rb") as fh:
+                blob = fh.read()
+            c = Client("127.0.0.1", servers[sh % CL_NODES].port,
+                       timeout=600)
+            try:
+                return name, sh, len(blob), c.import_roaring(
+                    "cb", name, sh, blob)
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CL_THREADS) as pool:
+            imported = list(pool.map(
+                one, [(name, sh) for sh in range(n) for name in ("f", "g")]))
+        import_s = time.perf_counter() - t0
+        sent = sum(b for _, _, b, _ in imported)
+        for name, sh, _, changed in imported:
+            if name == "f" and changed != int(
+                    oracle["per_shard"]["counts"][sh].sum()):
+                raise AssertionError(f"import of f shard {sh} changed "
+                                     f"{changed} bits")
+        log(f"bulk import: {2 * n} roaring blobs, {sent / 1e9:.3f} GB sent "
+            f"(x{CL_REPLICAS} replicas applied) in {import_s:.2f}s = "
+            f"{sent / import_s / 1e6:.1f} MB/s sent")
+        out["import_s"], out["import_bytes"] = import_s, sent
+        for sh in range(n):
+            owners = servers[0].cluster.shard_owners("cb", sh)
+            for s in servers:
+                frag = _cl_frag(s, "f", sh)
+                held = 0 if frag is None else int(
+                    frag.row_cardinalities()[1].sum())
+                want = (int(oracle["per_shard"]["counts"][sh].sum())
+                        if s.cluster.node_id in owners else 0)
+                if held != want:
+                    raise AssertionError(
+                        f"shard {sh} on node {pos[s.cluster.node_id]}: "
+                        f"{held} bits, want {want}")
+
+        # (a) reads on all three nodes, each answer held to the oracle
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = {}
+        for i, c in enumerate(clients):
+            for pql in CL_READS:
+                t = time.perf_counter()
+                got = c.query("cb", pql)
+                first.setdefault(CL_NAMES[pql], []).append(
+                    round((time.perf_counter() - t) * 1e3, 2))
+                if got != expect[pql]:
+                    raise AssertionError(f"node {i} {CL_NAMES[pql]}: got "
+                                         f"{str(got)[:200]}")
+        log(f"reads on 3 nodes exact in {time.perf_counter() - t0:.2f}s; "
+            f"first answers ms by node (planes built on first use): "
+            f"{json.dumps(first)}")
+        # keys: created by the coordinator for an import through another
+        # node, replicated to every node's key store
+        rng = np.random.default_rng(15)
+        cols = rng.choice(n * (1 << 20), CL_KEY_PAIRS, replace=False)
+        keys = [f"seg-{k:02d}" for k in rng.integers(1, 9, CL_KEY_PAIRS)]
+        via = next(i for i, s in enumerate(servers)
+                   if s.cluster.node_id != coord)
+        clients[via].import_bits("cb", "kseg", rowKeys=keys,
+                                 columnIDs=[int(c) for c in cols])
+        want_key = [sum(k == "seg-05" for k in keys)]
+        for i, c in enumerate(clients):
+            got = c.query("cb", CL_KEYQ)
+            if got != want_key:
+                raise AssertionError(f"node {i} keyed Count: got {got}, "
+                                     f"want {want_key}")
+            if len(servers[i].executor.translate.rows("cb", "kseg")) != 8:
+                raise AssertionError(f"node {i} lacks the replicated keys")
+        seq = []
+        for _ in range(CL_SEQ):
+            t = time.perf_counter()
+            if c0.query("cb", Q32) != expect[Q32]:
+                raise AssertionError("sequential 32-Count")
+            seq.append(time.perf_counter() - t)
+        rest = _RestApi(servers[0].port)
+        run = burst(rest, {Q32: expect[Q32]}, clients=32,
+                    passes=CL_PASSES, mix=(Q32,), names=CL_NAMES,
+                    index="cb")
+        rps = run["requests"] / run["wall"]
+        out["p50_ms"], out["rps"] = _median_ms(seq), rps
+        log(f"32-Count through node 0: sequential p50 {_median_ms(seq):.2f} "
+            f"ms (phase 2, one node: {single.get('p50_ms', 0.0):.2f} ms); "
+            f"32 clients x {CL_PASSES}: {rps:.1f} requests/s, p50 "
+            f"{_pct_ms(run['lat'][Q32], 0.5):.2f} ms, p99 "
+            f"{_pct_ms(run['lat'][Q32], 0.99):.2f} ms (phase 3, one node: "
+            f"{BURST_RATES.get('default', 0.0):.1f} requests/s)")
+        launches = dict(cuda_kernels.LAUNCHES)
+        log(f"launches during the cluster's reads: {json.dumps(launches)}")
+        for k in ("row_counts", "selected_row_counts", "count"):
+            if cuda and launches[k] < 1:
+                raise AssertionError(f"phase 15 never launched {k}")
+
+        # (b) writes through the node that does not own the shard
+        owners = servers[0].cluster.shard_owners("cb", 0)
+        via = next(i for i, s in enumerate(servers)
+                   if s.cluster.node_id not in owners)
+        col = oracle["free_col"]
+        holders = [tc.server_for(o) for o in owners]
+
+        def bit(srv, row, column) -> bool:
+            frag = _cl_frag(srv, "f", 0)
+            return bool(frag.rows_contain([row], [column])[0, 0])
+
+        if clients[via].query("cb", f"Set({col}, f=3)") != [True]:
+            raise AssertionError("Set through a non-owner")
+        if not all(bit(h, 3, col) for h in holders):
+            raise AssertionError("the Set is not on both replicas")
+        if _cl_frag(servers[via], "f", 0) is not None:
+            raise AssertionError("the non-owner holds shard 0")
+        if clients[via].query("cb", f"Clear({col}, f=3)") != [True]:
+            raise AssertionError("Clear through a non-owner")
+        if any(bit(h, 3, col) for h in holders):
+            raise AssertionError("the Clear is not on both replicas")
+        pcols = rng.choice(1 << 20, 4096, replace=False)
+        prows = CL_NEW_ROW + rng.integers(0, 8, 4096)
+        t = time.perf_counter()
+        changed = clients[via].import_bits(
+            "cb", "f", rowIDs=[int(r) for r in prows],
+            columnIDs=[int(c) for c in pcols])
+        imp_ms = (time.perf_counter() - t) * 1e3
+        for h in holders:
+            got = _cl_frag(h, "f", 0).rows_contain(
+                np.arange(CL_NEW_ROW, CL_NEW_ROW + 8), pcols)
+            if changed != 4096 or int(got[prows - CL_NEW_ROW,
+                                          np.arange(4096)].sum()) != 4096:
+                raise AssertionError("the 4096-pair import is not on "
+                                     "both replicas")
+        log(f"Set / Clear / 4096-pair import through node {via} (not an "
+            f"owner of shard 0) on both replicas; the import "
+            f"{imp_ms:.1f} ms")
+        c0.import_bits("cb", "f", rowIDs=[int(r) for r in prows],
+                       columnIDs=[int(c) for c in pcols], clear=True)
+
+        # (c) node loss: reads stay exact, writes are hinted and replay
+        victim_i = next(i for i, s in enumerate(servers)
+                        if s.cluster.node_id != coord and i != via)
+        reader_i = next(i for i in range(CL_NODES)
+                        if i not in (victim_i,) and
+                        servers[i].cluster.node_id == coord)
+        victim = servers[victim_i]
+        vid, vcfg = victim.cluster.node_id, victim.cfg
+        answers, failures = [], []
+        stop = threading.Event()
+
+        def reader():
+            c = Client("127.0.0.1", servers[reader_i].port, timeout=600)
+            while not stop.is_set():
+                try:
+                    got = c.query("cb", Q32)
+                    answers.append(got == expect[Q32])
+                except Exception as e:  # noqa: BLE001 — counted
+                    failures.append(repr(e)[:200])
+            c.close()
+
+        rt = threading.Thread(target=reader, daemon=True)
+        rt.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        victim.close()
+        close_s = time.perf_counter() - t0
+        alive = [s for s in servers if s is not victim]
+        _cl_await(lambda: all(vid not in s.cluster.alive_ids()
+                              for s in alive), "the victim to be suspect")
+        time.sleep(1.0)
+        stop.set()
+        rt.join(timeout=120)
+        if failures or not all(answers):
+            raise AssertionError(f"reads failed through the node loss: "
+                                 f"{len(failures)} errors {failures[:2]}, "
+                                 f"{answers.count(False)} wrong")
+        vshards = [sh for sh in range(n)
+                   if vid in alive[0].cluster.shard_owners("cb", sh)]
+        wcols = [sh * (1 << 20) + col for sh in vshards[:8]]
+        for wc in wcols:
+            if clients[reader_i].query(
+                    "cb", f"Set({wc}, f={CL_LOSS_ROW})") != [True]:
+                raise AssertionError("a write through the node loss")
+        hinted = sum(s.cluster.hints.pending_ops() for s in alive)
+        log(f"node {victim_i} closed in {close_s:.2f}s: {len(answers)} reads "
+            f"through it, {len(failures)} failed, all exact; "
+            f"{len(wcols)} Sets to its shards hinted as {hinted} op(s)")
+        if hinted < len(wcols):
+            raise AssertionError("the writes were not hinted")
+        t0 = time.perf_counter()
+        back = PilosaTPUServer(vcfg).open()
+        servers[victim_i] = back
+        clients[victim_i].close()  # its pooled sockets died with the node
+        clients[victim_i] = Client("127.0.0.1", back.port, timeout=600)
+        for s in alive:
+            s.cluster._drain_hints(vid)
+        converge_s = time.perf_counter() - t0 + _cl_await(
+            lambda: all(s.cluster.hints.pending_ops() == 0 for s in alive)
+            and all(_cl_frag(back, "f", wc >> 20).rows_contain(
+                [CL_LOSS_ROW], [col])[0, 0] for wc in wcols),
+            "the hints to replay")
+        tc.await_state("NORMAL", 60)
+        log(f"node {victim_i} reopened, its {hinted} hint(s) replayed: "
+            f"converged in {converge_s:.2f}s")
+        # every node learns of the drained backlog from the next
+        # heartbeats; until then AAE defers syncs with the node
+        _cl_await(lambda: not any(s.cluster.hinted_peers()
+                                  for s in servers), "the hinted peers")
+        out["converge_s"] = converge_s
+        loss_q = f"Count(Row(f={CL_LOSS_ROW}))"
+        for i, c in enumerate(clients):
+            if c.query("cb", loss_q) != [len(wcols)] or c.query(
+                    "cb", Q32) != expect[Q32]:
+                raise AssertionError(f"node {i} after the replay")
+        # one diverged fragment, repaired by a triggered AAE round
+        sh = vshards[0]
+        o1, o2 = (tc.server_for(o)
+                  for o in servers[0].cluster.shard_owners("cb", sh))
+        _cl_frag(o1, "f", sh).set_bits(np.array([CL_NEW_ROW], np.uint64),
+                                       np.array([7, 8, 9], np.uint64))
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{o1.port}/internal/aae/run?index=cb"
+                f"&field=f&shard={sh}", data=b"{}", method="POST"),
+                timeout=600) as resp:
+            repaired = json.loads(resp.read())["repaired"]
+        aae_s = time.perf_counter() - t0
+        if repaired < 1 or not _cl_frag(o2, "f", sh).rows_contain(
+                [CL_NEW_ROW], [7, 8, 9]).all():
+            raise AssertionError("AAE did not repair the diverged replica")
+        log(f"AAE: {repaired} block(s) of the diverged fragment repaired in "
+            f"{aae_s:.3f}s by a round over it alone (the periodic sweep "
+            "off)")
+        out["aae_s"] = aae_s
+        # a quarantined fragment rebuilt from its replica
+        frag = _cl_frag(o2, "f", sh)
+        sh_health = o2.holder.storage_health
+        entry = sh_health.quarantine(frag.path, "snapshot",
+                                     "quarantined by phase 15")
+        t0 = time.perf_counter()
+        if not o2.cluster.repair_quarantined(entry):
+            raise AssertionError("repair_quarantined failed")
+        repair_s = time.perf_counter() - t0
+        if sh_health.is_quarantined(frag.path) or int(
+                frag.row_cardinalities()[1].sum()) != int(
+                _cl_frag(o1, "f", sh).row_cardinalities()[1].sum()):
+            raise AssertionError("the rebuilt fragment differs")
+        log(f"quarantined fragment rebuilt from its replica in "
+            f"{repair_s:.2f}s")
+        for i, c in enumerate(clients):
+            if c.query("cb", Q32) != expect[Q32] or c.query(
+                    "cb", loss_q) != [len(wcols)]:
+                raise AssertionError(f"node {i} after the repair")
+
+        # (d) the cluster's observability routes
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{servers[0].port}/metrics/cluster",
+                timeout=60) as resp:
+            text = resp.read().decode()
+        up = re.findall(r'^cluster_metrics_node_up\{node="[^"]+"\} (\d)',
+                        text, re.M)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{servers[0].port}/status/cluster",
+                timeout=60) as resp:
+            status = json.loads(resp.read())
+        if up != ["1"] * CL_NODES or status["staleNodes"] or len(
+                status["nodes"]) != CL_NODES:
+            raise AssertionError(f"/metrics/cluster node_up {up}, "
+                                 f"/status/cluster {status['staleNodes']}")
+        log(f"/metrics/cluster: {len(text)} bytes, {CL_NODES} nodes up; "
+            f"/status/cluster: {CL_NODES} nodes, coordinator "
+            f"{status['coordinator']}")
+        # the reopened node's join ran a resize over the same members: it
+        # may bump the placement's version, never its owners
+        if [list(s.cluster.placement_ids) for s in servers] != placement:
+            raise AssertionError("a resize moved the loaded placement")
+        out["launches"] = launches
+        if cuda:
+            log(f"device memory after phase 15: "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    finally:
+        for srv in servers:
+            try:
+                _cl_drop(srv)
+            except Exception as e:  # noqa: BLE001 — the phase's own error
+                log(f"closing a cluster node: {e!r}")
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=42)
@@ -5486,6 +5974,7 @@ def main() -> int:
 
     data_dir = os.path.join(REPO, "chip_smoke_data")
     shutil.rmtree(data_dir, ignore_errors=True)
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
     try:
         t0 = time.perf_counter()
         oracle = make_index(data_dir, args.shards, args.seed)
@@ -5498,8 +5987,9 @@ def main() -> int:
         launches = serve_phase(data_dir, oracle, seed=args.seed)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
 
-    log("== phase 15: output ==")
+    log("== phase 16: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

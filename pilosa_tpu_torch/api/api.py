@@ -18,6 +18,15 @@ process ring; any other runs under a
 one that still comes in over the threshold lands in the slow log with its
 root and ``stage.*`` breakdown.  A profiled query's root carries the cost
 ledger's ``deviceSeconds`` for its trace.
+
+With a :class:`~pilosa_tpu_torch.cluster.Cluster` attached (``cluster``)
+the API is a cluster node's, as in the reference: schema changes and
+deletes broadcast to every peer, queries fan out through
+:class:`~pilosa_tpu_torch.cluster.DistributedExecutor`, imports route to
+every replica owner of their shards through the
+:class:`~pilosa_tpu_torch.ingest.BulkImporter` (hinted handoff and op-id
+dedup included), and a batch marked ``direct`` (a peer already routed it)
+applies locally, once per op id.
 """
 
 from __future__ import annotations
@@ -36,12 +45,14 @@ from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.engine.words import SHARD_WIDTH
 from pilosa_tpu_torch.exec import ExecutionError, Executor, result_to_json
 from pilosa_tpu_torch.exec.errors import (PipelineStalledError,
-                                          QueryTimeoutError)
+                                          QueryTimeoutError,
+                                          WriteUnavailableError)
 from pilosa_tpu_torch.exec.executor import ExecutorSaturatedError
 from pilosa_tpu_torch.obs import (GLOBAL_TRACER, LiteTracer, SlowQueryLog,
                                   Tracer)
 from pilosa_tpu_torch.obs.tracing import set_current_trace_id
 from pilosa_tpu_torch.pql.parser import ParseError
+from pilosa_tpu_torch.api import proto
 from pilosa_tpu_torch.store import FieldOptions, Holder, roaring
 from pilosa_tpu_torch.engine.bsi import EXISTS_ROW, OFFSET_ROW, SIGN_ROW
 from pilosa_tpu_torch.store.field import (BSI_TYPES, TYPE_DECIMAL, TYPE_SET,
@@ -84,6 +95,18 @@ class ApiError(Exception):
         return cls(str(exc), 500, extra={"pipelineStall": {
             "stage": getattr(exc, "stage", None),
             "elapsedSeconds": round(getattr(exc, "elapsed", 0.0), 3)}})
+
+    @classmethod
+    def write_unavailable(cls, exc: WriteUnavailableError) -> "ApiError":
+        """A cluster write that could not replicate: 503 with
+        ``Retry-After`` and a ``writeUnavailable{op, replica, reason}``
+        block naming the down replica and why handoff could not cover
+        it."""
+        return cls(str(exc), 503,
+                   retry_after=getattr(exc, "retry_after", 1.0),
+                   extra={"writeUnavailable": {
+                       "op": exc.op, "replica": exc.replica,
+                       "reason": exc.reason}})
 
     @classmethod
     def tenant_throttled(cls, exc: TenantThrottledError) -> "ApiError":
@@ -136,9 +159,11 @@ class API:
     def __init__(self, holder: Holder, executor: Executor,
                  query_timeout: float = 0.0,
                  trace_sample_rate: float = 0.01,
-                 slow_query_threshold: float = 1.0):
+                 slow_query_threshold: float = 1.0, cluster=None):
         self.holder = holder
         self.executor = executor
+        self.cluster = cluster  # set by the cluster layer on a node
+        self._bulk_importer = None
         # seconds; a cap on every request's timeout (0: no cap)
         self.query_timeout = query_timeout
         # this fraction of ordinary queries is kept in the trace ring
@@ -162,34 +187,44 @@ class API:
     def create_index(self, name: str, options: dict | None = None):
         options = options or {}
         try:
-            return self.holder.create_index(
+            idx = self.holder.create_index(
                 name, keys=options.get("keys", False),
                 track_existence=options.get("trackExistence", True))
         except ValueError as e:
             raise ApiError(str(e), 409 if "exists" in str(e) else 400)
+        if self.cluster is not None:
+            self.cluster.broadcast_schema()
+        return idx
 
     def create_field(self, index: str, name: str,
                      options: dict | None = None):
         idx = self._index(index)
         try:
-            return idx.create_field(name,
-                                    field_options_from_json(options or {}))
+            f = idx.create_field(name, field_options_from_json(options or {}))
         except ValueError as e:
             raise ApiError(str(e), 409 if "exists" in str(e) else 400)
+        if self.cluster is not None:
+            self.cluster.broadcast_schema()
+        return f
 
-    def delete_index(self, name: str) -> None:
+    def delete_index(self, name: str, direct: bool = False) -> None:
         """Delete an index, its directory, its key stores and everything
-        the executor holds of it (404 when absent)."""
+        the executor holds of it (404 when absent); in a cluster, on
+        every node (``direct``: a peer's broadcast, applied here only)."""
         try:
             self.holder.delete_index(
                 name, release=lambda path: self.executor.forget_index(
                     name, path))
         except KeyError:
             raise ApiError(f"index {name!r} not found", 404)
+        if self.cluster is not None and not direct:
+            self.cluster.broadcast_delete(name, None)
 
-    def delete_field(self, index: str, name: str) -> None:
+    def delete_field(self, index: str, name: str,
+                     direct: bool = False) -> None:
         """Delete a field, its directory and its key files; every cached
-        plane of the index drops, as in the reference (404 when absent)."""
+        plane of the index drops, as in the reference (404 when absent);
+        in a cluster, on every node."""
         idx = self._index(index)
 
         def release(path: str) -> None:
@@ -200,6 +235,8 @@ class API:
             idx.delete_field(name, release=release)
         except KeyError:
             raise ApiError(f"field {name!r} not found", 404)
+        if self.cluster is not None and not direct:
+            self.cluster.broadcast_delete(index, name)
 
     def schema(self) -> list[dict]:
         return self.holder.schema()
@@ -244,7 +281,7 @@ class API:
             if (self.slow_query_threshold > 0
                     and duration >= self.slow_query_threshold):
                 root = tracer.slow_root("query", duration, index=index,
-                                        node="local", liteTrace=True)
+                                        node=self._node(), liteTrace=True)
                 if err is not None:
                     root.tags["error"] = str(err)
                 stats.count("slow_query_total", 1)
@@ -258,7 +295,7 @@ class API:
         tracer = Tracer()
         tracer.sampled = sampled or profile
         t0 = time.perf_counter()
-        with tracer.span("query", index=index, node="local") as root:
+        with tracer.span("query", index=index, node=self._node()) as root:
             self._trace_tls.trace_id = root.trace_id
             set_current_trace_id(root.trace_id)
             try:
@@ -293,11 +330,19 @@ class API:
             out["profile"] = [sp.to_json() for sp in tracer.finished()]
         return out
 
+    def _node(self) -> str:
+        """This node's id in spans: the cluster's, else ``local``."""
+        return self.cluster.node_id if self.cluster is not None else "local"
+
     def _run_query(self, index: str, pql: str, shards, tracer, deadline,
                    timeout, t0) -> tuple[dict, ApiError | None]:
         """Execute and classify the error: (answer, ApiError or None);
         the caller orders the raise and the slow capture."""
         try:
+            if self.cluster is not None:
+                return {"results": self.cluster.dist.execute_json(
+                    index, pql, shards=shards, tracer=tracer,
+                    deadline=deadline)}, None
             results = self.executor.execute(index, pql, shards=shards,
                                             deadline=deadline, tracer=tracer)
             return {"results": [result_to_json(r) for r in results]}, None
@@ -309,6 +354,8 @@ class API:
             return {}, ApiError.tenant_throttled(e)
         except ExecutorSaturatedError as e:
             return {}, ApiError(str(e), 503, retry_after=e.retry_after)
+        except WriteUnavailableError as e:
+            return {}, ApiError.write_unavailable(e)
         except StorageFaultError as e:
             return {}, ApiError.storage_fault(e)
         except (ParseError, ExecutionError) as e:
@@ -347,7 +394,7 @@ class API:
     def import_bits(self, index: str, field: str, *, row_ids=None,
                     col_ids=None, row_keys=None, col_keys=None,
                     timestamps=None, clear: bool = False,
-                    op_id: str | None = None) -> int:
+                    op_id: str | None = None, direct: bool = False) -> int:
         """Bulk (row, column) import, set or ``clear``: ids, or keys of a
         keyed field (``row_keys``) and index (``col_keys``), created as
         they arrive, rows first; ``timestamps`` (one per pair: an ISO
@@ -355,8 +402,11 @@ class API:
         time field's quantum views.  Returns the bits changed.  The next
         Count or TopN over a resident plane absorbs the batch into its
         delta overlay.  ``op_id`` (``X-Pilosa-Op-Id``) names the batch for
-        a cluster's duplicate-delivery check; a single node has no
-        cluster, so, as in the reference, every delivery applies.  On a
+        a cluster's duplicate-delivery check (a delivery whose id the node
+        applied is a no-op); a single node has no cluster, so, as in the
+        reference, every delivery applies.  In a cluster the batch goes
+        to every replica owner of each shard it touches, unless
+        ``direct`` (a peer routed it: ids only, applied here).  On a
         holder with ``fsync`` on the batch is durable when this returns,
         with one fsync per op-log it touched (a :class:`SyncBatch`).
         Timed on ``import_batch_seconds``."""
@@ -364,19 +414,26 @@ class API:
         changed = self._import_bits(index, field, row_ids=row_ids,
                                     col_ids=col_ids, row_keys=row_keys,
                                     col_keys=col_keys,
-                                    timestamps=timestamps, clear=clear)
+                                    timestamps=timestamps, clear=clear,
+                                    op_id=op_id, direct=direct)
         self.executor.stats.observe("import_batch_seconds",
                                     time.perf_counter() - t0)
         return changed
 
     def _import_bits(self, index: str, field: str, *, row_ids, col_ids,
-                     row_keys, col_keys, timestamps, clear: bool) -> int:
+                     row_keys, col_keys, timestamps, clear: bool,
+                     op_id: str | None, direct: bool) -> int:
         idx = self._index(index)
         f = self._field(idx, field)
-        rows = self._translate_rows(idx, f, row_ids, row_keys)
-        cols = self._translate_cols(idx, col_ids, col_keys)
+        rows = self._translate_rows(idx, f, row_ids, row_keys, direct)
+        cols = self._translate_cols(idx, col_ids, col_keys, direct)
         if rows.ndim != 1 or cols.ndim != 1 or len(rows) != len(cols):
             raise ApiError("rows and columns length mismatch")
+        if self.cluster is not None and not direct:
+            return self._bulk().import_bits(index, field, rows, cols,
+                                            timestamps, clear)
+        if self._applied(op_id):
+            return 0  # a duplicate delivery (a retry, a replayed hint)
         ts = self._parse_timestamps(timestamps)
         sb = SyncBatch()
         try:
@@ -391,8 +448,27 @@ class API:
             raise ApiError(str(e))
         finally:
             self._flush(sb)
+        self._note_applied(op_id)
         self._count_imported(changed)
         return changed
+
+    def _applied(self, op_id: str | None) -> bool:
+        """Whether this cluster node already applied the batch ``op_id``."""
+        return (op_id is not None and self.cluster is not None
+                and op_id in self.cluster.applied_ops)
+
+    def _note_applied(self, op_id: str | None) -> None:
+        if op_id is not None and self.cluster is not None:
+            self.cluster.applied_ops.add(op_id)
+
+    def _bulk(self):
+        """The cluster's bulk-import coordinator (made at first use: the
+        cluster is attached after construction)."""
+        bulk = self._bulk_importer
+        if bulk is None or bulk.cluster is not self.cluster:
+            from pilosa_tpu_torch.ingest import BulkImporter
+            bulk = self._bulk_importer = BulkImporter(self, self.cluster)
+        return bulk
 
     def _flush(self, sb: SyncBatch) -> None:
         """Flush an import's fsyncs and tally them for ``/status``."""
@@ -423,19 +499,24 @@ class API:
         return out
 
     def import_values(self, index: str, field: str, *, col_ids=None,
-                      col_keys=None, values=None) -> int:
+                      col_keys=None, values=None,
+                      direct: bool = False) -> int:
         """Bulk (column, value) import into a BSI field: column ids, or
         keys of a keyed index (``col_keys``, created as they arrive);
         returns the bits changed.  The next Sum/Min/Max/range Count over
-        a resident bit plane absorbs the batch into its BSI overlay."""
+        a resident bit plane absorbs the batch into its BSI overlay.  In
+        a cluster each shard's values go to its replica owners (the
+        primary's count answers), unless ``direct``."""
         idx = self._index(index)
         f = self._field(idx, field)
         if f.options.type not in BSI_TYPES:
             raise ApiError(f"field {field!r} is not an int field")
-        cols = self._translate_cols(idx, col_ids, col_keys)
+        cols = self._translate_cols(idx, col_ids, col_keys, direct)
         if (not isinstance(values, (list, tuple)) or cols.ndim != 1
                 or len(values) != len(cols)):
             raise ApiError("columns and values length mismatch")
+        if self.cluster is not None and not direct:
+            return self._route_import_values(index, field, cols, values)
         try:
             changed = f.import_values(cols, values)
         except (TypeError, ValueError, OverflowError) as e:
@@ -444,16 +525,74 @@ class API:
         self._count_imported(changed, ingest=False)
         return changed
 
+    def _route_to_owners(self, index: str, shard: int, local_fn,
+                         remote_fn) -> int:
+        """Apply a write on every replica owner of a shard: ``local_fn()``
+        here, ``remote_fn(client)`` on a peer; returns the primary's
+        changed count."""
+        primary_changed = None
+        for owner in self.cluster.shard_owners(index, shard):
+            if owner == self.cluster.node_id:
+                got = local_fn()
+            else:
+                got = remote_fn(self.cluster._client(owner))
+            if primary_changed is None:
+                primary_changed = got
+        return primary_changed or 0
+
+    @staticmethod
+    def _proto_or_json_forward(path: str, encode, json_body):
+        """A forwarded batch's sender: the protobuf wire, encoded at the
+        first remote owner, or JSON for what the codec refuses."""
+        cache: list = []
+
+        def remote(client):
+            if not cache:
+                try:
+                    cache.append((encode(), True))
+                except ValueError:
+                    cache.append((None, False))
+            body, is_proto = cache[0]
+            if is_proto:
+                return client._do(
+                    "POST", path, body, content_type=proto.CONTENT_TYPE,
+                    headers={"X-Pilosa-Direct": "1"})["changed"]
+            return client._json("POST", path, json_body(),
+                                headers={"X-Pilosa-Direct": "1"})["changed"]
+        return remote
+
+    def _route_import_values(self, index: str, field: str, cols,
+                             values) -> int:
+        shards = cols // np.uint64(SHARD_WIDTH)
+        changed = 0
+        for shard in np.unique(shards):
+            m = shards == shard
+            sub_cols = [int(c) for c in cols[m]]
+            sub_vals = [values[i] for i in np.nonzero(m)[0]]
+            remote = self._proto_or_json_forward(
+                f"/index/{index}/field/{field}/importValue",
+                lambda: proto.encode_import_value_request(
+                    col_ids=sub_cols, values=sub_vals),
+                lambda: {"columnIDs": sub_cols, "values": sub_vals})
+            changed += self._route_to_owners(
+                index, int(shard),
+                lambda: self.import_values(
+                    index, field, col_ids=sub_cols, values=sub_vals,
+                    direct=True),
+                remote)
+        return changed
+
     def import_roaring(self, index: str, field: str, shard: int,
                        blob: bytes, view: str = VIEW_STANDARD,
                        clear: bool = False,
-                       op_id: str | None = None) -> int:
+                       op_id: str | None = None,
+                       direct: bool = False) -> int:
         """Import a roaring-encoded bit set (positions ``row *
         SHARD_WIDTH + column offset``) into one shard of any view of a set
         or time field, created on first use; returns the bits changed.  A mutex or bool field
         takes pair imports only.  The positions are ids on a keyed field
-        or index too, as in the reference.  ``op_id`` as for
-        :meth:`import_bits`: every delivery applies on a single node."""
+        or index too, as in the reference.  ``op_id`` and ``direct`` as
+        for :meth:`import_bits`."""
         t0 = time.perf_counter()
         idx = self._index(index)
         f = self._field(idx, field)
@@ -465,6 +604,14 @@ class API:
         if view in ("", ".", "..") or "/" in view or "\0" in view:
             # a view is one directory under the field
             raise ApiError(f"import-roaring: invalid view name {view!r}")
+        if self.cluster is not None and not direct:
+            changed = self._bulk().import_roaring(index, field, shard, blob,
+                                                  view, clear)
+            self.executor.stats.observe("import_batch_seconds",
+                                        time.perf_counter() - t0)
+            return changed
+        if self._applied(op_id):
+            return 0
         frag = f.view(view, create=True).fragment(shard, create=True)
         sb = SyncBatch()
         try:
@@ -480,6 +627,7 @@ class API:
                     + np.uint64(shard * SHARD_WIDTH), sync_batch=sb)
         finally:
             self._flush(sb)
+        self._note_applied(op_id)
         self._count_imported(changed)
         self.executor.stats.observe("import_batch_seconds",
                                     time.perf_counter() - t0)
@@ -500,7 +648,16 @@ class API:
                 else "cpu")
         with self._stats_lock:
             imported = self._imported_bits
-        return {"state": "NORMAL", "version": __version__,
+        cluster = {}
+        if self.cluster is not None:
+            # per-peer liveness and breakers, and the hint backlog
+            cluster = {"nodes": self.cluster.nodes_status(),
+                       "clusterHealth": self.cluster.health_payload(),
+                       "writeHealth": self.cluster.write_health_payload()}
+        return {"state": (self.cluster.state if self.cluster is not None
+                          else "NORMAL"),
+                **cluster,
+                "version": __version__,
                 "device": str(dev), "deviceName": name,
                 "planes": self.executor.planes.stats(),
                 "batcher": self.executor.serving_stats(),
@@ -636,34 +793,46 @@ class API:
         except (TypeError, ValueError, OverflowError) as e:
             raise ApiError(f"import: bad IDs: {e}")
 
-    def _translate_rows(self, idx, f, row_ids, row_keys) -> np.ndarray:
+    def _translate_rows(self, idx, f, row_ids, row_keys,
+                        direct: bool = False) -> np.ndarray:
         """An import's row ids: ``row_keys`` of a keyed field translated
-        (created as they arrive), else ``row_ids`` of an unkeyed one."""
+        (created as they arrive; in a cluster by the coordinator), else
+        ``row_ids`` of an unkeyed one, or of any in a routed batch."""
         if row_keys is not None:
             if not f.options.keys:
                 raise ApiError(f"field {f.name!r} is not keyed")
+            if self.cluster is not None:
+                return np.array(self.cluster.translate_keys(
+                    idx.name, f.name, list(row_keys), create=True),
+                    dtype=np.uint64)
             log = self.executor.translate.rows(idx.name, f.name)
             return np.array(log.translate(list(row_keys), create=True),
                             dtype=np.uint64)
         if row_ids is None:
             raise ApiError("missing rowIDs/rowKeys")
-        if f.options.keys:
+        if f.options.keys and not direct:
             raise ApiError(f"field {f.name!r} is keyed; use rowKeys")
         return self._ids(row_ids)
 
-    def _translate_cols(self, idx, col_ids, col_keys) -> np.ndarray:
+    def _translate_cols(self, idx, col_ids, col_keys,
+                        direct: bool = False) -> np.ndarray:
         """An import's column ids: ``col_keys`` of a keyed index
-        translated (created as they arrive), else ``col_ids`` of an
-        unkeyed one."""
+        translated (created as they arrive; in a cluster by the
+        coordinator), else ``col_ids`` of an unkeyed one, or of any in a
+        routed batch."""
         if col_keys is not None:
             if not idx.keys:
                 raise ApiError(f"index {idx.name!r} is not keyed")
+            if self.cluster is not None:
+                return np.array(self.cluster.translate_keys(
+                    idx.name, None, list(col_keys), create=True),
+                    dtype=np.uint64)
             log = self.executor.translate.columns(idx.name)
             return np.array(log.translate(list(col_keys), create=True),
                             dtype=np.uint64)
         if col_ids is None:
             raise ApiError("missing columnIDs/columnKeys")
-        if idx.keys:
+        if idx.keys and not direct:
             raise ApiError(f"index {idx.name!r} is keyed; use columnKeys")
         return self._ids(col_ids)
 

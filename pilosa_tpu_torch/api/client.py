@@ -492,11 +492,10 @@ class Client:
         return self._json("GET", "/status")
 
     def write_health(self) -> dict:
-        """The reference's hinted-handoff block: a cluster's, which this
-        port does not serve."""
-        raise NotImplementedError(
-            "write_health is not supported by this port (it has no "
-            "cluster; ROADMAP item 11)")
+        """The ``writeHealth`` block of ``/status``: the hinted-handoff
+        backlog, its age and the per-peer drains (empty on a single
+        node)."""
+        return self._json("GET", "/status").get("writeHealth", {})
 
     def info(self) -> dict:
         return self._json("GET", "/info")

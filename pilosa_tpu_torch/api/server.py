@@ -71,13 +71,23 @@ saturated executor answers 503 with ``Retry-After``.  A write the
 storage layer refuses answers 503 ``storageFault{path, kind}`` (a
 quarantined fragment) or 507 ``writeUnavailable{reason: "disk_full"}``.
 A protobuf query's errors answer in protobuf with the same status.
-Imports accept an ``X-Pilosa-Op-Id`` header and, on a single node, apply
-every delivery.  Every request counts on ``http_requests_total{method,
-status}`` and ``http_request_seconds{method}``.
+Imports accept an ``X-Pilosa-Op-Id`` header (in a cluster, a delivery
+whose id the node already applied is a no-op; a single node applies
+every delivery) and ``X-Pilosa-Direct: 1``, the mark of a batch a
+cluster peer already routed.  A write a cluster cannot replicate
+answers 503 with ``Retry-After`` and ``writeUnavailable{op, replica,
+reason}``.  Every request counts on ``http_requests_total{method,
+status}`` and ``http_request_seconds{method}``; the ``server.response``
+failpoint's ``drop_response`` runs the handler and drops its answer.
 
-The reference's cluster routes (``/metrics/cluster``, ``/status/cluster``,
-``/internal/*`` but ``/internal/traces``) are not served.  With an
-``ssl_context`` the server speaks HTTPS only.
+The cluster's routes: ``GET /metrics/cluster`` (every node's registry in
+one Prometheus document, ``cluster_metrics_node_up 0`` for a node that
+did not answer), ``GET /status/cluster`` (every node's ``/status``),
+``GET /debug/flight?cluster=1`` (every node's flight ring), ``GET
+/internal/metrics/snapshot`` and the node-to-node ``/internal/*`` of
+:mod:`pilosa_tpu_torch.cluster.internal`, which answer 503 on a node
+that is not clustered.  With an ``ssl_context`` the server speaks HTTPS
+only.
 """
 
 from __future__ import annotations
@@ -95,7 +105,7 @@ import traceback
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch import __version__, fault
 from pilosa_tpu_torch.api import proto
 from pilosa_tpu_torch.api.api import API, ApiError
 from pilosa_tpu_torch.obs import GLOBAL_TRACER
@@ -165,12 +175,29 @@ class Handler(BaseHTTPRequestHandler):
         _route("GET", "/info", "h_info"),
         _route("GET", "/version", "h_version"),
         _route("GET", "/metrics", "h_metrics"),
+        _route("GET", "/metrics/cluster", "h_metrics_cluster"),
+        _route("GET", "/status/cluster", "h_status_cluster"),
+        _route("GET", "/internal/metrics/snapshot", "h_metrics_snapshot"),
         _route("GET", "/internal/traces", "h_traces"),
         _route("GET", "/debug/slow", "h_debug_slow"),
         _route("GET", "/debug/flight", "h_debug_flight"),
         _route("GET", "/debug/threads", "h_debug_threads"),
         _route("POST", "/debug/profile", "h_debug_profile"),
     ]
+
+    # ROUTES and the cluster's /internal/* routes, built at first use
+    # (the cluster's handlers import this module)
+    _all_routes: list | None = None
+
+    @classmethod
+    def routes(cls) -> list:
+        if cls._all_routes is None:
+            from pilosa_tpu_torch.cluster.internal import \
+                register_internal_routes
+            routes = list(cls.ROUTES)
+            register_internal_routes(routes)
+            cls._all_routes = routes
+        return cls._all_routes
 
     def log_message(self, fmt, *args):
         _log.debug("http: " + fmt, *args)
@@ -195,6 +222,11 @@ class Handler(BaseHTTPRequestHandler):
 
     def _reply(self, obj, status: int = 200, headers=None,
                content_type: str = "application/json") -> None:
+        if getattr(self, "_fault_drop_response", False):
+            # drop_response: the handler ran, the caller never hears
+            # back (it sees a reset, and its retry is a duplicate)
+            self.close_connection = True
+            return
         data = obj if isinstance(obj, bytes) else json.dumps(obj).encode()
         self.send_response(status)
         self.send_header("Content-Type", content_type)
@@ -220,18 +252,28 @@ class Handler(BaseHTTPRequestHandler):
                                   "supported; send Content-Length"}, 411)
             return
         self._body()
+        for m, rx, name in self.routes():
+            hit = rx.match(path)
+            if m == method and hit:
+                break
+        else:
+            name = None
+        self._fault_drop_response = False
+        if fault.ACTIVE and name is not None:
+            spec = fault.fire("server.response", method=method, path=path)
+            if spec is not None and spec["action"] == "drop_response":
+                self._fault_drop_response = True
         t0 = time.perf_counter()
         code = 200
         try:
-            for m, rx, name in self.ROUTES:
-                hit = rx.match(path)
-                if m == method and hit:
-                    break
-            else:
+            if name is None:
                 code = 404
                 self._reply({"error": f"no route {method} {path}"}, 404)
                 return
-            getattr(self, name)(**hit.groupdict())
+            if callable(name):  # a cluster handler: a function of self
+                name(self, **hit.groupdict())
+            else:
+                getattr(self, name)(**hit.groupdict())
         except (ApiError, StorageFaultError) as e:
             if isinstance(e, StorageFaultError):
                 # a storage refusal from any handler: the structured
@@ -332,6 +374,11 @@ class Handler(BaseHTTPRequestHandler):
     def _op_id(self) -> str | None:
         return self.headers.get("X-Pilosa-Op-Id") or None
 
+    @property
+    def _direct(self) -> bool:
+        """A batch a cluster peer already routed: apply it here."""
+        return self.headers.get("X-Pilosa-Direct") == "1"
+
     def h_import(self, index: str, field: str) -> None:
         if self._is_proto("Content-Type"):
             try:
@@ -351,7 +398,8 @@ class Handler(BaseHTTPRequestHandler):
                       clear=(bool(b.get("clear", False))
                              or "clear" in self.query))
         self._reply_import(self.api.import_bits(index, field,
-                                                op_id=self._op_id, **kw))
+                                                op_id=self._op_id,
+                                                direct=self._direct, **kw))
 
     def h_import_value(self, index: str, field: str) -> None:
         if self._is_proto("Content-Type"):
@@ -365,7 +413,8 @@ class Handler(BaseHTTPRequestHandler):
             b = self._json_body()
             kw = dict(col_ids=b.get("columnIDs"),
                       col_keys=b.get("columnKeys"), values=b.get("values"))
-        self._reply_import(self.api.import_values(index, field, **kw))
+        self._reply_import(self.api.import_values(index, field,
+                                                  direct=self._direct, **kw))
 
     def _reply_import(self, changed: int) -> None:
         if self._is_proto("Accept"):
@@ -379,7 +428,8 @@ class Handler(BaseHTTPRequestHandler):
         changed = self.api.import_roaring(index, field, int(shard),
                                           self._body(), view=view,
                                           clear="clear" in self.query,
-                                          op_id=self._op_id)
+                                          op_id=self._op_id,
+                                          direct=self._direct)
         self._reply({"changed": changed})
 
     def h_create_index(self, index: str) -> None:
@@ -481,6 +531,51 @@ class Handler(BaseHTTPRequestHandler):
                                   + "; version=1.0.0; charset=utf-8"
                                   if om else "text/plain; version=0.0.4"))
 
+    def _full_snapshot(self) -> dict:
+        """This node's registry for the cluster fan-in, its scrape-time
+        gauges refreshed first."""
+        self._refresh_scrape_gauges()
+        return self.server.stats.full_snapshot()
+
+    def h_metrics_snapshot(self) -> None:
+        """The node-to-node leg of ``/metrics/cluster``: the whole registry
+        as JSON (histograms with raw bucket counts)."""
+        cluster = self.api.cluster
+        self._reply({
+            "node": cluster.node_id if cluster is not None else "local",
+            "snapshot": self._full_snapshot()})
+
+    def h_metrics_cluster(self) -> None:
+        """One Prometheus document for the fleet: live peers' registries
+        (breaker-aware) merged with this node's; a node that did not
+        answer is a ``cluster_metrics_node_up 0`` row and named in
+        ``X-Pilosa-Stale-Nodes``, never an error."""
+        from pilosa_tpu_torch.obs.metrics import render_cluster_metrics
+        local = self._full_snapshot()
+        cluster = self.api.cluster
+        if cluster is None:
+            snaps, stale = {"local": local}, []
+        else:
+            snaps, stale = cluster.metrics_snapshots()
+            snaps[cluster.node_id] = local
+        self._reply(render_cluster_metrics(snaps, stale).encode(),
+                    content_type="text/plain; version=0.0.4",
+                    headers=({"X-Pilosa-Stale-Nodes": ",".join(stale)}
+                             if stale else None))
+
+    def h_status_cluster(self) -> None:
+        """Every node's ``/status`` keyed by node id, with the nodes that
+        did not answer in ``staleNodes``."""
+        local = self.api.status()
+        cluster = self.api.cluster
+        if cluster is None:
+            self._reply({"nodes": {"local": local}, "staleNodes": []})
+            return
+        snaps, stale = cluster.status_snapshots()
+        snaps[cluster.node_id] = local
+        self._reply({"nodes": snaps, "staleNodes": stale,
+                     "coordinator": cluster.coordinator_id()})
+
     def h_traces(self) -> None:
         """Retained traces (sampled, slow, profiled); ``?trace_id=``
         narrows to one."""
@@ -498,13 +593,24 @@ class Handler(BaseHTTPRequestHandler):
 
     def h_debug_flight(self) -> None:
         """The flight recorder's ring, oldest first; ``?limit=`` keeps
-        the newest N events."""
+        the newest N events; ``?cluster=1`` answers every node's ring
+        (``/status/cluster``'s contract)."""
         raw = self.query.get("limit", ["0"])[0]
         try:
             limit = int(raw)
         except ValueError:
             raise ApiError(f"bad limit param {raw!r}")
-        self._reply(self.api.executor.flight.snapshot(limit=limit or None))
+        local = self.api.executor.flight.snapshot(limit=limit or None)
+        if self.query.get("cluster", ["0"])[0] not in ("1", "true"):
+            self._reply(local)
+            return
+        cluster = self.api.cluster
+        if cluster is None:
+            self._reply({"nodes": {"local": local}, "staleNodes": []})
+            return
+        snaps, stale = cluster.flight_snapshots(limit=limit)
+        snaps[cluster.node_id] = local
+        self._reply({"nodes": snaps, "staleNodes": stale})
 
     def h_debug_threads(self) -> None:
         """Every thread's Python stack."""

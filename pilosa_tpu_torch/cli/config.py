@@ -32,16 +32,16 @@ trace_sample_rate, slow_query_threshold,
 scrub_interval_seconds,
 scrub_bytes_per_second,
 disk_min_free_bytes, disk_probe_seconds,
-device
+device, name, seeds, replicas,
+cluster_enabled, anti_entropy_interval,
+heartbeat_interval, failover_max_depth,
+hedge_after, breaker_threshold,
+hint_max_age, hint_replay_batch
 mesh                                      served on one device (the
                                           reference places nothing on
                                           one); true with more than one
-                                          CUDA device refused (item 11)
-name, seeds, replicas, cluster_enabled,   refused unless at the default
-anti_entropy_interval,                    (item 11: no cluster); ``name``
-heartbeat_interval, failover_max_depth,   may also equal ``bind``
-hedge_after, breaker_threshold,
-hint_max_age, hint_replay_batch
+                                          CUDA device refused (item 12,
+                                          multi-device)
 kernel_tier ("xla"),                      refused unless at the default:
 dispatch_loop_fusion, fused_warmup,       XLA and JAX knobs (ROADMAP: not
 compilation_cache_dir, jax_coordinator,   to port); the port has one kernel
@@ -151,17 +151,12 @@ class Config:
 # port's); none do
 CHANGED_DEFAULTS: dict = {}
 
-_ITEM_11 = "ROADMAP Queue 1 item 11: cluster"
+_MULTI_DEVICE = "ROADMAP Queue 1 item 12: multi-device"
 _JAX = "ROADMAP: not to port (the port has one kernel tier)"
 
 # refused keys: set to anything but the default, the server refuses to
 # boot, naming the key and the roadmap item that would serve it
 REFUSED = {
-    **dict.fromkeys(
-        ("name", "seeds", "replicas", "cluster_enabled",
-         "anti_entropy_interval", "heartbeat_interval",
-         "failover_max_depth", "hedge_after", "breaker_threshold",
-         "hint_max_age", "hint_replay_batch"), _ITEM_11),
     **dict.fromkeys(
         ("kernel_tier", "dispatch_loop_fusion", "fused_warmup",
          "compilation_cache_dir", "jax_coordinator", "jax_num_processes",
@@ -179,14 +174,13 @@ def check_served(cfg: Config, cuda_devices: int = 1) -> None:
         value = getattr(cfg, key)
         if value == getattr(defaults, key):
             continue
-        if key == "name" and value == cfg.bind:
-            continue  # derived from bind by load()
         raise ValueError(f"config key {key} = {value!r} is not supported "
                          f"by this port ({item})")
     if cfg.mesh and cuda_devices > 1 and not cfg.device.startswith("cpu"):
         raise ValueError(f"config key mesh = true over {cuda_devices} "
                          "CUDA devices is not supported by this port "
-                         f"({_ITEM_11}); set mesh = false to serve on one")
+                         f"({_MULTI_DEVICE}); set mesh = false to serve on "
+                         "one")
 
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}

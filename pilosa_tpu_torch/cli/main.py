@@ -177,7 +177,7 @@ def cmd_export(args) -> int:
 
 def cmd_unsupported(args) -> int:
     print(f"{args.command} is not supported by this port (ROADMAP Queue 1 "
-          "item 11: backup/ and /internal/backup)", file=sys.stderr)
+          "item 11b: backup/ and /internal/backup)", file=sys.stderr)
     return 1
 
 

@@ -19,9 +19,6 @@ SHARD_WIDTH = 1 << 20
 WORD_BITS = 32
 WORDS_PER_SHARD = SHARD_WIDTH // WORD_BITS  # 32768
 
-_ONE = np.uint32(1)
-
-
 def pack_columns(cols: np.ndarray, n_words: int = WORDS_PER_SHARD) -> np.ndarray:
     """Pack column offsets (within one shard, any order) into uint32 words."""
     words = np.zeros(n_words, dtype=np.uint32)
@@ -32,8 +29,11 @@ def pack_columns(cols: np.ndarray, n_words: int = WORDS_PER_SHARD) -> np.ndarray
         raise ValueError(
             f"column {cols.max()} out of range for {n_words * WORD_BITS} bits"
         )
-    np.bitwise_or.at(words, (cols >> 5).astype(np.int64),
-                     _ONE << (cols & np.uint64(31)).astype(np.uint32))
+    # one byte per column, then packed LSB-first: a bit array's cost, not
+    # a scatter's
+    bits = np.zeros(n_words * WORD_BITS, np.uint8)
+    bits[cols] = 1
+    words[:] = np.packbits(bits, bitorder="little").view("<u4")
     return words
 
 

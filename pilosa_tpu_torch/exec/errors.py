@@ -31,3 +31,21 @@ class PipelineStalledError(ExecutionError):
         super().__init__(msg)
         self.stage = stage
         self.elapsed = elapsed
+
+
+class WriteUnavailableError(ExecutionError):
+    """A cluster write cannot serve now: a replica is down and hinted
+    handoff cannot cover it.  ``reason`` is ``replica_down`` (handoff
+    off), ``hint_overflow`` (the peer's backlog outlived
+    ``hint_max_age``), ``no_live_replica`` or ``replica_busy`` (an alive
+    replica shed the op).  The REST edge answers it as a 503 with
+    ``Retry-After`` and a ``writeUnavailable{op, replica, reason}``
+    block."""
+
+    def __init__(self, msg: str, op: str, replica: str | None,
+                 reason: str, retry_after: float = 1.0):
+        super().__init__(msg)
+        self.op = op
+        self.replica = replica
+        self.reason = reason
+        self.retry_after = retry_after

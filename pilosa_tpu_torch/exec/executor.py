@@ -99,7 +99,8 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
                                            unpack_columns)
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec.batcher import CountBatcher
-from pilosa_tpu_torch.exec.errors import ExecutionError, QueryTimeoutError
+from pilosa_tpu_torch.exec.errors import (ExecutionError, QueryTimeoutError,
+                                          WriteUnavailableError)
 from pilosa_tpu_torch.exec.fused import FusedCache, Unfusable
 from pilosa_tpu_torch.exec.planes import (DEFAULT_BUDGET, PlaneCache,
                                           merge_row_cards)
@@ -148,6 +149,11 @@ _CALL_RESERVED = {
     "ClearRow": frozenset(),
     "Store": frozenset(),
 }
+
+def reserved_for(call_name: str) -> frozenset:
+    """The option keys of ``call_name`` that are never field names."""
+    return _CALL_RESERVED.get(call_name, RESERVED_KEYS)
+
 
 _BITMAP_CALLS = frozenset({"Row", "Range", "Intersect", "Union",
                            "Difference", "Xor", "Not", "All", "Shift",
@@ -677,13 +683,19 @@ class Executor:
 
     def execute(self, index_name: str, query: str | Query,
                 shards: list[int] | None = None,
-                deadline: float | None = None, tracer=None) -> list:
+                deadline: float | None = None, tracer=None,
+                translate_output: bool = True) -> list:
         """Run every top-level call; returns one result per call.
         ``deadline`` (a ``time.monotonic()`` cutoff) aborts with
         :class:`QueryTimeoutError` between calls, between streamed blocks
         and while the query waits on the batcher.  ``tracer`` overrides
         the shared one (a profiled query's own, so concurrent queries'
-        spans never interleave)."""
+        spans never interleave).  ``translate_output=False`` is raw mode
+        (a cluster node's partial): results keep row and column ids on
+        keyed fields and indexes, and integer ids are taken there, as the
+        cluster translates keys once at its edge.  Callers pass it, and
+        the rest but the first three arguments, by keyword: the
+        reference orders them differently."""
         index = self.holder.index(index_name)
         if index is None:
             raise ExecutionError(f"index {index_name!r} not found")
@@ -726,6 +738,7 @@ class Executor:
         timer.mark("admit")
         self._tls.stage_timer = timer
         self._tls.deadline = deadline
+        self._tls.raw = not translate_output
         # the ledger's charge context: tenant and trace on this thread,
         # the plane filled in where the query resolves one
         set_query_context(index_name, trace_id=current_trace_id())
@@ -746,6 +759,7 @@ class Executor:
         finally:
             self._tls.stage_timer = None
             self._tls.deadline = None
+            self._tls.raw = False
             clear_query_context()
             self.planes.end_query()
             self._leave_inflight()
@@ -1288,9 +1302,10 @@ class Executor:
         skips parse and plan.  None = take the parse path (not plannable,
         no longer valid, or its plane is not resident: admission stays on
         the parse path)."""
-        # strip() only: whitespace inside the query may be inside a key
+        # strip() only: whitespace inside the query may be inside a key;
+        # raw mode takes integer ids on keyed fields, so it plans apart
         skey = (index_name, query.strip(),
-                tuple(shards) if shards is not None else None)
+                tuple(shards) if shards is not None else None, self._raw())
         with self._plans_lock:
             entry = self._plans.get(skey)
             if entry is not None:
@@ -2003,10 +2018,19 @@ class Executor:
                 f"field {name!r} not found in index {ctx.index.name!r}")
         return field
 
+    def _raw(self) -> bool:
+        """Raw mode on this thread's query (``translate_output=False``)."""
+        return getattr(self._tls, "raw", False)
+
+    def _keyed_out(self, keyed: bool) -> bool:
+        """Whether a keyed field's or index's output is translated: not
+        in raw mode."""
+        return keyed and not self._raw()
+
     def _row_id(self, field: Field, value, create: bool) -> int | None:
         """A row value's id: a bool is 0 or 1, a string is a key of a keyed
         field (None when unknown and not ``create``), an integer is an id
-        of an unkeyed field."""
+        of an unkeyed field, or of any field in raw mode."""
         if isinstance(value, bool):
             return int(value)
         if isinstance(value, str):
@@ -2015,7 +2039,7 @@ class Executor:
                     f"field {field.name!r}: string row on unkeyed field")
             log = self.translate.rows(field.index_name, field.name)
             return log.translate([value], create=create)[0]
-        if field.options.keys:
+        if self._keyed_out(field.options.keys):
             raise ExecutionError(
                 f"field {field.name!r}: integer row on keyed field")
         return int(value)
@@ -2030,7 +2054,7 @@ class Executor:
                     "index")
             log = self.translate.columns(ctx.index.name)
             return log.translate([value], create=create)[0]
-        if ctx.index.keys:
+        if self._keyed_out(ctx.index.keys):
             raise ExecutionError(
                 f"index {ctx.index.name!r}: integer column on keyed index")
         return int(value)
@@ -2060,7 +2084,7 @@ class Executor:
                 parts.append(offs + np.uint64(s * SHARD_WIDTH))
         columns = (np.concatenate(parts) if parts
                    else np.empty(0, np.uint64))
-        if ctx.index.keys:
+        if self._keyed_out(ctx.index.keys):
             # strict: a column with no key raises, as in the reference
             log = self.translate.columns(ctx.index.name)
             return RowResult(keys=log.keys_of(columns))
@@ -2175,7 +2199,7 @@ class Executor:
                 slots = slots.cpu().numpy()[:k]
                 live = vals > 0
                 row_ids, vals = ss.row_ids[slots[live]], vals[live]
-                if field.options.keys:
+                if self._keyed_out(field.options.keys):
                     log = self.translate.rows(ctx.index.name, field.name)
                     return PairsResult(
                         [Pair(key=k_, count=int(c)) for k_, c in
@@ -2223,7 +2247,7 @@ class Executor:
         vals = totals[slots]
         live = vals > 0
         row_ids, vals = all_rows[slots[live]], vals[live]
-        if field.options.keys:
+        if self._keyed_out(field.options.keys):
             log = self.translate.rows(ctx.index.name, field.name)
             return PairsResult([Pair(key=log.key_of(int(r)), count=int(c))
                                 for r, c in zip(row_ids, vals)])
@@ -2333,7 +2357,7 @@ class Executor:
             raise ExecutionError("Rows: missing field argument")
         field = self._field(ctx, str(fname))
         rows = self._rows_of(ctx, field, call)
-        if field.options.keys:
+        if self._keyed_out(field.options.keys):
             log = self.translate.rows(ctx.index.name, field.name)
             return RowIdsResult(keys=log.keys_of(rows, strict=False))
         return RowIdsResult(rows=rows)
@@ -2591,7 +2615,7 @@ class Executor:
         # a keyed level translates once, over its unique row ids
         row_keys: list = [None] * n_levels
         for lvl, (f, _, _) in enumerate(specs):
-            if f.options.keys:
+            if self._keyed_out(f.options.keys):
                 uniq, inv = np.unique(row_ids[:, lvl], return_inverse=True)
                 keys = self.translate.rows(ctx.index.name,
                                            f.name).keys_of(uniq,
@@ -2838,7 +2862,7 @@ class Executor:
         columns = [int(s) * SHARD_WIDTH + int(o)
                    for _, s, offs in col_parts for o in offs.tolist()]
         per_field = [self._extract_field(ctx, f, col_parts) for f in fields]
-        if ctx.index.keys:
+        if self._keyed_out(ctx.index.keys):
             columns = self.translate.columns(ctx.index.name).keys_of(
                 columns, strict=False)
         return ExtractResult(
@@ -2867,7 +2891,7 @@ class Executor:
             return self._extract_bsi(ctx, field, col_parts)
         opts = field.options
         key_log = (self.translate.rows(ctx.index.name, field.name)
-                   if opts.keys else None)
+                   if self._keyed_out(opts.keys) else None)
         if self.planes.plane_bytes(field, VIEW_STANDARD,
                                    ctx.shards) > self.planes.budget:
             view = field.standard_view()

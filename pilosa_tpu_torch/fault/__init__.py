@@ -22,16 +22,28 @@ Sites of this package:
 - ``exec.readback_hang``: a window's readback;
 - ``client.send``: an HTTP client request before it leaves
   (``peer=``, ``method=``, ``path=``);
-- ``client.recv``: the same request after it was sent.
+- ``client.recv``: the same request after it was sent;
+- ``sys.write`` / ``sys.fsync``: every durable write and fsync
+  (:func:`~pilosa_tpu_torch.store.syswrap.checked_write`,
+  ``checked_fsync``; ``path=``), and ``sys.mmap``: a snapshot map's
+  registration;
+- ``oplog.append`` and ``hints.append``: one op-log or hint-log record
+  (``torn_write`` is relative to that record);
+- ``server.response``: a REST request before its handler runs
+  (``method=``, ``path=``);
+- ``dist.fanout``: one remote leg of a cluster read (``peer=``,
+  ``index=``), and ``cluster.broadcast``: one cluster message
+  (``peer=``, ``path=``).
 
-Actions: ``error`` raises :class:`FaultError`, ``delay`` sleeps
-``args.seconds``, ``oom`` raises ``torch.OutOfMemoryError`` (the type the
-executor's recovery classifies).  ``partition`` (at ``client.send``: the
-peer is unreachable) and ``drop`` (at ``client.recv``: the response is
-lost) are interpreted by their site, which :func:`fire` hands the spec.
-The reference's other site-interpreted actions (``torn_write``,
-``drop_response``) belong to sites this package does not have and are
-refused.
+Actions: ``error`` raises :class:`FaultError` (typed by an ``errno``
+arg), ``delay`` sleeps ``args.seconds``, ``oom`` raises
+``torch.OutOfMemoryError`` (the type the executor's recovery classifies).
+The site-interpreted ones get the spec from :func:`fire`: ``partition``
+(at ``client.send``: the peer is unreachable), ``drop`` (at
+``client.recv``: the response is lost; at ``cluster.broadcast``: the
+message is not sent), ``torn_write`` (only ``args.offset`` bytes of the
+record persist, then :func:`torn_write` raises) and ``drop_response``
+(at ``server.response``: the handler runs, its answer is never sent).
 """
 
 from __future__ import annotations
@@ -42,7 +54,10 @@ import threading
 import time
 
 __all__ = ["ACTIVE", "FaultError", "set_fault", "clear", "list_faults",
-           "fire", "configure"]
+           "fire", "torn_write", "configure"]
+
+ACTIONS = ("error", "delay", "oom", "torn_write", "partition",
+           "drop_response", "drop")
 
 # instrumented sites test this before calling fire()
 ACTIVE = False
@@ -52,7 +67,25 @@ _registry: dict[str, list["Failpoint"]] = {}
 
 
 class FaultError(OSError):
-    """An injected fault."""
+    """An injected fault (an OSError: at a store seam it stands in for a
+    disk error).  An ``errno`` arg (``"ENOSPC"``, ``"EIO"`` or a number)
+    types it for the disk governor's classification."""
+
+
+def resolve_errno(value) -> int:
+    """An ``errno`` fault arg as its number: an int as is, a name looked
+    up in the ``errno`` module."""
+    import errno as _errno_mod
+    if isinstance(value, bool):
+        raise ValueError(f"bad errno fault arg {value!r}")
+    if isinstance(value, int):
+        return value
+    no = getattr(_errno_mod, str(value), None)
+    if not isinstance(no, int):
+        raise ValueError(
+            f"unknown errno name {value!r} in fault args "
+            "(use e.g. \"ENOSPC\", \"EIO\", or a number)")
+    return no
 
 
 class Failpoint:
@@ -64,10 +97,8 @@ class Failpoint:
                  prob: float | None = None, seed: int | None = None,
                  times: int | None = None, match: dict | None = None,
                  args: dict | None = None):
-        if action not in ("error", "delay", "oom", "partition", "drop"):
-            raise ValueError(f"fault action {action!r} is not supported by "
-                             "this port (error, delay, oom, partition, "
-                             "drop)")
+        if action not in ACTIONS:
+            raise ValueError(f"unknown fault action {action!r}")
         if prob is not None and not 0.0 <= prob <= 1.0:
             raise ValueError(f"fault prob must be in [0,1], got {prob}")
         self.site = site
@@ -78,6 +109,9 @@ class Failpoint:
         self.times = int(times) if times is not None else None
         self.match = dict(match or {})
         self.args = dict(args or {})
+        if "errno" in self.args:
+            # a misspelt errno fails the arming, not the injection
+            self.args["errno"] = resolve_errno(self.args["errno"])
         self._rng = random.Random(seed if seed is not None else 0)
         self._hits = 0
         self._fired = 0
@@ -155,13 +189,32 @@ def fire(site: str, **ctx) -> dict | None:
             time.sleep(float(fp.args.get("seconds", 0.05)))
             return fp.to_json()
         if fp.action == "error":
-            raise FaultError(f"injected fault at {site}")
+            err = FaultError(f"injected fault at {site}")
+            if "errno" in fp.args:
+                err.errno = fp.args["errno"]
+                err.strerror = f"injected fault at {site}"
+            raise err
         if fp.action != "oom":
             return fp.to_json()  # site-interpreted
         import torch
         raise torch.OutOfMemoryError(
             f"CUDA out of memory: injected fault at {site}")
     return None
+
+
+def torn_write(f, data: bytes, spec: dict) -> None:
+    """Apply a triggered ``torn_write``: persist only the first
+    ``args.offset`` bytes of ``data`` to the open file, flush, and raise
+    :class:`FaultError` (the crash).  Every write seam shares it."""
+    args = spec.get("args", {})
+    off = min(int(args.get("offset", 0)), len(data))
+    f.write(data[:off])
+    f.flush()
+    err = FaultError(
+        f"injected torn write: {off}/{len(data)} bytes persisted")
+    if "errno" in args:
+        err.errno = resolve_errno(args["errno"])
+    raise err
 
 
 def configure(spec: str | list | dict | None) -> int:

@@ -4,8 +4,9 @@
 Opt-in (``diagnostics_interval`` > 0): the reporter builds the payload and
 hands it to a pluggable ``send`` callable; the default sink writes it to
 the logger at debug level.  Counts only, never names or keys.  The port
-serves one card, so the payload has no ``mesh`` block, and no cluster
-blocks.
+serves one card, so the payload has no ``mesh`` block; a cluster node's
+has the cluster's member count and its ``clusterHealth`` and
+``writeHealth`` counts (never peer ids).
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from pilosa_tpu_torch import __version__
 
 
 def build_payload(holder, stats=None, slow_log=None,
-                  executor=None) -> dict:
+                  executor=None, cluster=None) -> dict:
     """Anonymized usage snapshot: index, field and shard counts, field
-    types, and with ``stats`` the per-stage query summary
+    types, with ``cluster`` its member count, suspect peers, open
+    breakers and hint backlog, and with ``stats`` the per-stage query
+    summary
     (``query_stage_seconds``), with ``slow_log`` the slow-query counters
     (never PQL text), with ``executor`` the card's name and count, the
     tenancy counts and the cost ledger's totals (no tenant names)."""
@@ -39,8 +42,28 @@ def build_payload(holder, stats=None, slow_log=None,
         "numFields": n_fields,
         "numShards": n_shards,
         "fieldTypes": field_types,
-        "numNodes": 1,
+        "numNodes": len(cluster.member_ids()) if cluster else 1,
     }
+    if cluster is not None:
+        try:
+            peers = cluster.health_payload().get("peers", [])
+            payload["clusterHealth"] = {
+                "peers": len(peers),
+                "suspect": sum(1 for p in peers if p.get("suspect")),
+                "breakersOpen": sum(1 for p in peers
+                                    if p.get("breaker") == "open")}
+        except Exception:  # noqa: BLE001 — diagnostics never break serving
+            pass
+        try:
+            wh = cluster.write_health_payload()
+            payload["writeHealth"] = {
+                "hintedHandoff": bool(wh.get("hintedHandoff")),
+                "backlogOps": int(wh.get("hintBacklogOps", 0)),
+                "bulkOps": int(wh.get("hintBulkOps", 0)),
+                "hintedPeers": len(wh.get("hintedPeers", ())),
+                "oldestSeconds": float(wh.get("hintOldestSeconds", 0.0))}
+        except Exception:  # noqa: BLE001
+            pass
     if stats is not None:
         try:
             payload["queryStages"] = stats.histogram_summary(
@@ -102,8 +125,10 @@ class Diagnostics:
     """Periodic reporter; off unless ``interval`` > 0."""
 
     def __init__(self, holder, interval: float = 0.0, send=None,
-                 logger=None, stats=None, slow_log=None, executor=None):
+                 logger=None, stats=None, slow_log=None, executor=None,
+                 cluster=None):
         self.holder = holder
+        self.cluster = cluster
         self.stats = stats
         self.slow_log = slow_log
         self.executor = executor
@@ -130,7 +155,8 @@ class Diagnostics:
             try:
                 self.send(build_payload(self.holder, stats=self.stats,
                                         slow_log=self.slow_log,
-                                        executor=self.executor))
+                                        executor=self.executor,
+                                        cluster=self.cluster))
             except Exception:  # noqa: BLE001
                 pass
 

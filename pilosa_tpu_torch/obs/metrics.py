@@ -17,8 +17,10 @@ registry keeps the reference's surface:
   user-controlled label keep their own series, later ones fold into
   ``other``.
 
-The reference's cluster fan-in (``render_cluster_metrics``) needs a
-cluster, which the port does not have.
+- the cluster fan-in (:func:`render_cluster_metrics`): per-node
+  :meth:`Stats.full_snapshot` payloads merge into one document, counters
+  and gauges per node under a ``node`` label, histograms bucket-wise
+  (exact) when every node agrees on the family's buckets.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ DEPTH_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
 # StageTimer's default histogram family (referenced via this constant,
 # not a literal call site)
 STAGE_METRIC = "query_stage_seconds"
+
+# families emitted only in the cluster document (by
+# render_cluster_metrics, not through a registry)
+CLUSTER_NODE_UP = "cluster_metrics_node_up"
+CLUSTER_STALE_NODES = "cluster_metrics_stale_nodes"
 
 # -- label-cardinality bounds ------------------------------------------------
 #
@@ -341,6 +348,93 @@ def _fmt_exemplar(ex: tuple | None) -> str:
     trace_id, value, ts = ex
     return (f' # {{trace_id="{escape_label_value(trace_id)}"}} '
             f"{value} {round(ts, 3)}")
+
+
+# -- cluster fan-in merge -----------------------------------------------------
+
+
+def render_cluster_metrics(snaps: dict[str, dict],
+                           stale: list[str] | tuple = ()) -> str:
+    """ONE Prometheus document for the whole fleet from per-node
+    :meth:`Stats.full_snapshot` payloads.
+
+    Merge rules (the single-pane contract):
+
+    - counters and gauges keep ONE series per node, the node id added
+      as a ``node`` label (summing gauges across nodes is usually
+      wrong, and per-node counters are what an operator diffs);
+    - histograms merge BUCKET-WISE across nodes per label set — counts
+      are element-wise sums, so the merged distribution is exact, not
+      an approximation — whenever every reporting node agrees on the
+      family's bucket boundaries; disagreeing families (version skew
+      mid-rollout) degrade to per-node series under a ``node`` label
+      instead of fabricating a merge;
+    - ``cluster_metrics_node_up{node=...}`` gauges (1 fetched / 0
+      stale) and a ``cluster_metrics_stale_nodes`` count make partial
+      documents self-describing: a scrape through a dead peer is
+      degraded, never an error.
+    """
+    out = [f"# pilosa-tpu cluster metrics: {len(snaps)} node(s), "
+           f"{len(stale)} stale"]
+    out.append(f"# TYPE {CLUSTER_NODE_UP} gauge")
+    for nid in sorted(snaps):
+        out.append(f'{CLUSTER_NODE_UP}{{node="{escape_label_value(nid)}"}} 1')
+    for nid in sorted(stale):
+        out.append(f'{CLUSTER_NODE_UP}{{node="{escape_label_value(nid)}"}} 0')
+    out.append(f"# TYPE {CLUSTER_STALE_NODES} gauge")
+    out.append(f"{CLUSTER_STALE_NODES} {len(stale)}")
+
+    for kind in ("counters", "gauges"):
+        names = sorted({n for s in snaps.values() for n in s.get(kind, {})})
+        ptype = "counter" if kind == "counters" else "gauge"
+        for name in names:
+            out.append(f"# TYPE {name} {ptype}")
+            for nid in sorted(snaps):
+                for series in snaps[nid].get(kind, {}).get(name, []):
+                    key = _node_key(series["labels"], nid)
+                    out.append(f"{name}{_fmt_labels(key)} "
+                               f"{series['value']}")
+
+    names = sorted({n for s in snaps.values()
+                    for n in s.get("histograms", {})})
+    for name in names:
+        per_node = {nid: s["histograms"][name]
+                    for nid, s in snaps.items()
+                    if name in s.get("histograms", {})}
+        out.append(f"# TYPE {name} histogram")
+        bucket_sets = {tuple(f["buckets"]) for f in per_node.values()}
+        if len(bucket_sets) == 1:
+            buckets = bucket_sets.pop()
+            merged: dict[tuple, list] = {}
+            for fam in per_node.values():
+                for series in fam["series"]:
+                    key = _labels_key(series["labels"])
+                    agg = merged.setdefault(
+                        key, [[0] * (len(buckets) + 1), 0.0, 0])
+                    for i, c in enumerate(series["counts"]):
+                        agg[0][i] += c
+                    agg[1] += series["sum"]
+                    agg[2] += series["count"]
+            for key, (counts, total, n) in sorted(merged.items()):
+                _render_hist_series(out, name, key, buckets,
+                                    counts, total, n)
+        else:
+            # bucket disagreement (mid-rollout skew): keep per-node
+            # series — a wrong merge would be worse than no merge
+            for nid in sorted(per_node):
+                fam = per_node[nid]
+                for series in fam["series"]:
+                    _render_hist_series(out, name,
+                                        _node_key(series["labels"], nid),
+                                        fam["buckets"], series["counts"],
+                                        series["sum"], series["count"])
+    return "\n".join(out) + "\n"
+
+
+def _node_key(labels: dict, nid: str) -> tuple:
+    """Labels-key with the node id merged in (the fan-in's ``node``
+    label wins over any same-named label a series already carried)."""
+    return _labels_key({**labels, "node": nid})
 
 
 class StatsdStats(Stats):

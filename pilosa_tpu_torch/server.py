@@ -6,8 +6,16 @@ scrubber and the diagnostics reporter, opened and closed in
 config.Config`.  The disk governor is configured before the holder opens,
 so a corrupt snapshot found at boot is counted in the same registry.
 
-The port has no cluster: :func:`~pilosa_tpu_torch.cli.config.
-check_served` refuses a config that asks for one before anything opens.
+With ``seeds``, ``replicas`` > 1 or ``cluster_enabled`` the server is a
+cluster node: a :class:`~pilosa_tpu_torch.cluster.Cluster` attaches to
+the API after the REST server binds (its node id is the bound
+``host:port``), joins through the seeds once the server serves, and is
+closed before the server; the scrubber hands a corrupt fragment to
+``cluster.repair_quarantined``.  Every node runs its own executor on the
+card, with its own plane budget (``plane_budget_bytes``), device-health
+governor and device-OOM recovery.  :func:`~pilosa_tpu_torch.cli.config.
+check_served` refuses what the port does not serve before anything
+opens.
 
 Also a thin entry point over the same config::
 
@@ -68,6 +76,7 @@ class PilosaTPUServer:
         self.api: API | None = None
         self.http: HttpServer | None = None
         self.grpc = None
+        self.cluster = None
         self.scrubber: Scrubber | None = None
         self.diagnostics: Diagnostics | None = None
 
@@ -111,8 +120,17 @@ class PilosaTPUServer:
             self.logger.info("tls: serving HTTPS%s",
                              " with required client certs"
                              if tls_cfg.enable_client_auth else "")
+        # bound before the cluster needs its advertised address (a port
+        # of 0 resolves here), served after the cluster attaches
         self.http = HttpServer(self.api, cfg.host, cfg.port,
-                               ssl_context=ssl_ctx, stats=self.stats).start()
+                               ssl_context=ssl_ctx, stats=self.stats)
+        if cfg.seeds or cfg.replicas > 1 or cfg.cluster_enabled:
+            from pilosa_tpu_torch.cluster import Cluster
+            self.cluster = Cluster(cfg, self.api, stats=self.stats,
+                                   logger=self.logger,
+                                   port=self.http.address[1])
+            self.api.cluster = self.cluster
+        self.http.start()
         if cfg.grpc_bind:
             from pilosa_tpu_torch.api.grpc import GrpcServer
             ghost, _, gport = cfg.grpc_bind.rpartition(":")
@@ -122,17 +140,22 @@ class PilosaTPUServer:
             ).start()
             self.logger.info("grpc: listening on %s:%d",
                              ghost or "127.0.0.1", self.grpc.port)
+        if self.cluster is not None:
+            self.cluster.open()
         # re-verifies every on-disk checksum at the configured byte rate
         # (0 bytes/s: no thread); a corrupt fragment quarantines
         self.scrubber = Scrubber(
             self.holder, interval=cfg.scrub_interval_seconds,
             bytes_per_second=cfg.scrub_bytes_per_second, stats=self.stats,
-            logger=self.logger).start()
+            logger=self.logger,
+            on_corrupt=(self.cluster.repair_quarantined
+                        if self.cluster is not None else None)).start()
         self.api.scrubber = self.scrubber
         self.diagnostics = Diagnostics(
             self.holder, interval=cfg.diagnostics_interval,
             logger=self.logger, stats=self.stats,
-            slow_log=self.api.slow_log, executor=self.executor).start()
+            slow_log=self.api.slow_log, executor=self.executor,
+            cluster=self.cluster).start()
         return self
 
     def close(self) -> None:
@@ -140,6 +163,8 @@ class PilosaTPUServer:
             self.diagnostics.close()
         if self.scrubber is not None:
             self.scrubber.close()
+        if self.cluster is not None:
+            self.cluster.close()
         if self.grpc is not None:
             self.grpc.close()
         if self.http is not None:

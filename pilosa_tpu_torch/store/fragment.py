@@ -33,6 +33,13 @@ has one, else compacts inline.
 plane cache keys on it.  ``_recent`` journals which (row, word) cells
 each generation touched, so a resident plane can absorb a write gap
 (:meth:`Fragment.changed_cells_since`) instead of rebuilding.
+
+Anti-entropy and replica repair read and write a fragment through
+:meth:`Fragment.blocks` (per-block checksums, cached per generation),
+:meth:`Fragment.block_positions`, :meth:`Fragment.merge_positions` (a
+union journaled like any set write, so a resident plane absorbs it) and
+:meth:`Fragment.rebuild_from_positions` (a wholesale replacement that
+leaves a gap marker, so a resident plane rebuilds).
 """
 
 from __future__ import annotations
@@ -52,16 +59,22 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
 from pilosa_tpu_torch.store import health as _storage_health
 from pilosa_tpu_torch.store import native, roaring, syswrap
 from pilosa_tpu_torch.store.oplog import (OP_CLEAR_BITS, OP_CLEAR_ROW,
-                                          OP_SET_BITS, OP_SET_ROW, OpLog)
+                                          OP_SET_BITS, OP_SET_ROW,
+                                          RAW_MAX_POSITIONS, OpLog)
 
 # compact the op-log into a snapshot after this many records
 MAX_OP_N = 2000
+
+# rows per anti-entropy checksum block (the reference's HashBlockSize)
+HASH_BLOCK_SIZE = 100
 
 # a materialized row with more set bits than this is held as packed
 # words (a uint32 offset per bit would outweigh the 128 KiB of words)
 DENSE_MIN_BITS = WORDS_PER_SHARD
 
 _SW = np.uint64(SHARD_WIDTH)
+_ROW_SHIFT = np.uint64(SHARD_WIDTH.bit_length() - 1)  # position >> 20: row
+_COL_MASK = np.uint64(SHARD_WIDTH - 1)                # position & mask: col
 _EMPTY = np.empty(0, np.uint32)
 _ONE = np.uint32(1)
 
@@ -117,6 +130,10 @@ class Fragment:
         # (generation, {row: word indices | None = whole row} | None =
         # gap) per bit-changing op
         self._recent: deque = deque(maxlen=self.RECENT_MAX)
+        # (generation, {block: crc32}) of the last blocks() answer
+        self._blocks_cache: tuple | None = None
+        # set while rebuild_from_positions compacts a quarantined fragment
+        self._rebuilding = False
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -297,8 +314,9 @@ class Fragment:
     def positions(self) -> np.ndarray:
         """All set bits as sorted uint64 ``row*SHARD_WIDTH + col``."""
         with self.lock:
-            parts = []
+            snap = None
             pend = self._snap_pending
+            rowed: list = []  # (row, sorted uint64 positions)
             if pend and len(pend) * 4 >= len(self._snap_dir.row_cards()[0]):
                 # most snapshot rows unread: one native decode of the
                 # blob, the materialized rows filtered out
@@ -308,20 +326,22 @@ class Fragment:
                 if len(pend) != len(self._snap_dir.row_cards()[0]):
                     snap = snap[np.isin(snap // _SW, np.fromiter(
                         pend, np.uint64, len(pend)))]
-                parts.append(snap)
             else:
-                parts += [np.uint64(r) * _SW + self._snap_dir.expand_row(r)
-                          .astype(np.uint64) for r in pend]
-            parts += [np.uint64(r) * _SW + cols.astype(np.uint64)
+                rowed += [(r, self._snap_dir.expand_row(r).astype(np.uint64))
+                          for r in pend]
+            rowed += [(r, cols.astype(np.uint64))
                       for r, cols in self.rows.items()]
-            parts += [np.uint64(r) * _SW + unpack_columns(words)
+            rowed += [(r, unpack_columns(words))
                       for r, words in self.dense.items()]
+        # a row lives in one tier and each row's columns are sorted, so
+        # the rows in row order concatenate sorted
+        rowed.sort(key=lambda t: t[0])
+        parts = [np.uint64(r) * _SW + cols for r, cols in rowed]
+        if snap is None:
+            return np.concatenate(parts) if parts else np.empty(0, np.uint64)
         if not parts:
-            return np.empty(0, np.uint64)
-        if len(parts) == 1:
-            return parts[0] if len(parts[0]) < 2 or bool(
-                (parts[0][1:] > parts[0][:-1]).all()) else np.sort(parts[0])
-        return np.sort(np.concatenate(parts))
+            return snap
+        return np.sort(np.concatenate([snap] + parts))
 
     def row_cardinalities(self) -> tuple[np.ndarray, np.ndarray]:
         """(row_ids uint64[R] sorted, cards int64[R]) with no bit expanded:
@@ -694,10 +714,58 @@ class Fragment:
         op = OP_CLEAR_BITS if clear else OP_SET_BITS
         self._write_gate()
         with self.lock:
-            changed = self._apply(op, 0, positions)
+            fast = None if clear else self._set_new_rows(blob, positions)
+            changed, serialized = (fast if fast is not None
+                                   else (self._apply(op, 0, positions), None))
             if changed:
-                self._log(op, 0, positions, sync_batch)
+                self._log(op, 0, positions, sync_batch, serialized)
             return changed
+
+    def _set_new_rows(self, blob: bytes, positions: np.ndarray):
+        """A set import of sorted unique ``positions`` (``blob``'s,
+        already validated) whose rows the fragment does not hold yet: the
+        same rows, generation and journal as :meth:`_apply`, the dense
+        rows expanded from the blob in one native call.  Returns (bits
+        set, the op-log payload when the rows' words make it directly,
+        else None), or None when a row exists (or there are no
+        positions): the caller applies them as any set."""
+        d = roaring.Directory(blob)
+        if not len(positions) or not d._keys_sorted:
+            return None
+        # per row: its first container, its bits, where it starts
+        first = np.flatnonzero(np.concatenate(
+            ([True], d._rows[1:] != d._rows[:-1])))
+        ids = d._rows[first]
+        cards = np.add.reduceat(d.cards, first)
+        starts = np.concatenate(([0], np.cumsum(cards)[:-1]))
+        if int(ids[-1]) >= (1 << 40):
+            raise ValueError("row id out of range (>= 2^40)")
+        id_list = ids.tolist()
+        if any(r in self.rows or r in self.dense or r in self._snap_pending
+               for r in id_list):
+            return None
+        dense = np.flatnonzero(cards > DENSE_MIN_BITS)
+        words = np.zeros((len(dense), WORDS_PER_SHARD), np.uint32)
+        if len(dense):
+            native.expand_rows_into(blob, SHARD_WIDTH, ids[dense],
+                                    np.arange(len(dense), dtype=np.uint64),
+                                    words)
+        delta: dict = {}
+        for slot, i in enumerate(dense.tolist()):
+            self.dense[id_list[i]] = words[slot]
+            delta[id_list[i]] = np.flatnonzero(words[slot]).astype(np.uint32)
+        for i in np.flatnonzero(cards <= DENSE_MIN_BITS).tolist():
+            cols = (positions[starts[i]:starts[i] + cards[i]]
+                    & _COL_MASK).astype(np.uint32)
+            self.rows[id_list[i]] = cols
+            delta[id_list[i]] = _sorted_unique(cols >> np.uint32(5))
+        self.generation += 1
+        self._note_delta(delta)
+        serialized = None
+        if (len(dense) == len(ids) and len(positions) > RAW_MAX_POSITIONS
+                and _all_bitmap_containers(words)):
+            serialized = roaring.serialize_dense(words, ids)
+        return len(positions), serialized
 
     def _mutate(self, op: int, row_ids, cols, sync_batch=None) -> int:
         positions = (np.asarray(row_ids, np.uint64) * _SW
@@ -747,41 +815,51 @@ class Fragment:
         """Set or clear bits; records ``{row: unique word indices}`` in
         ``delta``: the words of the bits newly set when ``new_only``,
         else every word the op names."""
-        positions = np.unique(np.asarray(positions, np.uint64))
-        if len(positions) and int(positions[-1] // _SW) >= (1 << 40):
+        positions = _sorted_unique(np.asarray(positions, np.uint64))
+        if not len(positions):
+            return 0
+        if int(positions[-1] // _SW) >= (1 << 40):
             raise ValueError("row id out of range (>= 2^40)")
-        rows = positions // _SW
-        uniq, starts = np.unique(rows, return_index=True)
+        rows = positions >> _ROW_SHIFT
+        starts = np.flatnonzero(np.concatenate(([True], rows[1:] != rows[:-1])))
+        uniq = rows[starts]
         bounds = np.append(starts, len(positions))
         changed = 0
         for i, r in enumerate(uniq.tolist()):
-            chunk = (positions[bounds[i]:bounds[i + 1]] % _SW).astype(
+            chunk = (positions[bounds[i]:bounds[i + 1]] & _COL_MASK).astype(
                 np.uint32)
             self._ensure_row(r)
             hit = self._row_apply(op, r, chunk)
             changed += len(hit)
             touched = hit if new_only else chunk
             if len(touched):
-                delta[r] = np.unique(touched >> np.uint32(5))
+                delta[r] = _sorted_unique(touched >> np.uint32(5))
         return changed
 
     def _row_apply(self, op: int, r: int, chunk: np.ndarray) -> np.ndarray:
         """Set or clear sorted unique ``chunk`` columns of materialized row
         ``r``; returns the columns whose bit changed."""
+        if not len(chunk):
+            return chunk
         words = self.dense.get(r)
         if words is not None:
             idx = (chunk >> np.uint32(5)).astype(np.intp)
             bit = _ONE << (chunk & np.uint32(31))
             was = (words[idx] & bit) != 0
+            # chunk is sorted: each word's bits are one contiguous run
+            first = np.flatnonzero(np.concatenate(([True],
+                                                   idx[1:] != idx[:-1])))
+            mask = np.bitwise_or.reduceat(bit, first)
             if op == OP_SET_BITS:
-                np.bitwise_or.at(words, idx, bit)
+                words[idx[first]] |= mask
                 return chunk[~was]
-            np.bitwise_and.at(words, idx, ~bit)
+            words[idx[first]] &= ~mask
             if not words.any():
                 del self.dense[r]
             return chunk[was]
         old = self.rows.get(r, _EMPTY)
-        was = np.isin(chunk, old, assume_unique=True)
+        was = (np.isin(chunk, old, assume_unique=True) if len(old)
+               else np.zeros(len(chunk), bool))
         if op == OP_SET_BITS:
             hit = chunk[~was]
             new = native.union_sorted_u32(old, hit)
@@ -836,10 +914,11 @@ class Fragment:
             return merged
 
     def _log(self, op: int, aux: int, positions: np.ndarray | None,
-             sync_batch=None) -> None:
+             sync_batch=None, serialized: bytes | None = None) -> None:
         h = self._health
         try:
-            self._oplog.append(op, aux, positions, sync_batch=sync_batch)
+            self._oplog.append(op, aux, positions, sync_batch=sync_batch,
+                               serialized=serialized)
         except OSError as e:
             # classified by errno: ENOSPC flips the node read-only (this
             # op is not acknowledged), repeated EIO quarantines this
@@ -857,6 +936,95 @@ class Fragment:
                 self._snapshot_submit(self)  # background compaction
             else:
                 self.snapshot()
+
+    # -- anti-entropy and repair ------------------------------------------
+
+    def blocks(self) -> dict[int, int]:
+        """Per-block checksums: block ``row_id // HASH_BLOCK_SIZE``, its
+        checksum the crc32 of its sorted ``<u8`` positions.  Cached per
+        generation: decoding a dense fragment's positions takes about a
+        second, and an unchanged fragment answers from the cache."""
+        with self.lock:
+            cached = self._blocks_cache
+            if cached is not None and cached[0] == self.generation:
+                return cached[1]
+            gen = self.generation
+            pos = self.positions()
+        out: dict[int, int] = {}
+        if len(pos):
+            # positions are sorted: each block is one contiguous run
+            blocks = (pos >> _ROW_SHIFT) // np.uint64(HASH_BLOCK_SIZE)
+            starts = np.flatnonzero(np.concatenate(
+                ([True], blocks[1:] != blocks[:-1])))
+            uniq = blocks[starts].astype(np.int64)
+            bounds = np.append(starts, len(pos))
+            data = pos.astype("<u8")
+            for i, blk in enumerate(uniq.tolist()):
+                out[blk] = zlib.crc32(data[bounds[i]:bounds[i + 1]].tobytes())
+        with self.lock:
+            if self.generation == gen:
+                self._blocks_cache = (gen, out)
+        return out
+
+    def block_positions(self, block: int) -> np.ndarray:
+        """Every position of one checksum block."""
+        lo = np.uint64(block * HASH_BLOCK_SIZE) * _SW
+        hi = np.uint64((block + 1) * HASH_BLOCK_SIZE) * _SW
+        with self.lock:
+            pos = self.positions()
+        return pos[(pos >= lo) & (pos < hi)]
+
+    def merge_positions(self, positions: np.ndarray) -> int:
+        """Union ``positions`` in (the anti-entropy receive path): one set
+        record, journaled as any set write, so a resident plane absorbs
+        the merged bits on its next read.  Returns the bits set."""
+        self._write_gate()
+        with self.lock:
+            changed = self._apply(OP_SET_BITS, 0, positions)
+            if changed:
+                self._log(OP_SET_BITS, 0, positions)
+            return changed
+
+    def rebuild_from_positions(self, positions: np.ndarray) -> None:
+        """Replace this fragment's whole state with ``positions`` (the
+        repair of a quarantined fragment from a healthy replica): the old
+        snapshot, op-log and rows go, the new bits compact into a fresh
+        framed snapshot, and the generation moves past a gap marker, so a
+        resident plane rebuilds.  Bypasses the write gate: this is the
+        way out of quarantine."""
+        with self.lock:
+            self._drop_snapshot()
+            self._snap_crc = None
+            self.rows = {}
+            self.dense = {}
+            self._oplog.truncate()
+            self.op_n = 0
+            self._load_positions(np.asarray(positions, np.uint64))
+            self.generation += 1
+            self._recent.clear()
+            self._recent.append((self.generation, None))
+            try:
+                os.unlink(self.dense_path)  # it captured the old bytes
+            except OSError:
+                pass
+            self._rebuilding = True
+            try:
+                self.snapshot()
+            finally:
+                self._rebuilding = False
+
+    def _snapshot_blob(self) -> bytes:
+        """The snapshot's roaring bytes, ``serialize(positions())``.  When
+        every row is held as words and :func:`roaring.serialize` would
+        write each of their non-empty containers as a bitmap, the same
+        bytes come straight from the words (no position is listed)."""
+        if self.dense and not self.rows and not self._snap_pending:
+            ids = sorted(self.dense)
+            words = np.stack([self.dense[r] for r in ids])
+            if _all_bitmap_containers(words):
+                return roaring.serialize_dense(words,
+                                               np.array(ids, np.uint64))
+        return roaring.serialize(self.positions())
 
     def maybe_snapshot(self) -> None:
         """The background queue's entry point: compact only while still
@@ -876,24 +1044,25 @@ class Fragment:
         quarantined fragment is not compacted: a valid frame over what
         memory holds would mask the corruption for good."""
         h = self._health
-        if h is not None and h.is_quarantined(self.path):
+        if (h is not None and not self._rebuilding
+                and h.is_quarantined(self.path)):
             logging.getLogger("pilosa_tpu_torch.store").warning(
                 "refusing to compact quarantined fragment %s "
                 "(would mask corruption as valid data)", self.path)
             return
         with self.lock:
             pre_stamp = self._dense_stamp()  # the state a sidecar may match
-            blob = roaring.serialize(self.positions())
+            blob = self._snapshot_blob()
             hdr = self._SNAP_HDR.pack(self.SNAP_MAGIC, self.SNAP_VERSION,
                                       0, len(blob), zlib.crc32(blob))
             tmp = self.path + ".tmp"
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             try:
                 with open(tmp, "wb") as f:
-                    f.write(hdr)
-                    f.write(blob)
+                    syswrap.checked_write(f, hdr)
+                    syswrap.checked_write(f, blob)
                     f.flush()
-                    os.fsync(f.fileno())
+                    syswrap.checked_fsync(f)
                 os.replace(tmp, self.path)
             except OSError as e:
                 try:
@@ -915,3 +1084,35 @@ class Fragment:
             # it stays valid under the new stamp
             self._restamp_sidecar(pre_stamp)
 
+
+
+def _sorted_unique(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)``, without the sort when ``a`` is already in order
+    (a roaring blob's positions, an op-log record's, their words)."""
+    if len(a) < 2:
+        return a
+    step = a[1:] != a[:-1]
+    if bool((a[1:] >= a[:-1]).all()):
+        return a if step.all() else a[np.concatenate(([True], step))]
+    return np.unique(a)
+
+
+# uint32 words per roaring container (65536 bits)
+_CONTAINER_WORDS = 65536 // 32
+
+
+def _all_bitmap_containers(words: np.ndarray) -> bool:
+    """Whether the serializer writes every non-empty container of these
+    rows (``uint32[R, W]``) as a bitmap: more than 4096 bits (an array
+    holds at most 4096) and at least 2048 runs (fewer runs encode
+    smaller as a run container)."""
+    conts = words.reshape(-1, _CONTAINER_WORDS)
+    cards = np.bitwise_count(conts).sum(axis=1, dtype=np.int64)
+    # a run starts at a set bit whose lower neighbour, in the container,
+    # is clear
+    carry = np.zeros_like(conts)
+    carry[:, 1:] = conts[:, :-1] >> np.uint32(31)
+    starts = conts & ~((conts << np.uint32(1)) | carry)
+    runs = np.bitwise_count(starts).sum(axis=1, dtype=np.int64)
+    live = cards > 0
+    return bool(((cards[live] > 4096) & (runs[live] >= 2048)).all())

@@ -33,6 +33,8 @@ import os
 import threading
 import time
 
+from pilosa_tpu_torch.store import syswrap
+
 HEALTHY = "healthy"
 READ_ONLY = "read_only"
 
@@ -401,7 +403,7 @@ class StorageHealth:
         probe = os.path.join(base, "_diskprobe")
         try:
             with open(probe, "wb") as f:
-                f.write(b"pilosa-disk-probe")
+                syswrap.checked_write(f, b"pilosa-disk-probe")
                 f.flush()
             os.remove(probe)
         except OSError:

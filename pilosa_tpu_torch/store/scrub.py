@@ -10,14 +10,17 @@ every durable file that carries a checksum:
   corruption, because replay truncates torn tails and a live log is a
   clean record sequence);
 - dense **sidecars** (header CRC; a corrupt one is a broken cache, so it
-  is unlinked and counted, never quarantined: the next build goes cold).
+  is unlinked and counted, never quarantined: the next build goes cold);
+- a cluster node's **hint logs** (``<data dir>/_hints``, CRC-framed: a
+  bad record is counted and logged loudly, the hinted writes past it are
+  lost, and anti-entropy repairs the divergence once hint gating
+  expires).
 
 A corrupt snapshot or op-log QUARANTINES the fragment through
 :class:`~pilosa_tpu_torch.store.health.StorageHealth` (a snapshot is also
 poisoned: its map is dropped and its generation moves, so a resident
-plane rebuilds) and is handed to ``on_corrupt`` when one is set.  The
-reference's hint logs belong to its cluster, which the port does not
-have.
+plane rebuilds) and is handed to ``on_corrupt`` when one is set (a
+cluster node's ``repair_quarantined``).
 
 Knobs: ``scrub_interval_seconds`` (pause between passes) and
 ``scrub_bytes_per_second`` (the read budget; 0 disables the scrubber:
@@ -130,6 +133,23 @@ def verify_sidecar_file(path: str, pace=None) -> tuple[str | None, int]:
         return f"length mismatch ({len(blob)} != {blen})", len(buf)
     if zlib.crc32(blob) != crc:
         return "crc mismatch", len(buf)
+    return None, len(buf)
+
+
+def verify_hintlog_file(path: str, pace=None) -> tuple[str | None, int]:
+    """A hint log's frame scan (the op-log's rule: a live log is whole
+    records, its tears truncated at recovery and at failed appends)."""
+    from pilosa_tpu_torch.cluster.hints import _FRAME
+    try:
+        buf = _read_paced(path, pace)
+    except FileNotFoundError:
+        return None, 0
+    except OSError as e:
+        return f"unreadable: {e}", 0
+    pos = _clean_prefix_end(buf, _FRAME)
+    if pos < len(buf):
+        return (f"corrupt record at byte {pos} "
+                f"({len(buf) - pos} trailing bytes)", len(buf))
     return None, len(buf)
 
 
@@ -286,6 +306,34 @@ class Scrubber:
                     os.remove(frag.dense_path)
                 except OSError:
                     pass
+        hints_dir = os.path.join(self.holder.path, "_hints")
+        if os.path.isdir(hints_dir):
+            for name in sorted(os.listdir(hints_dir)):
+                if not name.endswith(".hints"):
+                    continue
+                p = os.path.join(hints_dir, name)
+                try:
+                    before = os.path.getsize(p)
+                except OSError:
+                    continue
+                problem, nbytes = verify_hintlog_file(p, pace=self._pace)
+                scanned += nbytes
+                files += 1
+                try:
+                    settled = os.path.getsize(p) == before
+                except OSError:
+                    settled = False
+                if problem and not settled:
+                    continue  # raced an append or an ack's rewrite
+                if problem:
+                    corrupt += 1
+                    self.stats.count("storage_corruption_detected_total", 1,
+                                     kind="hintlog")
+                    self.logger.error(
+                        "scrub: corrupt hint log %s (%s) — acked hinted "
+                        "writes past the tear are LOST; anti-entropy "
+                        "repairs the divergence after hint gating expires",
+                        p, problem)
         repaired = 0
         if self.on_corrupt is not None:
             for entry in health.quarantined_entries():

@@ -14,12 +14,36 @@ for op-log appends, sockets and the CUDA driver.
 
 from __future__ import annotations
 
+import os
 import resource
 import threading
 import weakref
 from collections import OrderedDict
 
+from pilosa_tpu_torch import fault
+
 MAX_MAPS = 32768  # the reference's cap (under Linux's vm.max_map_count)
+
+
+def checked_write(f, data: bytes) -> int:
+    """``f.write`` through the ``sys.write`` failpoint: ``error`` raises
+    :class:`~pilosa_tpu_torch.fault.FaultError` (an OSError: a disk write
+    failure), ``torn_write`` persists the first ``args.offset`` bytes and
+    raises (a crash mid-write).  Durable writers (op-logs, snapshots, hint
+    logs, the disk probe) write through it."""
+    if fault.ACTIVE:
+        spec = fault.fire("sys.write", path=getattr(f, "name", ""))
+        if spec is not None and spec["action"] == "torn_write":
+            fault.torn_write(f, data, spec)
+    return f.write(data)
+
+
+def checked_fsync(f) -> None:
+    """``os.fsync`` through the ``sys.fsync`` failpoint (``error`` raises,
+    ``delay`` is a stalling disk)."""
+    if fault.ACTIVE:
+        fault.fire("sys.fsync", path=getattr(f, "name", ""))
+    os.fsync(f.fileno())
 
 
 def default_max_maps() -> int:
@@ -50,7 +74,11 @@ class MapPool:
         holders to heap copies.  Demotion takes the victim's own lock with
         a timeout, outside this pool's lock: on contention the victim
         keeps its map and stays tracked (the cap is soft for it) rather
-        than risk a lock-order deadlock between two opening fragments."""
+        than risk a lock-order deadlock between two opening fragments.
+        The ``sys.mmap`` failpoint's ``error`` is a map slot or descriptor
+        running out at registration."""
+        if fault.ACTIVE:
+            fault.fire("sys.mmap", path=getattr(frag, "path", ""))
         victims = []
         with self._lock:
             while len(self._order) >= self.max_maps:

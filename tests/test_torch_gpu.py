@@ -13,7 +13,8 @@ deleted field's device bytes freed, and the CLI's server on the card;
 and the instruments on the card: the bandwidth gauge within the HBM peak
 under a burst, a profiled request's kernel time within its ledger
 seconds within its wall, and a ``/debug/profile`` capture naming the
-hand kernels.
+hand kernels; and a 3-node cluster on the card answering as the same
+cluster on the CPU.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -1316,3 +1317,39 @@ def test_debug_profile_capture_lists_the_hand_kernels(dev, tmp_path):
         server.close()
         api.executor.close()
         api.holder.close()
+
+
+def _cluster_answers(tmp_path, device: str, reads) -> tuple[list, dict]:
+    """A 3-node cluster (replicas = 2) over 8 shards of f (8 rows) and g,
+    loaded by /import-roaring through node 0, its answers to ``reads``
+    asked of every node, and the launches those reads made."""
+    from pilosa_tpu_torch.store import roaring
+    from pilosa_tpu_torch.testing import run_cluster
+    rng = np.random.default_rng(22)
+    f = (rng.integers(0, 1 << 32, (8, 8, 32768), dtype=np.uint32)
+         & rng.integers(0, 1 << 32, (8, 8, 32768), dtype=np.uint32))
+    g = rng.integers(0, 1 << 32, (8, 2, 32768), dtype=np.uint32)
+    with run_cluster(3, str(tmp_path / device), replicas=2,
+                     device=device) as c:
+        cl = c.client(0)
+        cl.create_index("i", {"trackExistence": False})
+        cl.create_field("i", "f")
+        cl.create_field("i", "g")
+        for name, arr in (("f", f), ("g", g)):
+            for s in range(8):
+                cl.import_roaring("i", name, s, roaring.serialize_dense(arr[s]))
+        cuda_kernels.reset_launches()
+        out = [c.client(n).query("i", q) for n in range(3) for q in reads]
+        return out, dict(cuda_kernels.LAUNCHES)
+
+
+def test_cluster_on_the_card_answers_as_on_the_cpu(dev, tmp_path):
+    reads = ["Count(Row(f=0)) Count(Row(f=1)) Count(Row(f=7))",
+             "Count(Intersect(Row(f=1), Row(g=0)))",
+             "TopN(f, Row(g=1), n=3)", "TopN(f)",
+             "GroupBy(Rows(g), Rows(f, limit=3))",
+             "Row(f=2)"]
+    card, launches = _cluster_answers(tmp_path, "", reads)
+    cpu, _ = _cluster_answers(tmp_path, "cpu", reads)
+    assert card == cpu
+    assert launches["row_counts"] > 0 and launches["count"] > 0

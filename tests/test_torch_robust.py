@@ -1059,5 +1059,7 @@ def test_fault_registry_fires_as_the_reference(spec):
         hits.append(fired)
         assert mod.clear("s") == 1 and not mod.ACTIVE
     assert hits[0] == hits[1] and any(hits[1])
-    with pytest.raises(ValueError, match="not supported by this port"):
-        tfault.set_fault("s", "torn_write")
+    with pytest.raises(ValueError, match="unknown fault action"):
+        tfault.set_fault("s", "bogus")
+    with pytest.raises(ValueError, match="unknown fault action"):
+        jfault.set_fault("s", "bogus")

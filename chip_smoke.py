@@ -13,7 +13,7 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Sixteen phases; any failure raises and the exit code is non-zero:
+Eighteen phases; any failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -277,7 +277,8 @@ Sixteen phases; any failure raises and the exit code is non-zero:
    on the card with a 4 GiB plane budget, the periodic anti-entropy off.
    (b) ``f``'s and ``g``'s snapshot blobs as data generation wrote them
    (kept as hard links: later phases replace those files), over the first
-   128 shards (a CUT line), to any node by ``/import-roaring``, each
+   64 shards (a CUT line: 128 before phase 16 shared the cluster's
+   time), to any node by ``/import-roaring``, each
    routed to both owners (its seconds and bytes; every owner holds each
    shard's bits, no other node does).  (a) The 32-Count, the 4-Count, a
    compound Count, the filtered TopN and a GroupBy g x f asked of every
@@ -294,12 +295,43 @@ Sixteen phases; any failure raises and the exit code is non-zero:
    triggered over it alone; a quarantined fragment is rebuilt from its
    replica through ``repair_quarantined``.  (d) ``/metrics/cluster`` and
    ``/status/cluster`` with three nodes up; the placement loaded is the
-   placement at the end (no resize moved it).  The nodes then close
-   without compacting (the tree is removed).
-16. Print the ``kernels`` JSON line, the card's name and power limit, and
+   placement at the end (no resize moved it).  The one diverged fragment
+   is repaired by ``Cluster.sync_once`` scoped to it (the REST route runs
+   a full round, as the reference's).
+16. Backup and restore, on phase 15's live cluster before its nodes
+   close: (a) an online backup of ``cb`` (``BackupDriver``, 8 workers)
+   while a thread writes ``Set``s through a node that does not own their
+   four shards (fragments, bytes, seconds, MB/s, replica fallbacks), then a
+   quiesced incremental pass; (b) ``Set``s to three known shards, then
+   an incremental pass that must transfer exactly their fragments and
+   skip the rest; (c) an elastic restore (``RestoreDriver``) into a
+   fresh 2-node cluster with ``replicas = 1`` on the card, each node its
+   own executor and a 4 GiB plane budget: every node's 32-Count, 4-Count,
+   filtered TopN, compound (tree) Count, keyed Count and the written
+   row's Count equal the oracle plus the acked writes (the restore's
+   seconds and MB/s, each node's first 32-Count); launch counters reset
+   before these reads and read after (path ``backup``): ``row_counts``,
+   ``count`` and ``selected_row_counts`` must launch; (d) one flipped
+   byte in a copy of one archive file: the restore raises ``DigestError``
+   before the fresh target holds an index; (e) ``GET /internal/backup``
+   of one restored node and ``POST /internal/restore`` into that fresh
+   single node on the card: its 32-Count over its shards exact, the
+   device memory and resident plane bytes before and after logged (0
+   before: a restore takes only an empty holder, so this drops no plane
+   that was on the card).  The
+   nodes then close without compacting (the tree is removed).
+17. Chaos on the card: ``hung_dispatch_serving`` and
+   ``flaky_device_governor`` of ``pilosa_tpu_torch.fault.chaos``, each
+   on its own 1-node process cluster serving on the card, the two side by
+   side, and ``corrupt_fragment_scrub_repair`` (2 nodes) when the two
+   took less than a third of the phase's 40 s (else a CUT line); each
+   scenario's seconds.
+18. Print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.  Each phase's wall
-   seconds are printed on a line of their own, and the free disk before
-   phase 2.
+   seconds are printed on a line of their own with the disk bytes this
+   process wrote in it and so far (``write_bytes`` of ``/proc/self/io``;
+   the child processes of phases 13 and 17 write beside it), and the free
+   disk before phase 2.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX or of ``pilosa_tpu``.
@@ -364,6 +396,41 @@ def log(msg: str) -> None:
         # stderr then says where a run that was cut had got to
         print(f"[{time.monotonic() - T_START:.0f} s] {msg}", file=sys.stderr,
               flush=True)
+
+
+_WRITES = [(0, 0)]  # _write_bytes() at the last phase's end
+
+
+def _write_bytes() -> tuple[int, int]:
+    """(``write_bytes``, ``wchar``) of ``/proc/self/io``: the bytes this
+    process caused to be written to storage, and the bytes it passed to
+    write calls (files, pipes and terminals; the card machine's sandbox
+    reports ``write_bytes`` as 0).  Zeros where the file cannot be read."""
+    got = {}
+    try:
+        with open("/proc/self/io") as fh:
+            for line in fh:
+                key, _, val = line.partition(":")
+                got[key] = int(val)
+    except (OSError, ValueError):
+        pass
+    return got.get("write_bytes", 0), got.get("wchar", 0)
+
+
+def phase_done(n, t0: float) -> float:
+    """Log phase ``n``'s wall seconds and its disk writes beside the total
+    so far (a card machine takes about 45 GiB per call: the next phase is
+    sized against what is left); returns the time the next phase starts
+    from."""
+    now = time.perf_counter()
+    (wb, wc), (wb0, wc0) = _write_bytes(), _WRITES[0]
+    name = f"phase {n}" if isinstance(n, int) else n
+    log(f"{name} wall: {now - t0:.1f}s; this process's writes: "
+        f"write_bytes {(wb - wb0) / 1e9:.2f} GB in it, {wb / 1e9:.2f} GB "
+        f"so far; wchar {(wc - wc0) / 1e9:.2f} GB in it, {wc / 1e9:.2f} GB "
+        "so far")
+    _WRITES[0] = (wb, wc)
+    return now
 
 
 def card_line() -> str:
@@ -1305,7 +1372,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     launch counts of each path's run, keyed "serve", "concurrent",
     "concurrent_off", "concurrent_overlay", "ingest", "bsi",
     "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
-    "budget", "robust", "storage", "api", "obs" and "cluster" (``api_kw``
+    "budget", "robust", "storage", "api", "obs", "cluster" and "backup"
+    (``api_kw``
     sizes phase 13:
     phase 9's ``k`` and the CLI's pairs)."""
     import torch
@@ -1404,8 +1472,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             raise AssertionError("phase 2's sequential requests never took "
                                  "the solo fast lane")
 
-        log(f"phase 2 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(2, t_phase)
         log("== phase 3: concurrent serving ==")
         # fold the Set's one-cell overlay first: this phase serves a
         # clean plane (phase 4 serves over a live overlay)
@@ -1427,80 +1494,67 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
             _mix_expect(served["counts"], served["filtered"],
                         served["trees"]), cuda, clients, passes)
 
-        log(f"phase 3 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(3, t_phase)
         log("== phase 4: ingest while serving ==")
         ingest, overlay = ingest_phase(client, planes, oracle["ingest"],
                                        cuda, api, clients, passes)
-        log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(4, t_phase)
         planes.wait_builds()
         log("== phase 5: BSI ==")
         bsi = bsi_phase(client, holder, planes, oracle["bsi"], cuda,
                         device, clients, passes)
-        log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(5, t_phase)
         planes.wait_builds()
         log("== phase 6: GroupBy ==")
         gb = groupby_phase(client, holder, planes, oracle["groupby"], cuda,
                            device, clients)
-        log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(6, t_phase)
         planes.wait_builds()
         log("== phase 7: time views ==")
         ev = events_phase(client, holder, planes, oracle["events"], cuda,
                           device, clients)
-        log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(7, t_phase)
         planes.wait_builds()
         log("== phase 8: mutex and bool fields, Extract, Store ==")
         mx = mutex_phase(client, holder, planes, oracle["mutex"], cuda,
                          device, (_median_ms(client.lat["REST import"])
                                   if "REST import" in client.lat else None))
-        log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(8, t_phase)
         planes.wait_builds()
         log("== phase 9: keys and attributes ==")
         kp = keys_phase(client, holder, planes, oracle["keys"], cuda, device,
                         clients)
-        log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(9, t_phase)
         planes.wait_builds()
         log("== phase 10: fields past the plane budget ==")
         bp = budget_phase(client, holder, planes, oracle["budget"], cuda,
                           device)
-        log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(10, t_phase)
         planes.wait_builds()
         log("== phase 11: protobuf, distinct, deadlines, watchdog, OOM ==")
         rb = robust_phase(client, holder, planes, oracle["robust"], cuda,
                           device)
-        log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(11, t_phase)
         planes.wait_builds()
         log("== phase 12: the host storage path ==")
         sp = storage_phase(client, holder, planes, oracle["storage"], cuda,
                            device, data_dir)
-        log(f"phase 12 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(12, t_phase)
         planes.wait_builds()
         log("== phase 13: the single-node API, client and CLI ==")
         ap = api_phase(client, executor, oracle["storage"], cuda, device,
                        data_dir, seed, **api_kw)
-        log(f"phase 13 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(13, t_phase)
         planes.wait_builds()
         log("== phase 14: observability and storage integrity ==")
         op = obs_phase(client, holder, planes, oracle["storage"], cuda,
                        device, data_dir)
-        log(f"phase 14 wall: {time.perf_counter() - t_phase:.1f}s")
-        t_phase = time.perf_counter()
+        t_phase = phase_done(14, t_phase)
         planes.wait_builds()
         log("== phase 15: the cluster ==")
         cl = cluster_phase(
             oracle, cuda, device, len(oracle["per_shard"]["inter"]),
-            {"p50_ms": _median_ms(client.lat["REST " + Q32])})
-        log(f"phase 15 wall: {time.perf_counter() - t_phase:.1f}s")
+            {"p50_ms": _median_ms(client.lat["REST " + Q32])}, t_phase)
     finally:
         if server is not None:
             server.close()
@@ -1524,7 +1578,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     return {"serve": launches, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
-            **sp, **ap, **op, "cluster": cl["launches"]}
+            **sp, **ap, **op, "cluster": cl["launches"],
+            "backup": cl["backup"]}
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -5509,7 +5564,7 @@ def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
 CLUSTER_DIR = os.path.join(REPO, "chip_smoke_cluster")
 CL_NODES = 3                   # bench/config22_availability.py's layout:
 CL_REPLICAS = 2                # 3 nodes, replicas = 2
-CL_SHARDS = 128                # phase 15's depth (a CUT line below the run's)
+CL_SHARDS = 64                 # phases 15-16's depth (a CUT line below the run's)
 CL_BUDGET = 4 << 30            # each node's plane budget: 12 GiB for three
 # seconds, the reference's default; a node is suspect after three.  A
 # shorter interval lets a node whose heartbeat thread waits on the
@@ -5569,7 +5624,8 @@ def _cl_drop(srv) -> None:
     holder's in-memory rows are dropped."""
     srv.diagnostics.close()
     srv.scrubber.close()
-    srv.cluster.close()
+    if srv.cluster is not None:
+        srv.cluster.close()
     srv.http.close()
     srv.executor.close()
     for idx in list(srv.holder.indexes.values()):
@@ -5589,11 +5645,310 @@ def _cl_await(pred, what: str, timeout: float = 120.0) -> float:
     raise AssertionError(f"phase 15: timed out waiting for {what}")
 
 
+# -- phase 16: backup and restore --------------------------------------------
+
+BK_ROW = 60                    # the Sets written while the backup runs
+BK_WORKERS = 8                 # parallel fragment pulls and pushes
+BK_NODES = 2                   # the restore target: 2 nodes, replicas = 1
+BK_INCR_SHARDS = 3             # shards written before the incremental pass
+BK_WRITER_SHARDS = 4           # shards the writer of (a) writes to
+BK_DIR = os.path.join(CLUSTER_DIR, "backup")
+
+
+def backup_phase(servers: list, clients: list, n: int, expect: dict,
+                 oracle: dict, cuda: bool, device) -> dict:
+    """Phase 16 on phase 15's live cluster (index ``cb``: ``f``, ``g`` and
+    ``kseg`` over the first ``n`` shards): (a) an online backup with a
+    writer in flight, then a quiesced incremental pass; (b) an
+    incremental pass after writes to known shards; (c) an elastic restore
+    into a fresh 2-node cluster with ``replicas = 1``, every node's reads
+    exact; (d) a flipped byte refused before the target holds an index;
+    (e) the legacy tar of one restored node into a fresh single node.
+    Returns the launch counts of (c)'s reads."""
+    import torch
+    from pilosa_tpu_torch.api.client import Client
+    from pilosa_tpu_torch.backup import (BackupDriver, DigestError,
+                                         Manifest, RestoreDriver)
+    from pilosa_tpu_torch.cli.config import Config
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.server import PilosaTPUServer
+    from pilosa_tpu_torch.testing import TestCluster, free_ports, node_config
+
+    arch = os.path.join(BK_DIR, "archive")
+    os.makedirs(BK_DIR, exist_ok=True)
+    nums: dict = {}
+    per_shard = oracle["per_shard"]
+
+    # (a) the online backup, one thread writing Sets through a node that
+    # does not own their shards
+    via = 1
+    vid = servers[via].cluster.node_id
+    # a few shards: each write makes its fragment's capture retry and
+    # the quiesced pass take it again
+    foreign = [sh for sh in range(n)
+               if vid not in servers[0].cluster.shard_owners("cb", sh)
+               ][:BK_WRITER_SHARDS]
+    acked: list[int] = []
+    stop = threading.Event()
+    errors: list = []
+
+    def writer():
+        c = Client("127.0.0.1", servers[via].port, timeout=600)
+        k = 0
+        while not stop.is_set():
+            col = foreign[k % len(foreign)] * (1 << 20) + 1000 + k
+            try:
+                if c.query("cb", f"Set({col}, f={BK_ROW})") == [True]:
+                    acked.append(col)
+            except Exception as e:  # noqa: BLE001 — fails the phase
+                errors.append(repr(e)[:200])
+                return
+            k += 1
+        c.close()
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    try:
+        _cl_await(lambda: len(acked) >= 5, "the backup's writer")
+        port = servers[0].port
+        full = BackupDriver("127.0.0.1", port, arch,
+                            workers=BK_WORKERS).run()
+    finally:
+        stop.set()
+        wt.join(timeout=120)
+    if errors:
+        raise AssertionError(f"a write during the backup failed: {errors}")
+    mbps = full["bytes"] / full["seconds"] / 1e6
+    log(f"(a) online backup: {full['fragments']} fragments, "
+        f"{full['bytes'] / 1e9:.3f} GB in {full['seconds']:.2f}s = "
+        f"{mbps:.1f} MB/s with {BK_WORKERS} workers, {full['fallbacks']} "
+        f"replica fallbacks; {len(acked)} Sets acked through node {via} "
+        "meanwhile")
+    tail = BackupDriver("127.0.0.1", port, arch, workers=BK_WORKERS,
+                        incremental=True).run()
+    log(f"quiesced incremental pass: {len(tail['transferred'])} "
+        f"transferred (the writer's tail), {len(tail['skipped'])} skipped "
+        f"in {tail['seconds']:.2f}s")
+    nums["full"] = {k: full[k] for k in ("fragments", "bytes", "seconds",
+                                         "fallbacks")}
+    nums["full"]["mbps"] = mbps
+
+    # (b) writes to known shards, then an incremental pass that moves
+    # exactly their fragments
+    known = list(range(BK_INCR_SHARDS))
+    for sh in known:
+        col = sh * (1 << 20) + 7
+        if clients[0].query("cb", f"Set({col}, f={BK_ROW})") != [True]:
+            raise AssertionError("a Set before the incremental pass")
+        acked.append(col)
+    incr = BackupDriver("127.0.0.1", port, arch, workers=BK_WORKERS,
+                        incremental=True).run()
+    want = {f"cb/f/standard/{sh}" for sh in known}
+    if set(incr["transferred"]) != want or len(incr["skipped"]) != \
+            full["fragments"] - len(want):
+        raise AssertionError(f"the incremental pass moved "
+                             f"{incr['transferred']}, want {sorted(want)}")
+    log(f"(b) incremental: {len(incr['transferred'])} fragments "
+        f"transferred (exactly the written ones), {len(incr['skipped'])} "
+        f"skipped, {incr['bytes'] / 1e6:.1f} MB in {incr['seconds']:.2f}s")
+    nums["incremental"] = {k: incr[k] for k in ("bytes", "seconds")}
+    man = Manifest.load(arch)
+
+    # (c) an elastic restore into a fresh 2-node cluster, replicas = 1
+    rports = free_ports(BK_NODES)
+    rbase = os.path.join(BK_DIR, "restored")
+    targets: list = []
+    single = None
+    try:
+        seed = None
+        for i in range(BK_NODES):
+            cfg = node_config(i, rbase, seed, port=rports[i], replicas=1,
+                              heartbeat=CL_HEARTBEAT, device=device or "",
+                              plane_budget_bytes=CL_BUDGET,
+                              plane_sidecars=False,
+                              scrub_bytes_per_second=0)
+            targets.append(PilosaTPUServer(cfg).open())
+            seed = seed or targets[0].cluster.node_id
+        tc = TestCluster(targets)
+        tc.await_membership(BK_NODES, 60)
+        tc.await_state("NORMAL", 60)
+        t0 = time.perf_counter()
+        res = RestoreDriver("127.0.0.1", targets[0].port, arch,
+                            workers=BK_WORKERS).run()
+        restore_s = time.perf_counter() - t0
+        log(f"(c) restore into {BK_NODES} nodes (replicas = 1): "
+            f"{res['fragments']} fragments, {res['pushes']} pushes, "
+            f"{res['bytes'] / 1e9:.3f} GB in {restore_s:.2f}s = "
+            f"{res['bytes'] / restore_s / 1e6:.1f} MB/s, AAE repaired "
+            f"{res['aaeRepaired']}")
+        nums["restore"] = {"seconds": restore_s, "bytes": res["bytes"],
+                           "mbps": res["bytes"] / restore_s / 1e6}
+        rclients = [Client("127.0.0.1", t.port, timeout=600)
+                    for t in targets]
+        reads = {Q32: expect[Q32], Q4: expect[Q4], TOPN_G: expect[TOPN_G],
+                 CL_QC: expect[CL_QC],
+                 f"Count(Row(f={BK_ROW}))": [len(set(acked))]}
+        cuda_kernels.reset_launches()
+        firsts = []
+        for i, c in enumerate(rclients):
+            for pql, want_ans in reads.items():
+                t = time.perf_counter()
+                got = c.query("cb", pql)
+                if pql == Q32:
+                    firsts.append(round((time.perf_counter() - t) * 1e3, 2))
+                if got != want_ans:
+                    raise AssertionError(f"restored node {i} {pql[:40]}: "
+                                         f"got {str(got)[:200]}")
+            if c.query("cb", CL_KEYQ) != clients[0].query("cb", CL_KEYQ):
+                raise AssertionError(f"restored node {i}: keyed Count")
+        launches = dict(cuda_kernels.LAUNCHES)
+        log(f"restored reads exact on both nodes (the oracle plus "
+            f"{len(set(acked))} acked Sets); first 32-Count ms by node "
+            f"(planes built on first use): {firsts}; launches "
+            f"{json.dumps(launches)}")
+        nums["first_q32_ms"] = firsts
+        if cuda:
+            for k in ("row_counts", "count", "selected_row_counts"):
+                if launches[k] < 1:
+                    raise AssertionError(f"phase 16 never launched {k}")
+
+        # (d) one flipped byte: refused before the target holds an index
+        bad = os.path.join(BK_DIR, "corrupt")
+        ent = man.fragments[sorted(man.fragments)[0]]
+        for root, _, names in os.walk(arch):
+            for name in names:
+                rel = os.path.relpath(os.path.join(root, name), arch)
+                dst = os.path.join(bad, rel)
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                if rel == ent["file"]:
+                    shutil.copyfile(os.path.join(arch, rel), dst)
+                else:
+                    os.link(os.path.join(arch, rel), dst)
+        with open(os.path.join(bad, ent["file"]), "r+b") as fh:
+            fh.seek(ent["bytes"] // 2)
+            byte = fh.read(1)
+            fh.seek(ent["bytes"] // 2)
+            fh.write(bytes([byte[0] ^ 0x01]))
+        # an un-clustered node on the card: no scrubber, no .dense images
+        single = PilosaTPUServer(Config(
+            bind="127.0.0.1:0", data_dir=os.path.join(BK_DIR, "single"),
+            device=device or "", plane_budget_bytes=CL_BUDGET,
+            plane_sidecars=False, scrub_bytes_per_second=0,
+            mesh=False)).open()
+        try:
+            RestoreDriver("127.0.0.1", single.port, bad).run()
+        except DigestError as e:
+            if single.holder.indexes:
+                raise AssertionError("the corrupt archive touched its "
+                                     "target")
+            log(f"(d) corrupt archive refused before the target was "
+                f"touched: {e}")
+        else:
+            raise AssertionError("a flipped byte restored")
+
+        # (e) the legacy tar: one restored node's data directory into the
+        # fresh single node
+        src_i = 0
+        held = sorted(targets[src_i].holder.index("cb").available_shards())
+        t0 = time.perf_counter()
+        blob = rclients[src_i]._do("GET", "/internal/backup")
+        tar_s = time.perf_counter() - t0
+        before = (torch.cuda.memory_allocated() if cuda else 0,
+                  single.executor.planes.stats()["bytes"])
+        t0 = time.perf_counter()
+        sc = Client("127.0.0.1", single.port, timeout=600)
+        sc._do("POST", "/internal/restore", blob,
+               content_type="application/x-tar")
+        untar_s = time.perf_counter() - t0
+        after = (torch.cuda.memory_allocated() if cuda else 0,
+                 single.executor.planes.stats()["bytes"])
+        want32 = [int(v) for v in
+                  per_shard["counts"][held].sum(axis=0)]
+        if sc.query("cb", Q32) != want32:
+            raise AssertionError("the tar-restored node's 32-Count")
+        log(f"(e) legacy tar of restored node {src_i} ({len(held)} shards): "
+            f"{len(blob) / 1e9:.3f} GB written in {tar_s:.2f}s, restored "
+            f"into a fresh node in {untar_s:.2f}s; its 32-Count exact; "
+            f"device memory {before[0] / 1e9:.3f} -> {after[0] / 1e9:.3f} "
+            f"GB, resident plane bytes {before[1]} -> {after[1]} (a "
+            "restore takes only an empty holder, so there was no old "
+            "plane to drop)")
+        nums["tar"] = {"bytes": len(blob), "seconds": tar_s,
+                       "restore_seconds": untar_s}
+        sc.close()
+        for c in rclients:
+            c.close()
+    finally:
+        for srv in targets + ([single] if single is not None else []):
+            try:
+                _cl_drop(srv)
+            except Exception as e:  # noqa: BLE001 — the phase's own error
+                log(f"closing a restore node: {e!r}")
+    log(f"phase 16 numbers: {json.dumps(nums, default=str)}")
+    return launches
+
+
+# -- phase 17: chaos on the card ----------------------------------------------
+
+CHAOS_SCENARIOS = ("hung_dispatch_serving", "flaky_device_governor")
+CHAOS_EXTRA = "corrupt_fragment_scrub_repair"   # 2 nodes, when time allows
+CHAOS_BUDGET_S = 40.0          # the phase's seconds, the optional one too
+
+
+def chaos_phase(seed: int, device=None) -> dict:
+    """Phase 17: the port's chaos scenarios on process clusters whose
+    nodes serve on the card (each its own CUDA context, the kernels
+    loaded from ``pilosa_tpu_torch/_build``): the hung dispatch and the
+    flaky device, each on a 1-node cluster, side by side; the 2-node
+    scrub-and-repair drill too when the two left room under the phase's
+    budget.  A scenario that fails raises.  Returns each scenario's
+    seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.fault import chaos
+
+    # the nodes are ``python -m pilosa_tpu_torch.cli`` children
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)
+    base = os.path.join(CLUSTER_DIR, "chaos")
+    secs: dict = {}
+    t_all = time.perf_counter()
+
+    def one(name: str) -> None:
+        t0 = time.perf_counter()
+        chaos.run_scenario(name, seed, os.path.join(base, name),
+                           device=device or "")
+        secs[name] = round(time.perf_counter() - t0, 2)
+        log(f"chaos {name}: invariants held in {secs[name]:.2f}s")
+
+    # the two 1-node clusters are separate processes: they boot and run
+    # side by side
+    with ThreadPoolExecutor(len(CHAOS_SCENARIOS)) as pool:
+        for fut in [pool.submit(one, name) for name in CHAOS_SCENARIOS]:
+            fut.result()
+    spent = time.perf_counter() - t_all
+    # the two-node drill took about as long as the two one-node ones
+    # one after the other on the CPU
+    if spent * 3 < CHAOS_BUDGET_S:
+        t0 = time.perf_counter()
+        chaos.run_scenario(CHAOS_EXTRA, seed,
+                           os.path.join(base, CHAOS_EXTRA),
+                           device=device or "")
+        secs[CHAOS_EXTRA] = round(time.perf_counter() - t0, 2)
+        log(f"chaos {CHAOS_EXTRA}: invariants held in "
+            f"{secs[CHAOS_EXTRA]:.2f}s")
+    else:
+        log(f"CUT: chaos {CHAOS_EXTRA} left out: the two device scenarios "
+            f"took {spent:.1f}s of the phase's {CHAOS_BUDGET_S:.0f}s")
+    return secs
+
+
 def cluster_phase(oracle: dict, cuda: bool, device, shards: int,
-                  single: dict) -> dict:
+                  single: dict, t_start: float) -> dict:
     """Phase 15: a 3-node cluster with ``replicas = 2`` in this process,
-    each node its own executor on the card.  Returns its launch counts
-    under "cluster"."""
+    each node its own executor on the card; then phase 16 on the same
+    live cluster before its nodes close.  Returns phase 15's launch
+    counts under "launches" and phase 16's under "backup"."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -5604,10 +5959,14 @@ def cluster_phase(oracle: dict, cuda: bool, device, shards: int,
 
     n = min(shards, CL_SHARDS)
     if n < shards:
-        log(f"CUT: phase 15's cluster serves the first {n} of the run's "
-            f"{shards} shards: every node imports and applies each of its "
-            f"fragments on the host, about {2 * 4.2:.1f} MB of bits per "
-            "shard per replica, within the phase's 90 s")
+        log(f"CUT: phases 15-16's cluster serves the first {n} of the "
+            f"run's {shards} shards: every node imports and applies each "
+            f"of its fragments on the host, about {2 * 4.2:.1f} MB of bits "
+            "per shard per replica, and phase 16 backs them up and "
+            "restores them twice, within phase 15's 90 s and phases "
+            "16-17's 80 s on the slower card machines (128 shards took "
+            "39.2 s and 61.5 + 22.9 s on one, 96 took 31.2 s and 55.8 + "
+            "25.9 s on a slower one)")
     expect = _cl_expect(oracle["per_shard"], n)
     ports = free_ports(CL_NODES)
     base = os.path.join(CLUSTER_DIR, "nodes")
@@ -5869,11 +6228,9 @@ def cluster_phase(oracle: dict, cuda: bool, device, shards: int,
         _cl_frag(o1, "f", sh).set_bits(np.array([CL_NEW_ROW], np.uint64),
                                        np.array([7, 8, 9], np.uint64))
         t0 = time.perf_counter()
-        with urllib.request.urlopen(urllib.request.Request(
-                f"http://127.0.0.1:{o1.port}/internal/aae/run?index=cb"
-                f"&field=f&shard={sh}", data=b"{}", method="POST"),
-                timeout=600) as resp:
-            repaired = json.loads(resp.read())["repaired"]
+        # scoped in-process (the REST route runs the reference's full
+        # round)
+        repaired = o1.cluster.sync_once(("cb", "f", None, sh))
         aae_s = time.perf_counter() - t0
         if repaired < 1 or not _cl_frag(o2, "f", sh).rows_contain(
                 [CL_NEW_ROW], [7, 8, 9]).all():
@@ -5928,6 +6285,11 @@ def cluster_phase(oracle: dict, cuda: bool, device, shards: int,
         if cuda:
             log(f"device memory after phase 15: "
                 f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        t_phase = phase_done(15, t_start)
+        log("== phase 16: backup and restore ==")
+        out["backup"] = backup_phase(servers, clients, n, expect, oracle,
+                                     cuda, device)
+        phase_done(16, t_phase)
     finally:
         for srv in servers:
             try:
@@ -5970,7 +6332,7 @@ def main() -> int:
     t_all = time.perf_counter()
     log("== phase 1: build and kernels ==")
     kres = kernel_phase(args.shards, args.seed)
-    log(f"phase 1 wall: {time.perf_counter() - t_all:.1f}s")
+    phase_done(1, t_all)
 
     data_dir = os.path.join(REPO, "chip_smoke_data")
     shutil.rmtree(data_dir, ignore_errors=True)
@@ -5978,18 +6340,23 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         oracle = make_index(data_dir, args.shards, args.seed)
-        log(f"data and oracle wall: {time.perf_counter() - t0:.1f}s")
+        phase_done("data and oracle", t0)
         du = shutil.disk_usage(data_dir)
         log(f"disk before phase 2: {du.free / 1e9:.1f} GB free of "
             f"{du.total / 1e9:.1f} GB; the data "
             f"{_dir_bytes(data_dir) / 1e9:.2f} GB")
         log("== phase 2: serving ==")
         launches = serve_phase(data_dir, oracle, seed=args.seed)
+        t_phase = time.perf_counter()
+        log("== phase 17: chaos on the card ==")
+        chaos_secs = chaos_phase(args.seed)
+        log(f"phase 17 scenarios' seconds: {json.dumps(chaos_secs)}")
+        phase_done(17, t_phase)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
 
-    log("== phase 16: output ==")
+    log("== phase 18: output ==")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name],

@@ -31,9 +31,13 @@ applies locally, once per op id.
 
 from __future__ import annotations
 
+import io
 import logging
 import os
 import random
+import shutil
+import tarfile
+import tempfile
 import threading
 import time
 from datetime import datetime, timezone
@@ -674,6 +678,56 @@ class API:
                                     self.slow_query_threshold},
                 "queryStages": self.executor.stats.histogram_summary(
                     "query_stage_seconds")}
+
+    # -- the legacy single-node tar --------------------------------------
+
+    def backup_tar(self) -> bytes:
+        """A consistent tar of the data directory (the reference's): every
+        fragment with op-log records compacts first, so the snapshots
+        hold every write, then snapshots, metadata and key stores are
+        tarred under ``data/`` without the op-logs."""
+        for idx in list(self.holder.indexes.values()):
+            for f in list(idx.fields.values()):
+                for v in list(f.views.values()):
+                    for frag in list(v.fragments.values()):
+                        if frag.op_n > 0:
+                            frag.snapshot()
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w") as tar:
+            tar.add(self.holder.path, arcname="data",
+                    filter=lambda ti: None if ti.name.endswith(".oplog")
+                    else ti)
+        return buf.getvalue()
+
+    def restore_tar(self, blob: bytes) -> None:
+        """Unpack a :meth:`backup_tar` (of either package) into the data
+        directory and open what it holds.  Refused (409) unless the
+        holder is empty, as upstream restore is.  The resident planes,
+        the plans and the key stores are dropped afterwards, so their
+        device memory is freed and nothing cached answers for the
+        restored indexes."""
+        if self.holder.indexes:
+            raise ApiError("restore requires an empty holder", 409)
+        with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+            for member in tar.getmembers():
+                name = member.name
+                if not name.startswith("data/") and name != "data":
+                    raise ApiError(f"unexpected tar entry {name!r}")
+            # unpacked beside the tree (a dot entry the holder skips), so
+            # each move is a rename
+            with tempfile.TemporaryDirectory(
+                    dir=self.holder.path, prefix=".restore-") as tmp:
+                tar.extractall(tmp, filter="data")
+                src = os.path.join(tmp, "data")
+                for entry in sorted(os.listdir(src)):
+                    shutil.move(os.path.join(src, entry),
+                                os.path.join(self.holder.path, entry))
+        # an empty holder has nothing to close: its compaction queue and
+        # disk governor keep running over the indexes it now opens
+        self.holder.open()
+        self.executor.planes.invalidate()
+        self.executor.invalidate_plans()
+        self.executor.translate.close()
 
     def storage_health(self) -> dict:
         """The ``/status`` storageHealth block: the disk governor's state,

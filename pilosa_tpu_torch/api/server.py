@@ -86,7 +86,13 @@ did not answer), ``GET /status/cluster`` (every node's ``/status``),
 ``GET /debug/flight?cluster=1`` (every node's flight ring), ``GET
 /internal/metrics/snapshot`` and the node-to-node ``/internal/*`` of
 :mod:`pilosa_tpu_torch.cluster.internal`, which answer 503 on a node
-that is not clustered.  With an ``ssl_context`` the server speaks HTTPS
+that is not clustered.  The backup routes of
+:mod:`pilosa_tpu_torch.backup.endpoints` (``/internal/backup/*``) serve
+a single node too; ``GET /internal/backup`` is a tar of the data
+directory and ``POST /internal/restore`` unpacks one into an empty
+holder.  ``GET /internal/fault`` lists the armed failpoints and the
+trigger counts, ``POST /internal/fault`` arms one (400 on a bad spec)
+and ``POST /internal/fault/clear`` disarms one site, or all.  With an ``ssl_context`` the server speaks HTTPS
 only.
 """
 
@@ -178,6 +184,11 @@ class Handler(BaseHTTPRequestHandler):
         _route("GET", "/metrics/cluster", "h_metrics_cluster"),
         _route("GET", "/status/cluster", "h_status_cluster"),
         _route("GET", "/internal/metrics/snapshot", "h_metrics_snapshot"),
+        _route("GET", "/internal/fault", "h_fault_list"),
+        _route("POST", "/internal/fault", "h_fault_set"),
+        _route("POST", "/internal/fault/clear", "h_fault_clear"),
+        _route("GET", "/internal/backup", "h_backup"),
+        _route("POST", "/internal/restore", "h_restore"),
         _route("GET", "/internal/traces", "h_traces"),
         _route("GET", "/debug/slow", "h_debug_slow"),
         _route("GET", "/debug/flight", "h_debug_flight"),
@@ -185,17 +196,20 @@ class Handler(BaseHTTPRequestHandler):
         _route("POST", "/debug/profile", "h_debug_profile"),
     ]
 
-    # ROUTES and the cluster's /internal/* routes, built at first use
-    # (the cluster's handlers import this module)
+    # ROUTES, the cluster's /internal/* routes and the backup routes,
+    # built at first use (their handlers import this module)
     _all_routes: list | None = None
 
     @classmethod
     def routes(cls) -> list:
         if cls._all_routes is None:
+            from pilosa_tpu_torch.backup.endpoints import \
+                register_backup_routes
             from pilosa_tpu_torch.cluster.internal import \
                 register_internal_routes
             routes = list(cls.ROUTES)
             register_internal_routes(routes)
+            register_backup_routes(routes)
             cls._all_routes = routes
         return cls._all_routes
 
@@ -576,6 +590,48 @@ class Handler(BaseHTTPRequestHandler):
         self._reply({"nodes": snaps, "staleNodes": stale,
                      "coordinator": cluster.coordinator_id()})
 
+    # -- fault injection (the live control surface) ----------------------
+
+    def h_fault_list(self) -> None:
+        self._reply({"faults": fault.list_faults(),
+                     "triggered": [{"site": s, "action": a, "count": n}
+                                   for (s, a), n
+                                   in sorted(fault.triggered_total()
+                                             .items())]})
+
+    def h_fault_set(self) -> None:
+        """Arm a failpoint on this node: ``{"site", "action", "nth" |
+        "prob" | "seed" | "times" | "match" | "args"}``, the spec shape of
+        ``PILOSA_FAULTS``."""
+        b = self._json_body()
+        if not b.get("site") or not b.get("action"):
+            raise ApiError("fault spec requires site and action")
+        try:
+            spec = fault.set_fault(
+                b["site"], b["action"], nth=b.get("nth"),
+                prob=b.get("prob"), seed=b.get("seed"),
+                times=b.get("times"), match=b.get("match"),
+                args=b.get("args"))
+        except ValueError as e:
+            raise ApiError(str(e))
+        _log.warning("fault armed via /internal/fault: %s", spec)
+        self._reply({"armed": spec})
+
+    def h_fault_clear(self) -> None:
+        """Disarm ``{"site": ...}``, or every failpoint with no body."""
+        b = self._json_body()
+        self._reply({"cleared": fault.clear(b.get("site"))})
+
+    # -- the legacy single-node tar ---------------------------------------
+
+    def h_backup(self) -> None:
+        """A tar of the whole data directory (``API.backup_tar``)."""
+        self._reply(self.api.backup_tar(), content_type="application/x-tar")
+
+    def h_restore(self) -> None:
+        self.api.restore_tar(self._body())
+        self._reply({"success": True})
+
     def h_traces(self) -> None:
         """Retained traces (sampled, slow, profiled); ``?trace_id=``
         narrows to one."""
@@ -713,6 +769,10 @@ class Server:
         # the registry /metrics renders and the http_* families count
         # on: the executor's unless another is given
         self.httpd.stats = stats if stats is not None else api.executor.stats
+        if stats is not None:
+            # fault triggers count on this registry's /metrics (the
+            # registry is process-wide: one serving server per process)
+            fault.set_stats(stats)
         if ssl_context is not None:
             # the handshake runs on the connection's own thread at its
             # first read, not in the accept loop: a client that connects

@@ -13,7 +13,12 @@
   problem exits 1.
 - ``config`` (the effective config as JSON), ``generate-config`` (the
   defaults as TOML) and ``version``.
-- ``backup`` and ``restore`` are not supported by this port and exit 1.
+- ``backup -o DIR``: a consistent online backup of a node or a cluster
+  into an archive directory (``--workers`` parallel pulls,
+  ``--incremental`` transfers only changed fragments); ``-o X.tar``
+  writes the legacy single-node tar instead.
+- ``restore DIR``: an archive into a fresh cluster of any size; a file
+  takes the legacy tar path.
 
 Client commands talk HTTP(S) to a running server at ``--bind``.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -175,10 +181,71 @@ def cmd_export(args) -> int:
     return 0
 
 
-def cmd_unsupported(args) -> int:
-    print(f"{args.command} is not supported by this port (ROADMAP Queue 1 "
-          "item 11b: backup/ and /internal/backup)", file=sys.stderr)
-    return 1
+def cmd_backup(args) -> int:
+    """Directory backup (a manifest and one file per fragment, incremental
+    on request, against a live node or cluster); ``--output`` ending in
+    ``.tar`` takes the legacy single-node tar."""
+    cfg = _load_cfg(args)
+    if args.output.endswith(".tar"):
+        blob = _client(cfg)._do("GET", "/internal/backup")
+        with open(args.output, "wb") as f:
+            f.write(blob)
+        print(f"wrote {len(blob)} bytes to {args.output}",
+              file=sys.stderr)
+        return 0
+    from pilosa_tpu_torch.api.client import ClientError
+    from pilosa_tpu_torch.backup import (BackupDriver, BackupError,
+                                         ManifestError)
+    drv = BackupDriver(cfg.host, cfg.port, args.output,
+                       workers=args.workers,
+                       incremental=args.incremental,
+                       ssl_context=cfgmod.client_ssl_of(cfg))
+    try:
+        res = drv.run()
+    except (BackupError, ManifestError, ClientError, OSError) as e:
+        print(f"backup failed: {e}", file=sys.stderr)
+        return 1
+    print(f"backup: {res['fragments']} fragments "
+          f"({len(res['transferred'])} transferred, "
+          f"{len(res['skipped'])} skipped, "
+          f"{res['fallbacks']} replica fallbacks), "
+          f"{res['bytes']} bytes in {res['seconds']}s -> {args.output}",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_restore(args) -> int:
+    """Restore an archive directory into a fresh cluster (its node count
+    may differ from the source's); a file takes the legacy tar path."""
+    cfg = _load_cfg(args)
+    if not os.path.exists(args.input):
+        print(f"restore failed: no archive at {args.input!r}",
+              file=sys.stderr)
+        return 1
+    if not os.path.isdir(args.input):
+        with open(args.input, "rb") as f:
+            blob = f.read()
+        _client(cfg)._do("POST", "/internal/restore", blob,
+                         content_type="application/x-tar")
+        print("restored", file=sys.stderr)
+        return 0
+    from pilosa_tpu_torch.api.client import ClientError
+    from pilosa_tpu_torch.backup import (BackupError, DigestError,
+                                         ManifestError, RestoreDriver)
+    drv = RestoreDriver(cfg.host, cfg.port, args.input,
+                        workers=args.workers,
+                        ssl_context=cfgmod.client_ssl_of(cfg))
+    try:
+        res = drv.run()
+    except (BackupError, DigestError, ManifestError, ClientError,
+            OSError) as e:
+        print(f"restore failed: {e}", file=sys.stderr)
+        return 1
+    print(f"restore: {res['fragments']} fragments "
+          f"({res['pushes']} pushes) onto {res['nodes']} node(s), "
+          f"{res['bytes']} bytes in {res['seconds']}s "
+          f"(aae repaired {res['aaeRepaired']})", file=sys.stderr)
+    return 0
 
 
 def cmd_check(args) -> int:
@@ -277,18 +344,28 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-o", "--output")
     sp.set_defaults(fn=cmd_export)
 
-    sp = sub.add_parser("backup", help="not supported by this port")
+    sp = sub.add_parser(
+        "backup", help="consistent online backup to a directory "
+        "(or legacy tar when -o ends in .tar)")
     _add_common(sp)
-    sp.add_argument("-o", "--output", required=True)
-    sp.add_argument("--workers", type=int, default=4)
-    sp.add_argument("--incremental", action="store_true")
-    sp.set_defaults(fn=cmd_unsupported)
+    sp.add_argument("-o", "--output", required=True,
+                    help="archive directory (manifest.json + fragment "
+                         "files); a .tar path takes the legacy path")
+    sp.add_argument("--workers", type=int, default=4,
+                    help="parallel fragment transfers")
+    sp.add_argument("--incremental", action="store_true",
+                    help="diff against the output dir's prior manifest "
+                         "and transfer only changed fragments")
+    sp.set_defaults(fn=cmd_backup)
 
-    sp = sub.add_parser("restore", help="not supported by this port")
+    sp = sub.add_parser(
+        "restore", help="restore a backup directory into a fresh "
+        "cluster (elastic: node count may differ), or a legacy tar")
     _add_common(sp)
-    sp.add_argument("input")
-    sp.add_argument("--workers", type=int, default=4)
-    sp.set_defaults(fn=cmd_unsupported)
+    sp.add_argument("input", help="archive directory or legacy .tar")
+    sp.add_argument("--workers", type=int, default=4,
+                    help="parallel fragment pushes")
+    sp.set_defaults(fn=cmd_restore)
 
     sp = sub.add_parser("check", help="offline data-dir integrity check")
     _add_common(sp)

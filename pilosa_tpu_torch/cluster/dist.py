@@ -588,7 +588,7 @@ class DistributedExecutor:
                             slot["primary"].cancel()
                         for r2, t2, _n2 in slot["hedge_ok"]:
                             graft(t2)
-                            per_node.append
+                            per_node.append(r2)
                         continue
                     # primary answered: it wins; queued hedge parts are
                     # cancelled, running ones abandoned

@@ -448,7 +448,9 @@ def h_fragment_merge(self: Handler) -> None:
                        "writes cover it (retry after drain)", 409)
     frag = _fragment(self, create=True)
     body = self._body()
-    changed = frag.merge_positions(roaring.deserialize(body))
+    # a union, as merge_positions; rows the fragment lacks (a restore
+    # push into a fresh node) expand from the blob in one native call
+    changed = frag.import_roaring(body)
     stats = getattr(self.server, "stats", None)
     if stats is not None and self.headers.get("X-Pilosa-Restore") == "1":
         # restore pushes ride this union-merge path; tag their volume
@@ -458,20 +460,12 @@ def h_fragment_merge(self: Handler) -> None:
 
 
 def h_aae_run(self: Handler) -> None:
-    """Force one anti-entropy round NOW (restore's convergence step —
-    replicas a push missed must not wait out the periodic sweep).
-    ``?index=&field=&view=&shard=``, each optional, limit the round to
-    the fragments they name."""
-    q = self.query
-    scope = tuple(q[k][0] if q.get(k, [""])[0] else None
-                  for k in ("index", "field", "view", "shard"))
-    if scope[3] is not None:
-        try:
-            scope = scope[:3] + (int(scope[3]),)
-        except ValueError:
-            raise ApiError(f"bad shard param {scope[3]!r}")
-    self._reply({"repaired": _cluster(self).sync_once(
-        scope if any(w is not None for w in scope) else None)})
+    """Force one full anti-entropy round NOW (restore's convergence step:
+    replicas a push missed must not wait out the periodic sweep).  The
+    query string is ignored, as the reference's route ignores it; a round
+    over some fragments only is ``Cluster.sync_once(scope)``, in
+    process."""
+    self._reply({"repaired": _cluster(self).sync_once()})
 
 
 def _attr_store(self: Handler):

@@ -44,6 +44,11 @@ The site-interpreted ones get the spec from :func:`fire`: ``partition``
 message is not sent), ``torn_write`` (only ``args.offset`` bytes of the
 record persist, then :func:`torn_write` raises) and ``drop_response``
 (at ``server.response``: the handler runs, its answer is never sent).
+
+Every trigger counts in :func:`triggered_total` and, once the server wired
+its registry (:func:`set_stats`), on ``fault_triggered_total{site,action}``
+of ``/metrics``.  A live node arms and clears failpoints through
+``GET/POST /internal/fault`` and ``POST /internal/fault/clear``.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ import threading
 import time
 
 __all__ = ["ACTIVE", "FaultError", "set_fault", "clear", "list_faults",
-           "fire", "torn_write", "configure"]
+           "fire", "torn_write", "configure", "set_stats", "triggered_total",
+           "reset_triggered"]
 
 ACTIONS = ("error", "delay", "oom", "torn_write", "partition",
            "drop_response", "drop")
@@ -64,6 +70,8 @@ ACTIVE = False
 
 _lock = threading.Lock()
 _registry: dict[str, list["Failpoint"]] = {}
+_triggered: dict[tuple[str, str], int] = {}
+_stats = None  # the metrics sink the server wires (a Stats)
 
 
 class FaultError(OSError):
@@ -147,6 +155,13 @@ class Failpoint:
                 "hits": self._hits, "fired": self._fired}
 
 
+def set_stats(stats) -> None:
+    """Wire the metrics sink (the server's Stats registry): every trigger
+    counts ``fault_triggered_total{site,action}`` there."""
+    global _stats
+    _stats = stats
+
+
 def set_fault(site: str, action: str, **kw) -> dict:
     """Arm a failpoint at ``site`` (several may stack on one site)."""
     global ACTIVE
@@ -175,16 +190,36 @@ def list_faults() -> list[dict]:
         return [fp.to_json() for fps in _registry.values() for fp in fps]
 
 
+def triggered_total() -> dict[tuple[str, str], int]:
+    """Triggers so far per ``(site, action)``."""
+    with _lock:
+        return dict(_triggered)
+
+
+def reset_triggered() -> None:
+    """Zero the trigger counts (test isolation; a live node's are
+    cumulative)."""
+    with _lock:
+        _triggered.clear()
+
+
 def fire(site: str, **ctx) -> dict | None:
     """Evaluate ``site``'s failpoints against this hit: ``error`` raises,
     ``oom`` raises ``torch.OutOfMemoryError``, ``delay`` sleeps and returns
     its spec, a site-interpreted action returns its spec.  None when
-    nothing triggered."""
+    nothing triggered.  Every trigger counts in :func:`triggered_total`
+    and on the wired sink."""
     with _lock:
         fps = list(_registry.get(site, ()))
     for fp in fps:
         if not fp._eval(ctx):
             continue
+        with _lock:
+            key = (site, fp.action)
+            _triggered[key] = _triggered.get(key, 0) + 1
+        if _stats is not None:
+            _stats.count("fault_triggered_total", 1, site=site,
+                         action=fp.action)
         if fp.action == "delay":
             time.sleep(float(fp.args.get("seconds", 0.05)))
             return fp.to_json()

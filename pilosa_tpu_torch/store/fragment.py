@@ -331,17 +331,24 @@ class Fragment:
                           for r in pend]
             rowed += [(r, cols.astype(np.uint64))
                       for r, cols in self.rows.items()]
-            rowed += [(r, unpack_columns(words))
-                      for r, words in self.dense.items()]
-        # a row lives in one tier and each row's columns are sorted, so
-        # the rows in row order concatenate sorted
+            dense = None
+            if self.dense:
+                # the rows held as words: their positions in one decode
+                ids = sorted(self.dense)
+                dense = _dense_positions(ids, [self.dense[r] for r in ids])
+        # each row's columns are sorted, so the rows in row order
+        # concatenate sorted: one run
         rowed.sort(key=lambda t: t[0])
-        parts = [np.uint64(r) * _SW + cols for r, cols in rowed]
-        if snap is None:
-            return np.concatenate(parts) if parts else np.empty(0, np.uint64)
-        if not parts:
-            return snap
-        return np.sort(np.concatenate([snap] + parts))
+        runs = ([np.concatenate([np.uint64(r) * _SW + cols
+                                 for r, cols in rowed])] if rowed else [])
+        runs += [a for a in (snap, dense) if a is not None]
+        if not runs:
+            return np.empty(0, np.uint64)
+        if len(runs) == 1:
+            return runs[0]
+        # a row lives in one tier: the sorted runs interleave by row,
+        # and a stable sort (timsort) merges them
+        return np.sort(np.concatenate(runs), kind="stable")
 
     def row_cardinalities(self) -> tuple[np.ndarray, np.ndarray]:
         """(row_ids uint64[R] sorted, cards int64[R]) with no bit expanded:
@@ -951,16 +958,18 @@ class Fragment:
             gen = self.generation
             pos = self.positions()
         out: dict[int, int] = {}
-        if len(pos):
-            # positions are sorted: each block is one contiguous run
-            blocks = (pos >> _ROW_SHIFT) // np.uint64(HASH_BLOCK_SIZE)
-            starts = np.flatnonzero(np.concatenate(
-                ([True], blocks[1:] != blocks[:-1])))
-            uniq = blocks[starts].astype(np.int64)
-            bounds = np.append(starts, len(pos))
-            data = pos.astype("<u8")
-            for i, blk in enumerate(uniq.tolist()):
-                out[blk] = zlib.crc32(data[bounds[i]:bounds[i + 1]].tobytes())
+        # positions are sorted: each block is one contiguous run, ended
+        # by a binary search for the next block's first position (no
+        # pass over every position: a dense fragment holds millions)
+        data = np.ascontiguousarray(pos, dtype="<u8")
+        i, n = 0, len(pos)
+        while i < n:
+            blk = int(pos[i]) // SHARD_WIDTH // HASH_BLOCK_SIZE
+            end = (blk + 1) * HASH_BLOCK_SIZE * SHARD_WIDTH
+            j = n if end >= 1 << 64 else int(
+                np.searchsorted(pos, np.uint64(end)))
+            out[blk] = zlib.crc32(data[i:j])
+            i = j
         with self.lock:
             if self.generation == gen:
                 self._blocks_cache = (gen, out)
@@ -1084,6 +1093,18 @@ class Fragment:
             # it stays valid under the new stamp
             self._restamp_sidecar(pre_stamp)
 
+
+
+def _dense_positions(ids: list, words: list) -> np.ndarray:
+    """Sorted positions of rows held as packed words (``ids`` ascending,
+    ``words[i]`` row ``ids[i]``'s) as uint64 ``row*SHARD_WIDTH + col``.
+    The words become roaring bytes (:func:`roaring.serialize_dense`) that
+    the native codec decodes: several times quicker than a numpy scan of
+    their unpacked bits."""
+    blob = roaring.serialize_dense(
+        np.ascontiguousarray(np.stack(words), dtype=np.uint32),
+        np.asarray(ids, np.uint64))
+    return native.deserialize(blob)
 
 
 def _sorted_unique(a: np.ndarray) -> np.ndarray:

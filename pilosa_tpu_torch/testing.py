@@ -149,6 +149,29 @@ def run_cluster(n: int, base_dir: str, replicas: int = 1,
                 pass
 
 
+def share_cpu_threads() -> int:
+    """Bound torch's intra-op threads to this process's share of the CPU
+    cores when it is one of ``PYTEST_XDIST_WORKER_COUNT`` test workers
+    (all cores when it runs alone); returns the count set.  Each worker
+    would otherwise open an OpenMP team as wide as the machine for every
+    operation, and the many small operations of the plain kernels' loops
+    then spend their time in the teams' barriers."""
+    import torch
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 1)
+    n = max(1, (os.cpu_count() or 1) // max(1, workers))
+    torch.set_num_threads(n)
+    return n
+
+
+def rss_mb() -> float:
+    """This process's resident set in MB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1024.0
+    return 0.0
+
+
 def free_ports(n: int) -> list[int]:
     """``n`` free loopback ports, ascending as ``127.0.0.1:<port>``
     strings sort (the order placement sees)."""
@@ -286,8 +309,13 @@ def run_process_cluster(n: int, base_dir: str, replicas: int = 1,
                         device: str = "",
                         extra_env: dict[str, str] | None = None):
     """Boot an n-node cluster of OS processes; yields a
-    :class:`ProcessCluster` once every member is NORMAL.  ``extra_env``
-    applies to every node (e.g. ``PILOSA_FAULTS``)."""
+    :class:`ProcessCluster` once one round of ``/status`` reads found
+    every node NORMAL with n NORMAL members.  That is membership, not a
+    settled cluster: a join's resize may start a beat later, so a caller
+    that needs NORMAL waits for it (as
+    :meth:`~pilosa_tpu_torch.fault.chaos.ChaosHarness.await_all_normal`
+    does).  ``device`` is every node's ``--device`` (``""``: the CUDA
+    device); ``extra_env`` applies to every node (e.g. ``PILOSA_FAULTS``)."""
     nodes: list[ProcessNode] = []
     cluster = None
     try:

@@ -41,6 +41,9 @@ from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store.fragment import Fragment as TFragment
 from pilosa_tpu_torch.store.translate import TranslateStore as TTranslate
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 SHARDS = 3

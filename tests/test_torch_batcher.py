@@ -29,6 +29,9 @@ from pilosa_tpu_torch.exec.executor import parse_window
 from pilosa_tpu_torch.exec.fused import FusedCache
 from pilosa_tpu_torch.store import Holder
 from test_torch_slice import COUNTS, READS, _port_api, _write_index
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 QT = ("Count(Intersect(Row(f=1), Union(Row(f=2), Row(f=5)), Row(g=0)))"
       "Count(Difference(Union(Row(f=1), Row(f=2)), Row(f=3)))"

@@ -12,6 +12,9 @@ import torch
 from pilosa_tpu.engine import bsi as jbsi
 from pilosa_tpu_torch.engine import bsi as tbsi
 from pilosa_tpu_torch.exec.fused import FusedCache
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 W = 96  # words per shard: 3072 columns
 

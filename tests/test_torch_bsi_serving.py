@@ -42,6 +42,9 @@ from pilosa_tpu_torch.pql import parse as tparse
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store.field import FieldOptions as TFieldOptions
 from test_torch_batcher import _run_threads
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SHARDS, SW = 3, 1 << 20
 AMOUNT = {"type": "int", "min": -5000, "max": 5000, "created_at": 1.0}

@@ -49,6 +49,9 @@ from pilosa_tpu_torch.exec.planes import merge_row_cards
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store import roaring as troaring
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 SHARDS = 4

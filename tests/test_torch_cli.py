@@ -12,7 +12,9 @@
   ``export``, ``check`` on a clean and on a corrupt directory (both
   packages quarantine the fragment, print the same ``BAD`` line and
   exit 1),
-  ``version``, and ``backup`` / ``restore`` refused;
+  ``version``, and ``backup`` / ``restore`` failing as the reference's
+  with nothing to reach (their round trips are in
+  ``tests/test_torch_backup.py``);
 - the ``server`` command in a subprocess with ``--device cpu``, closed by
   SIGTERM with exit code 0.
 """
@@ -36,6 +38,9 @@ from pilosa_tpu_torch.api.client import Client
 from pilosa_tpu_torch.cli import config as tconfig
 from pilosa_tpu_torch.cli import main as tmain
 from pilosa_tpu_torch.server import PilosaTPUServer
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SW = 1 << 20
@@ -200,14 +205,25 @@ def test_config_command_prints_the_effective_config(capsys, monkeypatch,
     assert list(got) == _keys(tconfig)
 
 
-def test_version_and_refused_commands(capsys):
+def test_version_and_refused_commands(capsys, tmp_path):
+    """``version``, and ``backup`` / ``restore`` served (no longer
+    refused): with nothing to reach or restore they fail as the
+    reference's do, with its exit code and its first stderr words."""
     assert tmain.main(["version"]) == 0
     assert capsys.readouterr().out == "0.1.0\n"
-    assert tmain.main(["backup", "-o", "x"]) == 1
-    assert "backup is not supported by this port" in capsys.readouterr().err
-    assert tmain.main(["restore", "x"]) == 1
-    assert "restore is not supported by this port" in \
-        capsys.readouterr().err
+    from pilosa_tpu_torch.testing import free_ports
+    dead = ["--bind", f"127.0.0.1:{free_ports(1)[0]}"]
+    missing = str(tmp_path / "nothing")
+    for argv, head in ((["backup", *dead, "-o", str(tmp_path / "a")],
+                        "backup failed: "),
+                       (["restore", *dead, missing],
+                        f"restore failed: no archive at {missing!r}")):
+        errs = []
+        for mod in (tmain, jmain):
+            assert mod.main(argv) == 1
+            errs.append(capsys.readouterr().err)
+        assert all(e.startswith(head) for e in errs), errs
+        assert "not supported by this port" not in errs[0]
 
 
 @pytest.fixture

@@ -22,6 +22,8 @@ module's tests run in order on those two clusters:
   (``blocks()`` checksums equal), the receiver's resident plane answering
   the merged bits through its journal, and ``repair_quarantined``
   rebuilds a quarantined fragment from its replica (a plane rebuild);
+  ``/internal/aae/run`` runs a full round whatever its query string and
+  repairs as many blocks as the reference's;
 - resize: a fourth node's join moves shards to it, an abort answers as
   the reference's, and the node's removal moves them back;
 - ``render_cluster_metrics`` text and ``/metrics/cluster``;
@@ -54,6 +56,9 @@ from pilosa_tpu_torch.store import roaring as troaring
 from pilosa_tpu_torch.testing import TestCluster as TTestCluster
 from pilosa_tpu_torch.testing import free_ports, node_config
 from pilosa_tpu.ingest import bulk as jbulk
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 N_SHARDS = 4
@@ -474,6 +479,28 @@ def test_aae_repairs_diverged_replica(clusters):
             assert dst.executor.planes.stats()["misses"] > merged["misses"]
     assert blocks["torch"] == blocks["jax"]
     assert counts["torch"] == counts["jax"]
+
+
+def test_aae_run_is_a_full_round_whatever_its_query(clusters):
+    """``POST /internal/aae/run`` runs the reference's full round: a query
+    string naming other fragments (which the route once took as a scope)
+    changes nothing, and the same request repairs the same number of
+    blocks in both packages."""
+    repaired = {}
+    for pkg in PKGS:
+        c = clusters[pkg]
+        owners = c.servers[0].cluster.shard_owners("ae", 1)
+        src = c.server_for(owners[0])
+        _frag(src, "ae", "f", 1).set_bits(np.array([2, 2], np.uint64),
+                                          np.array([11, 12], np.uint64))
+        st, _, body = _http(f"http://127.0.0.1:{src.http.address[1]}",
+                            "/internal/aae/run?index=w&field=f&view=x"
+                            "&shard=99", b"{}")
+        assert st == 200
+        repaired[pkg] = json.loads(body)["repaired"]
+        dst = c.server_for(owners[1])
+        assert _positions(src, "ae", "f", 1) == _positions(dst, "ae", "f", 1)
+    assert repaired["torch"] == repaired["jax"] >= 1
 
 
 def test_blocks_checksums_equal_across_packages(clusters):

@@ -11,6 +11,9 @@ import time
 import numpy as np
 
 from pilosa_tpu_torch.testing import run_process_cluster
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 
@@ -24,8 +27,19 @@ def test_kill9_of_a_replica_fails_no_read(tmp_path):
     with run_process_cluster(3, str(tmp_path), replicas=2, heartbeat=0.2,
                              device="cpu") as pc:
         cl = pc.client(0)
-        st = cl.status()
-        assert st["state"] == "NORMAL" and len(st["nodes"]) == 3
+        # the cluster is a member set once booted; a join's resize may
+        # still be running, so wait for every node's NORMAL as the chaos
+        # harness does (ChaosHarness.await_all_normal)
+        deadline = time.monotonic() + 60
+        while True:
+            states = [pc.client(i).status()
+                      for i in range(len(pc.nodes))]
+            if all(st["state"] == "NORMAL" for st in states):
+                break
+            assert time.monotonic() < deadline, \
+                [st["state"] for st in states]
+            time.sleep(0.1)
+        assert all(len(st["nodes"]) == 3 for st in states)
         cl.create_index("i")
         cl.create_field("i", "f")
         cl.import_bits("i", "f", rowIDs=rows.tolist(),

@@ -40,6 +40,9 @@ from pilosa_tpu_torch.pql import parse as tparse
 from pilosa_tpu_torch.store import oplog as toplog
 from pilosa_tpu_torch.store import syswrap as tsyswrap
 from pilosa_tpu_torch.store.fragment import Fragment as TFragment
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 PKG = {"jax": (jfault, jhints, joplog, JFragment),
@@ -208,6 +211,35 @@ def test_fragment_aae_functions_equal(tmp_path):
     assert out["torch"][6] == more.tolist()
 
 
+def test_dense_rows_positions_and_blocks_equal(tmp_path):
+    """Rows held as packed words (consecutive ids, a gap, one in another
+    checksum block) give the reference's positions, block checksums and
+    block positions: whole-dense, then mixed with a sparse row after a
+    single-bit write, then after a union-merge into those rows."""
+    from pilosa_tpu_torch.store import roaring as troaring
+    rng = np.random.default_rng(6)
+    ids = np.array([0, 1, 2, 3, 9, 150], np.uint64)
+    words = (rng.integers(0, 1 << 32, (len(ids), 32768), dtype=np.uint32)
+             & rng.integers(0, 1 << 32, (len(ids), 32768), dtype=np.uint32))
+    words[1, :100] = 0  # a row whose first containers are empty
+    blob = troaring.serialize_dense(words, ids)
+    more = np.unique(rng.integers(0, 160 * SW, 4000).astype(np.uint64))
+    out = {}
+    for pkg, frag in _frags(tmp_path).items():
+        frag.import_roaring(blob)
+        states = [(frag.positions().tolist(), frag.blocks())]
+        frag.set_bits(np.array([40], np.uint64), np.array([5], np.uint64))
+        states.append((frag.positions().tolist(), frag.blocks()))
+        frag.merge_positions(more)
+        b = frag.blocks()
+        states.append((frag.positions().tolist(), b,
+                       {k: frag.block_positions(k).tolist() for k in b}))
+        out[pkg] = states
+        frag.close()
+    assert out["torch"] == out["jax"]
+    assert len(out["torch"][0][1]) == 2  # rows 0-9 and row 150
+
+
 def _merge_cases():
     pairs = [[{"id": 1, "count": 5}, {"id": 2, "count": 3}],
              [{"id": 2, "count": 4}, {"id": 7, "count": 1}]]
@@ -347,3 +379,55 @@ def test_hint_log_scrub_verdicts_equal(tmp_path):
     verdicts += [(m.verify_hintlog_file(path)) for m in (jscrub, tscrub)]
     assert verdicts[0] == verdicts[1] and verdicts[0][0] is None
     assert verdicts[2] == verdicts[3] and verdicts[2][0] is not None
+
+
+def test_aae_converges_a_block_under_a_steady_writer(tmp_path,
+                                                     monkeypatch):
+    """A block that the peer keeps writing still converges: each round
+    pushes this copy's bits whatever landed on the peer since its
+    checksums were read (the reference's push), so the diverged bit
+    reaches the peer in the first round, and one quiet round after the
+    writer stops leaves both copies equal."""
+    from pilosa_tpu_torch.testing import run_cluster
+    with run_cluster(2, str(tmp_path), replicas=2, device="cpu") as c:
+        cl = c.client(0)
+        cl.create_index("ae", {"trackExistence": False})
+        cl.create_field("ae", "f")
+        assert cl.query("ae", "Set(1, f=1)") == [True]
+        a, b = c.servers
+        fa, fb = (s.holder.index("ae").field("f").standard_view()
+                  .fragment(0) for s in (a, b))
+        # diverged below the cluster: only a holds (1, 50)
+        fa.set_bits(np.array([1], np.uint64), np.array([50], np.uint64))
+        real = a.cluster._client
+        written = []
+
+        class Writing:
+            """b's client, with a write landing on b's block after each
+            pull of it: a writer that never pauses for the round."""
+
+            def __init__(self, inner):
+                self.inner = inner
+
+            def _do(self, method, path, *args, **kw):
+                out = self.inner._do(method, path, *args, **kw)
+                if "/internal/fragment/data" in path:
+                    col = 60 + len(written)
+                    fb.set_bits(np.array([1], np.uint64),
+                                np.array([col], np.uint64))
+                    written.append(SW + col)
+                return out
+
+            def __getattr__(self, name):
+                return getattr(self.inner, name)
+
+        monkeypatch.setattr(a.cluster, "_client",
+                            lambda peer: Writing(real(peer)))
+        for _ in range(3):
+            assert a.cluster.sync_once() >= 1
+            assert SW + 50 in fb.positions().tolist()
+        assert len(written) == 3
+        monkeypatch.setattr(a.cluster, "_client", real)
+        assert a.cluster.sync_once() >= 1
+        assert fa.positions().tolist() == fb.positions().tolist() == [
+            SW + 1, SW + 50, *written]

@@ -24,6 +24,9 @@ from pilosa_tpu_torch.store import oplog as toplog
 from pilosa_tpu_torch.store.fragment import Fragment as TFragment
 from pilosa_tpu_torch.store.holder import SnapshotQueue
 from pilosa_tpu_torch.store.oplog import OpLog, SyncBatch
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 

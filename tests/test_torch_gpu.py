@@ -14,7 +14,8 @@ and the instruments on the card: the bandwidth gauge within the HBM peak
 under a burst, a profiled request's kernel time within its ledger
 seconds within its wall, and a ``/debug/profile`` capture naming the
 hand kernels; and a 3-node cluster on the card answering as the same
-cluster on the CPU.
+cluster on the CPU, and its backup restored into a node on the CPU
+answering as the card did.
 Marked ``gpu``: without a CUDA device every test skips.  The file
 imports nothing of JAX, so on a machine without it run it as
 
@@ -29,6 +30,9 @@ from pilosa_tpu_torch.engine import cuda_kernels
 from pilosa_tpu_torch.engine import kernels as tk
 from pilosa_tpu_torch.exec.planes import _apply_plane_cells
 from pilosa_tpu_torch.ingest import delta
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 pytestmark = pytest.mark.gpu
 
@@ -1353,3 +1357,53 @@ def test_cluster_on_the_card_answers_as_on_the_cpu(dev, tmp_path):
     cpu, _ = _cluster_answers(tmp_path, "cpu", reads)
     assert card == cpu
     assert launches["row_counts"] > 0 and launches["count"] > 0
+
+
+def test_card_backup_restores_into_a_cpu_node(dev, tmp_path):
+    """A backup of a 3-node cluster serving on the card, restored into an
+    un-clustered node on the CPU, answers as the card did."""
+    from contextlib import closing
+
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.api.client import Client
+    from pilosa_tpu_torch.backup import BackupDriver, RestoreDriver
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.store import Holder, roaring
+    from pilosa_tpu_torch.testing import run_cluster
+    reads = ["Count(Row(f=0)) Count(Row(f=1)) Count(Row(f=7))",
+             "Count(Intersect(Row(f=1), Row(g=0)))",
+             "TopN(f, Row(g=1), n=3)", "Row(f=2)", "Sum(field=n)"]
+    rng = np.random.default_rng(23)
+    f = (rng.integers(0, 1 << 32, (6, 8, 32768), dtype=np.uint32)
+         & rng.integers(0, 1 << 32, (6, 8, 32768), dtype=np.uint32))
+    g = rng.integers(0, 1 << 32, (6, 2, 32768), dtype=np.uint32)
+    arch = str(tmp_path / "arch")
+    with run_cluster(3, str(tmp_path / "card"), replicas=2) as c:
+        cl = c.client(0)
+        cl.create_index("i", {"trackExistence": False})
+        cl.create_field("i", "f")
+        cl.create_field("i", "g")
+        cl.create_field("i", "n", {"type": "int", "min": 0, "max": 1000})
+        for name, arr in (("f", f), ("g", g)):
+            for s in range(6):
+                cl.import_roaring("i", name, s,
+                                  roaring.serialize_dense(arr[s]))
+        cols = rng.choice(6 << 20, 500, replace=False)
+        cl.import_values("i", "n", columnIDs=[int(x) for x in cols],
+                         values=[int(v) for v in
+                                 rng.integers(0, 1001, len(cols))])
+        card = [cl.query("i", q) for q in reads]
+        res = BackupDriver("127.0.0.1", c.servers[0].http.address[1],
+                           arch, workers=4).run()
+        assert res["fragments"] == 6 * 3
+    holder = Holder(str(tmp_path / "cpu")).open()
+    api = API(holder, Executor(holder, device="cpu"))
+    server = Server(api, "127.0.0.1", 0).start()
+    try:
+        RestoreDriver("127.0.0.1", server.address[1], arch).run()
+        with closing(Client("127.0.0.1", server.address[1])) as cc:
+            assert [cc.query("i", q) for q in reads] == card
+    finally:
+        server.close()
+        api.executor.close()
+        holder.close()

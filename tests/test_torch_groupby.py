@@ -40,6 +40,9 @@ from pilosa_tpu_torch.ingest.delta import DeltaMirror
 from pilosa_tpu_torch.store import Holder as THolder
 from test_torch_batcher import _run_threads
 from test_torch_bsi import make_plane, port
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SHARDS, SW = 3, 1 << 20
 N_COLS = SHARDS * SW

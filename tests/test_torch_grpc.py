@@ -21,6 +21,9 @@ from pilosa_tpu_torch.api.grpc import SERVICE  # noqa: E402
 from pilosa_tpu_torch.api.grpc import GrpcServer as TGrpc  # noqa: E402
 from pilosa_tpu_torch.exec import Executor as TExecutor  # noqa: E402
 from pilosa_tpu_torch.store import Holder as THolder  # noqa: E402
+from pilosa_tpu_torch.testing import share_cpu_threads  # noqa: E402
+
+share_cpu_threads()
 
 SW = 1 << 20
 

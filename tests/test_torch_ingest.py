@@ -29,6 +29,9 @@ from pilosa_tpu_torch.store import roaring as troaring
 from pilosa_tpu_torch.store.fragment import Fragment as TFragment
 from test_torch_slice import (COUNTS, READS, SHARDS, _get, _jax_api,
                               _port_api, _post, _write_index)
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 

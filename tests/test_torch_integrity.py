@@ -50,6 +50,9 @@ from pilosa_tpu_torch.obs import Stats as TStats
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store import health as thealth
 from pilosa_tpu_torch.store.scrub import Scrubber as TScrubber
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 N_SHARDS = 3

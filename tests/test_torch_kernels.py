@@ -16,6 +16,9 @@ from pilosa_tpu.engine import kernels as jk
 from pilosa_tpu.engine import pallas_kernels as pk
 from pilosa_tpu_torch.engine import cuda_kernels
 from pilosa_tpu_torch.engine import kernels as tk
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 W = 2048  # small word count keeps interpreter-mode kernels fast
 

@@ -50,6 +50,9 @@ from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store import attrs as tattrs
 from pilosa_tpu_torch.store import translate as ttr
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 CONFIGS = {"off": {"count_batch_window": "off", "tree_fusion": False},

@@ -16,6 +16,9 @@ from pilosa_tpu.store import native as jnative
 from pilosa_tpu.store import roaring as jroaring
 from pilosa_tpu_torch.store import native
 from pilosa_tpu_torch.store import roaring as troaring
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = np.uint64(SHARD_WIDTH)
 

@@ -35,6 +35,9 @@ from pilosa_tpu_torch.obs import ledger as tledger
 from pilosa_tpu_torch.obs import logging as tlogging
 from pilosa_tpu_torch.obs import metrics as tmetrics
 from pilosa_tpu_torch.obs import tracing as ttracing
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 class _Clock:
     """A settable clock patched over ``time.monotonic`` / ``time.time``."""

@@ -5,6 +5,9 @@ import pytest
 
 from pilosa_tpu import pql as jpql
 from pilosa_tpu_torch import pql as tpql
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 CORPUS = [
     "Count(Row(f=1))",

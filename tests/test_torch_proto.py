@@ -35,6 +35,9 @@ from pilosa_tpu_torch.api import proto as tproto
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.exec import result_to_json as t_to_json
 from pilosa_tpu_torch.store import Holder as THolder
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 CT = "application/x-protobuf"

@@ -47,6 +47,9 @@ from pilosa_tpu_torch.exec.errors import QueryTimeoutError as TTimeout
 from pilosa_tpu_torch.exec.executor import _is_device_oom
 from pilosa_tpu_torch.exec.health import DeviceHealthGovernor as TGovernor
 from pilosa_tpu_torch.store import Holder as THolder
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 WORDS = SW // 32

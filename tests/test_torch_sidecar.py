@@ -19,6 +19,9 @@ from pilosa_tpu.exec import Executor as JExecutor
 from pilosa_tpu.store import Holder as JHolder
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import Holder as THolder
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 

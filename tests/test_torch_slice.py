@@ -36,6 +36,9 @@ from pilosa_tpu_torch.api import ApiError
 from pilosa_tpu_torch.api import Server as TServer
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import Holder as THolder
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SHARDS, ROWS, W = 3, 8, 32768

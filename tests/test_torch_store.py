@@ -17,6 +17,9 @@ from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store import roaring as troaring
 from pilosa_tpu_torch.store.fragment import Fragment as TFragment
 from pilosa_tpu_torch.store.oplog import OpLog
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 

@@ -41,6 +41,9 @@ from pilosa_tpu_torch.tenancy import ResidencyGovernor as TGovernor
 from pilosa_tpu_torch.tenancy import TenantQos as TQos
 from pilosa_tpu_torch.tenancy import TenantThrottledError as TThrottled
 from pilosa_tpu_torch.tenancy import governor as tgovernor
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 CONFIGS = {"off": {"count_batch_window": "off", "tree_fusion": False},

@@ -43,6 +43,9 @@ from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.store import FieldOptions as TFO
 from pilosa_tpu_torch.store import Holder as THolder
 from pilosa_tpu_torch.store import timeq as ttimeq
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 SW = 1 << 20
 SHARDS = 3

@@ -12,6 +12,9 @@ import ipaddress
 import socket
 
 import pytest
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 cryptography = pytest.importorskip("cryptography")
 

@@ -40,6 +40,9 @@ from pilosa_tpu_torch.api import proto as tproto
 from pilosa_tpu_torch.exec import Executor as TExecutor
 from pilosa_tpu_torch.obs import Stats as TStats
 from pilosa_tpu_torch.store import Holder as THolder
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 REPO = Path(__file__).resolve().parent.parent
 SW = 1 << 20

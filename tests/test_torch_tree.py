@@ -35,6 +35,9 @@ from pilosa_tpu_torch.ingest import delta as tdelta
 from pilosa_tpu_torch.pql.parser import parse as tparse
 from pilosa_tpu_torch.store import Holder as THolder
 from test_torch_slice import SHARDS, _write_index
+from pilosa_tpu_torch.testing import share_cpu_threads
+
+share_cpu_threads()
 
 EDGE = np.array([0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0, 1], np.uint32)
 

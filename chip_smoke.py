@@ -13,7 +13,8 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Eighteen phases; any failure raises and the exit code is non-zero:
+Eighteen numbered phases and phase mesh between 2 and 3; any failure
+raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -30,6 +31,21 @@ Eighteen phases; any failure raises and the exit code is non-zero:
    sequential requests must take the batcher's solo fast lane.  A
    ``Set`` then reads that must show it: absorbed into the plane's delta
    overlay, no rebuild.
+   Phase mesh, on that holder: an executor over
+   ``virtmesh.virtual_placement(4)`` (``f``, ``g`` and ``amount`` at all
+   the shards in four shard blocks of the card, padded to a multiple of
+   four, each block launching on its own stream) behind its own REST
+   server, beside an unmeshed executor of its own: the oracle's requests
+   (the 32-Count, the 4-Count, the filtered TopN, the compound Counts,
+   six BSI requests) and seven more (Xor, Difference, tanimoto TopN,
+   Min over an empty filter, filtered Max, two GroupBys) equal through
+   both, two Row reads equal word for word, a Set and a value written
+   and cleared (absorbed, no rebuild), an 8-thread burst whose windows
+   hold more than one item, ``/status``'s ``mesh`` block, and
+   ``parallel.spmd``'s two intersect counts of f row 1 and g row 0
+   against the oracle; every kernel must launch on this path (launch
+   counters reset first); device ms per request meshed beside unmeshed;
+   both executors closed at the end (device memory before and after).
 3. Concurrent serving on the same index, its overlay folded first (a
    clean plane): 32 client threads, 6 passes
    each over a mix of the 32-Count, the 4-Count, a filtered TopN and a
@@ -256,8 +272,9 @@ Eighteen phases; any failure raises and the exit code is non-zero:
    every window's apportioned shares sum exactly to its seconds and the
    tenants' seconds to the ledger's total, then a
    ``tenant_device_seconds_quota`` below ``k``'s recent seconds sheds it
-   with a 503 ``tenantThrottled{kind: device-seconds}``; (d) phase 11's
-   10 ms watchdog on a windowed GroupBy Max: a 500, the ``/debug/flight``
+   with a 503 ``tenantThrottled{kind: device-seconds}``; (d) a 50 ms
+   watchdog on a windowed GroupBy Max queued behind a ~0.2 s device
+   sleep, after one windowed run of it: a 500, the ``/debug/flight``
    ring holding the run-up (enqueue, dispatch, readback) and the trip
    (watchdog_trip, quarantine, incident, governor), an incident file under
    ``_flight``, a probe back to healthy; (e) one byte of one ``f``
@@ -1473,6 +1490,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
                                  "the solo fast lane")
 
         t_phase = phase_done(2, t_phase)
+        log("== phase mesh: multi-device serving ==")
+        mesh = mesh_phase(holder, oracle, cuda, device)
+        t_phase = phase_done("phase mesh", t_phase)
         log("== phase 3: concurrent serving ==")
         # fold the Set's one-cell overlay first: this phase serves a
         # clean plane (phase 4 serves over a live overlay)
@@ -1575,11 +1595,215 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     for k in ("row_counts", "selected_row_counts", "count"):
         if cuda and launches[k] < 1:
             raise AssertionError(f"serving never launched the {k} kernel")
-    return {"serve": launches, "concurrent": conc["default"],
+    return {"serve": launches, **mesh, "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
             **sp, **ap, **op, "cluster": cl["launches"],
             "backup": cl["backup"]}
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: multi-device serving over a four-block placement
+# ---------------------------------------------------------------------------
+
+MESH_BLOCKS = 4                # blocks of the virtual placement on one card
+MESH_PARITY = (
+    "Count(Xor(Row(f=1), Row(g=0)))",
+    "Count(Difference(Row(f=2), Row(g=0)))",
+    "TopN(f, Row(g=0), n=5, tanimoto=30)",
+    "Min(Row(f=99), field=amount)",          # an empty filter
+    "Max(Row(g=2), field=amount)",
+    "GroupBy(Rows(g), Rows(f))",
+    "GroupBy(Rows(g), aggregate=Sum(field=amount))",
+)
+MESH_ROWS = ("Row(f=3)", "Row(amount > 900000)")   # compared as words
+MESH_TIMED = (Q32, TOPN_G, BSI_SEQ[0])
+
+
+def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
+    """Phase mesh, on phase 2's holder as phase 2 leaves it: an executor
+    over ``virtual_placement(4)`` (every plane of ``f``, ``g`` and
+    ``amount`` in four shard blocks on the card, 477 shards padded to
+    480, each block launching on its own stream) behind its own REST
+    server, beside an unmeshed executor of its own (phase 2's keeps its
+    cache as phase 3 expects it).  Every parity request answers as the
+    unmeshed executor does and, where phase 2's oracle knows the answer,
+    as the oracle; two Row reads compare their words on the card; a Set
+    and a value written then cleared are absorbed into the blocked
+    overlays with no rebuild; an 8-thread burst fills a window above one;
+    ``/status`` shows the mesh block; ``spmd.intersect_count`` and
+    ``make_intersect_count_psum`` count f row 1 and g row 0 against the
+    oracle.  The unmeshed answers are taken first; then the launch
+    counters are reset, only the meshed executor and the spmd programs
+    run until they are read, and every kernel must launch on this path.  Prints device ms per request, meshed beside
+    unmeshed; then closes both executors.  Returns {"mesh": launches}."""
+    import torch
+    from pilosa_tpu_torch.api import API, Server
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.exec.executor import _Ctx
+    from pilosa_tpu_torch.obs import Stats
+    from pilosa_tpu_torch.parallel import spmd
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.virtmesh import virtual_placement
+
+    t0 = time.perf_counter()
+    served = oracle["served"]
+    expect = dict(_mix_expect(served["counts"], served["filtered"],
+                              served["trees"]))
+    expect["TopN(f, n=5)"] = [_topn(served["counts"], 5)]
+    qc = ("Count(Intersect(Row(f=1), Row(g=0)))"
+          "Count(Union(Row(f=1), Row(g=0)))")
+    expect[qc] = [oracle["inter"], oracle["union"]]
+    for q in BSI_SEQ[:6]:   # amount and g only: valid until phase 5 writes
+        expect[q] = oracle["bsi"]["expect"][q]
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    place = virtual_placement(MESH_BLOCKS, device)
+    stats = Stats()
+    mex = _executor(holder, placement=place, plane_budget=32 << 30,
+                    max_concurrent=32, stats=stats)
+    plain = _executor(holder, device=device, plane_budget=32 << 30)
+    mapi, papi = API(holder, mex), API(holder, plain)
+    mclient, pclient = _Client(mapi, cuda), _Client(papi, cuda)
+    server = Server(mapi, "127.0.0.1", 0).start()
+    mclient.base = "http://%s:%d" % server.address
+    index = holder.index("bench")
+    try:
+        # the unmeshed executor's answers first, so that the launches
+        # counted below are the meshed path's alone
+        for q, want in expect.items():
+            pclient.ask(q, want, tag="plain " + q[:40])
+        parity = {q: papi.query("bench", q)["results"] for q in MESH_PARITY}
+        shards = mex._shards_for(index, None)
+        n_real = len(index.available_shards())
+        row_words = {q: plain._fused_bitmap(
+            _Ctx(index, tuple(index.available_shards())), parse(q).calls[0])
+            for q in MESH_ROWS}
+        col = _clear_column(papi, "Row(f=5)")
+        vcol = _clear_column(papi, f"Row(amount >= {BSI_MIN})")
+
+        cuda_kernels.reset_launches()
+        # the oracle's requests (the first builds the planes: its seconds
+        # are logged), then the parity requests against the unmeshed
+        # answers
+        for q, want in expect.items():
+            t = time.perf_counter()
+            mclient.ask(q, want, tag="mesh first " + q[:40])
+            first_ms = (time.perf_counter() - t) * 1e3
+            if first_ms > 1000:
+                log(f"mesh first {q[:48]!r}: {first_ms:.0f} ms (builds)")
+        for q, want in parity.items():
+            mclient.ask(q, want, tag="mesh " + q[:40])
+        got = mclient.post("/index/bench/query", Q4.encode(), "mesh REST")
+        if got["results"] != expect[Q4]:
+            raise AssertionError(f"mesh REST 4-Count: got {got}")
+        for q, want in row_words.items():
+            words = mex._fused_bitmap(_Ctx(index, shards),
+                                      parse(q).calls[0]).full()
+            if not (torch.equal(words[:n_real], want)
+                    and not bool(words[n_real:].any())):
+                raise AssertionError(f"mesh {q}: the blocked words differ")
+        log(f"mesh parity: {len(expect)} oracle requests and "
+            f"{len(MESH_PARITY)} more equal through both executors; "
+            f"{len(MESH_ROWS)} Row reads equal word for word; "
+            f"{len(shards)} shards ({len(shards) - n_real} padding) in "
+            f"{MESH_BLOCKS} blocks")
+
+        # a Set and a value, written and cleared: absorbed, no rebuild
+        planes = mex.planes
+        builds, absorbs = planes.builds, planes.delta_absorbs
+        c5 = expect[Q32][5]
+        total, cnt = (expect[BSI_SEQ[0]][0][k] for k in ("value", "count"))
+        for q, want in ((f"Set({col}, f=5)", [True]),
+                        ("Count(Row(f=5))", [c5 + 1]),
+                        (f"Set({vcol}, amount=777)", [True]),
+                        (BSI_SEQ[0], _vc(total + 777, cnt + 1)),
+                        (f"Clear({col}, f=5)", [True]),
+                        (f"Clear({vcol}, amount=0)", [True]),
+                        ("Count(Row(f=5))", [c5]),
+                        (BSI_SEQ[0], expect[BSI_SEQ[0]]),
+                        (TOPN_G, expect[TOPN_G])):
+            mclient.ask(q, want, tag="mesh write " + q[:30])
+        if planes.builds != builds or planes.delta_absorbs < absorbs + 2:
+            raise AssertionError(
+                f"the mesh writes were not absorbed: builds {builds} -> "
+                f"{planes.builds}, absorbs {absorbs} -> "
+                f"{planes.delta_absorbs}")
+
+        # an 8-thread burst: windows must hold more than one item
+        b0 = mex.serving_stats()
+        run = burst(mapi, expect, 8, 4)
+        b1 = mex.serving_stats()
+        windows = b1["windows"] - b0["windows"]
+        items = b1["items"] - b0["items"]
+        coll = stats.histogram_summary("mesh_collective_seconds")
+        log(f"mesh burst 8 x 4: {run['requests']} requests in "
+            f"{run['wall']:.3f} s = {run['requests'] / run['wall']:.1f} "
+            f"requests/s; {windows} windows, {items} items "
+            f"({items / max(1, windows):.2f} per window); "
+            f"mesh_collective_seconds {json.dumps(coll)}")
+        if items <= windows or not coll:
+            raise AssertionError("the mesh burst's windows never held more "
+                                 "than one item")
+        with urllib.request.urlopen(mclient.base + "/status",
+                                    timeout=60) as resp:
+            mesh = json.loads(resp.read())["mesh"]
+        log(f"mesh /status: {json.dumps(mesh)}")
+        pads = len(shards) - n_real
+        if (mesh["devices"] != MESH_BLOCKS or not pads
+                or mesh["paddedShards"] % pads or not mesh["paddedShards"]):
+            raise AssertionError(f"the /status mesh block: {mesh}")
+
+        # the spmd programs over two resident rows, against the oracle
+        a = planes.row_words("bench", index.field("f"), "standard", 1,
+                             shards)
+        b = planes.row_words("bench", index.field("g"), "standard", 0,
+                             shards)
+        got = (int(spmd.intersect_count(a, b)),
+               int(spmd.make_intersect_count_psum(place)(a, b)))
+        if got != (oracle["inter"],) * 2:
+            raise AssertionError(f"spmd intersect counts {got}, want "
+                                 f"{oracle['inter']}")
+        launched = dict(cuda_kernels.LAUNCHES)
+        del a, b, words, want, row_words
+        log(f"mesh launches: {json.dumps(launched)}; spmd intersect "
+            f"counts equal to the oracle ({oracle['inter']})")
+        if cuda:
+            for k, v in launched.items():
+                if v < 1:
+                    raise AssertionError(f"the mesh path never launched {k}")
+            # device ms per request, meshed beside unmeshed (a finding:
+            # four blocks on one card, the same bytes read)
+            for q in MESH_TIMED:
+                ms = [traced(lambda: c.ask(q, expect[q], tag="traced"),
+                             f"mesh {q[:30]}")[::2]
+                      for c in (mclient, pclient)]
+                log(f"mesh device ms {q[:40]!r}: {ms[0][0]:.3f} ms meshed "
+                    f"({MESH_BLOCKS} blocks) beside {ms[1][0]:.3f} ms "
+                    f"unmeshed; by kernel, meshed: {ms[0][1]}; unmeshed: "
+                    f"{ms[1][1]}")
+    finally:
+        server.close()
+        for ex in (mex, plain):
+            ex.close()
+            ex.planes.invalidate()   # their planes go now, whoever holds
+    del server, mex, plain, mapi, papi, mclient, pclient
+    if cuda:
+        import gc
+        gc.collect()
+        log(f"mesh executors closed: device memory allocated "
+            f"{mem0 / 1e9:.2f} GB before the phase, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after")
+    log(f"phase mesh: {time.perf_counter() - t0:.1f}s")
+    return {"mesh": launched}
+
+
+def _clear_column(api, row: str) -> int:
+    """A column of shard 0 outside ``row`` (asked through ``api``)."""
+    for c in range(7, 1 << 20, 7919):
+        got = api.query("bench", f"IncludesColumn({row}, column={c})")
+        if got["results"] == [False]:
+            return c
+    raise AssertionError(f"no column of shard 0 outside {row}")
 
 
 def ingest_phase(client, planes, batches: dict, cuda: bool, api,
@@ -3675,6 +3899,9 @@ RB_VALUE_SHARDS = 4            # shards its columns come from
 RB_PASSES = 2                  # passes of the distinct burst
 RB_DOOMED_REQS = 4             # requests per client of the deadline burst
 RB_WATCHDOG_S = 0.01           # below a GroupBy Max window's device time
+OB_WATCHDOG_S = 0.05           # phase 14: above a GroupBy Max window's
+#                                dispatch (host launches, ~14 ms), below the
+#                                ~0.2 s device sleep queued ahead of it
 RQ_PCT = "Percentile(field=amount, nth=99)"
 RQ_PCT2 = RQ_PCT + RQ_PCT      # a deadline expires between the two
 RQ_DISTINCT = "Distinct(field=amount)"
@@ -5162,9 +5389,9 @@ def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
     CUDA-event ms <= the root's ledger ``deviceSeconds`` <= the wall.
     (c) A burst over ``bench`` and ``k``: every window's shares sum
     exactly to its seconds, the tenants' rollups to the total; a
-    device-seconds quota sheds ``k``.  (d) Phase 11's 10 ms watchdog on a
-    windowed GroupBy Max: the flight ring holds the run-up and the trip,
-    and an incident file exists.  (e) One ``f`` snapshot flipped in place:
+    device-seconds quota sheds ``k``.  (d) A 50 ms watchdog on a windowed
+    GroupBy Max behind a device sleep: the flight ring holds the run-up
+    and the trip, and an incident file exists.  (e) One ``f`` snapshot flipped in place:
     the scrubber (paced) quarantines it, the next 32-Count leaves that
     shard out, a write to it answers 503, ``cli check`` prints BAD.  (f)
     Last, ``POST /debug/profile?seconds=1``: its Chrome trace names the
@@ -5386,15 +5613,28 @@ def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
 
         # (d) the watchdog trip in the flight ring
         gbq = GB_SEQ[3]
-        api.query("bench", gbq)  # its planes resident
-        seq0 = ex.flight.snapshot()["lastSeq"]
+        # one windowed run first, with the bound still long: its planes
+        # resident, and the device and pinned host blocks of this window's
+        # sizes cached (an allocation anew could wait in the dispatch for
+        # the device sleep queued below).  Its dispatch-to-readback span
+        # is logged: on an H100 host it took ~14 ms, past phase 11's
+        # 10 ms bound, so the trip here uses OB_WATCHDOG_S
         b.solo_fastlane = False
-        b.watchdog_s = RB_WATCHDOG_S
+        seq_w = ex.flight.snapshot()["lastSeq"]
+        api.query("bench", gbq)
+        warm = {e["kind"]: e["ts"] for e in ex.flight.snapshot()["events"]
+                if e["seq"] > seq_w and e["kind"] in ("dispatch",
+                                                      "readback")}
+        warm_disp_ms = ((warm["readback"] - warm["dispatch"]) * 1e3
+                        if len(warm) == 2 else float("nan"))
+        seq0 = ex.flight.snapshot()["lastSeq"]
+        bound = OB_WATCHDOG_S if cuda else RB_WATCHDOG_S
+        b.watchdog_s = bound
         time.sleep(1.2)  # the monitor's last long tick ends
-        if cuda and len(holder.index("bench").available_shards()) \
-                < FULL_SHARDS:
-            log("CUT: a device sleep of ~0.2 s ahead of the GroupBy Max "
-                f"window (fewer shards than {FULL_SHARDS})")
+        if cuda:
+            # the stream sleeps ~0.2 s ahead of the window, so that its
+            # readback outlasts the bound whatever the shard count, while
+            # its dispatch (host work only) stays far below it
             torch.cuda._sleep(400_000_000)
         st_code, _, raw = _http(base, "/index/bench/query", gbq.encode())
         if st_code != 500 or "pipelineStall" not in json.loads(raw):
@@ -5424,13 +5664,15 @@ def obs_phase(client, holder, planes, so: dict, cuda: bool, device,
             raise AssertionError(f"(d) the probe left {b.governor.state}")
         b.solo_fastlane = True
         trip = next(e for e in mine if e["kind"] == "watchdog_trip")
-        log(f"[obs] (d) watchdog {RB_WATCHDOG_S} s tripped on the GroupBy "
+        log(f"[obs] (d) watchdog {bound} s tripped on the GroupBy "
             f"Max window: 500 pipelineStall; the ring holds {len(mine)} "
             f"events since (kinds {sorted(set(kinds))}), the trip "
             f"{json.dumps(trip)}; incident files {len(dumps)}, the last "
             f"{os.path.basename(ring['dumps'][-1])} with "
             f"{len(dumped['events'])} events (reason {dumped['reason']}); "
-            "a probe window back to healthy")
+            "a probe window back to healthy; the windowed run before it "
+            f"spent {warm_disp_ms:.2f} ms from its dispatch to its "
+            "readback")
 
         # (e) a corrupt snapshot found by the scrubber
         f_field = holder.index("bench").field("f")

@@ -670,6 +670,10 @@ class API:
                 "timeViews": self.executor.time_status(),
                 "tenancy": self.executor.tenancy_status(),
                 "deviceHealth": self.executor.device_health(),
+                # the placement's devices, shard axis, bytes per device
+                # and padding shards: present only under a placement
+                **({"mesh": mesh} if (mesh := self.executor.mesh_status())
+                   is not None else {}),
                 "storage": self.storage_status(),
                 "storageHealth": self.storage_health(),
                 "costs": self.executor.cost_status(),

@@ -37,11 +37,11 @@ cluster_enabled, anti_entropy_interval,
 heartbeat_interval, failover_max_depth,
 hedge_after, breaker_threshold,
 hint_max_age, hint_replay_batch
-mesh                                      served on one device (the
-                                          reference places nothing on
-                                          one); true with more than one
-                                          CUDA device refused (item 12,
-                                          multi-device)
+mesh                                      served: true shards the planes
+                                          over every CUDA device when
+                                          there are several
+                                          (``parallel.local_placement``);
+                                          one device serves unmeshed
 kernel_tier ("xla"),                      refused unless at the default:
 dispatch_loop_fusion, fused_warmup,       XLA and JAX knobs (ROADMAP: not
 compilation_cache_dir, jax_coordinator,   to port); the port has one kernel
@@ -67,7 +67,7 @@ class Config:
     verbose: bool = False
     log_format: str = "text"
     fsync: bool = False
-    # cluster (refused: the port serves one node)
+    # cluster (served: membership, placement, replication)
     name: str = ""
     seeds: list[str] = dc_field(default_factory=list)
     replicas: int = 1
@@ -151,7 +151,6 @@ class Config:
 # port's); none do
 CHANGED_DEFAULTS: dict = {}
 
-_MULTI_DEVICE = "ROADMAP Queue 1 item 12: multi-device"
 _JAX = "ROADMAP: not to port (the port has one kernel tier)"
 
 # refused keys: set to anything but the default, the server refuses to
@@ -167,8 +166,8 @@ REFUSED = {
 def check_served(cfg: Config, cuda_devices: int = 1) -> None:
     """Refuse a config that asks for what the port does not serve:
     ``ValueError`` naming the first such key.  ``cuda_devices`` is the
-    number of CUDA devices the server would see (``mesh`` shards over
-    several, which the port does not)."""
+    number of CUDA devices the server would see; every count is served
+    (``mesh`` shards over several), and only the JAX knobs refuse."""
     defaults = Config()
     for key, item in REFUSED.items():
         value = getattr(cfg, key)
@@ -176,11 +175,6 @@ def check_served(cfg: Config, cuda_devices: int = 1) -> None:
             continue
         raise ValueError(f"config key {key} = {value!r} is not supported "
                          f"by this port ({item})")
-    if cfg.mesh and cuda_devices > 1 and not cfg.device.startswith("cpu"):
-        raise ValueError(f"config key mesh = true over {cuda_devices} "
-                         "CUDA devices is not supported by this port "
-                         f"({_MULTI_DEVICE}); set mesh = false to serve on "
-                         "one")
 
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}

@@ -25,6 +25,11 @@ cache to key, the compare chain branches on each predicate bit on the
 host and does only the work that bit needs.  Inside
 :func:`percentile_search` they are device tensors derived from the search
 bounds, so the whole search runs with no host read per step.
+
+A blocked plane (:class:`~pilosa_tpu_torch.parallel.mesh.Blocked`) runs
+per block: comparisons and the Min/Max descent per shard, Distinct's
+presence per block ORed on the first device, and each Percentile step's
+count summed over the blocks before the bounds move.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import kernels
+from pilosa_tpu_torch.parallel.mesh import Blocked, per_block
 
 EXISTS_ROW = 0
 SIGN_ROW = 1
@@ -111,6 +117,7 @@ def unsigned_cmp(mag: torch.Tensor, pred_masks, universe: torch.Tensor):
     return (zero if lt is None else lt), eq, (zero if gt is None else gt)
 
 
+@per_block
 def range_cmp(plane: torch.Tensor, pred_masks, pred_negative,
               filter_words: torch.Tensor | None = None,
               keys=CMP_KEYS) -> dict:
@@ -201,6 +208,7 @@ def _mag_min(cand: torch.Tensor, mag: torch.Tensor):
     return torch.stack(bits[::-1], dim=-1), cand
 
 
+@per_block(combine="gather", whole_words="Min/Max")
 def min_max_bits(plane: torch.Tensor,
                  filter_words: torch.Tensor | None = None) -> dict:
     """Per-shard min and max as device bit flags and counts; host
@@ -315,6 +323,7 @@ def _expand(words: torch.Tensor) -> torch.Tensor:
     return ((words[..., None] >> shifts) & 1).reshape(*words.shape[:-1], -1)
 
 
+@per_block(combine="total")
 def distinct_presence(plane: torch.Tensor,
                       filter_words: torch.Tensor | None = None):
     """Which offsets occur among the (filtered) columns: (pos bool[2^depth],
@@ -325,7 +334,7 @@ def distinct_presence(plane: torch.Tensor,
     block's values from the bit rows and scatter into presence arrays of
     ``2^depth + 1`` entries, where columns that do not take part write
     the sentinel slot ``2^depth``, sliced off at the end (torch has no
-    dropping scatter)."""
+    dropping scatter).  Blocks' presence arrays add as bools: an OR."""
     depth = depth_of(plane)
     if depth <= DISTINCT_VALUE_DEPTH:
         return _distinct_by_value(plane, filter_words)
@@ -392,6 +401,7 @@ def _count_le(plane: torch.Tensor, filter_words, v: torch.Tensor,
     return kernels.count(le).sum(dtype=torch.int32)
 
 
+@per_block(combine="total")
 def percentile_total(plane: torch.Tensor,
                      filter_words: torch.Tensor | None) -> torch.Tensor:
     """Non-null (filtered) column count, a device int32 scalar: the rank
@@ -412,15 +422,22 @@ def percentile_search(plane: torch.Tensor,
     depth = depth_of(plane)
     bound = (1 << depth) - 1
     dev = plane.device
+    count_le = _count_le
+    if isinstance(plane, Blocked):
+        # each step's per-block counts sum on the first device, and the
+        # bounds it moves are handed to every block
+        def count_le(pl, fw, v, d):
+            return pl.total(pl.map(_count_le, pl, fw,
+                                   pl.placement.replicate(v), d))
     lo = torch.tensor(-bound, dtype=torch.int32, device=dev)
     hi = torch.tensor(bound, dtype=torch.int32, device=dev)
     for _ in range(depth + 1):
         mid = (lo + hi) >> 1
-        reach = _count_le(plane, filter_words, mid, depth) >= target
+        reach = count_le(plane, filter_words, mid, depth) >= target
         done = lo >= hi
         lo, hi = (torch.where(done | reach, lo, mid + 1),
                   torch.where(done | ~reach, hi, mid))
-    at = _count_le(plane, filter_words, lo, depth)
+    at = count_le(plane, filter_words, lo, depth)
     below = torch.where(lo > -bound,
-                        _count_le(plane, filter_words, lo - 1, depth), 0)
+                        count_le(plane, filter_words, lo - 1, depth), 0)
     return torch.stack([lo, at - below]).to(torch.int32)

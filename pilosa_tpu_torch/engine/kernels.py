@@ -6,7 +6,11 @@ package's ``kernel_tier`` knob did: every public count function sends a
 CUDA tensor to its hand-written kernel in
 :mod:`pilosa_tpu_torch.engine.cuda_kernels` and a CPU tensor to its
 plain version here.  There is no other choice and no
-fallback: a CUDA tensor that the kernel refuses raises.
+fallback: a CUDA tensor that the kernel refuses raises.  A blocked tensor
+(:class:`~pilosa_tpu_torch.parallel.mesh.Blocked`, a plane's shard axis
+over a placement's devices) runs each function per block on that block's
+device: the boolean algebra through the blocked type's own operators and
+torch dispatch, every other function through ``per_block``.
 
 Words are ``int32`` tensors carrying the bits of the reference's
 ``uint32`` words.  ``>>`` on ``int32`` is arithmetic, so the plain SWAR
@@ -24,6 +28,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import cuda_kernels
+from pilosa_tpu_torch.parallel.mesh import (Blocked, gathered, not_supported,
+                                            per_block)
 
 # ---------------------------------------------------------------------------
 # Boolean algebra
@@ -132,6 +138,7 @@ def tree_fold(rows, skeleton, row_args, extras=None, extra_args=None,
 # ---------------------------------------------------------------------------
 
 
+@per_block
 def union_rows(plane: torch.Tensor, row_mask) -> torch.Tensor:
     """OR of the rows of ``plane`` int32[S, R, W] that the host boolean
     ``row_mask`` [R] selects -> int32[S, W] (``UnionRows``): one in-place
@@ -145,11 +152,13 @@ def union_rows(plane: torch.Tensor, row_mask) -> torch.Tensor:
     return acc
 
 
+@per_block(whole_words="Shift")
 def shift(words: torch.Tensor, n: int = 1) -> torch.Tensor:
     """Every bit's column moved up by ``n`` within its shard; bits that
     cross the shard's end drop (``Shift(row, n)``).  Bits are LSB first in
     a word, so this is a left shift with a carry between words; the carry
-    is a right shift, masked after it (``>>`` on int32 is arithmetic)."""
+    is a right shift, masked after it (``>>`` on int32 is arithmetic).
+    Per block on a 1-D placement (a shard never leaves its block)."""
     if n < 0:
         raise ValueError("shift n must be non-negative")
     word_n, bit_n = divmod(n, 32)
@@ -204,7 +213,10 @@ def rank_limit(words: torch.Tensor, offset: int, limit: int) -> torch.Tensor:
     wholly inside the window keeps all its bits and one wholly outside
     keeps none, and only the two words holding the ranks ``offset`` and
     ``offset + limit - 1`` are expanded, found by a search over the
-    inclusive prefix sum (no host sync, no [N, 32] temporary)."""
+    inclusive prefix sum (no host sync, no [N, 32] temporary).  Ranks are
+    global, so a blocked bitmap is refused."""
+    if isinstance(words, Blocked):
+        raise not_supported("Limit")
     shape = words.shape
     flat = words.reshape(-1)
     if not flat.numel():
@@ -305,6 +317,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+@per_block(reduces_words=True)
 def count(words: torch.Tensor) -> torch.Tensor:
     """Total set bits over the trailing word axis -> int32[...]."""
     if not _on_cuda(words):
@@ -314,6 +327,7 @@ def count(words: torch.Tensor) -> torch.Tensor:
     return cuda_kernels.count(flat).reshape(lead)
 
 
+@per_block(reduces_words=True)
 def any_bit(words: torch.Tensor) -> torch.Tensor:
     """Whether any bit is set over the trailing word axis -> bool[...]:
     the ``count`` kernel's popcount against zero (one launch and one read
@@ -321,6 +335,7 @@ def any_bit(words: torch.Tensor) -> torch.Tensor:
     return count(words) != 0
 
 
+@per_block(reduces_words=True)
 def row_counts(plane: torch.Tensor,
                filter_words: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row popcounts, optionally ANDed with a per-shard filter:
@@ -330,6 +345,7 @@ def row_counts(plane: torch.Tensor,
     return cuda_kernels.row_counts(plane, filter_words)
 
 
+@per_block(reduces_words=True)
 def selected_row_counts(plane: torch.Tensor,
                         row_idx: torch.Tensor) -> torch.Tensor:
     """Popcounts of the selected rows: int32[S, R, W] + int32[N] ->
@@ -339,11 +355,60 @@ def selected_row_counts(plane: torch.Tensor,
     return cuda_kernels.selected_row_counts(plane, row_idx)
 
 
+@per_block(reduces_words=True)
 def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Count(Intersect) per shard in one pass: int32[S, W] x2 -> int32[S]."""
     if not _on_cuda(a):
         return intersect_count_plain(a, b)
     return cuda_kernels.intersect_count(a, b)
+
+
+def intersection_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Count(Intersect(a, b))`` per shard without materializing the
+    intersection: the ``intersect_count`` kernel (its plain version on the
+    CPU), int32[S, W] x2 -> int32[S]."""
+    return intersect_count(a, b)
+
+
+def union_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``Count(Union(a, b))`` per shard: int32[S, W] x2 -> int32[S]."""
+    return count(union(a, b))
+
+
+def top_n(counts: torch.Tensor, n: int):
+    """``(values int32[k], slots int64[k])`` of the ``k = min(n, R)``
+    largest of ``counts`` int32[R], ties in ascending slot order as
+    ``lax.top_k`` gives them (``torch.topk`` sets no order among equal
+    values, so the counts are ranked as unique int64 keys ``count * R +
+    (R - 1 - slot)``).  Zero counts may appear; callers drop them."""
+    r = counts.numel()
+    k = min(int(n), r)
+    slot = torch.arange(r, dtype=torch.int64, device=counts.device)
+    key = counts.to(torch.int64) * r + (r - 1 - slot)
+    top = torch.topk(key, k, sorted=True).values
+    return (top // r).to(torch.int32), r - 1 - top % r
+
+
+def apply_word_or(words: torch.Tensor, word_idx: torch.Tensor,
+                  word_mask: torch.Tensor) -> torch.Tensor:
+    """A copy of ``words`` [..., W] with ``words[..., idx] |= mask``: the
+    device half of an ingest step.  ``word_idx`` / ``word_mask`` [..., K]
+    broadcast against the leading axes; the host coalesces positions to
+    unique word indices per row first, and indices ``>= W`` are padding
+    that drops, as the reference's ``mode="drop"`` scatter drops them."""
+    w = words.shape[-1]
+    lead = words.shape[:-1]
+    out = words.clone()
+    flat = out.reshape(-1, w)
+    k = word_idx.shape[-1]
+    idx = word_idx.to(words.device, torch.int64).expand(lead + (k,))
+    mask = word_mask.to(words.device).to(words.dtype).expand(lead + (k,))
+    idx, mask = idx.reshape(-1, k), mask.reshape(-1, k)
+    rows = torch.arange(flat.shape[0], device=words.device)[:, None]
+    keep = idx < w
+    r, c = rows.expand(-1, k)[keep], idx[keep]
+    flat[r, c] = flat[r, c] | mask[keep]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +423,8 @@ SAFE_SHARD_SUM = 2047
 def shard_totals(counts: torch.Tensor) -> np.ndarray:
     """Reduce int32 per-shard counts over axis 0 exactly -> np.int64[...]:
     device sums of chunks that cannot overflow, finished in int64 on the
-    host."""
+    host.  Blocked counts gather onto the first device first."""
+    counts = gathered(counts)
     parts = [counts[i:i + SAFE_SHARD_SUM].sum(0, dtype=torch.int32)
              for i in range(0, max(1, counts.shape[0]), SAFE_SHARD_SUM)]
     return torch.stack(parts).cpu().numpy().astype(np.int64).sum(axis=0)

@@ -15,11 +15,19 @@ sums each row's segment as a cumulative sum and a boundary difference (the
 reference's form: a scatter-add serializes on the TPU).  The reference
 computes this in XLA, not Pallas: it is no TPU kernel, and runs here as
 torch operations on the card.
+
+Under a placement the CSR arrays are built per block
+(``PlaneCache._build_sparse``): word indices local to the block's filter
+words, so each block's gather stays on its device; the blocks' partial
+counts sum on the first device (the reference's ``psum``) and the top k
+runs there.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pilosa_tpu_torch.engine.kernels import top_n
 
 
 def _counts(filter_words: torch.Tensor, word_idx: torch.Tensor,
@@ -46,12 +54,23 @@ def sparse_row_counts(filter_words: torch.Tensor, word_idx: torch.Tensor,
 def topn_sparse(filter_words: torch.Tensor, word_idx: torch.Tensor,
                 mask: torch.Tensor, row_ptr: torch.Tensor, k: int):
     """``(values int32[k], slots int64[k])``: the k largest counts, ties in
-    ascending slot order as ``lax.top_k`` gives them (``torch.topk`` sets
-    no order among equal values, so the values are ranked as unique int64
-    keys ``count * R_pad + (R_pad - 1 - slot)``)."""
-    counts = _counts(filter_words, word_idx, mask, row_ptr)
-    r_pad = counts.numel()
-    slot = torch.arange(r_pad, dtype=torch.int64, device=counts.device)
-    key = counts.to(torch.int64) * r_pad + (r_pad - 1 - slot)
-    top = torch.topk(key, k, sorted=True).values
-    return (top // r_pad).to(torch.int32), r_pad - 1 - top % r_pad
+    ascending slot order as ``lax.top_k`` gives them
+    (:func:`~pilosa_tpu_torch.engine.kernels.top_n`)."""
+    return top_n(_counts(filter_words, word_idx, mask, row_ptr), k)
+
+
+def sparse_row_counts_meshed(filter_words, word_idx, mask,
+                             row_ptr) -> torch.Tensor:
+    """Exact int32[R_pad] counts on the first device from per-block
+    partials: ``filter_words`` a blocked int32[S, W] bitmap, the CSR
+    arrays one per block (``PerBlock`` ``word_idx`` / ``mask`` [N_pad],
+    ``row_ptr`` [R_pad + 1], every block's padded alike)."""
+    parts = filter_words.map(_counts, filter_words, word_idx, mask, row_ptr)
+    return filter_words.total(parts)
+
+
+def topn_sparse_meshed(filter_words, word_idx, mask, row_ptr, k: int):
+    """:func:`topn_sparse` over per-block CSR arrays: the partial counts
+    summed on the first device, then the same stable top k."""
+    return top_n(sparse_row_counts_meshed(filter_words, word_idx, mask,
+                                          row_ptr), k)

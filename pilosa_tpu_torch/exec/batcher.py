@@ -209,8 +209,12 @@ class CountBatcher:
                  pipeline_depth: int = PIPELINE_DEPTH,
                  solo_fastlane: bool = True, watchdog_s: float = 5.0,
                  probe_after_s: float = 5.0, tier: str = "cuda",
-                 stats=None, ledger=None, flight=None):
+                 stats=None, ledger=None, flight=None, placement_key=None):
         self.fused = fused
+        # the executor's placement identity (``MeshPlacement.key``), None
+        # on one device: it ends every group key and marks a meshed
+        # window for ``mesh_collective_seconds``
+        self.placement_key = placement_key
         self.stats = stats or NopStats()
         # item counts and ratios, not latencies: their own buckets
         self.stats.set_buckets("batcher_window_items", COUNT_BUCKETS)
@@ -746,7 +750,11 @@ class CountBatcher:
         st.observe("batcher_window_fill_ratio", len(batch) / self.MAX_BATCH)
         groups: dict[tuple, list[_Pending]] = {}
         for p in batch:
-            groups.setdefault(self._group_key(p), []).append(p)
+            # the placement's identity ends every key, as in the
+            # reference; one batcher serves one executor, so it never
+            # separates two groups here
+            groups.setdefault(self._group_key(p) + (self.placement_key,),
+                              []).append(p)
         for key, group in groups.items():
             ks = self.kinds.setdefault(key[0], [0, 0, 0])
             ks[0] += 1
@@ -1254,6 +1262,11 @@ class CountBatcher:
             t0 = min(t0, max(w.read_t, self._synced_t))
         self._readback(w)
         wall = time.perf_counter() - t0
+        if self.placement_key is not None and w.pending:
+            # a meshed window: the read waits for the per-block launches,
+            # the gathers onto the first device and the copy, so its wall
+            # is the window's gather and readback cost
+            self.stats.observe("mesh_collective_seconds", wall)
         disp = 0.0
         for group, _, _ in w.pending:
             disp += self._disp_s.pop(id(group), 0.0)

@@ -49,3 +49,9 @@ class WriteUnavailableError(ExecutionError):
         self.replica = replica
         self.reason = reason
         self.retry_after = retry_after
+
+
+class MeshNotSupported(ExecutionError):
+    """A call or operation this port does not serve under a mesh placement
+    (``pilosa_tpu_torch.parallel.mesh``): it is refused, never answered
+    another way.  The REST edge answers it as a 400."""

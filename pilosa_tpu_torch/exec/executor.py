@@ -28,6 +28,15 @@ serving configuration:
   query over quota is shed with :class:`~pilosa_tpu_torch.tenancy.
   TenantThrottledError` before it takes a slot).
 
+``placement=`` (:mod:`pilosa_tpu_torch.parallel.mesh`) serves over several
+devices: shard lists pad to the placement's width with all-zero
+``PAD_SHARD`` shards, every plane is blocked over its devices, every hand
+kernel launches per block and per-shard outputs gather onto the first
+device; plane paging is off there.  The calls a placement does not serve
+(time ranges, ``Limit``, ``Extract``; Min/Max and Shift on a 2-D
+placement) raise :class:`~pilosa_tpu_torch.exec.errors.
+MeshNotSupported`.
+
 ``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
 as the port's first slices did.  Every resident shard is one slice of a
 batched device tensor, a run of consecutive Counts executes as one batch
@@ -118,6 +127,8 @@ from pilosa_tpu_torch.obs.ledger import (clear_query_context,
                                          set_query_context)
 from pilosa_tpu_torch.obs.metrics import DEPTH_BUCKETS
 from pilosa_tpu_torch.obs.tracing import current_trace_id
+from pilosa_tpu_torch.parallel.mesh import (PAD_SHARD, PerBlock,
+                                            not_supported, whole)
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
@@ -372,8 +383,12 @@ class Executor:
                  dispatch_watchdog_seconds: float = 30.0,
                  device_health_probe_seconds: float = 5.0,
                  plane_sidecars: bool = True,
-                 stats=None, tracer=None, cost_observability: bool = True):
+                 stats=None, tracer=None, cost_observability: bool = True,
+                 placement=None):
         self.holder = holder
+        # a mesh placement: planes blocked over its devices, shard lists
+        # padded to its width (None: one device)
+        self.placement = placement
         # the metrics registry (``NopStats``: none), the shared tracer a
         # query without its own runs under, and the device-cost ledger and
         # flight recorder (null objects with ``cost_observability`` off),
@@ -390,7 +405,8 @@ class Executor:
         # the key stores: this executor's own unless the caller shares its
         self._owns_translate = translate is None
         self.translate = translate or TranslateStore(holder.path)
-        self.device = resolve_device(device)
+        self.device = (placement.first if placement is not None
+                       else resolve_device(device))
         # with no quota and no telemetry the governor's eviction order is
         # the cache's LRU order
         self.governor = ResidencyGovernor(byte_quota=tenant_byte_quota)
@@ -398,11 +414,13 @@ class Executor:
             self.device, budget_bytes=plane_budget, delta_cells=delta_cells,
             delta_compact_fraction=delta_compact_fraction,
             governor=self.governor, sidecars=plane_sidecars,
-            stats=self.stats, flight=self.flight)
+            stats=self.stats, flight=self.flight, placement=placement)
+        # a page of a blocked plane has no meaning: no paging under a
+        # placement
         self.pager = (PlanePager(self.planes, self.governor,
                                  page_bytes=plane_page_bytes,
                                  stats=self.stats, flight=self.flight)
-                      if plane_paging else None)
+                      if plane_paging and placement is None else None)
         self.qos = TenantQos(tenant_qps_quota, tenant_slot_quota,
                              stats=self.stats,
                              device_seconds_quota=tenant_device_seconds_quota,
@@ -418,10 +436,13 @@ class Executor:
             watchdog_s=dispatch_watchdog_seconds,
             probe_after_s=device_health_probe_seconds,
             tier=self._kernel_tier(), stats=self.stats, ledger=self.ledger,
-            flight=self.flight)
+            flight=self.flight,
+            placement_key=placement.key if placement is not None else None)
             if window == "adaptive" or window > 0 else None)
-        # the card count the planes span: one (the port serves one card)
-        self.stats.gauge("mesh_devices", 1)
+        # the devices the plane axis spans (1: single-device serving)
+        self.stats.gauge("mesh_devices",
+                         placement.n_devices * placement.words_size
+                         if placement is not None else 1)
         # query-plan cache: (index, stripped PQL, shards) -> _PlanEntry
         self._plans: OrderedDict = OrderedDict()
         self._plans_lock = threading.Lock()
@@ -666,6 +687,12 @@ class Executor:
             d["sheds"] = sheds.get(t, 0)
         out["tenants"] = tenants
         return out
+
+    def mesh_status(self) -> dict | None:
+        """The ``/status`` ``mesh`` block: device count, shard axis,
+        resident plane bytes per device and padding shards; None without
+        a placement."""
+        return self.planes.mesh_stats()
 
     def time_status(self) -> dict:
         """The ``/status`` ``timeViews`` block: the resident time planes,
@@ -1610,15 +1637,23 @@ class Executor:
     def _shards_for(self, index: Index, shards,
                     call: Call | None = None) -> tuple[int, ...]:
         """The shards a call runs over: ``Options(shards=)``, else the
-        request's ``shards``, else every shard the index holds."""
+        request's ``shards``, else every shard the index holds; padded to
+        the placement's width with ``PAD_SHARD`` under one."""
         opts = (call.args.get("shards")
                 if call is not None and call.name == "Options" else None)
         if opts is not None:
-            return tuple(int(s) for s in opts)
-        if shards is not None:
-            return tuple(shards)
-        avail = index.available_shards()
-        return tuple(avail) if avail else (0,)
+            out = tuple(int(s) for s in opts)
+        elif shards is not None:
+            out = tuple(shards)
+        else:
+            avail = index.available_shards()
+            out = tuple(avail) if avail else (0,)
+        return self._padded(out)
+
+    def _padded(self, shards: tuple[int, ...]) -> tuple[int, ...]:
+        if self.placement is None:
+            return shards
+        return self.placement.pad_shards(shards)
 
     # ------------------------------------------------------------- dispatch
 
@@ -1978,6 +2013,8 @@ class Executor:
                 continue
             off = cid % SHARD_WIDTH
             host[si, off >> 5] |= np.uint32(1) << np.uint32(off & 31)
+        if self.placement is not None:
+            return self.placement.place(host)
         return torch.from_numpy(host.view(np.int32)).to(self.device)
 
     def _union_rows_sel(self, ctx: _Ctx, call: Call) -> list:
@@ -2076,7 +2113,7 @@ class Executor:
         return self.planes.zeros(len(ctx.shards))
 
     def _to_row_result(self, ctx: _Ctx, words: torch.Tensor) -> RowResult:
-        host = words.cpu().numpy().view(np.uint32)
+        host = whole(words).cpu().numpy().view(np.uint32)
         parts = []
         for si, s in enumerate(ctx.shards):
             offs = unpack_columns(host[si])
@@ -2193,8 +2230,7 @@ class Executor:
                 # plain TopN(n, filter): the top k on the card, k pairs read
                 k = min(int(n), ss.n_rows)
                 k_pad = min(ss.n_rows_pad, 1 << max(0, (k - 1).bit_length()))
-                vals, slots = sparsek.topn_sparse(
-                    filter_words, ss.word_idx, ss.mask, ss.row_ptr, k_pad)
+                vals, slots = self._sparse_counts(filter_words, ss, k_pad)
                 vals = vals.cpu().numpy()[:k]
                 slots = slots.cpu().numpy()[:k]
                 live = vals > 0
@@ -2206,8 +2242,7 @@ class Executor:
                          zip(log.keys_of(row_ids, strict=False), vals)])
                 return PairsResult([Pair(id=int(r), count=int(c))
                                     for r, c in zip(row_ids, vals)])
-            counts = sparsek.sparse_row_counts(
-                filter_words, ss.word_idx, ss.mask, ss.row_ptr)
+            counts = self._sparse_counts(filter_words, ss)
             totals = counts.cpu().numpy().astype(np.int64)[:ss.n_rows]
             all_rows = ss.row_ids
             if need_row_counts:
@@ -2253,6 +2288,22 @@ class Executor:
                                 for r, c in zip(row_ids, vals)])
         return PairsResult([Pair(id=int(r), count=int(c))
                             for r, c in zip(row_ids, vals)])
+
+    @staticmethod
+    def _sparse_counts(filter_words, ss, k: int | None = None):
+        """Every row's count over the sparse residency ``ss``, or with
+        ``k`` the top k: per block beside per-block CSR arrays, else over
+        the flat arrays, whose filter is then whole on the first device (a
+        2-D placement keeps the flat form, as the reference does)."""
+        meshed = isinstance(ss.word_idx, PerBlock)
+        if not meshed:
+            filter_words = whole(filter_words)
+        args = (filter_words, ss.word_idx, ss.mask, ss.row_ptr)
+        if k is None:
+            return (sparsek.sparse_row_counts_meshed if meshed
+                    else sparsek.sparse_row_counts)(*args)
+        return (sparsek.topn_sparse_meshed if meshed
+                else sparsek.topn_sparse)(*args, k)
 
     def _note_topn(self, path: str) -> None:
         with self._served_lock:
@@ -2818,8 +2869,8 @@ class Executor:
         shard, off = divmod(col_id, SHARD_WIDTH)
         if shard not in ctx.shards:
             return False
-        words = self._fused_bitmap(_Ctx(ctx.index, (shard,)),
-                                   call.children[0])
+        words = whole(self._fused_bitmap(
+            _Ctx(ctx.index, self._padded((shard,))), call.children[0]))
         return bool((int(words[0, off >> 5]) >> (off & 31)) & 1)
 
     # -- Extract ------------------------------------------------------------
@@ -2834,6 +2885,8 @@ class Executor:
         int32 per shard) so the cap holds before anything is
         materialized, then only the non-empty shard rows are read.  A keyed
         index answers column keys, a keyed field row keys."""
+        if self.placement is not None:
+            raise not_supported("Extract")
         if not call.children:
             raise ExecutionError("Extract: bitmap filter child required")
         flt, *field_calls = call.children
@@ -3048,12 +3101,14 @@ class Executor:
         fname, value = hit
         field = self._field(ctx, fname)
         row_id = self._row_id(field, value, create=True)
-        words = self._fused_bitmap(ctx, call.children[0])
+        words = whole(self._fused_bitmap(ctx, call.children[0]))
         nz = np.flatnonzero(kernels.count(words).cpu().numpy())
         host = dict(zip(nz.tolist(), self._shard_rows(words, nz)))
         view = field.standard_view(create=True)
         changed = False
         for si, s in enumerate(ctx.shards):
+            if s == PAD_SHARD:
+                continue
             cols = (unpack_columns(host[si]).astype(np.uint32) if si in host
                     else np.empty(0, np.uint32))
             changed |= view.fragment(s, create=True).set_row(row_id, cols)

@@ -20,6 +20,18 @@ combination block (:mod:`pilosa_tpu_torch.exec.groupby`).
 Every launch and copy here goes to the current stream; outputs stay on
 the device un-read (the batcher packs a window's outputs into one read).
 
+Under a placement the planes and leaves are
+:class:`~pilosa_tpu_torch.parallel.mesh.Blocked` and overlays
+:class:`~pilosa_tpu_torch.ingest.delta.BlockedOverlay`: each family runs
+per block (with the block's own overlay part), and its per-block outputs
+combine on the placement's first device by the family's reduction, the
+``combine`` of its ``parallel.mesh.per_block`` decorator: totals sum,
+per-shard outputs gather in block order, a bitmap stays blocked.
+The reduction after that is the single-device one, unchanged.  The Min/Max
+descent decides per shard, so it runs whole inside each block; the
+Percentile search gathers each step's counts and hands the bounds to
+every block (``engine.bsi.percentile_search``).
+
 Node encodings (nested tuples):
 
     ("leaf", i)                                   leaf i: int32[S, W] words
@@ -42,6 +54,7 @@ from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
                                            adjusted_selected_counts,
                                            bsi_sides, overlay_gathered_rows,
                                            overlay_row, overlay_time_range)
+from pilosa_tpu_torch.parallel.mesh import per_block
 
 
 class Unfusable(Exception):
@@ -93,11 +106,13 @@ class FusedCache:
         words = _build(node, leaves)
         return kernels.count(words) if want == "count" else words
 
+    @per_block(combine="gather", dim=1)
     def run_count_batch(self, nodes: tuple, leaves) -> torch.Tensor:
         """K Count trees -> int32[K, n_shards], one count launch each."""
         return torch.stack([kernels.count(_build(n, leaves))
                             for n in nodes])
 
+    @per_block(combine="total")
     def run_rowcounts_batch(self, flags: tuple, leaves) -> torch.Tensor:
         """K whole-plane row-count items -> int32[K, R_pad]: per item,
         ``row_counts`` over the plane (ANDed with a filter when
@@ -114,6 +129,7 @@ class FusedCache:
                         .sum(0, dtype=torch.int32))
         return torch.stack(rows)
 
+    @per_block(combine="total")
     def run_selected_counts(self, plane: torch.Tensor, slots: tuple,
                             delta=None) -> torch.Tensor:
         """N selected-row Counts over one plane -> int32[bucket]: the
@@ -131,6 +147,7 @@ class FusedCache:
         return kernels.selected_row_counts(plane, idx).sum(
             0, dtype=torch.int32)
 
+    @per_block(combine=lambda a: "total" if a["reduce"] else "gather")
     def run_rowcounts_delta(self, plane: torch.Tensor, delta,
                             filter_words: torch.Tensor | None = None,
                             reduce: bool = True) -> torch.Tensor:
@@ -209,6 +226,8 @@ class FusedCache:
             return words.contiguous()
         return kernels.count(words).sum(dtype=torch.int32).reshape(1)
 
+    @per_block(combine=lambda a: "total" if a["want"] == "count"
+               else "blocked")
     def _tree_program(self, plane, slots: tuple, progs: tuple,
                       extras: tuple, delta, want: str) -> torch.Tensor:
         """A single tree runs solo; a window of several gathers the slot
@@ -272,6 +291,7 @@ class FusedCache:
         it = iter(filters)
         return [next(it) if has else None for has in flags]
 
+    @per_block(combine="gather", dim=1)
     def run_sum_plane_batch(self, plane: torch.Tensor, flags: tuple,
                             filters: tuple, delta=None) -> torch.Tensor:
         """K BSI Sum items over ONE plane -> int32[K, S, 2*depth+1]
@@ -279,7 +299,8 @@ class FusedCache:
         with ``bsi.decode_sum_packed``).  ``flags[k]``: item k has a
         filter, taken in order from ``filters``.  With ``delta`` the mini
         side's counts fold into shard 0's row (Sum is linear over
-        columns), so the layout is the same."""
+        columns), so the layout is the same: under a placement each
+        block's first row takes its own overlay part."""
         rows = []
         for flt in self._item_filters(flags, filters):
             sides = bsi_sides(plane, flt, delta)
@@ -294,12 +315,14 @@ class FusedCache:
             rows.append(row)
         return torch.stack(rows)
 
+    @per_block(combine="gather", dim=1, whole_words="Min/Max")
     def run_minmax_plane_batch(self, plane: torch.Tensor, flags: tuple,
                                filters: tuple, delta=None) -> torch.Tensor:
         """K BSI Min/Max items over ONE plane -> int32[K, S (+ K_pad),
         2*depth+4] (decode with ``bsi.decode_minmax_packed``): with
         ``delta`` the mini side's touched columns append as pseudo-shard
-        rows; pad columns carry count 0 and drop in the host combine."""
+        rows; pad columns carry count 0 and drop in the host combine.
+        Under a placement each block appends its own overlay columns."""
         rows = []
         for flt in self._item_filters(flags, filters):
             rows.append(torch.cat([
@@ -307,6 +330,7 @@ class FusedCache:
                 for pl, fw in bsi_sides(plane, flt, delta)]))
         return torch.stack(rows)
 
+    @per_block(combine="total")
     def run_range_batch(self, plane: torch.Tensor, specs: tuple,
                         operands: tuple, delta=None) -> torch.Tensor:
         """K BSI range Counts over ONE plane -> int32[K] totals (the shard
@@ -356,7 +380,7 @@ class FusedCache:
         the block joins a window's packed read; ``delta`` (the bit plane's
         ``BsiOverlay``) answers aggregates base+delta.  Unflatten with
         ``exec.groupby.unflatten_block``."""
-        out = gb.groupby_out(planes, combo_idx, last_plane, filter_words,
+        out = gb.groupby_out_any(planes, combo_idx, last_plane, filter_words,
                              agg_plane, agg,
                              agg_delta=delta if agg_plane is not None
                              else None)

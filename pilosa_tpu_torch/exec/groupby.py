@@ -33,6 +33,7 @@ import torch
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.ingest.delta import bsi_excl_filter, bsi_mini_plane
+from pilosa_tpu_torch.parallel.mesh import Blocked, not_supported
 
 # per-shard per-bit counts are <= 2^20, so int32 shard-axis sums stay
 # exact for up to 2047 shards
@@ -224,6 +225,37 @@ def groupby_out(prefix_planes: tuple, combo_idx: np.ndarray,
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
 
+def groupby_out_any(prefix_planes: tuple, combo_idx: np.ndarray,
+                    last_plane, filter_words, agg_plane, agg: str | None,
+                    agg_delta=None) -> dict:
+    """:func:`groupby_out` over plain or blocked planes: per block under
+    a placement, each block's per-combination parts combined on the first
+    device (counts and Sum parts add; Min/Max take the extreme and add the
+    counts of the blocks that reach it, the sentinel reduce)."""
+    if not isinstance(last_plane, Blocked):
+        return groupby_out(prefix_planes, combo_idx, last_plane,
+                           filter_words, agg_plane, agg, agg_delta)
+    if agg == "minmax" and last_plane.words_split():
+        raise not_supported("GroupBy Min/Max over word-split blocks")
+    outs = last_plane.map(groupby_out, prefix_planes, combo_idx, last_plane,
+                          filter_words, agg_plane, agg, agg_delta)
+    out = {k: last_plane.total([o[k] for o in outs])
+           for k in ("counts", "pos", "neg", "cnt") if k in outs[0]}
+    if agg == "minmax":
+        mm = {k: torch.stack([last_plane.to_first(o[k]) for o in outs])
+              for k in ("min", "min_cnt", "max", "max_cnt")}
+        gmn, gmx = mm["min"].min(0).values, mm["max"].max(0).values
+        zero = torch.zeros_like(mm["min_cnt"])
+        out.update(
+            {"min": gmn,
+             "min_cnt": torch.where(mm["min"] == gmn[None], mm["min_cnt"],
+                                    zero).sum(0, dtype=_I32),
+             "max": gmx,
+             "max_cnt": torch.where(mm["max"] == gmx[None], mm["max_cnt"],
+                                    zero).sum(0, dtype=_I32)})
+    return out
+
+
 def block_part_names(agg: str | None) -> tuple[str, ...]:
     """The part order of one flattened block
     (``FusedCache.run_groupby_batch``'s layout)."""
@@ -275,8 +307,8 @@ def combo_grid(levels: list[np.ndarray]) -> np.ndarray:
 
 def _run_solo(planes, combo_idx, last_plane, filter_words, agg_plane, agg,
               agg_delta) -> dict:
-    out = groupby_out(planes, combo_idx, last_plane, filter_words,
-                      agg_plane, agg, agg_delta)
+    out = groupby_out_any(planes, combo_idx, last_plane, filter_words,
+                          agg_plane, agg, agg_delta)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

@@ -59,6 +59,17 @@ set bits (:meth:`PlaneCache.sparse_plane`, counted by
 card (:meth:`PlaneCache.iter_row_blocks`); Counts over it are served in
 shard pages (:mod:`pilosa_tpu_torch.tenancy.paging`).
 
+Under a placement (:mod:`pilosa_tpu_torch.parallel.mesh`) every plane is a
+:class:`~pilosa_tpu_torch.parallel.mesh.Blocked` tensor: its shard axis in
+contiguous blocks, one per device.  A build expands fragments the same way
+and copies each chunk into the blocks it spans, paid into the same build
+metrics; padding shards (``PAD_SHARD``) have no fragment and stay zero.
+Overlays split by block (each block's cells, re-indexed to it, on its
+device), a fold or row refresh scatters per block, and a sparse residency
+keeps one CSR triple per block with word indices local to the block's
+filter words.  Planes build inline under a placement, as the reference's
+meshed builds do; time planes are not served there.
+
 Eviction: past the budget, entries leave in the order of the
 :class:`~pilosa_tpu_torch.tenancy.governor.ResidencyGovernor`'s keep-score,
 least recently used first among equals (with no telemetry, plain LRU).
@@ -89,6 +100,8 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.obs import NULL_FLIGHT, NopStats
 from pilosa_tpu_torch.obs.ledger import set_plane_context
+from pilosa_tpu_torch.parallel.mesh import (PAD_SHARD, Blocked, PerBlock,
+                                            not_supported)
 from pilosa_tpu_torch.store.field import Field
 from pilosa_tpu_torch.store.fragment import Fragment
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -151,6 +164,9 @@ def _apply_plane_cells(plane: torch.Tensor, cell_rows, cell_words,
         if len(idx) and (int(idx.min()) < 0 or int(idx.max()) >= bound):
             raise IndexError(f"_apply_plane_cells: {name} outside "
                              f"[0, {bound})")
+    if isinstance(plane, Blocked):
+        return _apply_blocked_cells(plane, cell_rows, cell_words, cell_vals,
+                                    reset_rows, reset_vals)
     dev = plane.device
     out = plane.clone()
     flat = out.view(-1, w)
@@ -166,6 +182,30 @@ def _apply_plane_cells(plane: torch.Tensor, cell_rows, cell_words,
     return out
 
 
+def _apply_blocked_cells(plane: Blocked, cell_rows, cell_words, cell_vals,
+                         reset_rows, reset_vals) -> Blocked:
+    """:func:`_apply_plane_cells` per block of a blocked plane: each
+    block takes the cells and rows of its shards (and words), re-indexed
+    to it."""
+    per = int(np.prod(plane.shape[1:-1], dtype=np.int64))  # rows a shard
+    cell_vals = np.asarray(cell_vals, np.uint32)
+    reset_vals = np.asarray(reset_vals, np.uint32)
+    args = ([], [], [], [], [])
+    for s0, s1, w0, w1 in plane.layout:
+        sel = (cell_rows >= s0 * per) & (cell_rows < s1 * per)
+        rsel = (reset_rows >= s0 * per) & (reset_rows < s1 * per)
+        if w0 is not None:
+            sel &= (cell_words >= w0) & (cell_words < w1)
+        args[0].append(cell_rows[sel] - s0 * per)
+        args[1].append(cell_words[sel] - (w0 or 0))
+        args[2].append(cell_vals[sel])
+        args[3].append(reset_rows[rsel] - s0 * per)
+        args[4].append(reset_vals[rsel][:, w0:w1] if w0 is not None
+                       else reset_vals[rsel])
+    return plane.like(plane.map(_apply_plane_cells, plane,
+                                *(PerBlock(a) for a in args)))
+
+
 @dataclass
 class PlaneSet:
     """One materialized (field, view): device plane + row-slot mapping.
@@ -175,8 +215,8 @@ class PlaneSet:
     base+delta.  Consumers that need a clean plane go through
     :meth:`PlaneCache.field_plane`, which folds first."""
 
-    plane: torch.Tensor       # int32[n_shards, R_pad, W]
-    shards: tuple[int, ...]
+    plane: torch.Tensor       # int32[n_shards, R_pad, W] (Blocked: placed)
+    shards: tuple[int, ...]   # PAD_SHARD entries are zero shards
     row_ids: np.ndarray       # uint64[R] real rows (slots beyond are pad)
     slot_of: dict[int, int]
     delta: DeltaOverlay | None = None
@@ -191,7 +231,9 @@ class SparseSet:
     """One (field, view) as CSR arrays of its set bits
     (:mod:`pilosa_tpu_torch.engine.sparse`): memory grows with the bits,
     not with rows x shard width.  Bits are sorted by row; pad bits carry
-    mask 0 and pad rows repeat the bit count in ``row_ptr``."""
+    mask 0 and pad rows repeat the bit count in ``row_ptr``.  Under a
+    1-D placement the three arrays are :class:`PerBlock` values, one CSR
+    triple per block, word indices local to the block's filter words."""
 
     word_idx: torch.Tensor    # int32[N_pad] flat filter word per bit
     mask: torch.Tensor        # int32[N_pad]: the bit's uint32 lane mask
@@ -224,8 +266,13 @@ class PlaneCache:
     def __init__(self, device=None, budget_bytes: int = DEFAULT_BUDGET,
                  delta_cells: int = 65536,
                  delta_compact_fraction: float = 0.5, governor=None,
-                 sidecars: bool = True, stats=None, flight=None):
-        self.device = resolve_device(device)
+                 sidecars: bool = True, stats=None, flight=None,
+                 placement=None):
+        # ``placement``: the executor's mesh placement (planes built as
+        # Blocked tensors over its devices), None on one device
+        self.placement = placement
+        self.device = (placement.first if placement is not None
+                       else resolve_device(device))
         # the plane_* / delta_* metric families and the eviction events
         self._stats = stats or NopStats()
         self.flight = flight or NULL_FLIGHT
@@ -312,7 +359,7 @@ class PlaneCache:
         est = self.plane_bytes(field, view_name, shards)
         if est > self.budget:
             return None
-        if est <= self.SYNC_BUILD_MAX:
+        if est <= self.SYNC_BUILD_MAX or self.placement is not None:
             return self.field_plane(index, field, view_name, shards)
         with self._lock:
             if key in self._building:
@@ -415,17 +462,32 @@ class PlaneCache:
         """The sparse residency's footprint with the padding its build
         applies (so the budget never admits a set the cache then refuses):
         8 bytes per pow2-padded bit, 4 per pow2-padded row plus one, the
-        rows counted per fragment as the reference counts them."""
+        rows counted per fragment as the reference counts them.  Under a
+        placement every block pads to the largest block's bucket and holds
+        its own row boundaries."""
         view = field.view(view_name)
-        bits = total_rows = 0
+        d = self._sparse_blocks()
+        per_block = np.zeros(d, np.int64)
+        total_rows = 0
         if view is not None:
-            for s in shards:
+            spb = max(1, len(shards) // d)
+            for si, s in enumerate(shards):
                 frag = view.fragment(s)
                 if frag is not None:
                     ids, cards = frag.row_cardinalities()
-                    bits += int(cards.sum())
+                    per_block[min(si // spb, d - 1)] += int(cards.sum())
                     total_rows += len(ids)
-        return pow2_bucket(bits) * 8 + (pow2_bucket(total_rows) + 1) * 4
+        return d * (pow2_bucket(int(per_block.max())) * 8
+                    + (pow2_bucket(total_rows) + 1) * 4)
+
+    def _sparse_blocks(self) -> int:
+        """Blocks of the sparse residency: the shard-axis width of a 1-D
+        placement; one (the flat form on the first device) otherwise, as
+        the reference keeps a 2-D placement's sparse arrays flat."""
+        p = self.placement
+        if p is not None and p.words_size == 1:
+            return p.n_devices
+        return 1
 
     def sparse_plane(self, index: str, field: Field, view_name: str,
                      shards: tuple[int, ...]) -> SparseSet:
@@ -437,6 +499,8 @@ class PlaneCache:
     def _build_sparse(self, field: Field, view_name: str,
                       shards: tuple[int, ...]) -> SparseSet:
         view = field.view(view_name)
+        d = self._sparse_blocks()
+        spb = len(shards) // d  # shard lists are padded to the blocks
         per_shard, frags = [], []
         if view is not None:
             for si, s in enumerate(shards):
@@ -446,40 +510,48 @@ class PlaneCache:
                     per_shard.append((si, frag.positions()))
         all_ids, row_cards = merge_row_cards(frags)
         r_pad = pow2_bucket(len(all_ids))
-        wi_parts, mask_parts, slot_parts = [], [], []
+        parts = [([], [], []) for _ in range(d)]
         for si, pos in per_shard:
             if not len(pos):
                 continue
+            wi_parts, mask_parts, slot_parts = parts[si // spb]
             cols = (pos % np.uint64(SHARD_WIDTH)).astype(np.int64)
-            wi_parts.append((si * WORDS_PER_SHARD + (cols >> 5))
+            wi_parts.append(((si % spb) * WORDS_PER_SHARD + (cols >> 5))
                             .astype(np.int32))
             mask_parts.append(np.uint32(1) << (cols & 31).astype(np.uint32))
             slot_parts.append(np.searchsorted(
                 all_ids, pos // np.uint64(SHARD_WIDTH)).astype(np.int32))
-        if wi_parts:
-            sl = np.concatenate(slot_parts)
-            order = np.argsort(sl, kind="stable")  # CSR row order
-            wi = np.concatenate(wi_parts)[order]
-            mk = np.concatenate(mask_parts)[order]
-            sl = sl[order]
+        blocks = []
+        for wi_parts, mask_parts, slot_parts in parts:
+            if wi_parts:
+                sl = np.concatenate(slot_parts)
+                order = np.argsort(sl, kind="stable")  # CSR row order
+                blocks.append((np.concatenate(wi_parts)[order],
+                               np.concatenate(mask_parts)[order], sl[order]))
+            else:
+                blocks.append((np.empty(0, np.int32), np.empty(0, np.uint32),
+                               np.empty(0, np.int32)))
+        n_pad = pow2_bucket(max(len(b[0]) for b in blocks))
+        devices = self.placement.devices if d > 1 else [self.device]
+        arrays = ([], [], [])
+        for (wi, mk, sl), dev in zip(blocks, devices):
+            wi_out = np.zeros(n_pad, np.int32)
+            mk_out = np.zeros(n_pad, np.uint32)   # mask 0 = padding
+            wi_out[:len(wi)] = wi
+            mk_out[:len(mk)] = mk
+            # row boundaries; pad rows are empty segments at N
+            rp = np.searchsorted(sl, np.arange(r_pad + 1, dtype=np.int64)
+                                 ).astype(np.int32)
+            for out, host in zip(arrays, (wi_out, mk_out.view(np.int32), rp)):
+                out.append(torch.from_numpy(host).to(dev))
+        if d > 1:
+            word_idx, mask, row_ptr = (PerBlock(a) for a in arrays)
         else:
-            wi = np.empty(0, np.int32)
-            mk = np.empty(0, np.uint32)
-            sl = np.empty(0, np.int32)
-        n_pad = pow2_bucket(len(wi))
-        wi_out = np.zeros(n_pad, np.int32)
-        mk_out = np.zeros(n_pad, np.uint32)   # mask 0 = padding
-        wi_out[:len(wi)] = wi
-        mk_out[:len(mk)] = mk
-        # row boundaries; pad rows are empty segments at N
-        rp = np.searchsorted(sl, np.arange(r_pad + 1, dtype=np.int64)
-                             ).astype(np.int32)
+            word_idx, mask, row_ptr = (a[0] for a in arrays)
         return SparseSet(
-            word_idx=torch.from_numpy(wi_out).to(self.device),
-            mask=torch.from_numpy(mk_out.view(np.int32)).to(self.device),
-            row_ptr=torch.from_numpy(rp).to(self.device),
+            word_idx=word_idx, mask=mask, row_ptr=row_ptr,
             row_ids=all_ids, row_cards=row_cards, shards=shards,
-            nbytes=n_pad * 8 + (r_pad + 1) * 4, n_rows_pad=r_pad)
+            nbytes=d * (n_pad * 8 + (r_pad + 1) * 4), n_rows_pad=r_pad)
 
     def iter_row_blocks(self, field: Field, view_name: str,
                         shards: tuple[int, ...], block_rows: int):
@@ -684,13 +756,16 @@ class PlaneCache:
         return est
 
     def zeros(self, n_shards: int) -> torch.Tensor:
-        """Cached all-zero bitmap int32[n_shards, W]."""
+        """Cached all-zero bitmap int32[n_shards, W] (blocked under a
+        placement)."""
         with self._lock:
             z = self._zeros.get(n_shards)
             if z is None:
-                z = self._zeros[n_shards] = torch.zeros(
-                    (n_shards, WORDS_PER_SHARD), dtype=torch.int32,
-                    device=self.device)
+                shape = (n_shards, WORDS_PER_SHARD)
+                z = self._zeros[n_shards] = (
+                    self.placement.zeros(shape) if self.placement is not None
+                    else torch.zeros(shape, dtype=torch.int32,
+                                     device=self.device))
             return z
 
     def stats(self) -> dict:
@@ -713,7 +788,7 @@ class PlaneCache:
                     "warmHits": self.warm_hits,
                     "warmMisses": self.warm_misses,
                     "sidecarBytesWritten": self.sidecar_bytes_written,
-                    "meshed": False,
+                    "meshed": self.placement is not None,
                     "building": len(self._building),
                     "evictions": self.evictions,
                     "evictionsByReason": dict(self._evictions_by_reason)}
@@ -735,6 +810,34 @@ class PlaneCache:
                     "lastCompactionSeconds": round(
                         self.last_compaction_seconds, 6)}
 
+    def mesh_stats(self) -> dict | None:
+        """The ``/status`` ``mesh`` block: device count, shard axis,
+        resident plane bytes per device (blocks on one device add into its
+        entry) and padding shards across the entries; None without a
+        placement.  Refreshes the ``plane_shard_bytes{device}`` gauges."""
+        p = self.placement
+        if p is None:
+            return None
+        with self._lock:
+            entries = [e[1] for e in self._entries.values()]
+        per_dev: dict[str, int] = {}
+        padded = 0
+        seen = set()
+        for ps in entries:
+            padded += sum(1 for s in getattr(ps, "shards", ())
+                          if s == PAD_SHARD)
+            plane = getattr(ps, "plane", None)
+            if not isinstance(plane, Blocked) or id(plane) in seen:
+                continue
+            seen.add(id(plane))
+            for blk in plane.blocks:
+                d = str(blk.device)
+                per_dev[d] = per_dev.get(d, 0) + blk.numel() * 4
+        for d, b in per_dev.items():
+            self._stats.gauge("plane_shard_bytes", b, device=d)
+        return {"devices": p.n_devices * p.words_size, "axis": p.axis,
+                "perDeviceBytes": per_dev, "paddedShards": padded}
+
     # -- time planes --------------------------------------------------------
 
     def time_plane_nowait(self, index: str, field: Field,
@@ -748,6 +851,8 @@ class PlaneCache:
         gap into its overlay, else it rebuilds, synchronously and one
         build at a time (the reference's entry point of this name builds
         synchronously too)."""
+        if self.placement is not None:
+            raise not_supported("a time range")
         key = ("tplane", index, field.name, shards)
         set_plane_context(f"{index}/{field.name}")
         hit = self._entries.get(key)
@@ -1121,7 +1226,12 @@ class PlaneCache:
             if not mirror.would_fit(cells):
                 return None  # overlay full: fold
             mirror.absorb(cells)
-            if key[0] == "bsi":
+            if isinstance(ps.plane, Blocked):
+                overlay = mirror.build_blocked(
+                    ps.plane.layout,
+                    [b.device for b in ps.plane.blocks],
+                    ps.plane.shape[1], bsi=key[0] == "bsi")
+            elif key[0] == "bsi":
                 overlay = mirror.build_bsi_overlay(
                     self.device, ps.plane.shape[1], ps.plane.shape[0])
             else:
@@ -1340,10 +1450,17 @@ class PlaneCache:
         which visits each fragment once per block) the sidecar ones.
         ``sidecars`` overrides the cache's setting for this build;
         ``sidecar_write`` whether cold expansions write images (default:
-        a build past ``SYNC_BUILD_MAX`` bytes)."""
+        a build past ``SYNC_BUILD_MAX`` bytes).  Under a placement the
+        tensor is :class:`Blocked`: each chunk is copied into the blocks
+        it spans."""
         t0 = time.perf_counter()
-        full = torch.empty((len(shards), r_pad, WORDS_PER_SHARD),
-                           dtype=torch.int32, device=self.device)
+        shape = (len(shards), r_pad, WORDS_PER_SHARD)
+        if self.placement is not None:
+            full = self.placement.zeros(shape)
+            targets = list(zip(full.layout, full.blocks))
+        else:
+            full = torch.empty(shape, dtype=torch.int32, device=self.device)
+            targets = [((0, len(shards), None, None), full)]
         slab = r_pad * WORDS_PER_SHARD * 4
         spc = max(1, min(len(shards), self.BUILD_CHUNK_BYTES // slab))
         cuda = self.device.type == "cuda"
@@ -1371,8 +1488,8 @@ class PlaneCache:
             for ci, s0 in enumerate(range(0, len(shards), spc)):
                 glen = min(spc, len(shards) - s0)
                 par = ci % len(bufs)
-                if copied[par] is not None:
-                    copied[par].synchronize()  # its last copy has landed
+                for ev in copied[par] or ():
+                    ev.synchronize()  # its last copies have landed
                 host = bufs[par].numpy().view(np.uint32)[:glen]
                 host.fill(0)
                 tasks = []
@@ -1387,12 +1504,10 @@ class PlaneCache:
                                 sidecar_submit=(writer.submit if writer
                                                 else None)))
                 self._expand_tasks(pool, tasks, warm_tally and sidecars)
-                full[s0:s0 + glen].copy_(bufs[par][:glen], non_blocking=cuda)
-                if cuda:
-                    copied[par] = torch.cuda.Event()
-                    copied[par].record()
-            for ev in copied:
-                if ev is not None:
+                copied[par] = _copy_chunk(targets, s0, s0 + glen,
+                                          bufs[par], cuda)
+            for evs in copied:
+                for ev in evs or ():
                     ev.synchronize()
         finally:
             if pool is not None:
@@ -1481,8 +1596,34 @@ class _SidecarWriter:
         self.thread.join()
 
 
+def _copy_chunk(targets: list, c0: int, c1: int, buf: torch.Tensor,
+                cuda: bool) -> list:
+    """Copy staged shards ``[c0, c1)`` (``buf[:c1 - c0]``) into every
+    target block ``((s0, s1, w0, w1), tensor)`` they overlap; on CUDA
+    returns one event per copy's device, recorded after it."""
+    devices = set()
+    for (s0, s1, w0, w1), dst in targets:
+        a, b = max(c0, s0), min(c1, s1)
+        if a >= b:
+            continue
+        src = buf[a - c0:b - c0]
+        if w0 is not None:
+            src = src[..., w0:w1]
+        dst[a - s0:b - s0].copy_(src, non_blocking=cuda)
+        devices.add(dst.device)
+    evs = []
+    for dev in devices if cuda else ():
+        evs.append(torch.cuda.Event())
+        evs[-1].record(torch.cuda.current_stream(dev))
+    return evs
+
+
 def _sync(t: torch.Tensor) -> None:
     """Wait for the work that produces ``t`` (CUDA); a no-op on the CPU."""
+    if isinstance(t, Blocked):
+        for blk in t.blocks:
+            _sync(blk)
+        return
     if t.device.type == "cuda":
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(t.device))

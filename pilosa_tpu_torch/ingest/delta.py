@@ -45,6 +45,7 @@ import torch
 
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.engine.words import pow2_bucket
+from pilosa_tpu_torch.parallel.mesh import PerBlock
 
 
 @dataclass
@@ -93,6 +94,27 @@ class BsiOverlay:
         """Device bytes a scan of the overlay reads: the value and mask
         words of every lane plus its shard and word indices."""
         return int(self.col_vals.numel()) * 8 + int(self.col_shard.numel()) * 8
+
+
+class BlockedOverlay(PerBlock):
+    """A blocked plane's overlay (a :class:`DeltaOverlay` or
+    :class:`BsiOverlay` per block): each block's part holds the cells that
+    fall in the block, re-indexed to it, on the block's device, so the
+    merge functions run per block as they run over a whole plane."""
+
+    def __init__(self, parts, n: int, bits: int):
+        super().__init__(parts)
+        self.n = n
+        self.bits = bits
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.parts)
+
+
+def _bits_of(vals: np.ndarray) -> int:
+    return int(np.unpackbits(np.ascontiguousarray(
+        vals, np.uint32).view(np.uint8)).sum())
 
 
 class DeltaMirror:
@@ -154,23 +176,14 @@ class DeltaMirror:
                             self._words[:n].tolist()),
                         self._vals[:n].tolist()))
 
+    def _cells(self):
+        n = len(self._index)
+        return self._rows[:n], self._words[:n], self._vals[:n]
+
     def build_overlay(self, device, flat_total: int) -> DeltaOverlay:
         """The device overlay on ``device``, padded to a power of two;
         pad lanes carry flat row ``flat_total`` (= S * R_pad)."""
-        n = len(self._index)
-        c_pad = pow2_bucket(n)
-        rows = np.full(c_pad, flat_total, np.int32)
-        words = np.zeros(c_pad, np.int32)
-        vals = np.zeros(c_pad, np.uint32)
-        rows[:n] = self._rows[:n]
-        words[:n] = self._words[:n]
-        vals[:n] = self._vals[:n]
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a.view(np.int32)).to(device)
-
-        return DeltaOverlay(put(rows), put(words), put(vals), n=n,
-                            bits=self.bits)
+        return _delta_overlay(*self._cells(), device, flat_total, self.bits)
 
     def build_bsi_overlay(self, device, n_rows: int,
                           n_shards: int) -> BsiOverlay:
@@ -180,28 +193,69 @@ class DeltaMirror:
         and touched-row mask in one lane; lanes pad to a power of two with
         ``col_shard == n_shards``.  One ``np.unique`` and two fancy
         scatters: this runs under the cache lock on every absorb."""
-        n = len(self._index)
-        flat = self._rows[:n]
-        word = self._words[:n]
-        key = (flat // n_rows).astype(np.int64) * (1 << 32) + word
-        uniq, inv = np.unique(key, return_inverse=True)
-        k = len(uniq)
-        k_pad = pow2_bucket(k)
-        col_shard = np.full(k_pad, n_shards, np.int32)
-        col_word = np.zeros(k_pad, np.int32)
-        col_vals = np.zeros((k_pad, n_rows), np.uint32)
-        col_mask = np.zeros((k_pad, n_rows), np.uint32)
-        col_shard[:k] = (uniq >> 32).astype(np.int32)
-        col_word[:k] = (uniq & 0xFFFFFFFF).astype(np.int32)
-        rows_in_col = (flat % n_rows).astype(np.int64)
-        col_vals[inv, rows_in_col] = self._vals[:n]
-        col_mask[inv, rows_in_col] = 0xFFFFFFFF
+        return _bsi_overlay(*self._cells(), device, n_rows, n_shards,
+                            self.bits)
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a.view(np.int32)).to(device)
+    def build_blocked(self, layout: tuple, devices: list, n_rows: int,
+                      bsi: bool) -> BlockedOverlay:
+        """The overlay of a blocked plane of ``n_rows`` rows per shard: per
+        block of ``layout`` (``(s0, s1, w0, w1)``) the cells in its shards
+        (and words), flat rows and words re-indexed to the block, on its
+        device."""
+        rows, words, vals = self._cells()
+        parts = []
+        for (s0, s1, w0, w1), dev in zip(layout, devices):
+            sel = (rows >= s0 * n_rows) & (rows < s1 * n_rows)
+            if w0 is not None:
+                sel &= (words >= w0) & (words < w1)
+            b_rows = rows[sel] - s0 * n_rows
+            b_words = words[sel] - (w0 or 0)
+            b_vals = vals[sel]
+            bits = _bits_of(b_vals)
+            parts.append(
+                _bsi_overlay(b_rows, b_words, b_vals, dev, n_rows, s1 - s0,
+                             bits) if bsi
+                else _delta_overlay(b_rows, b_words, b_vals, dev,
+                                    (s1 - s0) * n_rows, bits))
+        return BlockedOverlay(parts, n=len(rows), bits=self.bits)
 
-        return BsiOverlay(put(col_shard), put(col_word), put(col_vals),
-                          put(col_mask), n=k, bits=self.bits)
+
+def _put(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def _delta_overlay(rows, words, vals, device, flat_total: int,
+                   bits: int) -> DeltaOverlay:
+    n = len(rows)
+    c_pad = pow2_bucket(n)
+    out_rows = np.full(c_pad, flat_total, np.int32)
+    out_words = np.zeros(c_pad, np.int32)
+    out_vals = np.zeros(c_pad, np.uint32)
+    out_rows[:n] = rows
+    out_words[:n] = words
+    out_vals[:n] = vals
+    return DeltaOverlay(_put(out_rows, device), _put(out_words, device),
+                        _put(out_vals, device), n=n, bits=bits)
+
+
+def _bsi_overlay(flat, word, vals, device, n_rows: int, n_shards: int,
+                 bits: int) -> BsiOverlay:
+    key = (flat // n_rows).astype(np.int64) * (1 << 32) + word
+    uniq, inv = np.unique(key, return_inverse=True)
+    k = len(uniq)
+    k_pad = pow2_bucket(k)
+    col_shard = np.full(k_pad, n_shards, np.int32)
+    col_word = np.zeros(k_pad, np.int32)
+    col_vals = np.zeros((k_pad, n_rows), np.uint32)
+    col_mask = np.zeros((k_pad, n_rows), np.uint32)
+    col_shard[:k] = (uniq >> 32).astype(np.int32)
+    col_word[:k] = (uniq & 0xFFFFFFFF).astype(np.int32)
+    rows_in_col = (flat % n_rows).astype(np.int64)
+    col_vals[inv, rows_in_col] = vals
+    col_mask[inv, rows_in_col] = 0xFFFFFFFF
+    return BsiOverlay(_put(col_shard, device), _put(col_word, device),
+                      _put(col_vals, device), _put(col_mask, device), n=k,
+                      bits=bits)
 
 
 # ---------------------------------------------------------------------------

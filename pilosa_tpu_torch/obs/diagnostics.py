@@ -3,8 +3,9 @@
 
 Opt-in (``diagnostics_interval`` > 0): the reporter builds the payload and
 hands it to a pluggable ``send`` callable; the default sink writes it to
-the logger at debug level.  Counts only, never names or keys.  The port
-serves one card, so the payload has no ``mesh`` block; a cluster node's
+the logger at debug level.  Counts only, never names or keys.  An executor
+serving over a mesh placement adds its ``mesh`` block (devices, shard
+axis, resident bytes per device, padding shards); a cluster node's payload
 has the cluster's member count and its ``clusterHealth`` and
 ``writeHealth`` counts (never peer ids).
 """
@@ -23,8 +24,9 @@ def build_payload(holder, stats=None, slow_log=None,
     breakers and hint backlog, and with ``stats`` the per-stage query
     summary
     (``query_stage_seconds``), with ``slow_log`` the slow-query counters
-    (never PQL text), with ``executor`` the card's name and count, the
-    tenancy counts and the cost ledger's totals (no tenant names)."""
+    (never PQL text), with ``executor`` the card's name and count, its
+    mesh block under a placement, the tenancy counts and the cost ledger's
+    totals (no tenant names)."""
     n_fields = 0
     n_shards = 0
     field_types: dict[str, int] = {}
@@ -86,6 +88,12 @@ def build_payload(holder, stats=None, slow_log=None,
                 payload["deviceKind"] = "cpu"
                 payload["numDevices"] = 1
         except Exception:  # noqa: BLE001
+            pass
+        try:
+            mesh = executor.mesh_status()
+            if mesh is not None:
+                payload["mesh"] = mesh
+        except Exception:  # noqa: BLE001 — diagnostics never break serving
             pass
         try:
             ten = executor.tenancy_status()

@@ -1,8 +1,21 @@
-"""Host-level shard placement across a cluster's nodes
-(``pilosa_tpu.parallel``'s jump-hash half; its meshed half waits for
-multi-device serving)."""
+"""Distribution: a plane's shard axis in blocks over the local devices
+(``parallel.mesh``, with the programs of ``parallel.spmd``), and
+host-level shard placement across a cluster's nodes by jump hash
+(``parallel.placement``, loaded on first use: it reads the store's hash,
+and the engine imports ``parallel.mesh`` before the store exists)."""
 
-from pilosa_tpu_torch.parallel.placement import (jump_hash, partition_nodes,
-                                                 shard_nodes, shard_partition)
+from pilosa_tpu_torch.parallel.mesh import (MeshPlacement, MeshPlacement2D,
+                                            local_placement)
 
-__all__ = ["jump_hash", "shard_partition", "partition_nodes", "shard_nodes"]
+_PLACEMENT = ("jump_hash", "shard_partition", "partition_nodes",
+              "shard_nodes")
+
+__all__ = ["MeshPlacement", "MeshPlacement2D", "local_placement",
+           *_PLACEMENT]
+
+
+def __getattr__(name: str):
+    if name in _PLACEMENT:
+        from pilosa_tpu_torch.parallel import placement
+        return getattr(placement, name)
+    raise AttributeError(name)

@@ -13,7 +13,10 @@ the API after the REST server binds (its node id is the bound
 closed before the server; the scrubber hands a corrupt fragment to
 ``cluster.repair_quarantined``.  Every node runs its own executor on the
 card, with its own plane budget (``plane_budget_bytes``), device-health
-governor and device-OOM recovery.  :func:`~pilosa_tpu_torch.cli.config.
+governor and device-OOM recovery.  With ``mesh`` on (the default) and
+several CUDA devices, the executor shards its planes over all of them
+(:func:`~pilosa_tpu_torch.parallel.local_placement`) and the boot logs
+``mesh: sharding over N devices``.  :func:`~pilosa_tpu_torch.cli.config.
 check_served` refuses what the port does not serve before anything
 opens.
 
@@ -47,12 +50,17 @@ from pilosa_tpu_torch.cli.config import Config
 from pilosa_tpu_torch.exec import Executor
 from pilosa_tpu_torch.obs import Stats, StatsdStats, get_logger
 from pilosa_tpu_torch.obs.diagnostics import Diagnostics
+from pilosa_tpu_torch.parallel import local_placement
 from pilosa_tpu_torch.store import Holder, syswrap
 from pilosa_tpu_torch.store.scrub import Scrubber
 
 
 class PilosaTPUServer:
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, placement=None):
+        """``placement``: a mesh placement to serve over (one on the CPU
+        is built by the caller); None builds ``local_placement()`` when
+        ``mesh`` is on and ``device`` is the CUDA default, which shards
+        over every CUDA device when there are several."""
         cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
         cfgmod.check_served(cfg, cuda_devices=cuda)
         self.cfg = cfg
@@ -72,6 +80,7 @@ class PilosaTPUServer:
         else:
             self.stats = Stats()
         self.holder = Holder(cfg.data_dir, fsync=cfg.fsync)
+        self.placement = placement
         self.executor: Executor | None = None
         self.api: API | None = None
         self.http: HttpServer | None = None
@@ -91,8 +100,14 @@ class PilosaTPUServer:
             min_free_bytes=cfg.disk_min_free_bytes,
             probe_seconds=cfg.disk_probe_seconds)
         self.holder.open()
+        placement = self.placement
+        if placement is None and cfg.mesh and not cfg.device:
+            placement = local_placement()
+        if placement is not None:
+            self.logger.info("mesh: sharding over %d devices",
+                             placement.n_devices * placement.words_size)
         self.executor = Executor(
-            self.holder, device=cfg.device or None,
+            self.holder, device=cfg.device or None, placement=placement,
             plane_budget=cfg.plane_budget_bytes,
             count_batch_window=cfg.count_batch_window,
             max_concurrent=cfg.max_concurrent_queries,

@@ -818,6 +818,16 @@ def test_digest_error_text_equal(sources, tmp_path):
         in texts["torch"]
 
 
+def _cli_lines(err: str) -> list[str]:
+    """The CLI's own stderr lines.  The servers in this process log to
+    stderr too, through handlers bound to whichever stream was stderr when
+    an earlier test made them (a capture of this test, or one closed
+    since, which logging reports as a traceback): those lines depend on
+    the tests before this one and are left out."""
+    return [ln for ln in err.splitlines()
+            if ln.startswith(("backup", "wrote ", "restore"))]
+
+
 def test_cli_backup_and_restore_both_forms(tmp_path, capsys):
     """The CLI's ``backup -o DIR`` / ``restore DIR`` and the ``.tar``
     forms, each package's against its own node: the same exit codes, the
@@ -838,7 +848,7 @@ def test_cli_backup_and_restore_both_forms(tmp_path, capsys):
                           mod.main(["backup", *bind, "-o", arch,
                                     "--incremental"]),
                           mod.main(["backup", *bind, "-o", tar])]
-            err = capsys.readouterr().err.splitlines()
+            err = _cli_lines(capsys.readouterr().err)
             assert err[0].startswith("backup: ") and err[2].startswith(
                 f"wrote {os.path.getsize(tar)} bytes to {tar}"), err
         with FRESH[pkg](str(tmp_path / f"dir_{pkg}")) as b:
@@ -852,7 +862,7 @@ def test_cli_backup_and_restore_both_forms(tmp_path, capsys):
             codes[pkg].append(mod.main(
                 ["restore", "--bind", f"127.0.0.1:{b.port}", tar]))
             assert _answers(b.client) == answers[pkg]
-        err = capsys.readouterr().err.splitlines()
+        err = _cli_lines(capsys.readouterr().err)
         assert err[0].startswith("restore: ")
         assert err[1].startswith("restore failed: restore target already "
                                  "has index(es) ['bk']")

@@ -132,13 +132,52 @@ def test_refused_key_stops_the_boot(tmp_path, key):
     assert not os.path.exists(tmp_path / "d")
 
 
-def test_mesh_over_several_cards_refused():
+@pytest.mark.parametrize("cuda_devices", [1, 2, 8])
+def test_mesh_over_several_cards_served(cuda_devices):
+    """``mesh = true`` boots over any number of CUDA devices (the planes
+    shard over them), and so does ``mesh = false``."""
     cfg = tconfig.Config()
-    with pytest.raises(ValueError, match="config key mesh = true over 2"):
+    assert cfg.mesh
+    tconfig.check_served(cfg, cuda_devices)
+    tconfig.check_served(dataclasses.replace(cfg, mesh=False), cuda_devices)
+
+
+@pytest.mark.parametrize("key", ["jax_coordinator", "jax_num_processes",
+                                 "jax_process_id"])
+def test_multi_host_keys_still_refused(key):
+    """Multi-host serving stays a JAX knob the port refuses, mesh or not."""
+    cfg = dataclasses.replace(tconfig.Config(), **{key: _off_default(key)})
+    with pytest.raises(ValueError, match=f"config key {key} = "):
         tconfig.check_served(cfg, cuda_devices=2)
-    tconfig.check_served(cfg, cuda_devices=1)
-    tconfig.check_served(dataclasses.replace(cfg, mesh=False), 2)
-    tconfig.check_served(dataclasses.replace(cfg, device="cpu"), 2)
+
+
+def test_server_boots_on_the_cpu_with_a_given_placement(tmp_path):
+    """A placement handed to the server reaches its executor: the planes
+    block over it, answers are exact, and ``/status`` has the mesh
+    block (none without a placement)."""
+    from pilosa_tpu_torch.virtmesh import virtual_placement
+    cfg = tconfig.load(env={}, overrides={
+        "bind": "127.0.0.1:0", "data_dir": str(tmp_path / "d"),
+        "device": "cpu"})
+    srv = PilosaTPUServer(cfg, placement=virtual_placement(4, "cpu")).open()
+    try:
+        assert srv.executor.placement is srv.placement
+        srv.api.create_index("i")
+        srv.api.create_field("i", "f")
+        srv.api.import_bits("i", "f", row_ids=[1, 1, 2],
+                            col_ids=[3, SW + 4, 5 * SW + 6])
+        assert srv.api.query("i", "Count(Row(f=1))")["results"] == [2]
+        mesh = srv.api.status()["mesh"]
+        assert mesh["devices"] == 4 and mesh["axis"] == "shard"
+        assert mesh["paddedShards"] == 1  # shards 0, 1, 5 pad to 4
+    finally:
+        srv.close()
+    plain = PilosaTPUServer(cfg).open()
+    try:
+        assert plain.executor.placement is None
+        assert "mesh" not in plain.api.status()
+    finally:
+        plain.close()
 
 
 def test_served_keys_reach_the_server(tmp_path):

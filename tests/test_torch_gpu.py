@@ -1407,3 +1407,96 @@ def test_card_backup_restores_into_a_cpu_node(dev, tmp_path):
         server.close()
         api.executor.close()
         holder.close()
+
+
+def test_meshed_executor_on_the_card_equals_cpu_twin(dev, tmp_path):
+    """A small meshed executor over ``virtual_placement(4, "cuda:0")``
+    answers as its CPU twin over ``virtual_placement(4, "cpu")``: Counts,
+    compound Counts, BSI ranges, TopN (plain, filtered, tanimoto),
+    Sum/Min/Max, GroupBy and a Row read, then again after a set and a
+    value import absorbed with no rebuild, and under an 8-thread burst.
+    Each block launches on its own stream, all four kernels launch (the
+    ``intersect_count`` one through ``parallel.spmd``), and the programs
+    equal the CPU twin's."""
+    import threading
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.parallel import spmd
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.virtmesh import virtual_placement
+    rng = np.random.default_rng(16)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 16), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(7 << 20, 60000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+    idx.create_field("amount", FieldOptions(type="int", min=-100000,
+                                            max=100000))
+    cols = rng.choice(7 << 20, 50000, replace=False).astype(np.uint64)
+    idx.field("amount").import_values(
+        cols, rng.integers(-100000, 100001, len(cols)).tolist())
+    mix = ["Count(Row(f=1))", "Count(Row(f=1))Count(Row(f=7))",
+           "Count(Intersect(Row(f=1), Union(Row(f=2), Row(g=0))))",
+           "Count(Not(Row(g=1)))", "Count(Row(-500 < amount < 90000))",
+           "TopN(f)", "TopN(f, Row(g=0), n=5)",
+           "TopN(f, Row(g=0), n=5, tanimoto=10)",
+           "Sum(Row(g=1), field=amount)", "Min(field=amount)",
+           "Max(Row(f=99), field=amount)",
+           "GroupBy(Rows(g), Rows(f), aggregate=Sum(field=amount))"]
+    card = API(holder, Executor(holder,
+                                placement=virtual_placement(4, dev)))
+    cpu = API(holder, Executor(holder,
+                               placement=virtual_placement(4, "cpu")))
+    try:
+        cuda_kernels.reset_launches()
+        for q in mix + ["Row(f=3)"]:
+            assert card.query("i", q) == cpu.query("i", q), q
+        builds = card.executor.planes.builds
+        card.import_bits("i", "f", row_ids=[3] * 200,
+                         col_ids=rng.choice(7 << 20, 200,
+                                            replace=False).tolist())
+        card.import_values("i", "amount",
+                           col_ids=cols[:300].tolist(),
+                           values=rng.integers(-100000, 100001,
+                                               300).tolist())
+        for q in mix:
+            assert card.query("i", q) == cpu.query("i", q), q
+        assert card.executor.planes.builds == builds
+        want = {q: cpu.query("i", q) for q in mix[:6]}
+        errs = []
+
+        def worker(k):
+            for i in range(3 * len(want)):
+                q = list(want)[(k + i) % len(want)]
+                if card.query("i", q) != want[q]:
+                    errs.append(q)
+
+        ts = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        assert not errs
+        ps = card.executor.planes.field_plane(
+            "i", idx.field("f"), "standard",
+            card.executor._shards_for(idx, None))
+        streams = ps.plane.map(lambda b: torch.cuda.current_stream(),
+                               ps.plane)
+        assert len({s.cuda_stream for s in streams}) == 4
+        a, b = ps.plane[:, 1].contiguous(), ps.plane[:, 2].contiguous()
+        place_cpu = virtual_placement(4, "cpu")
+        a_cpu, b_cpu = (place_cpu.place(x.full().cpu()) for x in (a, b))
+        assert int(spmd.intersect_count(a, b)) == \
+            int(spmd.intersect_count(a_cpu, b_cpu))
+        assert int(spmd.make_intersect_count_psum(ps.plane.placement)(
+            a, b)) == int(spmd.make_intersect_count_psum(place_cpu)(
+                a_cpu, b_cpu))
+        assert all(v > 0 for v in cuda_kernels.LAUNCHES.values()), \
+            cuda_kernels.LAUNCHES
+    finally:
+        card.executor.close()
+        cpu.executor.close()
+        holder.close()

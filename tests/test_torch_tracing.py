@@ -49,15 +49,17 @@ SW = 1 << 20
 N_SHARDS = 3
 
 # families of machinery the port does not have: XLA program compiles and
-# their warm-up ladder, the Pallas fallback, the mesh, and the cluster
+# their warm-up ladder, the Pallas fallback, and the cluster
 NOT_PORTED = {
     "fused_compile_seconds", "fused_compile_seconds_total",
     "fused_programs_built_total", "fused_programs_evicted_total",
     "fused_program_count", "tree_programs_built_total",
     "fused_warmup_compile_seconds", "fused_warmup_programs_total",
-    "pallas_fallback_total", "mesh_collective_seconds", "mesh_devices",
+    "pallas_fallback_total",
     "hint_handoff_total", "write_replicas_missed",
 }
+MESH_FAMILIES = ("mesh_collective_seconds", "mesh_devices",
+                 "plane_shard_bytes")
 # counted by both, on different builds: the reference's plane build over
 # row chunks tallies no sidecar misses, the port's builder tallies every
 # fragment it expands
@@ -288,6 +290,66 @@ def test_metric_families_equal(servers):
                 "http_request_seconds", "query_stage_seconds",
                 "flight_events_total"):
         assert fam in tf, fam
+
+
+def test_mesh_families_equal(tmp_path):
+    """Under a placement of eight blocks (the reference's 8-device CPU
+    mesh, the port's ``virtual_placement(8, "cpu")``) concurrent Counts
+    fill meshed windows: both packages then emit the mesh families with
+    the same types, and ``mesh_devices`` reads 8 in both."""
+    import jax
+    from pilosa_tpu.parallel import MeshPlacement
+    from pilosa_tpu_torch.virtmesh import virtual_placement
+    apis = []
+    for H, E, A, S, name, extra in (
+            (JHolder, JExecutor, JAPI, JStats, "j",
+             {"placement": MeshPlacement(jax.devices())}),
+            (THolder, TExecutor, TAPI, TStats, "t",
+             {"placement": virtual_placement(8, "cpu")})):
+        h = H(str(tmp_path / name)).open()
+        ex = E(h, stats=S(), max_concurrent=32, **extra)
+        api = A(h, ex, trace_sample_rate=0.0, slow_query_threshold=0.0)
+        _fill(api)
+        apis.append(api)
+    srvs = [JServer(apis[0], "127.0.0.1", 0, stats=apis[0].executor.stats),
+            TServer(apis[1], "127.0.0.1", 0)]
+    for srv in srvs:
+        srv.start()
+    bases = [f"http://127.0.0.1:{srv.address[1]}" for srv in srvs]
+    try:
+        texts = []
+        for base, api in zip(bases, apis):
+            for pql in (b"Count(Row(f=1))", b"Count(Row(n > 10))"):
+                _http(base, "/index/i/query", pql)  # planes resident
+            stats = api.executor.stats
+            for _ in range(5):
+                barrier = threading.Barrier(8)
+
+                def worker():
+                    barrier.wait()
+                    for _ in range(4):
+                        _http(base, "/index/i/query", b"Count(Row(f=1))")
+                        _http(base, "/index/i/query", b"Count(Row(n > 10))")
+
+                ts = [threading.Thread(target=worker) for _ in range(8)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(120)
+                if stats.histogram_summary("mesh_collective_seconds"):
+                    break
+            _http(base, "/status")  # refreshes plane_shard_bytes
+            texts.append(_http(base, "/metrics")[2].decode())
+    finally:
+        for srv in srvs:
+            srv.close()
+        _close(apis)
+    jf, tf = (_families(t) for t in texts)
+    assert {k: tf.get(k) for k in MESH_FAMILIES} == \
+        {k: jf.get(k) for k in MESH_FAMILIES}
+    assert all(jf.get(k) for k in MESH_FAMILIES)
+    for text in texts:
+        assert re.search(r"^mesh_devices 8(\.0)?$", text, re.M), text
 
 
 # counters that follow from the workload alone, not from timing or from

@@ -31,21 +31,27 @@ raises and the exit code is non-zero:
    sequential requests must take the batcher's solo fast lane.  A
    ``Set`` then reads that must show it: absorbed into the plane's delta
    overlay, no rebuild.
-   Phase mesh, on that holder: an executor over
-   ``virtmesh.virtual_placement(4)`` (``f``, ``g`` and ``amount`` at all
-   the shards in four shard blocks of the card, padded to a multiple of
-   four, each block launching on its own stream) behind its own REST
-   server, beside an unmeshed executor of its own: the oracle's requests
-   (the 32-Count, the 4-Count, the filtered TopN, the compound Counts,
-   six BSI requests) and seven more (Xor, Difference, tanimoto TopN,
-   Min over an empty filter, filtered Max, two GroupBys) equal through
-   both, two Row reads equal word for word, a Set and a value written
-   and cleared (absorbed, no rebuild), an 8-thread burst whose windows
-   hold more than one item, ``/status``'s ``mesh`` block, and
-   ``parallel.spmd``'s two intersect counts of f row 1 and g row 0
-   against the oracle; every kernel must launch on this path (launch
-   counters reset first); device ms per request meshed beside unmeshed;
-   both executors closed at the end (device memory before and after).
+   Phase mesh, on a holder of its own of that index's first 239 shards
+   (a CUT, hard-linked snapshots): an executor over
+   ``virtmesh.virtual_placement(4)`` (``f``, ``g`` and ``amount`` in
+   four shard blocks of the card, padded to a multiple of four, each
+   block launching on its own stream) behind its own REST server,
+   beside an unmeshed executor of its own: the per-shard oracle's
+   requests (the 32-Count, the 4-Count, the TopNs, the compound Counts)
+   and fourteen more (the tree Counts, six BSI requests, Xor,
+   Difference, tanimoto TopN, Min over an empty filter, filtered Max,
+   two GroupBys) equal through both, two Row reads equal word for word,
+   a Set and a value written and cleared (absorbed, no rebuild), an
+   8-thread burst whose windows hold more than one item, ``/status``'s
+   ``mesh`` block, and ``parallel.spmd``'s two intersect counts of f row
+   1 and g row 0 against the oracle; then phase 7's ten time-range
+   requests over all of ``events`` in four blocks against its oracle,
+   a ``Limit`` window from the third block as a Count, a bitmap and an
+   Extract, and a 2x2 ``MeshPlacement2D``'s Min/Max, GroupBy Max, a
+   Shift across word blocks and that Limit, as the unmeshed executor
+   answers; every kernel must launch on this path (launch counters reset
+   first); device ms per request meshed beside unmeshed; every executor
+   closed after its part (device memory before and after).
 3. Concurrent serving on the same index, its overlay folded first (a
    clean plane): 32 client threads, 6 passes
    each over a mix of the 32-Count, the 4-Count, a filtered TopN and a
@@ -1491,7 +1497,7 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
 
         t_phase = phase_done(2, t_phase)
         log("== phase mesh: multi-device serving ==")
-        mesh = mesh_phase(holder, oracle, cuda, device)
+        mesh = mesh_phase(holder, oracle, cuda, device, data_dir)
         t_phase = phase_done("phase mesh", t_phase)
         log("== phase 3: concurrent serving ==")
         # fold the Set's one-cell overlay first: this phase serves a
@@ -1607,7 +1613,11 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
 # ---------------------------------------------------------------------------
 
 MESH_BLOCKS = 4                # blocks of the virtual placement on one card
+MESH_SHARDS = 239              # CUT: bench's first 239 shards in a holder of
+#                                phase mesh's own (padded to 240: the phase
+#                                checks padding), since a run passed 1000 s
 MESH_PARITY = (
+    QT, *BSI_SEQ[:6],                        # no per-shard oracle
     "Count(Xor(Row(f=1), Row(g=0)))",
     "Count(Difference(Row(f=2), Row(g=0)))",
     "TopN(f, Row(g=0), n=5, tanimoto=30)",
@@ -1618,61 +1628,134 @@ MESH_PARITY = (
 )
 MESH_ROWS = ("Row(f=3)", "Row(amount > 900000)")   # compared as words
 MESH_TIMED = (Q32, TOPN_G, BSI_SEQ[0])
+MESH_LIMIT = 1000              # (c)'s window, starting in the third block
+MESH_2D = (2, 2)               # (d)'s shard blocks x word blocks
+MESH_2D_CALLS = (
+    "Min(field=amount)",
+    "Max(Row(g=1), field=amount)",
+    "Min(Row(f=99), field=amount)",          # an empty filter
+    "GroupBy(Rows(g), aggregate=Max(field=amount))",
+    "Count(Shift(Row(f=1), n=524283))",      # across word 16384
+)
 
 
-def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
-    """Phase mesh, on phase 2's holder as phase 2 leaves it: an executor
-    over ``virtual_placement(4)`` (every plane of ``f``, ``g`` and
-    ``amount`` in four shard blocks on the card, 477 shards padded to
-    480, each block launching on its own stream) behind its own REST
-    server, beside an unmeshed executor of its own (phase 2's keeps its
-    cache as phase 3 expects it).  Every parity request answers as the
-    unmeshed executor does and, where phase 2's oracle knows the answer,
-    as the oracle; two Row reads compare their words on the card; a Set
+def _mesh_limits(oracle: dict, n_shards: int) -> tuple[str, ...]:
+    """(c)'s Limit as a Count, a bitmap and an Extract: a window of
+    ``MESH_LIMIT`` of f row 1's bits whose offset passes the rows of the
+    first two of the four blocks' ``n_shards // 4`` shards each."""
+    per = n_shards // MESH_BLOCKS
+    k = int(oracle["per_shard"]["counts"][:2 * per, 1].sum()) + 12345
+    lim = f"Limit(Row(f=1), limit={MESH_LIMIT}, offset={k})"
+    return (f"Count({lim})", lim,
+            f"Extract({lim}, Rows(g), Rows(amount))")
+
+
+def _mesh_holder_dir(data_dir: str, n: int) -> str:
+    """A holder directory of phase mesh's own: ``bench``'s ``f``, ``g``
+    and ``amount`` over shards ``[0, n)`` as phase 2 leaves them, under
+    ``CLUSTER_DIR``.  Snapshots are hard links (a holder replaces a
+    snapshot by a new file, never in place); op-logs, which a holder
+    appends to, and the metadata are copied."""
+    import shutil
+    src = os.path.join(data_dir, "bench")
+    dst = os.path.join(CLUSTER_DIR, "mesh", "bench")
+    shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
+    os.makedirs(dst)
+    shutil.copy(os.path.join(src, ".meta"), dst)
+    for field in ("f", "g", "amount"):
+        shutil.copytree(os.path.join(src, field), os.path.join(dst, field),
+                        ignore=lambda d, names: [
+                            x for x in names if x.split(".")[0].isdigit()
+                            and int(x.split(".")[0]) >= n])
+    for d, _, files in os.walk(dst):
+        for name in files:
+            if name.isdigit():   # a snapshot: a link instead of the copy
+                os.remove(os.path.join(d, name))
+                os.link(os.path.join(src, os.path.relpath(d, dst), name),
+                        os.path.join(d, name))
+    return os.path.dirname(dst)
+
+
+def mesh_phase(holder, oracle: dict, cuda: bool, device,
+               data_dir: str) -> dict:
+    """Phase mesh: an executor over ``virtual_placement(4)`` (every plane
+    of ``f``, ``g`` and ``amount`` in four shard blocks on the card, each
+    block launching on its own stream) behind its own REST server, beside
+    an unmeshed executor of its own, both over a holder of the phase's
+    own of bench's first ``MESH_SHARDS`` shards as phase 2 leaves them
+    (a CUT, padded to 240).  Every parity request answers as the
+    unmeshed executor does and, where the per-shard oracle knows the
+    answer, as the oracle; two Row reads compare their words on the card; a Set
     and a value written then cleared are absorbed into the blocked
     overlays with no rebuild; an 8-thread burst fills a window above one;
     ``/status`` shows the mesh block; ``spmd.intersect_count`` and
     ``make_intersect_count_psum`` count f row 1 and g row 0 against the
-    oracle.  The unmeshed answers are taken first; then the launch
-    counters are reset, only the meshed executor and the spmd programs
-    run until they are read, and every kernel must launch on this path.  Prints device ms per request, meshed beside
-    unmeshed; then closes both executors.  Returns {"mesh": launches}."""
+    oracle.  Then (b) an executor over ``virtual_placement(4)`` answers
+    phase 7's ten time-range requests on all of ``events`` (phase 2's
+    holder) against its oracle (read-only: phase 7 writes after it) over
+    a blocked time plane; (c)
+    ``Limit`` as a Count, a bitmap and an Extract, its window starting in
+    the third block, against the unmeshed executor; (d) an executor over
+    a 2x2 ``MeshPlacement2D`` (two shard blocks, two word blocks) answers
+    Min/Max, GroupBy Max, a Shift across its word blocks and (c)'s
+    requests as the unmeshed one does.  The unmeshed answers are taken
+    first; then the launch counters are reset, only the meshed executors
+    and the spmd programs run until they are read, and every kernel must
+    launch on this path.  Prints device ms per request, meshed beside
+    unmeshed (the 2-D filtered Max among them; the recency range meshed,
+    whose unmeshed figure is phase 7's); closes each executor after its
+    part, logging device memory.  Returns {"mesh": launches}."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
     from pilosa_tpu_torch.exec.executor import _Ctx
     from pilosa_tpu_torch.obs import Stats
-    from pilosa_tpu_torch.parallel import spmd
+    from pilosa_tpu_torch.parallel import MeshPlacement2D, spmd
     from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.store import Holder
     from pilosa_tpu_torch.virtmesh import virtual_placement
 
+    def memory(what: str) -> None:
+        if cuda:
+            log(f"mesh {what}: device memory allocated "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
     t0 = time.perf_counter()
-    served = oracle["served"]
-    expect = dict(_mix_expect(served["counts"], served["filtered"],
-                              served["trees"]))
-    expect["TopN(f, n=5)"] = [_topn(served["counts"], 5)]
-    qc = ("Count(Intersect(Row(f=1), Row(g=0)))"
-          "Count(Union(Row(f=1), Row(g=0)))")
-    expect[qc] = [oracle["inter"], oracle["union"]]
-    for q in BSI_SEQ[:6]:   # amount and g only: valid until phase 5 writes
-        expect[q] = oracle["bsi"]["expect"][q]
+    n = min(MESH_SHARDS, len(oracle["per_shard"]["inter"]))
+    log(f"CUT: phase mesh serves bench's first {n} shards in a holder of "
+        "its own (a run passed 1000 s); (b) serves all of events")
+    mholder = Holder(_mesh_holder_dir(data_dir, n)).open()
+    # the per-shard oracle over those shards, with phase 2's Set (shard 0)
+    ps, served = oracle["per_shard"], oracle["served"]
+    counts = ps["counts"][:n].sum(0) + served["counts"] - oracle["counts"]
+    filtered = (ps["filtered"][:n].sum(0) + served["filtered"]
+                - oracle["filtered"])
+    inter, union = int(ps["inter"][:n].sum()), int(ps["union"][:n].sum())
+    expect = {Q32: [int(c) for c in counts],
+              Q4: [int(counts[r]) for r in SELECTED],
+              "TopN(f, n=5)": [_topn(counts, 5)],
+              TOPN_G: [_topn(filtered, 5)],
+              "Count(Intersect(Row(f=1), Row(g=0)))"
+              "Count(Union(Row(f=1), Row(g=0)))": [inter, union]}
     mem0 = torch.cuda.memory_allocated() if cuda else 0
     place = virtual_placement(MESH_BLOCKS, device)
     stats = Stats()
-    mex = _executor(holder, placement=place, plane_budget=32 << 30,
+    mex = _executor(mholder, placement=place, plane_budget=32 << 30,
                     max_concurrent=32, stats=stats)
-    plain = _executor(holder, device=device, plane_budget=32 << 30)
-    mapi, papi = API(holder, mex), API(holder, plain)
+    plain = _executor(mholder, device=device, plane_budget=32 << 30)
+    mapi, papi = API(mholder, mex), API(mholder, plain)
     mclient, pclient = _Client(mapi, cuda), _Client(papi, cuda)
     server = Server(mapi, "127.0.0.1", 0).start()
     mclient.base = "http://%s:%d" % server.address
-    index = holder.index("bench")
+    index = mholder.index("bench")
+    tex = dex = tclient = dclient = None
     try:
         # the unmeshed executor's answers first, so that the launches
         # counted below are the meshed path's alone
         for q, want in expect.items():
             pclient.ask(q, want, tag="plain " + q[:40])
         parity = {q: papi.query("bench", q)["results"] for q in MESH_PARITY}
+        answers = {**expect, **parity}
         shards = mex._shards_for(index, None)
         n_real = len(index.available_shards())
         row_words = {q: plain._fused_bitmap(
@@ -1680,6 +1763,11 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
             for q in MESH_ROWS}
         col = _clear_column(papi, "Row(f=5)")
         vcol = _clear_column(papi, f"Row(amount >= {BSI_MIN})")
+        limits = _mesh_limits(oracle, len(shards))
+        more = {q: papi.query("bench", q)["results"]
+                for q in limits + MESH_2D_CALLS}
+        if more[limits[0]] != [MESH_LIMIT]:
+            raise AssertionError(f"unmeshed {limits[0]}: {more[limits[0]]}")
 
         cuda_kernels.reset_launches()
         # the oracle's requests (the first builds the planes: its seconds
@@ -1712,7 +1800,7 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
         planes = mex.planes
         builds, absorbs = planes.builds, planes.delta_absorbs
         c5 = expect[Q32][5]
-        total, cnt = (expect[BSI_SEQ[0]][0][k] for k in ("value", "count"))
+        total, cnt = (answers[BSI_SEQ[0]][0][k] for k in ("value", "count"))
         for q, want in ((f"Set({col}, f=5)", [True]),
                         ("Count(Row(f=5))", [c5 + 1]),
                         (f"Set({vcol}, amount=777)", [True]),
@@ -1720,7 +1808,7 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
                         (f"Clear({col}, f=5)", [True]),
                         (f"Clear({vcol}, amount=0)", [True]),
                         ("Count(Row(f=5))", [c5]),
-                        (BSI_SEQ[0], expect[BSI_SEQ[0]]),
+                        (BSI_SEQ[0], answers[BSI_SEQ[0]]),
                         (TOPN_G, expect[TOPN_G])):
             mclient.ask(q, want, tag="mesh write " + q[:30])
         if planes.builds != builds or planes.delta_absorbs < absorbs + 2:
@@ -1731,7 +1819,7 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
 
         # an 8-thread burst: windows must hold more than one item
         b0 = mex.serving_stats()
-        run = burst(mapi, expect, 8, 4)
+        run = burst(mapi, answers, 8, 4)
         b1 = mex.serving_stats()
         windows = b1["windows"] - b0["windows"]
         items = b1["items"] - b0["items"]
@@ -1753,6 +1841,72 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
                 or mesh["paddedShards"] % pads or not mesh["paddedShards"]):
             raise AssertionError(f"the /status mesh block: {mesh}")
 
+        # (c) Limit ranked over the four blocks, as a Count, a bitmap and
+        # an Extract
+        for q in limits:
+            mclient.ask(q, more[q], tag="mesh limit " + q[:30])
+        log(f"mesh (c): {limits[1]} as a Count, a bitmap and an Extract "
+            "equal to the unmeshed answers")
+
+        # (b) time ranges over a blocked time plane, read-only
+        memory("(b) before")
+        tex = _executor(holder, placement=place, plane_budget=32 << 30)
+        tclient = _Client(API(holder, tex), cuda)
+        ev_expect = oracle["events"]["expect"]
+        t = time.perf_counter()
+        tclient.ask(EV_SEQ[0], ev_expect[EV_SEQ[0]], tag="mesh time first",
+                    index="events")
+        first_ms = (time.perf_counter() - t) * 1e3
+        for q in EV_SEQ:
+            tclient.ask(q, ev_expect[q], tag="mesh time " + EV_NAMES[q],
+                        index="events")
+        status = tex.time_status()
+        (tp,) = status["planes"]
+        if (status["rangesServed"]["span"]
+                or not status["rangesServed"]["plane"]
+                or sum(tp["perDeviceBytes"].values()) != tp["bytes"]):
+            raise AssertionError(f"mesh time status: {json.dumps(status)}")
+        log(f"mesh (b): the {len(EV_SEQ)} time-view requests equal the "
+            f"oracle over a blocked time plane of {tp['bytes'] / 1e9:.2f} GB "
+            f"({tp['shards']} shards x {tp['buckets']} buckets x "
+            f"{tp['rows']} rows in {MESH_BLOCKS} blocks, "
+            f"{tp['bytes'] / MESH_BLOCKS / 1e9:.2f} GB each; per device "
+            f"{json.dumps(tp['perDeviceBytes'])}), built in the first "
+            f"request: {first_ms:.0f} ms; ranges served "
+            f"{json.dumps(status['rangesServed'])}")
+        memory("(b) time plane resident")
+        if cuda:
+            q = EV_SEQ[0]
+            dev_ms, _, top = traced(
+                lambda: tclient.ask(q, ev_expect[q], tag="traced",
+                                    index="events"), "mesh recency")
+            log(f"mesh device ms {EV_NAMES[q]!r}: {dev_ms:.3f} ms meshed "
+                f"({MESH_BLOCKS} blocks; phase 7's 'events device ms' line "
+                f"is the unmeshed executor's); by kernel: {top}")
+        tex.close()
+        tex.planes.invalidate()
+        tex = None
+        memory("(b) closed")
+
+        # (d) a 2x2 (shard, words) placement: the descent steps sum over
+        # each shard's two word blocks, the Shift carries across them
+        memory("(d) before")
+        place2 = MeshPlacement2D([device or "cuda:0"] * 4,
+                                 shard_size=MESH_2D[0],
+                                 words_size=MESH_2D[1])
+        dex = _executor(mholder, placement=place2, plane_budget=32 << 30)
+        dclient = _Client(API(mholder, dex), cuda)
+        for q in MESH_2D_CALLS + limits:
+            t = time.perf_counter()
+            dclient.ask(q, more[q], tag="mesh 2d " + q[:30])
+            log(f"mesh 2d {q[:56]!r}: {(time.perf_counter() - t) * 1e3:.1f} "
+                "ms (first)")
+        log(f"mesh (d): {len(MESH_2D_CALLS) + len(limits)} requests over "
+            f"{MESH_2D[0]}x{MESH_2D[1]} blocks "
+            f"({len(dex._shards_for(index, None))} shards) equal to the "
+            "unmeshed answers")
+        memory("(d) planes resident")
+
         # the spmd programs over two resident rows, against the oracle
         a = planes.row_words("bench", index.field("f"), "standard", 1,
                              shards)
@@ -1760,13 +1914,13 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
                              shards)
         got = (int(spmd.intersect_count(a, b)),
                int(spmd.make_intersect_count_psum(place)(a, b)))
-        if got != (oracle["inter"],) * 2:
+        if got != (inter,) * 2:
             raise AssertionError(f"spmd intersect counts {got}, want "
-                                 f"{oracle['inter']}")
+                                 f"{inter}")
         launched = dict(cuda_kernels.LAUNCHES)
         del a, b, words, want, row_words
         log(f"mesh launches: {json.dumps(launched)}; spmd intersect "
-            f"counts equal to the oracle ({oracle['inter']})")
+            f"counts equal to the oracle ({inter})")
         if cuda:
             for k, v in launched.items():
                 if v < 1:
@@ -1774,19 +1928,31 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device) -> dict:
             # device ms per request, meshed beside unmeshed (a finding:
             # four blocks on one card, the same bytes read)
             for q in MESH_TIMED:
-                ms = [traced(lambda: c.ask(q, expect[q], tag="traced"),
+                ms = [traced(lambda: c.ask(q, answers[q], tag="traced"),
                              f"mesh {q[:30]}")[::2]
                       for c in (mclient, pclient)]
                 log(f"mesh device ms {q[:40]!r}: {ms[0][0]:.3f} ms meshed "
                     f"({MESH_BLOCKS} blocks) beside {ms[1][0]:.3f} ms "
                     f"unmeshed; by kernel, meshed: {ms[0][1]}; unmeshed: "
                     f"{ms[1][1]}")
+            q = MESH_2D_CALLS[1]
+            ms = [traced(lambda: c.ask(q, more[q], tag="traced"),
+                         f"mesh {q[:30]}")[::2] for c in (dclient, pclient)]
+            log(f"mesh device ms {q!r}: {ms[0][0]:.3f} ms over "
+                f"{MESH_2D[0]}x{MESH_2D[1]} blocks beside {ms[1][0]:.3f} ms "
+                f"unmeshed; by kernel, 2-D: {ms[0][1]}; unmeshed: "
+                f"{ms[1][1]}")
+        memory("(d) and the 4-block executor resident")
     finally:
         server.close()
-        for ex in (mex, plain):
-            ex.close()
-            ex.planes.invalidate()   # their planes go now, whoever holds
-    del server, mex, plain, mapi, papi, mclient, pclient
+        for ex in (mex, plain, tex, dex):
+            if ex is not None:
+                ex.close()
+                ex.planes.invalidate()  # their planes go now, whoever holds
+        mholder.close()
+        import shutil
+        shutil.rmtree(os.path.join(CLUSTER_DIR, "mesh"), ignore_errors=True)
+    del server, mex, plain, mapi, papi, mclient, pclient, tclient, dclient
     if cuda:
         import gc
         gc.collect()

@@ -29,7 +29,10 @@ bounds, so the whole search runs with no host read per step.
 A blocked plane (:class:`~pilosa_tpu_torch.parallel.mesh.Blocked`) runs
 per block: comparisons and the Min/Max descent per shard, Distinct's
 presence per block ORed on the first device, and each Percentile step's
-count summed over the blocks before the bounds move.
+count summed over the blocks before the bounds move.  The descent is a
+step generator (:func:`min_max_steps`): every per-shard count it decides
+on is yielded and read back whole, so on a 2-D placement each step sums
+over the shard's word blocks before any block moves on.
 """
 
 from __future__ import annotations
@@ -185,11 +188,13 @@ def combine_sum(pos_c, neg_c, cnt) -> tuple[int, int]:
 def _mag_max(cand: torch.Tensor, mag: torch.Tensor):
     """Largest magnitude among candidate columns, per shard: (bits
     bool[S, depth], final candidate bitmap).  The descent picks per shard
-    with ``torch.where`` on device booleans: no host read per bit."""
+    with ``torch.where`` on device booleans: no host read per bit.  A step
+    generator: each bit's per-shard count is yielded and read back whole
+    (:func:`min_max_steps`)."""
     bits = []
     for b in reversed(range(mag.shape[-2])):
         hit = cand & mag[..., b, :]
-        has = kernels.any_bit(hit)
+        has = (yield kernels.count(hit)) != 0
         cand = torch.where(has[..., None], hit, cand)
         bits.append(has)
     return torch.stack(bits[::-1], dim=-1), cand
@@ -202,37 +207,47 @@ def _mag_min(cand: torch.Tensor, mag: torch.Tensor):
     bits = []
     for b in reversed(range(mag.shape[-2])):
         zero_side = cand & ~mag[..., b, :]
-        has_zero = kernels.any_bit(zero_side)
+        has_zero = (yield kernels.count(zero_side)) != 0
         cand = torch.where(has_zero[..., None], zero_side, cand)
         bits.append(~has_zero)
     return torch.stack(bits[::-1], dim=-1), cand
 
 
-@per_block(combine="gather", whole_words="Min/Max")
-def min_max_bits(plane: torch.Tensor,
-                 filter_words: torch.Tensor | None = None) -> dict:
-    """Per-shard min and max as device bit flags and counts; host
-    reconstruction in :func:`combine_min_max`."""
+def min_max_steps(plane: torch.Tensor,
+                  filter_words: torch.Tensor | None = None):
+    """Per-shard min and max as device bit flags and counts, host
+    reconstruction in :func:`combine_min_max`; a step generator (see
+    :func:`~pilosa_tpu_torch.parallel.mesh.run_steps`): the per-shard
+    ``count`` of every bitmap the descent decides on is yielded, and the
+    count read back is the shard's over its whole words.  The final
+    counts stay the block's own: over word blocks each block's entries
+    carry its part, and the host combine adds the parts of equal
+    values."""
     _, sign, pos = _signs(plane, filter_words)
     mag = plane[..., OFFSET_ROW:, :]
-    has_neg = kernels.any_bit(sign)
-    has_pos = kernels.any_bit(pos)
+    has_neg = (yield kernels.count(sign)) != 0
+    has_pos = (yield kernels.count(pos)) != 0
     live = has_neg | has_pos
     # min: the most negative, else the smallest non-negative
-    neg_bits, neg_cand = _mag_max(sign, mag)
-    posmin_bits, posmin_cand = _mag_min(pos, mag)
+    neg_bits, neg_cand = yield from _mag_max(sign, mag)
+    posmin_bits, posmin_cand = yield from _mag_min(pos, mag)
     min_bits = torch.where(has_neg[..., None], neg_bits, posmin_bits)
     min_cand = torch.where(has_neg[..., None], neg_cand, posmin_cand)
     min_cnt = torch.where(live, kernels.count(min_cand), 0)
     # max: the largest non-negative, else the least negative
-    posmax_bits, posmax_cand = _mag_max(pos, mag)
-    negmin_bits, negmin_cand = _mag_min(sign, mag)
+    posmax_bits, posmax_cand = yield from _mag_max(pos, mag)
+    negmin_bits, negmin_cand = yield from _mag_min(sign, mag)
     max_bits = torch.where(has_pos[..., None], posmax_bits, negmin_bits)
     max_cand = torch.where(has_pos[..., None], posmax_cand, negmin_cand)
     max_cnt = torch.where(live, kernels.count(max_cand), 0)
     return {"min_bits": min_bits, "min_neg": has_neg, "min_cnt": min_cnt,
             "max_bits": max_bits, "max_neg": has_neg & ~has_pos,
             "max_cnt": max_cnt}
+
+
+# per shard (per (shard, word block) on a 2-D placement: entries whose
+# counts the host adds), concatenated over the blocks
+min_max_bits = per_block(combine="concat", steps=True)(min_max_steps)
 
 
 def min_max(plane: torch.Tensor,

@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import cuda_kernels
-from pilosa_tpu_torch.parallel.mesh import (Blocked, gathered, not_supported,
-                                            per_block)
+from pilosa_tpu_torch.parallel.mesh import (Blocked, gathered, per_block,
+                                            shard_prefix, words_below)
 
 # ---------------------------------------------------------------------------
 # Boolean algebra
@@ -81,6 +81,16 @@ TREE_LIMIT = 9   # unary: keep the bits ranked [offset, offset + limit)
 # the unary ops whose argument is program structure (the shift distance,
 # the limit bounds), not an operand index
 TREE_STATIC_OPS = (TREE_SHIFT, TREE_LIMIT)
+
+
+def crosses_blocks(op: int, words) -> bool:
+    """Whether static op ``op`` over ``words`` reads other blocks' bits,
+    so it cannot run inside a per-block program: ``Limit``'s ranks are
+    global under any placement, and a ``Shift`` carries bits across the
+    word blocks of a 2-D one."""
+    if not isinstance(words, Blocked):
+        return False
+    return op == TREE_LIMIT or (op == TREE_SHIFT and words.words_split())
 
 # postfix evaluation of a depth-d tree needs ~d+1 live values; the
 # planner refuses deeper trees
@@ -152,15 +162,37 @@ def union_rows(plane: torch.Tensor, row_mask) -> torch.Tensor:
     return acc
 
 
-@per_block(whole_words="Shift")
 def shift(words: torch.Tensor, n: int = 1) -> torch.Tensor:
     """Every bit's column moved up by ``n`` within its shard; bits that
-    cross the shard's end drop (``Shift(row, n)``).  Bits are LSB first in
-    a word, so this is a left shift with a carry between words; the carry
-    is a right shift, masked after it (``>>`` on int32 is arithmetic).
-    Per block on a 1-D placement (a shard never leaves its block)."""
+    cross the shard's end drop (``Shift(row, n)``).  Per block on a 1-D
+    placement (a shard never leaves its block); over word blocks each
+    block first takes the words below its range that the shift carries
+    into it (:func:`~pilosa_tpu_torch.parallel.mesh.words_below`; ``n``
+    may pass a word block's width)."""
     if n < 0:
         raise ValueError("shift n must be non-negative")
+    if not (isinstance(words, Blocked) and words.words_split()):
+        return _shift_words(words, n)
+    word_n, bit_n = divmod(n, 32)
+    k = word_n + (1 if bit_n else 0)
+    if not k:
+        return words
+    return words.like(words.map(_shift_carried, words,
+                                words_below(words, k), n))
+
+
+def _shift_carried(words: torch.Tensor, below: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """One word block shifted with the ``below`` words carried in."""
+    k = below.shape[-1]
+    return _shift_words(torch.cat([below, words], -1), n)[..., k:]
+
+
+@per_block
+def _shift_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Bits are LSB first in a word, so a shift is a left shift with a
+    carry between words; the carry is a right shift, masked after it
+    (``>>`` on int32 is arithmetic)."""
     word_n, bit_n = divmod(n, 32)
     w = words.shape[-1]
     if word_n:
@@ -200,48 +232,56 @@ def column_bits_grouped(plane: torch.Tensor, word_idx: torch.Tensor,
 
 
 _INT32_MAX = (1 << 31) - 1
+_UNBOUNDED = 1 << 62
 
 
 def rank_limit(words: torch.Tensor, offset: int, limit: int) -> torch.Tensor:
     """Keep only the bits whose global rank falls in ``[offset, offset +
     limit)`` (``limit < 0``: unbounded): ``Limit(x, limit=, offset=)``.
     ``words`` int32[S, W] in global column order (shard axis in serving
-    order, words ascending, bits LSB first).  Ranks are int32: exact
-    while the shard axis stays under the executor's ``_REDUCE_SHARD_MAX``.
+    order, words ascending, bits LSB first).
 
-    The reference expands every word to 32 ranked lanes; here a word
-    wholly inside the window keeps all its bits and one wholly outside
-    keeps none, and only the two words holding the ranks ``offset`` and
-    ``offset + limit - 1`` are expanded, found by a search over the
-    inclusive prefix sum (no host sync, no [N, 32] temporary).  Ranks are
-    global, so a blocked bitmap is refused."""
-    if isinstance(words, Blocked):
-        raise not_supported("Limit")
-    shape = words.shape
-    flat = words.reshape(-1)
-    if not flat.numel():
+    Each shard's bits rank from its base, the int64 exclusive prefix of
+    the per-shard ``count`` (over a placement's blocks in serving order,
+    :func:`~pilosa_tpu_torch.parallel.mesh.shard_prefix`), so blocks rank
+    apart and ranks are global."""
+    end = _UNBOUNDED if limit < 0 else offset + limit
+    return _rank_window(words, shard_prefix(count(words)), offset, end)
+
+
+@per_block
+def _rank_window(words: torch.Tensor, base: torch.Tensor, offset: int,
+                 end: int) -> torch.Tensor:
+    """The bits of ``words`` int32[S, W] ranked in ``[offset, end)`` when
+    shard ``s``'s first bit has rank ``base[s]`` (int64[S] on the
+    device).  The reference expands every word to 32 ranked lanes; here
+    each shard's window is clamped to its own int32 ranks, a word wholly
+    inside it keeps all its bits and one wholly outside keeps none, and
+    only the two words per shard holding its first and last rank in the
+    window are expanded, found by a search over the shard's inclusive
+    prefix sum (no host sync, no [S, W, 32] temporary)."""
+    s, w = words.shape
+    if not words.numel():
         return words.clone()
-    end = _INT32_MAX if limit < 0 else min(offset + limit, _INT32_MAX)
-    pc = popcount(flat)
-    cum = torch.cumsum(pc, 0, dtype=torch.int32)  # inclusive
+    lo = (offset - base).clamp(0, _INT32_MAX).to(torch.int32)[:, None]
+    hi = (end - base).clamp(0, _INT32_MAX).to(torch.int32)[:, None]
+    pc = popcount(words)
+    cum = torch.cumsum(pc, 1, dtype=torch.int32)         # inclusive
     start = cum - pc
-    out = torch.where((start >= offset) & (cum <= end), flat,
-                      torch.zeros_like(flat))
-    probe = torch.tensor([max(offset, 0), max(end - 1, 0)],
-                         dtype=torch.int32).to(flat.device)
-    idx = torch.searchsorted(cum, probe, right=True).clamp(
-        max=flat.numel() - 1)
-    lanes = torch.arange(32, device=flat.device, dtype=torch.int32)
-    bits = (flat[idx][:, None] >> lanes) & 1                      # [2, 32]
-    rank = start[idx][:, None] + torch.cumsum(bits, 1,
-                                              dtype=torch.int32) - bits
-    keep = (bits != 0) & (rank >= offset) & (rank < end)
+    out = torch.where((start >= lo) & (cum <= hi), words,
+                      torch.zeros_like(words))
+    probe = torch.cat([lo, (hi - 1).clamp(min=0)], 1)     # [S, 2]
+    idx = torch.searchsorted(cum, probe, right=True).clamp(max=w - 1)
+    lanes = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words.gather(1, idx)[..., None] >> lanes) & 1  # [S, 2, 32]
+    rank = (start.gather(1, idx)[..., None]
+            + torch.cumsum(bits, -1, dtype=torch.int32) - bits)
+    keep = (bits != 0) & (rank >= lo[..., None]) & (rank < hi[..., None])
     packed = torch.where(keep, torch.ones_like(bits) << lanes,
-                         torch.zeros_like(bits)).sum(1, dtype=torch.int64)
+                         torch.zeros_like(bits)).sum(-1, dtype=torch.int64)
     # both probes may name one word: each computes its exact value, so the
     # writes agree
-    out[idx] = packed.to(torch.int32)
-    return out.reshape(shape)
+    return out.scatter_(1, idx, packed.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -325,14 +365,6 @@ def count(words: torch.Tensor) -> torch.Tensor:
     lead = words.shape[:-1]
     flat = words.reshape(-1, words.shape[-1]).contiguous()
     return cuda_kernels.count(flat).reshape(lead)
-
-
-@per_block(reduces_words=True)
-def any_bit(words: torch.Tensor) -> torch.Tensor:
-    """Whether any bit is set over the trailing word axis -> bool[...]:
-    the ``count`` kernel's popcount against zero (one launch and one read
-    of the words on the card)."""
-    return count(words) != 0
 
 
 @per_block(reduces_words=True)

@@ -52,6 +52,8 @@ class WriteUnavailableError(ExecutionError):
 
 
 class MeshNotSupported(ExecutionError):
-    """A call or operation this port does not serve under a mesh placement
-    (``pilosa_tpu_torch.parallel.mesh``): it is refused, never answered
-    another way.  The REST edge answers it as a 400."""
+    """A torch operation on a blocked tensor (``pilosa_tpu_torch.parallel.
+    mesh``) that no serving path routes: every call answers under a
+    placement, and an operation that would gather a resident plane onto
+    one device, or read partial counts as whole, is refused rather than
+    answered another way.  The REST edge answers it as a 400."""

@@ -32,10 +32,13 @@ serving configuration:
 devices: shard lists pad to the placement's width with all-zero
 ``PAD_SHARD`` shards, every plane is blocked over its devices, every hand
 kernel launches per block and per-shard outputs gather onto the first
-device; plane paging is off there.  The calls a placement does not serve
-(time ranges, ``Limit``, ``Extract``; Min/Max and Shift on a 2-D
-placement) raise :class:`~pilosa_tpu_torch.exec.errors.
-MeshNotSupported`.
+device; plane paging is off there.  Every call answers under a 1-D or a
+2-D placement as it does unmeshed: ``Limit`` ranks from each block's
+global base, ``Shift`` carries bits across word blocks, the Min/Max
+descent sums each step over a shard's word blocks, ``Extract`` reads
+only the blocks holding selected columns, and time planes are blocked
+with their overlays.  A torch operation no path routes over a blocked
+tensor raises :class:`~pilosa_tpu_torch.exec.errors.MeshNotSupported`.
 
 ``Executor(holder, count_batch_window="off", tree_fusion=False)`` serves
 as the port's first slices did.  Every resident shard is one slice of a
@@ -127,8 +130,8 @@ from pilosa_tpu_torch.obs.ledger import (clear_query_context,
                                          set_query_context)
 from pilosa_tpu_torch.obs.metrics import DEPTH_BUCKETS
 from pilosa_tpu_torch.obs.tracing import current_trace_id
-from pilosa_tpu_torch.parallel.mesh import (PAD_SHARD, PerBlock,
-                                            not_supported, whole)
+from pilosa_tpu_torch.parallel.mesh import (PAD_SHARD, PerBlock, blocks_of,
+                                            gathered, whole)
 from pilosa_tpu_torch.pql import parse_cached
 from pilosa_tpu_torch.pql.ast import (BETWEEN_OPS, SCALAR_CMP_KEYS, Call,
                                       Condition, Query, between_cmp_ops)
@@ -1981,10 +1984,12 @@ class Executor:
 
     def _limit_bitmap(self, ctx: _Ctx, call: Call) -> torch.Tensor:
         """The child's bits ranked ``[offset, offset + limit)`` in global
-        column order (``engine.kernels.rank_limit``: int32 ranks, exact
-        under ``_REDUCE_SHARD_MAX`` shards)."""
+        column order (``engine.kernels.rank_limit``, over a placement's
+        blocks too).  Without a placement the shard axis stays under
+        ``_REDUCE_SHARD_MAX``."""
         offset, limit = self._limit_args(call)
-        if len(ctx.shards) > self._REDUCE_SHARD_MAX:
+        if (self.placement is None
+                and len(ctx.shards) > self._REDUCE_SHARD_MAX):
             raise ExecutionError(
                 f"Limit over more than {self._REDUCE_SHARD_MAX} shards is "
                 "not supported by this port")
@@ -2883,10 +2888,9 @@ class Executor:
         """``Extract(bitmap, Rows(f), ...)``: per selected column, each
         field's value.  The per-shard counts come first (one read of an
         int32 per shard) so the cap holds before anything is
-        materialized, then only the non-empty shard rows are read.  A keyed
-        index answers column keys, a keyed field row keys."""
-        if self.placement is not None:
-            raise not_supported("Extract")
+        materialized, then only the non-empty shard rows are read (under a
+        placement each block reads its own).  A keyed index answers column
+        keys, a keyed field row keys."""
         if not call.children:
             raise ExecutionError("Extract: bitmap filter child required")
         flt, *field_calls = call.children
@@ -2901,7 +2905,7 @@ class Executor:
                 raise ExecutionError("Extract: Rows child missing field")
             fields.append(self._field(ctx, str(fname)))
         words = self._fused_bitmap(ctx, flt)
-        counts = kernels.count(words).cpu().numpy()
+        counts = gathered(kernels.count(words)).cpu().numpy()
         total = int(counts.sum(dtype=np.int64))
         if total > self.MAX_EXTRACT_COLUMNS:
             raise ExecutionError(
@@ -2925,13 +2929,18 @@ class Executor:
 
     @staticmethod
     def _shard_rows(words: torch.Tensor, slots: np.ndarray) -> np.ndarray:
-        """The words of shard slots ``slots`` of ``words`` as
+        """The words of shard slots ``slots`` (ascending) of ``words`` as
         uint32[len(slots), W]: one gather and one read, however many
-        shards ``words`` spans."""
-        if not len(slots):
-            return np.empty((0, words.shape[-1]), np.uint32)
-        return words.index_select(0, torch.from_numpy(slots).to(
-            words.device)).cpu().numpy().view(np.uint32)
+        shards ``words`` spans; a blocked bitmap's blocks each read their
+        own slots' words."""
+        out = np.zeros((len(slots), words.shape[-1]), np.uint32)
+        for (s0, s1, w0, w1), blk in blocks_of(words):
+            sel = (slots >= s0) & (slots < s1)
+            if sel.any():
+                local = torch.from_numpy(slots[sel] - s0).to(blk.device)
+                out[sel, w0:w1] = blk.index_select(0, local).cpu().numpy() \
+                    .view(np.uint32)
+        return out
 
     def _extract_field(self, ctx: _Ctx, field: Field, col_parts) -> list:
         """One field's cell for each selected column: BSI values off the
@@ -2988,15 +2997,24 @@ class Executor:
         int32[S, R, W] as int32[n_cols, R], in ``col_parts`` order: one
         :func:`kernels.column_bits_grouped` over just the shards that
         hold selected columns (one column per group, so nothing is
-        padded) and one read."""
+        padded) and one read; over a placement one per block holding
+        selected columns (on a 2-D one the word block of each)."""
         offs = np.concatenate([o for _, _, o in col_parts]).astype(np.int64)
         slots = np.repeat([si for si, _, _ in col_parts],
                           [len(o) for _, _, o in col_parts])
-        dev = plane.device
-        return kernels.column_bits_grouped(
-            plane, torch.from_numpy(offs[:, None] >> 5).to(dev),
-            torch.from_numpy(offs[:, None] & 31).to(dev),
-            torch.from_numpy(slots).to(dev))[:, :, 0].cpu().numpy()
+        words = offs >> 5
+        out = np.zeros((len(offs), plane.shape[1]), np.int32)
+        for (s0, s1, w0, w1), blk in blocks_of(plane):
+            sel = (slots >= s0) & (slots < s1) & (words >= w0) & (words < w1)
+            if not sel.any():
+                continue
+            dev = blk.device
+            out[sel] = kernels.column_bits_grouped(
+                blk, torch.from_numpy(words[sel, None] - w0).to(dev),
+                torch.from_numpy(offs[sel, None] & 31).to(dev),
+                torch.from_numpy(slots[sel] - s0).to(dev))[:, :, 0] \
+                .cpu().numpy()
+        return out
 
     @staticmethod
     def _extract_cell(opts, key_log, rows):

@@ -28,9 +28,13 @@ combine on the placement's first device by the family's reduction, the
 ``combine`` of its ``parallel.mesh.per_block`` decorator: totals sum,
 per-shard outputs gather in block order, a bitmap stays blocked.
 The reduction after that is the single-device one, unchanged.  The Min/Max
-descent decides per shard, so it runs whole inside each block; the
-Percentile search gathers each step's counts and hands the bounds to
-every block (``engine.bsi.percentile_search``).
+descent decides per shard: per block, and on a 2-D placement with every
+step's counts summed over a shard's word blocks (``per_block(steps=
+True)``); the Percentile search gathers each step's counts and hands the
+bounds to every block (``engine.bsi.percentile_search``).  A tree whose
+``Limit`` (or, over word blocks, ``Shift``) reads other blocks' bits
+folds over the blocked operands instead of per block, that op through
+its blocked form (``engine.kernels.crosses_blocks``).
 
 Node encodings (nested tuples):
 
@@ -54,7 +58,8 @@ from pilosa_tpu_torch.ingest.delta import (adjusted_row_counts,
                                            adjusted_selected_counts,
                                            bsi_sides, overlay_gathered_rows,
                                            overlay_row, overlay_time_range)
-from pilosa_tpu_torch.parallel.mesh import per_block
+from pilosa_tpu_torch.parallel.mesh import (Blocked, first_blocked,
+                                            gathered, per_block)
 
 
 class Unfusable(Exception):
@@ -106,9 +111,21 @@ class FusedCache:
         words = _build(node, leaves)
         return kernels.count(words) if want == "count" else words
 
-    @per_block(combine="gather", dim=1)
     def run_count_batch(self, nodes: tuple, leaves) -> torch.Tensor:
-        """K Count trees -> int32[K, n_shards], one count launch each."""
+        """K Count trees -> int32[K, n_shards], one count launch each: per
+        block, unless a tree shifts across word blocks (then each folds
+        over the blocked leaves)."""
+        owner = first_blocked(leaves)
+        if owner is not None and any(
+                kernels.crosses_blocks(kernels.TREE_SHIFT, owner)
+                and _shifts(n) for n in nodes):
+            return torch.stack([gathered(kernels.count(_build(n, leaves)))
+                                for n in nodes])
+        return self._count_batch(nodes, leaves)
+
+    @staticmethod
+    @per_block(combine="gather", dim=1)
+    def _count_batch(nodes: tuple, leaves) -> torch.Tensor:
         return torch.stack([kernels.count(_build(n, leaves))
                             for n in nodes])
 
@@ -204,32 +221,38 @@ class FusedCache:
                     if op == kernels.TREE_PUSH]
         if row_args and (min(row_args) < 0 or max(row_args) >= r_pad):
             raise IndexError(f"tree slots outside [0, {r_pad})")
-
-        def row(slot: int) -> torch.Tensor:
-            val = plane[:, slot, :]
-            if delta is not None:
-                val = overlay_row(val, slot, delta.rows, delta.words,
-                                  delta.vals, r_pad)
-            return val
-
         skeleton = _skeleton(prog)
-        zero = (torch.zeros((plane.shape[0], plane.shape[2]),
-                            dtype=plane.dtype, device=plane.device)
+        zero = (torch.zeros_like(plane[:, 0, :])
                 if any(op == kernels.TREE_ZERO for op, _ in prog) else None)
         words = kernels.tree_fold(
-            row, skeleton, row_args, extras,
-            [arg for op, arg in prog if op == kernels.TREE_PUSHX],
+            lambda slot: _plane_row(plane, slot, delta), skeleton, row_args,
+            extras, [arg for op, arg in prog if op == kernels.TREE_PUSHX],
             zero=zero)
         if want == "words":
             # a bare push is a strided view of the plane: the count and
             # row_counts kernels take contiguous operands
             return words.contiguous()
-        return kernels.count(words).sum(dtype=torch.int32).reshape(1)
+        return gathered(kernels.count(words)).sum(
+            dtype=torch.int32).reshape(1)
+
+    def _tree_program(self, plane, slots: tuple, progs: tuple,
+                      extras: tuple, delta, want: str) -> torch.Tensor:
+        """The programs per block, or, when one holds an op that reads
+        other blocks' bits (:func:`kernels.crosses_blocks`), each folded
+        solo over the blocked plane and operands, that op included, the
+        outputs packed as the per-block path packs them."""
+        if isinstance(plane, Blocked) and any(
+                kernels.crosses_blocks(op, plane)
+                for prog in progs for op, _ in prog):
+            outs = tuple(self._tree_solo(plane, slots, prog, extras, delta,
+                                         want) for prog in progs)
+            return outs[0] if len(outs) == 1 else self.run_readback_pack(outs)
+        return self._tree_blocks(plane, slots, progs, extras, delta, want)
 
     @per_block(combine=lambda a: "total" if a["want"] == "count"
                else "blocked")
-    def _tree_program(self, plane, slots: tuple, progs: tuple,
-                      extras: tuple, delta, want: str) -> torch.Tensor:
+    def _tree_blocks(self, plane, slots: tuple, progs: tuple,
+                     extras: tuple, delta, want: str) -> torch.Tensor:
         """A single tree runs solo; a window of several gathers the slot
         union once and folds each item's program over the gathered rows,
         the item outputs packed into one tensor (one read).  ``progs``'
@@ -259,6 +282,7 @@ class FusedCache:
                                   "words")
 
     @staticmethod
+    @per_block
     def run_time_range(plane: torch.Tensor, start: int, length: int,
                        delta=None) -> torch.Tensor:
         """One time field's ``[t0, t1)`` bitmap int32[S, W] off its bucketed
@@ -266,9 +290,10 @@ class FusedCache:
         CONTIGUOUS lanes ``[start, start + length)``, lane by lane into one
         accumulator (a view of each lane, never a gathered [S, L, W]
         copy), then the overlay's (row, bucket) cells over the columns
-        they touch.  The reference gathers pow2-padded lanes for its
-        compiled shapes and masks the pad after the overlay; with no pad
-        lanes the answer is the same."""
+        they touch; per block under a placement, with the block's overlay
+        part.  The reference gathers pow2-padded lanes for its compiled
+        shapes and masks the pad after the overlay; with no pad lanes the
+        answer is the same."""
         if start < 0 or start + length > plane.shape[1]:
             raise IndexError(f"time lanes [{start}, {start + length}) "
                              f"outside [0, {plane.shape[1]})")
@@ -315,19 +340,24 @@ class FusedCache:
             rows.append(row)
         return torch.stack(rows)
 
-    @per_block(combine="gather", dim=1, whole_words="Min/Max")
+    @per_block(combine="concat", dim=1, steps=True)
     def run_minmax_plane_batch(self, plane: torch.Tensor, flags: tuple,
-                               filters: tuple, delta=None) -> torch.Tensor:
+                               filters: tuple, delta=None):
         """K BSI Min/Max items over ONE plane -> int32[K, S (+ K_pad),
         2*depth+4] (decode with ``bsi.decode_minmax_packed``): with
         ``delta`` the mini side's touched columns append as pseudo-shard
         rows; pad columns carry count 0 and drop in the host combine.
-        Under a placement each block appends its own overlay columns."""
+        Under a placement each block appends its own overlay columns; on a
+        2-D one the base side's descent steps sum over a shard's word
+        blocks and each block's rows carry its part of the counts."""
         rows = []
         for flt in self._item_filters(flags, filters):
-            rows.append(torch.cat([
-                bsik.pack_min_max(bsik.min_max_bits(pl, fw))
-                for pl, fw in bsi_sides(plane, flt, delta)]))
+            (base, base_f), *mini = bsi_sides(plane, flt, delta)
+            mm = yield from bsik.min_max_steps(base, base_f)
+            rows.append(torch.cat(
+                [bsik.pack_min_max(mm)]
+                + [bsik.pack_min_max(bsik.min_max_bits(pl, fw))
+                   for pl, fw in mini]))
         return torch.stack(rows)
 
     @per_block(combine="total")
@@ -392,6 +422,27 @@ class FusedCache:
         """The flattened int32 outputs of a window's families as ONE
         device tensor: the window then costs one device-to-host copy."""
         return torch.cat([a.reshape(-1) for a in arrays])
+
+
+@per_block
+def _plane_row(plane: torch.Tensor, slot: int, delta) -> torch.Tensor:
+    """Row ``slot`` of ``plane`` int32[S, R, W] (a strided view), or a copy
+    of it with the overlay's cells of that row written over it."""
+    val = plane[:, slot, :]
+    if delta is not None:
+        val = overlay_row(val, slot, delta.rows, delta.words, delta.vals,
+                          plane.shape[1])
+    return val
+
+
+def _shifts(node) -> bool:
+    """Whether a planned tree holds a ``shift`` node."""
+    kind = node[0]
+    if kind == "shift":
+        return True
+    if kind in _BINARY:
+        return any(_shifts(c) for c in node[1])
+    return kind == "not" and _shifts(node[1])
 
 
 def _skeleton(prog: tuple) -> tuple:

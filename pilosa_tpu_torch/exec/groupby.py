@@ -33,7 +33,7 @@ import torch
 from pilosa_tpu_torch.engine import bsi as bsik
 from pilosa_tpu_torch.engine import kernels
 from pilosa_tpu_torch.ingest.delta import bsi_excl_filter, bsi_mini_plane
-from pilosa_tpu_torch.parallel.mesh import Blocked, not_supported
+from pilosa_tpu_torch.parallel.mesh import Blocked, drive, run_steps
 
 # per-shard per-bit counts are <= 2^20, so int32 shard-axis sums stay
 # exact for up to 2047 shards
@@ -158,9 +158,9 @@ def _agg_sum(last_plane, prefix, agg_plane, excl, mini, delta) -> dict:
 def _agg_min_max(last_plane, prefix, agg_plane, excl, mini,
                  delta) -> dict:
     """The min, max and their counts of every innermost row of one
-    combination: the descent of ``bsi.min_max_bits`` over as many rows at
+    combination: the descent of ``bsi.min_max_steps`` over as many rows at
     a time as ``AGG_CHUNK_BYTES`` allows, the bit plane broadcast along
-    them."""
+    them (a step generator, as that descent is)."""
     s, n, w = last_plane.shape
     chunk = max(1, AGG_CHUNK_BYTES // max(1, s * w * 4))
     aplane = agg_plane[:, None]                  # [S, 1, D + 2, W], a view
@@ -174,8 +174,8 @@ def _agg_min_max(last_plane, prefix, agg_plane, excl, mini,
     parts = []
     for i0 in range(0, n, chunk):
         i1 = min(n, i0 + chunk)
-        mm = bsik.min_max_bits(aplane,
-                               _row_words(last_plane, i0, i1, prefix, excl))
+        mm = yield from bsik.min_max_steps(
+            aplane, _row_words(last_plane, i0, i1, prefix, excl))
         if mini_mm is not None:
             # the touched columns append as pseudo-shard entries; the
             # sentinel reduce over axis 0 combines base and mini exactly
@@ -188,7 +188,18 @@ def _agg_min_max(last_plane, prefix, agg_plane, excl, mini,
 def groupby_out(prefix_planes: tuple, combo_idx: np.ndarray,
                 last_plane: torch.Tensor, filter_words, agg_plane,
                 agg: str | None, agg_delta=None) -> dict:
-    """Every combination's counts (and aggregate parts) of one block.
+    """Every combination's counts (and aggregate parts) of one block
+    (:func:`groupby_steps` run over whole shards)."""
+    return drive(groupby_steps(prefix_planes, combo_idx, last_plane,
+                               filter_words, agg_plane, agg, agg_delta))
+
+
+def groupby_steps(prefix_planes: tuple, combo_idx: np.ndarray,
+                  last_plane: torch.Tensor, filter_words, agg_plane,
+                  agg: str | None, agg_delta=None):
+    """Every combination's counts (and aggregate parts) of one block, as
+    a step generator (``parallel.mesh.run_steps``: the Min/Max descent's
+    per-shard counts are yielded).
 
     ``prefix_planes``: one int32[S, n_l, W] rows plane per prefix level
     (possibly none); ``combo_idx``: host int32[C, L-1], one row slot per
@@ -219,8 +230,8 @@ def groupby_out(prefix_planes: tuple, combo_idx: np.ndarray,
             out.update(_agg_sum(last_plane, prefix, agg_plane, excl, mini,
                                 agg_delta))
         elif agg == "minmax":
-            out.update(_agg_min_max(last_plane, prefix, agg_plane, excl,
-                                    mini, agg_delta))
+            out.update((yield from _agg_min_max(
+                last_plane, prefix, agg_plane, excl, mini, agg_delta)))
         outs.append(out)
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
@@ -231,14 +242,13 @@ def groupby_out_any(prefix_planes: tuple, combo_idx: np.ndarray,
     """:func:`groupby_out` over plain or blocked planes: per block under
     a placement, each block's per-combination parts combined on the first
     device (counts and Sum parts add; Min/Max take the extreme and add the
-    counts of the blocks that reach it, the sentinel reduce)."""
+    counts of the blocks that reach it, the sentinel reduce: over word
+    blocks each block's count is its part of a shard's)."""
     if not isinstance(last_plane, Blocked):
         return groupby_out(prefix_planes, combo_idx, last_plane,
                            filter_words, agg_plane, agg, agg_delta)
-    if agg == "minmax" and last_plane.words_split():
-        raise not_supported("GroupBy Min/Max over word-split blocks")
-    outs = last_plane.map(groupby_out, prefix_planes, combo_idx, last_plane,
-                          filter_words, agg_plane, agg, agg_delta)
+    outs = run_steps(last_plane, groupby_steps, prefix_planes, combo_idx,
+                     last_plane, filter_words, agg_plane, agg, agg_delta)
     out = {k: last_plane.total([o[k] for o in outs])
            for k in ("counts", "pos", "neg", "cnt") if k in outs[0]}
     if agg == "minmax":

@@ -68,7 +68,8 @@ Overlays split by block (each block's cells, re-indexed to it, on its
 device), a fold or row refresh scatters per block, and a sparse residency
 keeps one CSR triple per block with word indices local to the block's
 filter words.  Planes build inline under a placement, as the reference's
-meshed builds do; time planes are not served there.
+meshed builds do; a time plane is blocked too, its overlay split by
+block as a set plane's is.
 
 Eviction: past the budget, entries leave in the order of the
 :class:`~pilosa_tpu_torch.tenancy.governor.ResidencyGovernor`'s keep-score,
@@ -100,8 +101,7 @@ from pilosa_tpu_torch.engine.words import (SHARD_WIDTH, WORDS_PER_SHARD,
 from pilosa_tpu_torch.ingest.delta import DeltaMirror, DeltaOverlay
 from pilosa_tpu_torch.obs import NULL_FLIGHT, NopStats
 from pilosa_tpu_torch.obs.ledger import set_plane_context
-from pilosa_tpu_torch.parallel.mesh import (PAD_SHARD, Blocked, PerBlock,
-                                            not_supported)
+from pilosa_tpu_torch.parallel.mesh import PAD_SHARD, Blocked, PerBlock
 from pilosa_tpu_torch.store.field import Field
 from pilosa_tpu_torch.store.fragment import Fragment
 from pilosa_tpu_torch.store.view import VIEW_STANDARD
@@ -830,9 +830,8 @@ class PlaneCache:
             if not isinstance(plane, Blocked) or id(plane) in seen:
                 continue
             seen.add(id(plane))
-            for blk in plane.blocks:
-                d = str(blk.device)
-                per_dev[d] = per_dev.get(d, 0) + blk.numel() * 4
+            for d, b in _bytes_by_device(plane).items():
+                per_dev[d] = per_dev.get(d, 0) + b
         for d, b in per_dev.items():
             self._stats.gauge("plane_shard_bytes", b, device=d)
         return {"devices": p.n_devices * p.words_size, "axis": p.axis,
@@ -851,8 +850,6 @@ class PlaneCache:
         gap into its overlay, else it rebuilds, synchronously and one
         build at a time (the reference's entry point of this name builds
         synchronously too)."""
-        if self.placement is not None:
-            raise not_supported("a time range")
         key = ("tplane", index, field.name, shards)
         set_plane_context(f"{index}/{field.name}")
         hit = self._entries.get(key)
@@ -931,8 +928,7 @@ class PlaneCache:
                 if not mirror.would_fit(cells):
                     return None  # overlay full: the rebuild supersedes it
                 mirror.absorb(cells)
-                overlay = mirror.build_overlay(
-                    self.device, tps.plane.shape[0] * tps.plane.shape[1])
+                overlay = self._overlay(mirror, tps.plane, bsi=False)
                 new_tps = timeviews.TimePlaneSet(
                     tps.plane, tps.shards, tps.row_ids, tps.slot_of,
                     tps.buckets, tps.bucket_starts, tps.unit, delta=overlay)
@@ -993,14 +989,22 @@ class PlaneCache:
 
     def time_plane_status(self) -> list[dict]:
         """Resident time planes for the ``/status`` ``timeViews`` block:
-        bucket, row and byte geometry and overlay state per field."""
+        bucket, row and byte geometry and overlay state per field, and
+        under a placement the plane's bytes per device."""
         with self._lock:
             entries = list(self._entries.items())
-        return [{"index": key[1], "field": key[2], "shards": len(key[3]),
-                 "buckets": int(tps.n_buckets), "unit": tps.unit,
-                 "rows": int(len(tps.row_ids)), "bytes": int(nbytes),
-                 "delta": tps.delta is not None}
-                for key, (_, tps, nbytes) in entries if key[0] == "tplane"]
+        out = []
+        for key, (_, tps, nbytes) in entries:
+            if key[0] != "tplane":
+                continue
+            row = {"index": key[1], "field": key[2], "shards": len(key[3]),
+                   "buckets": int(tps.n_buckets), "unit": tps.unit,
+                   "rows": int(len(tps.row_ids)), "bytes": int(nbytes),
+                   "delta": tps.delta is not None}
+            if isinstance(tps.plane, Blocked):
+                row["perDeviceBytes"] = _bytes_by_device(tps.plane)
+            out.append(row)
+        return out
 
     def wait_compactions(self, timeout: float | None = None) -> bool:
         """Join the background compactors; True when none is running."""
@@ -1226,17 +1230,7 @@ class PlaneCache:
             if not mirror.would_fit(cells):
                 return None  # overlay full: fold
             mirror.absorb(cells)
-            if isinstance(ps.plane, Blocked):
-                overlay = mirror.build_blocked(
-                    ps.plane.layout,
-                    [b.device for b in ps.plane.blocks],
-                    ps.plane.shape[1], bsi=key[0] == "bsi")
-            elif key[0] == "bsi":
-                overlay = mirror.build_bsi_overlay(
-                    self.device, ps.plane.shape[1], ps.plane.shape[0])
-            else:
-                overlay = mirror.build_overlay(
-                    self.device, ps.plane.shape[0] * ps.plane.shape[1])
+            overlay = self._overlay(mirror, ps.plane, bsi=key[0] == "bsi")
             new_ps = PlaneSet(ps.plane, ps.shards, ps.row_ids, ps.slot_of,
                               delta=overlay)
             self._entries[key] = (actual, new_ps, nbytes)
@@ -1246,6 +1240,19 @@ class PlaneCache:
         if fill >= self.delta_compact_fraction:
             self._compact_async(key, field, view_name, shards)
         return new_ps
+
+    def _overlay(self, mirror: DeltaMirror, plane, bsi: bool):
+        """The mirror's device overlay over ``plane``: split by block for
+        a blocked plane, word-column grouped for a bit plane."""
+        if isinstance(plane, Blocked):
+            return mirror.build_blocked(plane.layout,
+                                        [b.device for b in plane.blocks],
+                                        plane.shape[1], bsi=bsi)
+        if bsi:
+            return mirror.build_bsi_overlay(self.device, plane.shape[1],
+                                            plane.shape[0])
+        return mirror.build_overlay(self.device,
+                                    plane.shape[0] * plane.shape[1])
 
     # a concurrent absorb or fold replaced the entry mid-fold: retry
     # against the new entry (not a rebuild signal)
@@ -1643,3 +1650,12 @@ def union_row_ids(field: Field, view_name: str,
     if not parts:
         return np.empty(0, np.uint64)
     return np.unique(np.concatenate(parts))
+
+
+def _bytes_by_device(plane: Blocked) -> dict[str, int]:
+    """A blocked plane's bytes on each device (blocks on one device add
+    into its entry)."""
+    out: dict[str, int] = {}
+    for blk in plane.blocks:
+        out[str(blk.device)] = out.get(str(blk.device), 0) + blk.nbytes
+    return out

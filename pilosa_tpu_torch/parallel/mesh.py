@@ -26,6 +26,15 @@ totals there.  Bitwise operators and ``torch.bitwise_*`` run per block;
 any other torch function on a blocked tensor raises
 :class:`~pilosa_tpu_torch.exec.errors.MeshNotSupported` rather than
 quietly gathering a resident plane onto one device.
+
+Three exchanges serve the calls whose answer per block depends on other
+blocks: :func:`shard_prefix` (each block's base of an exclusive prefix
+over per-shard counts in serving order: ``Limit``'s global ranks),
+:meth:`Blocked.reduce_words` (per-shard counts summed over a shard's word
+blocks and handed back to each: the Min/Max descent on a 2-D placement,
+through ``per_block(steps=True)``) and :func:`words_below` (the words
+below each word block: ``Shift``'s carry).  Every copy between devices
+waits on an event recorded on the source's stream.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ WORDS_AXIS = "words"
 
 
 def not_supported(what: str) -> Exception:
-    """The refusal of a call this port does not serve under a placement."""
+    """The refusal of an operation no serving path routes over blocked
+    tensors."""
     from pilosa_tpu_torch.exec.errors import MeshNotSupported
     return MeshNotSupported(
         f"{what} is not supported by this port under a mesh placement")
@@ -311,21 +321,8 @@ class Blocked:
                        self.partial if partial is None else partial)
 
     def to_first(self, t: torch.Tensor) -> torch.Tensor:
-        """One block's output on the first device: same-device outputs are
-        marked used on the caller's stream; another device's are copied
-        after an event recorded on the source device's stream."""
-        first = self.placement.first
-        if t.device.type != "cuda":
-            return t.to(first)
-        src = torch.cuda.current_stream(t.device)
-        if t.device == first:
-            t.record_stream(src)
-            return t
-        ev = torch.cuda.Event()
-        ev.record(src)
-        torch.cuda.current_stream(first).wait_event(ev)
-        t.record_stream(src)
-        return t.to(first, non_blocking=True)
+        """One block's output on the first device (:func:`move_to`)."""
+        return move_to(t, self.placement.first)
 
     def gather(self, outs: list | None = None, dim: int = 0) -> torch.Tensor:
         """Per-shard outputs (axis ``dim`` = this tensor's shards; the
@@ -336,16 +333,8 @@ class Blocked:
             outs = self.blocks
             if self.words_split() and not self.partial:
                 raise not_supported("reading a word-split bitmap as counts")
-        groups: list = []
-        spans: list = []
-        for (s0, s1, _, _), out in zip(self.layout, outs):
-            out = self.to_first(out)
-            if spans and spans[-1] == (s0, s1):
-                groups[-1] = groups[-1] + out
-            else:
-                groups.append(out)
-                spans.append((s0, s1))
-        return groups[0] if len(groups) == 1 else torch.cat(groups, dim)
+        rows = [self.total([outs[i] for i in idx]) for idx in self._spans()]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim)
 
     def full(self) -> torch.Tensor:
         """The whole tensor on the first device: shard blocks concatenated,
@@ -353,21 +342,48 @@ class Blocked:
         bitmap's words; counts go through :meth:`gather`)."""
         if self.partial:
             raise not_supported("reading partial counts as a bitmap")
-        groups: list = []
-        spans: list = []
-        for (s0, s1, _, _), blk in zip(self.layout, self.blocks):
-            blk = self.to_first(blk)
-            if spans and spans[-1] == (s0, s1):
-                groups[-1].append(blk)
-            else:
-                groups.append([blk])
-                spans.append((s0, s1))
-        rows = [g[0] if len(g) == 1 else torch.cat(g, -1) for g in groups]
+        rows = [self.concat([self.blocks[i] for i in idx], -1)
+                for idx in self._spans()]
         return rows[0] if len(rows) == 1 else torch.cat(rows, 0)
+
+    def concat(self, outs: list, dim: int = 0) -> torch.Tensor:
+        """Per-block outputs concatenated along ``dim`` on the first device
+        in block order, a 2-D placement's word blocks too (nothing sums:
+        entries of partial counts the host combines)."""
+        outs = [self.to_first(o) for o in outs]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim)
 
     def total(self, outs: list) -> torch.Tensor:
         """Per-block totals summed on the first device."""
         return reduce(lambda a, b: a + b, [self.to_first(o) for o in outs])
+
+    def _spans(self) -> list:
+        """The block indices of each shard range, in serving order (one
+        per block on a 1-D placement, a shard range's word blocks
+        together on a 2-D one)."""
+        groups: list = []
+        last = None
+        for i, (s0, s1, _, _) in enumerate(self.layout):
+            if (s0, s1) != last:
+                groups.append([])
+                last = (s0, s1)
+            groups[-1].append(i)
+        return groups
+
+    def reduce_words(self) -> "Blocked":
+        """Per-shard counts (axis 0 = the block's shards) summed over each
+        shard range's word blocks on the first device, and the sums copied
+        back to each of those blocks: whole per-shard counts on every
+        block, for a descent that decides per shard.  Without word blocks
+        the counts are whole already."""
+        if not self.words_split():
+            return self.like(self.blocks, partial=False)
+        out: list = [None] * len(self.blocks)
+        for idx in self._spans():
+            total = self.total([self.blocks[i] for i in idx])
+            for i in idx:
+                out[i] = move_to(total, self.blocks[i].device)
+        return self.like(out, partial=False)
 
     # -- elementwise ---------------------------------------------------------
 
@@ -417,6 +433,75 @@ class Blocked:
         return (f"Blocked(shape={tuple(self.shape)}, blocks="
                 f"{len(self.blocks)}, devices="
                 f"{[str(b.device) for b in self.blocks]})")
+
+
+def move_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: a tensor already there is marked used on the
+    caller's stream; another CUDA device's is copied after an event
+    recorded on the source device's current stream."""
+    if t.device.type != "cuda":
+        return t.to(device)
+    src = torch.cuda.current_stream(t.device)
+    if t.device == device:
+        t.record_stream(src)
+        return t
+    ev = torch.cuda.Event()
+    ev.record(src)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).wait_event(ev)
+    t.record_stream(src)
+    return t.to(device, non_blocking=device.type == "cuda")
+
+
+def shard_prefix(counts):
+    """The exclusive prefix of per-shard counts in serving order, int64:
+    each shard's count of the set bits before it.  A plain int32[S] gives
+    an int64[S] tensor; a blocked one (on a 2-D placement per (shard,
+    word block), word blocks in order within a shard) is summed on the
+    first device and each block's int64[S_b] base copied to its device,
+    a :class:`PerBlock`."""
+    if not isinstance(counts, Blocked):
+        c = counts.to(torch.int64)
+        return torch.cumsum(c, 0) - c
+    spans = counts._spans()
+    # [S_span, word blocks] per shard range: serving order row by row
+    mats = [torch.stack([counts.to_first(counts.blocks[i]).to(torch.int64)
+                         for i in idx], 1) for idx in spans]
+    flat = torch.cat([m.reshape(-1) for m in mats])
+    base = torch.cumsum(flat, 0) - flat
+    out: list = [None] * len(counts.blocks)
+    off = 0
+    for idx, m in zip(spans, mats):
+        part = base[off:off + m.numel()].reshape(m.shape)
+        off += m.numel()
+        for j, i in enumerate(idx):
+            out[i] = move_to(part[:, j].contiguous(),
+                             counts.blocks[i].device)
+    return PerBlock(out)
+
+
+def words_below(x: Blocked, k: int) -> PerBlock:
+    """For each block, the ``k`` words of its shards just below its word
+    range (int32[..., k], zeros below the shard's word 0), taken from the
+    lower word blocks of its shard range and copied to its device: the
+    bits a shift by up to ``32 * k`` columns carries into the block."""
+    out: list = []
+    for i, (s0, s1, w0, w1) in enumerate(x.layout):
+        blk = x.blocks[i]
+        lo = w0 - k
+        pieces = []
+        if lo < 0:
+            pieces.append(blk.new_zeros(blk.shape[:-1] + (-lo,)))
+        for j, (t0, t1, v0, v1) in enumerate(x.layout):
+            if (t0, t1) != (s0, s1):
+                continue
+            a, b = max(v0, lo), min(v1, w0)
+            if a < b:
+                pieces.append(move_to(x.blocks[j][..., a - v0:b - v0],
+                                      blk.device))
+        out.append(pieces[0] if len(pieces) == 1
+                   else torch.cat(pieces, -1))
+    return PerBlock(out)
 
 
 def _full(i) -> bool:
@@ -482,7 +567,7 @@ def _elementwise(func, *args, **kw):
 
 
 def per_block(fn=None, *, combine="blocked", dim: int = 0,
-              reduces_words: bool = False, whole_words: str | None = None):
+              reduces_words: bool = False, steps: bool = False):
     """Decorator: a function over per-shard tensors (axis 0 = shards) runs
     per block when one of its arguments is, or holds, a :class:`Blocked`,
     and its per-block outputs combine on the first device by ``combine``:
@@ -492,14 +577,16 @@ def per_block(fn=None, *, combine="blocked", dim: int = 0,
     - ``"total"``: summed (per-block totals);
     - ``"gather"``: concatenated along ``dim`` in block order (per-shard
       outputs; a 2-D placement's word blocks of one shard range sum);
+    - ``"concat"``: concatenated along ``dim`` in block order, word
+      blocks too (entries the host combines, partial counts included);
     - a function of the call's arguments, bound by name, that returns
       one of these.
 
     A dict or tuple output (nested too) combines entry by entry.  ``reduces_words``:
     the function reduces the word axis (a popcount), so on a 2-D
-    placement its blocked outputs are partial counts.  ``whole_words``:
-    the function needs each shard's words whole; the name it is refused
-    under over word-split blocks."""
+    placement its blocked outputs are partial counts.  ``steps``: the
+    function is a generator (see :func:`run_steps`) whose every yield is
+    a per-shard count it reads back summed over the shard's words."""
     def wrap(f):
         sig = inspect.signature(f) if callable(combine) else None
 
@@ -507,15 +594,14 @@ def per_block(fn=None, *, combine="blocked", dim: int = 0,
         def inner(*args, **kw):
             owner = first_blocked(*args, *kw.values())
             if owner is None:
-                return f(*args, **kw)
-            if whole_words and owner.words_split():
-                raise not_supported(f"{whole_words} over word-split blocks")
+                return drive(f(*args, **kw)) if steps else f(*args, **kw)
             how = combine
             if sig is not None:
                 bound = sig.bind(*args, **kw)
                 bound.apply_defaults()
                 how = combine(bound.arguments)
-            outs = owner.map(f, *args, **kw)
+            outs = (run_steps(owner, f, *args, **kw) if steps
+                    else owner.map(f, *args, **kw))
             partial = reduces_words and owner.words_split()
 
             def one(parts):
@@ -528,11 +614,67 @@ def per_block(fn=None, *, combine="blocked", dim: int = 0,
                     return owner.total(parts)
                 if how == "gather":
                     return owner.gather(parts, dim)
+                if how == "concat":
+                    return owner.concat(parts, dim)
                 return owner.like(parts, partial)
 
             return one(outs)
         return inner
     return wrap if fn is None else wrap(fn)
+
+
+def drive(gen):
+    """Run a step generator (:func:`run_steps`) over whole shards: each
+    yielded count goes back as it is; returns the generator's value."""
+    try:
+        value = next(gen)
+        while True:
+            value = gen.send(value)
+    except StopIteration as stop:
+        return stop.value
+
+
+def _advance(gen, value):
+    try:
+        return False, gen.send(value)
+    except StopIteration as stop:
+        return True, stop.value
+
+
+def run_steps(owner: Blocked, f, *args, **kw) -> list:
+    """A step generator ``f`` once per block of ``owner``: per-block
+    outputs in block order.  ``f`` yields per-shard counts over its
+    block's words (axis 0 = the block's shards) and reads back each
+    shard's count over its whole words.  With whole words per block that
+    is its own count (:func:`drive` per block); on a 2-D placement the
+    blocks advance in lockstep, every yield summed over each shard
+    range's word blocks (:meth:`Blocked.reduce_words`) before any block
+    resumes."""
+    if not owner.words_split():
+        return owner.map(lambda *a, **k: drive(f(*a, **k)), *args, **kw)
+    gens = owner.map(f, *args, **kw)      # generator objects: no step yet
+    sent: list = [None] * len(gens)
+    while True:
+        res = owner.map(_advance, PerBlock(gens), PerBlock(sent))
+        done = [r[0] for r in res]
+        if all(done):
+            return [r[1] for r in res]
+        if any(done):
+            raise RuntimeError("blocks of one placement stopped at "
+                               "different steps")
+        sent = owner.like([r[1] for r in res], partial=True) \
+            .reduce_words().blocks
+
+
+def blocks_of(x) -> list:
+    """``[((shard start, shard stop, word start, word stop), tensor),
+    ...]``: each block of a :class:`Blocked` (its words whole, ``[0,
+    W)``, on a 1-D placement), or a plain tensor as one block."""
+    if not isinstance(x, Blocked):
+        return [((0, x.shape[0], 0, x.shape[-1]), x)]
+    return [((s0, s1, 0 if w0 is None else w0,
+              blk.shape[-1] if w1 is None else w1), blk)
+            for (s0, s1, w0, w1), blk in zip(x.layout, x.blocks)]
 
 
 def gathered(x):

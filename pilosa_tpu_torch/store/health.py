@@ -13,10 +13,11 @@ betrays an index:
   fragment alone;
 - **corruption**, reported by checksum verification (snapshot frame CRCs
   at open and at map demotion, the background scrubber): the fragment is
-  QUARANTINED.  The port serves one node, so a quarantined fragment
-  serves empty locally (a loud quarantined empty beats silently wrong
-  bits), and writes to it refuse with a structured 503
-  ``storageFault{path, kind}``.
+  QUARANTINED.  A quarantined fragment serves empty locally (a loud
+  quarantined empty beats silently wrong bits) and writes to it refuse
+  with a structured 503 ``storageFault{path, kind}``; on a cluster node
+  with replicas ``Cluster.repair_quarantined`` rewrites it from a
+  healthy replica and lifts the quarantine.
 
 The happy path is one plain bool read (``gate_active``) per mutation.
 State is exported as ``disk_health_state`` (0 healthy, 1 read_only),

@@ -1500,3 +1500,77 @@ def test_meshed_executor_on_the_card_equals_cpu_twin(dev, tmp_path):
         card.executor.close()
         cpu.executor.close()
         holder.close()
+
+
+@pytest.mark.parametrize("layout", ["4", "2x2"])
+def test_meshed_calls_on_the_card_equal_cpu_twin(dev, tmp_path, layout):
+    """The calls the first meshed executor refused or answered wrong, on
+    the card over ``virtual_placement(4, "cuda:0")`` and a 2x2
+    ``MeshPlacement2D`` of the card, against the CPU twin: time ranges
+    over a blocked time plane after a timestamped write absorbed into its
+    overlay, ``Limit`` windows across blocks, Min/Max and GroupBy Max,
+    ``Shift`` across word blocks and ``Extract``.  ``count`` and
+    ``row_counts`` launch."""
+    from datetime import datetime, timedelta
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.parallel import MeshPlacement2D
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    from pilosa_tpu_torch.virtmesh import virtual_placement
+    rng = np.random.default_rng(17)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    idx.create_field("f")
+    idx.create_field("t", FieldOptions(type="time", time_quantum="YMD"))
+    cols = rng.choice(6 << 20, 40000, replace=False).astype(np.uint64)
+    rows = rng.integers(0, 4, len(cols)).astype(np.uint64)
+    idx.field("f").import_bits(rows, cols)
+    t0 = datetime(2021, 2, 1)
+    idx.field("t").import_bits(rows, cols, [
+        t0 + timedelta(hours=int(h))
+        for h in rng.integers(0, 24 * 20, len(cols))])
+    idx.create_field("amount", FieldOptions(type="int", min=-100000,
+                                            max=100000))
+    idx.field("amount").import_values(
+        cols[:20000], rng.integers(-100000, 100001, 20000).tolist())
+
+    def placement(device):
+        if layout == "2x2":
+            return MeshPlacement2D([device] * 4, shard_size=2, words_size=2)
+        return virtual_placement(4, device)
+
+    window = ("Count(Row(t=1, from=2021-02-03T00:00, to=2021-02-12T00:00))"
+              "Row(t=2, from=2021-02-05T00:00)")
+    mix = [window,
+           "Count(Limit(Row(f=1), limit=3000, offset=4000))",
+           "Limit(Row(f=2), limit=50, offset=5000)",
+           "Count(Intersect(Row(f=3), Limit(Row(f=1), offset=3000)))",
+           "Min(field=amount)", "Max(Row(f=1), field=amount)",
+           "Min(Row(f=99), field=amount)",
+           "GroupBy(Rows(f), aggregate=Max(field=amount))",
+           "Count(Shift(Row(f=1), n=524283))",
+           "Count(Shift(Row(f=2), n=40000))",
+           "Extract(Limit(Row(f=1), limit=40, offset=6000), Rows(f), "
+           "Rows(amount))"]
+    card = API(holder, Executor(holder, placement=placement(dev)))
+    cpu = API(holder, Executor(holder, placement=placement("cpu")))
+    try:
+        cuda_kernels.reset_launches()
+        for q in mix:
+            assert card.query("i", q) == cpu.query("i", q), q
+        builds = card.executor.planes.builds
+        # a timestamped write into an existing bucket of an existing row
+        hit = int(cols[rows == 1][0])
+        card.query("i", f"Set({hit + 1}, t=1, 2021-02-04T05:00)")
+        for q in mix:
+            assert card.query("i", q) == cpu.query("i", q), q
+        assert card.executor.planes.builds == builds
+        assert card.executor.planes.delta_absorbs > 0
+        assert card.executor.time_status()["rangesServed"]["span"] == 0
+        for k in ("count", "row_counts"):
+            assert cuda_kernels.LAUNCHES[k] > 0, cuda_kernels.LAUNCHES
+    finally:
+        card.executor.close()
+        cpu.executor.close()
+        holder.close()

@@ -22,7 +22,9 @@ mesh`).  The same numpy data (12 shards, so every placement pads) answers:
 - window fill above one, ``mesh_collective_seconds`` and ``mesh_devices``;
 - the ``mesh`` status block and the diagnostics payload beside the
   reference's (device names aside: the port's blocks share one device);
-- the calls refused under a placement, and the placement types.
+- Extract, Limit and time ranges under a placement (refused by the first
+  meshed executor), a 2-D Min and the 2-D Shift whose carry crossed word
+  blocks, against the reference; the placement types.
 
 Answers are bit-exact (tolerance 0).
 """
@@ -198,10 +200,12 @@ def test_2d_placement_equals_the_reference(copy_dir, tmp_path):
         for pql in COUNTS + ["TopN(f)", "Row(f=3)", "Row(amount > 0)",
                              "Sum(field=amount)"]:
             assert _answer(tex, tjson, pql) == _answer(jex, jjson, pql), pql
-        # a descent across a shard's words is refused, not answered
-        with pytest.raises(MeshNotSupported,
-                           match="under a mesh placement"):
-            tex.execute("i", "Min(field=amount)")
+        # a descent across a shard's words sums each step over the shard's
+        # word blocks: the reference's answer
+        (mn,) = tex.execute("i", "Min(field=amount)")
+        assert _answer(tex, tjson, "Min(field=amount)") == \
+            _answer(jex, jjson, "Min(field=amount)")
+        assert mn.value == min(_write_values())
     finally:
         tex.close()
         jex.translate.close()
@@ -284,24 +288,81 @@ def test_distinct_percentile_and_bitmap_calls(copy_dir):
         h.close()
 
 
-def test_refused_calls_raise(copy_dir):
-    """Extract, Limit and time ranges are refused under a placement,
-    never answered another way."""
+def test_refused_calls_raise(copy_dir, tmp_path):
+    """Extract, Limit and time ranges, which the first meshed executor
+    refused, answer under a placement as the reference's meshed executor
+    answers them; an operation no path routes over a blocked tensor is
+    still refused."""
+    jdir = str(tmp_path / "jr")
     h = THolder(copy_dir).open()
     h.index("i").create_field("t", _time_options())
+    h.index("i").field("t").set_bit(1, 5, _stamp("2020-01-01T05:00"))
+    h.close()
+    shutil.copytree(copy_dir, jdir)
+    jh = JHolder(jdir).open()
+    jex = JExecutor(jh, placement=JMesh(jax.devices()))
+    h = THolder(copy_dir).open()
     meshed = TExecutor(h, placement=virtual_placement(2, "cpu"))
     try:
         for pql in ["Extract(Row(f=1), Rows(g))",
                     "Count(Limit(Row(f=1), limit=3))",
                     "Count(Row(t=1, from='2020-01-01T00:00', "
                     "to='2020-01-02T00:00'))"]:
-            with pytest.raises(MeshNotSupported,
-                               match="not supported by this port under a "
-                                     "mesh placement"):
-                meshed.execute("i", pql)
+            want = _answer(jex, jjson, pql)
+            assert want[0] != "error", want
+            assert _answer(meshed, tjson, pql) == want, pql
+        assert meshed.execute("i", "Count(Limit(Row(f=1), limit=3))") == [3]
+        with pytest.raises(MeshNotSupported,
+                           match="not supported by this port under a "
+                                 "mesh placement"):
+            torch.sum(meshed.planes.zeros(8))
     finally:
         meshed.close()
+        jex.translate.close()
+        jh.close()
         h.close()
+
+
+def test_2d_shift_carries_across_word_blocks(copy_dir, tmp_path):
+    """The first meshed executor lost a Shift's carry between word blocks:
+    on a 2x4 placement ``Count(Shift(Row(f=1), n=40000))`` answered 632
+    where the reference answers 712, in both configurations."""
+    jdir = str(tmp_path / "js")
+    shutil.copytree(copy_dir, jdir)
+    jh = JHolder(jdir).open()
+    jex = JExecutor(jh, placement=JMesh2D(jax.devices(), shard_size=2,
+                                          words_size=4))
+    h = THolder(copy_dir).open()
+    try:
+        for config, kw in CONFIGS.items():
+            meshed = TExecutor(h, placement=MeshPlacement2D(
+                ["cpu"] * 8, shard_size=2, words_size=4), **kw)
+            try:
+                for pql in ("Count(Shift(Row(f=1), n=40000))",
+                            "Shift(Row(f=1), n=40000)"):
+                    assert _answer(meshed, tjson, pql) == \
+                        _answer(jex, jjson, pql), (config, pql)
+                assert meshed.execute(
+                    "i", "Count(Shift(Row(f=1), n=40000))") == [712]
+            finally:
+                meshed.close()
+    finally:
+        jex.translate.close()
+        jh.close()
+        h.close()
+
+
+def _stamp(text: str):
+    from datetime import datetime
+    return datetime.fromisoformat(text)
+
+
+def _write_values() -> list:
+    """``_write``'s ``amount`` values (the same draws)."""
+    rng = np.random.default_rng(42)
+    rng.choice(N_SHARDS * SHARD_WIDTH, size=N_BITS, replace=False)
+    rng.integers(0, 8, size=N_BITS)
+    return rng.integers(-500, 500, size=N_VALUED).tolist()
 
 
 def _time_options():
@@ -716,12 +777,12 @@ def test_blocked_gather_and_refusals():
 
 
 @pytest.mark.parametrize("combine", ["blocked", "total", "gather",
-                                     "by_argument"])
+                                     "by_argument", "concat"])
 def test_per_block_combine(combine):
     """``per_block``'s ways of combining per-block outputs, against the
     function run on the whole tensor; dict and tuple outputs combine
-    entry by entry, and a function that needs whole words is refused
-    over word-split blocks."""
+    entry by entry, and over word-split blocks a "gather" sums each shard
+    range's word blocks where a "concat" keeps them apart."""
     from pilosa_tpu_torch.parallel.mesh import per_block
     place = virtual_placement(4, "cpu")
     host = np.arange(8 * 3 * 64, dtype=np.uint32).reshape(8, 3, 64)
@@ -736,15 +797,24 @@ def test_per_block_combine(combine):
         return t.reshape((4, 2) + tuple(t.shape[1:])).sum(0)
 
     if combine == "by_argument":
-        how = per_block(combine=lambda a: "total" if a["k"] else "gather",
-                        whole_words="per_shard")(per_shard)
+        how = per_block(combine=lambda a: "total" if a["k"] else "gather")(
+            per_shard)
         assert torch.equal(how(b, 0)["n"][0], per_shard(plain, 0)["n"][0])
         assert torch.equal(how(b, 1)["n"][1],
                            block_sums(per_shard(plain, 1)["n"][1]))
+        # over 2 shard blocks x 2 word blocks a gather sums a shard's word
+        # blocks: each shard's first words, once per word block
         p2 = MeshPlacement2D(["cpu"] * 4, shard_size=2, words_size=2)
-        with pytest.raises(MeshNotSupported,
-                           match="per_shard over word-split blocks"):
-            how(p2.place(host), 1)
+        firsts = how(p2.place(host), 0)["n"][1]
+        assert torch.equal(firsts, plain[:, 0, 0] + plain[:, 0, 32])
+        return
+    if combine == "concat":
+        p2 = MeshPlacement2D(["cpu"] * 4, shard_size=2, words_size=2)
+        got = per_block(combine="concat")(per_shard)(p2.place(host), 1)
+        # block (i, j) holds shards [4i, 4i + 4) and words [32j, 32j + 32)
+        want = torch.cat([plain[4 * i:4 * i + 4, 1, 32 * j]
+                          for i in range(2) for j in range(2)])
+        assert torch.equal(got["n"][1], want)
         return
     got = per_block(combine=combine)(per_shard)(b, 2)
     want = per_shard(plain, 2)

@@ -21,7 +21,9 @@ raises and the exit code is non-zero:
    its plain PyTorch version on the card, bit for bit, at the main-path
    shapes and at ragged ones (``row_counts`` also at the BSI shapes: the
    [954, 22, 32768] bit plane with a filter and a [2048, 22, 1] overlay
-   mini plane), and time both with CUDA events.
+   mini plane), and time both with CUDA events; then hold each again at
+   the ragged and main-path shapes on every other visible card, and
+   print the max abs error per card.
 2. Serve the index (954 shards x 32 rows x 32768 words, ~25%
    dense, generated from --seed) written as real fragment snapshots:
    fresh Holder -> Executor (its defaults: the adaptive cross-request
@@ -33,9 +35,12 @@ raises and the exit code is non-zero:
    overlay, no rebuild.
    Phase mesh, on a holder of its own of that index's first 239 shards
    (a CUT, hard-linked snapshots): an executor over
-   ``virtmesh.virtual_placement(4)`` (``f``, ``g`` and ``amount`` in
-   four shard blocks of the card, padded to a multiple of four, each
-   block launching on its own stream) behind its own REST server,
+   ``MeshPlacement([cuda:(i % n) for i in range(4)])`` with ``n`` the
+   visible cards up to four (``f``, ``g`` and ``amount`` in four shard
+   blocks over those cards, four blocks of the one card on a one-card
+   machine, padded to a multiple of four, each block launching on its
+   own stream; the cards, each block's device and the peer access
+   between the cards are logged) behind its own REST server,
    beside an unmeshed executor of its own: the per-shard oracle's
    requests (the 32-Count, the 4-Count, the TopNs, the compound Counts)
    and fourteen more (the tree Counts, six BSI requests, Xor,
@@ -47,11 +52,15 @@ raises and the exit code is non-zero:
    1 and g row 0 against the oracle; then phase 7's ten time-range
    requests over all of ``events`` in four blocks against its oracle,
    a ``Limit`` window from the third block as a Count, a bitmap and an
-   Extract, and a 2x2 ``MeshPlacement2D``'s Min/Max, GroupBy Max, a
-   Shift across word blocks and that Limit, as the unmeshed executor
-   answers; every kernel must launch on this path (launch counters reset
-   first); device ms per request meshed beside unmeshed; every executor
-   closed after its part (device memory before and after).
+   Extract, and a 2x2 ``MeshPlacement2D`` over the same devices'
+   Min/Max, GroupBy Max, a Shift across word blocks and that Limit, as
+   the unmeshed executor answers; every kernel must launch on this path
+   and every card must launch (launch counters reset first; the launches
+   per card logged); device ms per card per request meshed beside
+   unmeshed, with the copies' ms per card; peak device memory per card;
+   with several cards, a server booted with ``mesh = true`` spans every
+   card by ``/status`` and answers the phase's requests exactly; every
+   executor closed after its part (device memory before and after).
 3. Concurrent serving on the same index, its overlay folded first (a
    clean plane): 32 client threads, 6 passes
    each over a mix of the 32-Count, the 4-Count, a filtered TopN and a
@@ -532,24 +541,51 @@ def kernel_phase(shards: int, seed: int) -> dict:
                                  f"{tuple(want.shape)}, max abs err {err})")
         return err
 
+    def ragged(dev, gen) -> dict:
+        """The four kernels against their plain versions at ragged shapes
+        on ``dev``: {kernel: max abs err}."""
+        errs = dict.fromkeys(REPLACES, 0)
+        for s, r, w in ((13, 5, 1000), (13, 5, 1001), (3, 1, 3),
+                        (2, 1, 32768)):
+            p = _rand_words(gen, (s, r, w), dev)
+            f = _rand_words(gen, (s, w), dev)
+            idx = torch.tensor([r - 1, 0, r - 1], dtype=torch.int32)
+            col = p[:, 0].contiguous()
+            for name, tag, got, want in (
+                    ("row_counts", f"{s}x{r}x{w}",
+                     cuda_kernels.row_counts(p), kernels.row_counts_plain(p)),
+                    ("row_counts", f"+filter {s}x{r}x{w}",
+                     cuda_kernels.row_counts(p, f),
+                     kernels.row_counts_plain(p, f)),
+                    ("selected_row_counts", f"{s}x{r}x{w} N=3",
+                     cuda_kernels.selected_row_counts(p, idx),
+                     kernels.selected_row_counts_plain(p, idx)),
+                    ("count", f"{s}x{w}", cuda_kernels.count(f),
+                     kernels.count_plain(f)),
+                    ("intersect_count", f"{s}x{w}",
+                     cuda_kernels.intersect_count(f, col),
+                     kernels.intersect_count_plain(f, col))):
+                errs[name] = max(errs[name],
+                                 check(f"{name} {tag} on {dev}", got, want))
+        return errs
+
+    def main_cases(plane, filt, other, idx) -> dict:
+        """{kernel: (kernel call, plain call)} at the main-path shapes."""
+        return {
+            "row_counts": (lambda: cuda_kernels.row_counts(plane),
+                           lambda: kernels.row_counts_plain(plane)),
+            "selected_row_counts": (
+                lambda: cuda_kernels.selected_row_counts(plane, idx),
+                lambda: kernels.selected_row_counts_plain(plane, idx)),
+            "count": (lambda: cuda_kernels.count(filt),
+                      lambda: kernels.count_plain(filt)),
+            "intersect_count": (
+                lambda: cuda_kernels.intersect_count(filt, other),
+                lambda: kernels.intersect_count_plain(filt, other)),
+        }
+
     # ragged shapes first: a wrong kernel fails fast and small
-    for s, r, w in ((13, 5, 1000), (13, 5, 1001), (3, 1, 3), (2, 1, 32768)):
-        p = _rand_words(gen, (s, r, w), dev)
-        f = _rand_words(gen, (s, w), dev)
-        idx = torch.tensor([r - 1, 0, r - 1], dtype=torch.int32)  # repeats
-        check(f"row_counts {s}x{r}x{w}", cuda_kernels.row_counts(p),
-              kernels.row_counts_plain(p))
-        check(f"row_counts+filter {s}x{r}x{w}",
-              cuda_kernels.row_counts(p, f),
-              kernels.row_counts_plain(p, f))
-        check(f"selected_row_counts {s}x{r}x{w} N=3",
-              cuda_kernels.selected_row_counts(p, idx),
-              kernels.selected_row_counts_plain(p, idx))
-        check(f"count {s}x{w}", cuda_kernels.count(f),
-              kernels.count_plain(f))
-        check(f"intersect_count {s}x{w}",
-              cuda_kernels.intersect_count(f, p[:, 0].contiguous()),
-              kernels.intersect_count_plain(f, p[:, 0].contiguous()))
+    card_errs = {0: ragged(dev, gen)}
     log("ragged shapes: all four kernels equal their plain versions")
 
     s, r, w = shards, ROWS, WORDS
@@ -557,26 +593,19 @@ def kernel_phase(shards: int, seed: int) -> dict:
     filt = _rand_words(gen, (s, w), dev)
     other = _rand_words(gen, (s, w), dev)
     idx = torch.tensor(SELECTED, dtype=torch.int32)
-    cases = {
-        "row_counts": (lambda: cuda_kernels.row_counts(plane),
-                       lambda: kernels.row_counts_plain(plane),
-                       s * r * w * 4 + s * r * 4, 2 * s * r * w, 20),
+    sizes = {
+        "row_counts": (s * r * w * 4 + s * r * 4, 2 * s * r * w, 20),
         "selected_row_counts": (
-            lambda: cuda_kernels.selected_row_counts(plane, idx),
-            lambda: kernels.selected_row_counts_plain(plane, idx),
             s * len(SELECTED) * w * 4 + s * len(SELECTED) * 4,
             2 * s * len(SELECTED) * w, 50),
-        "count": (lambda: cuda_kernels.count(filt),
-                  lambda: kernels.count_plain(filt),
-                  s * w * 4 + s * 4, 2 * s * w, 100),
-        "intersect_count": (
-            lambda: cuda_kernels.intersect_count(filt, other),
-            lambda: kernels.intersect_count_plain(filt, other),
-            2 * s * w * 4 + s * 4, 3 * s * w, 100),
+        "count": (s * w * 4 + s * 4, 2 * s * w, 100),
+        "intersect_count": (2 * s * w * 4 + s * 4, 3 * s * w, 100),
     }
     out = {}
-    for name, (kern, plain, nbytes, ops, iters) in cases.items():
+    for name, (kern, plain) in main_cases(plane, filt, other, idx).items():
+        nbytes, ops, iters = sizes[name]
         err = check(f"{name} main path", kern(), plain())
+        card_errs[0][name] = max(card_errs[0][name], err)
         blocks = None
         if name == "count":
             # this shape's time has varied between runs (52% to 85% of
@@ -635,6 +664,30 @@ def kernel_phase(shards: int, seed: int) -> dict:
         del bp, bf
     out["row_counts"]["bsi_shapes"] = shapes
     torch.cuda.empty_cache()
+    # every other visible card: the ragged shapes and the main-path ones
+    for i in range(1, torch.cuda.device_count()):
+        d = torch.device("cuda", i)
+        g = torch.Generator(device=d)
+        g.manual_seed(seed + i)
+        card_errs[i] = ragged(d, g)
+        plane = _rand_words(g, (s, r, w), d)
+        filt = _rand_words(g, (s, w), d)
+        other = _rand_words(g, (s, w), d)
+        for name, (kern, plain) in main_cases(plane, filt, other,
+                                              idx).items():
+            card_errs[i][name] = max(
+                card_errs[i][name],
+                check(f"{name} main path on {d}", kern(), plain()))
+        del plane, filt, other
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    by_card = {f"cuda:{i}": e for i, e in card_errs.items()}
+    log(f"phase 1 max abs err per card ({len(by_card)} visible): "
+        f"{json.dumps(by_card)}")
+    for name in out:
+        out[name]["max_abs_err"] = max(e[name] for e in card_errs.values())
+        out[name]["max_abs_err_by_card"] = {c: e[name]
+                                            for c, e in by_card.items()}
     return out
 
 
@@ -1071,17 +1124,28 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
                           _changed_bits(final[pick], new))}
 
 
-def device_times(run, warmup: int = 0) -> tuple[list, float]:
+def sync_all() -> None:
+    """Wait for every visible card (``torch.cuda.synchronize()`` waits for
+    the current one only)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def device_times(run, warmup: int = 0, by_card: dict | None = None
+                 ) -> tuple[list, float]:
     """([(kernel or copy, device ms)], wall ms) over one ``run()``, from a
-    torch.profiler trace of the card, largest first.  With ``warmup``,
-    ``run()`` first runs that many times as the profiler's warm-up steps,
-    whose events are discarded, and only the last run is read: the device
-    activity of a session's first moments can go missing (phases 8 and 9
-    at 954 shards)."""
+    torch.profiler trace of the cards, largest first (summed over the
+    cards).  With ``warmup``, ``run()`` first runs that many times as the
+    profiler's warm-up steps, whose events are discarded, and only the
+    last run is read: the device activity of a session's first moments
+    can go missing (phases 8 and 9 at 954 shards).  ``by_card``, when
+    given, is filled with ``{"cuda:i": {"ms": device ms, "copy_ms": the
+    memory copies' ms}}`` per card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
+    sync_all()
     steps = (schedule(wait=0, warmup=warmup, active=1, repeat=1)
              if warmup else None)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1089,13 +1153,25 @@ def device_times(run, warmup: int = 0) -> tuple[list, float]:
         for _ in range(warmup):
             run()
             prof.step()
-        torch.cuda.synchronize()
+        sync_all()
         t = time.perf_counter()
         run()
-        torch.cuda.synchronize()
+        sync_all()
         wall = (time.perf_counter() - t) * 1e3
         if warmup:
             prof.step()
+    if by_card is not None:
+        for e in prof.events():
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0
+                    or e.key.startswith("ProfilerStep")):
+                continue
+            card = by_card.setdefault(f"cuda:{e.device_index}",
+                                      {"ms": 0.0, "copy_ms": 0.0})
+            ms = e.self_device_time_total / 1e3
+            card["ms"] += ms
+            if "memcpy" in e.key.lower():
+                card["copy_ms"] += ms
     # device-side entries only (kernels, copies): the CPU ops that
     # launched them report the same time again, and so do the schedule's
     # ProfilerStep ranges
@@ -1120,9 +1196,12 @@ def _short(name: str) -> str:
     return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name[:40]
 
 
-def device_busy_share(run, warmup: int = 0) -> tuple[float, float, str]:
-    """(device ms, wall ms, top device consumers) over one ``run()``."""
-    rows, wall = device_times(run, warmup)
+def device_busy_share(run, warmup: int = 0, by_card: dict | None = None
+                      ) -> tuple[float, float, str]:
+    """(device ms, wall ms, top device consumers) over one ``run()``; the
+    device ms sum over every card (one card's unless ``run()`` spans
+    several: then read ``by_card``, :func:`device_times`)."""
+    rows, wall = device_times(run, warmup, by_card)
     top = ", ".join(f"{_short(k)} {v:.3f} ms" for k, v in rows[:6])
     return sum(v for _, v in rows), wall, top
 
@@ -1130,7 +1209,8 @@ def device_busy_share(run, warmup: int = 0) -> tuple[float, float, str]:
 TRACE_WARMUP = 2    # profiler warm-up runs before the one that is read
 
 
-def traced(run, what: str) -> tuple[float, float, str]:
+def traced(run, what: str, by_card: dict | None = None
+           ) -> tuple[float, float, str]:
     """:func:`device_busy_share` of ``run()`` after ``TRACE_WARMUP``
     warm-up runs in the same profiler session.  At 954 shards a plain
     trace of a few ~3 ms requests in phases 8 and 9 came back without
@@ -1138,7 +1218,9 @@ def traced(run, what: str) -> tuple[float, float, str]:
     steps are the profiler's own remedy.  A trace that still holds no
     device entries is taken again, and a second empty one fails."""
     for attempt in range(2):
-        dev_ms, wall_ms, top = device_busy_share(run, TRACE_WARMUP)
+        if by_card is not None:
+            by_card.clear()
+        dev_ms, wall_ms, top = device_busy_share(run, TRACE_WARMUP, by_card)
         if dev_ms > 0:
             return dev_ms, wall_ms, top
         log(f"{what}: the trace held no device entries; tracing again")
@@ -1629,6 +1711,8 @@ MESH_PARITY = (
 MESH_ROWS = ("Row(f=3)", "Row(amount > 900000)")   # compared as words
 MESH_TIMED = (Q32, TOPN_G, BSI_SEQ[0])
 MESH_LIMIT = 1000              # (c)'s window, starting in the third block
+# phase mesh's launches per card and kernel, for the kernels line
+MESH_CARD_LAUNCHES: dict = {}
 MESH_2D = (2, 2)               # (d)'s shard blocks x word blocks
 MESH_2D_CALLS = (
     "Min(field=amount)",
@@ -1650,15 +1734,15 @@ def _mesh_limits(oracle: dict, n_shards: int) -> tuple[str, ...]:
             f"Extract({lim}, Rows(g), Rows(amount))")
 
 
-def _mesh_holder_dir(data_dir: str, n: int) -> str:
-    """A holder directory of phase mesh's own: ``bench``'s ``f``, ``g``
-    and ``amount`` over shards ``[0, n)`` as phase 2 leaves them, under
-    ``CLUSTER_DIR``.  Snapshots are hard links (a holder replaces a
+def _mesh_holder_dir(data_dir: str, n: int, name: str = "mesh") -> str:
+    """A holder directory of phase mesh's own, ``CLUSTER_DIR/<name>``:
+    ``bench``'s ``f``, ``g`` and ``amount`` over shards ``[0, n)`` as
+    phase 2 leaves them.  Snapshots are hard links (a holder replaces a
     snapshot by a new file, never in place); op-logs, which a holder
     appends to, and the metadata are copied."""
     import shutil
     src = os.path.join(data_dir, "bench")
-    dst = os.path.join(CLUSTER_DIR, "mesh", "bench")
+    dst = os.path.join(CLUSTER_DIR, name, "bench")
     shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
     os.makedirs(dst)
     shutil.copy(os.path.join(src, ".meta"), dst)
@@ -1676,11 +1760,28 @@ def _mesh_holder_dir(data_dir: str, n: int) -> str:
     return os.path.dirname(dst)
 
 
+def _mesh_devices(device) -> tuple[list, int]:
+    """Phase mesh's block devices and the number of cards among them: the
+    ``MESH_BLOCKS`` blocks over ``n = min(cards, MESH_BLOCKS)`` cards in
+    turn (``cuda:(i % n)``; four blocks of the one card on a one-card
+    machine), or all on the CPU when ``device`` is the CPU."""
+    import torch
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * MESH_BLOCKS, 0
+    n = min(torch.cuda.device_count(), MESH_BLOCKS)
+    return [torch.device("cuda", i % n) for i in range(MESH_BLOCKS)], n
+
+
+def _per_card(by_card: dict, key: str = "ms") -> str:
+    return ", ".join(f"{c} {v[key]:.3f}" for c, v in sorted(by_card.items()))
+
+
 def mesh_phase(holder, oracle: dict, cuda: bool, device,
                data_dir: str) -> dict:
-    """Phase mesh: an executor over ``virtual_placement(4)`` (every plane
-    of ``f``, ``g`` and ``amount`` in four shard blocks on the card, each
-    block launching on its own stream) behind its own REST server, beside
+    """Phase mesh: an executor over four blocks on the visible cards
+    (:func:`_mesh_devices`; every plane of ``f``, ``g`` and ``amount`` in
+    four shard blocks, each block launching on its own stream) behind its
+    own REST server, beside
     an unmeshed executor of its own, both over a holder of the phase's
     own of bench's first ``MESH_SHARDS`` shards as phase 2 leaves them
     (a CUT, padded to 240).  Every parity request answers as the
@@ -1690,30 +1791,34 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
     overlays with no rebuild; an 8-thread burst fills a window above one;
     ``/status`` shows the mesh block; ``spmd.intersect_count`` and
     ``make_intersect_count_psum`` count f row 1 and g row 0 against the
-    oracle.  Then (b) an executor over ``virtual_placement(4)`` answers
+    oracle.  Then (b) an executor over the same placement answers
     phase 7's ten time-range requests on all of ``events`` (phase 2's
     holder) against its oracle (read-only: phase 7 writes after it) over
     a blocked time plane; (c)
     ``Limit`` as a Count, a bitmap and an Extract, its window starting in
     the third block, against the unmeshed executor; (d) an executor over
-    a 2x2 ``MeshPlacement2D`` (two shard blocks, two word blocks) answers
+    a 2x2 ``MeshPlacement2D`` over the same devices (two shard blocks, two
+    word blocks) answers
     Min/Max, GroupBy Max, a Shift across its word blocks and (c)'s
     requests as the unmeshed one does.  The unmeshed answers are taken
     first; then the launch counters are reset, only the meshed executors
     and the spmd programs run until they are read, and every kernel must
-    launch on this path.  Prints device ms per request, meshed beside
-    unmeshed (the 2-D filtered Max among them; the recency range meshed,
-    whose unmeshed figure is phase 7's); closes each executor after its
-    part, logging device memory.  Returns {"mesh": launches}."""
+    launch on this path, on every card.  Prints device ms per card per
+    request, meshed beside unmeshed (the 2-D filtered Max among them; the
+    recency range meshed, whose unmeshed figure is phase 7's), the
+    copies' ms per card and peak memory per card; (e) with several cards
+    a ``mesh = true`` server (:func:`_mesh_server`); closes each executor
+    after its part, logging device memory.  Returns {"mesh": launches}
+    (per card in ``MESH_CARD_LAUNCHES``)."""
     import torch
     from pilosa_tpu_torch.api import API, Server
     from pilosa_tpu_torch.engine import cuda_kernels
     from pilosa_tpu_torch.exec.executor import _Ctx
     from pilosa_tpu_torch.obs import Stats
-    from pilosa_tpu_torch.parallel import MeshPlacement2D, spmd
+    from pilosa_tpu_torch.parallel import (MeshPlacement, MeshPlacement2D,
+                                           local_placement, spmd)
     from pilosa_tpu_torch.pql import parse
     from pilosa_tpu_torch.store import Holder
-    from pilosa_tpu_torch.virtmesh import virtual_placement
 
     def memory(what: str) -> None:
         if cuda:
@@ -1738,7 +1843,20 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
               "Count(Intersect(Row(f=1), Row(g=0)))"
               "Count(Union(Row(f=1), Row(g=0)))": [inter, union]}
     mem0 = torch.cuda.memory_allocated() if cuda else 0
-    place = virtual_placement(MESH_BLOCKS, device)
+    devs, n_cards = _mesh_devices(device)
+    log(f"mesh: {n_cards} card(s) of {torch.cuda.device_count() if cuda else 0}"
+        f" visible; the {MESH_BLOCKS} blocks on "
+        f"{', '.join(str(d) for d in devs)}")
+    if cuda:
+        if n_cards > 1:
+            peer = {f"cuda:{i}": [j for j in range(n_cards) if j != i
+                                  and torch.cuda.can_device_access_peer(i, j)]
+                    for i in range(n_cards)}
+            log(f"mesh peer access (card -> peers it can read): "
+                f"{json.dumps(peer)}")
+        for i in range(n_cards):
+            torch.cuda.reset_peak_memory_stats(i)
+    place = MeshPlacement(devs)
     stats = Stats()
     mex = _executor(mholder, placement=place, plane_budget=32 << 30,
                     max_concurrent=32, stats=stats)
@@ -1838,7 +1956,9 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
         log(f"mesh /status: {json.dumps(mesh)}")
         pads = len(shards) - n_real
         if (mesh["devices"] != MESH_BLOCKS or not pads
-                or mesh["paddedShards"] % pads or not mesh["paddedShards"]):
+                or mesh["paddedShards"] % pads or not mesh["paddedShards"]
+                or sorted(mesh["perDeviceBytes"])
+                != sorted({str(d) for d in devs})):
             raise AssertionError(f"the /status mesh block: {mesh}")
 
         # (c) Limit ranked over the four blocks, as a Count, a bitmap and
@@ -1877,12 +1997,15 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
         memory("(b) time plane resident")
         if cuda:
             q = EV_SEQ[0]
+            cards: dict = {}
             dev_ms, _, top = traced(
                 lambda: tclient.ask(q, ev_expect[q], tag="traced",
-                                    index="events"), "mesh recency")
-            log(f"mesh device ms {EV_NAMES[q]!r}: {dev_ms:.3f} ms meshed "
-                f"({MESH_BLOCKS} blocks; phase 7's 'events device ms' line "
-                f"is the unmeshed executor's); by kernel: {top}")
+                                    index="events"), "mesh recency", cards)
+            log(f"mesh device ms {EV_NAMES[q]!r}: per card "
+                f"{_per_card(cards)} ms meshed ({MESH_BLOCKS} blocks on "
+                f"{n_cards} card(s); copies {_per_card(cards, 'copy_ms')} "
+                f"ms; phase 7's 'events device ms' line is the unmeshed "
+                f"executor's); by kernel, all cards: {top}")
         tex.close()
         tex.planes.invalidate()
         tex = None
@@ -1891,8 +2014,7 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
         # (d) a 2x2 (shard, words) placement: the descent steps sum over
         # each shard's two word blocks, the Shift carries across them
         memory("(d) before")
-        place2 = MeshPlacement2D([device or "cuda:0"] * 4,
-                                 shard_size=MESH_2D[0],
+        place2 = MeshPlacement2D(devs, shard_size=MESH_2D[0],
                                  words_size=MESH_2D[1])
         dex = _executor(mholder, placement=place2, plane_budget=32 << 30)
         dclient = _Client(API(mholder, dex), cuda)
@@ -1918,31 +2040,43 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
             raise AssertionError(f"spmd intersect counts {got}, want "
                                  f"{inter}")
         launched = dict(cuda_kernels.LAUNCHES)
+        by_card = {f"cuda:{i}": k for i, k in
+                   cuda_kernels.launches_by_device().items()}
         del a, b, words, want, row_words
-        log(f"mesh launches: {json.dumps(launched)}; spmd intersect "
-            f"counts equal to the oracle ({inter})")
+        log(f"mesh launches: {json.dumps(launched)}; per card "
+            f"{json.dumps(by_card)}; spmd intersect counts equal to the "
+            f"oracle ({inter})")
         if cuda:
             for k, v in launched.items():
                 if v < 1:
                     raise AssertionError(f"the mesh path never launched {k}")
+            for i in range(n_cards):
+                if not any(by_card.get(f"cuda:{i}", {}).values()):
+                    raise AssertionError(f"no block launched on cuda:{i}")
+            log("mesh peak device memory per card: " + ", ".join(
+                f"cuda:{i} {torch.cuda.max_memory_allocated(i) / 1e9:.2f} GB"
+                for i in range(n_cards)))
             # device ms per request, meshed beside unmeshed (a finding:
             # four blocks on one card, the same bytes read)
-            for q in MESH_TIMED:
-                ms = [traced(lambda: c.ask(q, answers[q], tag="traced"),
-                             f"mesh {q[:30]}")[::2]
-                      for c in (mclient, pclient)]
-                log(f"mesh device ms {q[:40]!r}: {ms[0][0]:.3f} ms meshed "
-                    f"({MESH_BLOCKS} blocks) beside {ms[1][0]:.3f} ms "
-                    f"unmeshed; by kernel, meshed: {ms[0][1]}; unmeshed: "
+            # (per card: a sum over cards is no share of one card's time)
+            for c2, q, want, name in (
+                    *((mclient, q, answers[q], f"{MESH_BLOCKS} blocks")
+                      for q in MESH_TIMED),
+                    (dclient, MESH_2D_CALLS[1], more[MESH_2D_CALLS[1]],
+                     f"{MESH_2D[0]}x{MESH_2D[1]} blocks")):
+                cards, plain_cards = {}, {}
+                ms = [traced(lambda: c.ask(q, want, tag="traced"),
+                             f"mesh {q[:30]}", by)[::2]
+                      for c, by in ((c2, cards), (pclient, plain_cards))]
+                log(f"mesh device ms {q[:40]!r}: per card "
+                    f"{_per_card(cards)} ms over {name} on {n_cards} "
+                    f"card(s) (copies {_per_card(cards, 'copy_ms')} ms) "
+                    f"beside {_per_card(plain_cards)} ms unmeshed; by "
+                    f"kernel, meshed (all cards): {ms[0][1]}; unmeshed: "
                     f"{ms[1][1]}")
-            q = MESH_2D_CALLS[1]
-            ms = [traced(lambda: c.ask(q, more[q], tag="traced"),
-                         f"mesh {q[:30]}")[::2] for c in (dclient, pclient)]
-            log(f"mesh device ms {q!r}: {ms[0][0]:.3f} ms over "
-                f"{MESH_2D[0]}x{MESH_2D[1]} blocks beside {ms[1][0]:.3f} ms "
-                f"unmeshed; by kernel, 2-D: {ms[0][1]}; unmeshed: "
-                f"{ms[1][1]}")
         memory("(d) and the 4-block executor resident")
+        if cuda:
+            _mesh_server(data_dir, n, answers, n_cards)
     finally:
         server.close()
         for ex in (mex, plain, tex, dex):
@@ -1951,7 +2085,8 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
                 ex.planes.invalidate()  # their planes go now, whoever holds
         mholder.close()
         import shutil
-        shutil.rmtree(os.path.join(CLUSTER_DIR, "mesh"), ignore_errors=True)
+        for name in ("mesh", "mesh_server"):
+            shutil.rmtree(os.path.join(CLUSTER_DIR, name), ignore_errors=True)
     del server, mex, plain, mapi, papi, mclient, pclient, tclient, dclient
     if cuda:
         import gc
@@ -1960,7 +2095,59 @@ def mesh_phase(holder, oracle: dict, cuda: bool, device,
             f"{mem0 / 1e9:.2f} GB before the phase, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after")
     log(f"phase mesh: {time.perf_counter() - t0:.1f}s")
+    MESH_CARD_LAUNCHES.update(by_card)
     return {"mesh": launched}
+
+
+def _mesh_server(data_dir: str, n: int, answers: dict, n_cards: int) -> None:
+    """(e) A server booted as an operator boots one, with ``mesh = true``:
+    on several cards ``local_placement()`` spans every one of them, and
+    the phase's oracle and parity requests answer exactly through it, in
+    process and over REST; on one card it serves unmeshed, as the
+    reference's does."""
+    import torch
+    from pilosa_tpu_torch.cli.config import Config
+    from pilosa_tpu_torch.parallel import local_placement
+    from pilosa_tpu_torch.server import PilosaTPUServer
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        if local_placement() is not None:
+            raise AssertionError("local_placement() meshed one card")
+        log("mesh (e): one card: local_placement() is None, so a server "
+            "booted with mesh = true serves unmeshed, as the reference's")
+        return
+    t = time.perf_counter()
+    srv = PilosaTPUServer(Config(
+        bind="127.0.0.1:0", data_dir=_mesh_holder_dir(data_dir, n,
+                                                      "mesh_server"),
+        plane_budget_bytes=32 << 30, plane_sidecars=False,
+        scrub_bytes_per_second=0, mesh=True)).open()
+    try:
+        boot_s = time.perf_counter() - t
+        client = _Client(srv.api, True)
+        client.base = f"http://127.0.0.1:{srv.port}"
+        for q, want in answers.items():
+            client.ask(q, want, tag="mesh server " + q[:30])
+        got = client.post("/index/bench/query", Q4.encode(),
+                          "mesh server REST")
+        if got["results"] != answers[Q4]:
+            raise AssertionError(f"mesh server REST 4-Count: got {got}")
+        with urllib.request.urlopen(client.base + "/status",
+                                    timeout=60) as resp:
+            mesh = json.loads(resp.read())["mesh"]
+        want_cards = sorted(f"cuda:{i}" for i in range(cards))
+        if (mesh["devices"] != cards
+                or sorted(mesh["perDeviceBytes"]) != want_cards):
+            raise AssertionError(f"the mesh = true server's /status mesh "
+                                 f"block: {mesh}")
+        log(f"mesh (e): a server booted with mesh = true spans {cards} "
+            f"cards (of them {n_cards} in the phase's placements): "
+            f"{len(answers)} requests equal in process and the 4-Count over "
+            f"REST; booted in {boot_s:.1f} s, requests "
+            f"{time.perf_counter() - t - boot_s:.1f} s; /status mesh "
+            f"{json.dumps(mesh)}")
+    finally:
+        srv.close()
 
 
 def _clear_column(api, row: str) -> int:
@@ -6770,6 +6957,9 @@ def main() -> int:
          "replaces": REPLACES[name],
          "launches": sum(by[name] for by in launches.values()),
          "launches_by_path": {p: by[name] for p, by in launches.items()},
+         "mesh_launches_by_card": {c: by[name] for c, by
+                                   in MESH_CARD_LAUNCHES.items()},
+         "max_abs_err_by_card": r["max_abs_err_by_card"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -33,8 +33,11 @@
 //   - selected_row_counts reads its slot from the index array inside the
 //     kernel (the TPU kernel's scalar prefetch); repeated slots are fine.
 //
-// Each entry point launches on the given stream and returns
-// cudaGetLastError(), so a refused launch reaches the Python wrapper.
+// Each entry point first makes the given device current in this library's
+// own runtime (nvcc links cudart statically, so the library does not share
+// PyTorch's notion of the current device), launches on the given stream of
+// that device and returns cudaGetLastError(), so a refused launch reaches
+// the Python wrapper.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,9 +150,11 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// The wrapper guarantees blocks >= 1 and blocks <= 2^31 - 1.
-int pt_row_counts(const int* plane, const int* filt, int* out, long long s, long long r,
-                  long long w, void* stream) {
+// The wrapper guarantees blocks >= 1 and blocks <= 2^31 - 1, and that every
+// pointer and the stream belong to ``device``.
+int pt_row_counts(int device, const int* plane, const int* filt, int* out, long long s,
+                  long long r, long long w, void* stream) {
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(s * r);
   if (filt != nullptr) {
@@ -160,22 +165,27 @@ int pt_row_counts(const int* plane, const int* filt, int* out, long long s, long
   return static_cast<int>(cudaGetLastError());
 }
 
-int pt_selected_row_counts(const int* plane, const int* idx, int* out, long long s,
-                           long long r, long long w, long long n, void* stream) {
+int pt_selected_row_counts(int device, const int* plane, const int* idx, int* out,
+                           long long s, long long r, long long w, long long n,
+                           void* stream) {
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   const unsigned blocks = static_cast<unsigned>(s * n);
   selected_row_counts_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       plane, idx, out, r, w, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-int pt_count(const int* words, int* out, long long s, long long w, void* stream) {
+int pt_count(int device, const int* words, int* out, long long s, long long w,
+             void* stream) {
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   count_kernel<<<static_cast<unsigned>(s), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       words, out, w);
   return static_cast<int>(cudaGetLastError());
 }
 
-int pt_intersect_count(const int* a, const int* b, int* out, long long s, long long w,
-                       void* stream) {
+int pt_intersect_count(int device, const int* a, const int* b, int* out, long long s,
+                       long long w, void* stream) {
+  if (const cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   intersect_count_kernel<<<static_cast<unsigned>(s), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(a, b, out, w);
   return static_cast<int>(cudaGetLastError());

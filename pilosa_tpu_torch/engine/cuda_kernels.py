@@ -41,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # launches per kernel; main-path runs reset and read these
 LAUNCHES = {"row_counts": 0, "selected_row_counts": 0, "count": 0,
             "intersect_count": 0}
+# the same launches per (kernel, CUDA device index): a placement over
+# several cards launches on each
+DEVICE_LAUNCHES: dict[tuple[str, int], int] = {}
 # a list: every launch appends (kernel, start event, end event); None: no
 # events (the default)
 EVENTS: list | None = None
@@ -57,14 +60,27 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        DEVICE_LAUNCHES.clear()
 
 
-def _count(name: str) -> None:
-    """One launch of ``name``: serving threads, the batcher's collector
-    and fast-lane callers launch at the same time, and ``+=`` on a shared
-    dict entry is a read-modify-write that can lose counts."""
+def launches_by_device() -> dict[int, dict[str, int]]:
+    """device index -> kernel -> launches since the last reset."""
+    with _count_lock:
+        out: dict[int, dict[str, int]] = {}
+        for (name, dev), n in DEVICE_LAUNCHES.items():
+            out.setdefault(dev, dict.fromkeys(LAUNCHES, 0))[name] = n
+        return dict(sorted(out.items()))
+
+
+def _count(name: str, device: int) -> None:
+    """One launch of ``name`` on CUDA device ``device``: serving threads,
+    the batcher's collector and fast-lane callers launch at the same time,
+    and ``+=`` on a shared dict entry is a read-modify-write that can lose
+    counts."""
     with _count_lock:
         LAUNCHES[name] += 1
+        key = (name, device)
+        DEVICE_LAUNCHES[key] = DEVICE_LAUNCHES.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -102,12 +118,13 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            p, i64 = ctypes.c_void_p, ctypes.c_longlong
+            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             sigs = {
-                "pt_row_counts": [p, p, p, i64, i64, i64, p],
-                "pt_selected_row_counts": [p, p, p, i64, i64, i64, i64, p],
-                "pt_count": [p, p, i64, i64, p],
-                "pt_intersect_count": [p, p, p, i64, i64, p],
+                "pt_row_counts": [i32, p, p, p, i64, i64, i64, p],
+                "pt_selected_row_counts": [i32, p, p, p, i64, i64, i64, i64,
+                                           p],
+                "pt_count": [i32, p, p, i64, i64, p],
+                "pt_intersect_count": [i32, p, p, p, i64, i64, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -130,20 +147,27 @@ def _check(name: str, t: torch.Tensor, ndim: int) -> None:
 
 
 def _launch(kernel: str, fn, blocks: int, out: torch.Tensor, *args) -> None:
+    """One launch of ``fn`` on the current stream of ``out``'s device,
+    that device made current here and in the library (``args`` follow
+    the device index; the stream comes last)."""
     if blocks > _MAX_BLOCKS:
         raise ValueError(f"{kernel}: {blocks} blocks exceed the grid limit")
-    cur = torch.cuda.current_stream(out.device)
-    events = EVENTS
-    if events is not None:
-        start = torch.cuda.Event(enable_timing=True)
-        start.record(cur)
-    err = fn(*args, cur.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err}")
-    if events is not None:
-        end = torch.cuda.Event(enable_timing=True)
-        end.record(cur)
-        events.append((kernel, start, end))
+    dev = out.device
+    with torch.cuda.device(dev):
+        cur = torch.cuda.current_stream(dev)
+        events = EVENTS
+        if events is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(cur)
+        err = fn(dev.index, *args, cur.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{kernel}: launch on {dev} failed with CUDA "
+                               f"error {err}")
+        if events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(cur)
+            events.append((kernel, start, end))
+    _count(kernel, dev.index)
 
 
 def _same_device(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -166,10 +190,8 @@ def row_counts(plane: torch.Tensor,
         fptr = filter_words.data_ptr()
     out = torch.empty((s, r), dtype=torch.int32, device=plane.device)
     if out.numel():
-        with torch.cuda.device(plane.device):
-            _launch("row_counts", _load().pt_row_counts, s * r, out,
-                    plane.data_ptr(), fptr, out.data_ptr(), s, r, w)
-        _count("row_counts")
+        _launch("row_counts", _load().pt_row_counts, s * r, out,
+                plane.data_ptr(), fptr, out.data_ptr(), s, r, w)
     return out
 
 
@@ -194,13 +216,13 @@ def selected_row_counts(plane: torch.Tensor,
                          f"outside [0, {r})")
     out = torch.empty((s, n), dtype=torch.int32, device=plane.device)
     if out.numel():
+        # the copy runs on the current stream of the plane's device, the
+        # stream the kernel launches on
         idx = row_idx.contiguous().pin_memory().to(plane.device,
                                                   non_blocking=True)
-        with torch.cuda.device(plane.device):
-            _launch("selected_row_counts", _load().pt_selected_row_counts,
-                    s * n, out, plane.data_ptr(), idx.data_ptr(),
-                    out.data_ptr(), s, r, w, n)
-        _count("selected_row_counts")
+        _launch("selected_row_counts", _load().pt_selected_row_counts,
+                s * n, out, plane.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), s, r, w, n)
     return out
 
 
@@ -210,10 +232,8 @@ def count(words: torch.Tensor) -> torch.Tensor:
     s, w = words.shape
     out = torch.empty((s,), dtype=torch.int32, device=words.device)
     if s:
-        with torch.cuda.device(words.device):
-            _launch("count", _load().pt_count, s, out, words.data_ptr(),
-                    out.data_ptr(), s, w)
-        _count("count")
+        _launch("count", _load().pt_count, s, out, words.data_ptr(),
+                out.data_ptr(), s, w)
     return out
 
 
@@ -228,8 +248,6 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s, w = a.shape
     out = torch.empty((s,), dtype=torch.int32, device=a.device)
     if s:
-        with torch.cuda.device(a.device):
-            _launch("intersect_count", _load().pt_intersect_count, s, out,
-                    a.data_ptr(), b.data_ptr(), out.data_ptr(), s, w)
-        _count("intersect_count")
+        _launch("intersect_count", _load().pt_intersect_count, s, out,
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), s, w)
     return out

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.engine import cuda_kernels
-from pilosa_tpu_torch.parallel.mesh import (Blocked, gathered, per_block,
-                                            shard_prefix, words_below)
+from pilosa_tpu_torch.parallel.mesh import (Blocked, PerBlock, gathered,
+                                            per_block, shard_prefix,
+                                            words_below)
 
 # ---------------------------------------------------------------------------
 # Boolean algebra
@@ -231,7 +232,6 @@ def column_bits_grouped(plane: torch.Tensor, word_idx: torch.Tensor,
     return (g >> bit_idx.to(plane.dtype)[:, None, :]) & 1
 
 
-_INT32_MAX = (1 << 31) - 1
 _UNBOUNDED = 1 << 62
 
 
@@ -239,41 +239,74 @@ def rank_limit(words: torch.Tensor, offset: int, limit: int) -> torch.Tensor:
     """Keep only the bits whose global rank falls in ``[offset, offset +
     limit)`` (``limit < 0``: unbounded): ``Limit(x, limit=, offset=)``.
     ``words`` int32[S, W] in global column order (shard axis in serving
-    order, words ascending, bits LSB first).
+    order, words ascending, bits LSB first), over any number of shards.
 
     Each shard's bits rank from its base, the int64 exclusive prefix of
     the per-shard ``count`` (over a placement's blocks in serving order,
     :func:`~pilosa_tpu_torch.parallel.mesh.shard_prefix`), so blocks rank
-    apart and ranks are global."""
-    end = _UNBOUNDED if limit < 0 else offset + limit
-    return _rank_window(words, shard_prefix(count(words)), offset, end)
+    apart and ranks are global.  Bounds past ``2^62`` (no index holds
+    that many bits) are clamped there, so the int64 arithmetic cannot
+    overflow."""
+    offset = min(offset, _UNBOUNDED)
+    end = _UNBOUNDED if limit < 0 else min(offset + limit, _UNBOUNDED)
+    counts = count(words)
+    # on a 2-D placement each block's counts are over its own word block,
+    # the span its base ranks from
+    own = PerBlock(counts.blocks) if isinstance(counts, Blocked) else counts
+    return _rank_window(words, shard_prefix(counts), own, offset, end)
 
 
 @per_block
-def _rank_window(words: torch.Tensor, base: torch.Tensor, offset: int,
+def _rank_window(words: torch.Tensor, base: torch.Tensor,
+                 counts: torch.Tensor, offset: int,
                  end: int) -> torch.Tensor:
     """The bits of ``words`` int32[S, W] ranked in ``[offset, end)`` when
-    shard ``s``'s first bit has rank ``base[s]`` (int64[S] on the
-    device).  The reference expands every word to 32 ranked lanes; here
-    each shard's window is clamped to its own int32 ranks, a word wholly
-    inside it keeps all its bits and one wholly outside keeps none, and
-    only the two words per shard holding its first and last rank in the
-    window are expanded, found by a search over the shard's inclusive
-    prefix sum (no host sync, no [S, W, 32] temporary)."""
-    s, w = words.shape
+    shard ``s`` holds ``counts[s]`` bits and its first has rank
+    ``base[s]`` (int64[S] on the device).  Each shard's window of its own
+    ranks is clamped to ``[0, counts[s]]`` in int64, so it fits int32 at
+    any global rank.  A shard whose window holds all its bits keeps its
+    words and one whose window is empty keeps none; only the shards
+    holding ranks ``offset`` and ``end - 1`` (at most two) are ranked
+    word by word (:func:`_rank_rows`), found by a search over the
+    inclusive prefix on the device (no host sync)."""
+    s = words.shape[0]
     if not words.numel():
         return words.clone()
-    lo = (offset - base).clamp(0, _INT32_MAX).to(torch.int32)[:, None]
-    hi = (end - base).clamp(0, _INT32_MAX).to(torch.int32)[:, None]
+    cnt = counts.to(torch.int64)
+    lo = torch.minimum((offset - base).clamp(min=0), cnt)
+    hi = torch.minimum((end - base).clamp(min=0), cnt)
+    whole = (lo == 0) & (hi == cnt)
+    out = torch.where(whole[:, None], words, torch.zeros_like(words))
+    probe = torch.tensor([offset, end - 1], dtype=torch.int64,
+                         device=words.device)
+    edge = torch.searchsorted(base + cnt, probe,
+                              right=True).clamp(max=s - 1)
+    part = _rank_rows(words.index_select(0, edge),
+                      lo[edge].to(torch.int32)[:, None],
+                      hi[edge].to(torch.int32)[:, None])
+    # both edges may name one shard: each row is its exact window, so the
+    # copies agree
+    return out.index_copy_(0, edge, part)
+
+
+def _rank_rows(words: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """The bits of each row of ``words`` int32[N, W] whose rank within
+    the row lies in ``[lo, hi)`` (int32[N, 1]).  The reference expands
+    every word to 32 ranked lanes; here a word wholly inside the window
+    keeps all its bits and one wholly outside keeps none, and only the two
+    words per row holding its first and last rank in the window are
+    expanded, found by a search over the row's inclusive prefix sum."""
+    w = words.shape[1]
     pc = popcount(words)
     cum = torch.cumsum(pc, 1, dtype=torch.int32)         # inclusive
     start = cum - pc
     out = torch.where((start >= lo) & (cum <= hi), words,
                       torch.zeros_like(words))
-    probe = torch.cat([lo, (hi - 1).clamp(min=0)], 1)     # [S, 2]
+    probe = torch.cat([lo, (hi - 1).clamp(min=0)], 1)     # [N, 2]
     idx = torch.searchsorted(cum, probe, right=True).clamp(max=w - 1)
     lanes = torch.arange(32, device=words.device, dtype=torch.int32)
-    bits = (words.gather(1, idx)[..., None] >> lanes) & 1  # [S, 2, 32]
+    bits = (words.gather(1, idx)[..., None] >> lanes) & 1  # [N, 2, 32]
     rank = (start.gather(1, idx)[..., None]
             + torch.cumsum(bits, -1, dtype=torch.int32) - bits)
     keep = (bits != 0) & (rank >= lo[..., None]) & (rank < hi[..., None])
@@ -289,8 +322,12 @@ def _rank_window(words: torch.Tensor, base: torch.Tensor, offset: int,
 # ---------------------------------------------------------------------------
 
 # plain reductions walk the leading axis in chunks of this many elements
-# so their SWAR temporaries stay a few hundred MB at any plane size
+# so their SWAR temporaries stay a few hundred MB at any plane size; on
+# the CPU in chunks of a few MB, whose temporaries stay in cache and are
+# reused instead of mapped afresh (a [2050, 32768] count took 5.5 s in
+# 2^26-word chunks and 1.1 s in 2^20-word ones, on one thread)
 _PLAIN_CHUNK_WORDS = 1 << 26
+_PLAIN_CPU_CHUNK_WORDS = 1 << 20
 
 
 def _popcount16(x: torch.Tensor) -> torch.Tensor:
@@ -310,7 +347,9 @@ def _chunked(fn, *tensors: torch.Tensor) -> torch.Tensor:
     """``fn`` over leading-axis chunks of ``tensors``, concatenated."""
     lead = tensors[0].shape[0]
     per = max(1, tensors[0][0].numel()) if lead else 1
-    step = max(1, _PLAIN_CHUNK_WORDS // per)
+    chunk = (_PLAIN_CPU_CHUNK_WORDS if tensors[0].device.type == "cpu"
+             else _PLAIN_CHUNK_WORDS)
+    step = max(1, chunk // per)
     if lead <= step:
         return fn(*tensors)
     return torch.cat([fn(*(t[i:i + step] for t in tensors))

@@ -54,7 +54,11 @@ Robustness (the reference's self-healing pipeline):
   naming the stage, its pipeline slot is reclaimed, and the stage's
   worker (collector or reader) is superseded by a fresh thread; the old
   one exits when its wait ends.  A launch returns at once, so a slow or
-  stalled card ages a window in ``readback``.  Launched work cannot be
+  stalled card ages a window in ``readback``.  The stage clock leaves
+  out the interpreter's garbage-collection pauses (:func:`_stage_clock`):
+  a full collection in a process with many live objects stops every
+  thread for a quarter of a second or more, and no stage is stalled by
+  it.  Launched work cannot be
   cancelled: a quarantined window's operands, packed output and pinned
   buffer stay referenced (``_limbo``) until its CUDA event completes,
   and its late answers are dropped, never delivered twice.  A window of
@@ -92,6 +96,7 @@ it.
 
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
@@ -114,6 +119,34 @@ from pilosa_tpu_torch.obs import NULL_FLIGHT, NULL_LEDGER, NopStats
 from pilosa_tpu_torch.obs.ledger import query_context as _query_ctx
 from pilosa_tpu_torch.obs.metrics import (BYTE_BUCKETS, COUNT_BUCKETS,
                                           RATIO_BUCKETS)
+
+
+# [seconds the interpreter's garbage collector has paused so far, the
+#  start of the collection in progress or None]
+_GC_PAUSED: list = [0.0, None]
+
+
+def _gc_clock(phase: str, _info: dict) -> None:
+    if phase == "start":
+        _GC_PAUSED[1] = time.monotonic()
+    else:
+        _GC_PAUSED[0] += time.monotonic() - _GC_PAUSED[1]
+        _GC_PAUSED[1] = None
+
+
+gc.callbacks.append(_gc_clock)
+
+
+def _stage_clock() -> float:
+    """``time.monotonic()`` less the garbage collector's pauses: the
+    watchdog ages a window's stage by the time the host could move it.
+    During a collection the clock stands at the collection's start: other
+    threads can run then (finalizers release the interpreter lock).  (A
+    gen-2 pass over a process that has imported every test module took
+    240 ms on an 8-core host: past a 0.1 s bound in a stage whose own
+    work takes a millisecond.)"""
+    since = _GC_PAUSED[1]
+    return (time.monotonic() if since is None else since) - _GC_PAUSED[0]
 
 
 class _Pending:
@@ -168,7 +201,7 @@ class _Window:
         self.wid = wid
         self.items = items          # every item popped into this window
         self.stage = "dispatch"     # "dispatch" -> "readback"
-        self.t0 = time.monotonic()  # the current stage's start
+        self.t0 = _stage_clock()  # the current stage's start
         self.pending: list = []
         self.distinct_futs: list = []
         self.slot_held = slot_held  # owns a _pipe_slots token
@@ -863,7 +896,7 @@ class CountBatcher:
                     w.faulted = True
                     self.governor.record_fault()
                     self._fail(group, e)
-                w.t0 = time.monotonic()  # the bound is per stall, not total
+                w.t0 = _stage_clock()  # the bound is per stall, not total
             w.bounded = False
         w.read_t = time.perf_counter()
         if w.done:
@@ -897,7 +930,7 @@ class CountBatcher:
             return
         with self._pipe_lock:
             w.stage = "readback"
-            w.t0 = time.monotonic()
+            w.t0 = _stage_clock()
         self.flight.record("readback", f"w{w.wid}")
         for p in batch:
             p.stage = "readback"
@@ -1113,7 +1146,7 @@ class CountBatcher:
                     if self._watchdog is threading.current_thread():
                         self._watchdog = None
                 return
-            now = time.monotonic()
+            now = _stage_clock()
             with self._pipe_lock:
                 stuck = [w for w in self._windows.values()
                          if not w.done and not w.bounded

@@ -584,8 +584,9 @@ class Executor:
         return True
 
     def _note_oom(self, e: Exception, stage: int) -> None:
-        dev = self.device
-        mem = ({"allocated": torch.cuda.memory_allocated(dev),
+        dev = self._oom_device(e)
+        mem = ({"device": str(dev),
+                "allocated": torch.cuda.memory_allocated(dev),
                 "reserved": torch.cuda.memory_reserved(dev)}
                if dev.type == "cuda" else {})
         self.stats.count("device_oom_retries" if stage == 1
@@ -604,6 +605,15 @@ class Executor:
             # classifies: an injected OOM drives the real stages
             fault.fire("exec.oom", attempt=attempt)
         return fn()
+
+    def _oom_device(self, e: Exception) -> torch.device:
+        """The card that ran out: the one the allocator's message names
+        ("GPU 2 has a total capacity ..."; under a placement a block on a
+        card other than the first can run out), else the executor's."""
+        hit = re.search(r"\bGPU (\d+)\b", str(e))
+        if hit is None or self.device.type != "cuda":
+            return self.device
+        return torch.device("cuda", int(hit.group(1)))
 
     def _with_oom_retry(self, fn):
         """Run ``fn``; on a device OOM, recover in stages that coordinate
@@ -1985,14 +1995,8 @@ class Executor:
     def _limit_bitmap(self, ctx: _Ctx, call: Call) -> torch.Tensor:
         """The child's bits ranked ``[offset, offset + limit)`` in global
         column order (``engine.kernels.rank_limit``, over a placement's
-        blocks too).  Without a placement the shard axis stays under
-        ``_REDUCE_SHARD_MAX``."""
+        blocks too, and over any number of shards: its bases are int64)."""
         offset, limit = self._limit_args(call)
-        if (self.placement is None
-                and len(ctx.shards) > self._REDUCE_SHARD_MAX):
-            raise ExecutionError(
-                f"Limit over more than {self._REDUCE_SHARD_MAX} shards is "
-                "not supported by this port")
         words = self._fused_bitmap(ctx, call.children[0])
         return kernels.rank_limit(words, offset,
                                   -1 if limit is None else limit)

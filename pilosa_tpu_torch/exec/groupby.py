@@ -84,9 +84,10 @@ def _mini_words(last_plane, prefix, delta):
 
 def _mini_rows(mini: torch.Tensor, n: int) -> torch.Tensor:
     """The mini plane int32[K, R, 1] once per innermost row, as one
-    [K * n, R, 1] plane (a few MB: K <= the overlay's columns)."""
-    k, r, _ = mini.shape
-    return mini[:, None].expand(k, n, r, 1).reshape(k * n, r, 1)
+    contiguous [K * n, R, 1] plane (a few MB: K <= the overlay's
+    columns).  A reshaped ``expand`` stayed a stride-0 view for K = 1,
+    which the ``row_counts`` kernel refuses."""
+    return mini.repeat_interleave(n, dim=0)
 
 
 def _row_words(last_plane, i0: int, i1: int, prefix, excl):

@@ -297,10 +297,11 @@ def test_launch_counters_lose_nothing():
     try:
         def bump(_k):
             for _ in range(1000):
-                cuda_kernels._count("count")
+                cuda_kernels._count("count", 0)
 
         _run_threads(bump, 8)
         assert cuda_kernels.LAUNCHES["count"] == 8000
+        assert cuda_kernels.launches_by_device()[0]["count"] == 8000
     finally:
         cuda_kernels.reset_launches()
         for k, v in before.items():

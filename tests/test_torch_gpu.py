@@ -15,8 +15,10 @@ under a burst, a profiled request's kernel time within its ledger
 seconds within its wall, and a ``/debug/profile`` capture naming the
 hand kernels; and a 3-node cluster on the card answering as the same
 cluster on the CPU, and its backup restored into a node on the CPU
-answering as the card did.
-Marked ``gpu``: without a CUDA device every test skips.  The file
+answering as the card did; and meshed executors on the card (four blocks
+of one card, and over every visible card) against their CPU twins.
+Marked ``gpu``: without a CUDA device every test skips
+(``test_mesh_across_cards`` without two cards).  The file
 imports nothing of JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -224,7 +226,8 @@ def test_time_range_scan_over_overlay_equal_cpu(dev):
 
 def test_shift_limit_counts_through_count_kernel(dev):
     """Shift and Limit trees on the card: their words equal the CPU's and
-    each tree's popcount is one ``count`` launch."""
+    each tree's popcount is one ``count`` launch, and each ``Limit`` one
+    more (its per-shard bases, ``engine.kernels.rank_limit``)."""
     from pilosa_tpu_torch.exec.fused import FusedCache
     s, r, w = 40, 8, 32768
     plane = _words(51, (s, r, w), "cpu")
@@ -241,7 +244,8 @@ def test_shift_limit_counts_through_count_kernel(dev):
         cuda_kernels.reset_launches()
         got = fused.run_tree_counts(on, slots, (prog,))
         assert torch.equal(got.cpu(), want), prog
-        assert cuda_kernels.LAUNCHES["count"] == 1
+        limits = sum(1 for op, _ in prog if op == LIM)
+        assert cuda_kernels.LAUNCHES["count"] == 1 + limits, prog
         assert torch.equal(
             fused.run_tree_words(on, slots, prog).cpu(),
             fused.run_tree_words(plane, slots, prog)), prog
@@ -1574,3 +1578,115 @@ def test_meshed_calls_on_the_card_equal_cpu_twin(dev, tmp_path, layout):
         card.executor.close()
         cpu.executor.close()
         holder.close()
+
+
+@pytest.fixture
+def cards():
+    """Every visible card; the test skips below two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA cards (CUDA)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_mesh_across_cards(cards, tmp_path):
+    """``Executor(placement=MeshPlacement())`` over every visible card
+    against its CPU twin over as many CPU blocks: Count, compound and BSI
+    range Counts, TopN (plain, filtered), Sum, Min/Max, GroupBy,
+    ``Limit`` windows across blocks, ``Shift``, time ranges and
+    ``Extract``, then again after a set, a value and a timestamped write
+    absorbed with no rebuild, and under a 4-thread burst; and the same
+    over a 2x2 ``MeshPlacement2D`` of four cards when there are four.
+    Every card holds its block of each plane (``/status``'s ``mesh``
+    block names each) and launches the kernels (counted per card)."""
+    import threading
+    from datetime import datetime, timedelta
+
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.exec import Executor
+    from pilosa_tpu_torch.parallel import MeshPlacement, MeshPlacement2D
+    from pilosa_tpu_torch.store import FieldOptions, Holder
+    rng = np.random.default_rng(18)
+    holder = Holder(str(tmp_path)).open()
+    idx = holder.create_index("i")
+    for name, rows in (("f", 16), ("g", 2)):
+        idx.create_field(name)
+        cols = rng.choice(7 << 20, 60000, replace=False).astype(np.uint64)
+        idx.field(name).import_bits(
+            rng.integers(0, rows, len(cols)).astype(np.uint64), cols)
+    idx.create_field("t", FieldOptions(type="time", time_quantum="YMD"))
+    cols = rng.choice(7 << 20, 40000, replace=False).astype(np.uint64)
+    rows = rng.integers(0, 4, len(cols)).astype(np.uint64)
+    t0 = datetime(2021, 2, 1)
+    idx.field("t").import_bits(rows, cols, [
+        t0 + timedelta(hours=int(h))
+        for h in rng.integers(0, 24 * 20, len(cols))])
+    idx.create_field("amount", FieldOptions(type="int", min=-100000,
+                                            max=100000))
+    vcols = rng.choice(7 << 20, 50000, replace=False).astype(np.uint64)
+    idx.field("amount").import_values(
+        vcols, rng.integers(-100000, 100001, len(vcols)).tolist())
+    mix = ["Count(Row(f=1))Count(Row(f=7))",
+           "Count(Intersect(Row(f=1), Union(Row(f=2), Row(g=0))))",
+           "Count(Not(Row(g=1)))", "Count(Row(-500 < amount < 90000))",
+           "TopN(f)", "TopN(f, Row(g=0), n=5)",
+           "Sum(Row(g=1), field=amount)", "Min(field=amount)",
+           "Max(Row(f=1), field=amount)", "Min(Row(f=99), field=amount)",
+           "GroupBy(Rows(g), Rows(f), aggregate=Sum(field=amount))",
+           "GroupBy(Rows(g), aggregate=Max(field=amount))",
+           "Count(Limit(Row(f=1), limit=3000, offset=4000))",
+           "Count(Intersect(Row(f=3), Limit(Row(f=1), offset=3000)))",
+           "Count(Shift(Row(f=1), n=524283))",
+           "Count(Shift(Row(f=2), n=40000))",
+           "Count(Row(t=1, from=2021-02-03T00:00, to=2021-02-12T00:00))"
+           "Row(t=2, from=2021-02-05T00:00)",
+           "Extract(Limit(Row(f=1), limit=40, offset=6000), Rows(f), "
+           "Rows(amount))", "Row(f=3)"]
+    layouts = [("1d", MeshPlacement(), MeshPlacement(["cpu"] * len(cards)),
+                len(cards))]
+    if len(cards) >= 4:
+        layouts.append(("2x2", MeshPlacement2D(cards[:4], 2, 2),
+                        MeshPlacement2D(["cpu"] * 4, 2, 2), 4))
+    hit = int(cols[rows == 1][0])
+    writes = [f"Set({hit + 1}, t=1, 2021-02-04T05:00)", "Set(11, f=3)",
+              "Set(12, amount=777)"]
+    for name, on_cards, on_cpu, n in layouts:
+        card = API(holder, Executor(holder, placement=on_cards))
+        cpu = API(holder, Executor(holder, placement=on_cpu))
+        try:
+            cuda_kernels.reset_launches()
+            for q in mix:
+                assert card.query("i", q) == cpu.query("i", q), (name, q)
+            builds = card.executor.planes.builds
+            for w in writes:  # the second layout finds them written
+                card.query("i", w)
+            for q in mix:
+                assert card.query("i", q) == cpu.query("i", q), (name, q)
+            assert card.executor.planes.builds == builds, name
+            want = {q: cpu.query("i", q) for q in mix[:6]}
+            errs: list = []
+
+            def worker(k):
+                for i in range(2 * len(want)):
+                    q = list(want)[(k + i) % len(want)]
+                    if card.query("i", q) != want[q]:
+                        errs.append(q)
+
+            ts = [threading.Thread(target=worker, args=(k,))
+                  for k in range(4)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+            assert not errs, (name, errs)
+            mesh = card.executor.mesh_status()
+            want_cards = sorted(f"cuda:{i}" for i in range(n))
+            assert sorted(mesh["perDeviceBytes"]) == want_cards, mesh
+            by_dev = cuda_kernels.launches_by_device()
+            assert sorted(by_dev) == list(range(n)), by_dev
+            for dev_i, counts in by_dev.items():
+                assert counts["count"] > 0 and counts["row_counts"] > 0, \
+                    (name, dev_i, counts)
+        finally:
+            card.executor.close()
+            cpu.executor.close()
+    holder.close()

@@ -21,6 +21,7 @@ import urllib.request
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from pilosa_tpu.api import API as JAPI
 from pilosa_tpu.exec import Executor as JExecutor
@@ -631,3 +632,17 @@ def test_failing_groupby_launch_reaches_every_caller(index, jax_answers):
     finally:
         ex.close()
         holder.close()
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (1, 3), (2, 3), (8, 5)])
+def test_mini_rows_contiguous(k, n):
+    """The mini plane repeated per innermost row is contiguous at every K
+    (a reshaped ``expand`` stayed a stride-0 view for K = 1, which the
+    card's ``row_counts`` refused after a single value write) and holds
+    row ``j`` of the mini plane at rows ``j * n .. j * n + n - 1``."""
+    mini = torch.arange(k * 22, dtype=torch.int32).reshape(k, 22, 1)
+    got = tgb._mini_rows(mini, n)
+    assert got.is_contiguous() and got.shape == (k * n, 22, 1)
+    for j in range(k):
+        for i in range(n):
+            assert torch.equal(got[j * n + i], mini[j])

@@ -400,6 +400,42 @@ class TestWatchdogQuarantine:
         finally:
             ex.close()
 
+    def test_gc_pause_in_dispatch_does_not_trip(self, served):
+        """A garbage-collection pause inside the dispatch stage (a full
+        collection in a process that imported every test module took
+        240 ms) is not a stall: the stage clock leaves it out, so a 0.1 s
+        bound does not trip and the answer is exact."""
+        import gc
+        holder, oracle = served
+        ex = _ex(holder, count_batch_window=0.002, solo_fastlane=False,
+                 dispatch_pipeline_depth=2, dispatch_watchdog_seconds=5.0)
+        junk = [[i] for i in range(2_000_000)]  # a heap worth collecting
+        pauses: list = []
+        try:
+            assert ex.execute("i", "Count(Row(f=2))") == [int(oracle[2])]
+            _tighten(ex.batcher, 0.1)
+            b = ex.batcher
+            orig = b._dispatch_one
+
+            def paused(*a, **k):
+                t = time.monotonic()
+                gc.collect()        # every thread stops meanwhile
+                pauses.append(time.monotonic() - t)
+                time.sleep(0.03)    # the stage's own work
+                return orig(*a, **k)
+
+            b._dispatch_one = paused
+            try:
+                assert ex.execute("i", "Count(Row(f=2))") == [
+                    int(oracle[2])]
+            finally:
+                b._dispatch_one = orig
+            assert pauses and pauses[0] > 0.1, pauses
+            assert ex.device_health()["watchdogTrips"] == 0
+        finally:
+            del junk
+            ex.close()
+
     def test_finish_window_failure_fails_items_not_wedges(self, served):
         """An exception escaping the readback fails the whole window with
         a stall error naming ``readback``; the next window serves."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--seed 42] [--shards 477]
+    python3 chip_smoke.py [--seed 42] [--shards 477] [--procs-only]
 
 The data has the shapes of a 1B-column index, 954 shards of 2^20
 columns (``FULL_SHARDS``).  By default the run serves 477 of them (5.0e8
@@ -13,8 +13,8 @@ Sizes below that scale with the shards are quoted at 954 shards and
 halve at the default (f's plane 2.0 GB, amount's 1.4 GB, the time plane
 8.0 GB).
 
-Eighteen numbered phases and phase mesh between 2 and 3; any failure
-raises and the exit code is non-zero:
+Eighteen numbered phases and phases mesh and procs between 2 and 3; any
+failure raises and the exit code is non-zero:
 
 1. Build the hand kernels of ``pilosa_tpu_torch/engine/csrc`` with nvcc
    (printing ptxas register and shared-memory use), hold each against
@@ -61,6 +61,25 @@ raises and the exit code is non-zero:
    with several cards, a server booted with ``mesh = true`` spans every
    card by ``/status`` and answers the phase's requests exactly; every
    executor closed after its part (device memory before and after).
+   Phase procs, on the same 239 shards padded to 240: with two or more
+   cards two processes of one NCCL group, each with its own
+   ``CUDA_VISIBLE_DEVICES`` (the two halves of the first four cards),
+   one process (a world of 1, a CUT line) on a one-card machine.  Each
+   is a server booted with ``jax_coordinator`` / ``jax_num_processes``
+   / ``jax_process_id``, ``mesh = false`` and ``cluster_enabled``, holds
+   hard links to its own contiguous shard range of ``f``, ``g`` and
+   ``amount`` only, reads its rows through an executor's planes, and
+   runs every ``parallel.spmd`` program over a ``ProcessPlacement`` of
+   four blocks in all (f row 1 & g row 0 in 1-D, psum and 2-D, the union,
+   the g-filtered TopN of f, amount's bit counts, an ingest step and the
+   count after it), traces three of them (the NCCL entries' device ms
+   beside the per-block kernels'), asks its own executor two Counts and
+   joins the HTTP cluster over the group (shard-routed Sets through
+   process 0, ``Count(Row(f=1))`` = 4 through each node, an exit
+   barrier).  Every child must exit 0 with answers equal to each other's
+   and the per-shard oracle's, and launch ``intersect_count``,
+   ``row_counts`` and ``count``; the kernels line gets path ``procs``
+   (the children's launches summed) and their launches per card.
 3. Concurrent serving on the same index, its overlay folded first (a
    clean plane): 32 client threads, 6 passes
    each over a mix of the 32-Count, the 4-Count, a filtered TopN and a
@@ -364,6 +383,10 @@ raises and the exit code is non-zero:
    process wrote in it and so far (``write_bytes`` of ``/proc/self/io``;
    the child processes of phases 13 and 17 write beside it), and the free
    disk before phase 2.
+
+``--procs-only`` runs phase 1, the data, phase 2's one write and phase
+procs alone: the run that needs several cards, where no other phase
+needs them.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 nothing of JAX or of ``pilosa_tpu``.
@@ -953,6 +976,7 @@ def _bsi_shard(data_dir: str, s: int, seed: int, f: np.ndarray,
     g0, g1 = _bits(g[s, 0]) & exists, _bits(g[s, 1]) & exists
     top = exists & (vals > 900_000)
     return {
+        "sum": int(vals.sum(dtype=np.int64)), "cnt": int(exists.sum()),
         "hist": np.bincount(vals[exists] - BSI_MIN,
                             minlength=BSI_MAX - BSI_MIN + 1),
         "sum_g0": int(vals[g0].sum(dtype=np.int64)), "cnt_g0": int(g0.sum()),
@@ -1054,6 +1078,8 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
     sum_g0 = cnt_g0 = inter = 0
     max_g1: list = []
     topn = np.zeros(ROWS, np.int64)
+    per_shard = {"sum": np.zeros(shards, np.int64),
+                 "cnt": np.zeros(shards, np.int64)}
     c_exists = np.zeros(n_cand, bool)
     c_vals = np.zeros(n_cand, np.int64)
     with ThreadPoolExecutor(max_workers=8) as pool:
@@ -1062,6 +1088,7 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
                 for s in range(shards)]
         for s, fut in enumerate(futs):
             r = fut.result()
+            per_shard["sum"][s], per_shard["cnt"][s] = r["sum"], r["cnt"]
             hist += r["hist"]
             sum_g0 += r["sum_g0"]
             cnt_g0 += r["cnt_g0"]
@@ -1119,7 +1146,7 @@ def make_bsi(data_dir: str, f: np.ndarray, g: np.ndarray, shards: int,
     pick = np.sort(perm[VALUE_OVER_CAP:VALUE_OVER_CAP + GB_VALUES])
     new = rng.integers(BSI_MIN, BSI_MAX + 1, len(pick))
     return {"expect": expect, "batches": out[:-1], "over_cap": out[-1],
-            "final": (cand, final), "hist": hist,
+            "final": (cand, final), "hist": hist, "per_shard": per_shard,
             "gb_values": (cand[pick], new, final[pick],
                           _changed_bits(final[pick], new))}
 
@@ -1473,9 +1500,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
                 clients: int = CLIENTS, passes: int = PASSES,
                 seed: int = 42, **api_kw) -> dict:
     """Phases 2 to 15 over one holder (phase 15's cluster beside it);
-    returns the
-    launch counts of each path's run, keyed "serve", "concurrent",
-    "concurrent_off", "concurrent_overlay", "ingest", "bsi",
+    returns the launch counts of each path's run, keyed "serve", "mesh",
+    "procs", "concurrent", "concurrent_off", "concurrent_overlay",
+    "ingest", "bsi",
     "bsi_concurrent", "bsi_ingest", "groupby", "events", "mutex", "keys",
     "budget", "robust", "storage", "api", "obs", "cluster" and "backup"
     (``api_kw``
@@ -1581,6 +1608,9 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
         log("== phase mesh: multi-device serving ==")
         mesh = mesh_phase(holder, oracle, cuda, device, data_dir)
         t_phase = phase_done("phase mesh", t_phase)
+        log("== phase procs: serving across processes ==")
+        procs = procs_phase(data_dir, oracle, device)
+        t_phase = phase_done("phase procs", t_phase)
         log("== phase 3: concurrent serving ==")
         # fold the Set's one-cell overlay first: this phase serves a
         # clean plane (phase 4 serves over a live overlay)
@@ -1683,7 +1713,8 @@ def serve_phase(data_dir: str, oracle: dict, device=None,
     for k in ("row_counts", "selected_row_counts", "count"):
         if cuda and launches[k] < 1:
             raise AssertionError(f"serving never launched the {k} kernel")
-    return {"serve": launches, **mesh, "concurrent": conc["default"],
+    return {"serve": launches, **mesh, **procs,
+            "concurrent": conc["default"],
             "concurrent_off": conc["off"], "concurrent_overlay": overlay,
             "ingest": ingest, **bsi, **gb, **ev, **mx, **kp, **bp, **rb,
             **sp, **ap, **op, "cluster": cl["launches"],
@@ -1734,9 +1765,10 @@ def _mesh_limits(oracle: dict, n_shards: int) -> tuple[str, ...]:
             f"Extract({lim}, Rows(g), Rows(amount))")
 
 
-def _mesh_holder_dir(data_dir: str, n: int, name: str = "mesh") -> str:
+def _mesh_holder_dir(data_dir: str, n: int, name: str = "mesh",
+                     lo: int = 0) -> str:
     """A holder directory of phase mesh's own, ``CLUSTER_DIR/<name>``:
-    ``bench``'s ``f``, ``g`` and ``amount`` over shards ``[0, n)`` as
+    ``bench``'s ``f``, ``g`` and ``amount`` over shards ``[lo, n)`` as
     phase 2 leaves them.  Snapshots are hard links (a holder replaces a
     snapshot by a new file, never in place); op-logs, which a holder
     appends to, and the metadata are copied."""
@@ -1750,7 +1782,7 @@ def _mesh_holder_dir(data_dir: str, n: int, name: str = "mesh") -> str:
         shutil.copytree(os.path.join(src, field), os.path.join(dst, field),
                         ignore=lambda d, names: [
                             x for x in names if x.split(".")[0].isdigit()
-                            and int(x.split(".")[0]) >= n])
+                            and not lo <= int(x.split(".")[0]) < n])
     for d, _, files in os.walk(dst):
         for name in files:
             if name.isdigit():   # a snapshot: a link instead of the copy
@@ -2148,6 +2180,340 @@ def _mesh_server(data_dir: str, n: int, answers: dict, n_cards: int) -> None:
             f"{json.dumps(mesh)}")
     finally:
         srv.close()
+
+
+# ---------------------------------------------------------------------------
+# phase procs: serving across processes
+# ---------------------------------------------------------------------------
+
+PROCS_TIMEOUT_S = 300          # each child's limit: boot, builds, cluster
+PROCS_TOPN = 5
+# the requests whose device ms the children trace: program -> collective
+PROCS_TRACED = ("intersect psum (all-reduce)", "topn (all-gather)",
+                "bsi sum psum (3 all-reduces)")
+PROCS_CARD_LAUNCHES: dict = {}   # "p<rank> cuda:<card>" -> launches
+
+
+def _procs_layout(device) -> tuple[int, list[list[int]]]:
+    """Phase procs' process count and each process's cards: two processes
+    over the two halves of the first ``min(cards, 4)`` cards when there
+    are two or more (2 + 2 on a four-card host), one over the one card
+    otherwise (NCCL refuses two ranks on one card); two CPU processes
+    (gloo) when ``device`` is the CPU."""
+    import torch
+    if device is not None and torch.device(device).type == "cpu":
+        return 2, [[], []]
+    use = min(torch.cuda.device_count(), MESH_BLOCKS)
+    if use < 2:
+        return 1, [[0]]
+    half = use // 2
+    return 2, [list(range(half)), list(range(half, 2 * half))]
+
+
+def procs_phase(data_dir: str, oracle: dict, device=None) -> dict:
+    """Phase procs: ``P`` port processes (:func:`_procs_layout`) in one
+    ``torch.distributed`` group, each its own server booted with the
+    coordinator keys (``mesh = false``, ``cluster_enabled``, anti-entropy
+    off).  Phase mesh's ``MESH_SHARDS`` shards of ``bench``, padded to a
+    multiple of ``MESH_BLOCKS``, split into ``P`` contiguous ranges;
+    each process holds hard links to its own range's ``f``, ``g`` and
+    ``amount`` snapshots only, reads its rows through an executor of its
+    own and runs every ``parallel.spmd`` program over a
+    :class:`~pilosa_tpu_torch.parallel.multiproc.ProcessPlacement` of
+    ``MESH_BLOCKS / P`` local blocks on its cards (:func:`procs_child`).
+    The children's answers must be equal to each other and to the
+    per-shard oracle; ``intersect_count``, ``row_counts`` and ``count``
+    must launch in every child on a card.  Returns {"procs": the
+    children's launches summed}."""
+    from pilosa_tpu_torch.parallel.mesh import PAD_SHARD
+    from pilosa_tpu_torch.testing import free_ports, run_processes
+
+    t0 = time.perf_counter()
+    cuda = device is None
+    n = min(MESH_SHARDS, len(oracle["per_shard"]["inter"]))
+    P, cards = _procs_layout(device)
+    if P == 1:
+        log("CUT: phase procs runs one process (a world of 1 over NCCL) on "
+            "this one-card machine: no traffic ran between processes "
+            "(NCCL refuses two ranks on one card)")
+    padded = list(range(n)) + [PAD_SHARD] * (-n % MESH_BLOCKS)
+    per = len(padded) // P
+    owns = [padded[p * per:(p + 1) * per] for p in range(P)]
+    ps, served = oracle["per_shard"], oracle["served"]
+    counts = ps["counts"][:n].sum(0) + served["counts"] - oracle["counts"]
+    filtered = (ps["filtered"][:n].sum(0) + served["filtered"]
+                - oracle["filtered"])
+    bsi_ps = oracle["bsi"]["per_shard"]
+    want = {"intersect": int(ps["inter"][:n].sum()),
+            "union": int(ps["union"][:n].sum()),
+            "topn": _topn(filtered, PROCS_TOPN),
+            "bsi": [int(bsi_ps["sum"][:n].sum()),
+                    int(bsi_ps["cnt"][:n].sum())],
+            "cluster": [4]}
+    cport, *ports = free_ports(P + 1)
+    base = os.path.join(CLUSTER_DIR, "procs")
+    argv, env = [], []
+    for p, own in enumerate(owns):
+        real = [s for s in own if s != PAD_SHARD]
+        hdir = _mesh_holder_dir(data_dir, real[-1] + 1, f"procs/h{p}",
+                                lo=real[0])
+        cdir = os.path.join(base, f"c{p}")
+        os.makedirs(cdir)
+        argv.append([json.dumps({
+            "rank": p, "size": P, "coord": f"127.0.0.1:{cport}",
+            "ports": ports, "holder": hdir, "data": cdir, "barrier": base,
+            "shards": own, "blocks": MESH_BLOCKS // P,
+            "device": "cpu" if not cuda else ""})])
+        env.append({"CUDA_VISIBLE_DEVICES": ",".join(map(str, cards[p]))}
+                   if cuda else {})
+    log(f"procs: {P} process(es), cards {cards if cuda else 'none (gloo)'}, "
+        f"{MESH_BLOCKS // P} local blocks each; shards {len(padded)} "
+        f"({len(padded) - n} padding), {per} per process")
+    try:
+        outs = run_processes(
+            "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.procs_child(sys.argv[2]))",
+            [[REPO, *a] for a in argv], PROCS_TIMEOUT_S, env)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    results = []
+    for p, (out, _) in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("PROCS "):
+                results.append(json.loads(line[6:]))
+            else:
+                log(f"procs p{p}: {line}")
+    if len(results) != P:
+        raise AssertionError(f"procs: {len(results)} of {P} children "
+                             "printed their answers")
+    answers = [r["answers"] for r in results]
+    if any(a != answers[0] for a in answers):
+        raise AssertionError(f"procs: the children's answers differ: "
+                             f"{answers}")
+    got = answers[0]
+    delta = sum(r["ingest_delta"] for r in results)
+    checks = {
+        "intersect_count": want["intersect"],
+        "intersect_psum": want["intersect"],
+        "intersect_psum2d": want["intersect"],
+        "union_count": want["union"],
+        "topn": want["topn"], "topn_psum": want["topn"],
+        "topn_psum2d": want["topn"],
+        "bsi_bit_counts": want["bsi"], "bsi_sum_psum": want["bsi"],
+        "ingest_count": int(counts[1]) + delta, "cluster": want["cluster"]}
+    for k, w in checks.items():
+        if got[k] != w:
+            raise AssertionError(f"procs {k}: got {got[k]}, want {w}")
+    for p, r in enumerate(results):
+        real = [s for s in owns[p] if s != PAD_SHARD]
+        local = [int(ps["counts"][real, 1].sum()),
+                 int(ps["inter"][real].sum())]
+        if r["local"] != local:
+            raise AssertionError(f"procs p{p}: its own Counts {r['local']}, "
+                                 f"want {local}")
+    launched: dict = {}
+    for p, r in enumerate(results):
+        for k, v in r["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+        for card, by in r["by_card"].items():
+            PROCS_CARD_LAUNCHES[f"p{p} {card}"] = by
+        if cuda:
+            for k in ("intersect_count", "row_counts", "count"):
+                if r["launches"].get(k, 0) < 1:
+                    raise AssertionError(f"procs p{p} never launched {k}")
+    log(f"procs: every answer of the {P} process(es) equal to each other "
+        f"and to the oracle: intersect {got['intersect_count']} (1-D, "
+        f"psum, 2-D), union {got['union_count']}, filtered TopN "
+        f"{json.dumps(got['topn'])}, amount's sum and count "
+        f"{got['bsi_sum_psum']}, {got['ingest_count']} bits after the "
+        f"ingest step (+{delta}), the cluster's Count(Row(f=1)) "
+        f"{got['cluster']} through every node; launches summed "
+        f"{json.dumps(launched)}")
+    log(f"phase procs: {time.perf_counter() - t0:.1f}s")
+    return {"procs": launched}
+
+
+def procs_only(data_dir: str, oracle: dict) -> dict:
+    """Phase 2's write (``Set(free_col, f=3)``, which the oracle's served
+    state holds) through an executor of its own, then phase procs."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.store import Holder
+    holder = Holder(data_dir).open()
+    executor = _executor(holder, plane_budget=32 << 30)
+    try:
+        got = API(holder, executor).query(
+            "bench", f"Set({oracle['free_col']}, f=3)")["results"]
+        if got != [True]:
+            raise AssertionError(f"phase 2's Set answered {got}")
+    finally:
+        executor.close()
+    t = time.perf_counter()
+    log("== phase procs: serving across processes ==")
+    launches = procs_phase(data_dir, oracle)
+    phase_done("phase procs", t)
+    return launches
+
+
+def procs_child(arg: str) -> int:
+    """One process of phase procs (``arg``: its JSON from
+    :func:`procs_phase`).  Boots the port's server with the coordinator
+    keys, runs one collective first, opens its own shard range of
+    ``bench`` in a holder and executor of its own (the server's holder
+    stays apart: a cluster join's resize would move half of each
+    process's fragments to the other), reads f row 1, g row 0, f's plane
+    and amount's bit plane through the executor's planes, and runs every
+    ``parallel.spmd`` program over its ``ProcessPlacement``; on a card
+    traces three of them, then asks its own executor two Counts and runs
+    the HTTP cluster over the group (``testing.cluster_over_group``).
+    Prints its lines, then ``PROCS <JSON>``."""
+    import torch
+    from pilosa_tpu_torch import testing
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.cli.config import Config
+    from pilosa_tpu_torch.engine import bsi as bsik
+    from pilosa_tpu_torch.engine import cuda_kernels
+    from pilosa_tpu_torch.parallel import (MeshPlacement, MeshPlacement2D,
+                                           multiproc, spmd)
+    from pilosa_tpu_torch.parallel.mesh import PAD_SHARD
+    from pilosa_tpu_torch.server import PilosaTPUServer
+    from pilosa_tpu_torch.store import Holder
+
+    a = json.loads(arg)
+    rank, size, ports = a["rank"], a["size"], a["ports"]
+    t0 = time.perf_counter()
+    srv = PilosaTPUServer(Config(
+        bind=f"127.0.0.1:{ports[rank]}", data_dir=a["data"],
+        jax_coordinator=a["coord"], jax_num_processes=size,
+        jax_process_id=rank, mesh=False, cluster_enabled=True,
+        seeds=[f"127.0.0.1:{ports[0]}"] if rank else [],
+        heartbeat_interval=1.0, anti_entropy_interval=0.0,
+        plane_sidecars=False, scrub_bytes_per_second=0,
+        device=a["device"])).open()
+    holder = ex = None
+    try:
+        group = srv.group
+        cuda = group.device.type == "cuda"
+        # the collective first, while every process stands at the same
+        # point (the reference's order)
+        one = group.sum(torch.ones(1, dtype=torch.int32,
+                                   device=group.device))
+        if int(one) != size:
+            raise AssertionError(f"the first all-reduce gave {int(one)}")
+        print(f"booted in {time.perf_counter() - t0:.1f} s: "
+              f"{group}", flush=True)
+        n_cards = torch.cuda.device_count() if cuda else 0
+        devs = ([torch.device("cuda", i % n_cards)
+                 for i in range(a["blocks"])] if cuda
+                else [torch.device("cpu")] * a["blocks"])
+        for i in range(n_cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        place = multiproc.ProcessPlacement(MeshPlacement(devs), group)
+        place2 = multiproc.ProcessPlacement(
+            MeshPlacement2D(devs, len(devs) // 2, 2), group)
+        own = tuple(a["shards"])
+        holder = Holder(a["holder"]).open()
+        ex = _executor(holder, device=a["device"] or None,
+                       plane_budget=32 << 30)
+        index = holder.index("bench")
+        t = time.perf_counter()
+        f1 = ex.planes.row_words("bench", index.field("f"), "standard", 1,
+                                 own)
+        g0 = ex.planes.row_words("bench", index.field("g"), "standard", 0,
+                                 own)
+        fps = ex.planes.field_plane("bench", index.field("f"), "standard",
+                                    own)
+        amount = ex.planes.bsi_plane("bench", index.field("amount"),
+                                     own).plane
+        print(f"process-local rows of {len(own)} shards read in "
+              f"{time.perf_counter() - t:.1f} s (f's plane "
+              f"{fps.plane.nbytes / 1e9:.2f} GB, amount's "
+              f"{amount.nbytes / 1e9:.2f} GB)", flush=True)
+        cuda_kernels.reset_launches()
+        ta, tb = place.place_local(f1), place.place_local(g0)
+        plane, bsi = place.place_local(fps.plane), place.place_local(amount)
+        row_ids = [int(r) for r in fps.row_ids]
+
+        def top(vs):
+            vals, slots = (x.cpu().tolist() for x in vs)
+            return [{"id": row_ids[s], "count": v}
+                    for v, s in zip(vals, slots) if v > 0]
+
+        def bsi_sum(counts):
+            return list(bsik.combine_sum(*(x.cpu() for x in counts)))
+
+        W = f1.shape[-1]
+        idx = np.full((len(own), 1), W, np.int64)
+        mask = np.zeros((len(own), 1), np.uint32)
+        host = f1.cpu().numpy().view(np.uint32)
+        delta = 0
+        for i, s in enumerate(own):
+            if s != PAD_SHARD:
+                idx[i, 0] = s % W
+                mask[i, 0] = 0xFFFFFFFF
+                delta += 32 - int(np.unpackbits(
+                    host[i, s % W:s % W + 1].view(np.uint8)).sum())
+        words = spmd.make_ingest_step(place)(ta, idx, mask)
+        answers = {
+            "intersect_count": int(spmd.intersect_count(ta, tb)),
+            "intersect_psum": int(spmd.make_intersect_count_psum(place)(
+                ta, tb)),
+            "intersect_psum2d": int(spmd.make_intersect_count_psum2d(
+                place2)(f1, g0)),
+            "union_count": int(spmd.union_count(ta, tb)),
+            "topn": top(spmd.topn(plane, tb, PROCS_TOPN)),
+            "topn_psum": top(spmd.make_topn_psum(place, PROCS_TOPN)(
+                plane, tb)),
+            "topn_psum2d": top(spmd.make_topn_psum2d(place2, PROCS_TOPN)(
+                fps.plane, g0)),
+            "bsi_bit_counts": bsi_sum(spmd.bsi_bit_counts(bsi, None)),
+            "bsi_sum_psum": bsi_sum(spmd.make_bsi_sum_psum(place)(bsi,
+                                                                  None)),
+            "ingest_count": int(spmd.intersect_count(words, words)),
+        }
+        del words
+        if cuda:
+            for name, run in zip(PROCS_TRACED, (
+                    lambda: spmd.make_intersect_count_psum(place)(ta, tb),
+                    lambda: spmd.topn(plane, tb, PROCS_TOPN),
+                    lambda: spmd.make_bsi_sum_psum(place)(bsi, None))):
+                # one trace each, never retaken: every process must run
+                # the same collectives
+                rows, wall = device_times(run, TRACE_WARMUP)
+                # the NCCL kernels (their "nccl:<op>" ranges repeat them)
+                coll = sum(v for k, v in rows if k.startswith("ncclDev")
+                           or k.startswith("ncclKernel"))
+                kern = sum(v for k, v in rows if "nccl" not in k.lower())
+                print(f"device ms {name}: collective {coll:.4f} ms, the "
+                      f"rest {kern:.4f} ms ({len(devs)} local blocks), wall "
+                      f"{wall:.3f} ms; by kernel: " + ", ".join(
+                          f"{_short(k)} {v:.4f}" for k, v in rows[:5]),
+                      flush=True)
+        api = API(holder, ex)
+        local = [api.query("bench", "Count(Row(f=1))")["results"][0],
+                 api.query("bench", "Count(Intersect(Row(f=1), Row(g=0)))")
+                 ["results"][0]]
+        answers["cluster"] = testing.cluster_over_group(
+            srv, size, a["barrier"])
+        launches = dict(cuda_kernels.LAUNCHES)
+        by_card = {f"cuda:{i}": k for i, k in
+                   cuda_kernels.launches_by_device().items()}
+        if cuda:
+            print("peak device memory per card: " + ", ".join(
+                f"cuda:{i} {torch.cuda.max_memory_allocated(i) / 1e9:.2f} GB"
+                for i in range(n_cards)), flush=True)
+        print(f"launches {json.dumps(launches)}; per card "
+              f"{json.dumps(by_card)}; {time.perf_counter() - t0:.1f} s in "
+              "all", flush=True)
+        print("PROCS " + json.dumps({
+            "answers": answers, "ingest_delta": delta, "local": local,
+            "launches": launches, "by_card": by_card}), flush=True)
+    finally:
+        if ex is not None:
+            ex.close()
+        if holder is not None:
+            holder.close()
+        srv.close()
+    return 0
 
 
 def _clear_column(api, row: str) -> int:
@@ -6901,6 +7267,9 @@ def main() -> int:
     ap.add_argument("--shards", type=int, default=477,
                     help=f"shards of 2^20 columns ({FULL_SHARDS} = 1.0e9 "
                          "columns, the full configuration)")
+    ap.add_argument("--procs-only", action="store_true",
+                    help="phase 1 and phase procs alone (after phase 2's "
+                         "write): the run that needs several cards")
     args = ap.parse_args()
 
     import torch
@@ -6940,13 +7309,18 @@ def main() -> int:
         log(f"disk before phase 2: {du.free / 1e9:.1f} GB free of "
             f"{du.total / 1e9:.1f} GB; the data "
             f"{_dir_bytes(data_dir) / 1e9:.2f} GB")
-        log("== phase 2: serving ==")
-        launches = serve_phase(data_dir, oracle, seed=args.seed)
-        t_phase = time.perf_counter()
-        log("== phase 17: chaos on the card ==")
-        chaos_secs = chaos_phase(args.seed)
-        log(f"phase 17 scenarios' seconds: {json.dumps(chaos_secs)}")
-        phase_done(17, t_phase)
+        if args.procs_only:
+            log("CUT: --procs-only: phase procs alone, after phase 2's "
+                "write")
+            launches = procs_only(data_dir, oracle)
+        else:
+            log("== phase 2: serving ==")
+            launches = serve_phase(data_dir, oracle, seed=args.seed)
+            t_phase = time.perf_counter()
+            log("== phase 17: chaos on the card ==")
+            chaos_secs = chaos_phase(args.seed)
+            log(f"phase 17 scenarios' seconds: {json.dumps(chaos_secs)}")
+            phase_done(17, t_phase)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
@@ -6959,6 +7333,8 @@ def main() -> int:
          "launches_by_path": {p: by[name] for p, by in launches.items()},
          "mesh_launches_by_card": {c: by[name] for c, by
                                    in MESH_CARD_LAUNCHES.items()},
+         "procs_launches_by_card": {c: by.get(name, 0) for c, by
+                                    in PROCS_CARD_LAUNCHES.items()},
          "max_abs_err_by_card": r["max_abs_err_by_card"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -42,10 +42,20 @@ mesh                                      served: true shards the planes
                                           there are several
                                           (``parallel.local_placement``);
                                           one device serves unmeshed
-kernel_tier ("xla"),                      refused unless at the default:
-dispatch_loop_fusion, fused_warmup,       XLA and JAX knobs (ROADMAP: not
-compilation_cache_dir, jax_coordinator,   to port); the port has one kernel
-jax_num_processes, jax_process_id         tier, its hand kernels
+jax_coordinator, jax_num_processes,       served: the process joins a
+jax_process_id                            ``torch.distributed`` group
+                                          (``parallel.multiproc.join``:
+                                          NCCL on a card, gloo with
+                                          ``device = "cpu"``); 0 and -1
+                                          read torchrun's ``WORLD_SIZE``
+                                          and ``RANK``; refused together
+                                          with ``mesh = true``
+kernel_tier ("xla"),                      refused unless at the default
+dispatch_loop_fusion, fused_warmup,       (ROADMAP: not to port): they
+compilation_cache_dir                     steer XLA's compilation and
+                                          dispatch, and the port compiles
+                                          no XLA program: its kernels are
+                                          the hand-written ones
 ========================================  ==================================
 
 Every default is the reference's (:data:`CHANGED_DEFAULTS` is empty).
@@ -151,23 +161,26 @@ class Config:
 # port's); none do
 CHANGED_DEFAULTS: dict = {}
 
-_JAX = "ROADMAP: not to port (the port has one kernel tier)"
+_XLA = ("ROADMAP: not to port (an XLA compilation or dispatch knob; the "
+        "port compiles no XLA program, its kernels are the hand-written "
+        "ones)")
 
 # refused keys: set to anything but the default, the server refuses to
 # boot, naming the key and the roadmap item that would serve it
-REFUSED = {
-    **dict.fromkeys(
-        ("kernel_tier", "dispatch_loop_fusion", "fused_warmup",
-         "compilation_cache_dir", "jax_coordinator", "jax_num_processes",
-         "jax_process_id"), _JAX),
-}
+REFUSED = dict.fromkeys(("kernel_tier", "dispatch_loop_fusion",
+                         "fused_warmup", "compilation_cache_dir"), _XLA)
 
 
 def check_served(cfg: Config, cuda_devices: int = 1) -> None:
     """Refuse a config that asks for what the port does not serve:
     ``ValueError`` naming the first such key.  ``cuda_devices`` is the
     number of CUDA devices the server would see; every count is served
-    (``mesh`` shards over several), and only the JAX knobs refuse."""
+    (``mesh`` shards over several).  The XLA knobs refuse, and so does
+    ``mesh = true`` beside a coordinator: the reference boots that pair
+    over a mesh spanning every process, and then a query through one
+    process waits on peers that never enter its program and fails after
+    30 s; the port asks for ``mesh = false`` instead (each process serves
+    on its own device; ``parallel.multiproc`` reduces across them)."""
     defaults = Config()
     for key, item in REFUSED.items():
         value = getattr(cfg, key)
@@ -175,6 +188,12 @@ def check_served(cfg: Config, cuda_devices: int = 1) -> None:
             continue
         raise ValueError(f"config key {key} = {value!r} is not supported "
                          f"by this port ({item})")
+    if cfg.mesh and cfg.jax_coordinator:
+        raise ValueError(
+            f"config keys mesh = true and jax_coordinator = "
+            f"{cfg.jax_coordinator!r} together are not supported by this "
+            "port: a query through one process would wait on peers that "
+            "never run it; set mesh = false")
 
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}

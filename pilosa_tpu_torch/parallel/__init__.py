@@ -1,8 +1,10 @@
 """Distribution: a plane's shard axis in blocks over the local devices
-(``parallel.mesh``, with the programs of ``parallel.spmd``), and
-host-level shard placement across a cluster's nodes by jump hash
-(``parallel.placement``, loaded on first use: it reads the store's hash,
-and the engine imports ``parallel.mesh`` before the store exists)."""
+(``parallel.mesh``, with the programs of ``parallel.spmd``), those blocks
+joined across processes in one ``torch.distributed`` process group
+(``parallel.multiproc``), and host-level shard placement across a
+cluster's nodes by jump hash (``parallel.placement``, loaded on first
+use: it reads the store's hash, and the engine imports ``parallel.mesh``
+before the store exists)."""
 
 from pilosa_tpu_torch.parallel.mesh import (MeshPlacement, MeshPlacement2D,
                                             local_placement)

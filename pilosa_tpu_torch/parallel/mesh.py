@@ -1,14 +1,18 @@
 """Multi-device placement: a plane's shard axis in contiguous blocks.
 
-The counterpart of ``pilosa_tpu.parallel.mesh``.  One process drives every
-device, as the reference's single controller does: a plane's shard axis is
-split into contiguous blocks, one per device (device ``i`` holds shards
+The counterpart of ``pilosa_tpu.parallel.mesh``.  One process drives its
+devices, as the reference's single controller does: a plane's shard axis
+is split into contiguous blocks, one per device (device ``i`` holds shards
 ``[i*S/D, (i+1)*S/D)``, the layout of the reference's ``P("shard")``); each
 hand kernel launches per block on that block's device; per-shard outputs
 are gathered onto the placement's first device in block order, and the
-reduction that follows is the one the single-device port runs.  That
-gather stands in for the reference's ``psum`` / all-gather over ICI: the
-port has no collectives.
+reduction that follows is the one the single-device port runs.  Within a
+process that gather stands in for the reference's ``psum`` / all-gather
+over ICI.  A placement whose ``group`` is set spans several processes
+(:class:`~pilosa_tpu_torch.parallel.multiproc.ProcessPlacement`): after
+the local gather or sum, one all-gather or all-reduce over the group, on
+the current stream of the first local device, gives every process the
+whole answer.
 
 A device may repeat: ``MeshPlacement(["cuda:0"] * 4)`` is four blocks on
 one card (:func:`pilosa_tpu_torch.virtmesh.virtual_placement`), the
@@ -74,6 +78,8 @@ class _Placement:
     devices: list[torch.device]
     n_devices: int      # the shard-axis width (what shard lists pad to)
     words_size: int = 1
+    group = None        # the process group the placement spans (None:
+    #                     this process alone; parallel.multiproc)
 
     def _init_devices(self, devices) -> None:
         if devices is None:
@@ -328,34 +334,56 @@ class Blocked:
         """Per-shard outputs (axis ``dim`` = this tensor's shards; the
         blocks' own by default) concatenated onto the first device in
         block order; a 2-D placement's word blocks of one shard range sum
-        first (their counts are partial)."""
+        first (their counts are partial).  Across processes every
+        process's part follows in rank order."""
         if outs is None:
             outs = self.blocks
             if self.words_split() and not self.partial:
                 raise not_supported("reading a word-split bitmap as counts")
-        rows = [self.total([outs[i] for i in idx]) for idx in self._spans()]
-        return rows[0] if len(rows) == 1 else torch.cat(rows, dim)
+        rows = [self._sum([outs[i] for i in idx]) for idx in self._spans()]
+        return self._across(rows[0] if len(rows) == 1
+                            else torch.cat(rows, dim), dim)
 
     def full(self) -> torch.Tensor:
         """The whole tensor on the first device: shard blocks concatenated,
         a 2-D placement's word blocks of one shard range side by side (a
-        bitmap's words; counts go through :meth:`gather`)."""
+        bitmap's words; counts go through :meth:`gather`); across
+        processes every process's shards in rank order."""
         if self.partial:
             raise not_supported("reading partial counts as a bitmap")
-        rows = [self.concat([self.blocks[i] for i in idx], -1)
+        rows = [self._cat([self.blocks[i] for i in idx], -1)
                 for idx in self._spans()]
-        return rows[0] if len(rows) == 1 else torch.cat(rows, 0)
+        return self._across(rows[0] if len(rows) == 1
+                            else torch.cat(rows, 0), 0)
 
     def concat(self, outs: list, dim: int = 0) -> torch.Tensor:
         """Per-block outputs concatenated along ``dim`` on the first device
         in block order, a 2-D placement's word blocks too (nothing sums:
-        entries of partial counts the host combines)."""
+        entries of partial counts the host combines).  Not across
+        processes: the entries' shapes may differ between them."""
+        if self.placement.group is not None:
+            raise not_supported("per-block entries across processes")
+        return self._cat(outs, dim)
+
+    def total(self, outs: list) -> torch.Tensor:
+        """Per-block totals summed on the first device, then over every
+        process of the placement's group (one all-reduce)."""
+        t = self._sum(outs)
+        group = self.placement.group
+        return t if group is None else group.sum(t)
+
+    def _cat(self, outs: list, dim: int) -> torch.Tensor:
         outs = [self.to_first(o) for o in outs]
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim)
 
-    def total(self, outs: list) -> torch.Tensor:
-        """Per-block totals summed on the first device."""
+    def _sum(self, outs: list) -> torch.Tensor:
         return reduce(lambda a, b: a + b, [self.to_first(o) for o in outs])
+
+    def _across(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's part of a per-shard output, joined in rank order
+        with every other process's (one all-gather) under a group."""
+        group = self.placement.group
+        return t if group is None else group.cat(t, dim)
 
     def _spans(self) -> list:
         """The block indices of each shard range, in serving order (one
@@ -380,7 +408,7 @@ class Blocked:
             return self.like(self.blocks, partial=False)
         out: list = [None] * len(self.blocks)
         for idx in self._spans():
-            total = self.total([self.blocks[i] for i in idx])
+            total = self._sum([self.blocks[i] for i in idx])
             for i in idx:
                 out[i] = move_to(total, self.blocks[i].device)
         return self.like(out, partial=False)
@@ -463,6 +491,8 @@ def shard_prefix(counts):
     if not isinstance(counts, Blocked):
         c = counts.to(torch.int64)
         return torch.cumsum(c, 0) - c
+    if counts.placement.group is not None:
+        raise not_supported("a prefix over shards across processes")
     spans = counts._spans()
     # [S_span, word blocks] per shard range: serving order row by row
     mats = [torch.stack([counts.to_first(counts.blocks[i]).to(torch.int64)

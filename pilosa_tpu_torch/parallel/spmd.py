@@ -8,7 +8,12 @@ The reference's implicit programs let XLA insert the cross-shard
 reduction; the ``make_*_psum`` ones spell out a ``psum`` over ICI.  Here
 both reduce the same way: per-block results gather onto the placement's
 first device and sum there (a 2-D placement's word blocks hold partial
-counts, which sum alike).
+counts, which sum alike).  Over a placement that spans processes
+(:class:`~pilosa_tpu_torch.parallel.multiproc.ProcessPlacement`, host
+inputs being each process's own rows) the ``psum`` is a real collective:
+the local sum is all-reduced over the process group, per-shard outputs
+are all-gathered in rank order, and every process returns the same
+values.  ``make_ingest_step`` runs per block and needs none.
 """
 
 from __future__ import annotations

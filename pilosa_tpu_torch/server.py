@@ -16,9 +16,16 @@ card, with its own plane budget (``plane_budget_bytes``), device-health
 governor and device-OOM recovery.  With ``mesh`` on (the default) and
 several CUDA devices, the executor shards its planes over all of them
 (:func:`~pilosa_tpu_torch.parallel.local_placement`) and the boot logs
-``mesh: sharding over N devices``.  :func:`~pilosa_tpu_torch.cli.config.
-check_served` refuses what the port does not serve before anything
-opens.
+``mesh: sharding over N devices``.  With ``jax_coordinator`` set the
+process first joins a ``torch.distributed`` process group
+(:func:`~pilosa_tpu_torch.parallel.multiproc.join`: NCCL on a card, gloo
+with ``device = "cpu"``), as the reference joins its multi-process JAX
+runtime, and logs ``torch.distributed: process p of n (backend)``;
+:attr:`PilosaTPUServer.group` is then the group the ``parallel.spmd``
+programs reduce over, and :meth:`close` leaves it last.
+:func:`~pilosa_tpu_torch.cli.config.check_served` refuses what the port
+does not serve (``mesh = true`` beside a coordinator among it) before
+anything opens.
 
 Also a thin entry point over the same config::
 
@@ -88,12 +95,22 @@ class PilosaTPUServer:
         self.cluster = None
         self.scrubber: Scrubber | None = None
         self.diagnostics: Diagnostics | None = None
+        self.group = None   # parallel.multiproc.Group with a coordinator
 
     def open(self) -> "PilosaTPUServer":
         cfg = self.cfg
         if cfg.faults:
             # armed before anything opens, so boot-time seams fire too
             fault.configure(cfg.faults)
+        if cfg.jax_coordinator:
+            # before any device use, as the reference joins its runtime
+            from pilosa_tpu_torch.parallel import multiproc
+            self.group = multiproc.join(
+                cfg.jax_coordinator, cfg.jax_num_processes,
+                cfg.jax_process_id, device=cfg.device or None)
+            self.logger.info("torch.distributed: process %d of %d (%s)",
+                             self.group.rank, self.group.size,
+                             self.group.backend)
         syswrap.GLOBAL.set_max(cfg.max_map_count)
         self.holder.storage_health.configure(
             base=cfg.data_dir, stats=self.stats, logger=self.logger,
@@ -189,6 +206,9 @@ class PilosaTPUServer:
         self.holder.close()
         if isinstance(self.stats, StatsdStats):
             self.stats.close()
+        if self.group is not None:
+            self.group.leave()
+            self.group = None
 
     @property
     def port(self) -> int:

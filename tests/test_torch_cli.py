@@ -142,15 +142,6 @@ def test_mesh_over_several_cards_served(cuda_devices):
     tconfig.check_served(dataclasses.replace(cfg, mesh=False), cuda_devices)
 
 
-@pytest.mark.parametrize("key", ["jax_coordinator", "jax_num_processes",
-                                 "jax_process_id"])
-def test_multi_host_keys_still_refused(key):
-    """Multi-host serving stays a JAX knob the port refuses, mesh or not."""
-    cfg = dataclasses.replace(tconfig.Config(), **{key: _off_default(key)})
-    with pytest.raises(ValueError, match=f"config key {key} = "):
-        tconfig.check_served(cfg, cuda_devices=2)
-
-
 def test_server_boots_on_the_cpu_with_a_given_placement(tmp_path):
     """A placement handed to the server reaches its executor: the planes
     block over it, answers are exact, and ``/status`` has the mesh

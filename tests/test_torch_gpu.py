@@ -16,9 +16,12 @@ seconds within its wall, and a ``/debug/profile`` capture naming the
 hand kernels; and a 3-node cluster on the card answering as the same
 cluster on the CPU, and its backup restored into a node on the CPU
 answering as the card did; and meshed executors on the card (four blocks
-of one card, and over every visible card) against their CPU twins.
+of one card, and over every visible card) against their CPU twins; and
+the ``parallel.spmd`` programs across two NCCL processes on disjoint
+cards against the same processes over gloo.
 Marked ``gpu``: without a CUDA device every test skips
-(``test_mesh_across_cards`` without two cards).  The file
+(``test_mesh_across_cards`` and ``test_spmd_across_processes`` without
+two cards).  The file
 imports nothing of JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
@@ -1690,3 +1693,18 @@ def test_mesh_across_cards(cards, tmp_path):
             card.executor.close()
             cpu.executor.close()
     holder.close()
+
+
+def test_spmd_across_processes(cards):
+    """Two NCCL processes over disjoint cards (the two halves of the first
+    ``min(cards, 4)``), four blocks each on their own cards: every
+    ``parallel.spmd`` program answers as the numpy oracle and as the same
+    two processes over gloo on the CPU."""
+    from pilosa_tpu_torch import testing
+    half = min(len(cards), 4) // 2
+    want = testing.spmd_expect(testing.spmd_inputs(19, 4096))
+    on_cards = testing.run_spmd_processes(
+        2, "cuda", seed=19, width=4096,
+        cards=[list(range(half)), list(range(half, 2 * half))])
+    on_cpu = testing.run_spmd_processes(2, "cpu", seed=19, width=4096)
+    assert on_cards == on_cpu == [want, want]
